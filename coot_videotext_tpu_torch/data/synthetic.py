@@ -1,0 +1,226 @@
+"""
+Synthetic retrieval dataset generator producing the exact on-disk layout the
+loaders expect (meta_<name>.json + video_feat_<name>.h5 + text_feat_<name>.h5
++ sentence_splits json, matching reference coot/features_loader.py and
+data_read_youcook2_meta.py outputs).
+
+Copy of coot_videotext_tpu/data/synthetic.py::generate_retrieval_dataset:
+the same seed gives byte-identical files, so the PyTorch package and the JAX
+package can be held against each other on one generated dataset.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Dict, Union
+
+import numpy as np
+
+
+class _NpyDir:
+    """Directory of `<key>.npy` files with the h5py-File writes used here."""
+
+    def __init__(self, path: Path) -> None:
+        self.path = path
+        path.mkdir(parents=True, exist_ok=True)
+
+    def __setitem__(self, key: str, value: np.ndarray) -> None:
+        np.save(self.path / f"{key}.npy", value)
+
+    def close(self) -> None:
+        pass
+
+
+def generate_retrieval_dataset(
+        root: Union[str, Path], *,
+        dataset_name: str = "synth",
+        metadata_name: str = "all",
+        vid_feat_name: str = "video_feat_synth",
+        text_feat_name: str = "text_feat_synth",
+        num_videos: int = 32,
+        num_val_videos: int = 8,
+        vid_feat_dim: int = 64,
+        text_feat_dim: int = 48,
+        mean_clips: float = 4.0,
+        max_clips: int = 8,
+        fps: float = 2.0,
+        mean_duration_sec: float = 120.0,
+        tokens_per_sentence: int = 12,
+        seed: int = 0,
+        shared_projections: bool = True,
+        signal_scale: float = 1.0,
+        modality_noise: float = 0.0,
+        feat_format: str = "h5") -> Dict[str, str]:
+    """
+    Create a complete synthetic retrieval dataset under root/<dataset_name>/.
+    Paired video clips and sentences share a latent vector so retrieval
+    metrics are learnable (loss decreases, R@1 >> chance after training).
+
+    shared_projections: draw the latent->feature projections ONCE for the
+    whole dataset (default). This makes the cross-modal correspondence a
+    single global linear map the model can generalize to held-out videos
+    — required for any quality comparison on val retrieval metrics. With
+    False (the pre-round-2 behavior) each video gets its own random
+    projections: features still carry per-clip latent structure, but
+    cross-modal val retrieval is information-theoretically stuck at
+    chance, which silently hides quality regressions.
+
+    signal_scale: multiplies the latent contribution added on top of the
+    unit-variance feature noise (per-coordinate signal variance ~=
+    signal_scale^2). 1.0 (default, stream/byte-identical to earlier
+    datasets) saturates R@1 on small val sets; lower it to hold val
+    retrieval in the mid-range so quality deltas are visible — used by
+    the reference-scale A/B dataset (data_gen_yc2big.py).
+
+    modality_noise: rho>0 gives each modality an independently-noised
+    copy of every clip latent (lat + rho*eps), capping retrieval by
+    latent geometry instead of feature noise. Unlike signal_scale (whose
+    noise pooling averages away — ANY learnable signal saturates R@1),
+    this bound is intrinsic to the data: it cannot be trained or
+    averaged around, so val metrics land mid-range and implementation
+    quality differences stay visible. 0 (default) = legacy perfect
+    correspondence, byte-identical streams.
+
+    feat_format: "h5" (one file per modality, as the real datasets) or
+    "npy" (one `<feat_name>/<key>.npy` per video and paragraph, for machines
+    without h5py); the values are the same either way.
+
+    Returns a dict of config overrides for RetrievalDatasetConfig.
+    """
+    if feat_format not in ("h5", "npy"):
+        raise ValueError(f"feat_format must be h5 or npy, got {feat_format}")
+    rng = np.random.RandomState(seed)
+    path = Path(root) / dataset_name
+    path.mkdir(parents=True, exist_ok=True)
+
+    # drawn only in shared mode so shared_projections=False reproduces the
+    # pre-round-2 RNG stream byte-for-byte at a given seed
+    shared_proj_v = shared_proj_t = None
+    if shared_projections:
+        shared_proj_v = rng.randn(16, vid_feat_dim).astype(np.float32) / 4
+        shared_proj_t = rng.randn(16, text_feat_dim).astype(np.float32) / 4
+
+    total = num_videos + num_val_videos
+    meta = {}
+    if feat_format == "h5":
+        import h5py
+        vid_store = h5py.File(path / f"{vid_feat_name}.h5", "w")
+        text_store = h5py.File(path / f"{text_feat_name}.h5", "w")
+    else:
+        vid_store = _NpyDir(path / vid_feat_name)
+        text_store = _NpyDir(path / text_feat_name)
+    sentence_splits: Dict[str, list] = {}
+
+    for i in range(total):
+        key = f"video{i:04d}"
+        split = "train" if i < num_videos else "val"
+        n_clips = int(np.clip(rng.poisson(mean_clips - 1) + 1, 1, max_clips))
+        duration = max(20.0, rng.normal(mean_duration_sec,
+                                        mean_duration_sec / 4))
+        num_frames = int(duration * fps)
+
+        # shared latent per clip drives both modalities
+        latents = rng.randn(n_clips, 16).astype(np.float32)
+        # Imperfect cross-modal correspondence: each modality sees an
+        # independently-noised copy of the clip latent, so retrieval is
+        # bounded by latent geometry rather than feature noise (which
+        # pooling averages away at ANY signal_scale — real captions
+        # likewise never describe everything in the frame). rho=0.7 puts
+        # the 457-video v2p R@1 ceiling ~0.50 / c2s ~0.27, the real
+        # yc2_2d3d regime. Drawn only when enabled so legacy datasets
+        # stay byte-reproducible at a given seed.
+        if modality_noise > 0:
+            lat_v = latents + modality_noise * rng.randn(
+                n_clips, 16).astype(np.float32)
+            lat_t = latents + modality_noise * rng.randn(
+                n_clips, 16).astype(np.float32)
+        else:
+            lat_v = lat_t = latents
+        if shared_projections:
+            proj_v, proj_t = shared_proj_v, shared_proj_t
+        else:
+            proj_v = rng.randn(16, vid_feat_dim).astype(np.float32) / 4
+            proj_t = rng.randn(16, text_feat_dim).astype(np.float32) / 4
+
+        vid_feat = rng.randn(num_frames, vid_feat_dim).astype(np.float32)
+        bounds = np.sort(rng.choice(
+            np.arange(1, num_frames - 1), size=max(n_clips - 1, 0),
+            replace=False)) if n_clips > 1 else np.array([], int)
+        seg_starts = np.concatenate([[0], bounds]).astype(int)
+        seg_stops = np.concatenate([bounds, [num_frames]]).astype(int)
+
+        segments = []
+        splits = []
+        text_rows = []
+        for c in range(n_clips):
+            s, e = int(seg_starts[c]), int(seg_stops[c])
+            vid_feat[s:e] += signal_scale * (lat_v[c] @ proj_v)
+            t0, t1 = s / fps, e / fps
+            segments.append({
+                "text": f"synthetic sentence {i} {c} doing things.",
+                "start_sec": float(t0), "stop_sec": float(t1)})
+            n_tok = tokens_per_sentence
+            rows = rng.randn(n_tok, text_feat_dim).astype(np.float32)
+            rows += signal_scale * (lat_t[c] @ proj_t)
+            text_rows.append(rows)
+            splits.append(n_tok)
+
+        meta[key] = {
+            "data_key": key,
+            "split": split,
+            "duration_sec": float(duration),
+            "segments": segments,
+        }
+        vid_store[key] = vid_feat
+        text_store[key] = np.concatenate(text_rows, axis=0)
+        sentence_splits[key] = splits
+
+    vid_store.close()
+    text_store.close()
+    (path / f"meta_{metadata_name}.json").write_text(
+        json.dumps(meta), encoding="utf8")
+    (path / f"{text_feat_name}_sentence_splits.json").write_text(
+        json.dumps(sentence_splits), encoding="utf8")
+
+    return {
+        "name": dataset_name,
+        "metadata_name": metadata_name,
+        "vid_feat_name": vid_feat_name,
+        "vid_feat_source": feat_format,
+        "vid_feat_dim": vid_feat_dim,
+        "text_feat_name": text_feat_name,
+        "text_feat_source": feat_format,
+        "text_feat_dim": text_feat_dim,
+    }
+
+
+def _main() -> None:
+    """CLI: generate a synthetic retrieval dataset on disk.
+
+    Example: python -m coot_videotext_tpu_torch.data.synthetic data --name synth
+    """
+    import argparse
+    parser = argparse.ArgumentParser(description=_main.__doc__)
+    parser.add_argument("root", type=str, help="data root directory")
+    parser.add_argument("--name", type=str, default="synth")
+    parser.add_argument("--num_videos", type=int, default=32)
+    parser.add_argument("--num_val_videos", type=int, default=8)
+    parser.add_argument("--vid_feat_dim", type=int, default=64)
+    parser.add_argument("--text_feat_dim", type=int, default=48)
+    parser.add_argument("--mean_clips", type=float, default=4.0)
+    parser.add_argument("--max_clips", type=int, default=8)
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    overrides = generate_retrieval_dataset(
+        args.root, dataset_name=args.name,
+        num_videos=args.num_videos, num_val_videos=args.num_val_videos,
+        vid_feat_dim=args.vid_feat_dim, text_feat_dim=args.text_feat_dim,
+        mean_clips=args.mean_clips, max_clips=args.max_clips,
+        seed=args.seed)
+    print(f"Generated synthetic dataset: {overrides}")
+
+
+if __name__ == "__main__":
+    _main()
+

@@ -1,0 +1,128 @@
+"""
+COOT retrieval model: 4 cooperative transformer networks (video
+local/global, text local/global).
+
+Counterpart of coot_videotext_tpu/models/retrieval.py: `_encode_hierarchy`
+:41 and `RetrievalModel` :125 (reference coot/model_retrieval.py:57-197).
+Deliberate differences:
+    - dense layout only (JAX :93-111): the clips/sentences arrive as a
+      (B, N, Lp, D) batch from the host collation, run through the local
+      net as one (B*N, Lp, D) batch, and padded part slots are zeroed with
+      `where` before the global net. The packed layout (:80-92) comes with
+      device-side sampling (ROADMAP A7).
+    - the compute dtype is an argument of `forward` (parameters stay
+      float32), not a property of the module.
+    - on CUDA tensors the local nets' input stage, every attention core and
+      every GenPool always run the hand-written kernels B1-B3; there is no
+      size-based or environment switch back to plain PyTorch.
+Mask convention: True = valid.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from coot_videotext_tpu_torch.models.transformer import CootTransformer
+from coot_videotext_tpu_torch.typext import ConstantHolder
+
+
+class RetrievalNetworksConst(ConstantHolder):
+    """The 4 network names (reference configs_retrieval.py:182)."""
+    NET_VIDEO_LOCAL = "net_video_local"
+    NET_VIDEO_GLOBAL = "net_video_global"
+    NET_TEXT_LOCAL = "net_text_local"
+    NET_TEXT_GLOBAL = "net_text_global"
+
+
+def _encode_hierarchy(net_local: CootTransformer,
+                      net_global: CootTransformer,
+                      seq_feat: torch.Tensor, seq_mask: torch.Tensor,
+                      seq_len: torch.Tensor, part_feat: torch.Tensor,
+                      part_mask: torch.Tensor, part_len: torch.Tensor,
+                      part_valid: torch.Tensor, part_num: torch.Tensor,
+                      dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """
+    Shared video/text hierarchy encoding (reference encode_visual :86 /
+    encode_text :143), dense layout.
+
+    Args:
+        seq_*: whole-sequence input (video frames / paragraph tokens),
+            (B, L, D) / (B, L) / (B,)
+        part_*: per-part input (clips / sentences), (B, N, Lp, D) /
+            (B, N, Lp) / (B, N)
+        part_valid: (B, N) True where the slot holds a real clip/sentence
+        part_num: (B,) number of real parts
+    """
+    context, _ = net_local(seq_feat.to(dtype), seq_mask, seq_len)
+    b, n, lp, d = part_feat.shape
+    part_emb, _ = net_local(part_feat.reshape(b * n, lp, d).to(dtype),
+                            part_mask.reshape(b * n, lp),
+                            part_len.reshape(b * n))
+    part_emb = part_emb.view(b, n, -1)
+    # zero padded part slots: the reference scatters local embeddings into
+    # a zero-initialized (B, max_parts, D) tensor (model_retrieval.py:
+    # 124-136), and the global net's unmasked avg_special pool sees them
+    part_emb = torch.where(part_valid[..., None], part_emb,
+                           torch.zeros_like(part_emb))
+    hidden = context if net_global.cfg.use_context else None
+    emb, _ = net_global(part_emb, part_valid, part_num, hidden)
+    return {"emb": emb, "part_emb": part_emb, "context": context}
+
+
+class RetrievalModel(nn.Module):
+    """The 4-network COOT model. Input dims chain as in the reference
+    (:68-73): video_local <- vid_feat_dim, video_global <- video_local's
+    output dim; likewise for text."""
+
+    def __init__(self, model_cfgs, vid_feat_dim: int, text_feat_dim: int,
+                 max_len: int = 1024) -> None:
+        super().__init__()
+        c = RetrievalNetworksConst
+        self.net_video_local = CootTransformer(
+            model_cfgs[c.NET_VIDEO_LOCAL], vid_feat_dim, max_len=max_len,
+            input_is_data=True)
+        self.net_video_global = CootTransformer(
+            model_cfgs[c.NET_VIDEO_GLOBAL], self.net_video_local.output_dim,
+            max_len=max_len)
+        self.net_text_local = CootTransformer(
+            model_cfgs[c.NET_TEXT_LOCAL], text_feat_dim, max_len=max_len,
+            input_is_data=True)
+        self.net_text_global = CootTransformer(
+            model_cfgs[c.NET_TEXT_GLOBAL], self.net_text_local.output_dim,
+            max_len=max_len)
+
+    def nets(self) -> Dict[str, CootTransformer]:
+        return {name: getattr(self, name)
+                for name in RetrievalNetworksConst.values()}
+
+    def reset_parameters(self, generator: Optional[torch.Generator]
+                         ) -> None:
+        for net in self.nets().values():
+            net.reset_parameters(generator)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                compute_dtype: torch.dtype = torch.float32
+                ) -> Dict[str, torch.Tensor]:
+        """Both branches (reference model_retrieval.py:86/:143); output
+        keys as the JAX model."""
+        vis = _encode_hierarchy(
+            self.net_video_local, self.net_video_global,
+            batch["vid_feat"], batch["vid_mask"], batch["vid_len"],
+            batch["clip_feat"], batch["clip_mask"], batch["clip_len"],
+            batch["clip_valid"], batch["clip_num"], compute_dtype)
+        txt = _encode_hierarchy(
+            self.net_text_local, self.net_text_global,
+            batch["par_feat"], batch["par_mask"], batch["par_len"],
+            batch["sent_feat"], batch["sent_mask"], batch["sent_len"],
+            batch["sent_valid"], batch["sent_num"], compute_dtype)
+        return {
+            "vid_emb": vis["emb"], "clip_emb": vis["part_emb"],
+            "vid_context": vis["context"],
+            "clip_valid": batch["clip_valid"], "clip_num": batch["clip_num"],
+            "par_emb": txt["emb"], "sent_emb": txt["part_emb"],
+            "par_context": txt["context"],
+            "sent_valid": batch["sent_valid"], "sent_num": batch["sent_num"],
+        }

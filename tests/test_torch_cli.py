@@ -1,0 +1,252 @@
+"""
+The PyTorch port's validation CLI end to end on the CPU, against the JAX
+eval step on the same weights, plus its import hygiene and device rules.
+
+`python -m coot_videotext_tpu_torch.train_retrieval --validate
+--ignore_untrained --save_embeddings --device cpu` runs on a tiny synthetic
+dataset; its h5 must have the JAX trainer's schema, its embeddings must
+match the JAX eval step's (float32, atol = rtol = 2e-5) and its retrieval
+metrics must be equal.
+"""
+
+import ast
+import copy
+import logging
+import subprocess
+import sys
+from pathlib import Path
+
+import h5py
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from coot_videotext_tpu.tasks.retrieval import eval as jeval
+from coot_videotext_tpu.tasks.retrieval.config import (
+    RetrievalConfig as JRetrievalConfig)
+from coot_videotext_tpu.tasks.retrieval.model_manager import (
+    RetrievalModelManager as JModelManager)
+from coot_videotext_tpu.tasks.retrieval.steps import make_retrieval_eval_step
+from coot_videotext_tpu.utils import torch_convert
+from coot_videotext_tpu_torch import train_retrieval
+from coot_videotext_tpu_torch.data.retrieval_dataset import (
+    create_retrieval_datasets_and_loaders)
+from coot_videotext_tpu_torch.data.synthetic import (
+    generate_retrieval_dataset)
+from coot_videotext_tpu_torch.tasks.retrieval.config import RetrievalConfig
+from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
+    RetrievalModelManager)
+from coot_videotext_tpu_torch.tasks.retrieval.steps import EMB_KEYS
+from coot_videotext_tpu_torch.tasks.retrieval.validate import (
+    validate_retrieval)
+from tests.helpers import retrieval_config_dict
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "coot_videotext_tpu_torch"
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def synth(tmp_path_factory):
+    """(config dict, yaml path, data root) of a 10-video val split."""
+    root = tmp_path_factory.mktemp("torch_cli")
+    overrides = generate_retrieval_dataset(
+        root / "data", num_videos=4, num_val_videos=10, vid_feat_dim=64,
+        text_feat_dim=48, seed=0)
+    cfg_dict = retrieval_config_dict(overrides, batch_size=6)
+    path = root / "synth.yaml"
+    path.write_text(yaml.safe_dump(cfg_dict), encoding="utf8")
+    return cfg_dict, path, root
+
+
+def _argv(path, root, *extra):
+    return ["-c", str(path), "--data_path", str(root / "data"),
+            "--log_dir", str(root / "experiments"), *extra]
+
+
+@pytest.fixture(scope="module")
+def h5_run(synth):
+    _, path, root = synth
+    return train_retrieval.main(_argv(
+        path, root, "--validate", "--ignore_untrained", "--save_embeddings",
+        "--device", "cpu"))[0]
+
+
+def test_validate_cli_matches_jax(synth, h5_run):
+    cfg_dict, path, root = synth
+    results = h5_run
+    emb_file = results["emb_file"]
+    assert emb_file == (root / "experiments" / "retrieval" / "default" /
+                        "synth_run1" / "embeddings" / "embeddings_0.h5")
+
+    # the same weights in the JAX model: the CLI seeds its model with the
+    # config seed, so an identical manager reproduces them
+    tcfg = RetrievalConfig(copy.deepcopy(cfg_dict), is_train=False)
+    state = RetrievalModelManager(tcfg, torch.device("cpu"),
+                                  seed=0).state_dict()
+    jcfg = JRetrievalConfig(copy.deepcopy(cfg_dict), is_train=False)
+    jmgr = JModelManager(jcfg)
+    _, _, _, loader = create_retrieval_datasets_and_loaders(
+        tcfg, root / "data", seed=0)
+    batches = list(loader)
+    template = {"params": jmgr.init_params(0, batches[0])}
+    params = torch_convert.apply_converted(
+        template["params"], torch_convert.convert_retrieval_model_state(
+            {net: {k: v.numpy() for k, v in sd.items()}
+             for net, sd in state.items()}))
+    step = make_retrieval_eval_step(
+        jmgr.model_eval,
+        loss_weights=jcfg.train.contrastive_loss_config.as_dict(),
+        margin=jcfg.train.contrastive_loss_config.margin,
+        loss_cycle_cons=jcfg.train.loss_cycle_cons)
+    collected = {k: [] for k in EMB_KEYS}
+    keys = []
+    for batch in batches:
+        arrays = {k: v for k, v in batch.items()
+                  if k not in ("key", "data_key", "sentences")}
+        embs, _ = step(params, arrays, None)
+        bv = batch["batch_valid"]
+        for key in EMB_KEYS:
+            sel = bv
+            if key in ("clip_emb", "sent_emb"):
+                sel = np.asarray(embs[key.replace("emb", "valid")]) & \
+                    bv[:, None]
+            collected[key].append(np.asarray(embs[key])[sel])
+        keys += batch["key"]
+    jdata = {k: np.concatenate(v) for k, v in collected.items()}
+
+    with h5py.File(emb_file, "r") as h5:
+        assert set(h5.keys()) == {
+            "clip_num", "sent_num", "key", *EMB_KEYS,
+            *(f"{k}_before_norm" for k in EMB_KEYS)}
+        assert [k.decode() for k in h5["key"][()]] == keys
+        assert len(h5["clip_num"]) == 10
+        assert h5["clip_emb"].shape[0] == int(h5["clip_num"][()].sum())
+        for key in EMB_KEYS:
+            np.testing.assert_allclose(h5[key][()], jdata[key],
+                                       err_msg=key, **TOL)
+
+    quiet = dict(print_fn=lambda s: None)
+    for (k1, k2), names in (((("vid_emb", "par_emb")), ("v2p", "p2v")),
+                            ((("clip_emb", "sent_emb")), ("c2s", "s2c"))):
+        r1, r2, _, _ = jeval.compute_retrieval(jdata, k1, k2, **quiet)
+        assert results[names[0]] == r1
+        assert results[names[1]] == r2
+    assert np.isfinite(results["loss_total"])
+
+
+def test_npy_features_and_npz_export_match_h5(synth, h5_run, tmp_path):
+    """The h5-free route (npy feature files, npz export) of machines
+    without h5py gives the h5 route's arrays under the same names."""
+    _, path, _ = synth
+    generate_retrieval_dataset(
+        tmp_path / "data", num_videos=4, num_val_videos=10, vid_feat_dim=64,
+        text_feat_dim=48, seed=0, feat_format="npy")
+    results = train_retrieval.main(_argv(
+        path, tmp_path, "--validate", "--ignore_untrained",
+        "--save_embeddings", "--device", "cpu", "--embeddings_format", "npz",
+        "-o", ",".join(f"{d}.{m}_feat_source=npy"
+                       for d in ("dataset_train", "dataset_val")
+                       for m in ("vid", "text"))))[0]
+    assert results["emb_file"].suffix == ".npz"
+    with np.load(results["emb_file"]) as npz, \
+            h5py.File(h5_run["emb_file"], "r") as h5:
+        assert set(npz.files) == set(h5.keys())
+        assert list(npz["key"]) == [k.decode() for k in h5["key"][()]]
+        for name in npz.files:
+            if name != "key":
+                np.testing.assert_array_equal(npz[name], h5[name][()])
+
+
+def test_cli_loads_a_reference_layout_checkpoint(synth, h5_run, tmp_path):
+    """--load_model takes {net_name: state_dict} as the reference saves it
+    (its sincos `embedding.pe` buffers included) and names the export
+    after the checkpoint's epoch."""
+    cfg_dict, path, root = synth
+    mgr = RetrievalModelManager(
+        RetrievalConfig(copy.deepcopy(cfg_dict), is_train=False),
+        torch.device("cpu"), seed=5)
+    state = mgr.state_dict()
+    for sd in state.values():
+        sd["embedding.pe"] = torch.zeros(1, 1000, 32)
+    ckpt = tmp_path / "model_3.pth"
+    torch.save(state, ckpt)
+    results = train_retrieval.main(_argv(
+        path, root, "--validate", "--save_embeddings", "--device", "cpu",
+        "--load_model", str(ckpt), "-r", "loaded"))[0]
+    assert results["emb_file"].name == "embeddings_3.h5"
+    # seed 5's weights, not the seed-0 init of an untrained run
+    assert not np.allclose(results["embeddings"]["vid_emb"],
+                           h5_run["embeddings"]["vid_emb"])
+    _, _, _, loader = create_retrieval_datasets_and_loaders(
+        mgr.cfg, root / "data", seed=0)
+    direct = validate_retrieval(
+        mgr.model, mgr.cfg, loader, torch.device("cpu"),
+        compute_dtype=torch.float32, val_clips=True,
+        generator=torch.Generator().manual_seed(42),
+        logger=logging.getLogger("test"))
+    for key, value in direct["embeddings"].items():
+        np.testing.assert_array_equal(results["embeddings"][key], value)
+
+
+def test_cli_refuses_training_and_untrained_models(synth):
+    _, path, root = synth
+    with pytest.raises(SystemExit) as exc:
+        train_retrieval.main(_argv(path, root, "--device", "cpu"))
+    assert "next slice" in str(exc.value)
+    with pytest.raises(ValueError, match="untrained"):
+        train_retrieval.main(_argv(path, root, "--validate", "--device",
+                                   "cpu", "-r", "fresh"))
+
+
+def test_cli_device_defaults_to_cuda(synth):
+    """Without --device the CLI runs on the GPU; with no GPU it raises
+    instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        assert train_retrieval.resolve_device("cuda").type == "cuda"
+        return
+    _, path, root = synth
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_retrieval.main(_argv(path, root, "--validate",
+                                   "--ignore_untrained"))
+
+
+def test_preload_device_true_raises(synth):
+    cfg_dict, _, root = synth
+    cfg_dict = copy.deepcopy(cfg_dict)
+    cfg_dict["dataset_val"]["preload_device"] = True
+    cfg = RetrievalConfig(cfg_dict, is_train=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        create_retrieval_datasets_and_loaders(cfg, root / "data")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_never_imports_jax(path):
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax", "optax",
+                           "coot_videotext_tpu"), f"{path}: imports {name}"
+
+
+def test_port_import_leaves_jax_unloaded():
+    code = ("import sys; import coot_videotext_tpu_torch.train_retrieval, "
+            "coot_videotext_tpu_torch.utils.param_bridge; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'coot_videotext_tpu')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
