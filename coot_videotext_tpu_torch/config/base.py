@@ -12,11 +12,33 @@ and `random_seed`.
 
 from __future__ import annotations
 
+import dataclasses
 from copy import deepcopy
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from coot_videotext_tpu_torch import typext
 from coot_videotext_tpu_torch.utils import general as utils
+
+
+@dataclasses.dataclass
+class BaseTrainerState(typext.SaveableState):
+    """
+    Trainer state persisted per epoch as json (JAX config/base.py:27,
+    reference trainer_configs.py:11). The val-history lists are how the best
+    epoch is found later without an index file.
+    """
+    time_total: float = 0
+    time_val: float = 0
+    start_epoch: int = 0
+    current_epoch: int = 0
+    epoch_step: int = 0
+    total_step: int = 0
+    det_best_field_current: float = 0
+    det_best_field_best: Optional[float] = None
+    infos_val_epochs: List[int] = dataclasses.field(default_factory=list)
+    infos_val_steps: List[int] = dataclasses.field(default_factory=list)
+    infos_val_is_good: List[int] = dataclasses.field(default_factory=list)
+    last_grad_norm: float = 0
 
 
 class BaseExperimentConfig(typext.ConfigClass):

@@ -1,5 +1,5 @@
 // Shared helpers of the COOT Hopper kernels: bf16/f32 conversion, the
-// activations, warp reductions and the finite masked-fill constant.
+// activations and their derivatives, warp reductions and the finite masked-fill constant.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,6 +34,15 @@ __device__ __forceinline__ float activate(float x, int act) {
   if (act == kActGelu) return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
   if (act == kActRelu) return fmaxf(x, 0.0f);
   return x;
+}
+
+// d activate / dx, for the backward kernels
+__device__ __forceinline__ float act_grad(float x, int act) {
+  if (act == kActGelu)
+    return 0.5f * (1.0f + erff(x * 0.70710678118654752f)) +
+           x * expf(-0.5f * x * x) * 0.39894228040143268f;
+  if (act == kActRelu) return x > 0.0f ? 1.0f : 0.0f;
+  return 1.0f;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -1,7 +1,8 @@
-// B1: fused input projection y = act(cootnorm(x; gain, bias) . W + b).
+// B1: fused input projection y = act(cootnorm(x; gain, bias) . W + b),
+// forward and backward.
 //
-// Replaces the forward of the TPU kernel
-// coot_videotext_tpu/ops/pallas_input_fc.py::fused_input_fc (_fwd_kernel).
+// Replaces the TPU kernel coot_videotext_tpu/ops/pallas_input_fc.py::
+// fused_input_fc (_fwd_kernel :153, _bwd_kernel :167).
 //
 // What bounds it on the H100: at the video local net's shapes (S up to
 // ~90k rows, din 4096, dout 384) the product is 2*S*din*dout flops against
@@ -24,11 +25,29 @@
 //      through erff, and stores. f32 takes a shared-memory-tiled FMA loop.
 // Any S is taken: the ragged row edge (and ragged din/dout) is masked.
 // A simple kernel that is right comes first: no cp.async/TMA pipeline and
-// no wgmma yet.
+// no wgmma yet. With `pre` the forward also writes the f32 pre-activation
+// (the TPU kernel's need_pre residual) for the backward.
+//
+// Backward: the input is pipeline data, so, as on the TPU, no dx is formed;
+// the parameter gradients are
+//   dpre = dy * act'(pre)                  (one elementwise pass, rounded)
+//   dW = xn^T dpre, db = sum_rows dpre     (csrc/tn_reduce.cuh; A = x is
+//                                           normalized while it is staged)
+//   dxn = dpre W^T, dgain = sum_rows dxn * xhat, dbias = sum_rows dxn.
+// Both products are 2*S*din*dout flops, so the backward is compute-bound on
+// the tensor cores like the forward (4*S*din*dout flops in all). The (S,
+// din) dxn never reaches device memory: `dxn_colsum` gives each block one
+// 64-column tile of din and one split of the rows; it forms dxn for 32 rows
+// at a time with wmma (dpre staged in shared memory, W read from L2) and
+// folds it into per-column partial sums, which `sum_splits` adds in split
+// order. No float atomics: the sums repeat bit for bit.
 
 #include <mma.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "tn_reduce.cuh"
 
 using namespace nvcuda;
 
@@ -74,8 +93,8 @@ __global__ void __launch_bounds__(kThreads)
 gemm_bf16(const bf16* __restrict__ x, const float* __restrict__ mean,
           const float* __restrict__ inv, const float* __restrict__ gain,
           const float* __restrict__ bias, const bf16* __restrict__ w,
-          const float* __restrict__ b, bf16* __restrict__ y, int S, int din,
-          int dout, int act) {
+          const float* __restrict__ b, bf16* __restrict__ y,
+          float* __restrict__ pre, int S, int din, int dout, int act) {
   __shared__ __align__(128) bf16 sA[kBM * kLds];
   __shared__ __align__(128) bf16 sB[kBN * kLds];  // [n][k]: B col-major
   __shared__ __align__(128) float sC[kWarps][16 * 16];
@@ -144,9 +163,11 @@ gemm_bf16(const bf16* __restrict__ x, const float* __restrict__ mean,
       for (int e = lane; e < 256; e += 32) {
         const int gr = row0 + m * 16 + e / 16;
         const int gc = col0 + warp * kWarpCols + n * 16 + e % 16;
-        if (gr < S && gc < dout)
-          y[(size_t)gr * dout + gc] =
-              from_f32<bf16>(activate(sC[warp][e] + b[gc], act));
+        if (gr < S && gc < dout) {
+          const float v = sC[warp][e] + b[gc];
+          if (pre != nullptr) pre[(size_t)gr * dout + gc] = v;
+          y[(size_t)gr * dout + gc] = from_f32<bf16>(activate(v, act));
+        }
       }
       __syncwarp();
     }
@@ -160,8 +181,8 @@ __global__ void __launch_bounds__(256)
 gemm_f32(const float* __restrict__ x, const float* __restrict__ mean,
          const float* __restrict__ inv, const float* __restrict__ gain,
          const float* __restrict__ bias, const float* __restrict__ w,
-         const float* __restrict__ b, float* __restrict__ y, int S, int din,
-         int dout, int act) {
+         const float* __restrict__ b, float* __restrict__ y,
+         float* __restrict__ pre, int S, int din, int dout, int act) {
   __shared__ float sA[kFBK][kFBM + 4];
   __shared__ float sB[kFBK][kFBN + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -203,22 +224,142 @@ gemm_f32(const float* __restrict__ x, const float* __restrict__ mean,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gc = col0 + tx * 4 + j;
-      if (gr < S && gc < dout)
-        y[(size_t)gr * dout + gc] = activate(acc[i][j] + b[gc], act);
+      if (gr < S && gc < dout) {
+        const float v = acc[i][j] + b[gc];
+        if (pre != nullptr) pre[(size_t)gr * dout + gc] = v;
+        y[(size_t)gr * dout + gc] = activate(v, act);
+      }
     }
   }
+}
+
+// ---- backward ----
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+dpre_kernel(const T* __restrict__ dy, const float* __restrict__ pre,
+            T* __restrict__ dpre, long long n, int act) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n;
+       i += (long long)gridDim.x * 256) {
+    const float g = to_f32(dy[i]);
+    dpre[i] = from_f32<T>(act == kActGelu ? g * act_grad(pre[i], act) : g);
+  }
+}
+
+constexpr int kDxRows = 32, kDxCols = 64, kDxMaxOut = 384;
+constexpr int kDxLdp = kDxMaxOut + 8, kDxLdx = kDxCols + 4;
+
+// partial_g / partial_b [split][din]: sums over the split's rows of
+// dxn * xhat and dxn, dxn = dpre . W^T, for one 64-column tile of din.
+template <typename T>
+__global__ void __launch_bounds__(256)
+dxn_colsum(const T* __restrict__ x, const float* __restrict__ mean,
+           const float* __restrict__ inv, const T* __restrict__ w,
+           const T* __restrict__ dpre, int S, int din, int dout,
+           int rows_per_split, float* __restrict__ partial_g,
+           float* __restrict__ partial_b) {
+  __shared__ __align__(128) bf16 sP[kDxRows * kDxLdp];  // bf16 only
+  __shared__ __align__(128) float sX[kDxRows * kDxLdx];
+  __shared__ float sRed[2][4][kDxCols];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int c0 = blockIdx.x * kDxCols;
+  const int r_begin = blockIdx.y * rows_per_split;
+  const int r_end = min(S, r_begin + rows_per_split);
+  const int col = tid % kDxCols, rg = tid / kDxCols;  // rows rg*8 .. +7
+  float acc_g = 0.f, acc_b = 0.f;
+
+  for (int r0 = r_begin; r0 < r_end; r0 += kDxRows) {
+    if constexpr (std::is_same<T, bf16>::value) {
+      for (int i = tid; i < kDxRows * dout; i += 256) {
+        const int r = i / dout, o = i % dout;
+        sP[r * kDxLdp + o] = r0 + r < r_end
+                                 ? dpre[(size_t)(r0 + r) * dout + o]
+                                 : from_f32<bf16>(0.f);
+      }
+      __syncthreads();
+      const int mi = warp >> 2, ni = warp & 3;  // 2 x 4 fragments
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+      for (int k = 0; k < dout; k += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::load_matrix_sync(a, sP + mi * 16 * kDxLdp + k, kDxLdp);
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(b, w + (size_t)k * din + c0 + ni * 16, din);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(sX + mi * 16 * kDxLdx + ni * 16, acc, kDxLdx,
+                              wmma::mem_row_major);
+    } else {
+      for (int rr = 0; rr < 8; ++rr) {
+        const int r = rg * 8 + rr, gr = r0 + r;
+        float v = 0.f;
+        if (gr < r_end)
+          for (int o = 0; o < dout; ++o)
+            v = fmaf(to_f32(dpre[(size_t)gr * dout + o]),
+                     to_f32(w[(size_t)o * din + c0 + col]), v);
+        sX[r * kDxLdx + col] = v;
+      }
+    }
+    __syncthreads();
+    for (int rr = 0; rr < 8; ++rr) {
+      const int r = rg * 8 + rr, gr = r0 + r;
+      if (gr < r_end) {
+        const float dxn = sX[r * kDxLdx + col];
+        const float xhat =
+            (to_f32(x[(size_t)gr * din + c0 + col]) - mean[gr]) * inv[gr];
+        acc_g = fmaf(dxn, xhat, acc_g);
+        acc_b += dxn;
+      }
+    }
+    __syncthreads();
+  }
+  sRed[0][rg][col] = acc_g;
+  sRed[1][rg][col] = acc_b;
+  __syncthreads();
+  if (rg == 0) {
+    float g = 0.f, b = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      g += sRed[0][i][col];
+      b += sRed[1][i][col];
+    }
+    partial_g[(size_t)blockIdx.y * din + c0 + col] = g;
+    partial_b[(size_t)blockIdx.y * din + c0 + col] = b;
+  }
+}
+
+template <typename T>
+int input_fc_bwd_launch(const T* x, const float* gain, const float* bias,
+                        const T* w, const float* mean, const float* inv,
+                        const float* pre, const T* dy, T* dpre,
+                        float* scratch, float* dw, float* db, float* dgain,
+                        float* dbias, int S, int din, int dout, int act,
+                        int splits, cudaStream_t st) {
+  const long long n = (long long)S * dout;
+  dpre_kernel<T><<<sum_blocks(n), 256, 0, st>>>(dy, pre, dpre, n, act);
+  launch_tn<T, true>(x, din, dpre, dout, S, din, dout, splits, scratch, dw,
+                     NormA{mean, inv, gain, bias}, st);
+  launch_colsum<T>(dpre, dout, S, dout, splits, scratch, db, st);
+  float* pg = scratch;
+  float* pb = scratch + (size_t)splits * din;
+  dim3 grid(din / kDxCols, splits);
+  dxn_colsum<T><<<grid, 256, 0, st>>>(x, mean, inv, w, dpre, S, din, dout,
+                                      split_rows(S, splits), pg, pb);
+  sum_splits<<<sum_blocks(din), 256, 0, st>>>(pg, splits, din, dgain);
+  sum_splits<<<sum_blocks(din), 256, 0, st>>>(pb, splits, din, dbias);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace coot
 
 // x (S, din), w (dout, din) [torch Linear layout] in the compute dtype;
-// gain, bias (din), b (dout) f32; mean, inv (S) f32 scratch; y (S, dout).
+// gain, bias (din), b (dout) f32; mean, inv (S) f32 (kept for the
+// backward); y (S, dout); pre (S, dout) f32, the pre-activation, or null.
 extern "C" int coot_input_fc_fwd(const void* x, const void* gain,
                                  const void* bias, const void* w,
                                  const void* b, void* y, void* mean,
-                                 void* inv, int S, int din, int dout,
-                                 float eps, int act, int is_bf16,
+                                 void* inv, void* pre, int S, int din,
+                                 int dout, float eps, int act, int is_bf16,
                                  void* stream) {
   using namespace coot;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -232,8 +373,8 @@ extern "C" int coot_input_fc_fwd(const void* x, const void* gain,
         static_cast<const bf16*>(x), static_cast<const float*>(mean),
         static_cast<const float*>(inv), static_cast<const float*>(gain),
         static_cast<const float*>(bias), static_cast<const bf16*>(w),
-        static_cast<const float*>(b), static_cast<bf16*>(y), S, din, dout,
-        act);
+        static_cast<const float*>(b), static_cast<bf16*>(y),
+        static_cast<float*>(pre), S, din, dout, act);
   } else {
     row_stats<float><<<stats_blocks, kStatsThreads, 0, st>>>(
         static_cast<const float*>(x), static_cast<float*>(mean),
@@ -243,8 +384,44 @@ extern "C" int coot_input_fc_fwd(const void* x, const void* gain,
         static_cast<const float*>(x), static_cast<const float*>(mean),
         static_cast<const float*>(inv), static_cast<const float*>(gain),
         static_cast<const float*>(bias), static_cast<const float*>(w),
-        static_cast<const float*>(b), static_cast<float*>(y), S, din, dout,
-        act);
+        static_cast<const float*>(b), static_cast<float*>(y),
+        static_cast<float*>(pre), S, din, dout, act);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's x, gain, bias, w, mean, inv and pre, and dy (S, dout) in the
+// compute dtype. Writes f32 dw (din, dout), db (dout), dgain, dbias (din);
+// dpre (S, dout) is compute-dtype scratch, `scratch` f32 of
+// splits * din * dout elements. The wrapper checks din % 64 == 0,
+// dout % 16 == 0 and dout <= 384.
+extern "C" int coot_input_fc_bwd(const void* x, const void* gain,
+                                 const void* bias, const void* w,
+                                 const void* mean, const void* inv,
+                                 const void* pre, const void* dy, void* dpre,
+                                 void* scratch, void* dw, void* db,
+                                 void* dgain, void* dbias, int S, int din,
+                                 int dout, int act, int splits, int is_bf16,
+                                 void* stream) {
+  using namespace coot;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(gain);
+  const float* bi = static_cast<const float*>(bias);
+  const float* mn = static_cast<const float*>(mean);
+  const float* iv = static_cast<const float*>(inv);
+  const float* pr = static_cast<const float*>(pre);
+  float* sc = static_cast<float*>(scratch);
+  if (is_bf16)
+    return input_fc_bwd_launch<bf16>(
+        static_cast<const bf16*>(x), g, bi, static_cast<const bf16*>(w), mn,
+        iv, pr, static_cast<const bf16*>(dy), static_cast<bf16*>(dpre), sc,
+        static_cast<float*>(dw), static_cast<float*>(db),
+        static_cast<float*>(dgain), static_cast<float*>(dbias), S, din, dout,
+        act, splits, st);
+  return input_fc_bwd_launch<float>(
+      static_cast<const float*>(x), g, bi, static_cast<const float*>(w), mn,
+      iv, pr, static_cast<const float*>(dy), static_cast<float*>(dpre), sc,
+      static_cast<float*>(dw), static_cast<float*>(db),
+      static_cast<float*>(dgain), static_cast<float*>(dbias), S, din, dout,
+      act, splits, st);
 }

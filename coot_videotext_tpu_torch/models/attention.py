@@ -10,10 +10,13 @@ transformer_legacy.py:347-605):
       always goes through kernel B3 (ops/attention.py), which takes the
       (B, Lk) key mask the COOT stacks use
     - post-LN residual sublayers: LN(residual + sublayer(x)) with the COOT
-      layer-norm variant
+      layer-norm variant, an extra dropout between the attention and the
+      FFN sublayer (JAX :253-254), dropout inside the FFN (:218, :224)
+    - in training mode B3 also drops the attention probabilities (JAX
+      :187-192), with its own seed per call
 Module names follow the reference state-dict keys
 (`encoder_layers.<i>.self_attention_layer.sublayer.query_projection`, ...).
-Mask convention: True = valid token. Dropout is identity in this package.
+Mask convention: True = valid token.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from torch import nn
 
 from coot_videotext_tpu_torch.models.configs import TransformerEncoderConfig
 from coot_videotext_tpu_torch.models.layers import (
-    Linear, make_activation, make_normalization)
+    Dropout, Linear, make_activation, make_normalization)
 from coot_videotext_tpu_torch.ops.attention import masked_attention
+from coot_videotext_tpu_torch.ops.philox import next_seed
 from coot_videotext_tpu_torch.typext import INF
 
 
@@ -45,13 +49,15 @@ def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor],
 class MultiHeadAttention(nn.Module):
     """Multi-head attention (reference transformer_legacy.py:470)."""
 
-    def __init__(self, num_heads: int, d_model: int) -> None:
+    def __init__(self, num_heads: int, d_model: int,
+                 dropout: float = 0.0) -> None:
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by "
                              f"{num_heads} heads")
         self.num_heads = num_heads
         self.d_model = d_model
+        self.dropout = float(dropout)
         self.query_projection = Linear(d_model, d_model)
         self.key_projection = Linear(d_model, d_model)
         self.value_projection = Linear(d_model, d_model)
@@ -80,25 +86,26 @@ class MultiHeadAttention(nn.Module):
         if key_valid is None:
             key_valid = torch.ones((b, lk), dtype=torch.bool,
                                    device=query.device)
-        ctx = masked_attention(q, k, v, key_valid, h, 1.0 / math.sqrt(dh))
+        rate = self.dropout if self.training else 0.0
+        ctx = masked_attention(q, k, v, key_valid, h, 1.0 / math.sqrt(dh),
+                               rate, next_seed() if rate > 0 else 0)
         ctx = ctx.view(b, h, lq, dh).transpose(1, 2).reshape(
             b, lq, self.d_model)
         return self.final_projection(ctx)
 
 
 class PointwiseFeedForward(nn.Module):
-    """FFN: Linear-Dropout-Act-Linear-Dropout (reference :582); the dropout
-    slots are identities so the Linears keep the reference indices 0 and
-    3."""
+    """FFN: Linear-Dropout-Act-Linear-Dropout (reference :582); the
+    Linears keep the reference indices 0 and 3."""
 
     def __init__(self, d_model: int, d_ff: int,
                  cfg: TransformerEncoderConfig) -> None:
         super().__init__()
         d_ff = d_ff if d_ff > 0 else d_model
         self.feed_forward = nn.Sequential(
-            Linear(d_model, d_ff), nn.Identity(),
+            Linear(d_model, d_ff), Dropout(cfg.dropout),
             make_activation(cfg.activation), Linear(d_ff, d_model),
-            nn.Identity())
+            Dropout(cfg.dropout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.feed_forward(x)
@@ -122,15 +129,16 @@ class _Sublayer(nn.Module):
 class TransformerEncoderLayer(nn.Module):
     """
     Post-LN encoder layer (reference :396-438): x = LN(x + attn(x)); then
-    x = LN(x + ffn(x)).
+    an extra dropout; then x = LN(x + ffn(x)).
     """
 
     def __init__(self, cfg: TransformerEncoderConfig) -> None:
         super().__init__()
         d = cfg.hidden_dim
         self.self_attention_layer = _Sublayer(
-            MultiHeadAttention(cfg.num_heads, d),
+            MultiHeadAttention(cfg.num_heads, d, cfg.dropout),
             make_normalization(cfg.norm, cfg.norm.name, d))
+        self.dropout = Dropout(cfg.dropout)
         self.pointwise_feedforward_layer = _Sublayer(
             PointwiseFeedForward(d, cfg.pointwise_ff_dim, cfg),
             make_normalization(cfg.norm, cfg.norm.name, d))
@@ -140,6 +148,7 @@ class TransformerEncoderLayer(nn.Module):
                 key_valid: Optional[torch.Tensor]) -> torch.Tensor:
         attn = self.self_attention_layer
         x = attn.norm(attn.sublayer(query, key, value, key_valid) + query)
+        x = self.dropout(x)
         ffn = self.pointwise_feedforward_layer
         return ffn.norm(ffn.sublayer(x) + x)
 

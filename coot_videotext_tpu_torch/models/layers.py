@@ -18,7 +18,10 @@ Numerical-parity notes (as in the JAX package):
       `10000 ** (2 * dim_idx / dim)`, not the textbook table.
     - truncnorm init resamples outside +-2 sigma for weights AND biases,
       while layer-norm gain/bias stay 1/0.
-Dropout is identity in this package until the training slice.
+Dropout (JAX :38) is identity in eval mode and at rate 0; in training mode
+it runs kernel B4 (ops/dropout.py) with a seed drawn per call
+(ops/philox.py: `dropout_seeds`). Its masks come from another stream than
+JAX's; masks are not part of the parity contract (JAX :47-51).
 """
 
 from __future__ import annotations
@@ -33,6 +36,30 @@ from torch import nn
 from coot_videotext_tpu_torch.models.configs import (
     ActivationConfig, ActivationConst, InitTypesConst, MLPConfig,
     NormalizationConfig, NormalizationConst, ResidualsEnum)
+from coot_videotext_tpu_torch.ops.dropout import dropout
+from coot_videotext_tpu_torch.ops.philox import next_seed
+
+
+# ---------- Dropout ----------
+
+class Dropout(nn.Module):
+    """Dropout with the module semantics of JAX models/layers.py:38:
+    identity in eval mode or at rate 0, zeros at rate 1, else
+    x * keep / (1 - rate) through kernel B4 with a fresh seed."""
+
+    def __init__(self, rate: float) -> None:
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        return dropout(x, next_seed(), self.rate)
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
 
 
 # ---------- Initializers ----------
@@ -103,25 +130,34 @@ def make_activation(cfg: ActivationConfig) -> nn.Module:
 
 # ---------- Normalizations ----------
 
-def coot_layer_norm(x32: torch.Tensor, gain: torch.Tensor,
-                    bias: torch.Tensor, eps: float) -> torch.Tensor:
-    """gain * (x - mean) / (std_bessel + eps) + bias over the last axis, in
-    float32 (JAX CootLayerNorm :133-176). The sums are taken on x shifted
-    by each row's first element, which removes the s2 - mean*s1
-    cancellation for rows whose mean^2 >> var at no extra pass; std is 0
-    (not NaN) for constant rows, which do occur (zeroed padded slots)."""
+def coot_norm_stats(x32: torch.Tensor, eps: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, std_bessel + eps) over the last axis, in float32 (JAX
+    CootLayerNorm :133-176). The sums are taken on x shifted by each row's
+    first element, which removes the s2 - mean*s1 cancellation for rows
+    whose mean^2 >> var at no extra pass; std is 0 (not NaN, and with a
+    zero gradient) for constant rows, which do occur (zeroed padded
+    slots)."""
     dim = x32.shape[-1]
-    c = x32[..., :1]
+    # the shift cancels in mean and variance: no gradient through it
+    c = x32[..., :1].detach()
     xc = x32 - c
     s1 = xc.sum(dim=-1, keepdim=True)
     s2 = (xc * xc).sum(dim=-1, keepdim=True)
     mean_c = s1 / dim
     var = torch.clamp(s2 - mean_c * s1, min=0.0) / max(dim - 1, 1)
-    mean = c + mean_c
     var_pos = var > 0.0
     std = torch.where(var_pos, torch.sqrt(torch.where(var_pos, var, 1.0)),
                       0.0)
-    return gain * (x32 - mean) / (std + eps) + bias
+    return c + mean_c, std + eps
+
+
+def coot_layer_norm(x32: torch.Tensor, gain: torch.Tensor,
+                    bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """gain * (x - mean) / (std_bessel + eps) + bias over the last axis, in
+    float32."""
+    mean, denom = coot_norm_stats(x32, eps)
+    return gain * (x32 - mean) / denom + bias
 
 
 class CootLayerNorm(nn.Module):
@@ -194,13 +230,15 @@ class PositionalEncodingSinCos(nn.Module):
     table is a non-persistent buffer: it is not a parameter, and the
     reference checkpoints' `embedding.pe` entry is dropped on load."""
 
-    def __init__(self, dim: int, max_len: int = 1000) -> None:
+    def __init__(self, dim: int, max_len: int = 1000,
+                 dropout: float = 0.0) -> None:
         super().__init__()
         self.register_buffer("pe", sincos_positional_encoding(max_len, dim),
                              persistent=False)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.pe[None, :x.shape[1], :].to(x.dtype)
+        return self.dropout(x + self.pe[None, :x.shape[1], :].to(x.dtype))
 
 
 # ---------- MLP ----------
@@ -228,14 +266,18 @@ class MLP(nn.Module):
             self._plan.append((kind, len(layers)))
             layers.append(module)
 
+        self.drop_middle = Dropout(cfg.dropout_middle)
+        self.drop_output = Dropout(cfg.dropout_output)
         if cfg.num_layers == 1:
             add("fc", Linear(input_dim, cfg.output_dim))
+            self._plan.append(("drop_output", -1))
         else:
             dims = [input_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1)
             for n in range(cfg.num_layers - 1):
                 if n > 0:
                     self._plan.append(("act", -1))
                 add("fc", Linear(dims[n], cfg.hidden_dim))
+                self._plan.append(("drop_middle", -1))
                 norm = make_normalization(cfg.norm_middle,
                                           cfg.norm_middle.name,
                                           cfg.hidden_dim)
@@ -243,6 +285,7 @@ class MLP(nn.Module):
                     add("norm", norm)
             self._plan.append(("act", -1))
             add("fc", Linear(cfg.hidden_dim, cfg.output_dim))
+            self._plan.append(("drop_output", -1))
         norm_out = make_normalization(cfg.norm_output, cfg.norm_output.name,
                                       cfg.output_dim)
         self._norm_out_idx = None
@@ -268,6 +311,8 @@ class MLP(nn.Module):
             if kind == "act":
                 if self.cfg.activation_middle.name != ActivationConst.NONE:
                     x = self.act_middle(x)
+            elif kind in ("drop_middle", "drop_output"):
+                x = getattr(self, kind)(x)
             else:
                 x = self.mlp[idx](x)
         if self.cfg.residual == ResidualsEnum.PASSTHROUGH:

@@ -6,7 +6,8 @@ Port of coot_videotext_tpu/models/poolers.py (reference
 nntrainer/models/poolers.py):
     - GenPool (:38): per-head 2-layer MLP -> masked softmax over the
       sequence (fill -INF) -> weighted sum, always through kernel B2
-      (ops/genpool.py). The head-stacked parameters keep the reference
+      (ops/genpool.py), which in training mode also drops at the three
+      sites of JAX GenPool :136-155. The head-stacked parameters keep the reference
       names and shapes (`genpool_w1_head` (heads, D, dh), ...).
     - MultiGenPool: only num_layers=1 is functional in the reference.
     - TemporalAvgPool ("avg_special", :184-215) ignores the mask and sums
@@ -26,6 +27,7 @@ from coot_videotext_tpu_torch.models.configs import (
     ActivationConfig, PoolerConfig, PoolerConst)
 from coot_videotext_tpu_torch.models.layers import init_weight_
 from coot_videotext_tpu_torch.ops.genpool import genpool
+from coot_videotext_tpu_torch.ops.philox import next_seed
 from coot_videotext_tpu_torch.typext import INF
 
 
@@ -33,8 +35,10 @@ class GenPool(nn.Module):
     """Generalized pooling (reference poolers.py:111)."""
 
     def __init__(self, d_input: int, d_attn: int, num_heads: int,
-                 activation_cfg: ActivationConfig) -> None:
+                 activation_cfg: ActivationConfig,
+                 dropout: float = 0.0) -> None:
         super().__init__()
+        self.dropout = float(dropout)
         d_attn = d_attn if d_attn > 0 else d_input
         if d_attn % num_heads or d_input % num_heads:
             raise ValueError("GenPool dims must divide by num_heads")
@@ -56,9 +60,11 @@ class GenPool(nn.Module):
 
     def forward(self, features: torch.Tensor, mask: torch.Tensor,
                 lengths: torch.Tensor) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
         return genpool(features, mask, self.genpool_w1_head,
                        self.genpool_b1_head, self.genpool_w2_head,
-                       self.genpool_b2_head, self.act)
+                       self.genpool_b2_head, self.act, rate,
+                       next_seed() if rate > 0 else 0)
 
 
 class MultiGenPool(nn.Module):
@@ -71,7 +77,8 @@ class MultiGenPool(nn.Module):
                 "MultiGenPool >1 layer is nonfunctional in the reference "
                 "(each pool output feeds the next pool); all configs use 1.")
         self.pools = nn.ModuleList([GenPool(
-            d_input, cfg.hidden_dim, cfg.num_heads, cfg.activation)])
+            d_input, cfg.hidden_dim, cfg.num_heads, cfg.activation,
+            cfg.dropout)])
 
     def forward(self, features, mask, lengths):
         return self.pools[0](features, mask, lengths)

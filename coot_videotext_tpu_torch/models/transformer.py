@@ -10,7 +10,9 @@ input is pipeline data (`input_is_data`) and whose input stage has the
 shape of every shipped config (layernorm_coot, no input dropout, one FC
 layer with gelu/none and no residual or output norm; JAX
 `_fused_input_act` :105-133) runs norm + FC + activation through kernel B1
-(ops/input_fc.py). Everything else here is plain PyTorch: the global nets'
+(ops/input_fc.py), on the detached input: the kernel forms no input
+gradient (JAX :181 `stop_gradient`). Everything else here is plain
+PyTorch: the global nets'
 input norm, the positional encoding, the cross-attention with the context
 vector as a length-1 query (:219-227) and the output heads; attention and
 GenPool go through kernels B3 and B2 inside their modules.
@@ -30,8 +32,8 @@ from coot_videotext_tpu_torch.models.configs import (
     ActivationConst, NormalizationConst, PositionalEncodingConst,
     ResidualsEnum, TransformerConfig, TransformerTypesConst)
 from coot_videotext_tpu_torch.models.layers import (
-    MLP, CootLayerNorm, LearnableClsToken, Linear, PositionalEncodingSinCos,
-    init_weight_, make_normalization)
+    MLP, CootLayerNorm, Dropout, LearnableClsToken, Linear,
+    PositionalEncodingSinCos, init_weight_, make_normalization)
 from coot_videotext_tpu_torch.models.poolers import GenPool, make_pooler
 from coot_videotext_tpu_torch.ops.input_fc import fused_input_fc
 
@@ -69,6 +71,7 @@ class CootTransformer(nn.Module):
             raise ValueError(f"Unsupported network type {cfg.name}")
         self.cfg = cfg
         d_model = cfg.selfatn.hidden_dim
+        self.dropout_input = Dropout(cfg.dropout_input)
         self.norm_input = make_normalization(None, cfg.norm_input,
                                              input_dim)
         if cfg.use_input_fc:
@@ -77,7 +80,8 @@ class CootTransformer(nn.Module):
         if cfg.add_local_cls_token:
             self.net_cls = LearnableClsToken(d_model)
         if cfg.positional_encoding == PositionalEncodingConst.SINCOS:
-            self.embedding = PositionalEncodingSinCos(d_model, max_len)
+            self.embedding = PositionalEncodingSinCos(d_model, max_len,
+                                                      cfg.dropout_input)
         elif cfg.positional_encoding != PositionalEncodingConst.NONE:
             raise ValueError(
                 f"Unknown positional encoding {cfg.positional_encoding}")
@@ -140,10 +144,11 @@ class CootTransformer(nn.Module):
             bsz, seq, din = x.shape
             fc = self.input_fc.mlp[0]
             x = fused_input_fc(
-                x.reshape(bsz * seq, din), self.norm_input.gain,
+                x.detach().reshape(bsz * seq, din), self.norm_input.gain,
                 self.norm_input.bias, fc.weight, fc.bias,
                 self.norm_input.eps, self.fused_act).view(bsz, seq, -1)
         else:
+            x = self.dropout_input(x)
             if self.norm_input is not None:
                 x = self.norm_input(x)
             if cfg.use_input_fc:

@@ -1,55 +1,89 @@
 """
-B3 masked multi-head attention forward:
-    o = softmax(where(key_valid, q k^T * scale, -32752)) v, in f32.
+B3 masked multi-head attention, forward and backward:
+    P = softmax(where(key_valid, q k^T * scale, -32752)),
+    o = dropout(P) v, in f32.
 
 Counterpart of coot_videotext_tpu/ops/pallas_attention.py::
-pallas_masked_attention (forward). q, k, v keep the JAX (N = B*heads, L, Dh)
-layout; the COOT nets only mask keys, so the mask is the (B, Lk) key
-validity instead of a materialized (N, Lq, Lk) mask. On a CUDA tensor
-`masked_attention` launches the Hopper kernel in csrc/attention.cu; on a
-CPU tensor it computes `masked_attention_plain`, the port of
-`masked_attention_reference` :178.
+pallas_masked_attention :114 (forward :135, backward :158). q, k, v keep the
+JAX (N = B*heads, L, Dh) layout; the COOT nets only mask keys, so the mask
+is the (B, Lk) key validity instead of a materialized (N, Lq, Lk) mask.
+With `rate > 0` the kernel also drops P, as the module does
+(models/attention.py:187-192), with Philox bits (ops/philox.py).
+
+`masked_attention` is a torch.autograd.Function: on CUDA tensors its
+forward and backward launch the Hopper kernels in csrc/attention.cu; on CPU
+tensors they compute `masked_attention_plain` and
+`masked_attention_backward_plain`, the port of `masked_attention_reference`
+:178 and of its autodiff. The score gradient is zero at masked keys, as
+autodiff of the module's where() gives (the Pallas `_bwd_kernel` :84-89
+leaves it non-zero on rows whose keys are all masked).
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
-from coot_videotext_tpu_torch.ops import cuda_build
-from coot_videotext_tpu_torch.ops.common import (
-    check_no_grad, check_tensor, is_bf16)
+from coot_videotext_tpu_torch.ops import cuda_build, philox
+from coot_videotext_tpu_torch.ops.common import check_tensor, is_bf16
 from coot_videotext_tpu_torch.typext import INF
 
 KERNEL = "attention"
 
 
-def masked_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, key_valid: torch.Tensor,
-                           num_heads: int, scale: float) -> torch.Tensor:
-    """Plain PyTorch version: f32 scores from q and k read into f32, the
-    scale applied to the f32 product, f32 softmax and f32 PV."""
+def _probs(q, k, key_valid, num_heads, scale):
     mask = key_valid.bool().repeat_interleave(num_heads, dim=0)[:, None, :]
     scores = torch.bmm(q.float(), k.float().transpose(1, 2)) * scale
     scores = torch.where(mask, scores, torch.full_like(scores, -INF))
-    p = torch.softmax(scores, dim=-1)
+    return torch.softmax(scores, dim=-1), mask
+
+
+def _drop(shape, seed, rate, device) -> Optional[torch.Tensor]:
+    if rate <= 0.0:
+        return None
+    return philox.keep_factor(shape, seed, philox.SITE_ATTENTION, rate,
+                              device)
+
+
+def masked_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, key_valid: torch.Tensor,
+                           num_heads: int, scale: float, rate: float = 0.0,
+                           seed: int = 0) -> torch.Tensor:
+    """Plain PyTorch version: f32 scores from q and k read into f32, the
+    scale applied to the f32 product, f32 softmax, P dropped with the
+    kernel's bits, f32 PV."""
+    p, _ = _probs(q, k, key_valid, num_heads, scale)
+    f = _drop(p.shape, seed, rate, p.device)
+    if f is not None:
+        p = p * f
     return torch.bmm(p, v.float()).to(q.dtype)
 
 
-def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     key_valid: torch.Tensor, num_heads: int,
-                     scale: float) -> torch.Tensor:
-    """
-    Args:
-        q: (N, Lq, Dh) with N = B * num_heads (batch-major, head-minor)
-        k, v: (N, Lk, Dh)
-        key_valid: (B, Lk) bool, True = attend
-        scale: score scale (1/sqrt(Dh))
+def masked_attention_backward_plain(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        key_valid: torch.Tensor, g: torch.Tensor, num_heads: int,
+        scale: float, rate: float = 0.0, seed: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the inputs' dtype, by the kernel's formulas in f32:
+    dv = Pd^T g; dS = where(valid, P * (g v^T * f - rowsum(g * o)), 0);
+    dq = dS k * scale; dk = dS^T q * scale; f = keep / (1 - rate)."""
+    p, mask = _probs(q, k, key_valid, num_heads, scale)
+    f = _drop(p.shape, seed, rate, p.device)
+    pd = p if f is None else p * f
+    g32, v32 = g.float(), v.float()
+    o = torch.bmm(pd, v32)
+    dv = torch.bmm(pd.transpose(1, 2), g32)
+    dpd = torch.bmm(g32, v32.transpose(1, 2))
+    dp = dpd if f is None else dpd * f
+    delta = (g32 * o).sum(dim=-1, keepdim=True)
+    ds = torch.where(mask, p * (dp - delta), torch.zeros_like(p))
+    dq = torch.bmm(ds, k.float()) * scale
+    dk = torch.bmm(ds.transpose(1, 2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
-    Returns (N, Lq, Dh) in q.dtype.
-    """
-    check_no_grad(KERNEL, q, k, v)
-    if q.device.type == "cpu":
-        return masked_attention_plain(q, k, v, key_valid, num_heads, scale)
+
+def _check(q, k, v, key_valid, num_heads):
     if q.device.type != "cuda":
         raise ValueError(f"{KERNEL}: unsupported device {q.device}")
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3:
@@ -71,13 +105,93 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.dtype != q.dtype:
             raise TypeError(f"{KERNEL}: {name} dtype {t.dtype} != "
                             f"{q.dtype}")
+    return n, lq, lk, dh, bf16
+
+
+def _launch_fwd(q, k, v, key_valid, num_heads, scale, rate, seed,
+                need_stats):
+    n, lq, lk, dh, bf16 = _check(q, k, v, key_valid, num_heads)
     valid_u8 = key_valid.to(device=q.device, dtype=torch.uint8).contiguous()
     o = torch.empty_like(q)
+    stats = None
+    rm = ri = 0
+    if need_stats:
+        stats = torch.empty((2, n, lq), dtype=torch.float32, device=q.device)
+        rm, ri = stats[0].data_ptr(), stats[1].data_ptr()
     lib = cuda_build.load_library()
     err = lib.coot_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_u8.data_ptr(),
-        o.data_ptr(), n, lq, lk, dh, num_heads, float(scale), int(bf16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        o.data_ptr(), rm, ri, n, lq, lk, dh, num_heads, float(scale),
+        *philox.kernel_args(rate, seed), int(bf16),
+        cuda_build.stream(q))
     cuda_build.check(err, KERNEL)
     cuda_build.launch_counts[KERNEL] += 1
-    return o
+    return o, valid_u8, stats
+
+
+def _launch_bwd(q, k, v, o, g, valid_u8, stats, num_heads, scale, rate,
+                seed):
+    n, lq, lk, dh, bf16 = _check(q, k, v, valid_u8, num_heads)
+    g = g.to(q.dtype).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    lib = cuda_build.load_library()
+    err = lib.coot_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
+        valid_u8.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), n, lq, lk, dh,
+        num_heads, float(scale), *philox.kernel_args(rate, seed), int(bf16),
+        cuda_build.stream(q))
+    cuda_build.check(err, KERNEL + "_bwd")
+    cuda_build.launch_counts[KERNEL + "_bwd"] += 1
+    return dq, dk, dv
+
+
+class _MaskedAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_valid, num_heads, scale, rate, seed):
+        ctx.params = (num_heads, scale, rate, seed)
+        need_grad = any(ctx.needs_input_grad[:3])
+        if q.device.type == "cpu":
+            if need_grad:
+                ctx.save_for_backward(q, k, v, key_valid)
+            return masked_attention_plain(q, k, v, key_valid, num_heads,
+                                          scale, rate, seed)
+        o, valid_u8, stats = _launch_fwd(q, k, v, key_valid, num_heads,
+                                         scale, rate, seed, need_grad)
+        if need_grad:
+            ctx.save_for_backward(q, k, v, valid_u8, o, stats)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, scale, rate, seed = ctx.params
+        saved = ctx.saved_tensors
+        if g.device.type == "cpu":
+            q, k, v, key_valid = saved
+            grads = masked_attention_backward_plain(
+                q, k, v, key_valid, g, num_heads, scale, rate, seed)
+        else:
+            q, k, v, valid_u8, o, stats = saved
+            grads = _launch_bwd(q, k, v, o, g, valid_u8, stats, num_heads,
+                                scale, rate, seed)
+        return (*grads, None, None, None, None, None)
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_valid: torch.Tensor, num_heads: int,
+                     scale: float, rate: float = 0.0,
+                     seed: int = 0) -> torch.Tensor:
+    """
+    Args:
+        q: (N, Lq, Dh) with N = B * num_heads (batch-major, head-minor)
+        k, v: (N, Lk, Dh)
+        key_valid: (B, Lk) bool, True = attend
+        scale: score scale (1/sqrt(Dh))
+        rate, seed: dropout on P (rate 0: none)
+
+    Returns (N, Lq, Dh) in q.dtype; differentiable in q, k and v.
+    """
+    return _MaskedAttention.apply(q, k, v, key_valid, int(num_heads),
+                                  float(scale), float(rate), int(seed))

@@ -7,17 +7,6 @@ import torch
 ACT_CODES = {"none": 0, "gelu": 1, "relu": 2}
 
 
-def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels are forward-only until the training slice adds their
-    backward: refuse to run where autograd would record them, so no
-    gradient can silently be wrong."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: forward-only kernel called with grad enabled on "
-            "tensors that require grad; run under torch.no_grad() or "
-            "torch.inference_mode()")
-
-
 def is_bf16(name: str, x: torch.Tensor) -> bool:
     """True for bfloat16, False for float32; anything else raises."""
     if x.dtype == torch.bfloat16:
@@ -48,3 +37,25 @@ def kernel_operand(t: torch.Tensor, dtype: torch.dtype,
     if t.data_ptr() % 32:
         t = t.clone()
     return t
+
+
+def gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """d gelu / dx of the exact-erf gelu, in float32."""
+    return (0.5 * (1.0 + torch.erf(x * 0.7071067811865476))
+            + x * torch.exp(-0.5 * x * x) * 0.3989422804014327)
+
+
+def act_fn(x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "gelu":
+        return torch.nn.functional.gelu(x)
+    if act == "relu":
+        return torch.relu(x)
+    return x
+
+
+def act_grad(x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "gelu":
+        return gelu_grad(x)
+    if act == "relu":
+        return (x > 0).to(torch.float32)
+    return torch.ones_like(x)

@@ -10,7 +10,8 @@ nothing here includes PyTorch's headers, which keeps the build to seconds.
 
 Every C entry launches on the stream it is given and returns
 `cudaGetLastError()`; `check()` raises when that is not 0. `launch_counts`
-counts wrapper calls that launched a kernel, by kernel name.
+counts wrapper calls that launched a kernel, by kernel name; a backward
+counts under `<name>_bwd`.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("input_fc.cu", "genpool.cu", "attention.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("input_fc.cu", "genpool.cu", "attention.cu", "dropout.cu")
+HEADERS = ("common.cuh", "philox.cuh", "tn_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -99,17 +100,44 @@ def build_library() -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
+_ULL = ctypes.c_ulonglong
+_U = ctypes.c_uint
 _SIGNATURES = {
-    # x, gain, bias, w, b, y, mean, inv, S, din, dout, eps, act, bf16, stream
-    "coot_input_fc_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                          _I, _I, _P],
-    # f, mask, w1, b1, w2, b2, out, S, L, D, H, heads, act, bf16, stream
-    "coot_genpool_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _P],
-    # q, k, v, key_valid, o, N, Lq, Lk, Dh, num_heads, scale, bf16, stream
-    "coot_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                           _P],
+    # x, gain, bias, w, b, y, mean, inv, pre, S, din, dout, eps, act, bf16,
+    # stream
+    "coot_input_fc_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _F, _I, _I, _P],
+    # x, gain, bias, w, mean, inv, pre, dy, dpre, scratch, dw, db, dgain,
+    # dbias, S, din, dout, act, splits, bf16, stream
+    "coot_input_fc_bwd": [_P] * 14 + [_I, _I, _I, _I, _I, _I, _P],
+    # f, mask, w1, b1, w2, b2, out, stats, S, L, D, H, heads, act, seed,
+    # thresh, drop scale, bf16, stream
+    "coot_genpool_fwd": [_P] * 8 + [_I, _I, _I, _I, _I, _I, _ULL, _U, _F,
+                                    _I, _P],
+    # f, mask, w1, b1, w2, b2, stats, dout, df, h1, dpre, dh2, scratch, dw1,
+    # db1, dw2, db2, S, L, D, H, heads, act, seed, thresh, drop scale,
+    # splits, bf16, stream
+    "coot_genpool_bwd": [_P] * 17 + [_I, _I, _I, _I, _I, _I, _ULL, _U, _F,
+                                     _I, _I, _P],
+    # q, k, v, key_valid, o, row_max, row_inv, N, Lq, Lk, Dh, num_heads,
+    # scale, seed, thresh, drop scale, bf16, stream
+    "coot_attention_fwd": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _ULL, _U, _F,
+                                      _I, _P],
+    # q, k, v, o, g, key_valid, row_max, row_inv, dq, dk, dv, N, Lq, Lk, Dh,
+    # num_heads, scale, seed, thresh, drop scale, bf16, stream
+    "coot_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _I, _F, _ULL, _U, _F,
+                                       _I, _P],
+    # x, y, n, seed, thresh, scale, site, bf16, stream
+    "coot_dropout": [_P, _P, _LL, _ULL, _U, _F, _U, _I, _P],
 }
+
+
+def splits_for(rows: int, tiles: int) -> int:
+    """Row splits of a weight-gradient reduction (csrc/tn_reduce.cuh):
+    about 2048 blocks over the output tiles, at least 256 rows per split,
+    at most 64 splits."""
+    return max(1, min(64, -(-2048 // max(tiles, 1)), rows // 256))
 
 
 @functools.lru_cache(maxsize=1)
@@ -121,6 +149,12 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def stream(t) -> int:
+    """The current CUDA stream of t's device, as the C entries take it."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(err: int, name: str) -> None:

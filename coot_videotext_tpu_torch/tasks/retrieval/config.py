@@ -171,3 +171,14 @@ class ExperimentTypesConst(typext.ConstantHolder):
     CAPTION = "caption"
 
 
+class CootMetersConst(typext.ConstantHolder):
+    """Retrieval meter names (reference :169)."""
+    TRAIN_LOSS_CC = "train/loss_cc"
+    TRAIN_LOSS_CONTRASTIVE = "train/loss_contr"
+    VAL_LOSS_CC = "val/loss_cc"
+    VAL_LOSS_CONTRASTIVE = "val/loss_contr"
+    RET_MODALITIES = ["vid2par", "par2vid", "cli2sen", "sen2cli"]
+    RET_MODALITIES_SHORT = ["v2p", "p2v", "c2s", "s2c"]
+    RET_METRICS = ["r1", "r5", "r10", "r50", "medr", "meanr"]
+
+

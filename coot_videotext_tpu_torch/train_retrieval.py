@@ -1,24 +1,32 @@
 """
-Retrieval validation and embedding export with the PyTorch package (the
-flags of the repo's train_retrieval.py, :62-120).
+Retrieval training, validation and embedding export with the PyTorch
+package (the flags of the repo's train_retrieval.py, :62-120).
 
     python -m coot_videotext_tpu_torch.train_retrieval \\
-        -c config/retrieval/paper2020/yc2_2d3d_coot.yaml --validate \\
-        [--load_model model_<ep>.pth] [--save_embeddings] \\
+        -c config/retrieval/paper2020/yc2_2d3d_coot.yaml \\
+        [-o train.num_epochs=N] [--reset] [--load_epoch E] [--device cpu]
+
+trains epochs, validates per `val_start` / `val_freq`, and writes the JAX
+trainer's experiment tree under experiments/retrieval/<group>/<name>_<run>/
+(trainerstate, per-step and per-epoch metrics json, scheduler json, and
+`models/model_<ep>.pth` / `optimizer_<ep>.pth`); a run that finds
+checkpoints resumes from the newest (or --load_epoch) unless --reset.
+
+    python -m coot_videotext_tpu_torch.train_retrieval -c <yaml> --validate \\
+        [--load_model model_<ep>.pth | --load_epoch E] [--save_embeddings] \\
         [--ignore_untrained] [--device cpu] [--embeddings_format npz]
 
+validates one checkpoint: `--load_model` takes a reference-layout file
+({net_name: state_dict}); without it, `--load_epoch E` or the newest
+`models/model_<ep>.pth` of the experiment directory is loaded.
 Runs on the CUDA device unless `--device cpu` is given; asked for CUDA
-without a GPU it raises. `--load_model` takes a reference-layout
-checkpoint ({net_name: state_dict}); without it, `--load_epoch N` or the
-newest `models/model_<ep>.pth` of the experiment directory is loaded.
-Training is the next slice of the port: without --validate this exits
-with an error.
+without a GPU it raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import glob
-import sys
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
@@ -30,11 +38,14 @@ from coot_videotext_tpu_torch.tasks.retrieval.config import (
     ExperimentTypesConst, RetrievalConfig)
 from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
     RetrievalModelManager)
+from coot_videotext_tpu_torch.tasks.retrieval.trainer import (
+    RetrievalTrainer)
 from coot_videotext_tpu_torch.tasks.retrieval.validate import (
     validate_retrieval)
 from coot_videotext_tpu_torch.utils import arguments
 from coot_videotext_tpu_torch.utils.general import (
     LOGGER_NAME, TrainerPathConst, create_logger)
+from coot_videotext_tpu_torch.utils.metrics import DefaultMetricsConst
 from coot_videotext_tpu_torch.utils.yaml_utils import load_yaml_config_file
 
 EXP_TYPE = ExperimentTypesConst.RETRIEVAL
@@ -57,12 +68,12 @@ def _checkpoint_to_load(path_models: Path, load_model: Optional[str],
                         load_epoch: Optional[int]) -> Optional[Path]:
     """Explicit file > requested epoch > newest model_<ep>.pth."""
     if load_model:
-        if load_epoch:
+        if load_epoch is not None:
             raise ValueError("--load_model cannot be combined with "
                              "--load_epoch")
         return Path(load_model)
     prefix = TrainerPathConst.FILE_PREFIX_MODEL
-    if load_epoch:
+    if load_epoch is not None:
         return path_models / f"{prefix}_{load_epoch}.pth"
     found = sorted(glob.glob(str(path_models / f"{prefix}_*.pth")),
                    key=lambda f: int(Path(f).stem.split("_")[-1]))
@@ -74,6 +85,13 @@ def build_parser() -> arguments.ArgParser:
     arguments.add_default_args(parser)
     arguments.add_exp_identifier_args(parser)
     arguments.add_trainer_args(parser)
+    parser.add_argument("--test_dataset", action="store_true",
+                        help="Print one collated train batch and exit.")
+    parser.add_argument("--preload", action="store_true",
+                        help="Preload video and text features into RAM.")
+    parser.add_argument("--preload_device", action="store_true",
+                        help="The device feature store (not ported yet: "
+                             "raises).")
     parser.add_argument("--load_model", type=str, default=None,
                         help="Load model from a reference-layout .pth.")
     parser.add_argument("--save_embeddings", action="store_true",
@@ -88,60 +106,105 @@ def build_parser() -> arguments.ArgParser:
 
 
 def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
-    """Run the CLI; returns the validation results of each run."""
+    """Run the CLI; returns one result dict per run: the validation
+    results, or after training the experiment directory, the trainer
+    state and the per-step training losses."""
     args = build_parser().parse_args(argv)
-    if not args.validate:
-        sys.exit("Training is not ported yet: it is the next slice of the "
-                 "PyTorch port (ROADMAP). Use --validate.")
+    if args.save_embeddings and not args.validate:
+        raise ValueError("--save_embeddings works in validation "
+                         "(--validate) only")
     device = resolve_device(args.device)
     exp_group, exp_name, config_file = \
         arguments.setup_experiment_identifier_from_args(args, EXP_TYPE)
     config = load_yaml_config_file(config_file)
     path_data = arguments.update_path_from_args(args)
     config = arguments.update_config_from_args(config, args)
-    cfg = RetrievalConfig(config, is_train=False)
+    if args.preload:
+        for dset in ("dataset_train", "dataset_val"):
+            config[dset]["preload_vid_feat"] = True
+            config[dset]["preload_text_feat"] = True
+    if args.preload_device:
+        config["dataset_train"]["preload_device"] = True
+    cfg = RetrievalConfig(config, is_train=not args.validate)
     if args.print_config:
         print(cfg)
     seed = cfg.random_seed if cfg.random_seed is not None else 0
-    _, _, _, val_loader = create_retrieval_datasets_and_loaders(
-        cfg, path_data, seed=seed)
+    train_set, _, train_loader, val_loader = \
+        create_retrieval_datasets_and_loaders(cfg, path_data, seed=seed)
+    if args.test_dataset:
+        _print_batch(len(train_set), train_loader)
+        return []
 
     all_results = []
     for run_number in range(args.start_run,
                             args.start_run + args.num_runs):
         run_name = f"{args.run_name}{run_number}"
-        path_base = (Path(args.log_dir) / EXP_TYPE / exp_group /
-                     f"{exp_name}_{run_name}")
-        logger = create_logger(
-            LOGGER_NAME, log_dir=path_base / TrainerPathConst.DIR_LOGS)
         mgr = RetrievalModelManager(cfg, device, seed=seed)
-        logger.info(f"Model: {mgr.count_parameters():,} parameters on "
-                    f"{device}, val dtype {mgr.val_dtype}")
-        ckpt = _checkpoint_to_load(
-            path_base / TrainerPathConst.DIR_MODELS, args.load_model,
-            args.load_epoch)
-        epoch = 0
-        if ckpt is not None:
-            logger.info(f"Loading model from {ckpt}")
-            mgr.load_file(str(ckpt))
-            if ckpt.stem.startswith(f"{TrainerPathConst.FILE_PREFIX_MODEL}_"):
-                epoch = int(ckpt.stem.split("_")[-1])
-        if not mgr.was_loaded and not args.ignore_untrained:
-            raise ValueError(
-                "Validating an untrained model! No checkpoints were "
-                "loaded. Add --ignore_untrained to validate anyway.")
-        emb_file = None
-        if args.save_embeddings or cfg.val.save_embeddings:
-            emb_file = (path_base / TrainerPathConst.DIR_EMBEDDINGS /
-                        f"embeddings_{epoch}.{args.embeddings_format}")
-        generator = torch.Generator(device=device).manual_seed(42)
-        results = validate_retrieval(
-            mgr.model, cfg, val_loader, device,
-            compute_dtype=mgr.val_dtype, val_clips=cfg.val.val_clips,
-            emb_file=emb_file, generator=generator, logger=logger)
-        results["emb_file"] = emb_file
-        all_results.append(results)
+        if args.validate:
+            all_results.append(_validate(args, cfg, mgr, val_loader,
+                                         exp_group, exp_name, run_name))
+            continue
+        trainer = RetrievalTrainer(
+            cfg, mgr, exp_group, exp_name, run_name, len(train_loader),
+            log_dir=args.log_dir, reset=args.reset,
+            load_best=args.load_best, load_epoch=args.load_epoch,
+            load_model=args.load_model)
+        try:
+            trainer.train_model(train_loader, val_loader)
+        except BaseException:
+            trainer.logger.exception("Run aborted by uncaught exception:")
+            raise
+        losses = trainer.metrics.storage_step[DefaultMetricsConst.TRAIN_LOSS]
+        all_results.append({
+            "path_base": trainer.exp.path_base,
+            "state": dataclasses.asdict(trainer.state),
+            "step_losses": [v for _, v in losses]})
     return all_results
+
+
+def _print_batch(num_points: int, loader) -> None:
+    """One collated batch's arrays (reference dataset_retrieval.py:491)."""
+    print(f"Dataset: {num_points} datapoints, {len(loader)} batches.")
+    for key, value in next(iter(loader)).items():
+        if hasattr(value, "shape"):
+            print(f"  {key}: {value.shape} {value.dtype}")
+        else:
+            print(f"  {key}: list[{len(value)}]")
+
+
+def _validate(args, cfg, mgr: RetrievalModelManager, val_loader,
+              exp_group: str, exp_name: str, run_name: str
+              ) -> Dict[str, Any]:
+    path_base = (Path(args.log_dir) / EXP_TYPE / exp_group /
+                 f"{exp_name}_{run_name}")
+    logger = create_logger(LOGGER_NAME,
+                           log_dir=path_base / TrainerPathConst.DIR_LOGS)
+    logger.info(f"Model: {mgr.count_parameters():,} parameters on "
+                f"{mgr.device}, val dtype {mgr.val_dtype}")
+    ckpt = _checkpoint_to_load(path_base / TrainerPathConst.DIR_MODELS,
+                               args.load_model, args.load_epoch)
+    epoch = 0
+    if ckpt is not None:
+        logger.info(f"Loading model from {ckpt}")
+        mgr.load_file(str(ckpt))
+        if ckpt.stem.startswith(f"{TrainerPathConst.FILE_PREFIX_MODEL}_"):
+            epoch = int(ckpt.stem.split("_")[-1])
+    if not mgr.was_loaded and not args.ignore_untrained:
+        raise ValueError(
+            "Validating an untrained model! No checkpoints were loaded. "
+            "Add --ignore_untrained to validate anyway.")
+    emb_file = None
+    if args.save_embeddings or cfg.val.save_embeddings:
+        emb_file = (path_base / TrainerPathConst.DIR_EMBEDDINGS /
+                    f"embeddings_{epoch}.{args.embeddings_format}")
+    results = validate_retrieval(
+        mgr.model, cfg, val_loader, mgr.device,
+        compute_dtype=mgr.val_dtype, val_clips=cfg.val.val_clips,
+        emb_file=emb_file,
+        generator=torch.Generator(device=mgr.device).manual_seed(42),
+        logger=logger)
+    results["emb_file"] = emb_file
+    return results
 
 
 if __name__ == "__main__":

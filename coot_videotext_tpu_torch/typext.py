@@ -2,13 +2,16 @@
 Typed-config / constants runtime.
 
 Copy of the parts of coot_videotext_tpu/typext.py that the PyTorch package
-uses (ConfigClass, ConstantHolder, INF): the package keeps its own copy so it
-never imports the JAX package.
+uses (ConfigClass, ConstantHolder, SaveableState, INF): the package keeps its
+own copy so it never imports the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Any, List
+import dataclasses
+import json
+from pathlib import Path
+from typing import Any, Dict, List, Union
 
 # fp16-safe infinity (reference nntrainer/typext.py:24). We keep the same
 # constant for additive attention masks: bf16 has fp32's exponent range so it
@@ -79,6 +82,34 @@ class ConstantHolder(metaclass=ConstantHolderMeta):
                 f"{value!r} is not a valid {cls.__name__}; valid: {cls._values}")
 
 
-# ---------- TypedNamedTuple: shape-validated data tuples ----------
+class SaveableState:
+    """
+    JSON-round-trippable dataclass mixin for trainer state
+    (reference typext.py:55 SaveableBaseModel). Subclasses must be
+    dataclasses.
+    """
 
+    def save(self, file: Union[str, Path]) -> None:
+        path = Path(file)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(path.suffix + ".tmp")
+        tmp.write_text(json.dumps(dataclasses.asdict(self), indent=2))
+        tmp.replace(path)
 
+    def load(self, file: Union[str, Path]) -> "SaveableState":
+        self.apply_dict(json.loads(Path(file).read_text()))
+        return self
+
+    def apply_dict(self, data: Dict[str, Any]) -> None:
+        field_names = {f.name for f in dataclasses.fields(self)}
+        for key, value in data.items():
+            if key not in field_names:
+                raise KeyError(
+                    f"Unknown field {key} for state {type(self).__name__}")
+            setattr(self, key, value)
+
+    @classmethod
+    def create_from_file(cls, file: Union[str, Path]):
+        obj = cls()
+        obj.load(file)
+        return obj

@@ -167,6 +167,14 @@ class TrainerPathConst(typext.ConstantHolder):
     FILE_PREFIX_TRANSL_METRICS = "text_metrics"
 
 
+class MetricComparisonConst(typext.ConstantHolder):
+    """Best-epoch comparison modes (reference utils.py:454)."""
+    VAL_DET_BEST_MODE_MIN = "min"
+    VAL_DET_BEST_MODE_MAX = "max"
+    VAL_DET_BEST_TH_MODE_REL = "rel"
+    VAL_DET_BEST_TH_MODE_ABS = "abs"
+
+
 class ExperimentTypesConst(typext.ConstantHolder):
     """Experiment types (task families)."""
     RETRIEVAL = "retrieval"

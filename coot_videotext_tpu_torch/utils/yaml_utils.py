@@ -1,6 +1,6 @@
 """
-YAML config loading with scientific-float coercion (copy of the loader of
-coot_videotext_tpu/utils/yaml_utils.py; behavioral parity with reference
+YAML config loading with scientific-float coercion, the config dump and the
+json sidecars (copy of coot_videotext_tpu/utils/yaml_utils.py; behavioral parity with reference
 nntrainer/utils_yaml.py:29-148).
 
 PyYAML's safe loader parses `1e-4` as a string unless it matches the strict
@@ -10,6 +10,7 @@ we coerce any string that python can parse as a float.
 
 from __future__ import annotations
 
+import json
 import re
 from pathlib import Path
 from typing import Any, Dict, Union
@@ -40,3 +41,21 @@ def load_yaml_config_file(file: Union[str, Path]) -> Dict[str, Any]:
     return _coerce_floats(data)
 
 
+def dump_yaml_config_file(file: Union[str, Path], data: Dict[str, Any]) -> None:
+    """Dump config to yaml and verify the round trip reproduces the input
+    (reference utils_yaml.py:123-148)."""
+    path = Path(file)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml.safe_dump(data, default_flow_style=False, indent=4,
+                                   sort_keys=False), encoding="utf8")
+    if _coerce_floats(data) != load_yaml_config_file(path):
+        raise ValueError(f"yaml round-trip verification failed for {file}")
+
+
+def dump_json(data: Any, file: Union[str, Path]) -> None:
+    """Write a small json sidecar (host state, not arrays)."""
+    Path(file).write_text(json.dumps(data, indent=2), encoding="utf8")
+
+
+def load_json(file: Union[str, Path]) -> Any:
+    return json.loads(Path(file).read_text(encoding="utf8"))

@@ -193,10 +193,18 @@ def test_cli_loads_a_reference_layout_checkpoint(synth, h5_run, tmp_path):
 
 
 def test_cli_refuses_training_and_untrained_models(synth):
+    """Training runs on the CPU (tests/test_torch_train.py holds it
+    against JAX); the CLI refuses an embedding export outside validation
+    and validation of a model no checkpoint was loaded into."""
     _, path, root = synth
-    with pytest.raises(SystemExit) as exc:
-        train_retrieval.main(_argv(path, root, "--device", "cpu"))
-    assert "next slice" in str(exc.value)
+    result = train_retrieval.main(_argv(
+        path, root, "--device", "cpu", "-r", "train", "-o",
+        "train.num_epochs=1"))[0]
+    assert result["state"]["current_epoch"] == 1
+    assert np.isfinite(result["step_losses"]).all()
+    with pytest.raises(ValueError, match="--validate"):
+        train_retrieval.main(_argv(path, root, "--device", "cpu",
+                                   "--save_embeddings"))
     with pytest.raises(ValueError, match="untrained"):
         train_retrieval.main(_argv(path, root, "--validate", "--device",
                                    "cpu", "-r", "fresh"))
@@ -212,6 +220,21 @@ def test_cli_device_defaults_to_cuda(synth):
     with pytest.raises(RuntimeError, match="--device cpu"):
         train_retrieval.main(_argv(path, root, "--validate",
                                    "--ignore_untrained"))
+
+
+def test_cli_dataset_test_and_preload(synth, capsys):
+    """--test_dataset prints one collated train batch and trains nothing;
+    --preload reads the features into RAM first; --preload_device asks
+    for the device store, which is not ported and raises."""
+    _, path, root = synth
+    assert train_retrieval.main(_argv(path, root, "--device", "cpu",
+                                      "--test_dataset", "--preload")) == []
+    out = capsys.readouterr().out
+    assert "Dataset: 4 datapoints, 1 batches." in out
+    assert "clip_feat: (6," in out
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        train_retrieval.main(_argv(path, root, "--device", "cpu",
+                                   "--preload_device"))
 
 
 def test_preload_device_true_raises(synth):

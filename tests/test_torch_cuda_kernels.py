@@ -9,7 +9,9 @@ package, so it also runs on the card's machine, which has no JAX:
 
 Tolerance, max |kernel - plain| / max(1, max |plain|): 1e-4 in float32
 (summation order), 1e-2 in bfloat16 (outputs rounded to 8 significant
-bits, so the two can land one bf16 step apart).
+bits, so the two can land one bf16 step apart); the same for every
+backward output. Dropout masks come from the same Philox bits on both
+sides, so kernel and plain agree on them exactly.
 """
 
 import pytest
@@ -17,10 +19,13 @@ import torch
 
 from coot_videotext_tpu_torch.ops import cuda_build
 from coot_videotext_tpu_torch.ops.attention import (
-    masked_attention, masked_attention_plain)
-from coot_videotext_tpu_torch.ops.genpool import genpool, genpool_plain
+    masked_attention, masked_attention_backward_plain,
+    masked_attention_plain)
+from coot_videotext_tpu_torch.ops.dropout import dropout, dropout_plain
+from coot_videotext_tpu_torch.ops.genpool import (
+    genpool, genpool_backward_plain, genpool_plain)
 from coot_videotext_tpu_torch.ops.input_fc import (
-    fused_input_fc, fused_input_fc_plain)
+    fused_input_fc, fused_input_fc_backward_plain, fused_input_fc_plain)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
@@ -118,3 +123,119 @@ def test_kernel_wrappers_reject_unsupported_inputs(cuda):
     half = torch.zeros(4, 8, 48, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         masked_attention(half, half, half, valid, 4, 1.0)
+
+
+def _grads(fn, inputs, g, name):
+    """Gradients of fn's output against g through the kernels' autograd
+    Function; the backward must launch once."""
+    before = cuda_build.launch_counts[name + "_bwd"]
+    inputs = [a.detach().clone().requires_grad_() for a in inputs]
+    out = fn(*inputs)
+    out.backward(g.to(out.dtype))
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts[name + "_bwd"] == before + 1
+    return [a.grad for a in inputs]
+
+
+def _fc_args(cuda, dtype, s, din, dout):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(s, din, generator=g, device=cuda) * 2 + 0.5
+    x[:3] = 3.0
+    params = [1 + 0.1 * torch.randn(din, generator=g, device=cuda),
+              0.1 * torch.randn(din, generator=g, device=cuda),
+              torch.randn(dout, din, generator=g, device=cuda) / din ** 0.5,
+              0.1 * torch.randn(dout, generator=g, device=cuda)]
+    dy = torch.randn(s, dout, generator=g, device=cuda)
+    return x.to(dtype), params, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_input_fc_backward_kernel(cuda, dtype):
+    """Ragged S with constant rows, the text width."""
+    x, params, dy = _fc_args(cuda, dtype, 1001, 1536, 384)
+    ours = _grads(lambda *p: fused_input_fc(x, *p, 1e-6, "gelu"), params,
+                  dy, "input_fc")
+    ref = fused_input_fc_backward_plain(x, *params, 1e-6, "gelu",
+                                        dy.to(dtype))
+    for a, r in zip(ours, ref):
+        assert _rel(a, r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_genpool_backward_kernel(cuda, dtype, rate):
+    """L = 80 with fully masked rows; dropout at the three sites."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    s, length, d, heads, dh = 48, 80, 384, 2, 384
+    f = torch.randn(s, length, d, generator=g, device=cuda).to(dtype)
+    lens = torch.randint(1, length + 1, (s,), generator=g, device=cuda)
+    mask = torch.arange(length, device=cuda)[None] < lens[:, None]
+    mask[:4] = False
+    params = [torch.randn(heads, d, dh, generator=g, device=cuda) / d ** 0.5,
+              0.1 * torch.randn(heads, dh, generator=g, device=cuda),
+              torch.randn(heads, dh, d // heads, generator=g,
+                          device=cuda) / dh ** 0.5,
+              0.1 * torch.randn(heads, d // heads, generator=g, device=cuda)]
+    dout = torch.randn(s, d, generator=g, device=cuda)
+    with torch.inference_mode():
+        assert _rel(genpool(f, mask, *params, "gelu", rate, 77),
+                    genpool_plain(f, mask, *params, "gelu", rate, 77)) \
+            <= TOL[dtype]
+    ours = _grads(lambda f_, *p: genpool(f_, mask, *p, "gelu", rate, 77),
+                  [f] + params, dout, "genpool")
+    ref = genpool_backward_plain(f, mask, *params, "gelu", dout.to(dtype),
+                                 rate, 77)
+    for i, (a, r) in enumerate(zip(ours, ref)):
+        # db2 (i = 4) is ~0 without dropout: compare it absolutely
+        assert _rel(a, r) <= TOL[dtype], i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,rate", [(80, 80, 0.0), (80, 80, 0.1),
+                                        (1, 16, 0.0), (300, 300, 0.1)])
+def test_attention_backward_kernel(cuda, dtype, lq, lk, rate):
+    """Self, cross (Lq = 1) and paragraph lengths, all-masked rows (zero
+    score gradient there), dropout on P."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, heads, dh = 16, 8, 48
+    qkv = [torch.randn(b * heads, n, dh, generator=g, device=cuda).to(dtype)
+           for n in (lq, lk, lk)]
+    lens = torch.randint(1, lk + 1, (b,), generator=g, device=cuda)
+    key_valid = torch.arange(lk, device=cuda)[None] < lens[:, None]
+    key_valid[:2] = False
+    go = torch.randn(b * heads, lq, dh, generator=g, device=cuda)
+    with torch.inference_mode():
+        assert _rel(masked_attention(*qkv, key_valid, heads, dh ** -0.5,
+                                     rate, 9),
+                    masked_attention_plain(*qkv, key_valid, heads,
+                                           dh ** -0.5, rate, 9)) \
+            <= TOL[dtype]
+    ours = _grads(lambda *a: masked_attention(*a, key_valid, heads,
+                                              dh ** -0.5, rate, 9),
+                  qkv, go, "attention")
+    ref = masked_attention_backward_plain(*qkv, key_valid, go.to(dtype),
+                                          heads, dh ** -0.5, rate, 9)
+    for a, r in zip(ours, ref):
+        assert _rel(a, r) <= TOL[dtype]
+    assert float(ours[0][:2 * heads].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernel(cuda, dtype):
+    """A ragged element count; forward and backward equal the plain
+    version exactly (same bits, one rounding)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(1001, 383, generator=g, device=cuda).to(dtype)
+    before = cuda_build.launch_counts["dropout"]
+    with torch.inference_mode():
+        y = dropout(x, 2 ** 50 + 3, 0.1)
+    assert cuda_build.launch_counts["dropout"] == before + 1
+    assert torch.equal(y, dropout_plain(x, 2 ** 50 + 3, 0.1))
+    gy = torch.randn(1001, 383, generator=g, device=cuda)
+    gx, = _grads(lambda a: dropout(a, 2 ** 50 + 3, 0.1), [x], gy,
+                 "dropout")
+    assert torch.equal(gx, dropout_plain(gy.to(dtype), 2 ** 50 + 3, 0.1))

@@ -5,8 +5,12 @@ against the JAX package.
 Each plain PyTorch version is compared with the JAX `*_reference` and with
 the JAX Pallas kernel run as the JAX package's own tests run it on the CPU
 (`interpret=True` for the input FC and GenPool, force_tpu_interpret_mode for
-attention), on the same numpy inputs, in float32 at atol = rtol = 2e-5.
-The CUDA kernels themselves run only on the card:
+attention), on the same numpy inputs, in float32: forwards at atol = rtol =
+2e-5; each plain backward against jax.grad of the reference and against the
+Pallas backward kernel at 1e-4 x max(1, max |reference|) per tensor (the
+two sum in different orders). With dropout on, each plain backward is held
+against autograd through its own plain forward (the masks are Philox bits
+that JAX does not draw). The CUDA kernels themselves run only on the card:
 tests/test_torch_cuda_kernels.py holds them against the plain versions.
 """
 
@@ -14,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
@@ -22,14 +27,26 @@ from coot_videotext_tpu.ops import pallas_genpool as jgen
 from coot_videotext_tpu.ops import pallas_input_fc as jfc
 from coot_videotext_tpu_torch.ops import cuda_build
 from coot_videotext_tpu_torch.ops.attention import (
-    masked_attention, masked_attention_plain)
-from coot_videotext_tpu_torch.ops.genpool import genpool, genpool_plain
+    masked_attention, masked_attention_backward_plain,
+    masked_attention_plain)
+from coot_videotext_tpu_torch.ops.dropout import dropout, dropout_plain
+from coot_videotext_tpu_torch.ops.genpool import (
+    genpool, genpool_backward_plain, genpool_plain)
 from coot_videotext_tpu_torch.ops.input_fc import (
-    fused_input_fc, fused_input_fc_plain)
+    fused_input_fc, fused_input_fc_backward_plain, fused_input_fc_plain)
 
 torch.set_num_threads(1)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = 1e-4
+
+
+def _close_grad(ours, ref, name=""):
+    """max |ours - ref| <= GRAD_TOL * max(1, max |ref|)."""
+    ours, ref = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
+    assert ours.shape == ref.shape, (name, ours.shape, ref.shape)
+    err = np.abs(ours - ref).max()
+    assert err <= GRAD_TOL * max(1.0, np.abs(ref).max()), (name, err)
 
 
 def _fc_inputs(s, din, dout, seed=0, constant_rows=2):
@@ -156,14 +173,243 @@ def test_attention_plain_matches_jax(b, heads, lq, lk):
 
 
 def test_wrappers_refuse_autograd():
-    """Forward-only kernels: no silently wrong gradient."""
+    """B1 refuses a gradient into its input (pipeline data, as the JAX
+    kernel's zero input cotangent); gradients flow to every parameter of
+    B1-B3 and through B4."""
     x, gain, bias, w, b = _fc_inputs(8, 16, 8)
-    wt = torch.from_numpy(np.ascontiguousarray(w.T)).requires_grad_()
     t = torch.from_numpy
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fused_input_fc(t(x), t(gain), t(bias), wt, t(b), 1e-6, "gelu")
-    with torch.no_grad():
-        fused_input_fc(t(x), t(gain), t(bias), wt, t(b), 1e-6, "gelu")
+    params = [t(gain).requires_grad_(), t(bias).requires_grad_(),
+              t(np.ascontiguousarray(w.T)).requires_grad_(),
+              t(b).requires_grad_()]
+    with pytest.raises(ValueError, match="pipeline data"):
+        fused_input_fc(t(x).requires_grad_(), *params, 1e-6, "gelu")
+    fused_input_fc(t(x), *params, 1e-6, "gelu").sum().backward()
+    f, mask, *heads = _genpool_inputs(3, 20, 32, 64, 2)
+    f = t(f).requires_grad_()
+    heads = [t(a).requires_grad_() for a in heads]
+    pooled = genpool(f, t(mask), *heads, "gelu")
+    pooled.backward(torch.randn_like(pooled))
+    q, k, v, key_valid = (t(a) for a in _attn_inputs(4, 2, 6, 16, 8))
+    qkv = [a.requires_grad_() for a in (q, k, v)]
+    out = masked_attention(*qkv, key_valid, 2, 0.3)
+    out.backward(torch.randn_like(out))
+    y = t(x).requires_grad_()
+    dropout(y, 5, 0.5).sum().backward()
+    # b2 (heads[3]) shifts a whole softmax column: its gradient is ~0
+    for p in params + [f] + heads[:3] + qkv + [y]:
+        assert p.grad is not None and bool(p.grad.abs().sum() > 0)
+    assert heads[3].grad is not None
+
+
+@pytest.mark.parametrize("act", ["gelu", "none"])
+def test_input_fc_backward_matches_jax_grad(act):
+    """The plain backward, and autograd through the wrapper, against
+    jax.grad of the JAX reference; constant rows included."""
+    x, gain, bias, w, b = _fc_inputs(70, 96, 40, seed=2)
+    dy = np.random.RandomState(3).randn(70, 40).astype(np.float32)
+
+    def loss(g_, bi_, w_, b_):
+        y = jfc.fused_input_fc_reference(jnp.asarray(x), g_, bi_, w_, b_,
+                                         1e-6, act)
+        return jnp.sum(y * dy)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2, 3))(gain, bias, w, b)
+    t = torch.from_numpy
+    plain = fused_input_fc_backward_plain(
+        t(x), t(gain), t(bias), t(np.ascontiguousarray(w.T)), t(b), 1e-6,
+        act, t(dy))
+    params = [t(gain).requires_grad_(), t(bias).requires_grad_(),
+              t(np.ascontiguousarray(w.T)).requires_grad_(),
+              t(b).requires_grad_()]
+    fused_input_fc(t(x), *params, 1e-6, act).backward(t(dy))
+    for name, ours, grad, r in zip(("gain", "bias", "w", "b"), plain,
+                                   params, ref):
+        r = np.asarray(r).T if name == "w" else np.asarray(r)
+        _close_grad(ours.numpy(), r, name)
+        _close_grad(grad.grad.numpy(), r, name)
+
+
+def test_input_fc_backward_matches_pallas_interpret():
+    x, gain, bias, w, b = _fc_inputs(64, 128, 128, seed=4)
+    dy = np.random.RandomState(5).randn(64, 128).astype(np.float32)
+    _, pre = jfc._fwd_call(jnp.asarray(x), gain, bias, w, b, 1e-6, "gelu",
+                           need_pre=True, interpret=True)
+    _, dgain, dbias, dw, db = jfc._bwd_call(
+        jnp.asarray(x), gain, bias, w, pre, jnp.asarray(dy), 1e-6, "gelu",
+        interpret=True)
+    t = torch.from_numpy
+    ours = fused_input_fc_backward_plain(
+        t(x), t(gain), t(bias), t(np.ascontiguousarray(w.T)), t(b), 1e-6,
+        "gelu", t(dy))
+    for name, a, r in zip(("gain", "bias", "w", "b"), ours,
+                          (dgain, dbias, np.asarray(dw).T, db)):
+        _close_grad(a.numpy(), np.asarray(r), name)
+
+
+def _torch_genpool_grads(f, mask, heads, act, dout, rate=0.0, seed=0):
+    t = torch.from_numpy
+    ft = t(f).requires_grad_()
+    ht = [t(a).requires_grad_() for a in heads]
+    genpool(ft, t(mask), *ht, act, rate, seed).backward(t(dout))
+    return [ft.grad] + [a.grad for a in ht]
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_genpool_backward_matches_jax_grad(act):
+    """df and every parameter gradient against jax.grad of the JAX
+    reference in the flat layout (the dense w2's diagonal blocks are the
+    per-head gradients); db2 is identically ~0 deterministically
+    (pallas_genpool.py:39-44) and is held to an absolute 1e-5."""
+    f, mask, *heads = _genpool_inputs(6, 20, 32, 64, 2, seed=6)
+    dout = np.random.RandomState(7).randn(6, 32).astype(np.float32)
+    flat = [jnp.asarray(a) for a in jgen.head_params_to_flat(*heads)]
+
+    def loss(f_, w1_, b1_, w2_, b2_):
+        y = jgen.fused_genpool_reference(f_, jnp.asarray(mask), w1_, b1_,
+                                         w2_, b2_, act)
+        return jnp.sum(y * dout)
+
+    rf, rw1, rb1, rw2, rb2 = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+        jnp.asarray(f), *flat)
+    df, dw1, db1, dw2, db2 = _torch_genpool_grads(f, mask, heads, act, dout)
+    _close_grad(df.numpy(), np.asarray(rf), "df")
+    _close_grad(dw1.permute(1, 0, 2).reshape(32, 64).numpy(),
+                np.asarray(rw1), "dw1")
+    _close_grad(db1.reshape(-1).numpy(), np.asarray(rb1), "db1")
+    rw2 = np.asarray(rw2)
+    for hh in range(2):
+        _close_grad(dw2[hh].numpy(),
+                    rw2[hh * 32:(hh + 1) * 32, hh * 16:(hh + 1) * 16],
+                    f"dw2[{hh}]")
+    assert np.abs(db2.numpy()).max() <= 1e-5
+    assert np.abs(np.asarray(rb2)).max() <= 1e-5
+
+
+def test_genpool_backward_matches_pallas_interpret():
+    f, mask, *heads = _genpool_inputs(8, 16, 128, 256, 2, seed=8)
+    dout = np.random.RandomState(9).randn(8, 128).astype(np.float32)
+    w1, b1, w2, b2 = (jnp.asarray(a) for a in
+                      jgen.head_params_to_flat(*heads))
+    rf, rw1, rb1, rw2, _ = jgen._bwd_call(
+        jnp.asarray(f), jnp.asarray(mask), w1, b1, w2, b2,
+        jnp.zeros(1, jnp.int32), jnp.asarray(dout), "gelu", 0.0, False,
+        interpret=True)
+    df, dw1, db1, dw2, _ = _torch_genpool_grads(f, mask, heads, "gelu",
+                                                dout)
+    _close_grad(df.numpy(), np.asarray(rf), "df")
+    _close_grad(dw1.permute(1, 0, 2).reshape(128, 256).numpy(),
+                np.asarray(rw1), "dw1")
+    _close_grad(db1.reshape(-1).numpy(), np.asarray(rb1), "db1")
+    rw2 = np.asarray(rw2)
+    for hh in range(2):
+        _close_grad(dw2[hh].numpy(),
+                    rw2[hh * 128:(hh + 1) * 128, hh * 64:(hh + 1) * 64],
+                    f"dw2[{hh}]")
+
+
+def _attn_grads(q, k, v, key_valid, heads, scale, g, rate=0.0, seed=0):
+    t = torch.from_numpy
+    qkv = [t(a).requires_grad_() for a in (q, k, v)]
+    masked_attention(*qkv, t(key_valid), heads, scale, rate,
+                     seed).backward(t(g))
+    return [a.grad.numpy() for a in qkv]
+
+
+@pytest.mark.parametrize("b,heads,lq,lk", [(3, 2, 20, 20), (4, 8, 1, 16)],
+                         ids=["self", "cross_lq1"])
+def test_attention_backward_matches_module_autodiff(b, heads, lq, lk):
+    """dq, dk, dv against jax.grad of masked_attention_reference, the
+    module's math. The last batch row has every key masked: autodiff of
+    where(mask, s, -INF) gives a zero score gradient there (so dq = dk =
+    0 on those cells) while dv keeps the uniform-average term; the Pallas
+    _bwd_kernel does not zero it, so it is not the oracle here."""
+    q, k, v, key_valid = _attn_inputs(b, heads, lq, lk, 48, seed=10)
+    g = np.random.RandomState(11).randn(*q.shape).astype(np.float32)
+    scale = 48 ** -0.5
+    jm = _jax_mask(key_valid, heads, lq)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(jattn.masked_attention_reference(q_, k_, v_, jm,
+                                                        scale) * g)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                              for a in (q, k, v)))
+    ours = _attn_grads(q, k, v, key_valid, heads, scale, g)
+    for name, a, r in zip("qkv", ours, ref):
+        _close_grad(a, np.asarray(r), "d" + name)
+    last = slice((b - 1) * heads, b * heads)
+    assert np.abs(ours[0][last]).max() == 0.0
+    assert np.abs(ours[1][last]).max() == 0.0
+    assert np.abs(ours[2][last]).max() > 0.0
+
+
+def test_attention_backward_matches_pallas_interpret():
+    """Against the Pallas backward kernel on rows with at least one valid
+    key (where the two formulations agree)."""
+    q, k, v, key_valid = _attn_inputs(3, 2, 20, 20, 48, seed=12)
+    key_valid[-1, 0] = True
+    g = np.random.RandomState(13).randn(*q.shape).astype(np.float32)
+    scale = 48 ** -0.5
+    jm = _jax_mask(key_valid, 2, 20)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(jattn.pallas_masked_attention(q_, k_, v_, jm,
+                                                     scale) * g)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.grad(loss, argnums=(0, 1, 2))(
+            *(jnp.asarray(a) for a in (q, k, v)))
+    ours = _attn_grads(q, k, v, key_valid, 2, scale, g)
+    for name, a, r in zip("qkv", ours, ref):
+        _close_grad(a, np.asarray(r), "d" + name)
+
+
+def _autograd_of_plain(fn, inputs, g):
+    inputs = [a.clone().requires_grad_() for a in inputs]
+    out = fn(*inputs)
+    return torch.autograd.grad(out, inputs, g)
+
+
+@pytest.mark.parametrize("kernel", ["genpool", "attention", "dropout"])
+def test_backward_with_dropout_matches_autograd_of_plain(kernel):
+    """With dropout on, each explicit plain backward equals autograd
+    through the plain forward with the same Philox masks."""
+    t = torch.from_numpy
+    rate, seed = 0.3, 1234
+    if kernel == "genpool":
+        f, mask, *heads = _genpool_inputs(4, 20, 32, 64, 2, seed=14)
+        inputs = [t(f)] + [t(a) for a in heads]
+        g = torch.randn(4, 32, generator=torch.Generator().manual_seed(0))
+        ref = _autograd_of_plain(
+            lambda *a: genpool_plain(a[0], t(mask), *a[1:], "gelu", rate,
+                                     seed), inputs, g)
+        ours = genpool_backward_plain(inputs[0], t(mask), *inputs[1:],
+                                      "gelu", g, rate, seed)
+        through = _torch_genpool_grads(f, mask, heads, "gelu", g.numpy(),
+                                       rate, seed)
+    elif kernel == "attention":
+        q, k, v, key_valid = _attn_inputs(3, 2, 7, 9, 8, seed=15)
+        inputs = [t(q), t(k), t(v)]
+        g = torch.randn(6, 7, 8, generator=torch.Generator().manual_seed(0))
+        ref = _autograd_of_plain(
+            lambda *a: masked_attention_plain(*a, t(key_valid), 2, 0.3,
+                                              rate, seed), inputs, g)
+        ours = masked_attention_backward_plain(*inputs, t(key_valid), g, 2,
+                                               0.3, rate, seed)
+        through = [t(a) for a in _attn_grads(q, k, v, key_valid, 2, 0.3,
+                                             g.numpy(), rate, seed)]
+    else:
+        x = torch.randn(33, 17, generator=torch.Generator().manual_seed(0))
+        g = torch.randn(33, 17, generator=torch.Generator().manual_seed(1))
+        ref = _autograd_of_plain(lambda a: dropout_plain(a, seed, rate),
+                                 [x], g)
+        ours = [dropout_plain(g, seed, rate)]
+        xg = x.clone().requires_grad_()
+        dropout(xg, seed, rate).backward(g)
+        through = [xg.grad]
+    for a, b, r in zip(ours, through, ref):
+        _close_grad(a.detach().numpy(), r.numpy())
+        _close_grad(b.detach().numpy(), r.numpy())
 
 
 def test_cpu_path_launches_no_kernel():
