@@ -9,28 +9,36 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    float32 reference is full float32.
 2. Kernels: builds the CUDA sources of coot_videotext_tpu_torch/csrc with
    nvcc (sm_90a) and holds each kernel (B1 input FC, B2 GenPool, B3 masked
-   attention, forward and backward, and B4 dropout) against its plain
-   PyTorch version on the card, in bfloat16 and float32, at the slices'
-   shapes and edge cases (ragged S, constant rows, all-masked rows,
-   Lq = 1, dropout on with one seed: the masks must agree exactly).
+   attention, forward and backward, B4 dropout and B5 row gather) against
+   its plain PyTorch version on the card, in bfloat16 and float32, at the
+   slices' shapes and edge cases (ragged S, constant rows, all-masked rows,
+   Lq = 1, dropout on with one seed: the masks must agree exactly; B5
+   bit-equal, its noise's bounds and std, a 4.4 GB table).
 3. Validation at full width: generates a synthetic YouCook2-like val set
    (4096-d video / 1536-d text features, 128 val videos) in a temporary
    directory and runs `python -m coot_videotext_tpu_torch.train_retrieval
-   -c config/retrieval/paper2020/yc2_2d3d_coot.yaml --validate
-   --ignore_untrained --save_embeddings` in-process, with every kernel's
-   launch count set to 0 just before and read just after; checks finite
-   embeddings, device ranks against host ranks, and one batch against the
-   port on the CPU in float32.
+   -c <yc2_2d3d_coot.yaml with npy features> --validate --ignore_untrained
+   --save_embeddings` in-process four ways (host dense, host slab, device
+   store with host index collation, device store with on-device sampling
+   and packing via --fixed_shapes), each with every kernel's launch count
+   set to 0 just before and read just after; checks finite embeddings,
+   every mode's rows against mode 1's (cosine), device ranks against host
+   ranks, and one batch against the port on the CPU in float32.
 4. Training at full width (bf16 compute, f32 master weights, dropout 0.01
-   at every site): on a generated train split, the CLI trains one epoch,
-   validates and checkpoints, with every forward and backward launch count
-   set to 0 just before and read just after; `--validate --load_epoch 0`
-   reads the checkpoint back; one fixed batch trained 16 steps must lower
-   its loss; the warm train step is timed, profiled and its peak memory
-   read.
+   at every site, frame noise 0.01): on a generated 256-video train split
+   the CLI trains one epoch from the device store with on-device sampling
+   and packing, validates and checkpoints, with every launch count set to
+   0 just before and read just after; `--validate --load_epoch 0` reads
+   the checkpoint back; the run resumes for 4 more epochs (16 steps),
+   which time training end to end; the store with host-sampled index
+   batches (the config's default, no --fixed_shapes) trains one epoch; the
+   host dense path trains one epoch of 128 videos; one fixed id batch
+   trained 16 steps must lower its loss; the warm train step is timed,
+   profiled and its peak memory read.
 5. Times each kernel, forward and backward, at the main path's shapes (CUDA
    events) beside its plain version, its library yardstick where one
-   exists, and its bound.
+   exists, and its bound; B5 at each store gather of a step, with and
+   without noise.
 
 Prints `{"kernels": [...]}` on the line before the last and
 `{"ok": true, "device": {...}}` as the last line; exits non-zero (and
@@ -63,10 +71,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # results that differ in the last digits can land one bf16 step apart
 # (2^-7 relative at worst).
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
-NPY_SOURCES = ("dataset_train.vid_feat_source=npy,"
-               "dataset_train.text_feat_source=npy")
-# One batch on the card in bfloat16 against the CPU in float32: cosine
-# of each embedding row.
+# One batch on the card in bfloat16 against the CPU in float32, and each
+# validation path against the host dense one: cosine of each embedding row.
 MIN_COSINE = 0.99
 
 
@@ -352,58 +358,201 @@ def phase_kernel_checks():
     return worst
 
 
+# standard normal truncated at +-2: the std of B5's noise draws
+TRUNCNORM_STD = math.sqrt(
+    1.0 - 4.0 * math.exp(-2.0) / math.sqrt(2.0 * math.pi)
+    / math.erf(math.sqrt(2.0)))
+
+
+def phase_gather_checks():
+    """B5 against its plain version: bit-equal with and without the fused
+    noise (both take the same Philox bits, CUDA's erfinvf and one rounding
+    to the table's dtype; a tolerance would let a kernel that drops or
+    mis-keys noise of std 0.01 pass); the noise's bounds and std over 1e6
+    draws; a 4.4 GB table (540,000 x 4096 bf16, a real YouCook2 video
+    store) gathered near its end, past 2^31 elements."""
+    import torch
+    from coot_videotext_tpu_torch.ops import cuda_build, philox
+    from coot_videotext_tpu_torch.ops.gather import (
+        GatherNoise, gather_rows, gather_rows_plain)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def launch(table, idx, noise=None):
+        before = cuda_build.launch_counts["gather"]
+        out = gather_rows(table, idx, noise)
+        torch.cuda.synchronize()
+        if cuda_build.launch_counts["gather"] != before + 1:
+            fail("gather: the wrapper did not count its launch")
+        return out
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for d in (4096, 1536):
+            table = torch.randn(20000, d, generator=gen,
+                                device="cuda").to(dtype)
+            for n in (81920, 1001):
+                idx = torch.randint(0, 20000, (n,), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+                idx[:7] = 19999  # the last row, repeated
+                idx[7:11] = idx[11]
+                desc = f"T=20000 D={d} N={n}"
+                out = launch(table, idx)
+                if not torch.equal(out, gather_rows_plain(table, idx)):
+                    fail(f"gather {dn} {desc}: kernel and plain differ")
+                log(f"  gather        {dn:8s} {desc:34s} bit-equal")
+                noise = GatherNoise(0.01, 20261016, philox.SITE_NOISE_CLIP)
+                out = launch(table, idx, noise)
+                ref = gather_rows_plain(table, idx, noise)
+                if not torch.equal(out, ref):
+                    fail(f"gather {dn} {desc} noise: kernel and plain "
+                         f"differ by up to {errors(out, ref)[0]}")
+                if torch.equal(out, gather_rows_plain(table, idx)):
+                    fail(f"gather {dn} {desc} noise: no noise was added")
+                log(f"  gather        {dn:8s} {desc + ' noise 0.01':34s} "
+                    "bit-equal")
+            del table
+    # the noise alone: 1e6 draws of std 1 on a zero table
+    zeros = torch.zeros(1, 1000, device="cuda")
+    rows = torch.zeros(1000, dtype=torch.int32, device="cuda")
+    noise = GatherNoise(1.0, 7, philox.SITE_NOISE_VIDEO)
+    draws = launch(zeros, rows, noise)
+    if not torch.equal(draws, gather_rows_plain(zeros, rows, noise)):
+        fail("gather noise: the draws differ from the plain version's")
+    top, std = float(draws.abs().max()), float(draws.std())
+    log(f"  gather noise: 1e6 draws, max |tn| {top:.6f}, std {std:.5f} "
+        f"(truncated normal {TRUNCNORM_STD:.5f}), mean "
+        f"{float(draws.mean()):+.5f}")
+    if top > 2.0 or abs(std / TRUNCNORM_STD - 1.0) > 0.02:
+        fail(f"gather noise: max {top}, std {std}")
+    # 64-bit offsets: the last rows of a 4.4 GB store
+    rows = 540000
+    big = torch.empty(rows, 4096, dtype=torch.bfloat16, device="cuda")
+    for r0 in range(0, rows, 60000):
+        big[r0:r0 + 60000] = torch.randn(min(60000, rows - r0), 4096,
+                                         generator=gen, device="cuda")
+    idx = (rows - 1 - torch.arange(1001, device="cuda") * 37).to(
+        torch.int32)
+    idx[:3] = rows - 1
+    if not torch.equal(launch(big, idx), gather_rows_plain(big, idx)):
+        fail("gather: the 4.4 GB table's last rows differ")
+    gb = big.numel() * 2 / 1e9
+    log(f"  gather        bfloat16 540000x4096 table ({gb:.2f} GB), 1001 "
+        "rows near its end: bit-equal")
+    del big
+    torch.cuda.empty_cache()
+    return 0.0  # the largest error: every comparison above is bit-equal
+
+
+def _config(tmp: Path, **dataset) -> Path:
+    """yc2_2d3d_coot.yaml with npy feature files (the card's machine has
+    no h5py) and `dataset` set on dataset_train, which dataset_val
+    inherits (same_as), written to tmp/yc2_2d3d_coot.yaml."""
+    import yaml
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    cfg = load_yaml_config_file(CONFIG)
+    cfg["dataset_train"].update(vid_feat_source="npy",
+                                text_feat_source="npy", **dataset)
+    tmp.mkdir(parents=True, exist_ok=True)
+    path = tmp / CONFIG.name
+    # in the file's order: a same_as group must follow the one it names
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False), encoding="utf8")
+    return path
+
+
+# the four validation paths: (name, dataset keys, extra CLI flags)
+VAL_MODES = (
+    ("host dense", dict(preload_device=False, pack_transfer=False), []),
+    ("host slab", dict(preload_device=False), []),
+    ("store, host indices", {}, []),
+    ("store, device sampling + packing", {}, ["--fixed_shapes"]),
+)
+
+
+def _cosines(embs, ref, valid):
+    """Smallest cosine of an embedding row against the reference's, over
+    the embedding keys (rows of real videos / parts only)."""
+    import numpy as np
+    worst = 1.0
+    for key in valid:
+        a, b = embs[key], ref[key]
+        if a.shape != b.shape:
+            fail(f"{key}: {a.shape} vs {b.shape}")
+        cos = (a * b).sum(-1) / np.maximum(
+            np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1), 1e-12)
+        worst = min(worst, float(cos.min()))
+    return worst
+
+
 def phase_slice(tmp: Path):
-    """The validation + embedding export path at full width."""
+    """The validation + embedding export path at full width, four ways
+    (host dense, host slab, store with host index collation, store with
+    on-device sampling and packing), all without frame noise."""
     import numpy as np
     import torch
     from coot_videotext_tpu_torch import train_retrieval
     from coot_videotext_tpu_torch.ops import cuda_build
-    from coot_videotext_tpu_torch.tasks.retrieval.config import (
-        RetrievalConfig)
-    from coot_videotext_tpu_torch.utils.yaml_utils import (
-        load_yaml_config_file)
+    from coot_videotext_tpu_torch.tasks.retrieval.steps import EMB_KEYS
 
     t0 = time.time()
     _yc2_dataset(tmp / "data", 4, 128, seed=0)
     log(f"generated the synthetic yc2-like set (128 val videos) in "
         f"{time.time() - t0:.1f} s")
-
-    # the features as .npy files and the embeddings as .npz: the card's
-    # machine has no h5py; the arrays and their names are the h5 schema's
-    argv = ["-c", str(CONFIG), "--validate", "--ignore_untrained",
-            "--save_embeddings", "--data_path", str(tmp / "data"),
-            "--log_dir", str(tmp / "experiments"), "-o", NPY_SOURCES,
-            "--embeddings_format", "npz"]
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    cuda_build.reset_launch_counts()
-    t0 = time.time()
-    results = train_retrieval.main(argv)[0]
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = dict(cuda_build.launch_counts)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"validation path launches: {launches}")
-
+    runs = []
+    for i, (name, dataset, flags) in enumerate(VAL_MODES):
+        mode_dir = tmp / f"mode{i + 1}"
+        argv = ["-c", str(_config(mode_dir, frames_noise=0, **dataset)),
+                "--validate", "--ignore_untrained", "--save_embeddings",
+                "--data_path", str(tmp / "data"), "--log_dir",
+                str(mode_dir / "experiments"), "--embeddings_format",
+                "npz"] + flags
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        t0 = time.time()
+        results = train_retrieval.main(argv)[0]
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(cuda_build.launch_counts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_vid, batches = results["num_videos"], results["num_batches"]
+        log(f"validation mode {i + 1} ({name}): launches {launches}; "
+            f"{n_vid} videos in {batches} batches, "
+            f"{n_vid / results['total_s']:.2f} videos/s end to end (pass "
+            f"{results['total_s']:.2f} s, main() {wall:.2f} s), "
+            f"{results['forward_s'] / batches * 1e3:.2f} ms per batch in "
+            f"the eval step, peak device memory {peak_gb:.2f} GB")
+        for kernel in ("input_fc", "genpool", "attention"):
+            if launches.get(kernel, 0) <= 0:
+                fail(f"kernel {kernel} was not launched in validation mode "
+                     f"{i + 1}")
+        if (launches.get("gather", 0) > 0) != (i > 0):
+            fail(f"validation mode {i + 1}: {launches.get('gather', 0)} "
+                 "gather launches (0 on the host dense path, > 0 else)")
+        embs = results["embeddings"]
+        for key, arr in embs.items():
+            if not np.isfinite(arr).all():
+                fail(f"mode {i + 1}: non-finite values in {key}")
+        if n_vid != 128 or embs["vid_emb"].shape != (128, 768):
+            fail(f"mode {i + 1}: unexpected embeddings "
+                 f"{embs['vid_emb'].shape}")
+        with np.load(results["emb_file"]) as saved:
+            expect = {"clip_num", "sent_num", "key"} | {
+                f"{k}{s}" for k in embs for s in ("", "_before_norm")}
+            if set(saved.files) != expect or len(saved["key"]) != n_vid:
+                fail(f"embedding file {results['emb_file']} lacks the "
+                     "schema")
+        if runs:
+            cos = _cosines(embs, runs[0][1]["embeddings"], EMB_KEYS)
+            log(f"  against mode 1: min cosine per row {cos:.6f} (need >= "
+                f"{MIN_COSINE}); v2p r1 {results['v2p']['r1']:.4f} vs "
+                f"{runs[0][1]['v2p']['r1']:.4f}")
+            if not cos >= MIN_COSINE:
+                fail(f"validation mode {i + 1} vs mode 1: cosine {cos}")
+        runs.append((launches, results))
+    results = runs[0][1]
     embs = results["embeddings"]
-    for key, arr in embs.items():
-        if not np.isfinite(arr).all():
-            fail(f"non-finite values in {key}")
-    n_vid = results["num_videos"]
-    if n_vid != 128 or embs["vid_emb"].shape != (128, 768):
-        fail(f"unexpected embeddings {embs['vid_emb'].shape}")
-    with np.load(results["emb_file"]) as saved:
-        expect = {"clip_num", "sent_num", "key"} | {
-            f"{k}{s}" for k in embs for s in ("", "_before_norm")}
-        if set(saved.files) != expect or len(saved["key"]) != n_vid:
-            fail(f"embedding file {results['emb_file']} lacks the schema")
     log(f"v2p {results['v2p']} c2s {results['c2s']}")
-    batches = results["num_batches"]
-    log(f"validation: {n_vid} videos in {batches} batches, "
-        f"{n_vid / results['total_s']:.2f} videos/s end to end "
-        f"(pass {results['total_s']:.2f} s, main() {wall:.2f} s), "
-        f"{results['forward_s'] / batches * 1e3:.2f} ms per batch on the "
-        f"device (eval step), peak device memory {peak_gb:.2f} GB")
 
     # ranks on the card == ranks on the host from the same similarities
     from coot_videotext_tpu_torch.tasks.retrieval.eval import _ranks_both
@@ -424,18 +573,21 @@ def phase_slice(tmp: Path):
     log("device ranks == host ranks (vid/par, clip/sent)")
 
     # one batch on the card (bf16) against the CPU (f32), same weights
+    from coot_videotext_tpu_torch.data.device_store import FeatureSource
     from coot_videotext_tpu_torch.data.retrieval_dataset import (
         create_retrieval_datasets_and_loaders, to_device)
+    from coot_videotext_tpu_torch.tasks.retrieval.config import (
+        RetrievalConfig)
     from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
         RetrievalModelManager)
     from coot_videotext_tpu_torch.tasks.retrieval.steps import (
-        EMB_KEYS, retrieval_eval_step)
-    cfg_dict = load_yaml_config_file(CONFIG)
-    for key in ("vid_feat_source", "text_feat_source"):
-        cfg_dict["dataset_train"][key] = "npy"
-    cfg = RetrievalConfig(cfg_dict, is_train=False)
+        retrieval_eval_step)
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    cfg = RetrievalConfig(load_yaml_config_file(_config(
+        tmp / "mode1", frames_noise=0, **VAL_MODES[0][1])), is_train=False)
     _, _, _, loader = create_retrieval_datasets_and_loaders(
-        cfg, tmp / "data", seed=0)
+        cfg, tmp / "data", seed=0, device=torch.device("cuda"))
     host_batch = next(iter(loader))
     kw = dict(loss_weights=cfg.train.contrastive_loss_config.as_dict(),
               margin=cfg.train.contrastive_loss_config.margin,
@@ -471,29 +623,38 @@ def phase_slice(tmp: Path):
     if not worst_cos >= MIN_COSINE:
         fail(f"card vs CPU cosine {worst_cos} < {MIN_COSINE}")
     dev_batch = to_device(host_batch, torch.device("cuda"))
+    # the same videos as an id batch: sampled, packed and gathered on the
+    # device
+    _, _, _, id_loader = create_retrieval_datasets_and_loaders(
+        cfg, tmp / "data", seed=0, device=torch.device("cuda"),
+        fixed_shapes=True, device_preload=True)
+    id_batch = to_device(next(iter(id_loader)), torch.device("cuda"))
+    source = FeatureSource.of(id_loader)
 
-    def eval_step():
-        retrieval_eval_step(gpu.model, dev_batch,
-                            compute_dtype=gpu.val_dtype, **kw)
-        torch.cuda.synchronize()
+    for what, batch, src in (("host dense", dev_batch, None),
+                             ("id batch, store", id_batch, source)):
+        def eval_step():
+            retrieval_eval_step(gpu.model, batch, source=src,
+                                compute_dtype=gpu.val_dtype, **kw)
+            torch.cuda.synchronize()
 
-    eval_step()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
         eval_step()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    walls.sort()
-    log(f"eval step on a warm card (batch 0, 5 runs): median "
-        f"{walls[2]:.2f} ms, min {walls[0]:.2f}, max {walls[-1]:.2f}")
-    profile_step(eval_step, "eval")
-    del gpu, e_gpu, dev_batch
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            eval_step()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        walls.sort()
+        log(f"eval step on a warm card ({what}, batch 0, 5 runs): median "
+            f"{walls[2]:.2f} ms, min {walls[0]:.2f}, max {walls[-1]:.2f}")
+        profile_step(eval_step, f"eval ({what})")
+    del gpu, e_gpu, dev_batch, id_batch, source, id_loader
     torch.cuda.empty_cache()
-    return launches
+    return [launches for launches, _ in runs]
 
 
 KERNELS = ("input_fc", "input_fc_bwd", "genpool", "genpool_bwd",
-           "attention", "attention_bwd", "dropout", "dropout_bwd")
+           "attention", "attention_bwd", "dropout", "dropout_bwd", "gather")
 
 
 def _yc2_dataset(root: Path, num_videos: int, num_val_videos: int,
@@ -513,16 +674,55 @@ def _yc2_dataset(root: Path, num_videos: int, num_val_videos: int,
         feat_format="npy")
 
 
-def phase_train(tmp: Path):
-    """The training path at full width: the CLI trains one epoch (2 steps
-    of 64 videos), validates and checkpoints; the checkpoint is validated
-    back; one fixed batch trains 16 steps."""
+def _train_cli(config: Path, tmp: Path, extra, epochs: int = 1,
+               overrides: str = ""):
+    """CLI training to `epochs` (each epoch trains, validates and
+    checkpoints; a run with checkpoints resumes from the newest) with the
+    launch counts set to 0 just before and read just after."""
     import numpy as np
     import torch
     from coot_videotext_tpu_torch import train_retrieval
+    from coot_videotext_tpu_torch.ops import cuda_build
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    t0 = time.time()
+    result = train_retrieval.main(
+        ["-c", str(config), "--data_path", str(tmp / "data"), "--log_dir",
+         str(config.parent / "experiments"), "-o",
+         f"train.num_epochs={epochs},val.val_start=0{overrides}"] + extra)[0]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(cuda_build.launch_counts)
+    if not np.isfinite(result["step_losses"]).all():
+        fail(f"training losses {result['step_losses']}")
+    return result, launches, wall
+
+
+def _epoch_train_s(models: Path, epochs) -> list:
+    """Each epoch's training seconds (its time without its validation),
+    from the cumulative times of the trainerstate files."""
+    def train_s(ep):
+        state = json.loads((models / f"trainerstate_{ep}.json").read_text(
+            encoding="utf8"))
+        return state["time_total"] - state["time_val"]
+    return [train_s(ep) - train_s(ep - 1) for ep in epochs]
+
+
+def phase_train(tmp: Path):
+    """The training path at full width: the CLI trains one epoch from the
+    device store with on-device sampling and packing (256 train videos, 4
+    steps), validates and checkpoints; the checkpoint is validated back;
+    the run resumes for 4 more epochs (16 steps) to time training end to
+    end past the first epoch; the store with host-sampled index batches
+    (the config's default, without --fixed_shapes) trains one epoch; the
+    host dense path trains one epoch of 128 videos; one fixed id
+    batch trains 16 steps through B5."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch import train_retrieval
+    from coot_videotext_tpu_torch.data.device_store import FeatureSource
     from coot_videotext_tpu_torch.data.retrieval_dataset import (
         create_retrieval_datasets_and_loaders, to_device)
-    from coot_videotext_tpu_torch.ops import cuda_build
     from coot_videotext_tpu_torch.tasks.retrieval.config import (
         RetrievalConfig)
     from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
@@ -534,62 +734,103 @@ def phase_train(tmp: Path):
         load_yaml_config_file)
 
     t0 = time.time()
-    _yc2_dataset(tmp / "data", 128, 64, seed=1)
-    log(f"generated a yc2-like train split (128 videos, 64 val) in "
+    _yc2_dataset(tmp / "data", 256, 64, seed=1)
+    log(f"generated a yc2-like train split (256 videos, 64 val) in "
         f"{time.time() - t0:.1f} s")
-    common = ["-c", str(CONFIG), "--data_path", str(tmp / "data"),
-              "--log_dir", str(tmp / "experiments")]
-    torch.cuda.synchronize()
-    cuda_build.reset_launch_counts()
-    t0 = time.time()
-    result = train_retrieval.main(common + [
-        "-o", NPY_SOURCES + ",train.num_epochs=1,val.val_start=0"])[0]
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = dict(cuda_build.launch_counts)
-    log(f"training path launches: {launches}")
+    config = _config(tmp / "store")
+    result, launches, wall = _train_cli(config, tmp, ["--fixed_shapes"])
+    log(f"training path launches (store, device sampling + packing): "
+        f"{launches}")
     for name in KERNELS:
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the training path")
-    losses = result["step_losses"]
-    state = result["state"]
-    if len(losses) != 2 or not np.isfinite(losses).all():
-        fail(f"training losses {losses}")
-    log(f"CLI: 1 epoch of {len(losses)} steps (losses "
+    losses, state = result["step_losses"], result["state"]
+    if len(losses) != 4 or result["layout"] != "ids":
+        fail(f"expected 4 training steps on id batches, got {losses} on "
+             f"{result['layout']} batches")
+    train_s = state["time_total"] - state["time_val"]
+    log(f"CLI (store): 1 epoch of {len(losses)} steps (losses "
         f"{', '.join(f'{v:.5f}' for v in losses)}) and its validation in "
         f"{wall:.1f} s; epoch time {state['time_total']:.2f} s of which "
-        f"validation {state['time_val']:.2f} s; "
-        f"{128 / (state['time_total'] - state['time_val']):.2f} train "
+        f"validation {state['time_val']:.2f} s; {256 / train_s:.2f} train "
         f"videos/s end to end")
     models = result["path_base"] / "models"
     for name in ("model_0.pth", "optimizer_0.pth", "trainerstate_0.json",
                  "scheduler_0.json"):
         if not (models / name).is_file():
             fail(f"checkpoint file {name} missing")
-    val = train_retrieval.main(common + ["-o", NPY_SOURCES, "--validate",
-                                         "--load_epoch", "0"])[0]
+    val = train_retrieval.main(
+        ["-c", str(config), "--data_path", str(tmp / "data"), "--log_dir",
+         str(config.parent / "experiments"), "--fixed_shapes", "--validate",
+         "--load_epoch", "0"])[0]
     if not np.isfinite(val["loss_total"]) or \
             val["embeddings"]["vid_emb"].shape != (64, 768):
         fail("the trained checkpoint does not validate")
     log(f"--validate --load_epoch 0: val loss {val['loss_total']:.5f}, "
-        f"v2p r1 {val['v2p']['r1']:.4f}, c2s r1 {val['c2s']['r1']:.4f}")
+        f"v2p r1 {val['v2p']['r1']:.4f}, c2s r1 {val['c2s']['r1']:.4f}; "
+        f"{64 / val['total_s']:.2f} val videos/s end to end")
 
-    # one fixed batch, 16 steps: RAdam's rectified updates start at step 6
-    cfg_dict = load_yaml_config_file(CONFIG)
-    for key in ("vid_feat_source", "text_feat_source"):
-        cfg_dict["dataset_train"][key] = "npy"
-    cfg = RetrievalConfig(cfg_dict)
+    # the same run resumed to 5 epochs: 16 steps past the first epoch
+    result, _, wall = _train_cli(config, tmp, ["--fixed_shapes"], epochs=5,
+                                 overrides=",saving.keep_freq=1")
+    if len(result["step_losses"]) != 20:
+        fail(f"the resumed run has {len(result['step_losses'])} steps")
+    per_epoch = _epoch_train_s(result["path_base"] / "models", range(1, 5))
+    log(f"CLI (store, device sampling + packing) resumed for epochs 1-4 "
+        f"(16 steps) in {wall:.1f} s: train seconds per epoch "
+        f"{', '.join(f'{t:.3f}' for t in per_epoch)}; "
+        f"{4 * 256 / sum(per_epoch):.2f} train videos/s end to end over the "
+        f"16 steps (per epoch {min(256 / t for t in per_epoch):.2f} to "
+        f"{max(256 / t for t in per_epoch):.2f})")
+
+    # the config's default on the card: the store with host-sampled index
+    # batches and the frame noise fused into the gathers
+    result, idx_launches, wall = _train_cli(_config(tmp / "store_idx"), tmp,
+                                            [])
+    losses, state = result["step_losses"], result["state"]
+    if len(losses) != 4 or result["layout"] != "indices":
+        fail(f"store, host indices: losses {losses} on {result['layout']} "
+             "batches")
+    for name in KERNELS:
+        if idx_launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the store path with "
+                 "host indices")
+    log(f"CLI (store, host indices): 1 epoch of {len(losses)} steps (losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}) in {wall:.1f} s; epoch "
+        f"time {state['time_total']:.2f} s of which validation "
+        f"{state['time_val']:.2f} s; launches {idx_launches}")
+
+    # the host dense path, at its earlier size: 128 train videos, 2 steps
+    host_cfg = _config(tmp / "host", preload_device=False,
+                       pack_transfer=False, max_datapoints=128)
+    result, host_launches, wall = _train_cli(host_cfg, tmp, [])
+    losses, state = result["step_losses"], result["state"]
+    if len(losses) != 2 or host_launches.get("gather", 0) or \
+            result["layout"] != "dense":
+        fail(f"host path: losses {losses}, launches {host_launches}")
+    log(f"CLI (host dense): 1 epoch of {len(losses)} steps in {wall:.1f} s; "
+        f"epoch time {state['time_total']:.2f} s of which validation "
+        f"{state['time_val']:.2f} s; "
+        f"{128 / (state['time_total'] - state['time_val']):.2f} train "
+        f"videos/s end to end; launches {host_launches}")
+
+    # one fixed id batch, 16 steps: frames resampled and noised on the
+    # device at every step; RAdam's rectified updates start at step 6
+    cfg = RetrievalConfig(load_yaml_config_file(config))
     _, _, loader, _ = create_retrieval_datasets_and_loaders(
-        cfg, tmp / "data", seed=0)
-    host_batch = next(iter(loader))
-    batch = to_device(host_batch, torch.device("cuda"))
+        cfg, tmp / "data", seed=0, device=torch.device("cuda"),
+        fixed_shapes=True)
+    source = FeatureSource.of(loader, cfg.dataset_train.frames_noise,
+                              cfg.dataset_train.words_noise)
+    batch = to_device(next(iter(loader)), torch.device("cuda"))
     mgr = RetrievalModelManager(cfg, torch.device("cuda"), seed=0)
     ts = TrainState(mgr.model, make_optimizer(
         cfg.optimizer, dict(mgr.model.named_parameters())),
         torch.Generator().manual_seed(0),
-        torch.Generator("cuda").manual_seed(0))
+        torch.Generator("cuda").manual_seed(0),
+        sample=torch.Generator("cuda").manual_seed(0))
     kw = dict(lr=cfg.optimizer.lr, clip_gradient=cfg.train.clip_gradient,
-              compute_dtype=mgr.train_dtype,
+              compute_dtype=mgr.train_dtype, source=source,
               loss_weights=cfg.train.contrastive_loss_config.as_dict(),
               margin=cfg.train.contrastive_loss_config.margin,
               loss_cycle_cons=cfg.train.loss_cycle_cons)
@@ -603,26 +844,22 @@ def phase_train(tmp: Path):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log("fixed batch, 16 steps: loss " +
+    log("fixed id batch, 16 steps: loss " +
         " ".join(f"{v:.4f}" for v in fixed))
     if not (np.isfinite(fixed).all()
             and np.mean(fixed[-3:]) < np.mean(fixed[:3])):
         fail("the loss of the fixed batch did not fall")
     warm = sorted(walls[4:])
     med = warm[len(warm) // 2]
-    b = host_batch["clip_feat"].shape[0]
-    log(f"warm train step (bf16, batch {b}, steps 5-16): median "
-        f"{med:.2f} ms, min {warm[0]:.2f}, max {warm[-1]:.2f}; "
-        f"{b / med * 1e3:.1f} videos/s on the device; peak device memory "
-        f"{peak_gb:.2f} GB")
+    b = batch["dp_idx"].shape[0]
+    log(f"warm train step (store, device sampling + packing, bf16, batch "
+        f"{b}, steps 5-16): median {med:.2f} ms, min {warm[0]:.2f}, max "
+        f"{warm[-1]:.2f}; {b / med * 1e3:.1f} videos/s on the device; peak "
+        f"device memory {peak_gb:.2f} GB")
     profile_step(lambda: retrieval_train_step(ts, batch, **kw), "train")
-    shapes = {
-        "b": b,
-        "n_parts": host_batch["clip_feat"].shape[1],
-        "lc": host_batch["clip_feat"].shape[2],
-        "din": host_batch["clip_feat"].shape[3],
-    }
-    del mgr, ts, batch
+    shapes = dict(loader.device_meta.shapes, b=b, din=cfg.dataset_train
+                  .vid_feat_dim, dtext=cfg.dataset_train.text_feat_dim)
+    del mgr, ts, batch, source, loader
     torch.cuda.empty_cache()
     return launches, shapes
 
@@ -683,7 +920,8 @@ def phase_timing(launches, shapes, max_errors):
     from coot_videotext_tpu_torch.typext import INF
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf = torch.bfloat16
-    rows = shapes["b"] * shapes["n_parts"]
+    # the largest local-net call: the packed clips (P of them)
+    rows = shapes.get("pack_clips", shapes["b"] * shapes["n_parts"])
     lc, din, d, h, heads, dh = shapes["lc"], shapes["din"], 384, 768, 2, 48
     dho = d // heads
     entries = []
@@ -796,11 +1034,40 @@ def phase_timing(launches, shapes, max_errors):
           _bwd_ms(y_lib, [xl_lib], x), 4 * numel, 1.0 * numel)
     del x, xl, xl_lib, y, y_lib
     torch.cuda.empty_cache()
-    # B5 (pallas_gather.py:64, still to port with the device store): the
-    # bf16 feature-store gather of this batch's clip frames, read + write
-    gather_bytes = 2 * 2 * rows * lc * din
-    log(f"  B5 gather (to port): {rows * lc} rows x {din} bf16, bound "
-        f"{bound_ms(gather_bytes, 0.0, 'bfloat16')[0]:.4f} ms (bytes)")
+    # B5: the store gathers of one step (a store of the 256-video train
+    # split's size), without and with the fused noise
+    from coot_videotext_tpu_torch.ops import philox
+    from coot_videotext_tpu_torch.ops.gather import (
+        GatherNoise, gather_rows, gather_rows_plain)
+    calls = (("video", shapes["b"] * shapes["lv"], din),
+             ("clips", rows * lc, din),
+             ("paragraphs", shapes["b"] * shapes["lp"], shapes["dtext"]))
+    for what, n, width in calls:
+        table = torch.randn(82000, width, generator=gen,
+                            device="cuda").to(bf)
+        idx = torch.randint(0, 82000, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        nbytes = 2 * 2 * n * width + 4 * n
+        with torch.inference_mode():
+            lib = time_ms(lambda: torch.index_select(table, 0, idx))
+            for noise in (None, GatherNoise(0.01, seed,
+                                            philox.SITE_NOISE_CLIP)):
+                tag = f"{what} {n}x{width} bf16" + (
+                    " noise 0.01" if noise else "")
+                if not torch.equal(gather_rows(table, idx, noise),
+                                   gather_rows_plain(table, idx, noise)):
+                    fail(f"gather {tag}: kernel and plain differ")
+                ms = time_ms(lambda: gather_rows(table, idx, noise))
+                plain = time_ms(lambda: gather_rows_plain(table, idx, noise))
+                bms, by = bound_ms(nbytes, 0.0, "bfloat16")
+                log(f"  gather        {tag:38s} kernel {ms:.4f} ms, plain "
+                    f"{plain:.3f} ms, library {lib:.4f} ms (index_select), "
+                    f"bound {bms:.4f} ms ({by})")
+                if what == "clips" and noise is None:
+                    entry("gather", tag, "gather.cu", "pallas_gather.py:64",
+                          ms, plain, lib, nbytes, 0.0)
+        del table, idx
+        torch.cuda.empty_cache()
     for e in entries:
         e["route"] = "cuda"
         e["launches"] = int(launches.get(e["name"], 0))
@@ -833,14 +1100,13 @@ def main() -> None:
         "relative to max(1, max|plain|))")
     phase_build()
     max_errors = phase_kernel_checks()
+    max_errors["gather"] = phase_gather_checks()
     with tempfile.TemporaryDirectory(prefix="coot_chip_smoke_") as tmp:
-        log("== 3. validation + embedding export at yc2_2d3d_coot width")
-        val_launches = phase_slice(Path(tmp) / "val")
+        log("== 3. validation + embedding export at yc2_2d3d_coot width, "
+            "four ways")
+        phase_slice(Path(tmp) / "val")
         log("== 4. training at yc2_2d3d_coot width")
         launches, shapes = phase_train(Path(tmp) / "train")
-    for name in ("input_fc", "genpool", "attention"):
-        if val_launches.get(name, 0) <= 0:
-            fail(f"kernel {name} was not launched on the validation path")
     log(f"== 5. kernel timing at the training path's shapes {shapes}")
     kernels = phase_timing(launches, shapes, max_errors)
     log(f"chip_smoke took {time.time() - start:.1f} s")

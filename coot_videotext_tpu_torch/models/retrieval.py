@@ -4,12 +4,10 @@ local/global, text local/global).
 
 Counterpart of coot_videotext_tpu/models/retrieval.py: `_encode_hierarchy`
 :41 and `RetrievalModel` :125 (reference coot/model_retrieval.py:57-197).
-Deliberate differences:
-    - dense layout only (JAX :93-111): the clips/sentences arrive as a
-      (B, N, Lp, D) batch from the host collation, run through the local
-      net as one (B*N, Lp, D) batch, and padded part slots are zeroed with
-      `where` before the global net. The packed layout (:80-92) comes with
-      device-side sampling (ROADMAP A7).
+Both part layouts of JAX: the dense (B, N, Lp, D) one (:93-111), whose
+padded part slots are zeroed with `where` before the global net, and the
+packed (P, Lp, D) one of on-device sampling (:80-92). Deliberate
+differences:
     - the compute dtype is an argument of `forward` (parameters stay
       float32), not a property of the module.
     - on CUDA tensors the local nets' input stage, every attention core and
@@ -38,35 +36,49 @@ class RetrievalNetworksConst(ConstantHolder):
 
 
 def _encode_hierarchy(net_local: CootTransformer,
-                      net_global: CootTransformer,
-                      seq_feat: torch.Tensor, seq_mask: torch.Tensor,
-                      seq_len: torch.Tensor, part_feat: torch.Tensor,
-                      part_mask: torch.Tensor, part_len: torch.Tensor,
-                      part_valid: torch.Tensor, part_num: torch.Tensor,
-                      dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+                      net_global: CootTransformer, batch, prefix: str,
+                      part: str, dtype: torch.dtype
+                      ) -> Dict[str, torch.Tensor]:
     """
     Shared video/text hierarchy encoding (reference encode_visual :86 /
-    encode_text :143), dense layout.
-
-    Args:
-        seq_*: whole-sequence input (video frames / paragraph tokens),
-            (B, L, D) / (B, L) / (B,)
-        part_*: per-part input (clips / sentences), (B, N, Lp, D) /
-            (B, N, Lp) / (B, N)
-        part_valid: (B, N) True where the slot holds a real clip/sentence
-        part_num: (B,) number of real parts
+    encode_text :143) of `batch`'s `<prefix>_*` sequence (video frames /
+    paragraph tokens: feat (B, L, D), mask (B, L), len (B,)) and `<part>_*`
+    parts (clips / sentences): valid (B, N) True where the slot holds a
+    real part, num (B,), and feat/mask/len either dense (B, N, Lp, D) /
+    (B, N, Lp) / (B, N) or packed (P, Lp, D) / (P, Lp) / (P,) with
+    `<part>_owner`, `<part>_pos` and `<part>_slot_valid` (P,).
     """
-    context, _ = net_local(seq_feat.to(dtype), seq_mask, seq_len)
-    b, n, lp, d = part_feat.shape
-    part_emb, _ = net_local(part_feat.reshape(b * n, lp, d).to(dtype),
-                            part_mask.reshape(b * n, lp),
-                            part_len.reshape(b * n))
-    part_emb = part_emb.view(b, n, -1)
-    # zero padded part slots: the reference scatters local embeddings into
-    # a zero-initialized (B, max_parts, D) tensor (model_retrieval.py:
-    # 124-136), and the global net's unmasked avg_special pool sees them
-    part_emb = torch.where(part_valid[..., None], part_emb,
-                           torch.zeros_like(part_emb))
+    context, _ = net_local(batch[f"{prefix}_feat"].to(dtype),
+                           batch[f"{prefix}_mask"], batch[f"{prefix}_len"])
+    part_feat = batch[f"{part}_feat"]
+    part_valid = batch[f"{part}_valid"]
+    b, n = part_valid.shape
+    if part_feat.dim() == 3:  # packed: the local net sees real parts only
+        part_emb_flat, _ = net_local(part_feat.to(dtype),
+                                     batch[f"{part}_mask"],
+                                     batch[f"{part}_len"])
+        slot_valid = batch[f"{part}_slot_valid"]
+        # `where`, not multiply, then a collision-free scatter into zeros:
+        # unpacked slots keep zeros, as the dense layout's where gives,
+        # and the scatter's backward is a gather
+        contrib = torch.where(slot_valid[:, None], part_emb_flat,
+                              torch.zeros_like(part_emb_flat))
+        part_emb = contrib.new_zeros((b, n, contrib.shape[-1])).index_put(
+            (batch[f"{part}_owner"].long(), batch[f"{part}_pos"].long()),
+            contrib)
+    else:
+        _, _, lp, d = part_feat.shape
+        part_emb, _ = net_local(part_feat.reshape(b * n, lp, d).to(dtype),
+                                batch[f"{part}_mask"].reshape(b * n, lp),
+                                batch[f"{part}_len"].reshape(b * n))
+        part_emb = part_emb.view(b, n, -1)
+        # zero padded part slots: the reference scatters local embeddings
+        # into a zero-initialized (B, max_parts, D) tensor
+        # (model_retrieval.py:124-136), and the global net's unmasked
+        # avg_special pool sees them
+        part_emb = torch.where(part_valid[..., None], part_emb,
+                               torch.zeros_like(part_emb))
+    part_num = batch[f"{part}_num"]
     hidden = context if net_global.cfg.use_context else None
     emb, _ = net_global(part_emb, part_valid, part_num, hidden)
     return {"emb": emb, "part_emb": part_emb, "context": context}
@@ -108,16 +120,10 @@ class RetrievalModel(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         """Both branches (reference model_retrieval.py:86/:143); output
         keys as the JAX model."""
-        vis = _encode_hierarchy(
-            self.net_video_local, self.net_video_global,
-            batch["vid_feat"], batch["vid_mask"], batch["vid_len"],
-            batch["clip_feat"], batch["clip_mask"], batch["clip_len"],
-            batch["clip_valid"], batch["clip_num"], compute_dtype)
-        txt = _encode_hierarchy(
-            self.net_text_local, self.net_text_global,
-            batch["par_feat"], batch["par_mask"], batch["par_len"],
-            batch["sent_feat"], batch["sent_mask"], batch["sent_len"],
-            batch["sent_valid"], batch["sent_num"], compute_dtype)
+        vis = _encode_hierarchy(self.net_video_local, self.net_video_global,
+                                batch, "vid", "clip", compute_dtype)
+        txt = _encode_hierarchy(self.net_text_local, self.net_text_global,
+                                batch, "par", "sent", compute_dtype)
         return {
             "vid_emb": vis["emb"], "clip_emb": vis["part_emb"],
             "vid_context": vis["context"],

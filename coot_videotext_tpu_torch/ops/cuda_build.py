@@ -27,7 +27,8 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("input_fc.cu", "genpool.cu", "attention.cu", "dropout.cu")
+SOURCES = ("input_fc.cu", "genpool.cu", "attention.cu", "dropout.cu",
+           "gather.cu")
 HEADERS = ("common.cuh", "philox.cuh", "tn_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -130,6 +131,10 @@ _SIGNATURES = {
                                        _I, _P],
     # x, y, n, seed, thresh, scale, site, bf16, stream
     "coot_dropout": [_P, _P, _LL, _ULL, _U, _F, _U, _I, _P],
+    # table, idx, out, n, t, row bytes, seed, site, std, lo, span, bf16,
+    # stream
+    "coot_gather_rows": [_P, _P, _P, _LL, _LL, _LL, _ULL, _U, _F, _F, _F, _I,
+                         _P],
 }
 
 

@@ -1,6 +1,7 @@
 """
-Counter-based dropout bits: Philox4x32-10 in PyTorch integer ops, the same
-bits as csrc/philox.cuh, and the source of per-call dropout seeds.
+Counter-based random bits: Philox4x32-10 in PyTorch integer ops, the same
+bits as csrc/philox.cuh, the truncated-normal feature noise of B5 built on
+them, and the source of per-call dropout seeds.
 
 Element e of dropout site `site` takes word (e & 3) of
 philox(counter = (lo32(e >> 2), hi32(e >> 2), site, 0), key = (lo32(seed),
@@ -19,6 +20,7 @@ Dropout does without a `dropout` rng.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Iterator, Optional
 
 import torch
@@ -34,6 +36,23 @@ SITE_ATTENTION = 1        # B3, dropout on P
 SITE_GENPOOL_HIDDEN = 2   # B2, the hidden pre-activation
 SITE_GENPOOL_LOGITS = 3   # B2, the second projection
 SITE_GENPOOL_WEIGHTS = 4  # B2, the softmax weights
+# sites of the feature-store gathers' noise (B5, data/device_store.py)
+SITE_NOISE_VIDEO = 5
+SITE_NOISE_CLIP = 6
+SITE_NOISE_PARAGRAPH = 7
+SITE_NOISE_SENTENCE = 8
+
+
+def _f32(x: float) -> float:
+    """x rounded to float32, as the kernels take it."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+# truncated normal on [-2, 2]: sqrt(2) * erfinv of a uniform on
+# (erf(-sqrt 2), erf(sqrt 2)), as jax.random.truncated_normal draws it
+TRUNCNORM_LO = _f32(-math.erf(math.sqrt(2.0)))
+TRUNCNORM_SPAN = _f32(2.0 * math.erf(math.sqrt(2.0)))
+_SQRT2 = _f32(math.sqrt(2.0))
 
 
 def _mulhilo(a: int, b: torch.Tensor):
@@ -101,6 +120,28 @@ def keep_factor(shape, seed: int, site: int, rate: float,
     return (keep.to(torch.float32) * (1.0 / (1.0 - rate))).reshape(shape)
 
 
+def truncnorm(shape, seed: int, site: int,
+              device: torch.device = torch.device("cpu")) -> torch.Tensor:
+    """float32 standard normal truncated at +-2 over `shape`, elements in
+    row-major order, from the bits of (seed, site, element): u = (bits >>
+    8) * 2^-24, v = u * span + lo, tn = erfinv(v) * sqrt(2), each op
+    rounded on its own as csrc/gather.cu does."""
+    numel = 1
+    for n in shape:
+        numel *= int(n)
+    bits = dropout_bits(seed, site, numel, device)
+    u = (bits >> 8).to(torch.float32) * 2.0 ** -24
+    v = u * TRUNCNORM_SPAN + TRUNCNORM_LO
+    tn = torch.erfinv(v) * _SQRT2
+    return tn.clamp_(-2.0, 2.0).reshape(shape)
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """A fresh 64-bit seed from a CPU generator."""
+    return int(torch.randint(0, 2 ** 63 - 1, (1,),
+                             generator=generator).item())
+
+
 _seed_generator: Optional[torch.Generator] = None
 
 
@@ -126,5 +167,4 @@ def next_seed() -> int:
         raise RuntimeError(
             "dropout in training mode needs seeds: run the forward inside "
             "ops.philox.dropout_seeds(generator), or call model.eval()")
-    return int(torch.randint(0, 2 ** 63 - 1, (1,),
-                             generator=_seed_generator).item())
+    return draw_seed(_seed_generator)

@@ -4,8 +4,10 @@ coot_videotext_tpu/tasks/retrieval/config.py; one yaml drives both packages).
 
 Config-surface parity with reference coot/configs_retrieval.py:14-189; the
 reference's yaml files parse unchanged, the JAX package's additions
-(static-shape, device-store and transfer knobs) included; the PyTorch
-package's host path reads none of those but `preload_device`.
+(static-shape, device-store and transfer knobs) included. The PyTorch
+package reads `pad_fixed_shapes`, `preload_device`, `sample_on_device`,
+`pack_parts` and `pack_transfer` (data/retrieval_dataset.py) and ignores
+`steps_per_dispatch` beyond a warning.
 """
 
 from __future__ import annotations

@@ -1,15 +1,21 @@
 """
 Retrieval train and eval steps (port of coot_videotext_tpu/tasks/retrieval/
-steps.py: `make_retrieval_train_step` :41 in its dense per-step form, and
-`make_retrieval_eval_step` :144-209).
+steps.py: `make_retrieval_train_step` :41 per step, with its store, device
+sampling and slab modes :69-96, and `make_retrieval_eval_step` :144-209).
 
-The train step runs the 4-net forward in the compute dtype with dropout on
-(every dropout draws its seed from the state's CPU generator), the total
-loss (cycle-consistency subsampling from the state's device generator),
-the backward through autograd and the kernels' backward, the optional
-global-norm clipping and the optimizer update in place. The eval step runs
-the forward in eval mode and returns the val loss parts and the raw and
-L2-normalized embeddings, all on the batch's device.
+The train step first builds the dense batch on the device
+(data/device_store.py `assemble_batch`): an id batch is sampled with the
+train jitter of the state's `sample` generator, index and slab batches
+gather their rows through B5, store gathers with the frame/word noise
+(seed from the state's CPU generator). Then it runs the 4-net forward in
+the compute dtype with dropout on (every dropout draws its seed from the
+state's CPU generator), the total loss (cycle-consistency subsampling from
+the state's device generator), the backward through autograd and the
+kernels' backward, the optional global-norm clipping and the optimizer
+update in place. The eval step builds its batch the same way with center
+sampling and no noise, runs the forward in eval mode and returns the val
+loss parts and the raw and L2-normalized embeddings, all on the batch's
+device.
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from coot_videotext_tpu_torch.data.device_store import (
+    FeatureSource, assemble_batch)
 from coot_videotext_tpu_torch.models.retrieval import RetrievalModel
-from coot_videotext_tpu_torch.ops.philox import dropout_seeds
+from coot_videotext_tpu_torch.ops.philox import draw_seed, dropout_seeds
 from coot_videotext_tpu_torch.train.losses import (
     compute_total_retrieval_loss, l2_normalize)
 from coot_videotext_tpu_torch.train.optim import clip_by_global_norm
@@ -35,15 +43,17 @@ EMB_KEYS = ("vid_emb", "par_emb", "clip_emb", "sent_emb", "vid_context",
 @dataclasses.dataclass
 class TrainState:
     """The model (float32 parameters), its optimizer (float32 state, keyed
-    like the state dict), the step count and the run's two generators:
-    `seeds` (CPU) draws the dropout seeds, `cc` (on the model's device)
-    the cycle-consistency subsampling (JAX TrainState :34 and the rng
-    split of :78)."""
+    like the state dict), the step count and the run's generators: `seeds`
+    (CPU) draws the dropout and feature-noise seeds, `cc` (on the model's
+    device) the cycle-consistency subsampling, `sample` (on the model's
+    device) the train jitter of on-device sampling (JAX TrainState :34 and
+    the rng split of :78)."""
     model: RetrievalModel
     optimizer: object
     seeds: Optional[torch.Generator]
     cc: Optional[torch.Generator]
     step: int = 0
+    sample: Optional[torch.Generator] = None
 
 
 def _loss_inputs(out: Dict[str, torch.Tensor]):
@@ -54,11 +64,21 @@ def retrieval_loss_and_grads(
         state: TrainState, batch: Dict[str, torch.Tensor], *,
         loss_weights: Dict[str, float], margin: float,
         loss_cycle_cons: float,
-        compute_dtype: torch.dtype = torch.float32
+        compute_dtype: torch.dtype = torch.float32,
+        source: Optional[FeatureSource] = None
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """The training forward (dropout on) and backward: (detached loss
-    parts, float32 gradient of every parameter by name). A parameter that
-    the loss does not reach gets a zero gradient, as under jax.grad."""
+    """The training batch assembly, forward (dropout on) and backward:
+    (detached loss parts, float32 gradient of every parameter by name). A
+    parameter that the loss does not reach gets a zero gradient, as under
+    jax.grad."""
+    if batch.get("layout") == "ids" and state.sample is None:
+        raise ValueError("training on id batches needs the state's sample "
+                         "generator")
+    noise_seed = None
+    if source is not None and source.noisy and state.seeds is not None:
+        noise_seed = draw_seed(state.seeds)
+    batch = assemble_batch(batch, source, sample_generator=state.sample,
+                           noise_seed=noise_seed)
     model = state.model
     model.train()
     params = state.optimizer.params
@@ -79,15 +99,18 @@ def retrieval_train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                          *, lr: float, loss_weights: Dict[str, float],
                          margin: float, loss_cycle_cons: float,
                          clip_gradient: float = -1.0,
-                         compute_dtype: torch.dtype = torch.float32
+                         compute_dtype: torch.dtype = torch.float32,
+                         source: Optional[FeatureSource] = None
                          ) -> Dict[str, torch.Tensor]:
-    """One training step; returns the detached loss parts (and
-    `grad_norm` with clipping, as the reference computes the norm only
-    then, trainer_base.py:545-554). The parameters and the optimizer
-    state are updated in place."""
+    """One training step on any loader batch (`source` names the store and
+    device metadata of index and id batches); returns the detached loss
+    parts (and `grad_norm` with clipping, as the reference computes the
+    norm only then, trainer_base.py:545-554). The parameters and the
+    optimizer state are updated in place."""
     metrics, grads = retrieval_loss_and_grads(
         state, batch, loss_weights=loss_weights, margin=margin,
-        loss_cycle_cons=loss_cycle_cons, compute_dtype=compute_dtype)
+        loss_cycle_cons=loss_cycle_cons, compute_dtype=compute_dtype,
+        source=source)
     if clip_gradient > 0:
         metrics["grad_norm"] = clip_by_global_norm(grads, clip_gradient)
     state.optimizer.step(grads, lr)
@@ -101,12 +124,14 @@ def retrieval_eval_step(model: RetrievalModel,
                         loss_weights: Dict[str, float], margin: float,
                         loss_cycle_cons: float,
                         compute_dtype: torch.dtype = torch.float32,
-                        generator: Optional[torch.Generator] = None
+                        generator: Optional[torch.Generator] = None,
+                        source: Optional[FeatureSource] = None
                         ) -> Tuple[Dict[str, torch.Tensor],
                                    Dict[str, torch.Tensor]]:
-    """Returns (embeddings, loss parts). `generator` drives the
-    cycle-consistency subsampling; None takes its deterministic full
-    mean."""
+    """Returns (embeddings, loss parts) of any loader batch (center
+    sampling, no noise). `generator` drives the cycle-consistency
+    subsampling; None takes its deterministic full mean."""
+    batch = assemble_batch(batch, source)
     model.eval()
     out = model(batch, compute_dtype=compute_dtype)
     visual, text = _loss_inputs(out)

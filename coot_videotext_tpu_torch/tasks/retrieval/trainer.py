@@ -3,13 +3,14 @@ Retrieval trainer: COOT training and validation on one torch device.
 
 Port of coot_videotext_tpu/tasks/retrieval/trainer.py (reference
 coot/trainer_retrieval.py:26-499): `train_model` :184, the per-step epoch
-`_train_epoch_per_step` :232 and `validate_epoch` :317, which reuses
-tasks/retrieval/validate.py. Deliberate differences:
-    - per-step dispatch only: the scan-fused group step needs the device
-      feature store (ROADMAP A7), so `train.steps_per_dispatch > 1` logs
-      and dispatches per step, as the JAX trainer does without device
-      sampling (:190-195);
-    - batches are collated on the host and copied pinned and non-blocking;
+`_train_epoch_per_step` :232 with the loader modes of `_loader_mode` :104
+(dense, slab, store and id batches; data/device_store.py `FeatureSource`)
+and `validate_epoch` :317, which reuses tasks/retrieval/validate.py.
+Deliberate differences:
+    - per-step dispatch only: the scan-fused group step (:234) is not
+      ported yet, so `train.steps_per_dispatch > 1` logs and dispatches
+      per step;
+    - host batches are copied pinned and non-blocking;
     - the step's time is booked to the forward meter (the backward meter
       stays 0), as in the JAX trainer, whose jitted step covers both.
 """
@@ -20,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from coot_videotext_tpu_torch.data.device_store import FeatureSource
 from coot_videotext_tpu_torch.data.retrieval_dataset import (
     RetrievalBatchLoader, to_device)
 from coot_videotext_tpu_torch.tasks.retrieval.config import (
@@ -77,7 +79,8 @@ class RetrievalTrainer(BaseTrainer):
             optimizer=make_optimizer(cfg.optimizer,
                                      dict(model.named_parameters())),
             seeds=torch.Generator().manual_seed(seed),
-            cc=torch.Generator(self.device).manual_seed(seed))
+            cc=torch.Generator(self.device).manual_seed(seed),
+            sample=torch.Generator(self.device).manual_seed(seed))
         self.lr_scheduler = make_lr_scheduler(
             cfg.lr_scheduler, cfg.optimizer.lr, cfg.train.num_epochs,
             train_loader_length, self.logger)
@@ -101,14 +104,19 @@ class RetrievalTrainer(BaseTrainer):
     def get_opt_state(self) -> Dict[str, Any]:
         ts = self.train_state
         return {"optimizer": ts.optimizer.state_dict(), "step": ts.step,
-                "seeds": ts.seeds.get_state(), "cc": ts.cc.get_state()}
+                "seeds": ts.seeds.get_state(), "cc": ts.cc.get_state(),
+                "sample": ts.sample.get_state()}
 
     def set_opt_state(self, state: Dict[str, Any]) -> None:
+        """Restores an `optimizer_<ep>.pth`; one written before the state
+        had a `sample` generator keeps the one seeded from the run seed."""
         ts = self.train_state
         ts.optimizer.load_state_dict(state["optimizer"])
         ts.step = int(state["step"])
         ts.seeds.set_state(state["seeds"])
         ts.cc.set_state(state["cc"])
+        if "sample" in state:
+            ts.sample.set_state(state["sample"])
 
     # ---------- training ----------
 
@@ -117,8 +125,8 @@ class RetrievalTrainer(BaseTrainer):
         self.hook_pre_train()
         if self.cfg.train.steps_per_dispatch > 1:
             self.logger.warning(
-                "train.steps_per_dispatch > 1 needs the device-resident "
-                "pipeline, which is not ported yet; dispatching per step.")
+                "train.steps_per_dispatch > 1 needs the scan-fused group "
+                "step, which is not ported yet; dispatching per step.")
         for _epoch in range(self.state.current_epoch,
                             self.cfg.train.num_epochs):
             if self.check_early_stop():
@@ -136,6 +144,9 @@ class RetrievalTrainer(BaseTrainer):
 
     def _train_epoch_per_step(self, train_loader: RetrievalBatchLoader
                               ) -> None:
+        ds_cfg = self.cfg.dataset_train
+        source = FeatureSource.of(train_loader, ds_cfg.frames_noise,
+                                  ds_cfg.words_noise)
         for step, host_batch in enumerate(train_loader):
             batch = to_device(host_batch, self.device)
             self.hook_pre_step_timer()
@@ -143,7 +154,8 @@ class RetrievalTrainer(BaseTrainer):
             metrics = retrieval_train_step(
                 self.train_state, batch, lr=lr,
                 clip_gradient=self.cfg.train.clip_gradient,
-                compute_dtype=self.model_mgr.train_dtype, **self._loss_kw)
+                compute_dtype=self.model_mgr.train_dtype, source=source,
+                **self._loss_kw)
             metrics = {k: float(v) for k, v in metrics.items()}  # syncs
             self.hook_post_forward_step_timer()
             self.metrics.update_meter(CMeters.TRAIN_LOSS_CONTRASTIVE,

@@ -10,9 +10,11 @@ device, and with `emb_file` the embeddings are written in the h5 schema of
 :374-385 (what test_embeddings_retrieval.py and the caption task read); an
 `.npz` emb_file holds the same arrays under the same names, for machines
 without h5py.
-Deliberate differences: batches are collated on the host and copied to the
-device pinned and non-blocking (no device feature store yet), and on CUDA
-the kernels B1-B3 always run.
+Every loader mode of the JAX trainer runs: dense and slab batches from the
+host (copied pinned and non-blocking), index batches over the device store
+and id batches sampled on the device (center sampling, no noise); keys and
+sentences come from the host batch. On CUDA the kernels B1-B3 and B5
+always run.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from coot_videotext_tpu_torch.data.device_store import FeatureSource
 from coot_videotext_tpu_torch.data.retrieval_dataset import (
     RetrievalBatchLoader, to_device)
 from coot_videotext_tpu_torch.models.retrieval import RetrievalModel
@@ -79,6 +82,7 @@ def validate_retrieval(model: RetrievalModel, cfg,
     loss_sums = {"loss_total": 0.0, "loss_contrastive": 0.0, "loss_cc": 0.0}
     forward_s = 0.0
     num_steps = 0
+    source = FeatureSource.of(val_loader)
     for host_batch in val_loader:
         batch = to_device(host_batch, device)
         _sync(device)
@@ -86,7 +90,7 @@ def validate_retrieval(model: RetrievalModel, cfg,
         embs, parts = retrieval_eval_step(
             model, batch, loss_weights=loss_w, margin=margin,
             loss_cycle_cons=cfg.train.loss_cycle_cons,
-            compute_dtype=compute_dtype, generator=generator)
+            compute_dtype=compute_dtype, generator=generator, source=source)
         _sync(device)
         forward_s += timer() - t0
         num_steps += 1

@@ -4,7 +4,8 @@ package (the flags of the repo's train_retrieval.py, :62-120).
 
     python -m coot_videotext_tpu_torch.train_retrieval \\
         -c config/retrieval/paper2020/yc2_2d3d_coot.yaml \\
-        [-o train.num_epochs=N] [--reset] [--load_epoch E] [--device cpu]
+        [-o train.num_epochs=N] [--reset] [--load_epoch E] [--device cpu] \\
+        [--preload_device] [--fixed_shapes]
 
 trains epochs, validates per `val_start` / `val_freq`, and writes the JAX
 trainer's experiment tree under experiments/retrieval/<group>/<name>_<run>/
@@ -20,7 +21,10 @@ validates one checkpoint: `--load_model` takes a reference-layout file
 ({net_name: state_dict}); without it, `--load_epoch E` or the newest
 `models/model_<ep>.pth` of the experiment directory is loaded.
 Runs on the CUDA device unless `--device cpu` is given; asked for CUDA
-without a GPU it raises.
+without a GPU it raises. The features live in a store in device memory when
+`preload_device` says so ("auto": on a CUDA device when it fits;
+`--preload_device` forces it, also on the CPU), and with `--fixed_shapes`
+the device samples the frames and packs the parts too.
 """
 
 from __future__ import annotations
@@ -90,8 +94,16 @@ def build_parser() -> arguments.ArgParser:
     parser.add_argument("--preload", action="store_true",
                         help="Preload video and text features into RAM.")
     parser.add_argument("--preload_device", action="store_true",
-                        help="The device feature store (not ported yet: "
-                             "raises).")
+                        help="Force the feature store in device memory "
+                             "even where the auto budget declines it (or "
+                             "on the CPU); batches then carry only row "
+                             "indices, gathered on the device. Raises if "
+                             "the store does not fit.")
+    parser.add_argument("--fixed_shapes", action="store_true",
+                        help="Pad batches to dataset-static shapes; with "
+                             "the feature store this samples frames and "
+                             "packs parts on the device, so batches carry "
+                             "only datapoint ids.")
     parser.add_argument("--load_model", type=str, default=None,
                         help="Load model from a reference-layout .pth.")
     parser.add_argument("--save_embeddings", action="store_true",
@@ -130,7 +142,10 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
         print(cfg)
     seed = cfg.random_seed if cfg.random_seed is not None else 0
     train_set, _, train_loader, val_loader = \
-        create_retrieval_datasets_and_loaders(cfg, path_data, seed=seed)
+        create_retrieval_datasets_and_loaders(
+            cfg, path_data, seed=seed, device=device,
+            fixed_shapes=True if args.fixed_shapes else None)
+    _print_data_path(train_loader, val_loader)
     if args.test_dataset:
         _print_batch(len(train_set), train_loader)
         return []
@@ -158,8 +173,28 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
         all_results.append({
             "path_base": trainer.exp.path_base,
             "state": dataclasses.asdict(trainer.state),
+            "layout": train_loader.layout,
             "step_losses": [v for _, v in losses]})
     return all_results
+
+
+def _print_data_path(train_loader, val_loader) -> None:
+    stores = [ld.device_store for ld in (train_loader, val_loader)]
+    if stores[0] is None:
+        print(f"Data path: host ({train_loader.layout} batches)", flush=True)
+        return
+    meta = train_loader.device_meta
+    if meta is None:
+        sampling = "on the host"
+    elif "pack_clips" in meta.shapes:
+        sampling = "on the device, parts packed"
+    else:
+        sampling = "on the device"
+    print(f"Feature store on {stores[0].device}: "
+          f"{sum(s.nbytes for s in stores) / 1e9:.3f} GB (train "
+          f"{stores[0].nbytes / 1e9:.3f}, val {stores[1].nbytes / 1e9:.3f}) "
+          f"uploaded in {sum(s.upload_s for s in stores):.2f} s; frames "
+          f"sampled {sampling}", flush=True)
 
 
 def _print_batch(num_points: int, loader) -> None:
@@ -168,6 +203,8 @@ def _print_batch(num_points: int, loader) -> None:
     for key, value in next(iter(loader)).items():
         if hasattr(value, "shape"):
             print(f"  {key}: {value.shape} {value.dtype}")
+        elif isinstance(value, str):
+            print(f"  {key}: {value}")
         else:
             print(f"  {key}: list[{len(value)}]")
 

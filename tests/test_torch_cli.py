@@ -30,6 +30,7 @@ from coot_videotext_tpu.tasks.retrieval.model_manager import (
 from coot_videotext_tpu.tasks.retrieval.steps import make_retrieval_eval_step
 from coot_videotext_tpu.utils import torch_convert
 from coot_videotext_tpu_torch import train_retrieval
+from coot_videotext_tpu_torch.data import retrieval_dataset
 from coot_videotext_tpu_torch.data.retrieval_dataset import (
     create_retrieval_datasets_and_loaders)
 from coot_videotext_tpu_torch.data.synthetic import (
@@ -106,7 +107,7 @@ def test_validate_cli_matches_jax(synth, h5_run):
     keys = []
     for batch in batches:
         arrays = {k: v for k, v in batch.items()
-                  if k not in ("key", "data_key", "sentences")}
+                  if k not in retrieval_dataset.HOST_KEYS}
         embs, _ = step(params, arrays, None)
         bv = batch["batch_valid"]
         for key in EMB_KEYS:
@@ -224,25 +225,44 @@ def test_cli_device_defaults_to_cuda(synth):
 
 def test_cli_dataset_test_and_preload(synth, capsys):
     """--test_dataset prints one collated train batch and trains nothing;
-    --preload reads the features into RAM first; --preload_device asks
-    for the device store, which is not ported and raises."""
+    --preload reads the features into RAM first; --preload_device puts
+    the features into a store on the device (here the CPU) and batches
+    carry row indices, with --fixed_shapes datapoint ids."""
     _, path, root = synth
     assert train_retrieval.main(_argv(path, root, "--device", "cpu",
                                       "--test_dataset", "--preload")) == []
     out = capsys.readouterr().out
     assert "Dataset: 4 datapoints, 1 batches." in out
     assert "clip_feat: (6," in out
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        train_retrieval.main(_argv(path, root, "--device", "cpu",
-                                   "--preload_device"))
+    assert train_retrieval.main(_argv(path, root, "--device", "cpu",
+                                      "--test_dataset",
+                                      "--preload_device")) == []
+    out = capsys.readouterr().out
+    assert "Feature store on cpu" in out and "clip_idx: (6," in out
+    assert "clip_feat" not in out
+    assert train_retrieval.main(_argv(path, root, "--device", "cpu",
+                                      "--test_dataset", "--preload_device",
+                                      "--fixed_shapes")) == []
+    out = capsys.readouterr().out
+    assert "sampled on the device" in out and "dp_idx: (6,)" in out
+    assert "layout: ids" in out
 
 
-def test_preload_device_true_raises(synth):
+def test_preload_device_true_raises(synth, monkeypatch):
+    """preload_device: true takes the store; a store that does not fit
+    the device's free memory raises instead of falling back."""
     cfg_dict, _, root = synth
     cfg_dict = copy.deepcopy(cfg_dict)
-    cfg_dict["dataset_val"]["preload_device"] = True
+    cfg_dict["dataset_train"]["preload_device"] = True
     cfg = RetrievalConfig(cfg_dict, is_train=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    _, _, _, loader = create_retrieval_datasets_and_loaders(cfg, root / "data")
+    assert loader.device_store is not None
+    batch = next(iter(loader))
+    assert batch["layout"] == "indices"
+    assert "vid_idx" in batch and "vid_feat" not in batch
+    monkeypatch.setattr(retrieval_dataset, "device_free_bytes",
+                        lambda device: 1.0)
+    with pytest.raises(RuntimeError, match="feature store needs"):
         create_retrieval_datasets_and_loaders(cfg, root / "data")
 
 

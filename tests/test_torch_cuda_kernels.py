@@ -11,7 +11,9 @@ Tolerance, max |kernel - plain| / max(1, max |plain|): 1e-4 in float32
 (summation order), 1e-2 in bfloat16 (outputs rounded to 8 significant
 bits, so the two can land one bf16 step apart); the same for every
 backward output. Dropout masks come from the same Philox bits on both
-sides, so kernel and plain agree on them exactly.
+sides, so kernel and plain agree on them exactly; the B5 gather is a copy
+and agrees bit for bit, and its fused noise takes the same bits (within
+the tolerance above: the two erfinv may differ in the last bits).
 """
 
 import pytest
@@ -21,7 +23,10 @@ from coot_videotext_tpu_torch.ops import cuda_build
 from coot_videotext_tpu_torch.ops.attention import (
     masked_attention, masked_attention_backward_plain,
     masked_attention_plain)
+from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.ops.dropout import dropout, dropout_plain
+from coot_videotext_tpu_torch.ops.gather import (
+    GatherNoise, gather_rows, gather_rows_plain)
 from coot_videotext_tpu_torch.ops.genpool import (
     genpool, genpool_backward_plain, genpool_plain)
 from coot_videotext_tpu_torch.ops.input_fc import (
@@ -239,3 +244,47 @@ def test_dropout_kernel(cuda, dtype):
     gx, = _grads(lambda a: dropout(a, 2 ** 50 + 3, 0.1), [x], gy,
                  "dropout")
     assert torch.equal(gx, dropout_plain(gy.to(dtype), 2 ** 50 + 3, 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4096, 1536])
+def test_gather_kernel(cuda, dtype, d):
+    """Ragged N with repeated indices and the table's last row: a bit-equal
+    copy, and with noise bit-equal to the plain version (same Philox bits,
+    erfinvf and rounding), which differs from the copy."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    table = torch.randn(3000, d, generator=g, device=cuda).to(dtype)
+    idx = torch.randint(0, 3000, (1001,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    idx[:5] = 2999
+    before = cuda_build.launch_counts["gather"]
+    out = gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["gather"] == before + 1
+    assert torch.equal(out, gather_rows_plain(table, idx))
+    noise = GatherNoise(0.01, 2 ** 40 + 1, philox.SITE_NOISE_CLIP)
+    noisy = gather_rows(table, idx, noise)
+    assert torch.equal(noisy, gather_rows_plain(table, idx, noise))
+    assert not torch.equal(noisy, out)
+
+
+@pytest.mark.cuda
+def test_gather_noise_is_a_truncated_normal(cuda):
+    """1e6 draws of std 1 on a zero table: |tn| <= 2 and the std of a
+    normal truncated at +-2 (0.8796) within 2%."""
+    zeros = torch.zeros(1, 1000, device=cuda)
+    draws = gather_rows(zeros, torch.zeros(1000, dtype=torch.int32,
+                                           device=cuda),
+                        GatherNoise(1.0, 5, philox.SITE_NOISE_VIDEO))
+    assert float(draws.abs().max()) <= 2.0
+    assert abs(float(draws.std()) / 0.8796 - 1.0) < 0.02
+
+
+@pytest.mark.cuda
+def test_gather_rejects_unsupported_inputs(cuda):
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        gather_rows(torch.zeros(8, 6, device=cuda), idx)
+    with pytest.raises(TypeError, match="int32"):
+        gather_rows(torch.zeros(8, 8, device=cuda), idx.long())
