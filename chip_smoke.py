@@ -12,7 +12,9 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    attention, forward and backward, B4 dropout and B5 row gather) against
    its plain PyTorch version on the card, in bfloat16 and float32, at the
    slices' shapes and edge cases (ragged S, constant rows, all-masked rows,
-   Lq = 1, dropout on with one seed: the masks must agree exactly; B5
+   Lq = 1, B3 at L = 24, 320 and a ragged 37 x 130, dropout on with one
+   seed: the masks must agree exactly; B3's backward repeats bit for bit;
+   B4 bit-equal, also on a misaligned view and a transposed cotangent; B5
    bit-equal, its noise's bounds and std, a 4.4 GB table).
 3. Validation at full width: generates a synthetic YouCook2-like val set
    (4096-d video / 1536-d text features, 128 val videos) in a temporary
@@ -37,8 +39,10 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    profiled and its peak memory read.
 5. Times each kernel, forward and backward, at the main path's shapes (CUDA
    events) beside its plain version, its library yardstick where one
-   exists, and its bound; B5 at each store gather of a step, with and
-   without noise.
+   exists, and its bound; B3's backward also at the paragraph's L = 320;
+   B4 and F.dropout's backward as bare launches, profiler device time,
+   host time per call and through autograd; B5 at each store gather of a
+   step, with and without noise.
 
 Prints `{"kernels": [...]}` on the line before the last and
 `{"ok": true, "device": {...}}` as the last line; exits non-zero (and
@@ -51,6 +55,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -212,10 +217,11 @@ def _grads(fn, inputs, dout):
     return [a.grad for a in inputs]
 
 
-def backward_case(name, args, rate, gen):
+def backward_case(name, args, rate, gen, g=None):
     """(kernel gradients, plain gradients) of one backward case; the
     differentiable inputs are f32 parameters (and f / q, k, v in the
-    compute dtype), as on the main path."""
+    compute dtype), as on the main path. For attention the kernel's list
+    ends with the cotangent, which `g` passes in again."""
     import torch
     from coot_videotext_tpu_torch.ops.attention import (
         masked_attention, masked_attention_backward_plain)
@@ -244,9 +250,11 @@ def backward_case(name, args, rate, gen):
                                      dout.to(f.dtype), rate, seed)
     else:
         q, k, v, kv = args
-        g = torch.randn(q.shape, generator=gen, device="cuda")
+        if g is None:
+            g = torch.randn(q.shape, generator=gen, device="cuda")
         ours = _grads(lambda *a: masked_attention(*a, kv, 8, 48 ** -0.5,
                                                   rate, seed), [q, k, v], g)
+        ours.append(g)
         ref = masked_attention_backward_plain(q, k, v, kv, g.to(q.dtype), 8,
                                               48 ** -0.5, rate, seed)
     return ours, list(ref)
@@ -298,6 +306,15 @@ def phase_kernel_checks():
             ("attention", dn, "paragraph Lq=Lk=300", 0.0,
              lambda dt=dtype: attention_inputs(64, 8, 300, 300, 48, dt, gen,
                                                2)),
+            ("attention", dn, "sentences N=8192 L=24 dropout 0.1", 0.1,
+             lambda dt=dtype: attention_inputs(1024, 8, 24, 24, 48, dt, gen,
+                                               16)),
+            ("attention", dn, "paragraph N=512 L=320 dropout 0.01", 0.01,
+             lambda dt=dtype: attention_inputs(64, 8, 320, 320, 48, dt, gen,
+                                               2)),
+            ("attention", dn, "ragged Lq=37 Lk=130 dropout 0.1", 0.1,
+             lambda dt=dtype: attention_inputs(64, 8, 37, 130, 48, dt, gen,
+                                               2)),
         ]
     seed = 20261016
     funcs = {
@@ -336,6 +353,12 @@ def phase_kernel_checks():
             # all-masked batch rows: no score gradient, so dq = dk = 0
             if float(ours[0][:16 * 8].abs().max()) != 0.0:
                 fail("attention_bwd: dq is not 0 on all-masked rows")
+        if name == "attention":
+            # no float atomics: a second backward repeats bit for bit
+            again, _ = backward_case(name, args, rate, gen, ours[3])
+            if not all(torch.equal(a, b) for a, b in zip(ours[:3], again)):
+                fail(f"attention_bwd {dn} {desc}: two backward calls on the "
+                     "same inputs differ")
         del args, out, ours, ref
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
@@ -354,6 +377,24 @@ def phase_kernel_checks():
                 fail(f"dropout {dn} {desc}: kernel and plain differ")
             record("dropout", dn, desc, *errors(y, y_ref))
             record("dropout_bwd", dn, desc, *errors(gx, g_ref))
+        # 2 bytes off 16-byte alignment (a scalar head and tail around the
+        # vectors), and a transposed (non-contiguous) cotangent
+        flat = torch.randn(1001 * 383 + 1, generator=gen,
+                           device="cuda").to(dtype)
+        x = flat[1:].view(1001, 383)
+        g_t = torch.randn(383, 1001, generator=gen, device="cuda").to(
+            dtype).t()
+        for what, g in (("misaligned", x), ("transposed", g_t)):
+            with torch.inference_mode():
+                y = dropout(x, seed, 0.01)
+            gx, = _grads(lambda a: dropout(a, seed, 0.01), [x], g)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, dropout_plain(x, seed, 0.01)) and
+                    torch.equal(gx, dropout_plain(g, seed, 0.01))):
+                fail(f"dropout {dn} misaligned x, {what} cotangent: kernel "
+                     "and plain differ")
+            log(f"  dropout       {dn:8s} {'x misaligned, g ' + what:34s} "
+                "bit-equal")
     torch.cuda.empty_cache()
     return worst
 
@@ -881,19 +922,110 @@ def profile_step(step_fn, what: str) -> None:
         step()
         traced_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     # kernel entries only: CPU ops also carry their kernels' device time
     events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
+              if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
+    busy_ms = sum(_dev_us(e) for e in events) / 1e3
     log(f"traced {what} step: {traced_ms:.2f} ms wall, device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / traced_ms:.1f}%); top device "
         "time:")
-    for e in sorted(events, key=dev_us, reverse=True)[:16]:
-        log(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    for e in sorted(events, key=_dev_us, reverse=True)[:16]:
+        log(f"    {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    for family, pattern in (("B3 backward", "masked_attention_bwd"),
+                            ("B4", "dropout_kernel")):
+        mine = [e for e in events if pattern in e.key]
+        log(f"  {family} ({pattern}*): "
+            f"{sum(_dev_us(e) for e in mine) / 1e3:.3f} ms device time over "
+            f"{sum(e.count for e in mine)} launches in the step")
+
+
+def device_ms_per_call(fn, calls: int = 100):
+    """The profiler's device time per call of fn: for each kernel name its
+    mean time per launch, times its launches per call (at least 1), summed
+    over the names. Means per launch hold when the trace misses some of a
+    thread's launches (seen for backwards run by autograd's device
+    thread)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
+    return sum(_dev_us(e) / e.count * max(1, round(e.count / calls))
+               for e in events) / 1e3
+
+
+def host_us_per_call(fn, calls: int = 100) -> float:
+    """Host microseconds per call of fn (the launches are queued, not
+    waited for)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def paired_bwd_ms(ours, lib, rounds: int = 5):
+    """Medians of two backwards through autograd.grad (`_bwd_ms` on
+    (out, inputs, g)), timed in turns so that the host's load falls on both
+    alike, and each round's times."""
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(_bwd_ms(*ours))
+        b.append(_bwd_ms(*lib))
+    return statistics.median(a), statistics.median(b), a, b
+
+
+def dropout_host_device(x, seed, fwd_ms, bwd_ms, lib_bwd_ms):
+    """B4 forward, B4 backward and F.dropout's backward on x, four ways:
+    (i) CUDA events over 100 back-to-back bare launches, (ii) the
+    profiler's device time per launch, (iii) host microseconds per wrapper
+    call, (iv) the wrapper as phase 5 times it (forward in inference mode,
+    backwards through torch.autograd.grad, median of rounds in turns)."""
+    import torch
+    from coot_videotext_tpu_torch.ops import cuda_build, philox
+    from coot_videotext_tpu_torch.ops import dropout as b4
+    rate, numel = 0.01, x.numel()
+    args = b4.launch_args(x, seed, rate, philox.SITE_DROPOUT,
+                          cuda_build.stream(x))
+    kernel = cuda_build.load_library().coot_dropout
+    y = torch.empty_like(x)
+    xp, yp = x.data_ptr(), y.data_ptr()
+    _, mask = torch.ops.aten.native_dropout(x, rate, True)
+    calls = {
+        "B4 forward": (lambda: kernel(xp, yp, numel, *args),
+                       lambda: b4.dropout(x, seed, rate), fwd_ms),
+        "B4 backward": (lambda: kernel(xp, yp, numel, *args),
+                        lambda: b4.launch(x, args, "dropout_bwd"), bwd_ms),
+        "F.dropout backward": (
+            lambda: torch.ops.aten.native_dropout_backward(
+                x, mask, 1.0 / (1.0 - rate)),
+            lambda: torch.ops.aten.native_dropout_backward(
+                x, mask, 1.0 / (1.0 - rate)), lib_bwd_ms),
+    }
+    with torch.inference_mode():
+        for name, (bare, wrapper, through) in calls.items():
+            log(f"  {name:18s} {numel} bf16: (i) {time_ms(bare, 100):.4f} ms "
+                f"per bare launch (CUDA events, 100 back to back), (ii) "
+                f"{device_ms_per_call(bare):.4f} ms device time per launch "
+                f"(profiler), (iii) {host_us_per_call(wrapper):.1f} us host "
+                f"per wrapper call, (iv) {through:.4f} ms through the "
+                "wrapper" + (" (forward)" if name == "B4 forward" else
+                             " (torch.autograd.grad)"))
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
 
 
 def _bwd_ms(out, inputs, g) -> float:
@@ -1001,20 +1133,45 @@ def phase_timing(launches, shapes, max_errors):
     entry("attention", f"N={n} L={lc} Dh={dh} bf16 drop {rate}",
           "attention.cu", "pallas_attention.py:114", fwd, plain, lib,
           2 * 4 * n * lc * dh + rows * lc, 4.0 * n * lc * lc * dh)
-    qkv = [a.clone().requires_grad_() for a in (q, k, v)]
-    y = masked_attention(*qkv, kv, 8, dh ** -0.5, rate, seed)
-    g = torch.randn(n, lc, dh, generator=gen, device="cuda").to(bf)
-    qkv_lib = [a.clone().requires_grad_() for a in (q, k, v)]
-    y_lib = F.scaled_dot_product_attention(
-        *qkv_lib, attn_mask=add_mask, dropout_p=rate, scale=dh ** -0.5)
-    entry("attention_bwd", f"N={n} L={lc} Dh={dh} bf16 drop {rate}",
-          "attention.cu", "pallas_attention.py:158", _bwd_ms(y, qkv, g),
-          time_ms(lambda: masked_attention_backward_plain(
-              q, k, v, kv, g, 8, dh ** -0.5, rate, seed)),
-          _bwd_ms(y_lib, qkv_lib, g),
-          2 * 8 * n * lc * dh + rows * lc + 8 * n * lc,
-          10.0 * n * lc * lc * dh)
-    del q, k, v, qkv, qkv_lib, y, y_lib, g
+    del q, k, v, add_mask
+    # B3 backward at the clips (the kernels line) and at the paragraph
+    # local net's call (L = lp, 320): through autograd in turns with SDPA's
+    # backward, and the profiler's device time per backward call
+    for what, b_, length in (("clips", rows, lc),
+                             ("paragraph", shapes["b"], shapes["lp"])):
+        q, k, v, kv = attention_inputs(b_, 8, length, length, dh, bf, gen)
+        n_ = b_ * 8
+        add_mask = torch.where(kv, 0.0, -INF).to(bf).repeat_interleave(
+            8, dim=0)[:, None, :]
+        qkv = [a.clone().requires_grad_() for a in (q, k, v)]
+        y = masked_attention(*qkv, kv, 8, dh ** -0.5, rate, seed)
+        g = torch.randn(n_, length, dh, generator=gen, device="cuda").to(bf)
+        qkv_lib = [a.clone().requires_grad_() for a in (q, k, v)]
+        y_lib = F.scaled_dot_product_attention(
+            *qkv_lib, attn_mask=add_mask, dropout_p=rate, scale=dh ** -0.5)
+        ms, lib, rounds, lib_rounds = paired_bwd_ms((y, qkv, g),
+                                                    (y_lib, qkv_lib, g))
+        dev = device_ms_per_call(lambda: torch.autograd.grad(
+            y, qkv, g, retain_graph=True), 10)
+        dev_lib = device_ms_per_call(lambda: torch.autograd.grad(
+            y_lib, qkv_lib, g, retain_graph=True), 10)
+        plain = time_ms(lambda: masked_attention_backward_plain(
+            q, k, v, kv, g, 8, dh ** -0.5, rate, seed))
+        nbytes = 2 * 8 * n_ * length * dh + b_ * length + 8 * n_ * length
+        flops = 10.0 * n_ * length * length * dh
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
+        log(f"  attention_bwd {what} N={n_} L={length} Dh={dh} bf16 drop "
+            f"{rate}: autograd.grad {ms:.4f} ms (rounds "
+            f"{', '.join(f'{t:.4f}' for t in rounds)}), device "
+            f"{dev:.4f} ms per call; SDPA backward {lib:.4f} ms (rounds "
+            f"{', '.join(f'{t:.4f}' for t in lib_rounds)}), device "
+            f"{dev_lib:.4f} ms per call; plain {plain:.3f} ms; bound "
+            f"{bms:.4f} ms ({by})")
+        if what == "clips":
+            entry("attention_bwd", f"N={n_} L={length} Dh={dh} bf16 drop "
+                  f"{rate}", "attention.cu", "pallas_attention.py:158", ms,
+                  plain, lib, nbytes, flops)
+        del q, k, v, qkv, qkv_lib, y, y_lib, g, add_mask
     # B4: the FFN / sublayer activations of the video clips
     x = torch.randn(rows * lc, d, generator=gen, device="cuda").to(bf)
     numel = x.numel()
@@ -1028,10 +1185,19 @@ def phase_timing(launches, shapes, max_errors):
     y = dropout(xl, seed, 0.01)
     xl_lib = x.clone().requires_grad_()
     y_lib = F.dropout(xl_lib, 0.01, training=True)
+    ms, lib, rounds, lib_rounds = paired_bwd_ms((y, [xl], x),
+                                                (y_lib, [xl_lib], x), 9)
+    log(f"  dropout_bwd through autograd.grad, 9 rounds in turns: ours "
+        f"median {ms:.4f} min {min(rounds):.4f} ms ("
+        f"{', '.join(f'{t:.4f}' for t in rounds)}), F.dropout median "
+        f"{lib:.4f} min {min(lib_rounds):.4f} ms ("
+        f"{', '.join(f'{t:.4f}' for t in lib_rounds)})")
     entry("dropout_bwd", f"{rows * lc}x{d} bf16 rate 0.01", "dropout.cu",
-          "pallas_dropout.py:121", _bwd_ms(y, [xl], x),
-          time_ms(lambda: dropout_plain(x, seed, 0.01)),
-          _bwd_ms(y_lib, [xl_lib], x), 4 * numel, 1.0 * numel)
+          "pallas_dropout.py:121", ms,
+          time_ms(lambda: dropout_plain(x, seed, 0.01)), lib, 4 * numel,
+          1.0 * numel)
+    dropout_host_device(x, seed, fwd, entries[-1]["ms"],
+                        entries[-1]["library_ms"])
     del x, xl, xl_lib, y, y_lib
     torch.cuda.empty_cache()
     # B5: the store gathers of one step (a store of the 256-video train

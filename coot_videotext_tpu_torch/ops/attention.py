@@ -30,6 +30,7 @@ from coot_videotext_tpu_torch.ops.common import check_tensor, is_bf16
 from coot_videotext_tpu_torch.typext import INF
 
 KERNEL = "attention"
+MMA_MAX_KEYS = 128  # keys per block of the bf16 backward
 
 
 def _probs(q, k, key_valid, num_heads, scale):
@@ -129,17 +130,29 @@ def _launch_fwd(q, k, v, key_valid, num_heads, scale, rate, seed,
     return o, valid_u8, stats
 
 
+def needs_dq_scratch(lk: int, bf16: bool) -> bool:
+    """The bf16 backward sums dq over key blocks of at most 128 keys in an
+    f32 scratch (csrc/attention.cu kMmaMaxRows); one block needs none."""
+    return bf16 and lk > MMA_MAX_KEYS
+
+
 def _launch_bwd(q, k, v, o, g, valid_u8, stats, num_heads, scale, rate,
                 seed):
-    n, lq, lk, dh, bf16 = _check(q, k, v, valid_u8, num_heads)
+    # the forward checked q, k, v and the mask
+    n, lq, dh = q.shape
+    lk = k.shape[1]
+    bf16 = q.dtype == torch.bfloat16
     g = g.to(q.dtype).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
+    scratch = (torch.empty(n * lq * dh, dtype=torch.float32, device=q.device)
+               if needs_dq_scratch(lk, bf16) else None)
     lib = cuda_build.load_library()
     err = lib.coot_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
         valid_u8.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), n, lq, lk, dh,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        0 if scratch is None else scratch.data_ptr(), n, lq, lk, dh,
         num_heads, float(scale), *philox.kernel_args(rate, seed), int(bf16),
         cuda_build.stream(q))
     cuda_build.check(err, KERNEL + "_bwd")

@@ -125,9 +125,10 @@ _SIGNATURES = {
     # scale, seed, thresh, drop scale, bf16, stream
     "coot_attention_fwd": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _ULL, _U, _F,
                                       _I, _P],
-    # q, k, v, o, g, key_valid, row_max, row_inv, dq, dk, dv, N, Lq, Lk, Dh,
-    # num_heads, scale, seed, thresh, drop scale, bf16, stream
-    "coot_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _I, _F, _ULL, _U, _F,
+    # q, k, v, o, g, key_valid, row_max, row_inv, dq, dk, dv, dq scratch,
+    # N, Lq, Lk, Dh, num_heads, scale, seed, thresh, drop scale, bf16,
+    # stream
+    "coot_attention_bwd": [_P] * 12 + [_I, _I, _I, _I, _I, _F, _ULL, _U, _F,
                                        _I, _P],
     # x, y, n, seed, thresh, scale, site, bf16, stream
     "coot_dropout": [_P, _P, _LL, _ULL, _U, _F, _U, _I, _P],
@@ -157,9 +158,11 @@ def load_library() -> ctypes.CDLL:
 
 
 def stream(t) -> int:
-    """The current CUDA stream of t's device, as the C entries take it."""
+    """The current CUDA stream of t's device, as the C entries take it:
+    the raw handle, as PyTorch's own kernel launchers read it, without
+    building a torch.cuda.Stream object on every launch."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check(err: int, name: str) -> None:

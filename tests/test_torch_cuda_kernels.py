@@ -197,21 +197,31 @@ def test_genpool_backward_kernel(cuda, dtype, rate):
         assert _rel(a, r) <= TOL[dtype], i
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("lq,lk,rate", [(80, 80, 0.0), (80, 80, 0.1),
-                                        (1, 16, 0.0), (300, 300, 0.1)])
-def test_attention_backward_kernel(cuda, dtype, lq, lk, rate):
-    """Self, cross (Lq = 1) and paragraph lengths, all-masked rows (zero
-    score gradient there), dropout on P."""
+def _attention_case(cuda, dtype, lq, lk, dh=48):
     g = torch.Generator(device=cuda).manual_seed(5)
-    b, heads, dh = 16, 8, 48
+    b, heads = 16, 8
     qkv = [torch.randn(b * heads, n, dh, generator=g, device=cuda).to(dtype)
            for n in (lq, lk, lk)]
     lens = torch.randint(1, lk + 1, (b,), generator=g, device=cuda)
     key_valid = torch.arange(lk, device=cuda)[None] < lens[:, None]
     key_valid[:2] = False
     go = torch.randn(b * heads, lq, dh, generator=g, device=cuda)
+    return qkv, key_valid, go, heads, dh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,rate,dh", [
+    (80, 80, 0.0, 48), (80, 80, 0.1, 48), (1, 16, 0.0, 48),
+    (300, 300, 0.1, 48), (24, 24, 0.1, 48), (320, 320, 0.01, 48),
+    (37, 130, 0.1, 48), (37, 130, 0.1, 21)])
+def test_attention_backward_kernel(cuda, dtype, lq, lk, rate, dh):
+    """Self, cross (Lq = 1), sentence (L = 24) and paragraph lengths (300;
+    320 as the train step runs it, three key blocks), a ragged 37 x 130
+    (no multiple of 16, two key blocks; also with an odd d_head, staged
+    and stored element by element), all-masked rows (zero score gradient
+    there), dropout on P."""
+    qkv, key_valid, go, heads, dh = _attention_case(cuda, dtype, lq, lk, dh)
     with torch.inference_mode():
         assert _rel(masked_attention(*qkv, key_valid, heads, dh ** -0.5,
                                      rate, 9),
@@ -226,6 +236,23 @@ def test_attention_backward_kernel(cuda, dtype, lq, lk, rate):
     for a, r in zip(ours, ref):
         assert _rel(a, r) <= TOL[dtype]
     assert float(ours[0][:2 * heads].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(80, 80), (320, 320), (37, 130)])
+def test_attention_backward_repeats_bit_for_bit(cuda, lq, lk):
+    """No float atomics: two backward calls on the same inputs give
+    bit-equal dq, dk, dv (bf16, dropout on)."""
+    qkv, key_valid, go, heads, dh = _attention_case(cuda, torch.bfloat16,
+                                                    lq, lk)
+
+    def fn(*a):
+        return masked_attention(*a, key_valid, heads, dh ** -0.5, 0.1, 9)
+
+    first = _grads(fn, qkv, go, "attention")
+    second = _grads(fn, qkv, go, "attention")
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -244,6 +271,25 @@ def test_dropout_kernel(cuda, dtype):
     gx, = _grads(lambda a: dropout(a, 2 ** 50 + 3, 0.1), [x], gy,
                  "dropout")
     assert torch.equal(gx, dropout_plain(gy.to(dtype), 2 ** 50 + 3, 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernel_misaligned_and_strided(cuda, dtype):
+    """A view one element off 16-byte alignment (scalar head and tail
+    around the 16-byte vectors) and a transposed cotangent: forward and
+    backward equal the plain version bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    flat = torch.randn(1001 * 383 + 1, generator=g, device=cuda).to(dtype)
+    x = flat.view(-1)[1:].view(1001, 383)
+    assert x.data_ptr() % 16
+    seed = 2 ** 33 + 5
+    with torch.inference_mode():
+        assert torch.equal(dropout(x, seed, 0.1), dropout_plain(x, seed, 0.1))
+    strided = torch.randn(383, 1001, generator=g, device=cuda).to(dtype).t()
+    for gy in (x, strided):
+        gx, = _grads(lambda a: dropout(a, seed, 0.1), [x], gy, "dropout")
+        assert torch.equal(gx, dropout_plain(gy, seed, 0.1))
 
 
 @pytest.mark.cuda

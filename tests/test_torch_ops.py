@@ -26,9 +26,11 @@ from coot_videotext_tpu.ops import pallas_attention as jattn
 from coot_videotext_tpu.ops import pallas_genpool as jgen
 from coot_videotext_tpu.ops import pallas_input_fc as jfc
 from coot_videotext_tpu_torch.ops import cuda_build
+from coot_videotext_tpu_torch.ops import dropout as dropout_mod
+from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.ops.attention import (
     masked_attention, masked_attention_backward_plain,
-    masked_attention_plain)
+    masked_attention_plain, needs_dq_scratch)
 from coot_videotext_tpu_torch.ops.dropout import dropout, dropout_plain
 from coot_videotext_tpu_torch.ops.genpool import (
     genpool, genpool_backward_plain, genpool_plain)
@@ -315,8 +317,10 @@ def _attn_grads(q, k, v, key_valid, heads, scale, g, rate=0.0, seed=0):
     return [a.grad.numpy() for a in qkv]
 
 
-@pytest.mark.parametrize("b,heads,lq,lk", [(3, 2, 20, 20), (4, 8, 1, 16)],
-                         ids=["self", "cross_lq1"])
+@pytest.mark.parametrize("b,heads,lq,lk", [(3, 2, 20, 20), (4, 8, 1, 16),
+                                           (2, 8, 80, 80), (2, 2, 37, 130)],
+                         ids=["self", "cross_lq1", "local_l80",
+                              "ragged_37x130"])
 def test_attention_backward_matches_module_autodiff(b, heads, lq, lk):
     """dq, dk, dv against jax.grad of masked_attention_reference, the
     module's math. The last batch row has every key masked: autodiff of
@@ -418,3 +422,23 @@ def test_cpu_path_launches_no_kernel():
     t = torch.from_numpy
     masked_attention(t(q), t(k), t(v), t(key_valid), 2, 0.3)
     assert sum(cuda_build.launch_counts.values()) == 0
+
+
+def test_kernel_launch_arguments():
+    """Host-side launch logic: B4's arguments, checked and computed once in
+    the forward for both launches, and when B3's bf16 backward needs its
+    f32 dq scratch (more than one block of 128 keys)."""
+    x = torch.zeros(3, 5, dtype=torch.bfloat16)
+    args = dropout_mod.launch_args(x, 2 ** 40 + 1, 0.01,
+                                   philox.SITE_DROPOUT, 7)
+    assert args == (2 ** 40 + 1, int(0.01 * 2 ** 32), 1.0 / 0.99,
+                    philox.SITE_DROPOUT, 1, 7)
+    assert args.thresh == philox.kernel_args(0.01, 1)[1]
+    assert dropout_mod.launch_args(x.float(), 5, 0.5, 3).bf16 == 0
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dropout_mod.launch_args(x.half(), 5, 0.5, 3)
+    with pytest.raises(ValueError, match="rate"):
+        dropout_mod.launch_args(x, 5, 1.0, 3)
+    assert not needs_dq_scratch(128, True)
+    assert needs_dq_scratch(129, True) and needs_dq_scratch(320, True)
+    assert not needs_dq_scratch(320, False)
