@@ -12,8 +12,10 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    attention, forward and backward, B4 dropout and B5 row gather) against
    its plain PyTorch version on the card, in bfloat16 and float32, at the
    slices' shapes and edge cases (ragged S, constant rows, all-masked rows,
-   Lq = 1, B3 at L = 24, 320 and a ragged 37 x 130, dropout on with one
-   seed: the masks must agree exactly; B3's backward repeats bit for bit;
+   Lq = 1, B1 at the video global net's 5,120 x 4096, a ragged 4,099 x
+   4096, rows of 100 + 0.5 N, S = 17 and 1, B3 at L = 24, 320 and a ragged
+   37 x 130, dropout on with one seed: the masks must agree exactly; B1's
+   and B3's backwards repeat bit for bit;
    B4 bit-equal, also on a misaligned view and a transposed cotangent; B5
    bit-equal, its noise's bounds and std, a 4.4 GB table).
 3. Validation at full width: generates a synthetic YouCook2-like val set
@@ -39,7 +41,13 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    profiled and its peak memory read.
 5. Times each kernel, forward and backward, at the main path's shapes (CUDA
    events) beside its plain version, its library yardstick where one
-   exists, and its bound; B3's backward also at the paragraph's L = 320;
+   exists, and its bound; B1 at all four calls of a step (clips, video
+   global, paragraph, sentences), each first held against its plain
+   version (forward and backward, at that call's row splits) and its
+   backward repeated bit for bit, with the profiler's device time by
+   kernel (row_stats alone among them), the host time per backward call
+   and torch.matmul of its product alone as `product_ms`; B3's backward
+   also at the paragraph's L = 320;
    B4 and F.dropout's backward as bare launches, profiler device time,
    host time per call and through autograd; B5 at each store gather of a
    step, with and without noise.
@@ -121,12 +129,25 @@ def errors(out, ref):
     return err, err / max(1.0, float(ref.abs().max()))
 
 
+def check_tol(name, dn, desc, err, rel) -> None:
+    """Logs one check's error and fails when it is above TOL."""
+    tol = TOL[dn]
+    log(f"  {name:13s} {dn:8s} {desc:34s} max abs err {err:.3e}, "
+        f"relative {rel:.3e} (tol {tol:.0e})")
+    if not rel <= tol:
+        fail(f"{name} {dn} {desc}: error {rel} > {tol}")
+
+
 # ---------------- kernel inputs ----------------
 
-def input_fc_inputs(s, din, dout, dtype, gen, constant_rows=0):
+def input_fc_inputs(s, din, dout, dtype, gen, constant_rows=0,
+                    offset=False):
+    """x ~ 2 N + 0.5, or with `offset` 100 + 0.5 N (mean^2 >> var: the
+    norm's shifted sums); its first `constant_rows` rows constant."""
     import torch
     dev = "cuda"
-    x = torch.randn(s, din, generator=gen, device=dev) * 2.0 + 0.5
+    x = torch.randn(s, din, generator=gen, device=dev)
+    x = x * 0.5 + 100.0 if offset else x * 2.0 + 0.5
     x[:constant_rows] = 3.0  # zero-variance rows
     gain = 1.0 + 0.1 * torch.randn(din, generator=gen, device=dev)
     bias = 0.1 * torch.randn(din, generator=gen, device=dev)
@@ -188,6 +209,20 @@ def phase_environment():
     return card
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name from its Itanium-mangled symbol: the last part of the
+    nested name and, roughly, its template arguments (`input_fc_g_mma`,
+    `row_stats<__nv_bfloat16>`, `row_stats<f>`)."""
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    name = mangled
+    while s[:1].isdigit():
+        n = re.match(r"\d+", s)[0]
+        name, s = s[len(n):len(n) + int(n)], s[len(n) + int(n):]
+    if s.startswith("I"):
+        name += "<" + re.sub(r"^\d+", "", s[1:s.index("E")]) + ">"
+    return name
+
+
 def phase_build():
     from coot_videotext_tpu_torch.ops import cuda_build
     t0 = time.time()
@@ -205,6 +240,19 @@ def phase_build():
         f"{min(regs, default=0)}-{max(regs, default=0)}; "
         f"{len(spills)} with spills" + "".join(
             f"\n    {line[:150]}" for line in spills))
+    # per kernel: registers, static shared memory (the dynamic share is set
+    # at launch) and spills, in the order ptxas compiled them
+    name, spill = "?", ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = _kernel_name(line.split("'")[1]), ""
+        elif "spill stores" in line:
+            spill = "spills (stores/loads, bytes) " + "/".join(
+                re.findall(r"(\d+) bytes spill", line))
+        elif "Used" in line and "registers" in line:
+            smem = re.search(r"(\d+) bytes smem", line)
+            log(f"    {name}: {re.search(r'Used (\d+)', line)[1]} registers, "
+                f"{smem[1] if smem else 0} bytes static smem; {spill}")
 
 
 def _grads(fn, inputs, dout):
@@ -220,8 +268,8 @@ def _grads(fn, inputs, dout):
 def backward_case(name, args, rate, gen, g=None):
     """(kernel gradients, plain gradients) of one backward case; the
     differentiable inputs are f32 parameters (and f / q, k, v in the
-    compute dtype), as on the main path. For attention the kernel's list
-    ends with the cotangent, which `g` passes in again."""
+    compute dtype), as on the main path. For input_fc and attention the
+    kernel's list ends with the cotangent, which `g` passes in again."""
     import torch
     from coot_videotext_tpu_torch.ops.attention import (
         masked_attention, masked_attention_backward_plain)
@@ -233,10 +281,11 @@ def backward_case(name, args, rate, gen, g=None):
     if name == "input_fc":
         x, *params = args
         params = [p.float() for p in params]
-        dy = torch.randn(x.shape[0], params[2].shape[0], generator=gen,
-                         device="cuda")
+        dy = g if g is not None else torch.randn(
+            x.shape[0], params[2].shape[0], generator=gen, device="cuda")
         ours = _grads(lambda *p: fused_input_fc(x, *p, 1e-6, "gelu"),
                       params, dy)
+        ours.append(dy)
         ref = fused_input_fc_backward_plain(x, *params, 1e-6, "gelu",
                                             dy.to(x.dtype))
     elif name == "genpool":
@@ -281,6 +330,17 @@ def phase_kernel_checks():
              lambda dt=dtype: input_fc_inputs(81920, 4096, 384, dt, gen, 5)),
             ("input_fc", dn, "text, ragged S=1001 1536->384", 0.0,
              lambda dt=dtype: input_fc_inputs(1001, 1536, 384, dt, gen, 3)),
+            ("input_fc", dn, "video global S=5120 4096->384", 0.0,
+             lambda dt=dtype: input_fc_inputs(5120, 4096, 384, dt, gen, 5)),
+            ("input_fc", dn, "ragged S=4099 4096->384", 0.0,
+             lambda dt=dtype: input_fc_inputs(4099, 4096, 384, dt, gen, 7)),
+            ("input_fc", dn, "offset 100 S=4099 4096->384", 0.0,
+             lambda dt=dtype: input_fc_inputs(4099, 4096, 384, dt, gen, 7,
+                                              offset=True)),
+            ("input_fc", dn, "S=17 1536->384", 0.0,
+             lambda dt=dtype: input_fc_inputs(17, 1536, 384, dt, gen, 2)),
+            ("input_fc", dn, "S=1 4096->384", 0.0,
+             lambda dt=dtype: input_fc_inputs(1, 4096, 384, dt, gen)),
             ("genpool", dn, "clips S=1024 L=80", 0.0,
              lambda dt=dtype: genpool_inputs(1024, 80, 384, 768, 2, dt, gen,
                                              16)),
@@ -329,11 +389,7 @@ def phase_kernel_checks():
     }
 
     def record(name, dn, desc, err, rel):
-        tol = TOL[dn]
-        log(f"  {name:13s} {dn:8s} {desc:34s} max abs err {err:.3e}, "
-            f"relative {rel:.3e} (tol {tol:.0e})")
-        if not rel <= tol:
-            fail(f"{name} {dn} {desc}: error {rel} > {tol}")
+        check_tol(name, dn, desc, err, rel)
         if dn == "bfloat16":
             worst[name] = max(worst.get(name, 0.0), err)
 
@@ -353,11 +409,13 @@ def phase_kernel_checks():
             # all-masked batch rows: no score gradient, so dq = dk = 0
             if float(ours[0][:16 * 8].abs().max()) != 0.0:
                 fail("attention_bwd: dq is not 0 on all-masked rows")
-        if name == "attention":
+        if name in ("attention", "input_fc"):
             # no float atomics: a second backward repeats bit for bit
-            again, _ = backward_case(name, args, rate, gen, ours[3])
-            if not all(torch.equal(a, b) for a, b in zip(ours[:3], again)):
-                fail(f"attention_bwd {dn} {desc}: two backward calls on the "
+            n_out = len(ref)
+            again, _ = backward_case(name, args, rate, gen, ours[n_out])
+            if not all(torch.equal(a, b) for a, b in zip(ours[:n_out],
+                                                         again)):
+                fail(f"{name}_bwd {dn} {desc}: two backward calls on the "
                      "same inputs differ")
         del args, out, ours, ref
     for dtype in (torch.bfloat16, torch.float32):
@@ -931,20 +989,29 @@ def profile_step(step_fn, what: str) -> None:
         "time:")
     for e in sorted(events, key=_dev_us, reverse=True)[:16]:
         log(f"    {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    for family, pattern in (("B3 backward", "masked_attention_bwd"),
-                            ("B4", "dropout_kernel")):
-        mine = [e for e in events if pattern in e.key]
-        log(f"  {family} ({pattern}*): "
+    for family, pattern in (
+            ("B1 forward", ("row_stats", "input_fc_fwd_mma")),
+            ("B1 backward (without its sum_splits)",
+             ("dpre_colsum", "input_fc_g_mma", "param_grads")),
+            ("B3 backward", ("masked_attention_bwd",)),
+            ("B4", ("dropout_kernel",))):
+        mine = [e for e in events if any(p in e.key for p in pattern)]
+        log(f"  {family} ({'*, '.join(pattern)}*): "
             f"{sum(_dev_us(e) for e in mine) / 1e3:.3f} ms device time over "
             f"{sum(e.count for e in mine)} launches in the step")
 
 
-def device_ms_per_call(fn, calls: int = 100):
-    """The profiler's device time per call of fn: for each kernel name its
-    mean time per launch, times its launches per call (at least 1), summed
-    over the names. Means per launch hold when the trace misses some of a
-    thread's launches (seen for backwards run by autograd's device
-    thread)."""
+def device_ms_per_call(fn, calls: int = 100) -> float:
+    """The profiler's device ms per call of fn, over all its kernels."""
+    return sum(kernel_ms(fn, calls).values())
+
+
+def kernel_ms(fn, calls: int = 20) -> dict:
+    """The profiler's device ms per call of fn, by kernel (the name up to
+    its argument list, without the namespace): for each kernel its mean
+    time per launch, times its launches per call (at least 1). Means per
+    launch hold when the trace misses some of a thread's launches (seen for
+    backwards run by autograd's device thread)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -954,10 +1021,14 @@ def device_ms_per_call(fn, calls: int = 100):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
-    return sum(_dev_us(e) / e.count * max(1, round(e.count / calls))
-               for e in events) / 1e3
+    out = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0:
+            name = e.key.replace("(anonymous namespace)::", "").split(
+                "(")[0].split("::")[-1]
+            per_call = _dev_us(e) / e.count * max(1, round(e.count / calls))
+            out[name] = out.get(name, 0.0) + per_call / 1e3
+    return out
 
 
 def host_us_per_call(fn, calls: int = 100) -> float:
@@ -1066,30 +1137,81 @@ def phase_timing(launches, shapes, max_errors):
             source=f"coot_videotext_tpu_torch/csrc/{src}",
             replaces=f"coot_videotext_tpu/ops/{replaces}", ms=ms,
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
-            bound_by=by))
+            bound_by=by, product_ms=None))
 
-    # B1
-    s = rows * lc
-    x, *params = input_fc_inputs(s, din, d, bf, gen)
-    params = [p.float() for p in params]
-    with torch.inference_mode():
-        fwd = time_ms(lambda: fused_input_fc(x, *params, 1e-6, "gelu"))
-        plain = time_ms(lambda: fused_input_fc_plain(x, *params, 1e-6,
-                                                     "gelu"))
-    entry("input_fc", f"S={s} {din}->{d} bf16", "input_fc.cu",
-          "pallas_input_fc.py:207", fwd, plain, None,
-          2 * s * din + 8 * din + 2 * d * din + 4 * d + 2 * s * d,
-          2.0 * s * din * d)
-    leaves = [p.clone().requires_grad_() for p in params]
-    y = fused_input_fc(x, *leaves, 1e-6, "gelu")
-    dy = torch.randn(s, d, generator=gen, device="cuda").to(bf)
-    entry("input_fc_bwd", f"S={s} {din}->{d} bf16", "input_fc.cu",
-          "pallas_input_fc.py:284", _bwd_ms(y, leaves, dy),
-          time_ms(lambda: fused_input_fc_backward_plain(
-              x, *params, 1e-6, "gelu", dy)), None,
-          2 * s * din + 2 * s * d + 4 * s * d + 2 * din * d + 8 * s
-          + 4 * (din * d + d + 2 * din), 4.0 * s * din * d)
-    del x, params, leaves, y, dy
+    # B1 at the four calls of a train step: the packed clips (the kernels
+    # line), the video global net, the paragraph and the packed sentences
+    b1_calls = (
+        ("clips", rows * lc, din),
+        ("video global", shapes["b"] * shapes["lv"], din),
+        ("paragraph", shapes["b"] * shapes["lp"], shapes["dtext"]),
+        ("sentences", shapes.get("pack_sents", shapes["b"]
+                                 * shapes["n_parts"]) * shapes["ls"],
+         shapes["dtext"]))
+    for what, s, width in b1_calls:
+        x, *params = input_fc_inputs(s, width, d, bf, gen)
+        params = [p.float() for p in params]
+        w_t = params[2].to(bf).t()
+        shape = f"S={s} {width}->{d} bf16"
+        with torch.inference_mode():
+            check_tol("input_fc", "bfloat16", f"{what} {shape}", *errors(
+                fused_input_fc(x, *params, 1e-6, "gelu"),
+                fused_input_fc_plain(x, *params, 1e-6, "gelu")))
+            fwd = time_ms(lambda: fused_input_fc(x, *params, 1e-6, "gelu"))
+            plain = time_ms(lambda: fused_input_fc_plain(x, *params, 1e-6,
+                                                         "gelu"))
+            # yardstick, not a port of B1: the product alone
+            product = time_ms(lambda: torch.matmul(x, w_t))
+            fwd_split = kernel_ms(lambda: fused_input_fc(x, *params, 1e-6,
+                                                         "gelu"))
+        leaves = [p.clone().requires_grad_() for p in params]
+        y = fused_input_fc(x, *leaves, 1e-6, "gelu")
+        dy = torch.randn(s, d, generator=gen, device="cuda").to(bf)
+
+        def backward():
+            return torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+        # at this call's row splits: each gradient against the plain one,
+        # and a second call bit for bit
+        grads = backward()
+        ref = fused_input_fc_backward_plain(x, *params, 1e-6, "gelu", dy)
+        errs = [errors(a, r) for a, r in zip(grads, ref)]
+        check_tol("input_fc_bwd", "bfloat16", f"{what} {shape}",
+                  max(e[0] for e in errs), max(e[1] for e in errs))
+        if not all(torch.equal(a, b) for a, b in zip(grads, backward())):
+            fail(f"input_fc_bwd {what} {shape}: two backward calls on the "
+                 "same inputs differ")
+        del grads, ref
+        bwd = _bwd_ms(y, leaves, dy)
+        bwd_host = host_us_per_call(backward, 50)
+        bwd_plain = time_ms(lambda: fused_input_fc_backward_plain(
+            x, *params, 1e-6, "gelu", dy))
+        bwd_split = kernel_ms(backward)
+        # the backward's one product G = xhat^T dpre: (din x S)(S x dout)
+        bwd_product = time_ms(lambda: torch.matmul(x.t(), dy))
+        fwd_bytes = (2 * s * width + 8 * width + 2 * d * width + 4 * d
+                     + 2 * s * d)
+        bwd_bytes = (2 * s * width + 2 * s * d + 4 * s * d + 2 * width * d
+                     + 8 * s + 4 * (width * d + d + 2 * width))
+        flops = 2.0 * s * width * d
+        for name, ms, plain_ms, prod, split, nbytes in (
+                ("input_fc", fwd, plain, product, fwd_split, fwd_bytes),
+                ("input_fc_bwd", bwd, bwd_plain, bwd_product, bwd_split,
+                 bwd_bytes)):
+            bms, by = bound_ms(nbytes, flops, "bfloat16")
+            log(f"  {name:13s} {what:12s} {shape:26s} kernel {ms:.4f} ms, "
+                f"bound {bms:.4f} ({by}), plain {plain_ms:.3f}, product "
+                f"alone (torch.matmul) {prod:.4f}; device by kernel: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                + (f"; host {bwd_host:.1f} us per autograd.grad call"
+                   if name == "input_fc_bwd" else ""))
+            if what == "clips":
+                entry(name, shape, "input_fc.cu", "pallas_input_fc.py:"
+                      + ("207" if name == "input_fc" else "284"), ms,
+                      plain_ms, None, nbytes, flops)
+                entries[-1]["product_ms"] = prod
+        del x, params, leaves, y, dy, w_t
+        torch.cuda.empty_cache()
     # B2
     f, mask, *params = genpool_inputs(rows, lc, d, h, heads, bf, gen)
     params = [p.float() for p in params]
@@ -1243,9 +1365,11 @@ def phase_timing(launches, shapes, max_errors):
         log(f"  {e['name']:13s} {e['shape']:38s} kernel {e['ms']:.3f} ms, "
             f"plain {e['plain_ms']:.3f} ms, library {lib}, bound "
             f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
+    # product_ms (B1 only): torch.matmul of B1's product alone, a yardstick
+    # (no single PyTorch call computes B1, and the port never calls it)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "product_ms")
     return [{k: e[k] for k in keys} for e in entries]
 
 

@@ -74,6 +74,7 @@
 // (cell, 32 queries).
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace coot {
@@ -389,53 +390,6 @@ size_t dkdv_smem_bytes() {
 constexpr int kMmaWarps = 8;        // at most 8 warps x 16 keys per block
 constexpr int kMmaMaxRows = 16 * kMmaWarps;
 constexpr uint8_t kPadKey = 2;      // sValid: 1 valid, 0 masked, 2 past Lk
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of
-// matrix i, whose fragment lands in r[i].
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Rows [0, rows) of a (., Dh) bf16 matrix into a (prows x kD) shared tile
 // of row stride kD + 8 (conflict-free ldmatrix), zero past rows and Dh.
@@ -773,16 +727,14 @@ cudaError_t launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v,
                            bf16* dk, bf16* dv, float* dq_acc, int N, int Lq,
                            int Lk, int Dh, int num_heads, float scale,
                            DropParams drop, cudaStream_t st) {
-  static bool configured = false;  // the largest tile, set once
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        masked_attention_bwd_mma<kD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(
-            bwd_mma_smem_bytes(kD, BwdTiles{kMmaMaxRows, kMmaMaxRows})));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  // the largest tile, set on every launch: the attribute belongs to the
+  // current device
+  const cudaError_t err = cudaFuncSetAttribute(
+      masked_attention_bwd_mma<kD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(
+          bwd_mma_smem_bytes(kD, BwdTiles{kMmaMaxRows, kMmaMaxRows})));
+  if (err != cudaSuccess) return err;
   const int warps = balanced_tiles(Lk);
   const BwdTiles t{16 * balanced_tiles(Lq), 16 * warps};
   if (Lk > t.bk && dq_acc == nullptr) return cudaErrorInvalidValue;

@@ -4,52 +4,89 @@
 // Replaces the TPU kernel coot_videotext_tpu/ops/pallas_input_fc.py::
 // fused_input_fc (_fwd_kernel :153, _bwd_kernel :167).
 //
-// What bounds it on the H100: at the video local net's shapes (S up to
-// ~90k rows, din 4096, dout 384) the product is 2*S*din*dout flops against
-// S*din*2 bytes of input, ~380 flops per byte, so it is compute-bound on
-// the tensor cores (989 TF/s bf16); the f32 variant is bound by the
-// 67 TF/s of the FMA units.
+// What bounds it on the H100. The four calls of a yc2_2d3d_coot train step
+// (x rows x din -> dout = 384): the clips 66,560 x 4096, the video global
+// net 5,120 x 4096, the paragraph 20,480 x 1536 and the sentences 19,968 x
+// 1536. Each does 2*S*din*dout flops against ~2*S*din bytes of x, i.e.
+// dout = 384 flops per byte of x, just above the card's bf16 ridge (989
+// TF/s over 3.35 TB/s, ~295 flops per byte): the product and the stream of
+// x bound each half about equally, ~0.21 ms at the clips, ~0.016 ms at the
+// video global net and ~0.024 ms at each text call. f32 (used on the card
+// only by the checks) is bound by the 67 TF/s of the FMA units.
 //
-// Design: two launches.
-//  (a) row_stats: one warp per row computes the shifted single-pass sums
-//      (shift by the row's first element), the Bessel variance (ddof=1)
-//      with the zero-variance guard, and writes mean and 1/(std + eps):
-//      eps sits on the std, not on the variance, as in CootLayerNorm.
-//  (b) a tiled GEMM that normalizes the A tile while loading it into
-//      shared memory (xn = gain*(x-mean)*inv + bias, rounded to the compute
-//      dtype exactly where the unfused path rounds the norm output), so the
-//      normalized activation never goes to device memory. bf16 runs on the
-//      tensor cores through nvcuda::wmma (bf16 in, f32 accumulate); the
-//      block owns 64 rows x 384 columns, so at dout <= 384 each input row is
-//      read from device memory once. The epilogue adds b, applies gelu
-//      through erff, and stores. f32 takes a shared-memory-tiled FMA loop.
-// Any S is taken: the ragged row edge (and ragged din/dout) is masked.
-// A simple kernel that is right comes first: no cp.async/TMA pipeline and
-// no wgmma yet. With `pre` the forward also writes the f32 pre-activation
-// (the TPU kernel's need_pre residual) for the backward.
+// Why the norm is applied before the product. pre = xn . W with xn =
+// gain*(x - mean)*inv + bias could be refolded as inv*(x . (gain W)) -
+// inv*mean*u + v and the raw x sent to the tensor cores; but the padded
+// slots are constant rows (std 0, so inv = 1/eps = 1e6), and there the
+// folded form multiplies an f32 cancellation residue by 1e6. So x is
+// normalized in shared memory, once per element, before any product, and a
+// constant row gives xhat = 0 exactly, as in the plain version.
 //
-// Backward: the input is pipeline data, so, as on the TPU, no dx is formed;
-// the parameter gradients are
-//   dpre = dy * act'(pre)                  (one elementwise pass, rounded)
-//   dW = xn^T dpre, db = sum_rows dpre     (csrc/tn_reduce.cuh; A = x is
-//                                           normalized while it is staged)
-//   dxn = dpre W^T, dgain = sum_rows dxn * xhat, dbias = sum_rows dxn.
-// Both products are 2*S*din*dout flops, so the backward is compute-bound on
-// the tensor cores like the forward (4*S*din*dout flops in all). The (S,
-// din) dxn never reaches device memory: `dxn_colsum` gives each block one
-// 64-column tile of din and one split of the rows; it forms dxn for 32 rows
-// at a time with wmma (dpre staged in shared memory, W read from L2) and
-// folds it into per-column partial sums, which `sum_splits` adds in split
-// order. No float atomics: the sums repeat bit for bit.
-
-#include <mma.h>
+// Forward (bf16), two launches:
+//  (a) row_stats: one warp per row, 16 bytes a lane, the shifted sums
+//      (shift by the row's first element), the Bessel variance (ddof = 1),
+//      the zero-variance guard and 1/(std + eps): eps on the std, as in
+//      CootLayerNorm. The vector loads sum in another order than the
+//      earlier scalar loop, so mean and inv agree with it to f32 rounding.
+//  (b) input_fc_fwd_mma: one block per (128 rows x 192 columns) of y, one
+//      block per SM (184 KB of shared memory). Warp-specialized: 4 producer
+//      warps fill a 4-stage ring of 64-deep k tiles (x, W, gain and bias)
+//      by 16-byte cp.async and, once a tile has landed, normalize it in
+//      place (xn = gain*(x - mean)*inv + bias rounded to bf16, where the
+//      plain version rounds); 8 consumer warps, 64 rows x 48 columns each,
+//      run mma.sync m16n8k16 (bf16 in, f32 accumulate) from ldmatrix
+//      fragments, loading the next 16-deep step's fragments while this
+//      step's products run. Named barriers (one "full" and one "empty" per
+//      stage) hand the stages over. The epilogue goes through shared
+//      memory: + b, exact-erf gelu, 16-byte stores of y (bf16) and of the
+//      f32 pre-activation `pre` (the TPU kernel's need_pre residual) when
+//      the backward needs it. Blocks of one row tile are adjacent in the
+//      grid, so x's second read comes from L2. A 64-row variant (two
+//      blocks per SM, for the video global net's 40 row tiles) was slower
+//      than this one at all four calls on the H100, so there is none.
+//      What holds both bf16 products at ~5x their bound: the products
+//      (ldmatrix + mma.sync) and the staging (cp.async + the normalizing
+//      pass, 4 warps) each take about half of a k tile's time and overlap
+//      little. wgmma would read both operands from shared memory (no
+//      ldmatrix, W read once per 64-row warpgroup), and TMA would free the
+//      producers to normalize only.
+// f32 keeps a shared-memory-tiled FMA loop (gemm_f32).
+//
+// Backward: the input is pipeline data, so, as on the TPU, no dx is formed.
+// With dpre = dy * act'(pre) (rounded to the compute dtype) the TPU kernel
+// forms dxn = dpre W and sums dgain = sum_r dxn*xhat, dbias = sum_r dxn; here
+// one product over the rows gives every parameter gradient:
+//   G = xhat^T dpre                     (din x dout, f32, K = S rows)
+//   db_o    = sum_r dpre_ro
+//   dW_ko   = gain_k G_ko + bias_k db_o  (as xn = gain*xhat + bias)
+//   dgain_k = sum_r xhat_rk sum_o dpre_ro W_ok = sum_o W_ok G_ko
+//   dbias_k = sum_o W_ok db_o
+// so the backward does 2*S*din*dout flops, half the two products, and reads
+// x once. Launches:
+//  (1) dpre_colsum: dpre in 16-byte vectors and, per block (one row split),
+//      the column sums of the rounded dpre; sum_splits adds them in split
+//      order into db;
+//  (2) input_fc_g_mma (bf16): one block per (128 of din x 192 of dout, row
+//      split), 64 rows a step through a 4-stage cp.async ring, warp-
+//      specialized as the forward; x is staged raw and xhat = (x -
+//      mean)*inv formed in place once per element (rounded to bf16), then
+//      both operands, row-major in memory with the rows as K, come to the
+//      tensor cores through ldmatrix.trans. Each block writes its partial
+//      tile of G; nothing is transposed in memory.
+//      The split count (ops/input_fc.py::backward_splits) fills whole
+//      waves of the card; the blocks of one row split run together, so x
+//      is read from device memory once and dpre from L2. f32 takes
+//      tn_partial<float, true> (csrc/tn_reduce.cuh) with gain 1, bias 0;
+//  (3) param_grads: one warp per row k of din sums the partial tiles in
+//      split order and writes dW, dgain and dbias, in a fixed order.
+// No float atomics anywhere: two backward calls are bit-equal.
+// Any S is taken, ragged row, din and dout edges are masked.
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "tn_reduce.cuh"
-
-using namespace nvcuda;
 
 namespace coot {
 namespace {
@@ -59,17 +96,32 @@ constexpr int kStatsThreads = 256;  // 8 rows per block, one warp each
 template <typename T>
 __global__ void __launch_bounds__(kStatsThreads)
 row_stats(const T* __restrict__ x, float* __restrict__ mean,
-          float* __restrict__ inv, int S, int din, float eps) {
+          float* __restrict__ inv, int S, int din, float eps, bool vec) {
+  constexpr int kV = 16 / sizeof(T);
   const int row = (blockIdx.x * kStatsThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= S) return;  // whole warp leaves together
   const T* xr = x + (size_t)row * din;
   const float c = to_f32(xr[0]);
   float s1 = 0.f, s2 = 0.f;
-  for (int k = lane; k < din; k += 32) {
-    const float v = to_f32(xr[k]) - c;
-    s1 += v;
-    s2 += v * v;
+  if (vec) {
+#pragma unroll 4
+    for (int k = lane * kV; k < din; k += 32 * kV) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(xr + k);
+      const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < kV; ++j) {
+        const float d = to_f32(v[j]) - c;
+        s1 += d;
+        s2 += d * d;
+      }
+    }
+  } else {
+    for (int k = lane; k < din; k += 32) {
+      const float d = to_f32(xr[k]) - c;
+      s1 += d;
+      s2 += d * d;
+    }
   }
   s1 = warp_sum(s1);
   s2 = warp_sum(s2);
@@ -82,99 +134,322 @@ row_stats(const T* __restrict__ x, float* __restrict__ mean,
   }
 }
 
-// ---- bf16: tensor cores via wmma ----
-constexpr int kBM = 64, kBN = 384, kBK = 32, kLds = kBK + 8;
-constexpr int kWarps = 8, kThreads = kWarps * 32;
-constexpr int kWarpCols = kBN / kWarps;   // 48 columns per warp
-constexpr int kFragM = kBM / 16;          // 4
-constexpr int kFragN = kWarpCols / 16;    // 3
+// 8 bf16 of a row into shared memory: the first n (none when n <= 0) from
+// src, zeros after; one 16-byte cp.async when all 8 are there and `vec`
+// says the source is 16-byte aligned.
+__device__ __forceinline__ void stage8(bf16* dst, const bf16* src, int n,
+                                       bool vec) {
+  if (vec && n >= 8) {
+    cp_async_16(dst, src);
+  } else {
+    const bf16 zero = __ushort_as_bfloat16(0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[j] = j < n ? src[j] : zero;
+  }
+}
 
-__global__ void __launch_bounds__(kThreads)
-gemm_bf16(const bf16* __restrict__ x, const float* __restrict__ mean,
-          const float* __restrict__ inv, const float* __restrict__ gain,
-          const float* __restrict__ bias, const bf16* __restrict__ w,
-          const float* __restrict__ b, bf16* __restrict__ y,
-          float* __restrict__ pre, int S, int din, int dout, int act) {
-  __shared__ __align__(128) bf16 sA[kBM * kLds];
-  __shared__ __align__(128) bf16 sB[kBN * kLds];  // [n][k]: B col-major
-  __shared__ __align__(128) float sC[kWarps][16 * 16];
-  __shared__ float sMean[kBM], sInv[kBM];
+// The same for 4 floats.
+__device__ __forceinline__ void stage4f(float* dst, const float* src, int n,
+                                        bool vec) {
+  if (vec && n >= 4) {
+    cp_async_16(dst, src);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dst[j] = j < n ? src[j] : 0.f;
+  }
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// ---- bf16 forward on the tensor cores ----
+//
+// Warp-specialized: producer warps stage the k tiles by cp.async and
+// normalize each in place once it has landed; consumer warps (each 64 rows x
+// 48 columns of the block's tile) run the products. The two sides hand the
+// ring's stages to each other through named barriers, so staging and
+// normalizing overlap the tensor cores instead of alternating with them:
+//   full[s]  producers arrive once stage s holds a normalized tile,
+//            consumers wait on it before multiplying;
+//   empty[s] consumers arrive once they are done with stage s, producers
+//            wait on it before refilling it (only for a tile that is
+//            refilled, so every phase of every barrier completes);
+//   loaded   producers only: every producer's copies of a tile have landed.
+constexpr int kStages = 4;  // the cp.async ring
+constexpr int kBarFull = 1, kBarEmpty = kBarFull + kStages,
+              kBarLoaded = kBarEmpty + kStages;  // 0 is __syncthreads
+constexpr int kBN = 192;
+constexpr int kWarpN = kBN / 4, kNF = kWarpN / 8;  // 48 columns, 6 x n8
+constexpr int kLdc = kBN + 8;                      // f32 epilogue tile
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One consumer warp's products over a staged k tile: 64 rows of A (sA at
+// the warp's first row) times 48 columns of B, 16-deep steps; both
+// operands k-contiguous ([row][k], non-transposed ldmatrix) or, with
+// kTrans, k-major ([k][row], ldmatrix.trans). The next step's fragments
+// load while this step's products run.
+template <int kK, bool kTrans>
+__device__ __forceinline__ void warp_mma(float (&acc)[4][kNF][4],
+                                         const bf16* sA, int lda,
+                                         const bf16* sB, int ldb) {
+  const int lane = threadIdx.x & 31;
+  const int r8 = lane & 7, hi8 = ((lane >> 3) & 1) * 8, hi16 = (lane >> 4) * 8;
+  // this lane's ldmatrix row address, and the offsets of the next 16 rows
+  // of the operand (m16 or n16) and of the next 16-deep step
+  const bf16* pa = kTrans ? sA + (r8 + hi16) * lda + hi8
+                          : sA + (r8 + hi8) * lda + hi16;
+  const bf16* pb = kTrans ? sB + (r8 + hi8) * ldb + hi16
+                          : sB + (r8 + hi16) * ldb + hi8;
+  const int a16 = kTrans ? 16 : 16 * lda, b16 = kTrans ? 16 : 16 * ldb;
+  const int ak = kTrans ? 16 * lda : 16, bk = kTrans ? 16 * ldb : 16;
+  uint32_t a[2][4][4], bq[2][kNF / 2][4];
+  auto fragments = [&](int buf, int step) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      if (kTrans)
+        ldsm_x4_t(a[buf][m], pa + m * a16 + step * ak);
+      else
+        ldsm_x4(a[buf][m], pa + m * a16 + step * ak);
+    }
+#pragma unroll
+    for (int np = 0; np < kNF / 2; ++np) {
+      if (kTrans)
+        ldsm_x4_t(bq[buf][np], pb + np * b16 + step * bk);
+      else
+        ldsm_x4(bq[buf][np], pb + np * b16 + step * bk);
+    }
+  };
+  fragments(0, 0);
+#pragma unroll
+  for (int step = 0; step < kK / 16; ++step) {
+    const int cur = step & 1;
+    if (step + 1 < kK / 16) fragments(cur ^ 1, step + 1);
+#pragma unroll
+    for (int np = 0; np < kNF / 2; ++np)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        mma_bf16(acc[m][2 * np], a[cur][m], bq[cur][np][0], bq[cur][np][1]);
+        mma_bf16(acc[m][2 * np + 1], a[cur][m], bq[cur][np][2],
+                 bq[cur][np][3]);
+      }
+  }
+}
+
+// One block per 128 rows x 192 columns of y, 64-deep k tiles: 8 consumer
+// warps (64 x 48 each) and 4 producer warps.
+constexpr int kBM = 128, kBK = 64;
+constexpr int kLdk = kBK + 8;  // +8: conflict-free ldmatrix rows
+constexpr int kConsumers = 256, kProducers = 128;
+constexpr int kThreads = kConsumers + kProducers;
+// x (kBM x kLdk) and W (kBN x kLdk) bf16, gain and bias (kBK) f32
+constexpr int kStageBytes = 2 * (kBM + kBN) * kLdk + 2 * 4 * kBK;
+// + mean, inv (kBM) and b (kBN)
+constexpr int kSmem = kStages * kStageBytes + 4 * (2 * kBM + kBN);
+static_assert(kBM * kLdc * 4 <= kStages * kStageBytes, "epilogue tile");
+
+__global__ void __launch_bounds__(kThreads, 1)
+input_fc_fwd_mma(const bf16* __restrict__ x, const float* __restrict__ mean,
+                 const float* __restrict__ inv,
+                 const float* __restrict__ gain,
+                 const float* __restrict__ bias, const bf16* __restrict__ w,
+                 const float* __restrict__ b, bf16* __restrict__ y,
+                 float* __restrict__ pre, int S, int din, int dout, int act,
+                 int n_tiles) {
+  constexpr int kChunks = kBK / 8;  // 16-byte chunks of a staged row
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sMean = reinterpret_cast<float*>(smem + kStages * kStageBytes);
+  float* sInv = sMean + kBM;
+  float* sBo = sInv + kBM;  // b of the block's columns
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * kBM, col0 = blockIdx.y * kBN;
-  if (tid < kBM) {
-    const int r = row0 + tid;
-    sMean[tid] = r < S ? mean[r] : 0.f;
-    sInv[tid] = r < S ? inv[r] : 0.f;
+  const int row0 = (blockIdx.x / n_tiles) * kBM;
+  const int col0 = (blockIdx.x % n_tiles) * kBN;
+  const bool vec = din % 8 == 0 && aligned16(x) && aligned16(w) &&
+                   aligned16(gain) && aligned16(bias);
+  const int KT = (din + kBK - 1) / kBK;
+
+  for (int i = tid; i < kBM; i += kThreads) {
+    const int r = row0 + i;
+    sMean[i] = r < S ? mean[r] : 0.f;
+    sInv[i] = r < S ? inv[r] : 0.f;
   }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFragM][kFragN];
-#pragma unroll
-  for (int m = 0; m < kFragM; ++m)
-#pragma unroll
-    for (int n = 0; n < kFragN; ++n) wmma::fill_fragment(acc[m][n], 0.f);
+  for (int i = tid; i < kBN; i += kThreads)
+    sBo[i] = col0 + i < dout ? b[col0 + i] : 0.f;
   __syncthreads();
 
-  for (int k0 = 0; k0 < din; k0 += kBK) {
-    for (int i = tid; i < kBM * kBK; i += kThreads) {
-      const int r = i / kBK, kk = i % kBK;
-      const int gr = row0 + r, gk = k0 + kk;
-      float v = 0.f;
-      if (gr < S && gk < din)
-        v = gain[gk] * ((to_f32(x[(size_t)gr * din + gk]) - sMean[r]) *
-                        sInv[r]) + bias[gk];
-      sA[r * kLds + kk] = from_f32<bf16>(v);
-    }
-    for (int i = tid; i < kBN * kBK; i += kThreads) {
-      const int n = i / kBK, kk = i % kBK;
-      const int gn = col0 + n, gk = k0 + kk;
-      sB[n * kLds + kk] = (gn < dout && gk < din)
-                              ? w[(size_t)gn * din + gk]
-                              : from_f32<bf16>(0.f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          a[kFragM];
-#pragma unroll
-      for (int m = 0; m < kFragM; ++m)
-        wmma::load_matrix_sync(a[m], sA + (m * 16) * kLds + kk, kLds);
-#pragma unroll
-      for (int n = 0; n < kFragN; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-            bf;
-        wmma::load_matrix_sync(
-            bf, sB + (warp * kWarpCols + n * 16) * kLds + kk, kLds);
-#pragma unroll
-        for (int m = 0; m < kFragM; ++m)
-          wmma::mma_sync(acc[m][n], a[m], bf, acc[m][n]);
+  auto tile_x = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + s * kStageBytes);
+  };
+  auto tile_w = [&](int s) { return tile_x(s) + kBM * kLdk; };
+  auto tile_gain = [&](int s) {
+    return reinterpret_cast<float*>(tile_w(s) + kBN * kLdk);
+  };
+
+  if (tid >= kConsumers) {  // producer warps
+    const int pt = tid - kConsumers;
+    auto load = [&](int s, int k0) {
+      bf16* sX = tile_x(s);
+      bf16* sW = tile_w(s);
+      for (int i = pt; i < kBM * kChunks; i += kProducers) {
+        const int r = i / kChunks, c = (i % kChunks) * 8;
+        const int gr = row0 + r, gk = k0 + c;
+        stage8(sX + r * kLdk + c, x + (size_t)gr * din + gk,
+               gr < S ? din - gk : 0, vec);
       }
+      for (int i = pt; i < kBN * kChunks; i += kProducers) {
+        const int n = i / kChunks, c = (i % kChunks) * 8;
+        const int gn = col0 + n, gk = k0 + c;
+        stage8(sW + n * kLdk + c, w + (size_t)gn * din + gk,
+               gn < dout ? din - gk : 0, vec);
+      }
+      if (pt < kBK / 2) {  // gain, then bias: kBK / 4 chunks of 4 each
+        const int c = (pt % (kBK / 4)) * 4;
+        const bool is_gain = pt < kBK / 4;
+        stage4f(tile_gain(s) + (is_gain ? 0 : kBK) + c,
+                (is_gain ? gain : bias) + k0 + c, din - k0 - c, vec);
+      }
+    };
+    // xn = gain * (x - mean) * inv + bias, in place, rounded to bf16; each
+    // thread keeps one 8-wide column chunk (its gain and bias in registers)
+    auto normalize = [&](int s) {
+      bf16* sX = tile_x(s);
+      const float* sGain = tile_gain(s);
+      const int c = (pt % kChunks) * 8;
+      const float4 g0 = *reinterpret_cast<const float4*>(sGain + c);
+      const float4 g1 = *reinterpret_cast<const float4*>(sGain + c + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(sGain + kBK + c);
+      const float4 b1 = *reinterpret_cast<const float4*>(sGain + kBK + c + 4);
+      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int r = pt / kChunks; r < kBM; r += kProducers / kChunks) {
+        uint4* p = reinterpret_cast<uint4*>(sX + r * kLdk + c);
+        uint4 raw = *p;
+        uint32_t* v = reinterpret_cast<uint32_t*>(&raw);
+        const float m = sMean[r], iv = sInv[r];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = pack_bf16(
+              g[2 * j] * ((bf16_lo(v[j]) - m) * iv) + bb[2 * j],
+              g[2 * j + 1] * ((bf16_hi(v[j]) - m) * iv) + bb[2 * j + 1]);
+        *p = raw;
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < KT) load(s, s * kBK);
+      cp_async_commit();
     }
-    __syncthreads();
+    for (int kt = 0; kt < KT; ++kt) {
+      cp_async_wait<kStages - 2>();  // this thread's copies of tile kt
+      bar_sync(kBarLoaded, kProducers);
+      normalize(kt % kStages);
+      bar_arrive(kBarFull + kt % kStages, kThreads);
+      const int next = kt + kStages - 1;  // into the stage of tile kt - 1
+      if (next < KT) {
+        if (kt >= 1) bar_sync(kBarEmpty + (kt - 1) % kStages, kThreads);
+        load(next % kStages, next * kBK);
+      }
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
   }
 
-  // epilogue: bias + activation + store, one 16x16 fragment at a time
+  float acc[4][kNF][4];
 #pragma unroll
-  for (int m = 0; m < kFragM; ++m) {
+  for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int n = 0; n < kFragN; ++n) {
-      wmma::store_matrix_sync(sC[warp], acc[m][n], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gr = row0 + m * 16 + e / 16;
-        const int gc = col0 + warp * kWarpCols + n * 16 + e % 16;
-        if (gr < S && gc < dout) {
-          const float v = sC[warp][e] + b[gc];
-          if (pre != nullptr) pre[(size_t)gr * dout + gc] = v;
-          y[(size_t)gr * dout + gc] = from_f32<bf16>(activate(v, act));
-        }
+    for (int n = 0; n < kNF; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+  const int wm = warp >> 2, wn = warp & 3;  // consumer warps
+  if (tid < kConsumers) {
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % kStages;
+      bar_sync(kBarFull + s, kThreads);
+      warp_mma<kBK, false>(acc, tile_x(s) + wm * 64 * kLdk, kLdk,
+                           tile_w(s) + wn * kWarpN * kLdk, kLdk);
+      if (kt + kStages < KT) bar_arrive(kBarEmpty + s, kThreads);
+    }
+  }
+
+  // epilogue through shared memory (the ring is free): + b, act, 16-byte
+  // stores of y and pre
+  __syncthreads();
+  float* sC = reinterpret_cast<float*>(smem);
+  if (tid < kConsumers) {
+    const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < kNF; ++n) {
+        const int r = wm * 64 + m * 16 + gq;
+        const int c = wn * kWarpN + n * 8 + tq * 2;
+        *reinterpret_cast<float2*>(sC + r * kLdc + c) =
+            make_float2(acc[m][n][0], acc[m][n][1]);
+        *reinterpret_cast<float2*>(sC + (r + 8) * kLdc + c) =
+            make_float2(acc[m][n][2], acc[m][n][3]);
       }
-      __syncwarp();
+  }
+  __syncthreads();
+  const bool vec_out = dout % 8 == 0;
+  for (int i = tid; i < kBM * (kBN / 8); i += kThreads) {
+    const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8;
+    const int gr = row0 + r, gc = col0 + c;
+    if (gr >= S || gc >= dout) continue;
+    const float4 c0 = *reinterpret_cast<const float4*>(sC + r * kLdc + c);
+    const float4 c1 = *reinterpret_cast<const float4*>(sC + r * kLdc + c + 4);
+    float v[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] += sBo[c + j];
+    const size_t at = (size_t)gr * dout + gc;
+    if (vec_out) {
+      if (pre != nullptr) {
+        *reinterpret_cast<float4*>(pre + at) =
+            make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(pre + at + 4) =
+            make_float4(v[4], v[5], v[6], v[7]);
+      }
+      uint4 out;
+      out.x = pack_bf16(activate(v[0], act), activate(v[1], act));
+      out.y = pack_bf16(activate(v[2], act), activate(v[3], act));
+      out.z = pack_bf16(activate(v[4], act), activate(v[5], act));
+      out.w = pack_bf16(activate(v[6], act), activate(v[7], act));
+      *reinterpret_cast<uint4*>(y + at) = out;
+    } else {
+      for (int j = 0; j < 8 && gc + j < dout; ++j) {
+        if (pre != nullptr) pre[at + j] = v[j];
+        y[at + j] = from_f32<bf16>(activate(v[j], act));
+      }
     }
   }
 }
 
-// ---- f32: shared-memory-tiled FMA ----
+cudaError_t launch_fwd_mma(const bf16* x, const float* mean,
+                           const float* inv, const float* gain,
+                           const float* bias, const bf16* w, const float* b,
+                           bf16* y, float* pre, int S, int din, int dout,
+                           int act, cudaStream_t st) {
+  // set on every launch: the attribute belongs to the current device
+  const cudaError_t err = cudaFuncSetAttribute(
+      input_fc_fwd_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (dout + kBN - 1) / kBN;
+  const long long blocks = (long long)((S + kBM - 1) / kBM) * n_tiles;
+  input_fc_fwd_mma<<<(unsigned)blocks, kThreads, kSmem, st>>>(
+      x, mean, inv, gain, bias, w, b, y, pre, S, din, dout, act, n_tiles);
+  return cudaGetLastError();
+}
+
+// ---- f32 forward: shared-memory-tiled FMA ----
 constexpr int kFBM = 64, kFBN = 64, kFBK = 16;
 
 __global__ void __launch_bounds__(256)
@@ -235,95 +510,226 @@ gemm_f32(const float* __restrict__ x, const float* __restrict__ mean,
 
 // ---- backward ----
 
+constexpr int kDpreThreads = 1024;
+
+// dpre = dy * act'(pre) rounded to T, in 16-byte vectors; partial[block]
+// [dout] = column sums of the rounded dpre over the block's rows (one row
+// split per block). blockDim = (rows in flight) x dout / (16 / sizeof(T)).
 template <typename T>
-__global__ void __launch_bounds__(256)
-dpre_kernel(const T* __restrict__ dy, const float* __restrict__ pre,
-            T* __restrict__ dpre, long long n, int act) {
-  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n;
-       i += (long long)gridDim.x * 256) {
-    const float g = to_f32(dy[i]);
-    dpre[i] = from_f32<T>(act == kActGelu ? g * act_grad(pre[i], act) : g);
+__global__ void __launch_bounds__(kDpreThreads)
+dpre_colsum(const T* __restrict__ dy, const float* __restrict__ pre,
+            T* __restrict__ dpre, int S, int dout, int act,
+            int rows_per_split, float* __restrict__ partial) {
+  constexpr int kV = 16 / sizeof(T);
+  __shared__ float sRed[kDpreThreads * kV];
+  const int tpr = dout / kV, rp = blockDim.x / tpr;
+  const int c = (threadIdx.x % tpr) * kV, ty = threadIdx.x / tpr;
+  const int r_begin = blockIdx.x * rows_per_split;
+  const int r_end = min(S, r_begin + rows_per_split);
+  float acc[kV];
+#pragma unroll
+  for (int j = 0; j < kV; ++j) acc[j] = 0.f;
+#pragma unroll 2
+  for (int r = r_begin + ty; r < r_end; r += rp) {
+    const size_t at = (size_t)r * dout + c;
+    const uint4 graw = *reinterpret_cast<const uint4*>(dy + at);
+    const T* g = reinterpret_cast<const T*>(&graw);
+    float p[kV];
+#pragma unroll
+    for (int j = 0; j < kV; j += 4) {
+      const float4 pv = *reinterpret_cast<const float4*>(pre + at + j);
+      p[j] = pv.x;
+      p[j + 1] = pv.y;
+      p[j + 2] = pv.z;
+      p[j + 3] = pv.w;
+    }
+    uint4 out;
+    T* d = reinterpret_cast<T*>(&out);
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const float gj = to_f32(g[j]);
+      d[j] = from_f32<T>(act == kActGelu ? gj * act_grad(p[j], act) : gj);
+      acc[j] += to_f32(d[j]);
+    }
+    *reinterpret_cast<uint4*>(dpre + at) = out;
+  }
+#pragma unroll
+  for (int j = 0; j < kV; ++j) sRed[ty * dout + c + j] = acc[j];
+  __syncthreads();
+  for (int o = threadIdx.x; o < dout; o += blockDim.x) {
+    float s = 0.f;
+    for (int t = 0; t < rp; ++t) s += sRed[t * dout + o];
+    partial[(size_t)blockIdx.x * dout + o] = s;
   }
 }
 
-constexpr int kDxRows = 32, kDxCols = 64, kDxMaxOut = 384;
-constexpr int kDxLdp = kDxMaxOut + 8, kDxLdx = kDxCols + 4;
+// ---- bf16 G = xhat^T dpre on the tensor cores ----
+constexpr int kGM = 128, kGN = 192, kGK = 64;  // din x dout tile, rows/step
+constexpr int kLdx = kGM + 8, kLdp = kGN + 8;  // +8: ldmatrix rows
+constexpr int kGConsumers = 256, kGProducers = 128;  // 8 + 4 warps
+constexpr int kGThreads = kGConsumers + kGProducers;
+// x (kGK x kLdx) and dpre (kGK x kLdp) bf16, mean and inv (kGK) f32
+constexpr int kGStageBytes = 2 * kGK * (kLdx + kLdp) + 2 * 4 * kGK;
+constexpr int kGSmem = kStages * kGStageBytes;
 
-// partial_g / partial_b [split][din]: sums over the split's rows of
-// dxn * xhat and dxn, dxn = dpre . W^T, for one 64-column tile of din.
+// partial[split] (din x dout) = sum over the split's rows of
+// xhat[r, m0:m0+128]^T dpre[r, n0:n0+192]; rows_per_split % kGK == 0.
+// Warp-specialized as the forward: producers stage x (raw), dpre, mean and
+// inv and form xhat in place; consumers multiply.
+__global__ void __launch_bounds__(kGThreads, 1)
+input_fc_g_mma(const bf16* __restrict__ x, const float* __restrict__ mean,
+               const float* __restrict__ inv, const bf16* __restrict__ dpre,
+               int S, int din, int dout, int rows_per_split,
+               float* __restrict__ partial) {
+  constexpr int kXChunks = kGM / 8, kPChunks = kGN / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * kGN, m0 = blockIdx.y * kGM;
+  const int r_begin = blockIdx.z * rows_per_split;
+  const int r_end = min(S, r_begin + rows_per_split);
+  const int KT = r_end > r_begin ? (r_end - r_begin + kGK - 1) / kGK : 0;
+  const bool vec = din % 8 == 0 && dout % 8 == 0 && aligned16(x) &&
+                   aligned16(dpre) && aligned16(mean) && aligned16(inv);
+
+  auto tile_x = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + s * kGStageBytes);
+  };
+  auto tile_p = [&](int s) { return tile_x(s) + kGK * kLdx; };
+  auto tile_mean = [&](int s) {
+    return reinterpret_cast<float*>(tile_p(s) + kGK * kLdp);
+  };
+
+  if (tid >= kGConsumers) {  // producer warps
+    const int pt = tid - kGConsumers;
+    auto load = [&](int s, int r0) {
+      bf16* sX = tile_x(s);
+      bf16* sP = tile_p(s);
+      for (int i = pt; i < kGK * kXChunks; i += kGProducers) {
+        const int r = i / kXChunks, c = (i % kXChunks) * 8;
+        const int gr = r0 + r, gk = m0 + c;
+        stage8(sX + r * kLdx + c, x + (size_t)gr * din + gk,
+               gr < r_end ? din - gk : 0, vec);
+      }
+      for (int i = pt; i < kGK * kPChunks; i += kGProducers) {
+        const int r = i / kPChunks, c = (i % kPChunks) * 8;
+        const int gr = r0 + r, go = n0 + c;
+        stage8(sP + r * kLdp + c, dpre + (size_t)gr * dout + go,
+               gr < r_end ? dout - go : 0, vec);
+      }
+      if (pt < kGK / 2) {  // mean, then inv: kGK / 4 chunks of 4 each
+        const int c = (pt % (kGK / 4)) * 4;
+        const bool is_mean = pt < kGK / 4;
+        stage4f(tile_mean(s) + (is_mean ? 0 : kGK) + c,
+                (is_mean ? mean : inv) + r0 + c, r_end - r0 - c, vec);
+      }
+    };
+    // xhat = (x - mean) * inv, in place, rounded to bf16 (rows past the
+    // split are zero: x, mean and inv were staged as 0)
+    auto normalize = [&](int s) {
+      bf16* sX = tile_x(s);
+      const float* sM = tile_mean(s);
+      const float* sI = sM + kGK;
+      const int c = (pt % kXChunks) * 8;
+#pragma unroll
+      for (int r = pt / kXChunks; r < kGK; r += kGProducers / kXChunks) {
+        uint4* p = reinterpret_cast<uint4*>(sX + r * kLdx + c);
+        uint4 raw = *p;
+        uint32_t* v = reinterpret_cast<uint32_t*>(&raw);
+        const float m = sM[r], iv = sI[r];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = pack_bf16((bf16_lo(v[j]) - m) * iv,
+                           (bf16_hi(v[j]) - m) * iv);
+        *p = raw;
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < KT) load(s, r_begin + s * kGK);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < KT; ++kt) {
+      cp_async_wait<kStages - 2>();
+      bar_sync(kBarLoaded, kGProducers);
+      normalize(kt % kStages);
+      bar_arrive(kBarFull + kt % kStages, kGThreads);
+      const int next = kt + kStages - 1;
+      if (next < KT) {
+        if (kt >= 1) bar_sync(kBarEmpty + (kt - 1) % kStages, kGThreads);
+        load(next % kStages, r_begin + next * kGK);
+      }
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    return;  // only the consumers write the partial tile
+  }
+
+  float acc[4][kNF][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < kNF; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+  const int wm = warp >> 2, wn = warp & 3;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % kStages;
+    bar_sync(kBarFull + s, kGThreads);
+    // A = xhat^T (din x rows), B = dpre (rows x dout): both stored with the
+    // rows (K) as the slow axis, so both come through ldmatrix.trans
+    warp_mma<kGK, true>(acc, tile_x(s) + wm * 64, kLdx,
+                        tile_p(s) + wn * kWarpN, kLdp);
+    if (kt + kStages < KT) bar_arrive(kBarEmpty + s, kGThreads);
+  }
+
+  float* out = partial + (size_t)blockIdx.z * din * dout;
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < kNF; ++n) {
+      const int k = m0 + wm * 64 + m * 16 + gq;
+      const int o = n0 + wn * kWarpN + n * 8 + tq * 2;
+      if (o >= dout) continue;  // dout is even: o + 1 < dout
+      if (k < din)
+        *reinterpret_cast<float2*>(out + (size_t)k * dout + o) =
+            make_float2(acc[m][n][0], acc[m][n][1]);
+      if (k + 8 < din)
+        *reinterpret_cast<float2*>(out + (size_t)(k + 8) * dout + o) =
+            make_float2(acc[m][n][2], acc[m][n][3]);
+    }
+}
+
+// One warp per row k of din: G_k = sum of the splits' partial rows (in
+// split order), dW_k = gain_k G_k + bias_k db, dgain_k = W[:, k] . G_k,
+// dbias_k = W[:, k] . db.
 template <typename T>
 __global__ void __launch_bounds__(256)
-dxn_colsum(const T* __restrict__ x, const float* __restrict__ mean,
-           const float* __restrict__ inv, const T* __restrict__ w,
-           const T* __restrict__ dpre, int S, int din, int dout,
-           int rows_per_split, float* __restrict__ partial_g,
-           float* __restrict__ partial_b) {
-  __shared__ __align__(128) bf16 sP[kDxRows * kDxLdp];  // bf16 only
-  __shared__ __align__(128) float sX[kDxRows * kDxLdx];
-  __shared__ float sRed[2][4][kDxCols];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int c0 = blockIdx.x * kDxCols;
-  const int r_begin = blockIdx.y * rows_per_split;
-  const int r_end = min(S, r_begin + rows_per_split);
-  const int col = tid % kDxCols, rg = tid / kDxCols;  // rows rg*8 .. +7
-  float acc_g = 0.f, acc_b = 0.f;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += kDxRows) {
-    if constexpr (std::is_same<T, bf16>::value) {
-      for (int i = tid; i < kDxRows * dout; i += 256) {
-        const int r = i / dout, o = i % dout;
-        sP[r * kDxLdp + o] = r0 + r < r_end
-                                 ? dpre[(size_t)(r0 + r) * dout + o]
-                                 : from_f32<bf16>(0.f);
-      }
-      __syncthreads();
-      const int mi = warp >> 2, ni = warp & 3;  // 2 x 4 fragments
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k = 0; k < dout; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sP + mi * 16 * kDxLdp + k, kDxLdp);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, w + (size_t)k * din + c0 + ni * 16, din);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(sX + mi * 16 * kDxLdx + ni * 16, acc, kDxLdx,
-                              wmma::mem_row_major);
-    } else {
-      for (int rr = 0; rr < 8; ++rr) {
-        const int r = rg * 8 + rr, gr = r0 + r;
-        float v = 0.f;
-        if (gr < r_end)
-          for (int o = 0; o < dout; ++o)
-            v = fmaf(to_f32(dpre[(size_t)gr * dout + o]),
-                     to_f32(w[(size_t)o * din + c0 + col]), v);
-        sX[r * kDxLdx + col] = v;
-      }
-    }
-    __syncthreads();
-    for (int rr = 0; rr < 8; ++rr) {
-      const int r = rg * 8 + rr, gr = r0 + r;
-      if (gr < r_end) {
-        const float dxn = sX[r * kDxLdx + col];
-        const float xhat =
-            (to_f32(x[(size_t)gr * din + c0 + col]) - mean[gr]) * inv[gr];
-        acc_g = fmaf(dxn, xhat, acc_g);
-        acc_b += dxn;
-      }
-    }
-    __syncthreads();
+param_grads(const float* __restrict__ partial, int splits,
+            const T* __restrict__ w, const float* __restrict__ gain,
+            const float* __restrict__ bias, const float* __restrict__ db,
+            float* __restrict__ dw, float* __restrict__ dgain,
+            float* __restrict__ dbias, int din, int dout) {
+  const int k = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (k >= din) return;
+  const float gk = gain[k], bk = bias[k];
+  const size_t plane = (size_t)din * dout;
+  float sg = 0.f, sb = 0.f;
+  for (int o = lane; o < dout; o += 32) {
+    const size_t at = (size_t)k * dout + o;
+    float g = 0.f;
+    for (int sp = 0; sp < splits; ++sp) g += partial[sp * plane + at];
+    const float dbo = db[o];
+    dw[at] = gk * g + bk * dbo;
+    const float wv = to_f32(w[(size_t)o * din + k]);
+    sg = fmaf(wv, g, sg);
+    sb = fmaf(wv, dbo, sb);
   }
-  sRed[0][rg][col] = acc_g;
-  sRed[1][rg][col] = acc_b;
-  __syncthreads();
-  if (rg == 0) {
-    float g = 0.f, b = 0.f;
-    for (int i = 0; i < 4; ++i) {
-      g += sRed[0][i][col];
-      b += sRed[1][i][col];
-    }
-    partial_g[(size_t)blockIdx.y * din + c0 + col] = g;
-    partial_b[(size_t)blockIdx.y * din + c0 + col] = b;
+  sg = warp_sum(sg);
+  sb = warp_sum(sb);
+  if (lane == 0) {
+    dgain[k] = sg;
+    dbias[k] = sb;
   }
 }
 
@@ -331,21 +737,39 @@ template <typename T>
 int input_fc_bwd_launch(const T* x, const float* gain, const float* bias,
                         const T* w, const float* mean, const float* inv,
                         const float* pre, const T* dy, T* dpre,
-                        float* scratch, float* dw, float* db, float* dgain,
-                        float* dbias, int S, int din, int dout, int act,
-                        int splits, cudaStream_t st) {
-  const long long n = (long long)S * dout;
-  dpre_kernel<T><<<sum_blocks(n), 256, 0, st>>>(dy, pre, dpre, n, act);
-  launch_tn<T, true>(x, din, dpre, dout, S, din, dout, splits, scratch, dw,
-                     NormA{mean, inv, gain, bias}, st);
-  launch_colsum<T>(dpre, dout, S, dout, splits, scratch, db, st);
-  float* pg = scratch;
-  float* pb = scratch + (size_t)splits * din;
-  dim3 grid(din / kDxCols, splits);
-  dxn_colsum<T><<<grid, 256, 0, st>>>(x, mean, inv, w, dpre, S, din, dout,
-                                      split_rows(S, splits), pg, pb);
-  sum_splits<<<sum_blocks(din), 256, 0, st>>>(pg, splits, din, dgain);
-  sum_splits<<<sum_blocks(din), 256, 0, st>>>(pb, splits, din, dbias);
+                        float* scratch, const float* unit, float* dw,
+                        float* db, float* dgain, float* dbias, int S,
+                        int din, int dout, int act, int splits,
+                        int dpre_splits, cudaStream_t st) {
+  constexpr int kV = 16 / sizeof(T);
+  if (dout % kV || !aligned16(dy) || !aligned16(pre) || !aligned16(dpre))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* pg = scratch;                                   // splits x din x dout
+  float* pdb = scratch + (size_t)splits * din * dout;    // dpre_splits x dout
+  const int tpr = dout / kV;
+  const int threads = (kDpreThreads / tpr) * tpr;
+  dpre_colsum<T><<<dpre_splits, threads, 0, st>>>(
+      dy, pre, dpre, S, dout, act, split_rows(S, dpre_splits), pdb);
+  sum_splits<<<sum_blocks(dout), 256, 0, st>>>(pdb, dpre_splits, dout, db);
+  if constexpr (std::is_same<T, bf16>::value) {
+    // set on every launch: the attribute belongs to the current device
+    const cudaError_t err = cudaFuncSetAttribute(
+        input_fc_g_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int rows = (split_rows(S, splits) + kGK - 1) / kGK * kGK;
+    dim3 grid((dout + kGN - 1) / kGN, (din + kGM - 1) / kGM, splits);
+    input_fc_g_mma<<<grid, kGThreads, kGSmem, st>>>(x, mean, inv, dpre, S,
+                                                   din, dout, rows, pg);
+  } else {
+    // G through the FMA reduction with gain 1 and bias 0: xn = xhat
+    dim3 grid((din + kTnTile - 1) / kTnTile, (dout + kTnTile - 1) / kTnTile,
+              splits);
+    tn_partial<T, true><<<grid, kTnThreads, 0, st>>>(
+        x, din, dpre, dout, S, din, dout, split_rows(S, splits), pg,
+        NormA{mean, inv, unit, unit + din});
+  }
+  param_grads<T><<<(din + 7) / 8, 256, 0, st>>>(
+      pg, splits, w, gain, bias, db, dw, dgain, dbias, din, dout);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -364,44 +788,46 @@ extern "C" int coot_input_fc_fwd(const void* x, const void* gain,
   using namespace coot;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int stats_blocks = (S + kStatsThreads / 32 - 1) / (kStatsThreads / 32);
+  const float* mn = static_cast<const float*>(mean);
+  const float* iv = static_cast<const float*>(inv);
   if (is_bf16) {
+    const bf16* xb = static_cast<const bf16*>(x);
     row_stats<bf16><<<stats_blocks, kStatsThreads, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<float*>(mean),
-        static_cast<float*>(inv), S, din, eps);
-    dim3 grid((S + kBM - 1) / kBM, (dout + kBN - 1) / kBN);
-    gemm_bf16<<<grid, kThreads, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const float*>(mean),
-        static_cast<const float*>(inv), static_cast<const float*>(gain),
+        xb, static_cast<float*>(mean), static_cast<float*>(inv), S, din, eps,
+        din % 8 == 0 && aligned16(x));
+    return static_cast<int>(launch_fwd_mma(
+        xb, mn, iv, static_cast<const float*>(gain),
         static_cast<const float*>(bias), static_cast<const bf16*>(w),
         static_cast<const float*>(b), static_cast<bf16*>(y),
-        static_cast<float*>(pre), S, din, dout, act);
-  } else {
-    row_stats<float><<<stats_blocks, kStatsThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(mean),
-        static_cast<float*>(inv), S, din, eps);
-    dim3 grid((S + kFBM - 1) / kFBM, (dout + kFBN - 1) / kFBN);
-    gemm_f32<<<grid, 256, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(mean),
-        static_cast<const float*>(inv), static_cast<const float*>(gain),
-        static_cast<const float*>(bias), static_cast<const float*>(w),
-        static_cast<const float*>(b), static_cast<float*>(y),
-        static_cast<float*>(pre), S, din, dout, act);
+        static_cast<float*>(pre), S, din, dout, act, st));
   }
+  row_stats<float><<<stats_blocks, kStatsThreads, 0, st>>>(
+      static_cast<const float*>(x), static_cast<float*>(mean),
+      static_cast<float*>(inv), S, din, eps, din % 4 == 0 && aligned16(x));
+  dim3 grid((S + kFBM - 1) / kFBM, (dout + kFBN - 1) / kFBN);
+  gemm_f32<<<grid, 256, 0, st>>>(
+      static_cast<const float*>(x), mn, iv, static_cast<const float*>(gain),
+      static_cast<const float*>(bias), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<float*>(y),
+      static_cast<float*>(pre), S, din, dout, act);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The forward's x, gain, bias, w, mean, inv and pre, and dy (S, dout) in the
-// compute dtype. Writes f32 dw (din, dout), db (dout), dgain, dbias (din);
-// dpre (S, dout) is compute-dtype scratch, `scratch` f32 of
-// splits * din * dout elements. The wrapper checks din % 64 == 0,
-// dout % 16 == 0 and dout <= 384.
+// compute dtype (dy, pre and dpre 16-byte aligned). Writes f32 dw (din,
+// dout), db (dout), dgain, dbias (din); dpre (S, dout) is compute-dtype
+// scratch, `scratch` f32 of splits * din * dout + dpre_splits * dout
+// elements; `unit` (f32 only) 2 * din floats, din ones then din zeros. The
+// wrapper checks din % 64 == 0, dout % 16 == 0 and dout <= 384; splits and
+// dpre_splits come from ops/input_fc.py::backward_plan.
 extern "C" int coot_input_fc_bwd(const void* x, const void* gain,
                                  const void* bias, const void* w,
                                  const void* mean, const void* inv,
                                  const void* pre, const void* dy, void* dpre,
-                                 void* scratch, void* dw, void* db,
-                                 void* dgain, void* dbias, int S, int din,
-                                 int dout, int act, int splits, int is_bf16,
+                                 void* scratch, const void* unit, void* dw,
+                                 void* db, void* dgain, void* dbias, int S,
+                                 int din, int dout, int act, int splits,
+                                 int dpre_splits, int is_bf16,
                                  void* stream) {
   using namespace coot;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -411,17 +837,19 @@ extern "C" int coot_input_fc_bwd(const void* x, const void* gain,
   const float* iv = static_cast<const float*>(inv);
   const float* pr = static_cast<const float*>(pre);
   float* sc = static_cast<float*>(scratch);
+  float* dw_ = static_cast<float*>(dw);
+  float* db_ = static_cast<float*>(db);
+  float* dg = static_cast<float*>(dgain);
+  float* dbi = static_cast<float*>(dbias);
   if (is_bf16)
     return input_fc_bwd_launch<bf16>(
         static_cast<const bf16*>(x), g, bi, static_cast<const bf16*>(w), mn,
         iv, pr, static_cast<const bf16*>(dy), static_cast<bf16*>(dpre), sc,
-        static_cast<float*>(dw), static_cast<float*>(db),
-        static_cast<float*>(dgain), static_cast<float*>(dbias), S, din, dout,
-        act, splits, st);
+        nullptr, dw_, db_, dg, dbi, S, din, dout, act, splits, dpre_splits,
+        st);
   return input_fc_bwd_launch<float>(
       static_cast<const float*>(x), g, bi, static_cast<const float*>(w), mn,
       iv, pr, static_cast<const float*>(dy), static_cast<float*>(dpre), sc,
-      static_cast<float*>(dw), static_cast<float*>(db),
-      static_cast<float*>(dgain), static_cast<float*>(dbias), S, din, dout,
-      act, splits, st);
+      static_cast<const float*>(unit), dw_, db_, dg, dbi, S, din, dout, act,
+      splits, dpre_splits, st);
 }

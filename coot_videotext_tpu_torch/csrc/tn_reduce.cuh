@@ -1,5 +1,7 @@
-// Weight-gradient reductions over rows, shared by the B1 and B2 backward
-// kernels: C (M x N) = sum_r A[r, :M]^T B[r, :N], and column sums of B.
+// Weight-gradient reductions over rows: C (M x N) = sum_r A[r, :M]^T
+// B[r, :N], and column sums of B. B2's backward takes both in both dtypes;
+// B1's backward takes `sum_splits` (its own tensor-core product in bf16,
+// csrc/input_fc.cu) and, in f32 only, `tn_partial` with a NormA.
 //
 // On the TPU the backward kernels carry these sums across their sequential
 // grid in resident VMEM blocks (pallas_input_fc.py:170-203,
@@ -14,8 +16,8 @@
 // cores (nvcuda::wmma, f32 accumulation; A^T is read as a col-major
 // fragment of the row-major staging tile, so nothing is transposed in
 // memory), f32 on FMA. With a NormA the A rows are normalized while they
-// are staged (xn = gain * (x - mean) * inv + bias, rounded to the compute
-// dtype), so B1 never writes its normalized input to device memory.
+// are staged (a = gain * (x - mean) * inv + bias, rounded to the compute
+// dtype; B1's f32 backward passes gain 1 and bias 0 for xhat).
 #pragma once
 
 #include <mma.h>

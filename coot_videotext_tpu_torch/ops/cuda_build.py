@@ -29,7 +29,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("input_fc.cu", "genpool.cu", "attention.cu", "dropout.cu",
            "gather.cu")
-HEADERS = ("common.cuh", "philox.cuh", "tn_reduce.cuh")
+HEADERS = ("common.cuh", "mma.cuh", "philox.cuh", "tn_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -107,11 +107,10 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     # x, gain, bias, w, b, y, mean, inv, pre, S, din, dout, eps, act, bf16,
     # stream
-    "coot_input_fc_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _F, _I, _I, _P],
-    # x, gain, bias, w, mean, inv, pre, dy, dpre, scratch, dw, db, dgain,
-    # dbias, S, din, dout, act, splits, bf16, stream
-    "coot_input_fc_bwd": [_P] * 14 + [_I, _I, _I, _I, _I, _I, _P],
+    "coot_input_fc_fwd": [_P] * 9 + [_I, _I, _I, _F, _I, _I, _P],
+    # x, gain, bias, w, mean, inv, pre, dy, dpre, scratch, unit, dw, db,
+    # dgain, dbias, S, din, dout, act, splits, dpre splits, bf16, stream
+    "coot_input_fc_bwd": [_P] * 15 + [_I] * 7 + [_P],
     # f, mask, w1, b1, w2, b2, out, stats, S, L, D, H, heads, act, seed,
     # thresh, drop scale, bf16, stream
     "coot_genpool_fwd": [_P] * 8 + [_I, _I, _I, _I, _I, _I, _ULL, _U, _F,

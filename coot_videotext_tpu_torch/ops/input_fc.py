@@ -13,10 +13,16 @@ weight is taken in the torch Linear layout (dout, din).
 The input is pipeline data (JAX :25-32): no gradient is formed for x, and
 an x that requires grad raises; the caller passes `x.detach()`
 (models/transformer.py).
+
+The backward kernel forms one product, G = xhat^T dpre, and derives every
+parameter gradient from it (csrc/input_fc.cu); the plain backward keeps the
+TPU kernel's two products, and `tests/test_torch_ops.py` holds the identity
+between the two against jax.grad.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -28,6 +34,48 @@ from coot_videotext_tpu_torch.ops.common import (
     ACT_CODES, check_tensor, gelu_grad, is_bf16, kernel_operand)
 
 KERNEL = "input_fc"
+
+# Tiles of the bf16 backward's product in csrc/input_fc.cu: a block owns
+# G_ROWS x G_COLS of G = xhat^T dpre and one row split, which it walks
+# G_STEP rows at a time.
+G_ROWS, G_COLS, G_STEP = 128, 192, 64
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def backward_splits(rows: int, din: int, dout: int, sms: int) -> int:
+    """Row splits of the bf16 backward's product (one block per G tile and
+    split, one block per SM): the fewest splits that give at least one
+    block per SM and fill whole waves to 85% or more, with at least 4 steps
+    of G_STEP rows per split (at most 64 splits)."""
+    tiles = _ceil(din, G_ROWS) * _ceil(dout, G_COLS)
+    most = max(1, min(64, rows // (4 * G_STEP)))
+    least = max(1, _ceil(sms, tiles))
+    for splits in range(least, most + 1):
+        blocks = tiles * splits
+        if blocks >= 0.85 * _ceil(blocks, sms) * sms:
+            return splits
+    return min(most, least)
+
+
+def backward_plan(rows: int, din: int, dout: int, bf16: bool,
+                  sms: int) -> Tuple[int, int]:
+    """(splits of the product G, splits of the dpre pass). bf16 takes the
+    tensor-core product's splits; float32 the FMA reduction's
+    (csrc/tn_reduce.cuh, 64 x 64 tiles). The dpre pass runs one block of
+    up to 1,024 threads per SM, each block over one row split."""
+    if bf16:
+        splits = backward_splits(rows, din, dout, sms)
+    else:
+        splits = cuda_build.splits_for(rows, _ceil(din, 64) * _ceil(dout, 64))
+    return splits, max(1, min(sms, _ceil(rows, 64)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _norm_rows(x32: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
@@ -145,17 +193,26 @@ class _InputFC(torch.autograd.Function):
                              f"== 0 and dout % 16 == 0, dout <= 384; got "
                              f"din={din}, dout={dout}")
         dy = dy.to(x.dtype).contiguous()
+        if dy.data_ptr() % 16:  # the dpre pass reads 16-byte vectors
+            dy = dy.clone()
+        bf16 = is_bf16(KERNEL, x)
         dpre = torch.empty((s, dout), dtype=x.dtype, device=dev)
-        splits = cuda_build.splits_for(s, -(-din // 64) * -(-dout // 64))
-        scratch = torch.empty(splits * din * dout, **f32)
+        splits, dpre_splits = backward_plan(s, din, dout, bf16,
+                                            _sm_count(dev.index))
+        scratch = torch.empty(splits * din * dout + dpre_splits * dout,
+                              **f32)
+        # float32: gain 1 and bias 0 turn the FMA reduction's xn into xhat
+        unit = None if bf16 else torch.cat([torch.ones(din, **f32),
+                                            torch.zeros(din, **f32)])
         lib = cuda_build.load_library()
         err = lib.coot_input_fc_bwd(
             x.data_ptr(), gain32.data_ptr(), bias32.data_ptr(),
             w_c.data_ptr(), mean.data_ptr(), inv.data_ptr(), pre.data_ptr(),
             dy.data_ptr(), dpre.data_ptr(), scratch.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), dgain.data_ptr(),
-            dbias.data_ptr(), s, din, dout, ACT_CODES[act],
-            splits, int(is_bf16(KERNEL, x)), cuda_build.stream(x))
+            0 if unit is None else unit.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), dgain.data_ptr(), dbias.data_ptr(), s, din, dout,
+            ACT_CODES[act], splits, dpre_splits, int(bf16),
+            cuda_build.stream(x))
         cuda_build.check(err, KERNEL + "_bwd")
         cuda_build.launch_counts[KERNEL + "_bwd"] += 1
         return None, dgain, dbias, dw.t(), db, None, None

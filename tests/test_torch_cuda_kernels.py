@@ -60,20 +60,48 @@ def _run(kernel, plain, args, name):
     return _rel(out, ref)
 
 
+# (S, din, constant rows, x = 100 + 0.5 N): the text width with ragged S;
+# 4,099 rows (ragged in every tile size) at the video width; S = 1 and 17;
+# rows with mean^2 >> var
+FC_SHAPES = [(1001, 1536, 3, False), (4099, 4096, 7, False),
+             (1, 1536, 0, False), (17, 1536, 2, False),
+             (4099, 4096, 7, True)]
+
+
+def _fc_args(cuda, dtype, s, din, dout, constant_rows=3, offset=False):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(s, din, generator=g, device=cuda)
+    x = x * 0.5 + 100 if offset else x * 2 + 0.5
+    x[:constant_rows] = 3.0
+    params = [1 + 0.1 * torch.randn(din, generator=g, device=cuda),
+              0.1 * torch.randn(din, generator=g, device=cuda),
+              torch.randn(dout, din, generator=g, device=cuda) / din ** 0.5,
+              0.1 * torch.randn(dout, generator=g, device=cuda)]
+    dy = torch.randn(s, dout, generator=g, device=cuda)
+    return x.to(dtype), params, dy
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_input_fc_kernel(cuda, dtype):
-    """Ragged S with constant rows, the text width."""
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(1001, 1536, generator=g, device=cuda) * 2 + 0.5
-    x[:3] = 3.0
-    gain = 1 + 0.1 * torch.randn(1536, generator=g, device=cuda)
-    bias = 0.1 * torch.randn(1536, generator=g, device=cuda)
-    w = torch.randn(384, 1536, generator=g, device=cuda) / 1536 ** 0.5
-    b = 0.1 * torch.randn(384, generator=g, device=cuda)
-    args = (x.to(dtype), gain, bias, w.to(dtype), b, 1e-6, "gelu")
+@pytest.mark.parametrize("s,din,const,offset", FC_SHAPES)
+def test_input_fc_kernel(cuda, dtype, s, din, const, offset):
+    """Ragged S with constant rows (xhat = 0 exactly), both widths, S = 1
+    and 17, and large-offset rows."""
+    x, params, _ = _fc_args(cuda, dtype, s, din, 384, const, offset)
+    params[2] = params[2].to(dtype)
+    args = (x, *params, 1e-6, "gelu")
     assert _run(fused_input_fc, fused_input_fc_plain, args,
                 "input_fc") <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_input_fc_kernel_empty(cuda, dtype):
+    """S = 0: an empty (0, dout) output; no kernel is launched."""
+    x, params, _ = _fc_args(cuda, dtype, 0, 1536, 384, 0)
+    with torch.inference_mode():
+        y = fused_input_fc(x, *params, 1e-6, "gelu")
+    assert y.shape == (0, 384) and y.dtype == dtype
 
 
 @pytest.mark.cuda
@@ -142,29 +170,35 @@ def _grads(fn, inputs, g, name):
     return [a.grad for a in inputs]
 
 
-def _fc_args(cuda, dtype, s, din, dout):
-    g = torch.Generator(device=cuda).manual_seed(3)
-    x = torch.randn(s, din, generator=g, device=cuda) * 2 + 0.5
-    x[:3] = 3.0
-    params = [1 + 0.1 * torch.randn(din, generator=g, device=cuda),
-              0.1 * torch.randn(din, generator=g, device=cuda),
-              torch.randn(dout, din, generator=g, device=cuda) / din ** 0.5,
-              0.1 * torch.randn(dout, generator=g, device=cuda)]
-    dy = torch.randn(s, dout, generator=g, device=cuda)
-    return x.to(dtype), params, dy
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_input_fc_backward_kernel(cuda, dtype):
-    """Ragged S with constant rows, the text width."""
-    x, params, dy = _fc_args(cuda, dtype, 1001, 1536, 384)
+@pytest.mark.parametrize("s,din,const,offset", FC_SHAPES)
+def test_input_fc_backward_kernel(cuda, dtype, s, din, const, offset):
+    """The one-product backward against the plain two-product one, at the
+    forward's shapes."""
+    x, params, dy = _fc_args(cuda, dtype, s, din, 384, const, offset)
     ours = _grads(lambda *p: fused_input_fc(x, *p, 1e-6, "gelu"), params,
                   dy, "input_fc")
     ref = fused_input_fc_backward_plain(x, *params, 1e-6, "gelu",
                                         dy.to(dtype))
     for a, r in zip(ours, ref):
         assert _rel(a, r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_input_fc_backward_repeats_bit_for_bit(cuda, dtype):
+    """No float atomics: two backward calls on the same inputs give
+    bit-equal dgain, dbias, dW and db."""
+    x, params, dy = _fc_args(cuda, dtype, 4099, 4096, 384, 7)
+
+    def fn(*p):
+        return fused_input_fc(x, *p, 1e-6, "gelu")
+
+    first = _grads(fn, params, dy, "input_fc")
+    second = _grads(fn, params, dy, "input_fc")
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -34,6 +34,7 @@ from coot_videotext_tpu_torch.ops.attention import (
 from coot_videotext_tpu_torch.ops.dropout import dropout, dropout_plain
 from coot_videotext_tpu_torch.ops.genpool import (
     genpool, genpool_backward_plain, genpool_plain)
+from coot_videotext_tpu_torch.ops import input_fc as fc_mod
 from coot_videotext_tpu_torch.ops.input_fc import (
     fused_input_fc, fused_input_fc_backward_plain, fused_input_fc_plain)
 
@@ -51,9 +52,12 @@ def _close_grad(ours, ref, name=""):
     assert err <= GRAD_TOL * max(1.0, np.abs(ref).max()), (name, err)
 
 
-def _fc_inputs(s, din, dout, seed=0, constant_rows=2):
+def _fc_inputs(s, din, dout, seed=0, constant_rows=2, offset=False):
+    """x ~ 2 N + 0.5, or with `offset` 100 + 0.5 N (mean^2 >> var, where
+    unshifted sums would cancel)."""
     rng = np.random.RandomState(seed)
-    x = (rng.randn(s, din) * 2 + 0.5).astype(np.float32)
+    x = rng.randn(s, din)
+    x = (x * 0.5 + 100.0 if offset else x * 2 + 0.5).astype(np.float32)
     x[:constant_rows] = 3.0  # zero-variance rows (padded slots)
     gain = (1 + 0.1 * rng.randn(din)).astype(np.float32)
     bias = (0.1 * rng.randn(din)).astype(np.float32)
@@ -68,10 +72,16 @@ def _torch_fc(x, gain, bias, w, b, act, fn=fused_input_fc):
               1e-6, act).numpy()
 
 
-@pytest.mark.parametrize("act", ["gelu", "none"])
-def test_input_fc_plain_matches_jax_reference(act):
-    """S = 70 is not a multiple of 32; rows 0-1 are constant."""
-    x, gain, bias, w, b = _fc_inputs(70, 96, 40)
+FC_CASES = [pytest.param("gelu", False, id="gelu"),
+            pytest.param("none", False, id="none"),
+            pytest.param("gelu", True, id="gelu-offset100")]
+
+
+@pytest.mark.parametrize("act,offset", FC_CASES)
+def test_input_fc_plain_matches_jax_reference(act, offset):
+    """S = 70 is not a multiple of 32; rows 0-1 are constant; and rows of
+    100 + 0.5 N."""
+    x, gain, bias, w, b = _fc_inputs(70, 96, 40, offset=offset)
     ref = np.asarray(jfc.fused_input_fc_reference(
         jnp.asarray(x), gain, bias, w, b, 1e-6, act))
     np.testing.assert_allclose(_torch_fc(x, gain, bias, w, b, act), ref,
@@ -203,11 +213,12 @@ def test_wrappers_refuse_autograd():
     assert heads[3].grad is not None
 
 
-@pytest.mark.parametrize("act", ["gelu", "none"])
-def test_input_fc_backward_matches_jax_grad(act):
+@pytest.mark.parametrize("act,offset", FC_CASES)
+def test_input_fc_backward_matches_jax_grad(act, offset):
     """The plain backward, and autograd through the wrapper, against
-    jax.grad of the JAX reference; constant rows included."""
-    x, gain, bias, w, b = _fc_inputs(70, 96, 40, seed=2)
+    jax.grad of the JAX reference; constant rows included, and rows of
+    100 + 0.5 N."""
+    x, gain, bias, w, b = _fc_inputs(70, 96, 40, seed=2, offset=offset)
     dy = np.random.RandomState(3).randn(70, 40).astype(np.float32)
 
     def loss(g_, bi_, w_, b_):
@@ -229,6 +240,64 @@ def test_input_fc_backward_matches_jax_grad(act):
         r = np.asarray(r).T if name == "w" else np.asarray(r)
         _close_grad(ours.numpy(), r, name)
         _close_grad(grad.grad.numpy(), r, name)
+
+
+def _jax_fc_grads(x, gain, bias, w, b, act, dy):
+    def loss(g_, bi_, w_, b_):
+        y = jfc.fused_input_fc_reference(jnp.asarray(x), g_, bi_, w_, b_,
+                                         1e-6, act)
+        return jnp.sum(y * dy)
+    return jax.grad(loss, argnums=(0, 1, 2, 3))(gain, bias, w, b)
+
+
+@pytest.mark.parametrize("act", ["gelu", "none"])
+def test_input_fc_backward_one_product_identity(act):
+    """The algebra of the CUDA backward (csrc/input_fc.cu): one product
+    G = xhat^T dpre gives dW = gain (x) G + bias (x) db, dgain = rowsum(W .
+    G) and dbias = W db, held in float32 against jax.grad of the JAX
+    reference; constant rows (xhat = 0) included."""
+    x, gain, bias, w, b = _fc_inputs(70, 96, 40)
+    dy = np.random.RandomState(6).randn(70, 40).astype(np.float32)
+    t = torch.from_numpy
+    xhat, xn = fc_mod._norm_rows(t(x), t(gain), t(bias), 1e-6)
+    assert float(xhat[:2].abs().max()) == 0.0
+    wt = t(w)  # (din, dout), the JAX layout
+    pre = xn @ wt + t(b)
+    dpre = t(dy) * (fc_mod.gelu_grad(pre) if act == "gelu" else 1.0)
+    g = xhat.t() @ dpre
+    db = dpre.sum(dim=0)
+    dw = t(gain)[:, None] * g + t(bias)[:, None] * db[None, :]
+    dgain = (wt * g).sum(dim=1)
+    dbias = wt @ db
+    ref = _jax_fc_grads(x, gain, bias, w, b, act, dy)
+    for name, ours, r in zip(("gain", "bias", "w", "b"),
+                             (dgain, dbias, dw, db), ref):
+        _close_grad(ours.numpy(), np.asarray(r), name)
+
+
+def test_input_fc_launch_plan():
+    """The bf16 backward's launch choices (ops/input_fc.py) at the four
+    calls of a yc2_2d3d_coot train step on 132 SMs, and at edge sizes."""
+    calls = {"clips": (66560, 4096), "video global": (5120, 4096),
+             "paragraph": (20480, 1536), "sentences": (19968, 1536)}
+    for s, din in calls.values():
+        splits, dpre_splits = fc_mod.backward_plan(s, din, 384, True, 132)
+        blocks = (-(-din // fc_mod.G_ROWS)) * (-(-384 // fc_mod.G_COLS)) \
+            * splits
+        assert blocks >= 132  # every SM gets a block
+        assert blocks >= 0.85 * -(-blocks // 132) * 132  # whole waves
+        assert s // splits >= 4 * fc_mod.G_STEP
+        assert dpre_splits == min(132, -(-s // 64))
+    assert fc_mod.backward_splits(66560, 4096, 384, 132) == 4
+    assert fc_mod.backward_splits(20480, 1536, 384, 132) == 10
+    for s in (0, 1, 17, 255):
+        assert fc_mod.backward_plan(s, 4096, 384, True, 132) == \
+            (1, max(1, -(-s // 64)))
+    assert fc_mod.backward_splits(1001, 1536, 384, 132) == 3
+    assert fc_mod.backward_splits(10 ** 7, 64, 16, 132) == 64
+    # float32 keeps the FMA reduction's splits (csrc/tn_reduce.cuh)
+    assert fc_mod.backward_plan(66560, 4096, 384, False, 132)[0] == \
+        cuda_build.splits_for(66560, 64 * 6)
 
 
 def test_input_fc_backward_matches_pallas_interpret():
