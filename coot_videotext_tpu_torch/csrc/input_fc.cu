@@ -66,7 +66,8 @@
 //  (1) dpre_colsum: dpre in 16-byte vectors and, per block (one row split),
 //      the column sums of the rounded dpre; sum_splits adds them in split
 //      order into db;
-//  (2) input_fc_g_mma (bf16): one block per (128 of din x 192 of dout, row
+//  (2) tn_mma<true> (bf16, csrc/tn_mma.cuh, shared with B2's backward):
+//      one block per (128 of din x 192 of dout, row
 //      split), 64 rows a step through a 4-stage cp.async ring, warp-
 //      specialized as the forward; x is staged raw and xhat = (x -
 //      mean)*inv formed in place once per element (rounded to bf16), then
@@ -86,6 +87,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "tn_mma.cuh"
 #include "tn_reduce.cuh"
 
 namespace coot {
@@ -134,35 +136,6 @@ row_stats(const T* __restrict__ x, float* __restrict__ mean,
   }
 }
 
-// 8 bf16 of a row into shared memory: the first n (none when n <= 0) from
-// src, zeros after; one 16-byte cp.async when all 8 are there and `vec`
-// says the source is 16-byte aligned.
-__device__ __forceinline__ void stage8(bf16* dst, const bf16* src, int n,
-                                       bool vec) {
-  if (vec && n >= 8) {
-    cp_async_16(dst, src);
-  } else {
-    const bf16 zero = __ushort_as_bfloat16(0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[j] = j < n ? src[j] : zero;
-  }
-}
-
-// The same for 4 floats.
-__device__ __forceinline__ void stage4f(float* dst, const float* src, int n,
-                                        bool vec) {
-  if (vec && n >= 4) {
-    cp_async_16(dst, src);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dst[j] = j < n ? src[j] : 0.f;
-  }
-}
-
-__host__ __device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 // ---- bf16 forward on the tensor cores ----
 //
 // Warp-specialized: producer warps stage the k tiles by cp.async and
@@ -176,72 +149,9 @@ __host__ __device__ __forceinline__ bool aligned16(const void* p) {
 //            wait on it before refilling it (only for a tile that is
 //            refilled, so every phase of every barrier completes);
 //   loaded   producers only: every producer's copies of a tile have landed.
-constexpr int kStages = 4;  // the cp.async ring
-constexpr int kBarFull = 1, kBarEmpty = kBarFull + kStages,
-              kBarLoaded = kBarEmpty + kStages;  // 0 is __syncthreads
-constexpr int kBN = 192;
-constexpr int kWarpN = kBN / 4, kNF = kWarpN / 8;  // 48 columns, 6 x n8
-constexpr int kLdc = kBN + 8;                      // f32 epilogue tile
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// One consumer warp's products over a staged k tile: 64 rows of A (sA at
-// the warp's first row) times 48 columns of B, 16-deep steps; both
-// operands k-contiguous ([row][k], non-transposed ldmatrix) or, with
-// kTrans, k-major ([k][row], ldmatrix.trans). The next step's fragments
-// load while this step's products run.
-template <int kK, bool kTrans>
-__device__ __forceinline__ void warp_mma(float (&acc)[4][kNF][4],
-                                         const bf16* sA, int lda,
-                                         const bf16* sB, int ldb) {
-  const int lane = threadIdx.x & 31;
-  const int r8 = lane & 7, hi8 = ((lane >> 3) & 1) * 8, hi16 = (lane >> 4) * 8;
-  // this lane's ldmatrix row address, and the offsets of the next 16 rows
-  // of the operand (m16 or n16) and of the next 16-deep step
-  const bf16* pa = kTrans ? sA + (r8 + hi16) * lda + hi8
-                          : sA + (r8 + hi8) * lda + hi16;
-  const bf16* pb = kTrans ? sB + (r8 + hi8) * ldb + hi16
-                          : sB + (r8 + hi16) * ldb + hi8;
-  const int a16 = kTrans ? 16 : 16 * lda, b16 = kTrans ? 16 : 16 * ldb;
-  const int ak = kTrans ? 16 * lda : 16, bk = kTrans ? 16 * ldb : 16;
-  uint32_t a[2][4][4], bq[2][kNF / 2][4];
-  auto fragments = [&](int buf, int step) {
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      if (kTrans)
-        ldsm_x4_t(a[buf][m], pa + m * a16 + step * ak);
-      else
-        ldsm_x4(a[buf][m], pa + m * a16 + step * ak);
-    }
-#pragma unroll
-    for (int np = 0; np < kNF / 2; ++np) {
-      if (kTrans)
-        ldsm_x4_t(bq[buf][np], pb + np * b16 + step * bk);
-      else
-        ldsm_x4(bq[buf][np], pb + np * b16 + step * bk);
-    }
-  };
-  fragments(0, 0);
-#pragma unroll
-  for (int step = 0; step < kK / 16; ++step) {
-    const int cur = step & 1;
-    if (step + 1 < kK / 16) fragments(cur ^ 1, step + 1);
-#pragma unroll
-    for (int np = 0; np < kNF / 2; ++np)
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        mma_bf16(acc[m][2 * np], a[cur][m], bq[cur][np][0], bq[cur][np][1]);
-        mma_bf16(acc[m][2 * np + 1], a[cur][m], bq[cur][np][2],
-                 bq[cur][np][3]);
-      }
-  }
-}
+// (the ring's constants, the barriers and warp_mma live in tn_mma.cuh,
+// which the backward's product shares with B2)
+constexpr int kLdc = kBN + 8;  // f32 epilogue tile
 
 // One block per 128 rows x 192 columns of y, 64-deep k tiles: 8 consumer
 // warps (64 x 48 each) and 4 producer warps.
@@ -563,143 +473,6 @@ dpre_colsum(const T* __restrict__ dy, const float* __restrict__ pre,
   }
 }
 
-// ---- bf16 G = xhat^T dpre on the tensor cores ----
-constexpr int kGM = 128, kGN = 192, kGK = 64;  // din x dout tile, rows/step
-constexpr int kLdx = kGM + 8, kLdp = kGN + 8;  // +8: ldmatrix rows
-constexpr int kGConsumers = 256, kGProducers = 128;  // 8 + 4 warps
-constexpr int kGThreads = kGConsumers + kGProducers;
-// x (kGK x kLdx) and dpre (kGK x kLdp) bf16, mean and inv (kGK) f32
-constexpr int kGStageBytes = 2 * kGK * (kLdx + kLdp) + 2 * 4 * kGK;
-constexpr int kGSmem = kStages * kGStageBytes;
-
-// partial[split] (din x dout) = sum over the split's rows of
-// xhat[r, m0:m0+128]^T dpre[r, n0:n0+192]; rows_per_split % kGK == 0.
-// Warp-specialized as the forward: producers stage x (raw), dpre, mean and
-// inv and form xhat in place; consumers multiply.
-__global__ void __launch_bounds__(kGThreads, 1)
-input_fc_g_mma(const bf16* __restrict__ x, const float* __restrict__ mean,
-               const float* __restrict__ inv, const bf16* __restrict__ dpre,
-               int S, int din, int dout, int rows_per_split,
-               float* __restrict__ partial) {
-  constexpr int kXChunks = kGM / 8, kPChunks = kGN / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * kGN, m0 = blockIdx.y * kGM;
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(S, r_begin + rows_per_split);
-  const int KT = r_end > r_begin ? (r_end - r_begin + kGK - 1) / kGK : 0;
-  const bool vec = din % 8 == 0 && dout % 8 == 0 && aligned16(x) &&
-                   aligned16(dpre) && aligned16(mean) && aligned16(inv);
-
-  auto tile_x = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + s * kGStageBytes);
-  };
-  auto tile_p = [&](int s) { return tile_x(s) + kGK * kLdx; };
-  auto tile_mean = [&](int s) {
-    return reinterpret_cast<float*>(tile_p(s) + kGK * kLdp);
-  };
-
-  if (tid >= kGConsumers) {  // producer warps
-    const int pt = tid - kGConsumers;
-    auto load = [&](int s, int r0) {
-      bf16* sX = tile_x(s);
-      bf16* sP = tile_p(s);
-      for (int i = pt; i < kGK * kXChunks; i += kGProducers) {
-        const int r = i / kXChunks, c = (i % kXChunks) * 8;
-        const int gr = r0 + r, gk = m0 + c;
-        stage8(sX + r * kLdx + c, x + (size_t)gr * din + gk,
-               gr < r_end ? din - gk : 0, vec);
-      }
-      for (int i = pt; i < kGK * kPChunks; i += kGProducers) {
-        const int r = i / kPChunks, c = (i % kPChunks) * 8;
-        const int gr = r0 + r, go = n0 + c;
-        stage8(sP + r * kLdp + c, dpre + (size_t)gr * dout + go,
-               gr < r_end ? dout - go : 0, vec);
-      }
-      if (pt < kGK / 2) {  // mean, then inv: kGK / 4 chunks of 4 each
-        const int c = (pt % (kGK / 4)) * 4;
-        const bool is_mean = pt < kGK / 4;
-        stage4f(tile_mean(s) + (is_mean ? 0 : kGK) + c,
-                (is_mean ? mean : inv) + r0 + c, r_end - r0 - c, vec);
-      }
-    };
-    // xhat = (x - mean) * inv, in place, rounded to bf16 (rows past the
-    // split are zero: x, mean and inv were staged as 0)
-    auto normalize = [&](int s) {
-      bf16* sX = tile_x(s);
-      const float* sM = tile_mean(s);
-      const float* sI = sM + kGK;
-      const int c = (pt % kXChunks) * 8;
-#pragma unroll
-      for (int r = pt / kXChunks; r < kGK; r += kGProducers / kXChunks) {
-        uint4* p = reinterpret_cast<uint4*>(sX + r * kLdx + c);
-        uint4 raw = *p;
-        uint32_t* v = reinterpret_cast<uint32_t*>(&raw);
-        const float m = sM[r], iv = sI[r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[j] = pack_bf16((bf16_lo(v[j]) - m) * iv,
-                           (bf16_hi(v[j]) - m) * iv);
-        *p = raw;
-      }
-    };
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < KT) load(s, r_begin + s * kGK);
-      cp_async_commit();
-    }
-    for (int kt = 0; kt < KT; ++kt) {
-      cp_async_wait<kStages - 2>();
-      bar_sync(kBarLoaded, kGProducers);
-      normalize(kt % kStages);
-      bar_arrive(kBarFull + kt % kStages, kGThreads);
-      const int next = kt + kStages - 1;
-      if (next < KT) {
-        if (kt >= 1) bar_sync(kBarEmpty + (kt - 1) % kStages, kGThreads);
-        load(next % kStages, r_begin + next * kGK);
-      }
-      cp_async_commit();
-    }
-    cp_async_wait<0>();
-    return;  // only the consumers write the partial tile
-  }
-
-  float acc[4][kNF][4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < kNF; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
-  const int wm = warp >> 2, wn = warp & 3;
-  for (int kt = 0; kt < KT; ++kt) {
-    const int s = kt % kStages;
-    bar_sync(kBarFull + s, kGThreads);
-    // A = xhat^T (din x rows), B = dpre (rows x dout): both stored with the
-    // rows (K) as the slow axis, so both come through ldmatrix.trans
-    warp_mma<kGK, true>(acc, tile_x(s) + wm * 64, kLdx,
-                        tile_p(s) + wn * kWarpN, kLdp);
-    if (kt + kStages < KT) bar_arrive(kBarEmpty + s, kGThreads);
-  }
-
-  float* out = partial + (size_t)blockIdx.z * din * dout;
-  const int gq = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < kNF; ++n) {
-      const int k = m0 + wm * 64 + m * 16 + gq;
-      const int o = n0 + wn * kWarpN + n * 8 + tq * 2;
-      if (o >= dout) continue;  // dout is even: o + 1 < dout
-      if (k < din)
-        *reinterpret_cast<float2*>(out + (size_t)k * dout + o) =
-            make_float2(acc[m][n][0], acc[m][n][1]);
-      if (k + 8 < din)
-        *reinterpret_cast<float2*>(out + (size_t)(k + 8) * dout + o) =
-            make_float2(acc[m][n][2], acc[m][n][3]);
-    }
-}
-
 // One warp per row k of din: G_k = sum of the splits' partial rows (in
 // split order), dW_k = gain_k G_k + bias_k db, dgain_k = W[:, k] . G_k,
 // dbias_k = W[:, k] . db.
@@ -752,14 +525,22 @@ int input_fc_bwd_launch(const T* x, const float* gain, const float* bias,
       dy, pre, dpre, S, dout, act, split_rows(S, dpre_splits), pdb);
   sum_splits<<<sum_blocks(dout), 256, 0, st>>>(pdb, dpre_splits, dout, db);
   if constexpr (std::is_same<T, bf16>::value) {
-    // set on every launch: the attribute belongs to the current device
-    const cudaError_t err = cudaFuncSetAttribute(
-        input_fc_g_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
+    // G = xhat^T dpre: one item, A = x normalized by mean and inv
+    TnArgs p{};
+    p.a = x;
+    p.b = dpre;
+    p.mean = mean;
+    p.inv = inv;
+    p.partial = pg;
+    p.p_split = (long long)din * dout;
+    p.lda = din;
+    p.ldb = dout;
+    p.R = S;
+    p.M = din;
+    p.N = dout;
+    p.rows_per_split = split_rows(S, splits);
+    const cudaError_t err = launch_tn_mma<true>(p, 1, splits, st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int rows = (split_rows(S, splits) + kGK - 1) / kGK * kGK;
-    dim3 grid((dout + kGN - 1) / kGN, (din + kGM - 1) / kGM, splits);
-    input_fc_g_mma<<<grid, kGThreads, kGSmem, st>>>(x, mean, inv, dpre, S,
-                                                   din, dout, rows, pg);
   } else {
     // G through the FMA reduction with gain 1 and bias 0: xn = xhat
     dim3 grid((din + kTnTile - 1) / kTnTile, (dout + kTnTile - 1) / kTnTile,
@@ -818,8 +599,9 @@ extern "C" int coot_input_fc_fwd(const void* x, const void* gain,
 // dout), db (dout), dgain, dbias (din); dpre (S, dout) is compute-dtype
 // scratch, `scratch` f32 of splits * din * dout + dpre_splits * dout
 // elements; `unit` (f32 only) 2 * din floats, din ones then din zeros. The
-// wrapper checks din % 64 == 0, dout % 16 == 0 and dout <= 384; splits and
-// dpre_splits come from ops/input_fc.py::backward_plan.
+// wrapper zero-pads din to a multiple of 64 and dout to one of 16 (and
+// checks dout <= 384); splits and dpre_splits come from
+// ops/input_fc.py::backward_plan.
 extern "C" int coot_input_fc_bwd(const void* x, const void* gain,
                                  const void* bias, const void* w,
                                  const void* mean, const void* inv,

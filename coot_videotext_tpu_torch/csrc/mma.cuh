@@ -1,4 +1,4 @@
-// Tensor-core and async-copy helpers shared by the bf16 kernels (B1, B3):
+// Tensor-core and async-copy helpers shared by the bf16 kernels (B1-B3):
 // ldmatrix fragments, mma.sync m16n8k16 (bf16 in, f32 accumulate) and
 // 16-byte cp.async staging with commit groups.
 #pragma once
@@ -25,6 +25,22 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// Two 8x8 b16 matrices; lanes 0-7 and 8-15 give the row addresses (the
+// other lanes' are ignored).
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_u32(p)));
 }
 

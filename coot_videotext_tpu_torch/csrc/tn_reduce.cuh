@@ -1,7 +1,7 @@
 // Weight-gradient reductions over rows: C (M x N) = sum_r A[r, :M]^T
-// B[r, :N], and column sums of B. B2's backward takes both in both dtypes;
-// B1's backward takes `sum_splits` (its own tensor-core product in bf16,
-// csrc/input_fc.cu) and, in f32 only, `tn_partial` with a NormA.
+// B[r, :N], and column sums of B, for the float32 backwards (B1 with a
+// NormA, B2); the bf16 backwards take the tensor-core product of
+// csrc/tn_mma.cuh and, like these, `sum_splits`.
 //
 // On the TPU the backward kernels carry these sums across their sequential
 // grid in resident VMEM blocks (pallas_input_fc.py:170-203,
@@ -12,18 +12,13 @@
 // repeat bit for bit.
 //
 // tn_partial: one block of 4 warps per (64 x 64 output tile, row split);
-// rows stream through shared memory 32 at a time. bf16 runs on the tensor
-// cores (nvcuda::wmma, f32 accumulation; A^T is read as a col-major
-// fragment of the row-major staging tile, so nothing is transposed in
-// memory), f32 on FMA. With a NormA the A rows are normalized while they
-// are staged (a = gain * (x - mean) * inv + bias, rounded to the compute
-// dtype; B1's f32 backward passes gain 1 and bias 0 for xhat).
+// rows stream through shared memory 32 at a time into FMA loops. With a
+// NormA the A rows are normalized while they are staged (a = gain * (x -
+// mean) * inv + bias; B1's f32 backward passes gain 1 and bias 0 for
+// xhat).
 #pragma once
 
-#include <mma.h>
-
 #include <algorithm>
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -52,22 +47,9 @@ tn_partial(const T* __restrict__ A, int lda, const T* __restrict__ B,
   const int r_begin = blockIdx.z * rows_per_split;
   const int r_end = min(R, r_begin + rows_per_split);
   const int tid = threadIdx.x;
-
-  using namespace nvcuda;
-  constexpr bool kWmma = std::is_same<T, bf16>::value;
-  const int warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  // bf16 accumulators (2 x 2 fragments of 16 x 16 per warp)
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-  // f32: thread owns rows tm*4 .. +3 and columns tn*8 .. +7 of the tile
+  // thread owns rows tm*4 .. +3 and columns tn*8 .. +7 of the tile
   const int tm = tid >> 3, tn = tid & 7;
   float facc[4][8] = {};
-  if constexpr (kWmma) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  }
 
   for (int r0 = r_begin; r0 < r_end; r0 += kTnRows) {
     for (int i = tid; i < kTnRows * kTnTile; i += kTnThreads) {
@@ -85,57 +67,25 @@ tn_partial(const T* __restrict__ A, int lda, const T* __restrict__ B,
       sB[r * kTnLd + c] = from_f32<T>(b);
     }
     __syncthreads();
-    if constexpr (kWmma) {
+    for (int k = 0; k < kTnRows; ++k) {
+      float a[4], b[8];
 #pragma unroll
-      for (int kk = 0; kk < kTnRows; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-            fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-            fb[2];
+      for (int i = 0; i < 4; ++i) a[i] = to_f32(sA[k * kTnLd + tm * 4 + i]);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], sA + kk * kTnLd + wm + i * 16,
-                                 kTnLd);
+      for (int j = 0; j < 8; ++j) b[j] = to_f32(sB[k * kTnLd + tn * 8 + j]);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], sB + kk * kTnLd + wn + j * 16,
-                                 kTnLd);
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-    } else {
-      for (int k = 0; k < kTnRows; ++k) {
-        float a[4], b[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = to_f32(sA[k * kTnLd + tm * 4 + i]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = to_f32(sB[k * kTnLd + tn * 8 + j]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) facc[i][j] = fmaf(a[i], b[j], facc[i][j]);
-      }
+        for (int j = 0; j < 8; ++j) facc[i][j] = fmaf(a[i], b[j], facc[i][j]);
     }
     __syncthreads();
   }
 
-  if constexpr (kWmma) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(sC + (wm + i * 16) * kTnLdc + wn + j * 16,
-                                acc[i][j], kTnLdc, wmma::mem_row_major);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        sC[(tm * 4 + i) * kTnLdc + tn * 8 + j] = facc[i][j];
-  }
+    for (int j = 0; j < 8; ++j)
+      sC[(tm * 4 + i) * kTnLdc + tn * 8 + j] = facc[i][j];
   __syncthreads();
   float* out = partial + (size_t)blockIdx.z * M * N;
   for (int i = tid; i < kTnTile * kTnTile; i += kTnThreads) {

@@ -29,7 +29,8 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("input_fc.cu", "genpool.cu", "attention.cu", "dropout.cu",
            "gather.cu")
-HEADERS = ("common.cuh", "mma.cuh", "philox.cuh", "tn_reduce.cuh")
+HEADERS = ("common.cuh", "mma.cuh", "philox.cuh", "tn_mma.cuh",
+           "tn_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,11 +116,11 @@ _SIGNATURES = {
     # thresh, drop scale, bf16, stream
     "coot_genpool_fwd": [_P] * 8 + [_I, _I, _I, _I, _I, _I, _ULL, _U, _F,
                                     _I, _P],
-    # f, mask, w1, b1, w2, b2, stats, dout, df, h1, dpre, dh2, scratch, dw1,
-    # db1, dw2, db2, S, L, D, H, heads, act, seed, thresh, drop scale,
-    # splits, bf16, stream
-    "coot_genpool_bwd": [_P] * 17 + [_I, _I, _I, _I, _I, _I, _ULL, _U, _F,
-                                     _I, _I, _P],
+    # f, mask, w1, b1, w2, b2, stats, dout, df, h1, dpre, dh2, fac, scratch,
+    # dw1, db1, dw2, db2, S, L, D, H, heads, act, seed, thresh, drop scale,
+    # splits, splits2, bf16, stream
+    "coot_genpool_bwd": [_P] * 18 + [_I, _I, _I, _I, _I, _I, _ULL, _U, _F,
+                                     _I, _I, _I, _P],
     # q, k, v, key_valid, o, row_max, row_inv, N, Lq, Lk, Dh, num_heads,
     # scale, seed, thresh, drop scale, bf16, stream
     "coot_attention_fwd": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _ULL, _U, _F,

@@ -12,7 +12,10 @@ on CUDA tensors its forward and backward launch the Hopper kernels in
 csrc/genpool.cu, which read w1 in the flat head-interleaved (D, heads*dh)
 layout and w2 per head; on CPU tensors they compute `genpool_plain` (the
 port of `fused_genpool_reference` :391, with the masks) and
-`genpool_backward_plain` (the formulas of `_bwd_kernel` :202). The output
+`genpool_backward_plain` (the formulas of `_bwd_kernel` :202). In bf16
+the backward is a fused pass over flat tiles of the S*L rows plus two
+tensor-core weight-gradient products (`backward_plan`); in float32 a
+kernel per pooled row and FMA reductions. The output
 column order is [h*dho + o], the reference's head interleave. The masks
 come from Philox bits (ops/philox.py), one seed per call, so the backward
 regenerates them.
@@ -27,9 +30,26 @@ import torch
 from coot_videotext_tpu_torch.ops import cuda_build, philox
 from coot_videotext_tpu_torch.ops.common import (
     ACT_CODES, act_fn, act_grad, check_tensor, is_bf16, kernel_operand)
+from coot_videotext_tpu_torch.ops.input_fc import (
+    G_COLS, G_ROWS, sm_count, splits_for_tiles)
 from coot_videotext_tpu_torch.typext import INF
 
 KERNEL = "genpool"
+
+
+def backward_plan(s: int, length: int, d: int, h: int, heads: int,
+                  sms: int) -> Dict[str, int]:
+    """Row splits of the bf16 backward's two weight-gradient products, dw1
+    (D x H) and dw2 (heads items of dh x dho), on csrc/tn_mma.cuh's G_ROWS
+    x G_COLS tiles. The tile pass picks its own tile (csrc/genpool.cu,
+    tile_plan)."""
+    rows = s * length
+    dh, dho = h // heads, d // heads
+    return dict(
+        splits_w1=splits_for_tiles(
+            rows, -(-d // G_ROWS) * -(-h // G_COLS), sms),
+        splits_w2=splits_for_tiles(
+            rows, heads * -(-dh // G_ROWS) * -(-dho // G_COLS), sms))
 
 
 def flat_w1(w1_heads: torch.Tensor) -> torch.Tensor:
@@ -208,31 +228,43 @@ class _GenPool(torch.autograd.Function):
         dev, cdt = f.device, f.dtype
         f32 = dict(dtype=torch.float32, device=dev)
         rows = s * length
+        bf16 = is_bf16(KERNEL, f)
         df = torch.empty_like(f)
         h1 = torch.empty((rows, h), dtype=cdt, device=dev)
         dpre = torch.empty((rows, h), dtype=cdt, device=dev)
         dh2 = torch.empty((rows, d), dtype=cdt, device=dev)
-        splits = cuda_build.splits_for(rows, -(-d // 64) * -(-h // 64))
-        scratch = torch.empty(splits * d * h, **f32)
-        dw1 = torch.empty((d, h), **f32)
-        db1 = torch.empty(h, **f32)
-        dw2 = torch.empty((heads, dh, dho), **f32)
-        db2 = torch.empty(d, **f32)
+        # dw1 | db1 and dw2 | db2 each in one buffer (the bf16 path sums
+        # each pair in one pass)
+        out1 = torch.empty(d * h + h, **f32)
+        out2 = torch.empty(heads * dh * dho + d, **f32)
+        # bf16: act'(hin) * keep1 from the tile pass's pass A to its pass B
+        fac = torch.empty((rows, h) if bf16 else 0, **f32)
+        if bf16:
+            plan = backward_plan(s, length, d, h, heads, sm_count(dev.index))
+            splits, splits2 = plan["splits_w1"], plan["splits_w2"]
+            scratch = torch.empty(splits * (d * h + h)
+                                  + splits2 * (heads * dh * dho + d), **f32)
+        else:
+            splits = cuda_build.splits_for(rows, -(-d // 64) * -(-h // 64))
+            splits2 = 0
+            scratch = torch.empty(splits * d * h, **f32)
         dout = dout.to(cdt).contiguous()
         lib = cuda_build.load_library()
         err = lib.coot_genpool_bwd(
             f.data_ptr(), mask_u8.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), stats.data_ptr(), dout.data_ptr(),
             df.data_ptr(), h1.data_ptr(), dpre.data_ptr(), dh2.data_ptr(),
-            scratch.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-            dw2.data_ptr(), db2.data_ptr(), s, length, d, h, heads,
-            ACT_CODES[act], *philox.kernel_args(rate, seed), splits,
-            int(is_bf16(KERNEL, f)), cuda_build.stream(f))
+            fac.data_ptr(), scratch.data_ptr(), out1.data_ptr(),
+            out1[d * h:].data_ptr(),
+            out2.data_ptr(), out2[heads * dh * dho:].data_ptr(), s, length,
+            d, h, heads, ACT_CODES[act], *philox.kernel_args(rate, seed),
+            splits, splits2, int(bf16), cuda_build.stream(f))
         cuda_build.check(err, KERNEL + "_bwd")
         cuda_build.launch_counts[KERNEL + "_bwd"] += 1
-        dw1_heads = dw1.reshape(d, heads, dh).permute(1, 0, 2)
-        return (df, None, dw1_heads, db1.reshape(heads, dh), dw2,
-                db2.reshape(heads, dho), None, None, None)
+        dw1_heads = out1[:d * h].view(d, heads, dh).permute(1, 0, 2)
+        return (df, None, dw1_heads, out1[d * h:].view(heads, dh),
+                out2[:heads * dh * dho].view(heads, dh, dho),
+                out2[heads * dh * dho:].view(heads, dho), None, None, None)
 
 
 def genpool(f: torch.Tensor, mask: torch.Tensor, w1_heads: torch.Tensor,

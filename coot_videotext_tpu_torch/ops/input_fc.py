@@ -35,9 +35,9 @@ from coot_videotext_tpu_torch.ops.common import (
 
 KERNEL = "input_fc"
 
-# Tiles of the bf16 backward's product in csrc/input_fc.cu: a block owns
-# G_ROWS x G_COLS of G = xhat^T dpre and one row split, which it walks
-# G_STEP rows at a time.
+# Tiles of the bf16 backward's product (csrc/tn_mma.cuh, shared with B2): a
+# block owns G_ROWS x G_COLS of G = xhat^T dpre and one row split, which it
+# walks G_STEP rows at a time.
 G_ROWS, G_COLS, G_STEP = 128, 192, 64
 
 
@@ -45,12 +45,12 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def backward_splits(rows: int, din: int, dout: int, sms: int) -> int:
-    """Row splits of the bf16 backward's product (one block per G tile and
-    split, one block per SM): the fewest splits that give at least one
-    block per SM and fill whole waves to 85% or more, with at least 4 steps
-    of G_STEP rows per split (at most 64 splits)."""
-    tiles = _ceil(din, G_ROWS) * _ceil(dout, G_COLS)
+def splits_for_tiles(rows: int, tiles: int, sms: int) -> int:
+    """Row splits of a tensor-core weight-gradient product over `tiles`
+    output tiles (csrc/tn_mma.cuh, one block per tile and split, one block
+    per SM): the fewest splits that give at least one block per SM and
+    fill whole waves to 85% or more, with at least 4 steps of G_STEP rows
+    per split (at most 64 splits)."""
     most = max(1, min(64, rows // (4 * G_STEP)))
     least = max(1, _ceil(sms, tiles))
     for splits in range(least, most + 1):
@@ -58,6 +58,13 @@ def backward_splits(rows: int, din: int, dout: int, sms: int) -> int:
         if blocks >= 0.85 * _ceil(blocks, sms) * sms:
             return splits
     return min(most, least)
+
+
+def backward_splits(rows: int, din: int, dout: int, sms: int) -> int:
+    """Row splits of the bf16 backward's product G (din x dout tiles of
+    G_ROWS x G_COLS)."""
+    return splits_for_tiles(rows, _ceil(din, G_ROWS) * _ceil(dout, G_COLS),
+                            sms)
 
 
 def backward_plan(rows: int, din: int, dout: int, bf16: bool,
@@ -73,8 +80,25 @@ def backward_plan(rows: int, din: int, dout: int, bf16: bool,
     return splits, max(1, min(sms, _ceil(rows, 64)))
 
 
+def pad_backward_operands(x, gain, bias, w, pre, dy):
+    """The backward kernel's operands zero-padded to din % 64 == 0 and
+    dout % 16 == 0 (returned as they are when both widths already are).
+    Every parameter gradient of input column k depends only on column k,
+    and a padded output column has dy = 0, so dpre = 0 there: the real
+    gradients are the padded ones sliced back. mean and inv stay the
+    forward's (over the real din); the padded columns of xhat are then
+    garbage that the slice drops."""
+    din, dout = x.shape[1], w.shape[0]
+    pin, pout = -din % 64, -dout % 16
+    if not (pin or pout):
+        return x, gain, bias, w, pre, dy
+    return (F.pad(x, (0, pin)), F.pad(gain, (0, pin)), F.pad(bias, (0, pin)),
+            F.pad(w, (0, pin, 0, pout)), F.pad(pre, (0, pout)),
+            F.pad(dy, (0, pout)))
+
+
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -177,28 +201,31 @@ class _InputFC(torch.autograd.Function):
                 x, gain, bias, weight, b, eps, act, dy)
             return None, dgain, dbias, dw, db, None, None
         x, gain32, bias32, w_c, mean, inv, pre = ctx.saved_tensors
-        s, din = x.shape
-        dout = w_c.shape[0]
+        s, din0 = x.shape
+        dout0 = w_c.shape[0]
         dev = x.device
         f32 = dict(dtype=torch.float32, device=dev)
+        if s == 0:
+            return (None, torch.zeros(din0, **f32), torch.zeros(din0, **f32),
+                    torch.zeros((dout0, din0), **f32),
+                    torch.zeros(dout0, **f32), None, None)
+        if dout0 > 384:
+            raise ValueError(f"{KERNEL}: the backward kernel takes dout <= "
+                             f"384; got dout={dout0}")
+        x, gain32, bias32, w_c, pre, dy = pad_backward_operands(
+            x, gain32, bias32, w_c, pre, dy.to(x.dtype))
+        din, dout = x.shape[1], w_c.shape[0]
         dw = torch.empty((din, dout), **f32)
         db = torch.empty(dout, **f32)
         dgain = torch.empty(din, **f32)
         dbias = torch.empty(din, **f32)
-        if s == 0:
-            return (None, dgain.zero_(), dbias.zero_(), dw.zero_().t(),
-                    db.zero_(), None, None)
-        if din % 64 or dout % 16 or dout > 384:
-            raise ValueError(f"{KERNEL}: the backward kernel takes din % 64 "
-                             f"== 0 and dout % 16 == 0, dout <= 384; got "
-                             f"din={din}, dout={dout}")
-        dy = dy.to(x.dtype).contiguous()
+        dy = dy.contiguous()
         if dy.data_ptr() % 16:  # the dpre pass reads 16-byte vectors
             dy = dy.clone()
         bf16 = is_bf16(KERNEL, x)
         dpre = torch.empty((s, dout), dtype=x.dtype, device=dev)
         splits, dpre_splits = backward_plan(s, din, dout, bf16,
-                                            _sm_count(dev.index))
+                                            sm_count(dev.index))
         scratch = torch.empty(splits * din * dout + dpre_splits * dout,
                               **f32)
         # float32: gain 1 and bias 0 turn the FMA reduction's xn into xhat
@@ -215,7 +242,8 @@ class _InputFC(torch.autograd.Function):
             cuda_build.stream(x))
         cuda_build.check(err, KERNEL + "_bwd")
         cuda_build.launch_counts[KERNEL + "_bwd"] += 1
-        return None, dgain, dbias, dw.t(), db, None, None
+        return (None, dgain[:din0], dbias[:din0], dw[:din0, :dout0].t(),
+                db[:dout0], None, None)
 
 
 def fused_input_fc(x: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,

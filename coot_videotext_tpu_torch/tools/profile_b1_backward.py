@@ -12,7 +12,8 @@ that two checkouts can be compared in turns on one card. For each call it
 prints one JSON line:
 - autograd_ms: CUDA events over 10 backwards through torch.autograd.grad
   (as chip_smoke.py phase 5 times them), median of 5 rounds;
-- device_ms: the profiler's device time per backward;
+- device_ms and by_kernel: the profiler's device time per backward, in
+  all and by kernel;
 - grad_host_us: host microseconds per torch.autograd.grad call, the
   launches queued and not waited for (median of 5 rounds of 50 calls);
 - wrapper_host_us: the same for a direct call of the autograd Function's
@@ -79,8 +80,8 @@ def events_ms(fn, iters: int = 10, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
-def device_ms(fn, calls: int = 20) -> float:
-    """The profiler's device ms per call of fn."""
+def by_kernel_ms(fn, calls: int = 20) -> dict:
+    """The profiler's device ms per call of fn, by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -90,13 +91,16 @@ def device_ms(fn, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    out = {}
     for e in prof.key_averages():
         dev = getattr(e, "self_device_time_total",
                       getattr(e, "self_cuda_time_total", 0.0))
         if str(e.device_type).endswith("CUDA") and dev > 0:
-            total += dev / e.count * max(1, round(e.count / calls))
-    return total / 1e3
+            name = e.key.replace("(anonymous namespace)::", "").split(
+                "(")[0].split("::")[-1]
+            per_call = dev / e.count * max(1, round(e.count / calls))
+            out[name] = out.get(name, 0.0) + per_call / 1e3
+    return out
 
 
 def host_tables(backward, wrapper) -> None:
@@ -171,9 +175,11 @@ def main() -> None:
 
         grads = tuple(torch.zeros_like(p) for p in params)
         y_ready = _Ready.apply(x, *leaves, grads)
+        kernels = by_kernel_ms(backward)
         row = dict(
             call=what, rows=s, din=din, dout=DOUT,
-            autograd_ms=events_ms(backward), device_ms=device_ms(backward),
+            autograd_ms=events_ms(backward),
+            device_ms=sum(kernels.values()), by_kernel=kernels,
             grad_host_us=host_us(backward), wrapper_host_us=host_us(wrapper),
             engine_host_us=host_us(lambda: torch.autograd.grad(
                 y_ready, leaves, dy, retain_graph=True)))

@@ -203,11 +203,26 @@ def test_input_fc_backward_repeats_bit_for_bit(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_genpool_backward_kernel(cuda, dtype, rate):
-    """L = 80 with fully masked rows; dropout at the three sites."""
+def test_input_fc_backward_kernel_ragged_widths(cuda, dtype):
+    """din 48 and dout 32 (synthetic_smoke's text input FC): the backward
+    pads them to 64 and 32 and runs its kernel (no plain path)."""
+    x, params, dy = _fc_args(cuda, dtype, 1001, 48, 32)
+    params[2] = params[2].to(dtype)
+    assert _run(fused_input_fc, fused_input_fc_plain,
+                (x, *params, 1e-6, "gelu"), "input_fc") <= TOL[dtype]
+    params[2] = params[2].float()
+    ours = _grads(lambda *p: fused_input_fc(x, *p, 1e-6, "gelu"), params,
+                  dy, "input_fc")
+    ref = fused_input_fc_backward_plain(x, *params, 1e-6, "gelu",
+                                        dy.to(dtype))
+    for a, r in zip(ours, ref):
+        assert a.shape == r.shape
+        assert _rel(a, r) <= TOL[dtype]
+
+
+def _genpool_case(cuda, dtype, s, length, d=384, h=768, heads=2):
     g = torch.Generator(device=cuda).manual_seed(4)
-    s, length, d, heads, dh = 48, 80, 384, 2, 384
+    dh = h // heads
     f = torch.randn(s, length, d, generator=g, device=cuda).to(dtype)
     lens = torch.randint(1, length + 1, (s,), generator=g, device=cuda)
     mask = torch.arange(length, device=cuda)[None] < lens[:, None]
@@ -218,6 +233,10 @@ def test_genpool_backward_kernel(cuda, dtype, rate):
                           device=cuda) / dh ** 0.5,
               0.1 * torch.randn(heads, d // heads, generator=g, device=cuda)]
     dout = torch.randn(s, d, generator=g, device=cuda)
+    return f, mask, params, dout
+
+
+def _check_genpool_backward(f, mask, params, dout, rate, dtype):
     with torch.inference_mode():
         assert _rel(genpool(f, mask, *params, "gelu", rate, 77),
                     genpool_plain(f, mask, *params, "gelu", rate, 77)) \
@@ -229,6 +248,60 @@ def test_genpool_backward_kernel(cuda, dtype, rate):
     for i, (a, r) in enumerate(zip(ours, ref)):
         # db2 (i = 4) is ~0 without dropout: compare it absolutely
         assert _rel(a, r) <= TOL[dtype], i
+    if rate >= 0.1 and f.shape[1] > 1:
+        # the keep2 mask makes db2 clearly nonzero (at L = 1 the softmax
+        # over one slot has no gradient, so db2 stays ~0)
+        db2, ref_db2 = ours[4].float(), ref[4].float()
+        assert float((db2 - ref_db2).abs().max()) <= \
+            TOL[dtype] * float(ref_db2.abs().max())
+    return ours
+
+
+# (pooled rows, L): the four calls of a train step at reduced S (the clips
+# and the video context at L 80, the sentences at 24, the paragraph at
+# 320, with tiles that cross pooled rows), and L = 1 (a tile of 64 pooled
+# rows, past the staged stats)
+GENPOOL_ROWS = [(48, 80), (64, 24), (12, 320), (200, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("s,length", GENPOOL_ROWS)
+def test_genpool_backward_kernel(cuda, dtype, rate, s, length):
+    """D 384, H 768, 2 heads, fully masked rows; dropout at the three
+    sites."""
+    _check_genpool_backward(*_genpool_case(cuda, dtype, s, length), rate,
+                            dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,heads", [(32, 64, 2), (512, 512, 2),
+                                       (1024, 1024, 2), (128, 256, 8),
+                                       (32, 64, 1), (128, 64, 1)])
+def test_genpool_backward_kernel_widths(cuda, d, h, heads):
+    """bf16 at other widths: synthetic_smoke's D 32 / H 64 (one 32-unit
+    hidden block per head), D 512 (two column groups), D 1024 (tiles of 32
+    rows, two groups of 512 columns each split), 8 heads of 16 columns,
+    and one head of one 64-unit block (PoolerConfig's default head count),
+    where pass B's first step follows pass A's last closely."""
+    _check_genpool_backward(*_genpool_case(cuda, torch.bfloat16, 20, 37, d,
+                                           h, heads), 0.1, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_genpool_backward_repeats_bit_for_bit(cuda):
+    """No float atomics: two bf16 backward calls on the same inputs give
+    bit-equal df, dw1, db1, dw2 and db2 (dropout on)."""
+    f, mask, params, dout = _genpool_case(cuda, torch.bfloat16, 96, 80)
+
+    def fn(f_, *p):
+        return genpool(f_, mask, *p, "gelu", 0.1, 77)
+
+    first = _grads(fn, [f] + params, dout, "genpool")
+    second = _grads(fn, [f] + params, dout, "genpool")
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _attention_case(cuda, dtype, lq, lk, dh=48):

@@ -32,8 +32,10 @@ from coot_videotext_tpu_torch.ops.attention import (
     masked_attention, masked_attention_backward_plain,
     masked_attention_plain, needs_dq_scratch)
 from coot_videotext_tpu_torch.ops.dropout import dropout, dropout_plain
+from coot_videotext_tpu_torch.ops import genpool as gp_mod
+from coot_videotext_tpu_torch.ops.common import act_fn, act_grad
 from coot_videotext_tpu_torch.ops.genpool import (
-    genpool, genpool_backward_plain, genpool_plain)
+    flat_w1, genpool, genpool_backward_plain, genpool_plain)
 from coot_videotext_tpu_torch.ops import input_fc as fc_mod
 from coot_videotext_tpu_torch.ops.input_fc import (
     fused_input_fc, fused_input_fc_backward_plain, fused_input_fc_plain)
@@ -300,6 +302,48 @@ def test_input_fc_launch_plan():
         cuda_build.splits_for(66560, 64 * 6)
 
 
+def _one_product_grads(x, gain, bias, w, mean, inv, pre, dy, act):
+    """The CUDA backward's algebra (csrc/input_fc.cu) on given mean and
+    inv: (dgain, dbias, dW (din, dout), db)."""
+    xhat = (x - mean[:, None]) * inv[:, None]
+    dpre = dy * (fc_mod.gelu_grad(pre) if act == "gelu" else 1.0)
+    g = xhat.t() @ dpre
+    db = dpre.sum(dim=0)
+    return ((w.t() * g).sum(dim=1), w.t() @ db,
+            gain[:, None] * g + bias[:, None] * db[None, :], db)
+
+
+@pytest.mark.parametrize("din,dout", [(48, 32), (50, 20)])
+def test_input_fc_backward_padded_widths(din, dout):
+    """The backward wrapper's zero padding (ops/input_fc.py::
+    pad_backward_operands): at din 48 / dout 32 (synthetic_smoke's text
+    input FC) and 50 / 20, the one-product gradients of the padded
+    operands, with the forward's mean and inv over the real din, sliced
+    back, equal the unpadded ones and jax.grad of the JAX reference."""
+    x, gain, bias, w, b = _fc_inputs(70, din, dout, seed=21)
+    dy = np.random.RandomState(22).randn(70, dout).astype(np.float32)
+    t = torch.from_numpy
+    wt = t(np.ascontiguousarray(w.T))  # (dout, din), the torch layout
+    mean, denom = fc_mod.coot_norm_stats(t(x), 1e-6)
+    mean, inv = mean[:, 0], 1.0 / denom[:, 0]
+    _, xn = fc_mod._norm_rows(t(x), t(gain), t(bias), 1e-6)
+    pre = xn @ wt.t() + t(b)
+    padded = fc_mod.pad_backward_operands(t(x), t(gain), t(bias), wt, pre,
+                                          t(dy))
+    assert padded[0].shape == (70, 64) and padded[3].shape == (32, 64)
+    pg, pb, pw, pdb = _one_product_grads(*padded[:4], mean, inv,
+                                         *padded[4:], "gelu")
+    ours = (pg[:din], pb[:din], pw[:din, :dout], pdb[:dout])
+    plain = _one_product_grads(t(x), t(gain), t(bias), wt, mean, inv, pre,
+                               t(dy), "gelu")
+    ref = _jax_fc_grads(x, gain, bias, w, b, "gelu", dy)
+    for name, a, p, r in zip(("gain", "bias", "w", "b"), ours, plain, ref):
+        np.testing.assert_allclose(a.numpy(), p.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        _close_grad(a.numpy(), np.asarray(r), name)
+    assert fc_mod.pad_backward_operands(*padded)[0] is padded[0]
+
+
 def test_input_fc_backward_matches_pallas_interpret():
     x, gain, bias, w, b = _fc_inputs(64, 128, 128, seed=4)
     dy = np.random.RandomState(5).randn(64, 128).astype(np.float32)
@@ -376,6 +420,154 @@ def test_genpool_backward_matches_pallas_interpret():
         _close_grad(dw2[hh].numpy(),
                     rw2[hh * 128:(hh + 1) * 128, hh * 64:(hh + 1) * 64],
                     f"dw2[{hh}]")
+
+
+def _genpool_bwd_tile_order(f, mask, w1h, b1h, w2h, b2h, act, dout, rate,
+                            seed, tile, splits):
+    """B2's backward as csrc/genpool.cu's bf16 tile pass orders it, in
+    float32: the forward's per-(pooled row, column) stats (softmax max, sum
+    and the pooled row out), then flat tiles of `tile` of the S*L rows
+    that cross pooled-row boundaries, each row reading the stats of its s
+    (the row-coupling sum is dout * out); the weight gradients as partial
+    sums over `splits` row splits (whole tiles) added in split order."""
+    s, length, d = f.shape
+    heads, dh, dho = w2h.shape
+    h = heads * dh
+    rows = s * length
+    w1 = flat_w1(w1h)
+    b1, b2 = b1h.reshape(-1), b2h.reshape(-1)
+    fac = gp_mod._factors((s, length, d, h), seed, rate, f.device)
+    keep1, keep2, keep3 = (fac[k].reshape(rows, -1) if fac else None
+                           for k in ("hidden", "logits", "weights"))
+
+    def row_pass(r):
+        """Every per-row quantity of the flat rows r."""
+        fr = f.reshape(rows, d)[r]
+        hin = fr @ w1 + b1
+        if keep1 is not None:
+            hin = hin * keep1[r]
+        h1 = act_fn(hin, act)
+        lg = torch.cat([h1[:, i * dh:(i + 1) * dh] @ w2h[i]
+                        for i in range(heads)], dim=1) + b2
+        if keep2 is not None:
+            lg = lg * keep2[r]
+        valid = mask.reshape(rows)[r][:, None]
+        return fr, hin, h1, torch.where(valid, lg,
+                                        torch.full_like(lg, -32752.0)), valid
+
+    # the forward's stats, per pooled row (genpool.cu's `stats`)
+    _, _, _, lg, _ = row_pass(torch.arange(rows))
+    lg = lg.reshape(s, length, d)
+    mx = lg.max(dim=1).values
+    e = torch.exp(lg - mx[:, None])
+    total = e.sum(dim=1)
+    smd = e / total[:, None]
+    if keep3 is not None:
+        smd = smd * keep3.reshape(s, length, d)
+    out = (f * smd).sum(dim=1)
+
+    df = torch.empty(rows, d)
+    n_tiles = -(-rows // tile)
+    per_split = -(-n_tiles // splits)
+    parts = []
+    for sp in range(splits):
+        part = [torch.zeros(d, h), torch.zeros(h), torch.zeros(heads, dh, dho),
+                torch.zeros(d)]
+        for ti in range(sp * per_split, min(n_tiles, (sp + 1) * per_split)):
+            r = torch.arange(ti * tile, min(rows, (ti + 1) * tile))
+            fr, hin, h1, lgr, valid = row_pass(r)
+            si = r // length
+            sm = torch.exp(lgr - mx[si]) / total[si]
+            g = dout[si]
+            k3 = keep3[r] if keep3 is not None else 1.0
+            dsm = g * fr * k3
+            dlg = torch.where(valid, sm * (dsm - g * out[si]),
+                              torch.zeros_like(sm))
+            dh2 = dlg * (keep2[r] if keep2 is not None else 1.0)
+            dh1 = torch.cat([dh2[:, i * dho:(i + 1) * dho] @ w2h[i].t()
+                             for i in range(heads)], dim=1)
+            dpre1 = dh1 * act_grad(hin, act) * (
+                keep1[r] if keep1 is not None else 1.0)
+            df[r] = g * sm * k3 + dpre1 @ w1.t()
+            part[0] += fr.t() @ dpre1
+            part[1] += dpre1.sum(dim=0)
+            part[2] += torch.stack([h1[:, i * dh:(i + 1) * dh].t()
+                                    @ dh2[:, i * dho:(i + 1) * dho]
+                                    for i in range(heads)])
+            part[3] += dh2.sum(dim=0)
+        parts.append(part)
+    dw1, db1, dw2, db2 = (sum(p[i] for p in parts) for i in range(4))
+    return (df.reshape(s, length, d),
+            dw1.reshape(d, heads, dh).permute(1, 0, 2), db1.reshape(heads, dh),
+            dw2, db2.reshape(heads, dho))
+
+
+@pytest.mark.parametrize("s,length,tile,rate", [
+    (7, 20, 16, 0.0), (7, 20, 16, 0.3), (5, 24, 64, 0.3), (40, 1, 8, 0.3),
+    (3, 37, 64, 0.0)])
+def test_genpool_backward_tile_order(s, length, tile, rate):
+    """The identity the bf16 kernel rests on: with the forward's stats, the
+    backward is local to each sequence row, so flat tiles that cross
+    pooled-row boundaries (L not dividing the tile, L = 1), all-masked
+    rows and dropout (the masks regenerated by element index) give the
+    plain backward's gradients, and without dropout jax.grad's, at 1e-5
+    relative in float32; the weight gradients as split sums."""
+    f, mask, *heads = _genpool_inputs(s, length, 32, 64, 2, seed=23)
+    dout = np.random.RandomState(24).randn(s, 32).astype(np.float32)
+    t = torch.from_numpy
+    tiled = _genpool_bwd_tile_order(t(f), t(mask), *(t(a) for a in heads),
+                                    "gelu", t(dout), rate, 99, tile, 3)
+    plain = genpool_backward_plain(t(f), t(mask), *(t(a) for a in heads),
+                                   "gelu", t(dout), rate, 99)
+    names = ("df", "dw1", "db1", "dw2", "db2")
+    for name, a, r in zip(names, tiled, plain):
+        r = r.numpy()
+        assert np.abs(a.numpy() - r).max() <= 1e-5 * max(1.0,
+                                                         np.abs(r).max()), name
+    if rate == 0.0:
+        flat = [jnp.asarray(a) for a in jgen.head_params_to_flat(*heads)]
+
+        def loss(f_, w1_, b1_, w2_, b2_):
+            y = jgen.fused_genpool_reference(f_, jnp.asarray(mask), w1_,
+                                             b1_, w2_, b2_, "gelu")
+            return jnp.sum(y * dout)
+
+        rf, rw1, rb1, rw2, _ = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+            jnp.asarray(f), *flat)
+        _close_grad(tiled[0].numpy(), np.asarray(rf), "df")
+        _close_grad(tiled[1].permute(1, 0, 2).reshape(32, 64).numpy(),
+                    np.asarray(rw1), "dw1")
+        _close_grad(tiled[2].reshape(-1).numpy(), np.asarray(rb1), "db1")
+        rw2 = np.asarray(rw2)
+        for hh in range(2):
+            _close_grad(tiled[3][hh].numpy(),
+                        rw2[hh * 32:(hh + 1) * 32, hh * 16:(hh + 1) * 16],
+                        f"dw2[{hh}]")
+
+
+def test_genpool_backward_launch_plan():
+    """The bf16 backward's row splits (ops/genpool.py) at the four calls of
+    a yc2_2d3d_coot train step on 132 SMs (D 384, H 768, 2 heads), and at
+    other widths."""
+    calls = {"clips": (832, 80), "video context": (64, 80),
+             "paragraph": (64, 320), "sentences": (832, 24)}
+    for s, length in calls.values():
+        plan = gp_mod.backward_plan(s, length, 384, 768, 2, 132)
+        assert set(plan) == {"splits_w1", "splits_w2"}
+        for key, tiles in (("splits_w1", 3 * 4), ("splits_w2", 2 * 3)):
+            blocks = tiles * plan[key]
+            most = s * length // (4 * fc_mod.G_STEP)  # 4 steps a split
+            if plan[key] < most:  # every SM gets a block, in whole waves
+                assert blocks >= 132
+                assert blocks >= 0.85 * -(-blocks // 132) * 132
+            assert plan[key] <= most
+    assert gp_mod.backward_plan(832, 80, 384, 768, 2, 132)["splits_w1"] == 11
+    assert gp_mod.backward_plan(832, 80, 384, 768, 2, 132)["splits_w2"] == 22
+    # synthetic_smoke's D 32 / H 64: one split each; 8 heads of 16 columns
+    small = gp_mod.backward_plan(4, 20, 32, 64, 2, 132)
+    assert small == {"splits_w1": 1, "splits_w2": 1}
+    many = gp_mod.backward_plan(64, 80, 128, 256, 8, 132)
+    assert many["splits_w2"] <= 64 * 80 // (4 * fc_mod.G_STEP)
 
 
 def _attn_grads(q, k, v, key_valid, heads, scale, g, rate=0.0, seed=0):
