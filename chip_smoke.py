@@ -14,10 +14,12 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    slices' shapes and edge cases (ragged S, constant rows, all-masked rows,
    Lq = 1, B1 at the video global net's 5,120 x 4096, a ragged 4,099 x
    4096, rows of 100 + 0.5 N, S = 17 and 1, din 48 -> dout 32, B2 at the
-   four calls of a train step (and D 32 / H 64, and one head at D 32 and
-   128 / H 64), B3 at L = 24, 320 and a ragged 37 x 130, dropout on with
-   one seed: the masks must agree exactly; B1's, B2's and B3's backwards
-   repeat bit for bit, B2's errors printed by gradient, its db2 at
+   four calls of a train step (and D 32 / H 64, one head at D 32 and
+   128 / H 64, D 512), B3 at the video context's N = 512, L = 24, 320, a
+   ragged 37 x 130 (also at d_head 16 and 64) and Lq = 1 over 130 keys,
+   dropout on with one seed: the masks must agree exactly; B2's and B3's
+   forwards and B1's, B2's and B3's backwards repeat bit for bit, B2's
+   errors printed by gradient, its db2 at
    dropout 0.1 also held relative to its own largest value;
    B4 bit-equal, also on a misaligned view and a transposed cotangent; B5
    bit-equal, its noise's bounds and std, a 4.4 GB table).
@@ -52,11 +54,15 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    version (forward and backward, at that call's row splits) and its
    backward repeated bit for bit, with the profiler's device time by
    kernel (row_stats alone among them), the host time per backward call
-   and torch.matmul of its product alone as `product_ms`; B2's backward
-   at the same four calls, each held against its plain version and
-   repeated bit for bit, through autograd with the profiler's device time
-   of the tile pass and the weight-gradient products apart; B3's backward
-   also at the paragraph's L = 320;
+   and torch.matmul of its product alone as `product_ms`; B2's forward
+   (with and without the stats: train and eval; the tile pass and the
+   pooling pass apart) and backward at the same four calls, each held
+   against its plain version and repeated bit for bit, the backward
+   through autograd with the profiler's device time of the tile pass and
+   the weight-gradient products apart; B3's forward at the step's six
+   shapes (clips, video context, paragraph, sentences, global, cross),
+   train and eval, in turns with SDPA; B3's backward also at the
+   paragraph's L = 320;
    B4 and F.dropout's backward as bare launches, profiler device time,
    host time per call and through autograd; B5 at each store gather of a
    step, with and without noise.
@@ -388,6 +394,10 @@ def phase_kernel_checks():
             ("genpool", dn, "1 head D=128 H=64 S=64 L=20 dropout 0.1", 0.1,
              lambda dt=dtype: genpool_inputs(64, 20, 128, 64, 1, dt, gen,
                                              2)),
+            # two column groups
+            ("genpool", dn, "D=512 H=512 S=64 L=37 dropout 0.1", 0.1,
+             lambda dt=dtype: genpool_inputs(64, 37, 512, 512, 2, dt, gen,
+                                             2)),
             ("attention", dn, "local N=8192 L=80", 0.0,
              lambda dt=dtype: attention_inputs(1024, 8, 80, 80, 48, dt, gen,
                                                16)),
@@ -410,6 +420,18 @@ def phase_kernel_checks():
                                                2)),
             ("attention", dn, "ragged Lq=37 Lk=130 dropout 0.1", 0.1,
              lambda dt=dtype: attention_inputs(64, 8, 37, 130, 48, dt, gen,
+                                               2)),
+            ("attention", dn, "video ctx N=512 L=80 dropout 0.01", 0.01,
+             lambda dt=dtype: attention_inputs(64, 8, 80, 80, 48, dt, gen,
+                                               2)),
+            ("attention", dn, "Dh=16 Lq=37 Lk=130 dropout 0.1", 0.1,
+             lambda dt=dtype: attention_inputs(64, 8, 37, 130, 16, dt, gen,
+                                               2)),
+            ("attention", dn, "Dh=64 Lq=37 Lk=130 dropout 0.1", 0.1,
+             lambda dt=dtype: attention_inputs(64, 8, 37, 130, 64, dt, gen,
+                                               2)),
+            ("attention", dn, "cross Lq=1 Lk=130 dropout 0.1", 0.1,
+             lambda dt=dtype: attention_inputs(64, 8, 1, 130, 48, dt, gen,
                                                2)),
         ]
     seed = 20261016
@@ -436,6 +458,9 @@ def phase_kernel_checks():
             out = kern(args, rate)
             torch.cuda.synchronize()
             record(name, dn, desc, *errors(out, plain(args, rate)))
+            if name != "input_fc" and not torch.equal(out, kern(args, rate)):
+                fail(f"{name} {dn} {desc}: two forward calls on the same "
+                     "inputs differ")
         ours, ref = backward_case(name, args, rate, gen)
         torch.cuda.synchronize()
         errs = [errors(a, r) for a, r in zip(ours, ref)]
@@ -1073,7 +1098,7 @@ def profile_step(step_fn, what: str) -> None:
             ("B1 forward", ("row_stats", "input_fc_fwd_mma")),
             ("B1 backward (without its sum_splits)",
              ("dpre_colsum", "tn_mma<true>", "param_grads")),
-            ("B2 forward", ("genpool_fwd",)),
+            ("B2 forward", ("genpool_fwd", "genpool_pool")),
             ("B2 backward (without its sum_splits)",
              ("genpool_bwd_tiles", "tn_mma<false>")),
             ("B3 forward", ("masked_attention_fwd",)),
@@ -1296,31 +1321,59 @@ def phase_timing(launches, shapes, max_errors):
                 entries[-1]["product_ms"] = prod
         del x, params, leaves, y, dy, w_t
         torch.cuda.empty_cache()
-    # B2 forward at the clips (the kernels line)
-    f, mask, *params = genpool_inputs(rows, lc, d, h, heads, bf, gen)
-    params = [p.float() for p in params]
-    rate, seed = 0.01, 20261016
-    with torch.inference_mode():
-        fwd = time_ms(lambda: genpool(f, mask, *params, "gelu", rate, seed))
-        plain = time_ms(lambda: genpool_plain(f, mask, *params, "gelu",
-                                              rate, seed))
-    r = rows * lc
-    weights = 2 * d * h + 2 * h * dho + 4 * (h + d)
-    entry("genpool", f"S={rows} L={lc} D={d} H={h} bf16 drop {rate}",
-          "genpool.cu", "pallas_genpool.py:284", fwd, plain, None,
-          2 * r * d + r + weights + 2 * rows * d,
-          2.0 * r * (d * h + h * dho))
-    del f, mask, params
-    # B2 backward at the four calls of a train step (the clips in the
-    # kernels line): held against its plain version and repeated bit for
-    # bit, then through autograd, with the profiler's device time of the
-    # tile pass (genpool_bwd_tiles), the weight-gradient products
-    # (tn_mma<false>) and the split sums apart
+    # B2 at the four calls of a train step (the clips in the kernels line)
     b2_calls = (("clips", rows, lc),
                 ("video ctx", shapes["b"], shapes["lv"]),
                 ("paragraph", shapes["b"], shapes["lp"]),
                 ("sentences", shapes.get("pack_sents", shapes["b"]
                                          * shapes["n_parts"]), shapes["ls"]))
+    rate, seed = 0.01, 20261016
+    weights = 2 * d * h + 2 * h * dho + 4 * (h + d)
+    # B2 forward: held against its plain version and repeated bit for bit,
+    # then timed with the stats (train) and without (eval), with the
+    # profiler's device time of the tile pass and the pooling pass apart
+    for what, s_, length in b2_calls:
+        f, mask, *params = genpool_inputs(s_, length, d, h, heads, bf, gen)
+        params = [p.float() for p in params]
+        leaves = [p.clone().requires_grad_() for p in params]
+        r = s_ * length
+        shape = f"S={s_} L={length} D={d} H={h} bf16 drop {rate}"
+        nbytes = 2 * r * d + r + weights + 2 * s_ * d
+        flops = 2.0 * r * (d * h + h * dho)
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
+        with torch.inference_mode():
+            plain_out = genpool_plain(f, mask, *params, "gelu", rate, seed)
+        times = {}
+        for mode, ps in (("train", leaves), ("eval", params)):
+            def fwd():
+                return genpool(f, mask, *ps, "gelu", rate, seed)
+
+            with torch.inference_mode(mode == "eval"):
+                out = fwd()
+                check_tol("genpool", "bfloat16", f"{what} {mode} {shape}",
+                          *errors(out, plain_out))
+                if not torch.equal(out, fwd()):
+                    fail(f"genpool {what} {mode} {shape}: two forward calls "
+                         "on the same inputs differ")
+                times[mode] = (time_ms(fwd), kernel_ms(fwd))
+            del out
+        with torch.inference_mode():
+            plain = time_ms(lambda: genpool_plain(f, mask, *params, "gelu",
+                                                  rate, seed), 3, 1)
+        log(f"  genpool       {what:10s} {shape:36s} " + "; ".join(
+            f"{mode} {ms:.4f} ms (device by kernel: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in split.items()) + ")"
+            for mode, (ms, split) in times.items())
+            + f"; bound {bms:.4f} ({by}), plain {plain:.3f} ms")
+        if what == "clips":
+            entry("genpool", shape, "genpool.cu", "pallas_genpool.py:284",
+                  times["train"][0], plain, None, nbytes, flops)
+        del f, mask, params, leaves, plain_out
+        torch.cuda.empty_cache()
+    # B2 backward at the same calls: held against its plain version and
+    # repeated bit for bit, then through autograd, with the profiler's
+    # device time of the tile pass (genpool_bwd_tiles), the weight-gradient
+    # products (tn_mma<false>) and the split sums apart
     for what, s_, length in b2_calls:
         f, mask, *params = genpool_inputs(s_, length, d, h, heads, bf, gen)
         params = [p.float() for p in params]
@@ -1363,23 +1416,72 @@ def phase_timing(launches, shapes, max_errors):
                   flops)
         del f, mask, params, fl, leaves, y, dout
         torch.cuda.empty_cache()
-    # B3
-    q, k, v, kv = attention_inputs(rows, 8, lc, lc, dh, bf, gen)
-    n = rows * 8
-    rate = 0.01
-    add_mask = torch.where(kv, 0.0, -INF).to(bf).repeat_interleave(
-        8, dim=0)[:, None, :]
-    with torch.inference_mode():
-        fwd = time_ms(lambda: masked_attention(q, k, v, kv, 8, dh ** -0.5,
-                                               rate, seed))
-        plain = time_ms(lambda: masked_attention_plain(
-            q, k, v, kv, 8, dh ** -0.5, rate, seed))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=add_mask, dropout_p=rate, scale=dh ** -0.5))
-    entry("attention", f"N={n} L={lc} Dh={dh} bf16 drop {rate}",
-          "attention.cu", "pallas_attention.py:114", fwd, plain, lib,
-          2 * 4 * n * lc * dh + rows * lc, 4.0 * n * lc * lc * dh)
-    del q, k, v, add_mask
+    # B3 forward at the six shapes of a train step (the clips in the
+    # kernels line): held against its plain version and repeated bit for
+    # bit, then timed with the stats (train) and without (eval) in turns
+    # with SDPA (additive mask, the same dropout), with the profiler's
+    # device time
+    b3_calls = (("clips", rows, lc, lc),
+                ("video ctx", shapes["b"], shapes["lv"], shapes["lv"]),
+                ("paragraph", shapes["b"], shapes["lp"], shapes["lp"]),
+                ("sentences", shapes.get("pack_sents", shapes["b"]
+                                         * shapes["n_parts"]), shapes["ls"],
+                 shapes["ls"]),
+                ("global", shapes["b"], shapes["n_parts"],
+                 shapes["n_parts"]),
+                ("cross", shapes["b"], 1, shapes["n_parts"]))
+    for what, b_, lq, lk in b3_calls:
+        q, k, v, kv = attention_inputs(b_, 8, lq, lk, dh, bf, gen)
+        n = b_ * 8
+        add_mask = torch.where(kv, 0.0, -INF).to(bf).repeat_interleave(
+            8, dim=0)[:, None, :]
+        qkv = [q, k, v]
+        leaves = [a.clone().requires_grad_() for a in qkv]
+        shape = f"N={n} Lq={lq} Lk={lk} Dh={dh} bf16 drop {rate}"
+        nbytes = 2 * n * (2 * lq + 2 * lk) * dh + b_ * lk
+        flops = 4.0 * n * lq * lk * dh
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
+        with torch.inference_mode():
+            plain_out = masked_attention_plain(q, k, v, kv, 8, dh ** -0.5,
+                                               rate, seed)
+        times = {}
+        for mode, ts in (("train", leaves), ("eval", qkv)):
+            def fwd():
+                return masked_attention(*ts, kv, 8, dh ** -0.5, rate, seed)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    *ts, attn_mask=add_mask, dropout_p=rate,
+                    scale=dh ** -0.5)
+
+            with torch.inference_mode(mode == "eval"):
+                out = fwd()
+                check_tol("attention", "bfloat16", f"{what} {mode} {shape}",
+                          *errors(out, plain_out))
+                if not torch.equal(out, fwd()):
+                    fail(f"attention {what} {mode} {shape}: two forward "
+                         "calls on the same inputs differ")
+                ms, lib = [], []
+                for _ in range(2):  # kernel, SDPA, kernel, SDPA
+                    ms.append(time_ms(fwd))
+                    lib.append(time_ms(sdpa))
+                times[mode] = (statistics.mean(ms), statistics.mean(lib),
+                               device_ms_per_call(fwd, 20),
+                               device_ms_per_call(sdpa, 20))
+            del out
+        with torch.inference_mode():
+            plain = time_ms(lambda: masked_attention_plain(
+                q, k, v, kv, 8, dh ** -0.5, rate, seed), 3, 1)
+        log(f"  attention     {what:10s} {shape:36s} " + "; ".join(
+            f"{mode} {t[0]:.4f} ms (device {t[2]:.4f}), SDPA {t[1]:.4f} "
+            f"(device {t[3]:.4f})" for mode, t in times.items())
+            + f"; bound {bms:.4f} ({by}), plain {plain:.3f} ms")
+        if what == "clips":
+            entry("attention", shape, "attention.cu",
+                  "pallas_attention.py:114", times["train"][0], plain,
+                  times["train"][1], nbytes, flops)
+        del q, k, v, kv, add_mask, qkv, leaves, plain_out
+        torch.cuda.empty_cache()
     # B3 backward at the clips (the kernels line) and at the paragraph
     # local net's call (L = lp, 320): through autograd in turns with SDPA's
     # backward, and the profiler's device time per backward call

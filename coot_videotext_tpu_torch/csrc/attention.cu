@@ -20,18 +20,29 @@
 // of P, S and dP computed again by a second kernel (the earlier scalar
 // backward ran at ~55x its bound on the H100).
 //
-// Forward design: one block of 4 warps per (cell, 32-query tile); K/V
-// stream through shared memory in 32-key tiles, converted to f32 on the way
-// in (the scores come from q and k read into f32, as on the TPU; the scale
-// is applied to the f32 dot product). Each warp owns 8 query rows; lane j
-// scores key j of the tile, and an online softmax (running max, running
-// sum, rescaled accumulator; lanes own output dims lane and lane+32, so
-// Dh <= 64 and Dh need not be a power of two) folds the tile in. Masked
-// keys get the finite fill -32752 and still count, so a row whose keys are
-// all masked averages all keys uniformly, as the reference does; keys past
-// Lk are skipped. The running sum takes P undropped, the accumulator
-// P * keep / (1 - rate). With `stats` the row max and 1/sum are written
-// for the backward, which then recomputes P exactly.
+// bf16 forward design (masked_attention_fwd_mma), on the tensor cores: one
+// warp per 16 queries of a cell; a block takes a chunk of up to 128
+// queries of one cell (balanced: L = 80, 5 warps; L = 320, 3 chunks of 7
+// warps), or, where Lq and Lk are at most 32, several cells (at least 4
+// warps a block). Per staged block of up to 128 keys (K and V of the
+// block's cells by 16-byte cp.async, once per query chunk; the keep mask
+// of the (chunk, key block) tile built cooperatively, one Philox call per
+// 4 consecutive elements) each warp walks the keys 32 at a time:
+//   - S = Q K^T by mma.sync m16n8k16 from ldmatrix fragments (Q's A
+//     fragments held in registers for the whole walk), scaled in f32;
+//   - an online softmax in registers: the row max reduced over the quad
+//     of lanes that holds a row, the accumulator rescaled, the sum kept
+//     per lane over P undropped and reduced once at the end;
+//   - O += P_d V: P * keep / (1 - rate) rounded to bf16 and fed straight
+//     back as the A fragment (the accumulator layout of two 16x8 tiles is
+//     the A layout of one 16x16 tile), V's B fragments by ldmatrix.trans.
+// Masked keys get the finite fill -32752 and still count, so a row whose
+// keys are all masked averages all keys uniformly, as the reference does;
+// keys past Lk get -inf (P = 0). With `stats` the row max and 1/sum are
+// written for the backward, which then recomputes P exactly.
+// float32 inputs (only the checks use them) keep the scalar kernel
+// masked_attention_fwd: one block of 4 warps per (cell, 32-query tile),
+// K/V in f32 in shared memory, lane j scores key j by FMAs.
 //
 // Backward (no float atomics, so runs repeat bit for bit):
 //   D_i = rowsum(g_i * o_i)  (= rowsum(dP o P) also under dropout)
@@ -745,13 +756,252 @@ cudaError_t launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v,
   return cudaGetLastError();
 }
 
+// ---------------- bf16 forward on the tensor cores ----------------
+
+struct FwdTiles {
+  int bq;     // queries per chunk, a multiple of 16
+  int bk;     // keys per staged block, a multiple of 32
+  int cells;  // cells per block (bq / 16 warps each)
+};
+
+__host__ __device__ __forceinline__ size_t fwd_mma_smem_bytes(int kD,
+                                                              FwdTiles t,
+                                                              bool drop) {
+  const size_t ld = kD + 8;
+  return 2 * ld * t.cells * (t.bq + 2 * (size_t)t.bk) +
+         (size_t)t.cells * t.bk +
+         (drop ? (size_t)t.cells * t.bq * t.bk : 0);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kMmaWarps * 32, 2)
+masked_attention_fwd_mma(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const uint8_t* __restrict__ key_valid,
+                         bf16* __restrict__ o, float* __restrict__ row_max,
+                         float* __restrict__ row_inv, int N, int Lq, int Lk,
+                         int Dh, int num_heads, float scale, DropParams drop,
+                         FwdTiles t) {
+  constexpr int kLd = kD + 8, kSteps = kD / 16, kNt = kD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Bq = t.bq, Bk = t.bk, C = t.cells;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);       // C x Bq x kLd
+  bf16* sK = sQ + C * Bq * kLd;                       // C x Bk x kLd
+  bf16* sV = sK + C * Bk * kLd;                       // C x Bk x kLd
+  uint8_t* sValid = reinterpret_cast<uint8_t*>(sV + C * Bk * kLd);  // C x Bk
+  uint8_t* sKeep = sValid + C * Bk;                   // C x Bq x Bk
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  // ldmatrix row / column offsets of this lane
+  const int r8 = lane & 7, hi8 = ((lane >> 3) & 1) * 8, hi16 = (lane >> 4) * 8;
+  const int wpc = Bq / 16;                      // warps per cell
+  const int cl = warp / wpc, t16 = warp % wpc;  // this warp's cell, queries
+  const int n0 = blockIdx.x * C, n = n0 + cl;
+  const int q0 = blockIdx.y * Bq, q_rows = min(Bq, Lq - q0);
+  const bool active = n < N && t16 * 16 < q_rows;  // warp-uniform
+  const bool vec =
+      Dh % 8 == 0 &&
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v)) &
+       15) == 0;
+  const bool drop_on = drop.thresh != 0u;
+  const bf16* sQw = sQ + (cl * Bq + t16 * 16) * kLd;
+  const bf16* sKc = sK + cl * Bk * kLd;
+  const bf16* sVc = sV + cl * Bk * kLd;
+  const uint8_t* sValc = sValid + cl * Bk;
+  const uint8_t* sKeepw = sKeep + (cl * Bq + t16 * 16) * Bk;
+
+  for (int c = 0; c < C && n0 + c < N; ++c)
+    stage_rows<kD>(sQ + c * Bq * kLd, q + ((size_t)(n0 + c) * Lq + q0) * Dh,
+                   q_rows, Bq, Dh, vec);
+
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  float o_acc[kNt][4];
+#pragma unroll
+  for (int j = 0; j < kNt; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o_acc[j][i] = 0.f;
+  uint32_t qa[kSteps][4];
+
+  for (int kb = 0; kb < Lk; kb += Bk) {
+    const int k_rows = min(Bk, Lk - kb), subs = (k_rows + 31) >> 5;
+    if (kb > 0) __syncthreads();  // the previous key block is consumed
+    for (int c = 0; c < C && n0 + c < N; ++c) {
+      const size_t at = ((size_t)(n0 + c) * Lk + kb) * Dh;
+      stage_rows<kD>(sK + c * Bk * kLd, k + at, k_rows, subs * 32, Dh, vec);
+      stage_rows<kD>(sV + c * Bk * kLd, v + at, k_rows, subs * 32, Dh, vec);
+    }
+    for (int i = threadIdx.x; i < C * Bk; i += blockDim.x) {
+      const int c = i / Bk, j = i - c * Bk;
+      sValid[i] = n0 + c < N && j < k_rows
+                      ? key_valid[(size_t)((n0 + c) / num_heads) * Lk + kb +
+                                  j] != 0
+                      : kPadKey;
+    }
+    if (drop_on) {
+      // one Philox call per group of 4 consecutive elements that meets
+      // a row's keys [kb, kb + k_rows)
+      const int groups = (k_rows >> 2) + 2;
+      for (int i = threadIdx.x; i < C * q_rows * groups; i += blockDim.x) {
+        const int cr = i / groups, c = cr / q_rows, r = cr - c * q_rows;
+        if (n0 + c >= N) continue;
+        const uint64_t e0 = p_index(n0 + c, q0 + r, kb, Lq, Lk);
+        const uint64_t e1 = e0 + k_rows;
+        const uint64_t grp = (e0 >> 2) + (i - cr * groups);
+        if (grp * 4 >= e1) continue;
+        const Philox4 bits = dropout_group(drop.seed, kSiteAttention, grp);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint64_t e = grp * 4 + j;
+          if (e >= e0 && e < e1)
+            sKeep[(c * Bq + r) * Bk + (int)(e - e0)] =
+                bits.x[j] >= drop.thresh;
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (!active) continue;
+    if (kb == 0) {  // this warp's 16 queries as A fragments
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+        ldsm_x4(qa[s], sQw + (r8 + hi8) * kLd + s * 16 + hi16);
+    }
+    for (int sb = 0; sb < subs; ++sb) {
+      // S: 16 queries x 32 keys; element (j, e): query gq + 8 (e / 2),
+      // key 8 j + 2 tq + e % 2 of the 32
+      float s_acc[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s_acc[j][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t b4[4];
+          ldsm_x4(b4, sKc + (sb * 32 + h * 16 + r8 + hi16) * kLd + s * 16 +
+                          hi8);
+          mma_bf16(s_acc[2 * h], qa[s], b4[0], b4[1]);
+          mma_bf16(s_acc[2 * h + 1], qa[s], b4[2], b4[3]);
+        }
+      float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int valid = sValc[sb * 32 + 8 * j + 2 * tq + (e & 1)];
+          const float sc = valid == kPadKey ? -INFINITY
+                           : valid        ? s_acc[j][e] * scale
+                                          : kMaskFill;
+          s_acc[j][e] = sc;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = expf(m_r[h] - mx[h]);  // 0 on the first keys
+        m_r[h] = mx[h];
+        l_r[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < kNt; ++j) {
+        o_acc[j][0] *= alpha[0];
+        o_acc[j][1] *= alpha[0];
+        o_acc[j][2] *= alpha[1];
+        o_acc[j][3] *= alpha[1];
+      }
+      // P (its sum undropped), then P * keep / (1 - rate) in place
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s_acc[j][e] - m_r[e >> 1]);
+          l_r[e >> 1] += p;
+          float f = 1.f;
+          if (drop_on)
+            f = sKeepw[(gq + 8 * (e >> 1)) * Bk + sb * 32 + 8 * j + 2 * tq +
+                       (e & 1)]
+                    ? drop.scale
+                    : 0.f;
+          s_acc[j][e] = p * f;
+        }
+      // O += P_d V over the 32 keys, two 16-deep steps
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16(s_acc[2 * kk][0], s_acc[2 * kk][1]),
+            pack_bf16(s_acc[2 * kk][2], s_acc[2 * kk][3]),
+            pack_bf16(s_acc[2 * kk + 1][0], s_acc[2 * kk + 1][1]),
+            pack_bf16(s_acc[2 * kk + 1][2], s_acc[2 * kk + 1][3])};
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+          uint32_t b4[4];
+          ldsm_x4_t(b4, sVc + (sb * 32 + kk * 16 + r8 + hi8) * kLd + s * 16 +
+                            hi16);
+          mma_bf16(o_acc[2 * s], pa, b4[0], b4[1]);
+          mma_bf16(o_acc[2 * s + 1], pa, b4[2], b4[3]);
+        }
+      }
+    }
+  }
+  if (!active) return;
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+    inv[h] = 1.f / l_r[h];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int ql = t16 * 16 + gq + 8 * h;
+    if (ql >= q_rows) continue;
+    const size_t row = (size_t)n * Lq + q0 + ql;
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+      store_pair(o + row * Dh, 8 * j + 2 * tq, Dh, o_acc[j][2 * h] * inv[h],
+                 o_acc[j][2 * h + 1] * inv[h]);
+    if (row_max != nullptr && tq == 0) {
+      row_max[row] = m_r[h];
+      row_inv[row] = inv[h];
+    }
+  }
+}
+
+template <int kD>
+cudaError_t launch_fwd_mma(const bf16* q, const bf16* k, const bf16* v,
+                           const uint8_t* kv, bf16* o, float* rm, float* ri,
+                           int N, int Lq, int Lk, int Dh, int num_heads,
+                           float scale, DropParams drop, FwdTiles t,
+                           cudaStream_t st) {
+  if (t.bq < 16 || t.bq % 16 || t.bk < 32 || t.bk % 32 ||
+      t.bk > kMmaMaxRows || t.cells < 1 || t.cells * t.bq > kMmaMaxRows)
+    return cudaErrorInvalidValue;
+  const size_t smem = fwd_mma_smem_bytes(kD, t, drop.thresh != 0u);
+  // set on every launch: the attribute belongs to the current device
+  const cudaError_t err = cudaFuncSetAttribute(
+      masked_attention_fwd_mma<kD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + t.cells - 1) / t.cells, (Lq + t.bq - 1) / t.bq);
+  masked_attention_fwd_mma<kD><<<grid, t.cells * t.bq / 16 * 32, smem, st>>>(
+      q, k, v, kv, o, rm, ri, N, Lq, Lk, Dh, num_heads, scale, drop, t);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace coot
 
 // q (N, Lq, Dh), k, v (N, Lk, Dh) in the compute dtype, key_valid (B, Lk)
 // uint8 with N = B * num_heads; o (N, Lq, Dh). Dh <= 64 (wrapper-checked).
 // row_max, row_inv (N, Lq) f32, or null when the backward is not needed.
-// thresh == 0: no dropout.
+// thresh == 0: no dropout. bq, bk, cells: the bf16 kernel's tiles
+// (ops/attention.py::forward_plan).
 extern "C" int coot_attention_fwd(const void* q, const void* k,
                                   const void* v, const void* key_valid,
                                   void* o, void* row_max, void* row_inv,
@@ -759,24 +1009,29 @@ extern "C" int coot_attention_fwd(const void* q, const void* k,
                                   int num_heads, float scale,
                                   unsigned long long seed,
                                   unsigned int thresh, float drop_scale,
-                                  int is_bf16, void* stream) {
+                                  int bq, int bk, int cells, int is_bf16,
+                                  void* stream) {
   using namespace coot;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(N, (Lq + kQT - 1) / kQT);
   DropParams drop{seed, thresh, drop_scale};
   float* rm = static_cast<float*>(row_max);
   float* ri = static_cast<float*>(row_inv);
-  if (is_bf16) {
-    masked_attention_fwd<bf16><<<grid, kThreads, 0, st>>>(
+  const uint8_t* kv = static_cast<const uint8_t*>(key_valid);
+  if (is_bf16) {  // Dh padded to a multiple of 16 in shared memory
+    const auto launch = Dh <= 16   ? launch_fwd_mma<16>
+                        : Dh <= 32 ? launch_fwd_mma<32>
+                        : Dh <= 48 ? launch_fwd_mma<48>
+                                   : launch_fwd_mma<64>;
+    return static_cast<int>(launch(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const uint8_t*>(key_valid),
-        static_cast<bf16*>(o), rm, ri, Lq, Lk, Dh, num_heads, scale, drop);
-  } else {
-    masked_attention_fwd<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const uint8_t*>(key_valid),
-        static_cast<float*>(o), rm, ri, Lq, Lk, Dh, num_heads, scale, drop);
+        static_cast<const bf16*>(v), kv, static_cast<bf16*>(o), rm, ri, N,
+        Lq, Lk, Dh, num_heads, scale, drop, FwdTiles{bq, bk, cells}, st));
   }
+  dim3 grid(N, (Lq + kQT - 1) / kQT);
+  masked_attention_fwd<float><<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), kv, static_cast<float*>(o), rm, ri, Lq,
+      Lk, Dh, num_heads, scale, drop);
   return static_cast<int>(cudaGetLastError());
 }
 

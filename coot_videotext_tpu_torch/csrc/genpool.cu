@@ -15,20 +15,29 @@
 // flops per bf16 byte at D=384, H=768, 2 heads), so it is compute-bound on
 // the tensor cores.
 //
-// Forward design: one block per pooled row s walks the sequence in chunks
-// of 16 rows. Each chunk of f is staged once in shared memory; the 16 x H
-// hidden activations and the 16 x D logits never leave the SM. The
-// products run in `chunk_mm` (bf16: nvcuda::wmma with f32 accumulation,
-// weights read straight from L2; f32: FMA loops). The second product uses
-// the block-diagonal structure: the output columns of head h only read
-// head h's slice of the hidden activations, so the zero blocks of w2 are
-// never touched and w2 is passed head-stacked (heads, dh, dho); the output
-// column order stays [h*dho + o]. The softmax over the sequence is online
-// (flash-style), per output column, in f32: a running max, a running sum of
-// e and a running sum of e * keep3 * f, so one pass covers any L. Masked
-// rows get the finite fill -32752 and still count, so an all-masked row
-// pools to the uniform average exactly as the reference does. With `stats`
-// the column max, sum and the f32 pooled row are written for the backward.
+// Forward, bf16 (for Hopper): two passes. genpool_fwd_tiles is the
+// backward tile pass's pass A with another epilogue (design note above
+// it): flat tiles of 64 of the S*L rows, the weights staged once per tile
+// through a cp.async ring into mma.sync, h1 kept in shared memory, and
+// the masked, dropped logits written out in f32. genpool_pool then takes
+// the softmax over L per (pooled row, column) in f32 and the weighted sum
+// of f, and with `stats` writes the column max, the sum and the f32
+// pooled row for the backward. Masked rows get the finite fill -32752 and
+// still count, so an all-masked row pools to the uniform average exactly
+// as the reference does. What bounds it: 2*rows*(D*H + H*D/heads) flops
+// on the tensor cores (0.060 ms at the clips call, 66,560 rows at D 384,
+// H 768, 2 heads) against f read once (~768 B a row).
+//
+// Forward, f32 (only the checks use it): one block per pooled row s walks
+// the sequence in chunks of 16 rows; the 16 x H hidden activations and
+// the 16 x D logits never leave the SM; the products are FMA loops
+// (`chunk_mm`). The second product uses the block-diagonal structure:
+// the output columns of head h only read head h's slice of the hidden
+// activations, so the zero blocks of w2 are never touched and w2 is
+// passed head-stacked (heads, dh, dho); the output column order stays
+// [h*dho + o]. The softmax over the sequence is online (flash-style), per
+// output column: a running max, a running sum of e and a running sum of
+// e * keep3 * f, so one pass covers any L.
 //
 // Backward, bf16 (for Hopper): genpool_bwd_tiles, a fused pass over
 // flat tiles of 64 of the S*L rows (design note above the kernel), writes
@@ -50,18 +59,13 @@
 // f^T dpre1, dw2[h] = h1[:, h]^T dh2[:, h], db1, db2 are sums over all S*L
 // rows, made by the deterministic split reductions of csrc/tn_reduce.cuh.
 
-#include <mma.h>
-
 #include <algorithm>
-#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
 #include "tn_mma.cuh"
 #include "tn_reduce.cuh"
-
-using namespace nvcuda;
 
 namespace coot {
 namespace {
@@ -76,12 +80,11 @@ struct Dims {
   int S, L, D, H, heads, dh, dho, act;
 };
 
-// Shared-memory buffers of one block; float buffers first, every size a
-// multiple of 32 bytes, so each buffer is aligned for wmma.
+// Shared-memory buffers of one block (the f32 kernels); float buffers
+// first.
 template <typename T>
 struct Buffers {
   float* log;  // kCh x ldl: logits, then (backward) the df term dout*smd
-  float* scr;  // kWarps x 256: wmma fragment staging
   float* fac;  // kCh x ldh (backward): act'(h1_in) * keep1 / (1 - rate)
   T* f;        // kCh x ldf: the chunk of f
   T* h;        // kCh x ldh: h1, then (backward) dpre1
@@ -93,7 +96,7 @@ struct Buffers {
 template <typename T>
 __host__ __device__ size_t buffer_bytes(const Dims& p, bool bwd) {
   const size_t ldf = p.D + 8, ldh = p.H + 8, ldl = p.D + 4;
-  size_t n = sizeof(float) * (kCh * ldl + kWarps * 256) +
+  size_t n = sizeof(float) * kCh * ldl +
              sizeof(T) * (kCh * ldf + kCh * ldh) + 32;
   if (bwd) n += sizeof(float) * kCh * ldh + sizeof(T) * kCh * ldf;
   return n;
@@ -108,8 +111,6 @@ __device__ Buffers<T> carve(unsigned char* smem, const Dims& p, bool bwd) {
   float* fp = reinterpret_cast<float*>(smem);
   b.log = fp;
   fp += kCh * b.ldl;
-  b.scr = fp;
-  fp += kWarps * 256;
   b.fac = nullptr;
   if (bwd) {
     b.fac = fp;
@@ -131,50 +132,23 @@ __device__ Buffers<T> carve(unsigned char* smem, const Dims& p, bool bwd) {
 
 // C[r][c] = sum_k A[r][k] * B(k, c) for the kCh rows of a chunk, with
 // B(k, c) = B[k*ldb + c] (row-major) or B[c*ldb + k] (col-major); epi(r,
-// c, value) receives every result once. bf16: wmma 16x16x16 with f32
-// accumulation, warps taking 16-column tiles in turn (K, N multiples of
-// 16); f32: FMA, threads owning columns.
+// c, value) receives every result once. FMA, threads owning columns.
 template <typename T, bool kColMajorB, typename Epi>
 __device__ __forceinline__ void chunk_mm(const T* sA, int lda, const T* B,
-                                         int ldb, int K, int N, float* scr,
-                                         Epi epi) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using BLayout = typename std::conditional<kColMajorB, wmma::col_major,
-                                              wmma::row_major>::type;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    float* ws = scr + warp * 256;
-    for (int c0 = warp * 16; c0 < N; c0 += kWarps * 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k = 0; k < K; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sA + k, lda);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bw;
-        const T* bp = kColMajorB ? B + (size_t)c0 * ldb + k
-                                 : B + (size_t)k * ldb + c0;
-        wmma::load_matrix_sync(bw, bp, ldb);
-        wmma::mma_sync(acc, a, bw, acc);
-      }
-      wmma::store_matrix_sync(ws, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) epi(e / 16, c0 + e % 16, ws[e]);
-      __syncwarp();
+                                         int ldb, int K, int N, Epi epi) {
+  for (int c = threadIdx.x; c < N; c += kThreads) {
+    float acc[kCh];
+#pragma unroll
+    for (int r = 0; r < kCh; ++r) acc[r] = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float w = to_f32(kColMajorB ? B[(size_t)c * ldb + k]
+                                        : B[(size_t)k * ldb + c]);
+#pragma unroll
+      for (int r = 0; r < kCh; ++r)
+        acc[r] = fmaf(to_f32(sA[r * lda + k]), w, acc[r]);
     }
-  } else {
-    for (int c = threadIdx.x; c < N; c += kThreads) {
-      float acc[kCh];
 #pragma unroll
-      for (int r = 0; r < kCh; ++r) acc[r] = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const float w = to_f32(kColMajorB ? B[(size_t)c * ldb + k]
-                                          : B[(size_t)k * ldb + c]);
-#pragma unroll
-        for (int r = 0; r < kCh; ++r)
-          acc[r] = fmaf(to_f32(sA[r * lda + k]), w, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kCh; ++r) epi(r, c, acc[r]);
-    }
+    for (int r = 0; r < kCh; ++r) epi(r, c, acc[r]);
   }
 }
 
@@ -199,7 +173,7 @@ __device__ __forceinline__ void hidden(const Dims& p, const Buffers<T>& sb,
                                        const T* w1, const float* b1, int s,
                                        int l0, const DropParams& drop,
                                        T* h1_out) {
-  chunk_mm<T, false>(sb.f, sb.ldf, w1, p.H, p.D, p.H, sb.scr,
+  chunk_mm<T, false>(sb.f, sb.ldf, w1, p.H, p.D, p.H,
                      [&](int r, int c, float v) {
     const uint64_t e = ((uint64_t)s * p.L + l0 + r) * p.H + c;
     const float f1 = dropout_factor(drop, kSiteHidden, e);
@@ -221,7 +195,7 @@ __device__ __forceinline__ void logits(const Dims& p, const Buffers<T>& sb,
     float* out = sb.log + hh * p.dho;
     chunk_mm<T, false>(sb.h + hh * p.dh, sb.ldh,
                        w2 + (size_t)hh * p.dh * p.dho, p.dho, p.dh, p.dho,
-                       sb.scr, [&](int r, int c, float v) {
+                       [&](int r, int c, float v) {
       out[r * sb.ldl + c] = v;
     });
   }
@@ -382,7 +356,7 @@ genpool_bwd_rows(const T* __restrict__ f, const uint8_t* __restrict__ mask,
     for (int hh = 0; hh < p.heads; ++hh) {
       chunk_mm<T, true>(sb.dh2 + hh * p.dho, sb.ldf,
                         w2 + (size_t)hh * p.dh * p.dho, p.dho, p.dho, p.dh,
-                        sb.scr, [&](int r, int c, float v) {
+                        [&](int r, int c, float v) {
         const int col = hh * p.dh + c;
         const T dp = from_f32<T>(v * sb.fac[r * sb.ldh + col]);
         sb.h[r * sb.ldh + col] = dp;
@@ -392,7 +366,7 @@ genpool_bwd_rows(const T* __restrict__ f, const uint8_t* __restrict__ mask,
     }
     __syncthreads();
     // df = dout * smd + dpre1 . w1^T
-    chunk_mm<T, true>(sb.h, sb.ldh, w1, p.H, p.H, p.D, sb.scr,
+    chunk_mm<T, true>(sb.h, sb.ldh, w1, p.H, p.H, p.D,
                       [&](int r, int c, float v) {
       if (l0 + r < p.L)
         df[((size_t)s * p.L + l0 + r) * p.D + c] =
@@ -459,7 +433,8 @@ enum StepType : int { kStepP = 0, kStepL = 1, kStepD1 = 2, kStepF = 3 };
 enum StepFlag : int {
   kZeroAcc = 1,    // zero the group accumulator first
   kEpiH1 = 2,      // P: h1 into sB (kWriteOut: h1 and act'(hin)*keep1 out)
-  kEpiE = 8,       // L: the softmax backward on the segment's columns
+  kEpiE = 8,       // L: the group's epilogue (the softmax backward; in
+                   // genpool_fwd_tiles the logits out)
   kEpiDpre = 16,   // D1: dpre1 into sB
   kEpiDf = 32,     // F: df out
   kWriteOut = 64,  // write h1 and the factor (P), dpre1 or dh2 (E) out
@@ -629,10 +604,11 @@ __device__ __forceinline__ void group_mma(float (&acc)[2][kSlots][4],
 // hands its partner the half it needs. All 32 lanes must call. The
 // epilogue helpers below are not inlined: the fragment loops that call
 // them unroll over up to 24 fragments, and inlined bodies made the kernel
-// larger than the instruction cache.
-__device__ __noinline__ float4 frag_keep(const DropParams d, uint32_t site,
-                                         uint64_t row, int W, int col,
-                                         int tq) {
+// larger than the instruction cache (genpool_fwd_tiles inlines this body
+// in its epilogue of 4 fragments: the calls cost more than the work).
+__device__ __forceinline__ float4 frag_keep_inl(const DropParams d,
+                                               uint32_t site, uint64_t row,
+                                               int W, int col, int tq) {
   if (d.thresh == 0u) return make_float4(1.f, 1.f, 1.f, 1.f);
   const bool lo = (tq & 1) == 0;
   const uint64_t e = (lo ? row : row + 8) * (uint64_t)W + (col & ~3);
@@ -643,6 +619,12 @@ __device__ __noinline__ float4 frag_keep(const DropParams d, uint32_t site,
   auto f = [&](uint32_t w) { return w >= d.thresh ? d.scale : 0.f; };
   return make_float4(f(lo ? b.x[0] : r0), f(lo ? b.x[1] : r1),
                      f(lo ? r0 : b.x[2]), f(lo ? r1 : b.x[3]));
+}
+
+__device__ __noinline__ float4 frag_keep(const DropParams d, uint32_t site,
+                                         uint64_t row, int W, int col,
+                                         int tq) {
+  return frag_keep_inl(d, site, row, W, col, tq);
 }
 
 // activate(x) and act_grad(x) (csrc/common.cuh), the gelu's erf shared
@@ -1118,6 +1100,24 @@ genpool_bwd_tiles(const bf16* __restrict__ f, const uint8_t* __restrict__ mask,
   }
 }
 
+// The column groups of a tile kernel of kT rows: the heads that share one
+// accumulator of kGroupUnits units, or the parts of one head that does
+// not fit in it.
+template <int kT>
+void plan_groups(TileDims* t) {
+  constexpr int kCW = kTThreads / 32 / (kT / 32), kSlots = kGroupUnits / kCW;
+  const int units_h = t->dho / 8, U = (units_h + kCW - 1) / kCW;
+  if (U <= kSlots) {
+    t->hpg = kSlots / U;
+    t->parts = 1;
+    t->groups = (t->heads + t->hpg - 1) / t->hpg;
+  } else {
+    t->hpg = 0;
+    t->parts = (units_h + kGroupUnits - 1) / kGroupUnits;
+    t->groups = t->heads * t->parts;
+  }
+}
+
 template <int kT>
 cudaError_t launch_tiles(const bf16* f, const uint8_t* mask, const bf16* w1,
                          const float* b1, const bf16* w2, const float* b2,
@@ -1131,22 +1131,348 @@ cudaError_t launch_tiles(const bf16* f, const uint8_t* mask, const bf16* w1,
       genpool_bwd_tiles<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  // column groups: the heads that share one accumulator of kGroupUnits
-  // units, or the parts of one head that does not fit in it
-  constexpr int kCW = kTThreads / 32 / (kT / 32), kSlots = kGroupUnits / kCW;
-  const int units_h = t.dho / 8, U = (units_h + kCW - 1) / kCW;
-  if (U <= kSlots) {
-    t.hpg = kSlots / U;
-    t.parts = 1;
-    t.groups = (t.heads + t.hpg - 1) / t.hpg;
-  } else {
-    t.hpg = 0;
-    t.parts = (units_h + kGroupUnits - 1) / kGroupUnits;
-    t.groups = t.heads * t.parts;
-  }
+  plan_groups<kT>(&t);
   genpool_bwd_tiles<kT><<<(t.R + kT - 1) / kT, kTThreads, smem, st>>>(
       f, mask, w1, b1, w2, b2, stats, dout, df, h1, dpre, dh2, fac, t, drop);
   return cudaGetLastError();
+}
+
+// ---- bf16 forward on the tensor cores: flat row tiles, then pooling ----
+//
+// genpool_fwd_tiles is pass A of genpool_bwd_tiles with another epilogue,
+// on the same tiles, steps and fragments: one block of 8 warps per flat
+// tile of kFwdT of the S*L rows, across pooled-row boundaries; the
+// tile of f staged once; per head and per block of 64 hidden units the
+// weights stream through the 4-stage cp.async ring (P: pre1 = f . w1[:,
+// blk], 128 deep; L: logits[:, head] += h1 . w2[head][blk, :], 32 deep),
+// each weight tile staged once per 64 rows (about 0.9 MB a tile from L2);
+// h1 = act(drop(pre1 + b1)) is rounded into shared memory (sB) and never
+// leaves the SM. After a column group's last
+// L step the epilogue adds b2, applies keep2 and the fill and writes the
+// masked, dropped logits out in f32 (4 bytes a logit each way instead of
+// a second pass over the products). The logits sum in the backward's
+// order, so its pass A recomputes them bit for bit.
+// genpool_pool then reduces over L: one block per (pooled row, 128
+// columns), 8 row groups of 32 threads, each thread 4 consecutive columns
+// (one Philox call for their 4 keep3 bits, 16-byte logit loads), an online
+// max / sum / sum e*keep3*f per row group, merged in row-group order.
+
+constexpr int kFwdT = 64;                      // rows per forward tile
+constexpr int kPoolCols = 128, kPoolGroups = 8;  // genpool_pool's block
+
+// shared memory of a forward tile block: sF (kFwdT x (D + 8)) and sB
+// (kFwdT x kLdB) in bf16, the ring, b1 and b2 (f32), the ring's step
+// records and the rows' mask
+constexpr size_t fwd_tile_smem(int D, int H) {
+  return (size_t)2 * kFwdT * (D + 8) + (size_t)2 * kFwdT * kLdB +
+         (size_t)kTStages * kTStageBytes + (size_t)4 * (H + D) +
+         kTStages * sizeof(Step) + kFwdT;
+}
+
+// The forward's hidden epilogue of one fragment: act((pre + b1) * keep1),
+// 0 past the block's width (`width` columns from the fragment's first);
+// the gelu as act_and_grad forms it.
+__device__ __forceinline__ float4 hidden_fwd_frag(float4 pre, float4 keep,
+                                               const float* b1c, int width,
+                                               int act) {
+  const float v[4] = {pre.x, pre.y, pre.z, pre.w};
+  const float k[4] = {keep.x, keep.y, keep.z, keep.w};
+  float h[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int cj = e & 1;
+    const float hin = cj < width ? (v[e] + b1c[cj]) * k[e] : 0.f;
+    h[e] = act == kActGelu
+               ? hin * (0.5f * (1.0f + erff(hin * 0.70710678118654752f)))
+               : activate(hin, act);
+  }
+  return make_float4(h[0], h[1], h[2], h[3]);
+}
+
+__global__ void __launch_bounds__(kTThreads, 1)
+genpool_fwd_tiles(const bf16* __restrict__ f, const uint8_t* __restrict__ mask,
+                  const bf16* __restrict__ w1, const float* __restrict__ b1,
+                  const bf16* __restrict__ w2, const float* __restrict__ b2,
+                  float* __restrict__ logits, TileDims p, DropParams drop) {
+  // warps: kRW row warps of 32 rows x kCW column warps
+  constexpr int kThreads = kTThreads, kT = kFwdT;
+  constexpr int kRW = kT / 32, kCW = kTThreads / 32 / kRW;
+  constexpr int kSlots = kGroupUnits / kCW, kBN8 = 8 / kCW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int D = p.D, H = p.H, ldF = D + 8;
+  bf16* sF = reinterpret_cast<bf16*>(smem);
+  bf16* sB = sF + kT * ldF;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(sB + kT * kLdB);
+  float* sB1 = reinterpret_cast<float*>(ring + kTStages * kTStageBytes);
+  float* sB2 = sB1 + H;
+  Step* sDesc = reinterpret_cast<Step*>(sB2 + D);
+  uint8_t* sMask = reinterpret_cast<uint8_t*>(sDesc + kTStages);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wr = (warp / kCW) * 32, cw = warp % kCW;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int col0 = cw * 8 * kBN8;  // this warp's columns of a block product
+  const int r0 = blockIdx.x * kT;
+  const int rows = min(kT, p.R - r0);
+
+  stage_rect<kThreads, 0>(sF, ldF, f + (size_t)r0 * D, D, kT, rows, D,
+                          D / 8);
+  cp_async_commit();
+  for (int i = tid; i < kT; i += kThreads)
+    sMask[i] = i < rows ? mask[r0 + i] : 0;
+  for (int i = tid; i < H; i += kThreads) sB1[i] = b1[i];
+  for (int i = tid; i < D; i += kThreads) sB2[i] = b2[i];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float acc[2][kSlots][4], pacc[2][kBN8][4];
+  auto zero = [](auto& a) {
+    for (auto& x : a)
+      for (auto& y : x)
+        for (auto& z : y) z = 0.f;
+  };
+  zero(acc);
+  zero(pacc);
+
+  Group Gs = column_group<kCW>(p, 0), Gc = Gs;
+  auto load = [&](const Step& st, const Group& G, bf16* dst) {
+    if (st.type == kStepP) {  // [d][j]
+      const int k0 = kPK * st.chunk;
+      stage_rect<kThreads, 8>(dst, kLdB,
+                              w1 + (size_t)k0 * H + st.hh * p.dh + st.jb, H,
+                              kPK, min(kPK, D - k0), st.bw);
+    } else {  // [j][o] of the segment's columns
+      const int k0 = G.lk * st.chunk;
+      if (k0 >= st.bw) return;  // past a narrower block
+      const int n = G.nu * 8;
+      stage_rect<kThreads, 0>(
+          dst, n + 8,
+          w2 + (size_t)st.hh * p.dh * p.dho + (size_t)(st.jb + k0) * p.dho +
+              G.uo * 8,
+          p.dho, G.lk, min(G.lk, st.bw - k0), n, G.nu);
+    }
+  };
+
+  auto compute = [&](int i) {
+    const Step st = sDesc[i % kTStages];
+    const bf16* stg =
+        reinterpret_cast<const bf16*>(ring + (i % kTStages) * kTStageBytes);
+    if (st.flags & kZeroAcc) zero(acc);
+    if (st.g != Gc.g) Gc = column_group<kCW>(p, st.g);
+    const Group& G = Gc;
+    if (st.type == kStepP) {
+      if (st.chunk == 0) zero(pacc);
+      const int k0 = kPK * st.chunk;
+      block_mma<kBN8, true>(pacc, sF, ldF, wr, k0, stg, kLdB, col0,
+                            min(kPK, D - k0) / 16, lane);
+      if (!(st.flags & kEpiH1)) return;
+      const int j0 = st.hh * p.dh + st.jb;  // the block's first hidden unit
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < kBN8; ++n) {
+          const int lr = wr + 16 * m + gq, c = col0 + 8 * n + 2 * tq;
+          const float4 h = hidden_fwd_frag(
+              make_float4(pacc[m][n][0], pacc[m][n][1], pacc[m][n][2],
+                          pacc[m][n][3]),
+              frag_keep_inl(drop, kSiteHidden, r0 + lr, H, j0 + c, tq),
+              sB1 + j0 + c, st.bw - c, p.act);
+          store2(sB + lr * kLdB + c, h.x, h.y);
+          store2(sB + (lr + 8) * kLdB + c, h.z, h.w);
+        }
+      return;
+    }
+    const int k0 = G.lk * st.chunk;
+    if (k0 < st.bw)
+      group_mma<kSlots, true>(acc, sB + k0, kLdB, wr, stg, G.nu * 8 + 8, G,
+                              cw, st.seg, true, min(G.lk, st.bw - k0) / 16,
+                              lane);
+    if (!(st.flags & kEpiE)) return;
+    // the group's logits out: + b2, keep2, the fill on masked rows
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      int seg;
+      const int unit = slot_unit(G, cw, s, &seg);
+      if (unit < 0) continue;  // warp-uniform
+      const int d = G.c0 + (seg * G.nu + unit) * 8 + 2 * tq;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int lr = wr + 16 * m + gq;
+        const float4 k2 = frag_keep(drop, kSiteLogits, r0 + lr, D, d, tq);
+        const bool lo = sMask[lr] != 0, hi = sMask[lr + 8] != 0;
+        float* out = logits + (size_t)(r0 + lr) * D + d;
+        if (lr < rows)
+          *reinterpret_cast<float2*>(out) = make_float2(
+              lo ? (acc[m][s][0] + sB2[d]) * k2.x : kMaskFill,
+              lo ? (acc[m][s][1] + sB2[d + 1]) * k2.y : kMaskFill);
+        if (lr + 8 < rows)
+          *reinterpret_cast<float2*>(out + 8 * (size_t)D) = make_float2(
+              hi ? (acc[m][s][2] + sB2[d]) * k2.z : kMaskFill,
+              hi ? (acc[m][s][3] + sB2[d + 1]) * k2.w : kMaskFill);
+      }
+    }
+  };
+
+  // The schedule: per column group, per head of the group, per block of
+  // 64 hidden units, kcD P steps then 64 / lk L steps (those past a
+  // narrower block are empty); the group's last L step writes its logits.
+  const int kcD = (D + kPK - 1) / kPK;
+  const int nblk = (p.dh + kHB - 1) / kHB;
+  int g = 0, hh = Gs.hh0, blk = 0, kind = kStepP, chunk = 0;
+  int last_step = 1 << 30;
+  bool done = false;
+  auto current = [&]() {
+    Step st{kind, 0, hh, blk * kHB, min(kHB, p.dh - blk * kHB), chunk,
+            hh - Gs.hh0, g};
+    if (kind == kStepP) {
+      if (chunk == 0 && hh == Gs.hh0 && blk == 0) st.flags |= kZeroAcc;
+      if (chunk == kcD - 1) st.flags |= kEpiH1;
+    } else if (chunk == kHB / Gs.lk - 1 && blk == nblk - 1 &&
+               hh == Gs.hh0 + Gs.nseg - 1) {
+      st.flags = kEpiE;
+    }
+    return st;
+  };
+  auto advance = [&]() {
+    if (++chunk < (kind == kStepP ? kcD : kHB / Gs.lk)) return;
+    chunk = 0;
+    if (kind == kStepP) {
+      kind = kStepL;
+      return;
+    }
+    kind = kStepP;
+    if (++blk < nblk) return;
+    blk = 0;
+    if (++hh < Gs.hh0 + Gs.nseg) return;
+    if (++g == p.groups) {
+      done = true;
+      return;
+    }
+    Gs = column_group<kCW>(p, g);
+    hh = Gs.hh0;
+  };
+
+  // The ring, as in genpool_bwd_tiles: step j is staged kTStages - 1 steps
+  // ahead of its products; the __syncthreads before step j's copies puts
+  // every thread past the products of step j - kTStages.
+  for (int j = 0;; ++j) {
+    if (j >= kTStages - 1) {
+      cp_async_wait<kTStages - 2>();
+      __syncthreads();
+    }
+    if (!done) {
+      const Step st = current();
+      if (tid == 0) sDesc[j % kTStages] = st;
+      load(st, Gs,
+           reinterpret_cast<bf16*>(ring + (j % kTStages) * kTStageBytes));
+      advance();
+      if (done) last_step = j;
+    }
+    cp_async_commit();
+    if (j >= kTStages - 1) compute(j - (kTStages - 1));
+    if (j - (kTStages - 1) == last_step) break;
+  }
+}
+
+// Pass 2 of the bf16 forward: out = sum_L f * keep3 * softmax_L(logits)
+// and, with stats, the column max, the sum and the f32 pooled row.
+__global__ void __launch_bounds__(kPoolGroups * 32)
+genpool_pool(const float* __restrict__ logits, const bf16* __restrict__ f,
+             bf16* __restrict__ out, float* __restrict__ stats, int S, int L,
+             int D, DropParams drop) {
+  __shared__ __align__(16) float sPart[3][kPoolGroups][kPoolCols];
+  const int s = blockIdx.x, rg = threadIdx.x >> 5;
+  const int c4 = (threadIdx.x & 31) * 4, d = blockIdx.y * kPoolCols + c4;
+  float m[4], l[4], a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    m[j] = -INFINITY;
+    l[j] = 0.f;
+    a[j] = 0.f;
+  }
+  if (d < D) {  // D % 16 == 0: all 4 columns are in
+    for (int li = rg; li < L; li += kPoolGroups) {
+      const size_t e = ((size_t)s * L + li) * D + d;
+      const float4 lg4 = *reinterpret_cast<const float4*>(logits + e);
+      const uint2 fw = *reinterpret_cast<const uint2*>(f + e);
+      const float lg[4] = {lg4.x, lg4.y, lg4.z, lg4.w};
+      const float fv[4] = {bf16_lo(fw.x), bf16_hi(fw.x), bf16_lo(fw.y),
+                           bf16_hi(fw.y)};
+      float k3[4] = {1.f, 1.f, 1.f, 1.f};
+      if (drop.thresh != 0u) {
+        const Philox4 bits = dropout_group(drop.seed, kSiteWeights, e >> 2);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          k3[j] = bits.x[j] >= drop.thresh ? drop.scale : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float mn = fmaxf(m[j], lg[j]);
+        const float sc = expf(m[j] - mn);  // 0 on the first row
+        const float ex = expf(lg[j] - mn);
+        l[j] = fmaf(l[j], sc, ex);
+        a[j] = fmaf(a[j], sc, ex * k3[j] * fv[j]);
+        m[j] = mn;
+      }
+    }
+  }
+  *reinterpret_cast<float4*>(&sPart[0][rg][c4]) =
+      make_float4(m[0], m[1], m[2], m[3]);
+  *reinterpret_cast<float4*>(&sPart[1][rg][c4]) =
+      make_float4(l[0], l[1], l[2], l[3]);
+  *reinterpret_cast<float4*>(&sPart[2][rg][c4]) =
+      make_float4(a[0], a[1], a[2], a[3]);
+  __syncthreads();
+  const int c = threadIdx.x, dc = blockIdx.y * kPoolCols + c;
+  if (c >= kPoolCols || dc >= D) return;
+  float mx = -INFINITY;
+#pragma unroll
+  for (int g = 0; g < kPoolGroups; ++g) mx = fmaxf(mx, sPart[0][g][c]);
+  float sum = 0.f, acc = 0.f;
+#pragma unroll
+  for (int g = 0; g < kPoolGroups; ++g) {
+    const float w = expf(sPart[0][g][c] - mx);  // 0 for a group of no rows
+    sum = fmaf(sPart[1][g][c], w, sum);
+    acc = fmaf(sPart[2][g][c], w, acc);
+  }
+  const size_t i = (size_t)s * D + dc, sd = (size_t)S * D;
+  const float pooled = acc / sum;
+  out[i] = __float2bfloat16_rn(pooled);
+  if (stats != nullptr) {
+    stats[i] = mx;
+    stats[sd + i] = sum;
+    stats[2 * sd + i] = pooled;
+  }
+}
+
+// bf16: the tile pass into `logits` (S*L, D) f32, then the pooling pass
+int genpool_fwd_bf16(const void* f, const void* mask, const void* w1,
+                     const void* b1, const void* w2, const void* b2,
+                     void* out, void* stats, void* logits, const Dims& p,
+                     const DropParams& drop, cudaStream_t st) {
+  const size_t smem = fwd_tile_smem(p.D, p.H);
+  if (smem > kSmemLimit || logits == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      genpool_fwd_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  TileDims t{p.S, p.L, p.D, p.H, p.heads, p.dh, p.dho, p.act, p.S * p.L,
+             0,   0,   0,   0};
+  plan_groups<kFwdT>(&t);
+  float* lg = static_cast<float*>(logits);
+  const bf16* fb = static_cast<const bf16*>(f);
+  genpool_fwd_tiles<<<(t.R + kFwdT - 1) / kFwdT, kTThreads, smem, st>>>(
+      fb, static_cast<const uint8_t*>(mask), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), lg, t, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  genpool_pool<<<dim3(p.S, (p.D + kPoolCols - 1) / kPoolCols),
+                 kPoolGroups * 32, 0, st>>>(
+      lg, fb, static_cast<bf16*>(out), static_cast<float*>(stats), p.S, p.L,
+      p.D, drop);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // bf16: the tile pass, then dw1|db1 and dw2|db2 on tn_mma<false>, each
@@ -1292,22 +1618,24 @@ int genpool_bwd_launch(const void* f, const void* mask, const void* w1,
 
 // f (S, L, D), w1 (D, H) flat [head-interleaved], w2 (heads, dh, dho)
 // head-stacked, all in the compute dtype; b1 (H), b2 (D) f32; mask (S, L)
-// uint8; out (S, D); stats (3, S, D) f32 or null. The wrapper checks D, H
-// % 16 == 0, D <= 1024, and dh, dho % 16 == 0. thresh == 0: no dropout.
+// uint8; out (S, D); stats (3, S, D) f32 or null. logits: (S*L, D) f32
+// scratch of the bf16 passes (null in f32; f 16-byte aligned in bf16).
+// The wrapper checks D, H % 16 == 0, D, H <= 1024, and dh, dho % 16 == 0.
+// thresh == 0: no dropout.
 extern "C" int coot_genpool_fwd(const void* f, const void* mask,
                                 const void* w1, const void* b1,
                                 const void* w2, const void* b2, void* out,
-                                void* stats, int S, int L, int D, int H,
-                                int heads, int act, unsigned long long seed,
-                                unsigned int thresh, float drop_scale,
-                                int is_bf16, void* stream) {
+                                void* stats, void* logits, int S, int L,
+                                int D, int H, int heads, int act,
+                                unsigned long long seed, unsigned int thresh,
+                                float drop_scale, int is_bf16, void* stream) {
   using namespace coot;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Dims p{S, L, D, H, heads, H / heads, D / heads, act};
   DropParams drop{seed, thresh, drop_scale};
   if (is_bf16)
-    return genpool_fwd_launch<bf16>(f, mask, w1, b1, w2, b2, out, stats, p,
-                                    drop, st);
+    return genpool_fwd_bf16(f, mask, w1, b1, w2, b2, out, stats, logits, p,
+                            drop, st);
   return genpool_fwd_launch<float>(f, mask, w1, b1, w2, b2, out, stats, p,
                                    drop, st);
 }

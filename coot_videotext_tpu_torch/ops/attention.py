@@ -11,7 +11,9 @@ With `rate > 0` the kernel also drops P, as the module does
 (models/attention.py:187-192), with Philox bits (ops/philox.py).
 
 `masked_attention` is a torch.autograd.Function: on CUDA tensors its
-forward and backward launch the Hopper kernels in csrc/attention.cu; on CPU
+forward and backward launch the Hopper kernels in csrc/attention.cu (in
+bf16 the forward walks its key blocks with an online softmax on the tensor
+cores, tiled by `forward_plan`); on CPU
 tensors they compute `masked_attention_plain` and
 `masked_attention_backward_plain`, the port of `masked_attention_reference`
 :178 and of its autodiff. The score gradient is zero at masked keys, as
@@ -30,7 +32,27 @@ from coot_videotext_tpu_torch.ops.common import check_tensor, is_bf16
 from coot_videotext_tpu_torch.typext import INF
 
 KERNEL = "attention"
-MMA_MAX_KEYS = 128  # keys per block of the bf16 backward
+MMA_MAX_KEYS = 128  # keys per block of the bf16 backward and forward
+FWD_KEY_STEP = 32   # keys per online-softmax step of the bf16 forward
+
+
+def _balanced(length: int, unit: int, most: int) -> int:
+    """The fewest equal parts of at most `most` that cover `length` in
+    whole units: the size of one part."""
+    units = -(-length // unit)
+    parts = -(-units // (most // unit))
+    return -(-units // parts) * unit
+
+
+def forward_plan(lq: int, lk: int) -> Tuple[int, int, int]:
+    """(queries per chunk, keys per staged block, cells per block) of the
+    bf16 forward (csrc/attention.cu masked_attention_fwd_mma): a warp per
+    16 queries, at most 8 warps; key blocks of at most 128 keys in steps
+    of 32; cells of Lq, Lk <= 32 several to a block, at least 4 warps."""
+    bq = _balanced(lq, 16, MMA_MAX_KEYS)
+    bk = _balanced(lk, FWD_KEY_STEP, MMA_MAX_KEYS)
+    cells = max(1, 4 // (bq // 16)) if lq <= 32 and lk <= 32 else 1
+    return bq, bk, cells
 
 
 def _probs(q, k, key_valid, num_heads, scale):
@@ -123,7 +145,7 @@ def _launch_fwd(q, k, v, key_valid, num_heads, scale, rate, seed,
     err = lib.coot_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_u8.data_ptr(),
         o.data_ptr(), rm, ri, n, lq, lk, dh, num_heads, float(scale),
-        *philox.kernel_args(rate, seed), int(bf16),
+        *philox.kernel_args(rate, seed), *forward_plan(lq, lk), int(bf16),
         cuda_build.stream(q))
     cuda_build.check(err, KERNEL)
     cuda_build.launch_counts[KERNEL] += 1

@@ -112,9 +112,9 @@ _SIGNATURES = {
     # x, gain, bias, w, mean, inv, pre, dy, dpre, scratch, unit, dw, db,
     # dgain, dbias, S, din, dout, act, splits, dpre splits, bf16, stream
     "coot_input_fc_bwd": [_P] * 15 + [_I] * 7 + [_P],
-    # f, mask, w1, b1, w2, b2, out, stats, S, L, D, H, heads, act, seed,
-    # thresh, drop scale, bf16, stream
-    "coot_genpool_fwd": [_P] * 8 + [_I, _I, _I, _I, _I, _I, _ULL, _U, _F,
+    # f, mask, w1, b1, w2, b2, out, stats, logits scratch, S, L, D, H,
+    # heads, act, seed, thresh, drop scale, bf16, stream
+    "coot_genpool_fwd": [_P] * 9 + [_I, _I, _I, _I, _I, _I, _ULL, _U, _F,
                                     _I, _P],
     # f, mask, w1, b1, w2, b2, stats, dout, df, h1, dpre, dh2, fac, scratch,
     # dw1, db1, dw2, db2, S, L, D, H, heads, act, seed, thresh, drop scale,
@@ -122,9 +122,9 @@ _SIGNATURES = {
     "coot_genpool_bwd": [_P] * 18 + [_I, _I, _I, _I, _I, _I, _ULL, _U, _F,
                                      _I, _I, _I, _P],
     # q, k, v, key_valid, o, row_max, row_inv, N, Lq, Lk, Dh, num_heads,
-    # scale, seed, thresh, drop scale, bf16, stream
+    # scale, seed, thresh, drop scale, bq, bk, cells, bf16, stream
     "coot_attention_fwd": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _ULL, _U, _F,
-                                      _I, _P],
+                                      _I, _I, _I, _I, _P],
     # q, k, v, o, g, key_valid, row_max, row_inv, dq, dk, dv, dq scratch,
     # N, Lq, Lk, Dh, num_heads, scale, seed, thresh, drop scale, bf16,
     # stream

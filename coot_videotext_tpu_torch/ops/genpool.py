@@ -13,9 +13,11 @@ csrc/genpool.cu, which read w1 in the flat head-interleaved (D, heads*dh)
 layout and w2 per head; on CPU tensors they compute `genpool_plain` (the
 port of `fused_genpool_reference` :391, with the masks) and
 `genpool_backward_plain` (the formulas of `_bwd_kernel` :202). In bf16
-the backward is a fused pass over flat tiles of the S*L rows plus two
-tensor-core weight-gradient products (`backward_plan`); in float32 a
-kernel per pooled row and FMA reductions. The output
+the forward is a tensor-core pass over flat tiles of the S*L rows that
+writes the masked, dropped logits (an f32 scratch of S*L x D) and a
+pooling pass over L; the backward is a fused pass over the same tiles
+plus two tensor-core weight-gradient products (`backward_plan`). In
+float32 both run a kernel per pooled row (and FMA reductions). The output
 column order is [h*dho + o], the reference's head interleave. The masks
 come from Philox bits (ops/philox.py), one seed per call, so the backward
 regenerates them.
@@ -192,6 +194,8 @@ class _GenPool(torch.autograd.Function):
                                  b2_heads, act, rate, seed)
         s, length, d, h, heads, bf16 = _check(f, mask, w1_heads, w2_heads,
                                               act)
+        if bf16 and f.data_ptr() % 16:  # the pooling pass's vector loads
+            f = f.clone()
         mask_u8 = mask.to(device=f.device, dtype=torch.uint8).contiguous()
         w1 = kernel_operand(flat_w1(w1_heads), f.dtype, f.device)
         w2 = kernel_operand(w2_heads, f.dtype, f.device)
@@ -200,11 +204,14 @@ class _GenPool(torch.autograd.Function):
         out = torch.empty((s, d), dtype=f.dtype, device=f.device)
         stats = (torch.empty((3, s, d), dtype=torch.float32, device=f.device)
                  if need_grad else None)
+        logits = (torch.empty((s * length, d), dtype=torch.float32,
+                              device=f.device) if bf16 else None)
         lib = cuda_build.load_library()
         err = lib.coot_genpool_fwd(
             f.data_ptr(), mask_u8.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            0 if stats is None else stats.data_ptr(), s, length, d, h,
+            0 if stats is None else stats.data_ptr(),
+            0 if logits is None else logits.data_ptr(), s, length, d, h,
             heads, ACT_CODES[act], *philox.kernel_args(rate, seed), int(bf16),
             cuda_build.stream(f))
         cuda_build.check(err, KERNEL)

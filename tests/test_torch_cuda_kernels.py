@@ -104,12 +104,22 @@ def test_input_fc_kernel_empty(cuda, dtype):
     assert y.shape == (0, 384) and y.dtype == dtype
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_genpool_kernel(cuda, dtype):
-    """The paragraph length L = 300, with fully masked rows."""
+# (pooled rows, L, D, H, heads, rate): the paragraph length L = 300, the
+# four calls of a train step at reduced S (the clips and the video context
+# at L 80, the paragraph at 320, the sentences at 24), L = 1, and other
+# widths: synthetic_smoke's D 32 / H 64, one head (D 32 and 128 / H 64),
+# D 512 (two column groups) and 1024 (heads split over groups)
+GENPOOL_FWD = [(40, 300, 384, 768, 2, 0.0), (48, 80, 384, 768, 2, 0.1),
+               (64, 80, 384, 768, 2, 0.0), (12, 320, 384, 768, 2, 0.1),
+               (64, 24, 384, 768, 2, 0.1), (200, 1, 384, 768, 2, 0.1),
+               (20, 37, 32, 64, 2, 0.1), (20, 37, 32, 64, 1, 0.1),
+               (20, 37, 128, 64, 1, 0.0), (20, 37, 512, 512, 2, 0.1),
+               (20, 37, 1024, 1024, 2, 0.0)]
+
+
+def _genpool_fwd_args(cuda, dtype, s, length, d, h, heads):
     g = torch.Generator(device=cuda).manual_seed(1)
-    s, length, d, heads, dh = 40, 300, 384, 2, 384
+    dh = h // heads
     f = torch.randn(s, length, d, generator=g, device=cuda)
     lens = torch.randint(1, length + 1, (s,), generator=g, device=cuda)
     mask = torch.arange(length, device=cuda)[None] < lens[:, None]
@@ -119,18 +129,60 @@ def test_genpool_kernel(cuda, dtype):
     w2 = torch.randn(heads, dh, d // heads, generator=g,
                      device=cuda) / dh ** 0.5
     b2 = 0.1 * torch.randn(heads, d // heads, generator=g, device=cuda)
-    args = (f.to(dtype), mask, w1, b1, w2, b2, "gelu")
-    assert _run(genpool, genpool_plain, args, "genpool") <= TOL[dtype]
+    return f.to(dtype), mask, w1, b1, w2, b2
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("lq,lk", [(80, 80), (1, 16), (300, 300)])
-def test_attention_kernel(cuda, dtype, lq, lk):
-    """d_head 48; self, cross (Lq = 1) and paragraph lengths; all-masked
-    rows."""
+@pytest.mark.parametrize("s,length,d,h,heads,rate", GENPOOL_FWD)
+def test_genpool_kernel(cuda, dtype, s, length, d, h, heads, rate):
+    """Fully masked rows (they pool to the plain average without dropout);
+    dropout at the three sites with the plain version's masks. In bf16
+    the tile pass and the pooling pass; the backward tests drive the
+    unchanged backward from this forward's stats."""
+    args = (*_genpool_fwd_args(cuda, dtype, s, length, d, h, heads),
+            "gelu", rate, 77)
+    assert _run(genpool, genpool_plain, args, "genpool") <= TOL[dtype]
+    if rate == 0.0:
+        with torch.inference_mode():
+            out = genpool(*args)
+        assert _rel(out[:4], args[0][:4].float().mean(dim=1)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,heads", [(384, 768, 2), (32, 64, 1)])
+def test_genpool_forward_repeats_bit_for_bit(cuda, d, h, heads):
+    """Two bf16 forwards on the same inputs, without and with the stats
+    (eval and train), give bit-equal pooled rows (dropout on)."""
+    f, mask, *params = _genpool_fwd_args(cuda, torch.bfloat16, 96, 80, d, h,
+                                         heads)
+    with torch.inference_mode():
+        first = genpool(f, mask, *params, "gelu", 0.1, 77)
+        assert torch.equal(first, genpool(f, mask, *params, "gelu", 0.1, 77))
+    leaves = [p.clone().requires_grad_() for p in params]
+    for _ in range(2):
+        assert torch.equal(genpool(f, mask, *leaves, "gelu", 0.1, 77).detach(),
+                           first)
+
+
+# (Lq, Lk, d_head, rate): self (L 80), cross (Lq = 1), the paragraph's 300
+# and 320 (three key blocks), the sentences' 24 and the global nets' 16
+# (several cells a block), a ragged 37 x 130 (two key blocks) at d_head 16,
+# 48, 64 and an odd 21, and Lq = 1 over 130 keys
+ATTENTION_FWD = [(80, 80, 48, 0.0), (80, 80, 48, 0.1), (1, 16, 48, 0.0),
+                 (300, 300, 48, 0.0), (320, 320, 48, 0.1), (24, 24, 48, 0.1),
+                 (16, 16, 48, 0.0), (37, 130, 16, 0.1), (37, 130, 48, 0.0),
+                 (37, 130, 64, 0.1), (37, 130, 21, 0.1), (1, 130, 48, 0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,dh,rate", ATTENTION_FWD)
+def test_attention_kernel(cuda, dtype, lq, lk, dh, rate):
+    """All-masked rows (without dropout the plain average of v), dropout
+    on P with the plain version's masks."""
     g = torch.Generator(device=cuda).manual_seed(2)
-    b, heads, dh = 16, 8, 48
+    b, heads = 16, 8
     q = torch.randn(b * heads, lq, dh, generator=g, device=cuda)
     k = torch.randn(b * heads, lk, dh, generator=g, device=cuda)
     v = torch.randn(b * heads, lk, dh, generator=g, device=cuda)
@@ -138,13 +190,30 @@ def test_attention_kernel(cuda, dtype, lq, lk):
     key_valid = torch.arange(lk, device=cuda)[None] < lens[:, None]
     key_valid[:2] = False
     args = (q.to(dtype), k.to(dtype), v.to(dtype), key_valid, heads,
-            dh ** -0.5)
+            dh ** -0.5, rate, 9)
     assert _run(masked_attention, masked_attention_plain, args,
                 "attention") <= TOL[dtype]
+    if rate == 0.0:
+        with torch.inference_mode():
+            out = masked_attention(*args).float()
+        expect = v[:2 * heads].mean(dim=1, keepdim=True).expand(-1, lq, -1)
+        assert _rel(out[:2 * heads], expect) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(80, 80), (320, 320), (24, 24)])
+def test_attention_forward_repeats_bit_for_bit(cuda, lq, lk):
+    """Two bf16 forwards on the same inputs, without and with the stats,
+    give bit-equal outputs (dropout on)."""
+    qkv, key_valid, _, heads, dh = _attention_case(cuda, torch.bfloat16, lq,
+                                                   lk)
+    args = (key_valid, heads, dh ** -0.5, 0.1, 9)
     with torch.inference_mode():
-        out = masked_attention(*args).float()
-    expect = v[:2 * heads].mean(dim=1, keepdim=True).expand(-1, lq, -1)
-    assert _rel(out[:2 * heads], expect) <= TOL[dtype]
+        first = masked_attention(*qkv, *args)
+        assert torch.equal(first, masked_attention(*qkv, *args))
+    leaves = [a.clone().requires_grad_() for a in qkv]
+    for _ in range(2):
+        assert torch.equal(masked_attention(*leaves, *args).detach(), first)
 
 
 @pytest.mark.cuda

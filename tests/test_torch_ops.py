@@ -14,6 +14,8 @@ that JAX does not draw). The CUDA kernels themselves run only on the card:
 tests/test_torch_cuda_kernels.py holds them against the plain versions.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -29,7 +31,7 @@ from coot_videotext_tpu_torch.ops import cuda_build
 from coot_videotext_tpu_torch.ops import dropout as dropout_mod
 from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.ops.attention import (
-    masked_attention, masked_attention_backward_plain,
+    forward_plan, masked_attention, masked_attention_backward_plain,
     masked_attention_plain, needs_dq_scratch)
 from coot_videotext_tpu_torch.ops.dropout import dropout, dropout_plain
 from coot_videotext_tpu_torch.ops import genpool as gp_mod
@@ -423,13 +425,14 @@ def test_genpool_backward_matches_pallas_interpret():
 
 
 def _genpool_bwd_tile_order(f, mask, w1h, b1h, w2h, b2h, act, dout, rate,
-                            seed, tile, splits):
+                            seed, tile, splits, stats=None):
     """B2's backward as csrc/genpool.cu's bf16 tile pass orders it, in
     float32: the forward's per-(pooled row, column) stats (softmax max, sum
-    and the pooled row out), then flat tiles of `tile` of the S*L rows
-    that cross pooled-row boundaries, each row reading the stats of its s
-    (the row-coupling sum is dout * out); the weight gradients as partial
-    sums over `splits` row splits (whole tiles) added in split order."""
+    and the pooled row out; computed here, or `stats` (3, S, D) as the
+    forward wrote them), then flat tiles of `tile` of the S*L rows that
+    cross pooled-row boundaries, each row reading the stats of its s (the
+    row-coupling sum is dout * out); the weight gradients as partial sums
+    over `splits` row splits (whole tiles) added in split order."""
     s, length, d = f.shape
     heads, dh, dho = w2h.shape
     h = heads * dh
@@ -456,15 +459,18 @@ def _genpool_bwd_tile_order(f, mask, w1h, b1h, w2h, b2h, act, dout, rate,
                                         torch.full_like(lg, -32752.0)), valid
 
     # the forward's stats, per pooled row (genpool.cu's `stats`)
-    _, _, _, lg, _ = row_pass(torch.arange(rows))
-    lg = lg.reshape(s, length, d)
-    mx = lg.max(dim=1).values
-    e = torch.exp(lg - mx[:, None])
-    total = e.sum(dim=1)
-    smd = e / total[:, None]
-    if keep3 is not None:
-        smd = smd * keep3.reshape(s, length, d)
-    out = (f * smd).sum(dim=1)
+    if stats is not None:
+        mx, total, out = stats
+    else:
+        _, _, _, lg, _ = row_pass(torch.arange(rows))
+        lg = lg.reshape(s, length, d)
+        mx = lg.max(dim=1).values
+        e = torch.exp(lg - mx[:, None])
+        total = e.sum(dim=1)
+        smd = e / total[:, None]
+        if keep3 is not None:
+            smd = smd * keep3.reshape(s, length, d)
+        out = (f * smd).sum(dim=1)
 
     df = torch.empty(rows, d)
     n_tiles = -(-rows // tile)
@@ -568,6 +574,217 @@ def test_genpool_backward_launch_plan():
     assert small == {"splits_w1": 1, "splits_w2": 1}
     many = gp_mod.backward_plan(64, 80, 128, 256, 8, 132)
     assert many["splits_w2"] <= 64 * 80 // (4 * fc_mod.G_STEP)
+
+
+def _genpool_fwd_tile_order(f, mask, w1h, b1h, w2h, b2h, act, rate, seed,
+                            tile):
+    """B2's forward as csrc/genpool.cu's bf16 passes order it, in float32:
+    genpool_fwd_tiles writes the masked, dropped logits of flat tiles of
+    `tile` of the S*L rows (across pooled-row boundaries, the masks by
+    each row's element index); genpool_pool reduces over L per (pooled
+    row, column) in kPoolGroups = 8 row groups (rows l = g, g + 8, ...),
+    each an online max / sum / sum e*keep3*f, merged in group order.
+    Returns the pooled rows and the stats (column max, sum, pooled)."""
+    s, length, d = f.shape
+    heads, dh, _ = w2h.shape
+    h = heads * dh
+    rows = s * length
+    w1, b1, b2 = flat_w1(w1h), b1h.reshape(-1), b2h.reshape(-1)
+    fac = gp_mod._factors((s, length, d, h), seed, rate, f.device)
+    keep1, keep2, keep3 = (fac[k].reshape(rows, -1) if fac else None
+                           for k in ("hidden", "logits", "weights"))
+    flat_f, flat_mask = f.reshape(rows, d), mask.reshape(rows)
+    logits = torch.empty(rows, d)
+    for r0 in range(0, rows, tile):
+        r = torch.arange(r0, min(rows, r0 + tile))
+        hin = flat_f[r] @ w1 + b1
+        if keep1 is not None:
+            hin = hin * keep1[r]
+        h1 = act_fn(hin, act)
+        lg = torch.cat([h1[:, i * dh:(i + 1) * dh] @ w2h[i]
+                        for i in range(heads)], dim=1) + b2
+        if keep2 is not None:
+            lg = lg * keep2[r]
+        logits[r] = torch.where(flat_mask[r][:, None], lg,
+                                torch.full_like(lg, -32752.0))
+    logits = logits.reshape(s, length, d)
+    k3 = (keep3.reshape(s, length, d) if keep3 is not None
+          else torch.ones(s, length, d))
+    parts = []
+    for g in range(8):
+        m = torch.full((s, d), -float("inf"))
+        total, acc = torch.zeros(s, d), torch.zeros(s, d)
+        for li in range(g, length, 8):
+            x = logits[:, li]
+            mn = torch.maximum(m, x)
+            sc, ex = torch.exp(m - mn), torch.exp(x - mn)
+            total = total * sc + ex
+            acc = acc * sc + ex * k3[:, li] * f[:, li]
+            m = mn
+        parts.append((m, total, acc))
+    mx = torch.stack([p[0] for p in parts]).max(dim=0).values
+    total, acc = torch.zeros(s, d), torch.zeros(s, d)
+    for m, t_, a in parts:
+        w = torch.exp(m - mx)
+        total, acc = total + t_ * w, acc + a * w
+    pooled = acc / total
+    return pooled, (mx, total, pooled)
+
+
+def _genpool_plain_stats(f, mask, w1h, b1h, w2h, b2h, act, rate, seed):
+    """The forward's stats from genpool_plain's own intermediates: the
+    column max and sum of the masked, dropped logits, the pooled row."""
+    r = gp_mod._recompute(f, mask, w1h, b1h, w2h, b2h, act, rate, seed)
+    heads, dh, _ = w2h.shape
+    lg = torch.cat([r["h1"][..., i * dh:(i + 1) * dh] @ r["w2c"][i]
+                    for i in range(heads)], dim=-1) + b2h.reshape(-1)
+    if r["fac"]:
+        lg = lg * r["fac"]["logits"]
+    lg = torch.where(r["valid"], lg, torch.full_like(lg, -32752.0))
+    mx = lg.max(dim=1).values
+    return (mx, torch.exp(lg - mx[:, None]).sum(dim=1),
+            (r["f32"] * r["smd"]).sum(dim=1))
+
+
+@pytest.mark.parametrize("s,length,tile,rate", [
+    (7, 20, 64, 0.0), (7, 20, 16, 0.1), (5, 24, 64, 0.1), (40, 1, 64, 0.1),
+    (3, 37, 64, 0.0)])
+def test_genpool_forward_tile_order(s, length, tile, rate):
+    """The bf16 forward's order (flat tiles of logits across pooled rows,
+    then the pooling pass's row groups): L not dividing the tile, L = 1
+    (more row groups than rows), all-masked pooled rows and dropout 0.1
+    give genpool_plain's pooled rows and stats at 1e-5 relative; without
+    dropout the JAX reference's and the interpret-mode Pallas kernel's;
+    and its stats drive the backward's tile order to the plain
+    backward's gradients."""
+    f, mask, *heads = _genpool_inputs(s, length, 32, 64, 2, seed=31)
+    t = torch.from_numpy
+    args = (t(f), t(mask), *(t(a) for a in heads), "gelu")
+    pooled, stats = _genpool_fwd_tile_order(*args, rate, 99, tile)
+    plain = genpool_plain(*args, rate, 99)
+    ref_stats = _genpool_plain_stats(*args, rate, 99)
+
+    def close(a, r, name):
+        a, r = np.asarray(a, np.float64), np.asarray(r, np.float64)
+        assert np.abs(a - r).max() <= 1e-5 * max(1.0, np.abs(r).max()), name
+
+    close(pooled, plain, "out")
+    for name, a, r in zip(("max", "sum", "pooled"), stats, ref_stats):
+        close(a, r, name)
+    if rate == 0.0:
+        flat = [jnp.asarray(a) for a in jgen.head_params_to_flat(*heads)]
+        ref = jgen.fused_genpool_reference(jnp.asarray(f), jnp.asarray(mask),
+                                           *flat, "gelu")
+        close(pooled, ref, "reference")
+        pal = jgen._fwd_call(jnp.asarray(f), jnp.asarray(mask), *flat,
+                             jnp.zeros(1, jnp.int32), "gelu", 0.0, False,
+                             interpret=True)
+        close(pooled, pal, "pallas")
+    dout = t(np.random.RandomState(32).randn(s, 32).astype(np.float32))
+    tiled = _genpool_bwd_tile_order(*args, dout, rate, 99, 64, 2,
+                                    stats=stats)
+    for name, a, r in zip(("df", "dw1", "db1", "dw2", "db2"), tiled,
+                          genpool_backward_plain(*args, dout, rate, 99)):
+        close(a, r, name)
+
+
+def _attention_block_order(q, k, v, key_valid, heads, scale, rate, seed):
+    """B3's bf16 forward as csrc/attention.cu orders it, in float32: per
+    query chunk of forward_plan's bq, key blocks of its bk in steps of 32
+    keys (keys past Lk at -inf, masked keys at -32752), an online row max,
+    the sum of P undropped and the accumulator of P * keep @ v rescaled at
+    each step. Returns o and the stats (row max, 1/sum)."""
+    n, lq, dh = q.shape
+    lk = k.shape[1]
+    bq, bk, _ = forward_plan(lq, lk)
+    f = philox.keep_factor((n, lq, lk), seed, philox.SITE_ATTENTION, rate,
+                           q.device) if rate > 0 else torch.ones(n, lq, lk)
+    valid = key_valid.repeat_interleave(heads, dim=0)
+    o = torch.empty(n, lq, dh)
+    row_max, row_inv = torch.empty(n, lq), torch.empty(n, lq)
+    for q0 in range(0, lq, bq):
+        qs = slice(q0, min(lq, q0 + bq))
+        m = torch.full((n, qs.stop - q0), -float("inf"))
+        total = torch.zeros(n, qs.stop - q0)
+        acc = torch.zeros(n, qs.stop - q0, dh)
+        for kb in range(0, lk, bk):
+            for k0 in range(kb, min(lk, kb + bk), 32):
+                ks = slice(k0, k0 + 32)
+                sc = torch.bmm(q[:, qs], k[:, ks].transpose(1, 2)) * scale
+                sc = torch.where(valid[:, None, ks], sc,
+                                 torch.full_like(sc, -32752.0))
+                pad = 32 - sc.shape[2]  # keys past Lk
+                sc = torch.nn.functional.pad(sc, (0, pad),
+                                             value=-float("inf"))
+                mn = torch.maximum(m, sc.max(dim=2).values)
+                alpha = torch.exp(m - mn)
+                p = torch.exp(sc - mn[..., None])[..., :32 - pad]
+                total = total * alpha + p.sum(dim=2)
+                acc = acc * alpha[..., None] + torch.bmm(
+                    p * f[:, qs, ks], v[:, ks])
+                m = mn
+        o[:, qs] = acc / total[..., None]
+        row_max[:, qs], row_inv[:, qs] = m, 1.0 / total
+    return o, row_max, row_inv
+
+
+@pytest.mark.parametrize("b,heads,lq,lk,rate", [
+    (3, 2, 20, 130, 0.1), (2, 2, 37, 130, 0.0), (2, 2, 40, 320, 0.1),
+    (3, 2, 1, 130, 0.1), (3, 4, 24, 24, 0.0), (2, 2, 150, 80, 0.1)])
+def test_attention_forward_block_order(b, heads, lq, lk, rate):
+    """The bf16 forward's order (key blocks walked 32 keys at a time with
+    an online rescale, query chunks, keys past Lk at -inf): Lk 130 and 320
+    (two and three key blocks), Lq 1, two query chunks, all-masked rows
+    and dropout 0.1 give masked_attention_plain's output and its row max
+    and 1/sum at 1e-5 relative; without dropout the JAX reference's."""
+    q, k, v, key_valid = _attn_inputs(b, heads, lq, lk, 48, seed=33)
+    scale = 48 ** -0.5
+    t = torch.from_numpy
+    o, row_max, row_inv = _attention_block_order(
+        t(q), t(k), t(v), t(key_valid), heads, scale, rate, 7)
+    plain = masked_attention_plain(t(q), t(k), t(v), t(key_valid), heads,
+                                   scale, rate, 7)
+    mask = t(key_valid).repeat_interleave(heads, dim=0)[:, None, :]
+    sc = torch.bmm(t(q), t(k).transpose(1, 2)) * scale
+    sc = torch.where(mask, sc, torch.full_like(sc, -32752.0))
+    ref_max = sc.max(dim=2).values
+    ref_inv = 1.0 / torch.exp(sc - ref_max[..., None]).sum(dim=2)
+
+    def close(a, r, name):
+        a, r = np.asarray(a, np.float64), np.asarray(r, np.float64)
+        assert np.abs(a - r).max() <= 1e-5 * max(1.0, np.abs(r).max()), name
+
+    close(o, plain, "o")
+    close(row_max, ref_max, "row max")
+    close(row_inv, ref_inv, "1/sum")
+    if rate == 0.0:
+        ref = jattn.masked_attention_reference(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            _jax_mask(key_valid, heads, lq), scale)
+        close(o, ref, "reference")
+
+
+def test_attention_forward_launch_plan():
+    """forward_plan (ops/attention.py) at the six shapes of a
+    yc2_2d3d_coot train step, and its limits over a range of lengths: a
+    warp per 16 queries, at most 8 warps, the fewest query chunks and key
+    blocks of at most 128, key blocks in steps of 32, and blocks of short
+    cells packed to at least 4 warps."""
+    assert forward_plan(80, 80) == (80, 96, 1)     # clips, video context
+    assert forward_plan(320, 320) == (112, 128, 1)  # paragraph
+    assert forward_plan(24, 24) == (32, 32, 2)     # sentences
+    assert forward_plan(16, 16) == (16, 32, 4)     # global nets
+    assert forward_plan(1, 16) == (16, 32, 4)      # cross-attention
+    for lq in (1, 15, 16, 17, 32, 33, 80, 128, 129, 300, 320, 1000):
+        for lk in (1, 16, 31, 32, 33, 80, 130, 320, 1000):
+            bq, bk, cells = forward_plan(lq, lk)
+            assert bq % 16 == 0 and 16 <= bq <= 128 and cells * bq <= 128
+            assert bk % 32 == 0 and 32 <= bk <= 128
+            assert -(-lq // bq) == -(-lq // 128)  # fewest query chunks
+            assert -(-lk // bk) == -(-lk // 128)  # fewest key blocks
+            assert bq - 16 < -(-lq // -(-lq // 128))  # balanced chunks
+            if lq <= 32 and lk <= 32:
+                assert cells * bq // 16 >= 4
 
 
 def _attn_grads(q, k, v, key_valid, heads, scale, g, rate=0.0, seed=0):
@@ -687,8 +904,10 @@ def test_cpu_path_launches_no_kernel():
 
 def test_kernel_launch_arguments():
     """Host-side launch logic: B4's arguments, checked and computed once in
-    the forward for both launches, and when B3's bf16 backward needs its
-    f32 dq scratch (more than one block of 128 keys)."""
+    the forward for both launches; when B3's bf16 backward needs its f32
+    dq scratch (more than one block of 128 keys); the C signatures of the
+    forwards, whose bf16 kernels take B2's logits scratch and B3's tiles
+    (forward_plan's three ints before the dtype flag)."""
     x = torch.zeros(3, 5, dtype=torch.bfloat16)
     args = dropout_mod.launch_args(x, 2 ** 40 + 1, 0.01,
                                    philox.SITE_DROPOUT, 7)
@@ -703,3 +922,10 @@ def test_kernel_launch_arguments():
     assert not needs_dq_scratch(128, True)
     assert needs_dq_scratch(129, True) and needs_dq_scratch(320, True)
     assert not needs_dq_scratch(320, False)
+    c = ctypes
+    genpool_fwd = cuda_build._SIGNATURES["coot_genpool_fwd"]
+    assert genpool_fwd[:9] == [c.c_void_p] * 9  # ..., stats, logits
+    assert len(genpool_fwd) == 20
+    attention_fwd = cuda_build._SIGNATURES["coot_attention_fwd"]
+    assert attention_fwd[-6:] == [c.c_float] + [c.c_int] * 4 + [c.c_void_p]
+    assert len(attention_fwd) == 21
