@@ -17,7 +17,9 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    four calls of a train step (and D 32 / H 64, one head at D 32 and
    128 / H 64, D 512), B3 at the video context's N = 512, L = 24, 320, a
    ragged 37 x 130 (also at d_head 16 and 64) and Lq = 1 over 130 keys,
-   dropout on with one seed: the masks must agree exactly; B2's and B3's
+   dropout on with one seed (a seed state on the card, from which each
+   kernel derives its seed, as philox.derive_seed does on the host): the
+   masks must agree exactly; B2's and B3's
    forwards and B1's, B2's and B3's backwards repeat bit for bit, B2's
    errors printed by gradient, its db2 at
    dropout 0.1 also held relative to its own largest value;
@@ -47,6 +49,19 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
 4b. synthetic_smoke.yaml trains one epoch through the CLI from the device
    store, in float32 as shipped and in bfloat16: its text input FC (48 ->
    32) runs B1's backward on padded widths, its GenPool (D 32, H 64) B2's.
+4c. The group step: on a generated 640-video train split (10 steps an
+   epoch) the CLI trains one epoch with `-o train.steps_per_dispatch=4
+   --preload_device --fixed_shapes` in groups of 4, 4 and 2, each step
+   after the first a replay of the captured train step, with every launch
+   count set to 0 just before and read just after (the wrappers count at
+   the eager first step and at the capture); the run resumed to 3 epochs
+   and the per-step CLI on the same split time epochs 1-2 end to end; one
+   fixed id batch trains 16 steps per step and as 2 groups of 8 replays
+   from the same state (no wrapper runs during them): seed states equal,
+   losses and parameters within the bf16 tolerance, the loss falling; for
+   K = 1, 4 and 8, the warm wall ms per step, the profiler's device-busy ms
+   per step, train videos/s and peak device memory, and for K = 4 the
+   device time per step by kernel family.
 5. Times each kernel, forward and backward, at the main path's shapes (CUDA
    events) beside its plain version, its library yardstick where one
    exists, and its bound; B1 at all four calls of a step (clips, video
@@ -138,11 +153,18 @@ def bound_ms(nbytes: float, flops: float, dtype_name: str):
 
 def errors(out, ref):
     """(max abs error, the same relative to max(1, max |ref|))."""
-    out, ref = out.float(), ref.float()
+    out, ref = out.detach().float(), ref.detach().float()
     if not bool(out.isfinite().all()):
         return math.inf, math.inf
     err = float((out - ref).abs().max())
     return err, err / max(1.0, float(ref.abs().max()))
+
+
+def device_seed(value: int = 20261016, call: int = 0):
+    """A kernel call's seed: a seed state of `value` on the card and the
+    call's position (ops/philox.py); the kernels derive the seed there."""
+    from coot_videotext_tpu_torch.ops import philox
+    return philox.Seed(philox.seed_state(value, "cuda"), call)
 
 
 def check_tol(name, dn, desc, err, rel) -> None:
@@ -293,7 +315,7 @@ def backward_case(name, args, rate, gen, g=None):
         genpool, genpool_backward_plain)
     from coot_videotext_tpu_torch.ops.input_fc import (
         fused_input_fc, fused_input_fc_backward_plain)
-    seed = 20261016
+    seed = device_seed()
     if name == "input_fc":
         x, *params = args
         params = [p.float() for p in params]
@@ -331,6 +353,7 @@ def phase_kernel_checks():
     card; B4 and the dropout of B2/B3 with one seed, where the masks must
     agree exactly."""
     import torch
+    from coot_videotext_tpu_torch.ops import philox
     from coot_videotext_tpu_torch.ops.attention import (
         masked_attention, masked_attention_plain)
     from coot_videotext_tpu_torch.ops.dropout import dropout, dropout_plain
@@ -434,7 +457,7 @@ def phase_kernel_checks():
              lambda dt=dtype: attention_inputs(64, 8, 1, 130, 48, dt, gen,
                                                2)),
         ]
-    seed = 20261016
+    seed = device_seed()
     funcs = {
         "input_fc": (lambda a, r: fused_input_fc(*a, 1e-6, "gelu"),
                      lambda a, r: fused_input_fc_plain(*a, 1e-6, "gelu")),
@@ -506,6 +529,11 @@ def phase_kernel_checks():
             desc = f"{shape[0]}x{shape[1]} rate 0.01 (kept {kept:.4f})"
             if not (torch.equal(y, y_ref) and torch.equal(gx, g_ref)):
                 fail(f"dropout {dn} {desc}: kernel and plain differ")
+            # the seed the kernel derived on the card is the host's
+            by_value = philox.derive_seed(20261016, seed.call)
+            if not torch.equal(y, dropout_plain(x, by_value, 0.01)):
+                fail(f"dropout {dn} {desc}: the kernel's seed is not "
+                     "philox.derive_seed's")
             record("dropout", dn, desc, *errors(y, y_ref))
             record("dropout_bwd", dn, desc, *errors(gx, g_ref))
         # 2 bytes off 16-byte alignment (a scalar head and tail around the
@@ -572,7 +600,8 @@ def phase_gather_checks():
                 if not torch.equal(out, gather_rows_plain(table, idx)):
                     fail(f"gather {dn} {desc}: kernel and plain differ")
                 log(f"  gather        {dn:8s} {desc:34s} bit-equal")
-                noise = GatherNoise(0.01, 20261016, philox.SITE_NOISE_CLIP)
+                noise = GatherNoise(0.01, device_seed(call=3),
+                                    philox.SITE_NOISE_CLIP)
                 out = launch(table, idx, noise)
                 ref = gather_rows_plain(table, idx, noise)
                 if not torch.equal(out, ref):
@@ -586,7 +615,7 @@ def phase_gather_checks():
     # the noise alone: 1e6 draws of std 1 on a zero table
     zeros = torch.zeros(1, 1000, device="cuda")
     rows = torch.zeros(1000, dtype=torch.int32, device="cuda")
-    noise = GatherNoise(1.0, 7, philox.SITE_NOISE_VIDEO)
+    noise = GatherNoise(1.0, device_seed(7), philox.SITE_NOISE_VIDEO)
     draws = launch(zeros, rows, noise)
     if not torch.equal(draws, gather_rows_plain(zeros, rows, noise)):
         fail("gather noise: the draws differ from the plain version's")
@@ -625,6 +654,8 @@ def _config(tmp: Path, **dataset) -> Path:
     cfg = load_yaml_config_file(CONFIG)
     cfg["dataset_train"].update(vid_feat_source="npy",
                                 text_feat_source="npy", **dataset)
+    # named, so that `-o train.steps_per_dispatch=K` can set it
+    cfg["train"].setdefault("steps_per_dispatch", 1)
     tmp.mkdir(parents=True, exist_ok=True)
     path = tmp / CONFIG.name
     # in the file's order: a same_as group must follow the one it names
@@ -897,6 +928,7 @@ def phase_train(tmp: Path):
         create_retrieval_datasets_and_loaders, to_device)
     from coot_videotext_tpu_torch.tasks.retrieval.config import (
         RetrievalConfig)
+    from coot_videotext_tpu_torch.ops import philox
     from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
         RetrievalModelManager)
     from coot_videotext_tpu_torch.tasks.retrieval.steps import (
@@ -998,9 +1030,7 @@ def phase_train(tmp: Path):
     mgr = RetrievalModelManager(cfg, torch.device("cuda"), seed=0)
     ts = TrainState(mgr.model, make_optimizer(
         cfg.optimizer, dict(mgr.model.named_parameters())),
-        torch.Generator().manual_seed(0),
-        torch.Generator("cuda").manual_seed(0),
-        sample=torch.Generator("cuda").manual_seed(0))
+        philox.seed_state(0, "cuda"))
     kw = dict(lr=cfg.optimizer.lr, clip_gradient=cfg.train.clip_gradient,
               compute_dtype=mgr.train_dtype, source=source,
               loss_weights=cfg.train.contrastive_loss_config.as_dict(),
@@ -1066,6 +1096,258 @@ def phase_synthetic_smoke(tmp: Path) -> None:
             f"{len(result['step_losses'])} steps (losses "
             f"{', '.join(f'{v:.5f}' for v in result['step_losses'])}) and "
             f"its validation in {wall:.1f} s; launches {launches}")
+
+
+def _busy_ms(fn) -> tuple:
+    """(traced wall ms, device-busy ms, kernels seen, the kernels' profiler
+    events) of fn() under torch.profiler, synchronised: the busy time sums
+    the kernels' device time, graph replays' kernels included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
+    return (wall, sum(_dev_us(e) for e in events) / 1e3,
+            sum(e.count for e in events), events)
+
+
+# kernel families of a train step by name, first match wins
+KERNEL_FAMILIES = (
+    ("the port's kernels B1-B5", ("coot::",)),
+    ("matrix products (cuBLAS, CUTLASS)",
+     ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
+    ("multi-tensor (_foreach: optimizer, clipping)",
+     ("multi_tensor", "foreach")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("copy",)),
+    ("elementwise on int64 by name (Philox draws, index math)",
+     ("<long>", "<long,", "long, long", "<int>", "<int,")),
+    ("other elementwise (float; shifts and lambdas unnamed)",
+     ("elementwise",)),
+)
+
+
+def log_families(events, steps: int) -> None:
+    """Device ms and launches per step of each kernel family, then the
+    heaviest kernels."""
+    per = {}
+    for e in events:
+        fam = next((f for f, keys in KERNEL_FAMILIES
+                    if any(k in e.key for k in keys)), "other")
+        ms, n = per.get(fam, (0.0, 0))
+        per[fam] = (ms + _dev_us(e) / 1e3, n + e.count)
+    for fam, (ms, n) in sorted(per.items(), key=lambda x: -x[1][0]):
+        log(f"    {ms / steps:7.3f} ms  {n / steps:7.1f} launches per step  "
+            f"{fam}")
+    for e in sorted(events, key=_dev_us, reverse=True)[:12]:
+        log(f"      {_dev_us(e) / 1e3 / steps:7.3f} ms  "
+            f"x{e.count / steps:<6.1f} {e.key[:110]}")
+
+
+def phase_group(tmp: Path) -> dict:
+    """Phase 4c, the group step (train.steps_per_dispatch = K): the CLI
+    trains one epoch of a 640-video split (10 steps: groups of 4, 4 and
+    a tail of 2) on the device-resident path, each group a replay of the
+    captured train step, with the launch counts set to 0 just before and
+    read just after; one fixed id batch trains 16 steps per step and as 2
+    groups of 8 replays from the same state (the graph captured first, the
+    state then restored in place): losses, parameters and seed states
+    held against each other after 8 steps and after 16, the loss falling;
+    then, per K in (1, 4, 8), the warm wall ms per step, the device-busy
+    ms per step, train videos/s and peak device memory."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch.data.device_store import FeatureSource
+    from coot_videotext_tpu_torch.data.retrieval_dataset import (
+        create_retrieval_datasets_and_loaders, to_device)
+    from coot_videotext_tpu_torch.ops import cuda_build, philox
+    from coot_videotext_tpu_torch.tasks.retrieval.config import (
+        RetrievalConfig)
+    from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
+        RetrievalModelManager)
+    from coot_videotext_tpu_torch.tasks.retrieval.steps import (
+        TrainState, retrieval_train_group, retrieval_train_step)
+    from coot_videotext_tpu_torch.train.optim import make_optimizer
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+
+    cuda = torch.device("cuda")
+    t0 = time.time()
+    _yc2_dataset(tmp / "data", 640, 64, seed=2)
+    log(f"generated a yc2-like train split (640 videos, 64 val) in "
+        f"{time.time() - t0:.1f} s")
+    config = _config(tmp / "group")
+    result, launches, wall = _train_cli(
+        config, tmp, ["--preload_device", "--fixed_shapes"],
+        overrides=",train.steps_per_dispatch=4")
+    losses, state = result["step_losses"], result["state"]
+    log(f"CLI (store, device sampling + packing, steps_per_dispatch=4): 1 "
+        f"epoch of {len(losses)} steps in dispatches "
+        f"{result['dispatches']} (losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}) and its validation in "
+        f"{wall:.1f} s; epoch time {state['time_total']:.2f} s of which "
+        f"validation {state['time_val']:.2f} s; "
+        f"{640 / (state['time_total'] - state['time_val']):.2f} train "
+        f"videos/s end to end (the capture included); launches (the eager "
+        f"first step and the capture; replays run no Python) {launches}")
+    if (len(losses) != 10 or result["layout"] != "ids"
+            or result["dispatches"] != {"group": 3}):
+        fail(f"group CLI: {len(losses)} steps on {result['layout']} "
+             f"batches in dispatches {result['dispatches']} (expected 10 "
+             "steps on ids in 3 groups, none per step)")
+    for name in KERNELS:
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the group path")
+    # end to end past the capture: the same run resumed to 3 epochs, and
+    # the per-step CLI on the same split, epochs 1-2 of each
+    for k, cfg_path, extra in (
+            (4, config, ",train.steps_per_dispatch=4"),
+            (1, _config(tmp / "per_step"), "")):
+        result, _, wall = _train_cli(
+            cfg_path, tmp, ["--preload_device", "--fixed_shapes"],
+            epochs=3, overrides=extra + ",saving.keep_freq=1")
+        per_epoch = _epoch_train_s(result["path_base"] / "models", (1, 2))
+        expect = {"group": 6} if k == 4 else {"step": 30}
+        if result["dispatches"] != expect or len(result["step_losses"]) \
+                != 30 or not np.isfinite(result["step_losses"]).all():
+            fail(f"CLI K={k}, 3 epochs: dispatches {result['dispatches']}, "
+                 f"{len(result['step_losses'])} steps")
+        log(f"CLI K={k}: epochs 1-2 (20 steps) train seconds per epoch "
+            f"{', '.join(f'{t:.3f}' for t in per_epoch)}; "
+            f"{2 * 640 / sum(per_epoch):.2f} train videos/s end to end "
+            f"(run of {wall:.1f} s, dispatches {result['dispatches']})")
+
+    cfg = RetrievalConfig(load_yaml_config_file(config))
+    _, _, loader, _ = create_retrieval_datasets_and_loaders(
+        cfg, tmp / "data", seed=0, device=cuda, fixed_shapes=True,
+        device_preload=True)
+    source = FeatureSource.of(loader, cfg.dataset_train.frames_noise,
+                              cfg.dataset_train.words_noise)
+    batches = list(loader)
+    b = len(batches[0]["dp_idx"])
+    kw = dict(lr=cfg.optimizer.lr, clip_gradient=cfg.train.clip_gradient,
+              source=source, loss_cycle_cons=cfg.train.loss_cycle_cons,
+              loss_weights=cfg.train.contrastive_loss_config.as_dict(),
+              margin=cfg.train.contrastive_loss_config.margin)
+
+    def new_state():
+        mgr = RetrievalModelManager(cfg, cuda, seed=0)
+        kw["compute_dtype"] = mgr.train_dtype
+        return TrainState(mgr.model, make_optimizer(
+            cfg.optimizer, dict(mgr.model.named_parameters())),
+            philox.seed_state(0, cuda))
+
+    def group_arrays(group):
+        return (np.stack([g["dp_idx"] for g in group]),
+                np.stack([g["batch_valid"] for g in group]))
+
+    # one fixed id batch, 16 steps: per step, and as 2 groups of 8 replays
+    fixed = batches[0]
+    eager, graph = new_state(), new_state()
+    snapshot = {n: p.detach().clone()
+                for n, p in graph.optimizer.params.items()}
+    ids, valid = group_arrays([fixed] * 8)
+    retrieval_train_group(graph, ids, valid, 1, **kw)  # step 1, capture
+    opt = graph.optimizer
+    with torch.no_grad():  # back to the start, in place
+        for n, p in opt.params.items():
+            p.copy_(snapshot[n])
+            opt.mu[n].zero_()
+            opt.nu[n].zero_()
+        opt.step_count.zero_()
+        graph.seed.fill_(0)
+    graph.step = 0
+    dev_batch = to_device(fixed, cuda)
+    per_step, grouped = [], []
+    tol = TOL[str(kw["compute_dtype"]).split(".")[-1]]
+    for half in range(2):
+        per_step += [float(retrieval_train_step(eager, dev_batch, **kw)
+                           ["loss_total"]) for _ in range(8)]
+        before = dict(cuda_build.launch_counts)
+        out = retrieval_train_group(graph, ids, valid, 8, **kw)
+        grouped += out["loss_total"].tolist()
+        if dict(cuda_build.launch_counts) != before:
+            fail("group step: a replay ran a kernel wrapper (Python)")
+        worst = max(errors(g_, e_)[1] for g_, e_ in zip(
+            graph.optimizer.params.values(),
+            eager.optimizer.params.values()))
+        loss_err = max(abs(a - b_) / max(1.0, abs(b_)) for a, b_ in
+                       zip(grouped, per_step))
+        seeds = (int(graph.seed), int(eager.seed))
+        log(f"  after {8 * (half + 1)} steps on one batch: seed states "
+            f"{seeds[0]} (graph) / {seeds[1]} (per step); largest loss "
+            f"difference {loss_err:.3e}, parameters {worst:.3e}, relative "
+            f"to max(1, |per step|) (tol {tol})")
+        if seeds[0] != seeds[1] or seeds[0] != 8 * (half + 1):
+            fail(f"group step: seed states {seeds} after "
+                 f"{8 * (half + 1)} steps")
+        if not (loss_err <= tol and worst <= tol):
+            fail(f"group step: 8 replays differ from 8 per-step calls "
+                 f"(loss {loss_err}, parameters {worst})")
+    log("fixed id batch, 16 steps: per step " + " ".join(
+        f"{v:.4f}" for v in per_step) + "; replayed " + " ".join(
+        f"{v:.4f}" for v in grouped))
+    for name, ls in (("per step", per_step), ("replayed", grouped)):
+        if not (np.isfinite(ls).all()
+                and np.mean(ls[-3:]) < np.mean(ls[:3])):
+            fail(f"the fixed batch's loss did not fall ({name})")
+    del eager, graph, snapshot, dev_batch
+    torch.cuda.empty_cache()
+
+    # warm steps per K: 16 steps over the epoch's batches, 3 rounds after
+    # one round of warm-up (the capture included), then 8 steps traced
+    timing = {}
+    for k in (1, 4, 8):
+        ts = new_state()
+        order = [batches[i % len(batches)] for i in range(16)]
+        dev = [to_device(x, cuda) for x in order] if k == 1 else None
+
+        def steps(n, ts=ts, k=k, order=order, dev=dev):
+            if k == 1:
+                for i in range(n):
+                    float(retrieval_train_step(ts, dev[i], **kw)
+                          ["loss_total"])  # the trainer's sync per step
+                return
+            for g0 in range(0, n, k):
+                ids, valid = group_arrays(order[g0:g0 + k])
+                out = retrieval_train_group(ts, ids, valid, len(ids), **kw)
+                torch.stack(list(out.values())).cpu()  # one sync a group
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps(16)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps(16)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / 16)
+        traced, busy, kernels, events = _busy_ms(lambda: steps(8))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        med = statistics.median(walls)
+        timing[k] = dict(wall_ms=med, busy_ms=busy / 8, traced_ms=traced / 8,
+                         videos_s=b / med * 1e3, peak_gb=peak)
+        log(f"K={k}: warm wall per step {med:.2f} ms (rounds of 16: "
+            f"{', '.join(f'{w:.2f}' for w in walls)}), {b / med * 1e3:.1f} "
+            f"train videos/s; traced 8 steps: {traced / 8:.2f} ms per step "
+            f"wall, device busy {busy / 8:.2f} ms per step "
+            f"({kernels} kernels, {100 * busy / traced:.1f}% busy); peak "
+            f"device memory {peak:.2f} GB")
+        if busy <= 0:
+            fail(f"K={k}: the profiler saw no device time")
+        if k == 4:
+            log("  K=4, device time per step by kernel family:")
+            log_families(events, 8)
+        del ts, dev, events
+        torch.cuda.empty_cache()
+    return timing
 
 
 def profile_step(step_fn, what: str) -> None:
@@ -1327,7 +1609,7 @@ def phase_timing(launches, shapes, max_errors):
                 ("paragraph", shapes["b"], shapes["lp"]),
                 ("sentences", shapes.get("pack_sents", shapes["b"]
                                          * shapes["n_parts"]), shapes["ls"]))
-    rate, seed = 0.01, 20261016
+    rate, seed = 0.01, device_seed()
     weights = 2 * d * h + 2 * h * dho + 4 * (h + d)
     # B2 forward: held against its plain version and repeated bit for bit,
     # then timed with the stats (train) and without (eval), with the
@@ -1626,6 +1908,9 @@ def main() -> None:
         log("== 4b. synthetic_smoke.yaml trained on the card (ragged input "
             "FC widths, small GenPool)")
         phase_synthetic_smoke(Path(tmp) / "smoke")
+        log("== 4c. the group step: K train steps a dispatch, each a replay "
+            "of the captured train step")
+        phase_group(Path(tmp) / "group")
     log(f"== 5. kernel timing at the training path's shapes {shapes}")
     kernels = phase_timing(launches, shapes, max_errors)
     log(f"chip_smoke took {time.time() - start:.1f} s")

@@ -108,9 +108,10 @@ class BaseTrainConfig(typext.ConfigClass):
         self.clip_gradient: float = config.pop("clip_gradient")
         assert isinstance(self.clip_gradient, (int, float))
         assert self.clip_gradient >= -1
-        # TPU knob (no reference equivalent): scan-fuse K train steps into
-        # one dispatch (tasks/retrieval/steps.py make_retrieval_train_scan)
-        # when the fully device-resident pipeline is active. 1 = per-step.
+        # no reference equivalent: run K train steps per dispatch (JAX: one
+        # scanned program; here: K replays of a CUDA graph of the step,
+        # tasks/retrieval/steps.py retrieval_train_group) when the fully
+        # device-resident pipeline is active. 1 = per-step.
         self.steps_per_dispatch: int = config.pop("steps_per_dispatch", 1)
         assert (isinstance(self.steps_per_dispatch, int)
                 and self.steps_per_dispatch >= 1)

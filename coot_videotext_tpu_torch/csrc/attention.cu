@@ -117,6 +117,7 @@ masked_attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ o, float* __restrict__ row_max,
                      float* __restrict__ row_inv, int Lq, int Lk, int Dh,
                      int num_heads, float scale, DropParams drop) {
+  resolve_seed(drop);
   __shared__ float sQ[kQT * kLd];
   __shared__ float sK[kKT * kLd];
   __shared__ float sV[kKT * kLd];
@@ -229,6 +230,7 @@ masked_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                           T* __restrict__ dk, T* __restrict__ dv, int Lq,
                           int Lk, int Dh, int num_heads, float scale,
                           DropParams drop) {
+  resolve_seed(drop);
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;                      // kBwdKeys x kLd
   float* sV = sK + kBwdKeys * kLd;       // kBwdKeys x kLd
@@ -317,6 +319,7 @@ masked_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
                         const float* __restrict__ row_inv,
                         T* __restrict__ dq, int Lq, int Lk, int Dh,
                         int num_heads, float scale, DropParams drop) {
+  resolve_seed(drop);
   __shared__ float sQ[kQT * kLd];
   __shared__ float sG[kQT * kLd];
   __shared__ float sK[kKT * kLd];
@@ -470,6 +473,7 @@ masked_attention_bwd_mma(const bf16* __restrict__ q,
                          bf16* __restrict__ dv, float* __restrict__ dq_acc,
                          int Lq, int Lk, int Dh, int num_heads, float scale,
                          DropParams drop, BwdTiles t) {
+  resolve_seed(drop);
   constexpr int kLd = kD + 8, kSteps = kD / 16, kNt = kD / 8,
                 kChunks = kD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -783,6 +787,7 @@ masked_attention_fwd_mma(const bf16* __restrict__ q,
                          float* __restrict__ row_inv, int N, int Lq, int Lk,
                          int Dh, int num_heads, float scale, DropParams drop,
                          FwdTiles t) {
+  resolve_seed(drop);
   constexpr int kLd = kD + 8, kSteps = kD / 16, kNt = kD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Bq = t.bq, Bk = t.bk, C = t.cells;
@@ -1007,13 +1012,13 @@ extern "C" int coot_attention_fwd(const void* q, const void* k,
                                   void* o, void* row_max, void* row_inv,
                                   int N, int Lq, int Lk, int Dh,
                                   int num_heads, float scale,
-                                  unsigned long long seed,
+                                  const void* seed_state, unsigned int call,
                                   unsigned int thresh, float drop_scale,
                                   int bq, int bk, int cells, int is_bf16,
                                   void* stream) {
   using namespace coot;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DropParams drop{seed, thresh, drop_scale};
+  const DropParams drop = drop_params(seed_state, call, thresh, drop_scale);
   float* rm = static_cast<float*>(row_max);
   float* ri = static_cast<float*>(row_inv);
   const uint8_t* kv = static_cast<const uint8_t*>(key_valid);
@@ -1046,12 +1051,12 @@ extern "C" int coot_attention_bwd(const void* q, const void* k,
                                   void* dq, void* dk, void* dv, void* dq_acc,
                                   int N, int Lq, int Lk, int Dh,
                                   int num_heads, float scale,
-                                  unsigned long long seed,
+                                  const void* seed_state, unsigned int call,
                                   unsigned int thresh, float drop_scale,
                                   int is_bf16, void* stream) {
   using namespace coot;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DropParams drop{seed, thresh, drop_scale};
+  const DropParams drop = drop_params(seed_state, call, thresh, drop_scale);
   const float* rm = static_cast<const float*>(row_max);
   const float* ri = static_cast<const float*>(row_inv);
   const uint8_t* kv = static_cast<const uint8_t*>(key_valid);

@@ -121,6 +121,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
                int64_t head, int64_t vecs, DropParams d, uint32_t site) {
+  resolve_seed(d);
   constexpr int kVec = 16 / sizeof(T);
   const uint4* xv = reinterpret_cast<const uint4*>(x + head);
   uint4* yv = reinterpret_cast<uint4*>(y + head);
@@ -138,12 +139,13 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
 }  // namespace
 }  // namespace coot
 
-// x, y: n elements of the compute dtype (distinct buffers); seed 64-bit,
-// thresh = floor(rate * 2^32) > 0, scale = 1 / (1 - rate).
+// x, y: n elements of the compute dtype (distinct buffers); the seed is
+// derived on the device from the step's seed state and the call's position
+// (csrc/philox.cuh), thresh = floor(rate * 2^32) > 0, scale = 1 / (1 - rate).
 extern "C" int coot_dropout(const void* x, void* y, long long n,
-                            unsigned long long seed, unsigned int thresh,
-                            float scale, unsigned int site, int is_bf16,
-                            void* stream) {
+                            const void* seed_state, unsigned int call,
+                            unsigned int thresh, float scale,
+                            unsigned int site, int is_bf16, void* stream) {
   using namespace coot;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long size = is_bf16 ? 2 : 4, vec = 16 / size;
@@ -157,7 +159,7 @@ extern "C" int coot_dropout(const void* x, void* y, long long n,
   const long long work = std::max<long long>(vecs, (head + 3) / 4 + 2);
   const int blocks = (int)std::min<long long>(
       (work + kThreads - 1) / kThreads, 132LL * 32);
-  DropParams d{seed, thresh, scale};
+  const DropParams d = drop_params(seed_state, call, thresh, scale);
   if (is_bf16) {
     dropout_kernel<bf16><<<blocks, kThreads, 0, st>>>(
         static_cast<const bf16*>(x), static_cast<bf16*>(y), n, head, vecs, d,

@@ -41,7 +41,9 @@ constexpr int kThreads = 32 * kRowsPerBlock;
 constexpr int kInFlight = 4;
 
 struct NoiseParams {
-  uint64_t seed;
+  const uint64_t* state;  // the step's seed state (device memory)
+  uint32_t call;          // the call's position in the step
+  uint64_t seed;          // derive_seed(*state, call), on the device
   uint32_t site;
   float std;
   float lo;
@@ -82,6 +84,7 @@ __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const uint4* __restrict__ table,
                    const int32_t* __restrict__ idx, uint4* __restrict__ out,
                    int64_t n, int64_t t, int vecs, NoiseParams noise) {
+  if (kNoise) noise.seed = derive_seed(*noise.state, noise.call);
   __shared__ int64_t rows[kRowsPerBlock];
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock;
   if (threadIdx.x < kRowsPerBlock) {
@@ -127,13 +130,16 @@ gather_rows_kernel(const uint4* __restrict__ table,
 
 // table (t, row_bytes / itemsize) and out (n, same) 16-byte aligned, idx n
 // int32 in [0, t); row_bytes a multiple of 16. std == 0: a plain copy
-// (the dtype does not matter then); otherwise the noise epilogue above in
-// bf16 (is_bf16) or f32, keyed on (seed, site).
+// (the dtype does not matter then, and the seed state is not read);
+// otherwise the noise epilogue above in bf16 (is_bf16) or f32, keyed on
+// (seed, site), the seed derived on the device from the step's seed state
+// and the call's position (csrc/philox.cuh).
 extern "C" int coot_gather_rows(const void* table, const void* idx,
                                 void* out, long long n, long long t,
-                                long long row_bytes, unsigned long long seed,
-                                unsigned int site, float std, float lo,
-                                float span, int is_bf16, void* stream) {
+                                long long row_bytes, const void* seed_state,
+                                unsigned int call, unsigned int site,
+                                float std, float lo, float span, int is_bf16,
+                                void* stream) {
   using namespace coot;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int vecs = static_cast<int>(row_bytes / 16);
@@ -141,7 +147,8 @@ extern "C" int coot_gather_rows(const void* table, const void* idx,
   const auto* tab = static_cast<const uint4*>(table);
   const auto* ids = static_cast<const int32_t*>(idx);
   auto* dst = static_cast<uint4*>(out);
-  NoiseParams p{seed, site, std, lo, span};
+  NoiseParams p{static_cast<const uint64_t*>(seed_state), call, 0ull, site,
+                std, lo, span};
   if (std == 0.0f) {
     gather_rows_kernel<float, false><<<blocks, kThreads, 0, st>>>(
         tab, ids, dst, n, t, vecs, p);

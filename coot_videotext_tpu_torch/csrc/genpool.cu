@@ -225,6 +225,7 @@ genpool_fwd(const T* __restrict__ f, const uint8_t* __restrict__ mask,
             const T* __restrict__ w2, const float* __restrict__ b2,
             T* __restrict__ out, float* __restrict__ stats, Dims p,
             DropParams drop) {
+  resolve_seed(drop);
   extern __shared__ __align__(128) unsigned char smem[];
   const Buffers<T> sb = carve<T>(smem, p, false);
   const int s = blockIdx.x;
@@ -299,6 +300,7 @@ genpool_bwd_rows(const T* __restrict__ f, const uint8_t* __restrict__ mask,
                  T* __restrict__ df, T* __restrict__ h1_out,
                  T* __restrict__ dpre_out, T* __restrict__ dh2_out, Dims p,
                  DropParams drop) {
+  resolve_seed(drop);
   extern __shared__ __align__(128) unsigned char smem[];
   const Buffers<T> sb = carve<T>(smem, p, true);
   const int s = blockIdx.x;
@@ -761,6 +763,7 @@ genpool_bwd_tiles(const bf16* __restrict__ f, const uint8_t* __restrict__ mask,
                   bf16* __restrict__ h1_out, bf16* __restrict__ dpre_out,
                   bf16* __restrict__ dh2_out, float* __restrict__ fac,
                   TileDims p, DropParams drop) {
+  resolve_seed(drop);
   // warps: kRW row warps of 32 rows x kCW column warps
   constexpr int kThreads = kTThreads;
   constexpr int kRW = kT / 32, kCW = kTThreads / 32 / kRW;
@@ -1194,6 +1197,7 @@ genpool_fwd_tiles(const bf16* __restrict__ f, const uint8_t* __restrict__ mask,
                   const bf16* __restrict__ w1, const float* __restrict__ b1,
                   const bf16* __restrict__ w2, const float* __restrict__ b2,
                   float* __restrict__ logits, TileDims p, DropParams drop) {
+  resolve_seed(drop);
   // warps: kRW row warps of 32 rows x kCW column warps
   constexpr int kThreads = kTThreads, kT = kFwdT;
   constexpr int kRW = kT / 32, kCW = kTThreads / 32 / kRW;
@@ -1380,6 +1384,7 @@ __global__ void __launch_bounds__(kPoolGroups * 32)
 genpool_pool(const float* __restrict__ logits, const bf16* __restrict__ f,
              bf16* __restrict__ out, float* __restrict__ stats, int S, int L,
              int D, DropParams drop) {
+  resolve_seed(drop);
   __shared__ __align__(16) float sPart[3][kPoolGroups][kPoolCols];
   const int s = blockIdx.x, rg = threadIdx.x >> 5;
   const int c4 = (threadIdx.x & 31) * 4, d = blockIdx.y * kPoolCols + c4;
@@ -1627,12 +1632,13 @@ extern "C" int coot_genpool_fwd(const void* f, const void* mask,
                                 const void* w2, const void* b2, void* out,
                                 void* stats, void* logits, int S, int L,
                                 int D, int H, int heads, int act,
-                                unsigned long long seed, unsigned int thresh,
-                                float drop_scale, int is_bf16, void* stream) {
+                                const void* seed_state, unsigned int call,
+                                unsigned int thresh, float drop_scale,
+                                int is_bf16, void* stream) {
   using namespace coot;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Dims p{S, L, D, H, heads, H / heads, D / heads, act};
-  DropParams drop{seed, thresh, drop_scale};
+  const DropParams drop = drop_params(seed_state, call, thresh, drop_scale);
   if (is_bf16)
     return genpool_fwd_bf16(f, mask, w1, b1, w2, b2, out, stats, logits, p,
                             drop, st);
@@ -1657,13 +1663,14 @@ extern "C" int coot_genpool_bwd(const void* f, const void* mask,
                                 void* fac, void* scratch, void* dw1,
                                 void* db1, void* dw2, void* db2, int S,
                                 int L, int D, int H, int heads, int act,
-                                unsigned long long seed, unsigned int thresh,
-                                float drop_scale, int splits, int splits2,
+                                const void* seed_state, unsigned int call,
+                                unsigned int thresh, float drop_scale,
+                                int splits, int splits2,
                                 int is_bf16, void* stream) {
   using namespace coot;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Dims p{S, L, D, H, heads, H / heads, D / heads, act};
-  DropParams drop{seed, thresh, drop_scale};
+  const DropParams drop = drop_params(seed_state, call, thresh, drop_scale);
   if (is_bf16)
     return genpool_bwd_bf16(f, mask, w1, b1, w2, b2, stats, dout, df, h1,
                             dpre, dh2, fac, scratch, dw1, db1, dw2, db2, p,

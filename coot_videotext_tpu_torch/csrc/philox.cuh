@@ -12,6 +12,15 @@
 // grid regenerates the forward's mask exactly. ops/philox.py computes the
 // same bits in PyTorch integer ops for the plain versions.
 // Dropout keeps an element iff its bits >= floor(rate * 2^32).
+//
+// The seed of a call is not passed by value: a kernel reads the step's seed
+// state (a 64-bit word in device memory, which the train step advances once
+// per step) through a pointer and derives its own seed from it and the
+// call's position in the step (`call`): words (0, 1) of
+//   philox(counter = (call, 0, kSiteSeed, 0),
+//          key = (lo32(state), hi32(state))).
+// So a step captured into a CUDA graph draws new masks on every replay,
+// and the bits of an element still depend only on (seed, site, element).
 #pragma once
 
 #include <stdint.h>
@@ -71,13 +80,44 @@ __host__ __device__ __forceinline__ uint32_t dropout_bits(uint64_t seed,
   return dropout_group(seed, site, e >> 2).x[e & 3];
 }
 
+// the site of the seed derivation (ops/philox.py SITE_SEED)
+constexpr uint32_t kSiteSeed = 9u;
+
+// The seed of call `call` of a step whose seed state is `state`.
+__host__ __device__ __forceinline__ uint64_t derive_seed(uint64_t state,
+                                                         uint32_t call) {
+  Philox4 c;
+  c.x[0] = call;
+  c.x[1] = 0u;
+  c.x[2] = kSiteSeed;
+  c.x[3] = 0u;
+  const Philox4 r = philox4x32_10(c, static_cast<uint32_t>(state),
+                                  static_cast<uint32_t>(state >> 32));
+  return static_cast<uint64_t>(r.x[0]) | (static_cast<uint64_t>(r.x[1]) << 32);
+}
+
 // Dropout parameters as a kernel takes them; thresh == 0 means no dropout
-// (rate 0 or evaluation), and then no bits are drawn at all.
+// (rate 0 or evaluation), and then no bits are drawn and the state is not
+// read. `seed` is filled on the device by resolve_seed, which every kernel
+// taking DropParams calls first.
 struct DropParams {
-  uint64_t seed;
-  uint32_t thresh;  // floor(rate * 2^32)
-  float scale;      // 1 / (1 - rate)
+  const uint64_t* state;  // the step's seed state (device memory)
+  uint32_t call;          // the call's position in the step
+  uint32_t thresh;        // floor(rate * 2^32)
+  float scale;            // 1 / (1 - rate)
+  uint64_t seed;          // derive_seed(*state, call)
 };
+
+__device__ __forceinline__ void resolve_seed(DropParams& d) {
+  if (d.thresh != 0u) d.seed = derive_seed(*d.state, d.call);
+}
+
+// DropParams as a C entry receives them (the seed is derived later).
+inline DropParams drop_params(const void* state, uint32_t call,
+                              uint32_t thresh, float scale) {
+  return DropParams{static_cast<const uint64_t*>(state), call, thresh, scale,
+                    0ull};
+}
 
 __host__ __device__ __forceinline__ bool dropout_keep(const DropParams& d,
                                                       uint32_t site,

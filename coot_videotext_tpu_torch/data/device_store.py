@@ -12,10 +12,11 @@ pack budgets), `_sample_frame_indices` :293 and `device_sample_batch` :318
 Every gather goes through kernel B5 (ops/gather.py): on the card the
 Hopper kernel, with the training noise fused in. Deliberate differences:
     - the train jitter's uniforms are an argument of `device_sample_batch`
-      (`draw_uniforms` takes them from a device torch.Generator), so a test
-      can hand it JAX's own draws;
+      (`draw_uniforms` takes them from the Philox bits of the step's seed
+      state, on the device), so a test can hand it JAX's own draws;
     - the noise of each gather is keyed on (seed, site, element) with
-      Philox bits (ops/philox.py), not drawn from a split JAX key.
+      Philox bits (ops/philox.py), the seed a `philox.Seed` derived on the
+      device, not drawn from a split JAX key.
 Layout: all videos concatenated along frames into one (total_frames, D)
 tensor with per-video offsets; paragraphs likewise. Padded slots index row
 0 (or the sequence's first frame); their masks are False.
@@ -190,7 +191,7 @@ _GATHERS = (("vid_idx", "vid_feat", 0, philox.SITE_NOISE_VIDEO),
 def gather_dense_batch(batch: Dict[str, torch.Tensor],
                        vid_store: torch.Tensor, text_store: torch.Tensor, *,
                        frames_noise: float = 0.0, words_noise: float = 0.0,
-                       seed: Optional[int] = None
+                       seed: Optional[philox.SeedLike] = None
                        ) -> Dict[str, torch.Tensor]:
     """
     DEVICE side: the dense feature batch from the index fields, each of the
@@ -291,16 +292,18 @@ class RetrievalDeviceMeta:
                        for k, v in tables.items()}
 
 
-def draw_uniforms(generator: torch.Generator, batch_size: int,
+def draw_uniforms(state: torch.Tensor, batch_size: int,
                   shapes: Dict[str, int]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The train jitter's uniforms on [0, 1): (B, Lv) for the videos and
-    (B, N, Lc) for the clips, on the generator's device."""
-    dev = generator.device
-    return (torch.rand((batch_size, shapes["lv"]), generator=generator,
-                       device=dev),
-            torch.rand((batch_size, shapes["n_parts"], shapes["lc"]),
-                       generator=generator, device=dev))
+    (B, N, Lc) for the clips, one draw from the seed state's Philox bits at
+    SITE_JITTER, on the state's device."""
+    nv = batch_size * shapes["lv"]
+    u = philox.uniform(
+        (nv + batch_size * shapes["n_parts"] * shapes["lc"],), state,
+        philox.SITE_JITTER)
+    return (u[:nv].view(batch_size, shapes["lv"]),
+            u[nv:].view(batch_size, shapes["n_parts"], shapes["lc"]))
 
 
 def _sample_frame_indices(offset: torch.Tensor, n_frames: torch.Tensor,
@@ -465,16 +468,17 @@ class FeatureSource:
 
 def assemble_batch(batch: Dict[str, Any],
                    source: Optional[FeatureSource] = None, *,
-                   sample_generator: Optional[torch.Generator] = None,
-                   noise_seed: Optional[int] = None) -> Dict[str, Any]:
+                   sample_state: Optional[torch.Tensor] = None,
+                   noise_seed: Optional[philox.Seed] = None
+                   ) -> Dict[str, Any]:
     """
     Any loader batch on the device -> the dense batch the model takes, by
     its "layout" (data/retrieval_dataset.py LAYOUTS; a batch without one
     is dense). A dense batch passes through. An id batch is sampled on the
-    device: train jitter from `sample_generator`, center sampling without
-    one. Index batches gather their rows through B5 from the store, slab
-    batches from the slabs they carry; `noise_seed` (training) adds the
-    source's noise to store gathers only.
+    device: train jitter from the seed state `sample_state`, center
+    sampling without one. Index batches gather their rows through B5 from
+    the store, slab batches from the slabs they carry; `noise_seed`
+    (training) adds the source's noise to store gathers only.
     """
     layout = batch.get("layout", "dense")
     if layout == "dense":
@@ -486,9 +490,9 @@ def assemble_batch(batch: Dict[str, Any],
     if layout == "ids":
         meta = source.meta
         uniforms = None
-        if sample_generator is not None:
-            uniforms = draw_uniforms(sample_generator,
-                                     batch["dp_idx"].shape[0], meta.shapes)
+        if sample_state is not None:
+            uniforms = draw_uniforms(sample_state, batch["dp_idx"].shape[0],
+                                     meta.shapes)
         dp_idx, batch_valid = batch.pop("dp_idx"), batch.pop("batch_valid")
         batch.update(device_sample_batch(
             meta.tables, dp_idx, meta.shapes, meta.max_frames,

@@ -88,7 +88,7 @@ class MultiHeadAttention(nn.Module):
                                    device=query.device)
         rate = self.dropout if self.training else 0.0
         ctx = masked_attention(q, k, v, key_valid, h, 1.0 / math.sqrt(dh),
-                               rate, next_seed() if rate > 0 else 0)
+                               rate, next_seed() if rate > 0 else None)
         ctx = ctx.view(b, h, lq, dh).transpose(1, 2).reshape(
             b, lq, self.d_model)
         return self.final_projection(ctx)

@@ -19,9 +19,9 @@ Numerical-parity notes (as in the JAX package):
     - truncnorm init resamples outside +-2 sigma for weights AND biases,
       while layer-norm gain/bias stay 1/0.
 Dropout (JAX :38) is identity in eval mode and at rate 0; in training mode
-it runs kernel B4 (ops/dropout.py) with a seed drawn per call
-(ops/philox.py: `dropout_seeds`). Its masks come from another stream than
-JAX's; masks are not part of the parity contract (JAX :47-51).
+it runs kernel B4 (ops/dropout.py) with the step's next seed
+(ops/philox.py: `dropout_seeds`, `next_seed`). Its masks come from another
+stream than JAX's; masks are not part of the parity contract (JAX :47-51).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ from coot_videotext_tpu_torch.ops.philox import next_seed
 class Dropout(nn.Module):
     """Dropout with the module semantics of JAX models/layers.py:38:
     identity in eval mode or at rate 0, zeros at rate 1, else
-    x * keep / (1 - rate) through kernel B4 with a fresh seed."""
+    x * keep / (1 - rate) through kernel B4 with the step's next seed."""
 
     def __init__(self, rate: float) -> None:
         super().__init__()

@@ -64,7 +64,7 @@ class GenPool(nn.Module):
         return genpool(features, mask, self.genpool_w1_head,
                        self.genpool_b1_head, self.genpool_w2_head,
                        self.genpool_b2_head, self.act, rate,
-                       next_seed() if rate > 0 else 0)
+                       next_seed() if rate > 0 else None)
 
 
 class MultiGenPool(nn.Module):

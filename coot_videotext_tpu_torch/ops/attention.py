@@ -72,7 +72,8 @@ def _drop(shape, seed, rate, device) -> Optional[torch.Tensor]:
 def masked_attention_plain(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, key_valid: torch.Tensor,
                            num_heads: int, scale: float, rate: float = 0.0,
-                           seed: int = 0) -> torch.Tensor:
+                           seed: Optional[philox.SeedLike] = None
+                           ) -> torch.Tensor:
     """Plain PyTorch version: f32 scores from q and k read into f32, the
     scale applied to the f32 product, f32 softmax, P dropped with the
     kernel's bits, f32 PV."""
@@ -86,7 +87,8 @@ def masked_attention_plain(q: torch.Tensor, k: torch.Tensor,
 def masked_attention_backward_plain(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         key_valid: torch.Tensor, g: torch.Tensor, num_heads: int,
-        scale: float, rate: float = 0.0, seed: int = 0
+        scale: float, rate: float = 0.0,
+        seed: Optional[philox.SeedLike] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in the inputs' dtype, by the kernel's formulas in f32:
     dv = Pd^T g; dS = where(valid, P * (g v^T * f - rowsum(g * o)), 0);
@@ -145,8 +147,8 @@ def _launch_fwd(q, k, v, key_valid, num_heads, scale, rate, seed,
     err = lib.coot_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_u8.data_ptr(),
         o.data_ptr(), rm, ri, n, lq, lk, dh, num_heads, float(scale),
-        *philox.kernel_args(rate, seed), *forward_plan(lq, lk), int(bf16),
-        cuda_build.stream(q))
+        *philox.kernel_args(rate, seed, q.device), *forward_plan(lq, lk),
+        int(bf16), cuda_build.stream(q))
     cuda_build.check(err, KERNEL)
     cuda_build.launch_counts[KERNEL] += 1
     return o, valid_u8, stats
@@ -175,8 +177,8 @@ def _launch_bwd(q, k, v, o, g, valid_u8, stats, num_heads, scale, rate,
         valid_u8.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         0 if scratch is None else scratch.data_ptr(), n, lq, lk, dh,
-        num_heads, float(scale), *philox.kernel_args(rate, seed), int(bf16),
-        cuda_build.stream(q))
+        num_heads, float(scale), *philox.kernel_args(rate, seed, q.device),
+        int(bf16), cuda_build.stream(q))
     cuda_build.check(err, KERNEL + "_bwd")
     cuda_build.launch_counts[KERNEL + "_bwd"] += 1
     return dq, dk, dv
@@ -217,16 +219,20 @@ class _MaskedAttention(torch.autograd.Function):
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      key_valid: torch.Tensor, num_heads: int,
                      scale: float, rate: float = 0.0,
-                     seed: int = 0) -> torch.Tensor:
+                     seed: Optional[philox.Seed] = None) -> torch.Tensor:
     """
     Args:
         q: (N, Lq, Dh) with N = B * num_heads (batch-major, head-minor)
         k, v: (N, Lk, Dh)
         key_valid: (B, Lk) bool, True = attend
         scale: score scale (1/sqrt(Dh))
-        rate, seed: dropout on P (rate 0: none)
+        rate, seed: dropout on P (rate 0: none) with the call's
+            `philox.Seed`
 
     Returns (N, Lq, Dh) in q.dtype; differentiable in q, k and v.
     """
+    if rate > 0.0 and not isinstance(seed, philox.Seed):
+        raise TypeError(f"{KERNEL}: dropout needs a philox.Seed, got "
+                        f"{type(seed)}")
     return _MaskedAttention.apply(q, k, v, key_valid, int(num_heads),
-                                  float(scale), float(rate), int(seed))
+                                  float(scale), float(rate), seed)

@@ -103,7 +103,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
-_ULL = ctypes.c_ulonglong
 _U = ctypes.c_uint
 _SIGNATURES = {
     # x, gain, bias, w, b, y, mean, inv, pre, S, din, dout, eps, act, bf16,
@@ -113,29 +112,30 @@ _SIGNATURES = {
     # dgain, dbias, S, din, dout, act, splits, dpre splits, bf16, stream
     "coot_input_fc_bwd": [_P] * 15 + [_I] * 7 + [_P],
     # f, mask, w1, b1, w2, b2, out, stats, logits scratch, S, L, D, H,
-    # heads, act, seed, thresh, drop scale, bf16, stream
-    "coot_genpool_fwd": [_P] * 9 + [_I, _I, _I, _I, _I, _I, _ULL, _U, _F,
+    # heads, act, seed state, call, thresh, drop scale, bf16, stream
+    "coot_genpool_fwd": [_P] * 9 + [_I, _I, _I, _I, _I, _I, _P, _U, _U, _F,
                                     _I, _P],
     # f, mask, w1, b1, w2, b2, stats, dout, df, h1, dpre, dh2, fac, scratch,
-    # dw1, db1, dw2, db2, S, L, D, H, heads, act, seed, thresh, drop scale,
-    # splits, splits2, bf16, stream
-    "coot_genpool_bwd": [_P] * 18 + [_I, _I, _I, _I, _I, _I, _ULL, _U, _F,
+    # dw1, db1, dw2, db2, S, L, D, H, heads, act, seed state, call, thresh,
+    # drop scale, splits, splits2, bf16, stream
+    "coot_genpool_bwd": [_P] * 18 + [_I, _I, _I, _I, _I, _I, _P, _U, _U, _F,
                                      _I, _I, _I, _P],
     # q, k, v, key_valid, o, row_max, row_inv, N, Lq, Lk, Dh, num_heads,
-    # scale, seed, thresh, drop scale, bq, bk, cells, bf16, stream
-    "coot_attention_fwd": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _ULL, _U, _F,
+    # scale, seed state, call, thresh, drop scale, bq, bk, cells, bf16,
+    # stream
+    "coot_attention_fwd": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _P, _U, _U, _F,
                                       _I, _I, _I, _I, _P],
     # q, k, v, o, g, key_valid, row_max, row_inv, dq, dk, dv, dq scratch,
-    # N, Lq, Lk, Dh, num_heads, scale, seed, thresh, drop scale, bf16,
-    # stream
-    "coot_attention_bwd": [_P] * 12 + [_I, _I, _I, _I, _I, _F, _ULL, _U, _F,
-                                       _I, _P],
-    # x, y, n, seed, thresh, scale, site, bf16, stream
-    "coot_dropout": [_P, _P, _LL, _ULL, _U, _F, _U, _I, _P],
-    # table, idx, out, n, t, row bytes, seed, site, std, lo, span, bf16,
-    # stream
-    "coot_gather_rows": [_P, _P, _P, _LL, _LL, _LL, _ULL, _U, _F, _F, _F, _I,
-                         _P],
+    # N, Lq, Lk, Dh, num_heads, scale, seed state, call, thresh, drop
+    # scale, bf16, stream
+    "coot_attention_bwd": [_P] * 12 + [_I, _I, _I, _I, _I, _F, _P, _U, _U,
+                                       _F, _I, _P],
+    # x, y, n, seed state, call, thresh, scale, site, bf16, stream
+    "coot_dropout": [_P, _P, _LL, _P, _U, _U, _F, _U, _I, _P],
+    # table, idx, out, n, t, row bytes, seed state, call, site, std, lo,
+    # span, bf16, stream
+    "coot_gather_rows": [_P, _P, _P, _LL, _LL, _LL, _P, _U, _U, _F, _F, _F,
+                         _I, _P],
 }
 
 

@@ -1,7 +1,9 @@
 """
 B4 dropout: y = x * keep / (1 - rate), keep iff Philox bits >=
 floor(rate * 2^32); the backward applies the same mask, regenerated from
-(seed, site), to the cotangent.
+(seed, site), to the cotangent. The seed is a `philox.Seed` (the step's
+seed state on the device and the call's position); the kernel derives it
+on the device, the plain version with PyTorch ops on the state's device.
 
 Counterpart of coot_videotext_tpu/ops/pallas_dropout.py::hw_dropout :98
 with the semantics of the module's Dropout (models/layers.py:38). On a CUDA
@@ -28,7 +30,7 @@ from coot_videotext_tpu_torch.ops.common import is_bf16
 KERNEL = "dropout"
 
 
-def dropout_plain(x: torch.Tensor, seed: int, rate: float,
+def dropout_plain(x: torch.Tensor, seed: philox.SeedLike, rate: float,
                   site: int = philox.SITE_DROPOUT) -> torch.Tensor:
     """Plain version: the keep factor in float32, the product rounded to
     x.dtype, as the kernel does."""
@@ -38,7 +40,8 @@ def dropout_plain(x: torch.Tensor, seed: int, rate: float,
 
 class LaunchArgs(NamedTuple):
     """What `coot_dropout` takes besides the pointers and the count."""
-    seed: int
+    state: int
+    call: int
     thresh: int
     scale: float
     site: int
@@ -46,11 +49,12 @@ class LaunchArgs(NamedTuple):
     stream: int
 
 
-def launch_args(x: torch.Tensor, seed: int, rate: float, site: int,
+def launch_args(x: torch.Tensor, seed: philox.Seed, rate: float, site: int,
                 stream: int = 0) -> LaunchArgs:
     """The checked launch arguments of a call on x (float32 or bfloat16);
     `stream` is the CUDA stream handle the kernel goes to."""
-    return LaunchArgs(seed, philox.threshold(rate), 1.0 / (1.0 - rate), site,
+    return LaunchArgs(philox.state_pointer(seed, x.device), seed.call,
+                      philox.threshold(rate), 1.0 / (1.0 - rate), site,
                       int(is_bf16(KERNEL, x)), stream)
 
 
@@ -86,12 +90,13 @@ class _Dropout(torch.autograd.Function):
             None, None
 
 
-def dropout(x: torch.Tensor, seed: int, rate: float,
+def dropout(x: torch.Tensor, seed: philox.Seed, rate: float,
             site: int = philox.SITE_DROPOUT) -> torch.Tensor:
     """
     Args:
         x: any shape, float32 or bfloat16
-        seed: 64-bit seed of this call (ops/philox.next_seed)
+        seed: the call's seed (ops/philox.next_seed), its state on x's
+            device
         rate: drop probability in (0, 1)
         site: Philox site of the call
 
@@ -99,4 +104,7 @@ def dropout(x: torch.Tensor, seed: int, rate: float,
     """
     if not 0.0 < rate < 1.0:
         raise ValueError(f"{KERNEL}: rate must be in (0, 1), got {rate}")
-    return _Dropout.apply(x, int(seed), float(rate), int(site))
+    if not isinstance(seed, philox.Seed):
+        raise TypeError(f"{KERNEL}: seed must be a philox.Seed, got "
+                        f"{type(seed)}")
+    return _Dropout.apply(x, seed, float(rate), int(site))

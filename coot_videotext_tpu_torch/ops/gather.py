@@ -25,9 +25,11 @@ KERNEL = "gather"
 
 class GatherNoise(NamedTuple):
     """Truncated-normal noise of one gather: std * tn with tn on [-2, 2]
-    from the Philox bits of (seed, site, output element)."""
+    from the Philox bits of (seed, site, output element). The kernel takes
+    a `philox.Seed` (its state on the table's device) and derives the seed
+    there; the plain version also takes a seed by value."""
     std: float
-    seed: int
+    seed: philox.SeedLike
     site: int
 
 
@@ -87,12 +89,15 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
     if table.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError(f"{KERNEL}: table and output must be 16-byte "
                          "aligned")
-    std, seed, site = noise if noise is not None else (0.0, 0, 0)
+    state, call, site, std = 0, 0, 0, 0.0
+    if noise is not None and noise.std != 0.0:
+        state = philox.state_pointer(noise.seed, table.device)
+        call, site, std = noise.seed.call, noise.site, noise.std
     lib = cuda_build.load_library()
     err = lib.coot_gather_rows(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-        table.shape[0], table.shape[1] * table.element_size(), seed, site,
-        std, philox.TRUNCNORM_LO, philox.TRUNCNORM_SPAN,
+        table.shape[0], table.shape[1] * table.element_size(), state, call,
+        site, std, philox.TRUNCNORM_LO, philox.TRUNCNORM_SPAN,
         int(table.dtype == torch.bfloat16), cuda_build.stream(table))
     cuda_build.check(err, KERNEL)
     cuda_build.launch_counts[KERNEL] += 1

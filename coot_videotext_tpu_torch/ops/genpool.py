@@ -19,13 +19,13 @@ pooling pass over L; the backward is a fused pass over the same tiles
 plus two tensor-core weight-gradient products (`backward_plan`). In
 float32 both run a kernel per pooled row (and FMA reductions). The output
 column order is [h*dho + o], the reference's head interleave. The masks
-come from Philox bits (ops/philox.py), one seed per call, so the backward
-regenerates them.
+come from Philox bits (ops/philox.py), one seed per call (a `philox.Seed`
+that the kernels derive on the device), so the backward regenerates them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -60,7 +60,7 @@ def flat_w1(w1_heads: torch.Tensor) -> torch.Tensor:
     return w1_heads.permute(1, 0, 2).reshape(d, heads * dh)
 
 
-def _factors(shape3, seed: int, rate: float, device
+def _factors(shape3, seed: Optional[philox.SeedLike], rate: float, device
              ) -> Dict[str, torch.Tensor]:
     """The keep factors of the three sites (empty without dropout)."""
     if rate <= 0.0:
@@ -110,8 +110,8 @@ def _recompute(f, mask, w1_heads, b1_heads, w2_heads, b2_heads, act, rate,
 def genpool_plain(f: torch.Tensor, mask: torch.Tensor,
                   w1_heads: torch.Tensor, b1_heads: torch.Tensor,
                   w2_heads: torch.Tensor, b2_heads: torch.Tensor,
-                  act: str, rate: float = 0.0, seed: int = 0
-                  ) -> torch.Tensor:
+                  act: str, rate: float = 0.0,
+                  seed: Optional[philox.SeedLike] = None) -> torch.Tensor:
     """Plain PyTorch version with the kernel's numerics and masks."""
     r = _recompute(f, mask, w1_heads, b1_heads, w2_heads, b2_heads, act,
                    rate, seed)
@@ -122,7 +122,7 @@ def genpool_backward_plain(
         f: torch.Tensor, mask: torch.Tensor, w1_heads: torch.Tensor,
         b1_heads: torch.Tensor, w2_heads: torch.Tensor,
         b2_heads: torch.Tensor, act: str, dout: torch.Tensor,
-        rate: float = 0.0, seed: int = 0
+        rate: float = 0.0, seed: Optional[philox.SeedLike] = None
 ) -> Tuple[torch.Tensor, ...]:
     """(df, dw1_heads, db1_heads, dw2_heads, db2_heads) by the kernel's
     formulas: dsm = dout * f * keep3, dlg = where(valid, sm * (dsm -
@@ -212,8 +212,8 @@ class _GenPool(torch.autograd.Function):
             w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
             0 if stats is None else stats.data_ptr(),
             0 if logits is None else logits.data_ptr(), s, length, d, h,
-            heads, ACT_CODES[act], *philox.kernel_args(rate, seed), int(bf16),
-            cuda_build.stream(f))
+            heads, ACT_CODES[act], *philox.kernel_args(rate, seed, f.device),
+            int(bf16), cuda_build.stream(f))
         cuda_build.check(err, KERNEL)
         cuda_build.launch_counts[KERNEL] += 1
         if need_grad:
@@ -264,8 +264,9 @@ class _GenPool(torch.autograd.Function):
             fac.data_ptr(), scratch.data_ptr(), out1.data_ptr(),
             out1[d * h:].data_ptr(),
             out2.data_ptr(), out2[heads * dh * dho:].data_ptr(), s, length,
-            d, h, heads, ACT_CODES[act], *philox.kernel_args(rate, seed),
-            splits, splits2, int(bf16), cuda_build.stream(f))
+            d, h, heads, ACT_CODES[act],
+            *philox.kernel_args(rate, seed, dev), splits, splits2, int(bf16),
+            cuda_build.stream(f))
         cuda_build.check(err, KERNEL + "_bwd")
         cuda_build.launch_counts[KERNEL + "_bwd"] += 1
         dw1_heads = out1[:d * h].view(d, heads, dh).permute(1, 0, 2)
@@ -277,7 +278,7 @@ class _GenPool(torch.autograd.Function):
 def genpool(f: torch.Tensor, mask: torch.Tensor, w1_heads: torch.Tensor,
             b1_heads: torch.Tensor, w2_heads: torch.Tensor,
             b2_heads: torch.Tensor, act: str, rate: float = 0.0,
-            seed: int = 0) -> torch.Tensor:
+            seed: Optional[philox.Seed] = None) -> torch.Tensor:
     """
     Args:
         f: (S, L, D) features in the compute dtype (float32 or bfloat16)
@@ -285,12 +286,16 @@ def genpool(f: torch.Tensor, mask: torch.Tensor, w1_heads: torch.Tensor,
         w1_heads: (heads, D, dh); b1_heads: (heads, dh)
         w2_heads: (heads, dh, dho); b2_heads: (heads, dho), D = heads*dho
         act: "gelu" | "relu" | "none"
-        rate, seed: dropout at the three sites (rate 0: none)
+        rate, seed: dropout at the three sites (rate 0: none) with the
+            call's `philox.Seed`
 
     Returns (S, D) pooled rows in f.dtype; differentiable in f and the four
     parameters.
     """
     if act not in ACT_CODES:
         raise ValueError(f"{KERNEL} supports {sorted(ACT_CODES)}, got {act}")
+    if rate > 0.0 and not isinstance(seed, philox.Seed):
+        raise TypeError(f"{KERNEL}: dropout needs a philox.Seed, got "
+                        f"{type(seed)}")
     return _GenPool.apply(f, mask, w1_heads, b1_heads, w2_heads, b2_heads,
-                          act, float(rate), int(seed))
+                          act, float(rate), seed)

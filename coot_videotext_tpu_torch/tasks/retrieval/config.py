@@ -6,8 +6,9 @@ Config-surface parity with reference coot/configs_retrieval.py:14-189; the
 reference's yaml files parse unchanged, the JAX package's additions
 (static-shape, device-store and transfer knobs) included. The PyTorch
 package reads `pad_fixed_shapes`, `preload_device`, `sample_on_device`,
-`pack_parts` and `pack_transfer` (data/retrieval_dataset.py) and ignores
-`steps_per_dispatch` beyond a warning.
+`pack_parts` and `pack_transfer` (data/retrieval_dataset.py) and
+`steps_per_dispatch` (tasks/retrieval/trainer.py: groups of K steps, each a
+replay of a CUDA graph of the step on the card).
 """
 
 from __future__ import annotations

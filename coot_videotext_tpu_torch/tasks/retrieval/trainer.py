@@ -4,12 +4,20 @@ Retrieval trainer: COOT training and validation on one torch device.
 Port of coot_videotext_tpu/tasks/retrieval/trainer.py (reference
 coot/trainer_retrieval.py:26-499): `train_model` :184, the per-step epoch
 `_train_epoch_per_step` :232 with the loader modes of `_loader_mode` :104
-(dense, slab, store and id batches; data/device_store.py `FeatureSource`)
-and `validate_epoch` :317, which reuses tasks/retrieval/validate.py.
-Deliberate differences:
-    - per-step dispatch only: the scan-fused group step (:234) is not
-      ported yet, so `train.steps_per_dispatch > 1` logs and dispatches
-      per step;
+(dense, slab, store and id batches; data/device_store.py `FeatureSource`),
+the group epoch `_train_epoch_scan` :258 and `validate_epoch` :317, which
+reuses tasks/retrieval/validate.py.
+
+With `train.steps_per_dispatch` K > 1 on id batches (the fully
+device-resident path: `--preload_device --fixed_shapes`), each group of K
+steps runs through `retrieval_train_group` (on the card, replays of a CUDA
+graph of the step) and the host reads the group's metrics once. Elsewhere,
+and while the scheduler's lr varies per step (a per-step warmup), the
+trainer dispatches per step, as JAX does. A group's time is split evenly
+over its steps in the meters. The checkpoint holds the optimizer (with its
+device step count) and the seed state; a file without the seed state (an
+earlier version's) restores it as the run seed advanced by the step count,
+which is what an unbroken run holds. Deliberate differences:
     - host batches are copied pinned and non-blocking;
     - the step's time is booked to the forward meter (the backward meter
       stays 0), as in the JAX trainer, whose jitted step covers both.
@@ -17,19 +25,23 @@ Deliberate differences:
 
 from __future__ import annotations
 
+import collections
+from timeit import default_timer as timer
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from coot_videotext_tpu_torch.data.device_store import FeatureSource
 from coot_videotext_tpu_torch.data.retrieval_dataset import (
     RetrievalBatchLoader, to_device)
+from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.tasks.retrieval.config import (
     CootMetersConst as CMeters, ExperimentTypesConst, RetrievalConfig)
 from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
     RetrievalModelManager)
 from coot_videotext_tpu_torch.tasks.retrieval.steps import (
-    TrainState, retrieval_train_step)
+    TrainState, retrieval_train_group, retrieval_train_step)
 from coot_videotext_tpu_torch.tasks.retrieval.validate import (
     validate_retrieval)
 from coot_videotext_tpu_torch.train.optim import make_optimizer
@@ -73,14 +85,14 @@ class RetrievalTrainer(BaseTrainer):
 
         # RAdam + reduce-on-plateau (reference :109-117)
         model = model_mgr.model
-        seed = cfg.random_seed if cfg.random_seed is not None else 0
+        self.seed = cfg.random_seed if cfg.random_seed is not None else 0
         self.train_state = TrainState(
             model=model,
             optimizer=make_optimizer(cfg.optimizer,
                                      dict(model.named_parameters())),
-            seeds=torch.Generator().manual_seed(seed),
-            cc=torch.Generator(self.device).manual_seed(seed),
-            sample=torch.Generator(self.device).manual_seed(seed))
+            seed=philox.seed_state(self.seed, self.device))
+        # train steps dispatched one at a time ("step") and in groups
+        self.dispatches: collections.Counter = collections.Counter()
         self.lr_scheduler = make_lr_scheduler(
             cfg.lr_scheduler, cfg.optimizer.lr, cfg.train.num_epochs,
             train_loader_length, self.logger)
@@ -104,36 +116,55 @@ class RetrievalTrainer(BaseTrainer):
     def get_opt_state(self) -> Dict[str, Any]:
         ts = self.train_state
         return {"optimizer": ts.optimizer.state_dict(), "step": ts.step,
-                "seeds": ts.seeds.get_state(), "cc": ts.cc.get_state(),
-                "sample": ts.sample.get_state()}
+                "seed": ts.seed.clone()}
 
     def set_opt_state(self, state: Dict[str, Any]) -> None:
-        """Restores an `optimizer_<ep>.pth`; one written before the state
-        had a `sample` generator keeps the one seeded from the run seed."""
+        """Restores an `optimizer_<ep>.pth` in place (a captured step keeps
+        reading the same tensors). A file of an earlier version, without
+        the seed state (it held CPU and device generators instead), gets
+        the run seed advanced by its step count, as an unbroken run of this
+        version would hold it."""
         ts = self.train_state
         ts.optimizer.load_state_dict(state["optimizer"])
         ts.step = int(state["step"])
-        ts.seeds.set_state(state["seeds"])
-        ts.cc.set_state(state["cc"])
-        if "sample" in state:
-            ts.sample.set_state(state["sample"])
+        if "seed" in state:
+            ts.seed.copy_(state["seed"])
+        else:
+            ts.seed.copy_(philox.seed_state(self.seed + ts.step))
 
     # ---------- training ----------
 
     def train_model(self, train_loader: RetrievalBatchLoader,
                     val_loader: RetrievalBatchLoader) -> None:
         self.hook_pre_train()
-        if self.cfg.train.steps_per_dispatch > 1:
+        k_dispatch = self.cfg.train.steps_per_dispatch
+        group_capable = k_dispatch > 1 and train_loader.layout == "ids"
+        if k_dispatch > 1 and not group_capable:
             self.logger.warning(
-                "train.steps_per_dispatch > 1 needs the scan-fused group "
-                "step, which is not ported yet; dispatching per step.")
+                "train.steps_per_dispatch > 1 needs the fully "
+                "device-resident pipeline (preload_device + fixed shapes + "
+                "sample_on_device: id batches); dispatching per step.")
+        warned = False
         for _epoch in range(self.state.current_epoch,
                             self.cfg.train.num_epochs):
             if self.check_early_stop():
                 break
             train_loader.set_epoch(self.state.current_epoch)
             self.hook_pre_train_epoch()
-            self._train_epoch_per_step(train_loader)
+            # a group applies one lr to its K steps: dispatch per step
+            # while a per-step warmup varies it
+            use_group = group_capable and not (
+                self.lr_scheduler is not None
+                and self.lr_scheduler.lr_varies_per_step())
+            if group_capable and not use_group and not warned:
+                self.logger.info(
+                    "Per-step warmup active: dispatching per step until the "
+                    f"warmup ends, then in groups of {k_dispatch}.")
+                warned = True
+            if use_group:
+                self._train_epoch_group(train_loader, k_dispatch)
+            else:
+                self._train_epoch_per_step(train_loader)
             is_val = self.check_is_val_epoch()
             has_improved = False
             if is_val:
@@ -142,11 +173,14 @@ class RetrievalTrainer(BaseTrainer):
             self.hook_post_train_and_val_epoch(is_val, has_improved)
         self.hook_post_train()
 
+    def _source(self, train_loader: RetrievalBatchLoader) -> FeatureSource:
+        ds_cfg = self.cfg.dataset_train
+        return FeatureSource.of(train_loader, ds_cfg.frames_noise,
+                                ds_cfg.words_noise)
+
     def _train_epoch_per_step(self, train_loader: RetrievalBatchLoader
                               ) -> None:
-        ds_cfg = self.cfg.dataset_train
-        source = FeatureSource.of(train_loader, ds_cfg.frames_noise,
-                                  ds_cfg.words_noise)
+        source = self._source(train_loader)
         for step, host_batch in enumerate(train_loader):
             batch = to_device(host_batch, self.device)
             self.hook_pre_step_timer()
@@ -157,13 +191,51 @@ class RetrievalTrainer(BaseTrainer):
                 compute_dtype=self.model_mgr.train_dtype, source=source,
                 **self._loss_kw)
             metrics = {k: float(v) for k, v in metrics.items()}  # syncs
+            self.dispatches["step"] += 1
             self.hook_post_forward_step_timer()
-            self.metrics.update_meter(CMeters.TRAIN_LOSS_CONTRASTIVE,
-                                      metrics["loss_contrastive"])
-            self.metrics.update_meter(CMeters.TRAIN_LOSS_CC,
-                                      metrics["loss_cc"])
-            self.hook_post_step(step, metrics["loss_total"], lr,
-                                grad_norm=metrics.get("grad_norm"))
+            self._book_step(step, metrics, lr)
+
+    def _book_step(self, step: int, metrics: Dict[str, float],
+                   lr: float) -> None:
+        self.metrics.update_meter(CMeters.TRAIN_LOSS_CONTRASTIVE,
+                                  metrics["loss_contrastive"])
+        self.metrics.update_meter(CMeters.TRAIN_LOSS_CC, metrics["loss_cc"])
+        self.hook_post_step(step, metrics["loss_total"], lr,
+                            grad_norm=metrics.get("grad_norm"))
+
+    def _train_epoch_group(self, train_loader: RetrievalBatchLoader,
+                           k: int) -> None:
+        """One epoch in groups of k id batches (JAX `_train_epoch_scan`
+        :258): one `retrieval_train_group` call and one read of its
+        metrics per group; the group's time is split evenly over its
+        steps, in the forward meter and in the step total."""
+        source = self._source(train_loader)
+        bsz = self.cfg.train.batch_size
+        batches = list(train_loader)  # (B,) ids each: a few hundred bytes
+        for g0 in range(0, len(batches), k):
+            group = batches[g0:g0 + k]
+            ids = np.zeros((k, bsz), np.int32)
+            valid = np.zeros((k, bsz), bool)
+            for i, b in enumerate(group):
+                ids[i] = b["dp_idx"]
+                valid[i] = b["batch_valid"]
+            self.hook_pre_step_timer()
+            lr = self.lr_scheduler.current_lr
+            metrics = retrieval_train_group(
+                self.train_state, ids, valid, len(group), lr=lr,
+                clip_gradient=self.cfg.train.clip_gradient,
+                compute_dtype=self.model_mgr.train_dtype, source=source,
+                **self._loss_kw)
+            names = list(metrics)
+            values = torch.stack([metrics[n] for n in names]).cpu().numpy()
+            self.dispatches["group"] += 1
+            self.hook_post_forward_step_timer()
+            self.timedelta_step_forward /= len(group)
+            group_time = timer() - self.timer_step
+            for i in range(len(group)):
+                self.timer_step = timer() - group_time / len(group)
+                self._book_step(g0 + i, {n: float(values[j, i])
+                                         for j, n in enumerate(names)}, lr)
 
     # ---------- validation ----------
 
@@ -183,9 +255,7 @@ class RetrievalTrainer(BaseTrainer):
         results = validate_retrieval(
             self.model_mgr.model, self.cfg, val_loader, self.device,
             compute_dtype=self.model_mgr.val_dtype, val_clips=val_clips,
-            emb_file=emb_file,
-            generator=torch.Generator(self.device).manual_seed(42),
-            logger=self.logger)
+            emb_file=emb_file, cc_seed=42, logger=self.logger)
         self.metrics.update_meter(CMeters.VAL_LOSS_CONTRASTIVE,
                                   results["loss_contrastive"])
         self.metrics.update_meter(CMeters.VAL_LOSS_CC, results["loss_cc"])

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from coot_videotext_tpu_torch.data.device_store import FeatureSource
+from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.data.retrieval_dataset import (
     RetrievalBatchLoader, to_device)
 from coot_videotext_tpu_torch.models.retrieval import RetrievalModel
@@ -62,10 +63,13 @@ def validate_retrieval(model: RetrievalModel, cfg,
                        compute_dtype: torch.dtype,
                        val_clips: bool,
                        emb_file: Optional[Path] = None,
-                       generator: Optional[torch.Generator] = None,
+                       cc_seed: Optional[int] = None,
                        logger: Optional[logging.Logger] = None
                        ) -> Dict[str, Any]:
-    """One validation pass. Returns the losses, the metrics per modality
+    """One validation pass. With `cc_seed` the val loss subsamples the
+    cycle consistency from a seed state of that value, advanced once per
+    batch (ops/philox.py); without it takes the full mean. Returns the
+    losses, the metrics per modality
     (`v2p`, `p2v`, and with val_clips `c2s`, `s2c`), `val_score` from
     `cfg.val.det_best_field`, timings (`forward_s` is the device time of
     the eval steps, `total_s` the whole pass) and the collected
@@ -83,6 +87,8 @@ def validate_retrieval(model: RetrievalModel, cfg,
     forward_s = 0.0
     num_steps = 0
     source = FeatureSource.of(val_loader)
+    seed_state = (None if cc_seed is None
+                  else philox.seed_state(cc_seed, device))
     for host_batch in val_loader:
         batch = to_device(host_batch, device)
         _sync(device)
@@ -90,7 +96,10 @@ def validate_retrieval(model: RetrievalModel, cfg,
         embs, parts = retrieval_eval_step(
             model, batch, loss_weights=loss_w, margin=margin,
             loss_cycle_cons=cfg.train.loss_cycle_cons,
-            compute_dtype=compute_dtype, generator=generator, source=source)
+            compute_dtype=compute_dtype, seed_state=seed_state,
+            source=source)
+        if seed_state is not None:
+            seed_state.add_(1)
         _sync(device)
         forward_s += timer() - t0
         num_steps += 1

@@ -36,6 +36,16 @@ D, H, HEADS, RATE, SEED = 384, 768, 2, 0.01, 20261016
 PEAK_BF16 = 989e12
 
 
+def seed_arg(value: int):
+    """The kernels' seed argument as the loaded checkout takes it: since
+    the seeds moved to the device, a philox.Seed (a seed state of `value`
+    on the card, call 0); before, the value itself."""
+    from coot_videotext_tpu_torch.ops import philox
+    if hasattr(philox, "Seed"):
+        return philox.Seed(philox.seed_state(value, "cuda"), 0)
+    return value
+
+
 def events_ms(fn, iters: int = 10, rounds: int = 5):
     """Median over rounds of CUDA-event ms per call over iters calls, and
     the rounds."""
@@ -93,6 +103,7 @@ def main() -> None:
         genpool, genpool_backward_plain)
     cuda_build.load_library()
     print(f"package {Path(cuda_build.__file__).resolve().parents[1]}")
+    seed = seed_arg(SEED)
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = dict(device="cuda")
     dh, dho = H // HEADS, D // HEADS
@@ -107,7 +118,7 @@ def main() -> None:
                   0.1 * torch.randn(HEADS, dho, generator=gen, **dev)]
         leaves = [f.clone().requires_grad_()] + [
             p.clone().requires_grad_() for p in params]
-        y = genpool(leaves[0], mask, *leaves[1:], "gelu", RATE, SEED)
+        y = genpool(leaves[0], mask, *leaves[1:], "gelu", RATE, seed)
         dout = torch.randn(s, D, generator=gen, **dev).to(torch.bfloat16)
 
         def backward():
@@ -115,7 +126,7 @@ def main() -> None:
 
         grads = backward()
         ref = genpool_backward_plain(f, mask, *params, "gelu", dout, RATE,
-                                     SEED)
+                                     seed)
         errs = {}
         for name, a, r in zip(("df", "dw1", "db1", "dw2", "db2"), grads,
                               ref):

@@ -48,6 +48,16 @@ D, H, HEADS, DH, RATE, SEED = 384, 768, 2, 48, 0.01, 20261016
 PEAK_BF16, HBM_BYTES_PER_S = 989e12, 3.35e12
 
 
+def seed_arg(value: int):
+    """The kernels' seed argument as the loaded checkout takes it: since
+    the seeds moved to the device, a philox.Seed (a seed state of `value`
+    on the card, call 0); before, the value itself."""
+    from coot_videotext_tpu_torch.ops import philox
+    if hasattr(philox, "Seed"):
+        return philox.Seed(philox.seed_state(value, "cuda"), 0)
+    return value
+
+
 def events_ms(fn, iters: int = 10, rounds: int = 5):
     """Median over rounds of CUDA-event ms per call over iters calls, and
     the rounds."""
@@ -140,6 +150,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda_build.load_library()
     print(f"package {Path(cuda_build.__file__).resolve().parents[1]}")
+    seed = seed_arg(SEED)
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = dict(device="cuda")
     bf = torch.bfloat16
@@ -160,8 +171,8 @@ def main() -> None:
                         2.0 * rows * (D * H + H * dho))
         for mode, ps in (("train", leaves), ("eval", params)):
             line = measure(
-                lambda: genpool(f, mask, *ps, "gelu", RATE, SEED),
-                lambda: genpool_plain(f, mask, *params, "gelu", RATE, SEED),
+                lambda: genpool(f, mask, *ps, "gelu", RATE, seed),
+                lambda: genpool_plain(f, mask, *params, "gelu", RATE, seed),
                 mode)
             print(json.dumps(dict(kernel="B2 forward", call=what,
                                   pooled_rows=s, length=length, rows=rows,
@@ -189,9 +200,9 @@ def main() -> None:
 
         for mode, ts in (("train", leaves), ("eval", qkv)):
             line = measure(
-                lambda: masked_attention(*ts, kv, 8, DH ** -0.5, RATE, SEED),
+                lambda: masked_attention(*ts, kv, 8, DH ** -0.5, RATE, seed),
                 lambda: masked_attention_plain(*qkv, kv, 8, DH ** -0.5, RATE,
-                                               SEED), mode)
+                                               seed), mode)
             ctx = (torch.inference_mode if mode == "eval"
                    else contextlib.nullcontext)
             with ctx():

@@ -5,8 +5,10 @@ and the clip<->sentence cycle-consistency loss.
 Port of coot_videotext_tpu/train/losses.py (reference coot/loss_fn.py), on
 masked static-shape inputs: padded slots carry a validity mask and
 contribute exactly zero. All loss math in float32. The cycle-consistency
-subsampling draws from a `torch.Generator`; with `generator=None` it takes
-the deterministic full-mean branch (JAX :178).
+subsampling takes one uniform per sequence from the Philox bits of a seed
+state (ops/philox.py `uniform`, site SITE_CC), on the device and without a
+host sync; with `seed_state=None` it takes the deterministic full-mean
+branch (JAX :178).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from coot_videotext_tpu_torch.models.attention import masked_softmax
+from coot_videotext_tpu_torch.ops import philox
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -101,26 +104,32 @@ def _index_losses(emb_mask: torch.Tensor, beta: torch.Tensor,
 
 def _subsampled_total(l_seq: torch.Tensor, emb_mask: torch.Tensor,
                       emb_lens: torch.Tensor, num_samples: int,
-                      generator: Optional[torch.Generator],
+                      u: Optional[torch.Tensor],
                       batch_valid: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """Subsample per-position losses (reference get_total_loss :277-320):
     one draw over the valid positions of each sequence, mean over the
-    real batch rows; generator=None or num_samples=-1: the full mean."""
+    real batch rows; u=None or num_samples=-1: the full mean. The draw of
+    row i is its floor(u_i * n_i)-th valid position (u_i uniform on [0,
+    1), n_i valid positions): uniform over them, as torch.multinomial of
+    the mask draws in the reference."""
     if batch_valid is None:
         row_w = torch.ones(l_seq.shape[0], device=l_seq.device)
-        n_rows = torch.tensor(float(l_seq.shape[0]), device=l_seq.device)
+        n_rows = torch.full((), float(l_seq.shape[0]), device=l_seq.device)
     else:
         row_w = batch_valid.float()
         n_rows = torch.clamp(row_w.sum(), min=1.0)
-    if num_samples == -1 or generator is None:
+    if num_samples == -1 or u is None:
         total = torch.where(emb_mask, l_seq, torch.zeros_like(l_seq)).sum(-1)
         total = total / torch.clamp(emb_lens.float(), min=1.0)
         return (total * row_w).sum() / n_rows
     if num_samples != 1:
         raise ValueError("only num_samples in {-1, 1} supported")
-    idx = torch.multinomial(emb_mask.float(), 1, generator=generator)
-    picked = l_seq.gather(1, idx)[:, 0]
+    rank = emb_mask.long().cumsum(dim=1)
+    count = rank[:, -1:]
+    k = torch.minimum((u[:, None] * count).long(), count - 1)
+    idx = (rank <= k).sum(dim=1, keepdim=True)
+    picked = l_seq.gather(1, idx.clamp(max=l_seq.shape[1] - 1))[:, 0]
     return (picked * row_w).sum() / n_rows
 
 
@@ -128,31 +137,37 @@ def cycle_consistency_loss(
         clip_emb: torch.Tensor, clip_valid: torch.Tensor,
         clip_num: torch.Tensor, sent_emb: torch.Tensor,
         sent_valid: torch.Tensor, sent_num: torch.Tensor, *,
-        generator: Optional[torch.Generator] = None,
+        seed_state: Optional[torch.Tensor] = None,
         num_samples: int = 1, weight_index_simple: float = 1.0,
         weight_index_gauss: float = 0.0,
         batch_valid: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Clip<->sentence cycle consistency, full cycles (JAX :189, reference
-    CycleConsistencyLoss :111). Returns (clip_clip, sent_sent)."""
+    CycleConsistencyLoss :111). Returns (clip_clip, sent_sent); the two
+    directions subsample with the uniforms (0, i) and (1, i) of
+    `seed_state` at SITE_CC."""
     clip_emb = clip_emb.float()
     sent_emb = sent_emb.float()
     clip_mask = clip_valid.bool()
     sent_mask = sent_valid.bool()
+    u = (None, None)
+    if seed_state is not None:
+        u = philox.uniform((2, clip_emb.shape[0]), seed_state,
+                           philox.SITE_CC)
 
-    def one_direction(src, src_mask, src_num, tgt, tgt_mask):
+    def one_direction(src, src_mask, src_num, tgt, tgt_mask, u_dir):
         nn_fwd, _ = _soft_nn(src, src_mask, tgt, tgt_mask)
         _, beta = _soft_nn(nn_fwd, src_mask, src, src_mask)
         loss_simple, loss_gauss, var_reg = _index_losses(src_mask, beta)
         l_seq = (loss_gauss + var_reg) * weight_index_gauss \
             + loss_simple * weight_index_simple
         return _subsampled_total(l_seq, src_mask, src_num, num_samples,
-                                 generator, batch_valid)
+                                 u_dir, batch_valid)
 
     clip_clip = one_direction(clip_emb, clip_mask, clip_num, sent_emb,
-                              sent_mask)
+                              sent_mask, u[0])
     sent_sent = one_direction(sent_emb, sent_mask, sent_num, clip_emb,
-                              clip_mask)
+                              clip_mask, u[1])
     return clip_clip, sent_sent
 
 
@@ -160,7 +175,7 @@ def compute_total_retrieval_loss(
         visual: Dict[str, torch.Tensor], text: Dict[str, torch.Tensor],
         cfg_weights: Dict[str, float], margin: float,
         loss_cycle_cons: float,
-        generator: Optional[torch.Generator] = None,
+        seed_state: Optional[torch.Tensor] = None,
         batch_valid: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """
@@ -228,7 +243,7 @@ def compute_total_retrieval_loss(
         cc_clip, cc_sent = cycle_consistency_loss(
             visual["clip_emb"], visual["clip_valid"], visual["clip_num"],
             text["sent_emb"], text["sent_valid"], text["sent_num"],
-            generator=generator, batch_valid=bv)
+            seed_state=seed_state, batch_valid=bv)
         parts["loss_cc"] = loss_cycle_cons * (cc_clip + cc_sent)
         loss = loss + parts["loss_cc"]
     else:

@@ -8,7 +8,14 @@ Port of coot_videotext_tpu/train/optim.py (`_decay_mask` :51, `make_radam`
 model's state dict (`net_video_local.input_fc.mlp.0.weight`, ...); the
 update is applied IN PLACE to the parameters and to the moment buffers
 (JAX returns new trees), which keeps one copy of each in device memory.
-The step-dependent scalars are computed in float32, as in the JAX step.
+
+Everything a step reads lives on the parameters' device: the step count
+(int32, as JAX's), the learning rate (a float32 scalar that `step` or the
+trainer fills) and the step-dependent scalars, computed there in float32
+with `torch.where` for RAdam's branch (JAX :96-111). The update runs as
+`torch._foreach_*` ops over all tensors at once. No step reads a value
+back to the host, so a train step that ends in `step` can be captured
+into a CUDA graph and replayed.
 
 Numerical parity (reference nntrainer/optimization.py:79-183): RAdam's
 rectification N_sma with the >= 5 threshold, the step size including
@@ -21,9 +28,8 @@ get no decay (the reference flag reads inverted; reproduced).
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Optional
 
-import numpy as np
 import torch
 
 from coot_videotext_tpu_torch.config.base import (
@@ -40,39 +46,66 @@ def decay_mults(names: Iterable[str], weight_decay_for_bias: bool
 
 
 class _MomentOptimizer:
-    """Shared state of RAdam and Adam: step count, first and second
-    moments (float32, keyed by parameter name)."""
+    """Shared state of RAdam and Adam: step count and learning rate (device
+    scalars), first and second moments (float32, keyed by parameter
+    name)."""
 
     def __init__(self, params: Params, weight_decay: float,
                  weight_decay_for_bias: bool) -> None:
         self.params = dict(params)
         self.weight_decay = weight_decay
         self.decay = decay_mults(self.params, weight_decay_for_bias)
-        self.step_count = 0
+        device = next(iter(self.params.values())).device
+        self.step_count = torch.zeros((), dtype=torch.int32, device=device)
+        self.lr = torch.zeros((), dtype=torch.float32, device=device)
         self.mu = {n: torch.zeros_like(p, dtype=torch.float32)
                    for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p, dtype=torch.float32)
                    for n, p in self.params.items()}
+        self._names = list(self.params)
+        self._decayed = [i for i, n in enumerate(self._names)
+                         if weight_decay and self.decay[n]]
 
     def state_dict(self) -> Dict[str, object]:
-        return {"step": self.step_count, "mu": dict(self.mu),
+        return {"step": self.step_count.clone(), "mu": dict(self.mu),
                 "nu": dict(self.nu)}
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
+        """In place, so that the tensors a captured step reads stay where
+        they are; `step` may be an int (files of earlier versions) or a
+        tensor."""
         if set(state["mu"]) != set(self.params):
             raise ValueError("optimizer state does not match the model's "
                              "parameters")
-        self.step_count = int(state["step"])
+        self.step_count.copy_(torch.as_tensor(state["step"]))
         for n in self.params:
             self.mu[n].copy_(state["mu"][n])
             self.nu[n].copy_(state["nu"][n])
 
-    def _moments(self, name: str, g: torch.Tensor, beta1: float,
-                 beta2: float) -> Tuple[torch.Tensor, torch.Tensor]:
-        m, v = self.mu[name], self.nu[name]
-        m.mul_(beta1).add_(g, alpha=1.0 - beta1)
-        v.mul_(beta2).addcmul_(g, g, value=1.0 - beta2)
-        return m, v
+    def _lists(self, grads: Params):
+        """(params, mu, nu, float32 grads) as lists in one order."""
+        return ([self.params[n] for n in self._names],
+                [self.mu[n] for n in self._names],
+                [self.nu[n] for n in self._names],
+                [grads[n].float() for n in self._names])
+
+    def _pick(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        return [tensors[i] for i in self._decayed]
+
+    def _begin(self, lr: Optional[float]) -> torch.Tensor:
+        """Sets the learning rate (None: keep the one filled in) and counts
+        the step; returns t as float32."""
+        if lr is not None:
+            self.lr.fill_(lr)
+        self.step_count.add_(1)
+        return self.step_count.float()
+
+    @staticmethod
+    def _moments(m, v, g, beta1: float, beta2: float) -> None:
+        torch._foreach_mul_(m, beta1)
+        torch._foreach_add_(m, g, alpha=1.0 - beta1)
+        torch._foreach_mul_(v, beta2)
+        torch._foreach_addcmul_(v, g, g, value=1.0 - beta2)
 
 
 class RAdam(_MomentOptimizer):
@@ -87,39 +120,39 @@ class RAdam(_MomentOptimizer):
         self.degenerated_to_sgd = degenerated_to_sgd
 
     @torch.no_grad()
-    def step(self, grads: Params, lr: float) -> None:
-        self.step_count += 1
-        f32 = np.float32
-        t = f32(self.step_count)
-        beta1, beta2 = f32(self.beta1), f32(self.beta2)
-        beta2_t = beta2 ** t
-        n_sma_max = f32(2.0) / (f32(1.0) - beta2) - f32(1.0)
-        n_sma = n_sma_max - f32(2.0) * t * beta2_t / (f32(1.0) - beta2_t)
-        bias1 = f32(1.0) - beta1 ** t
-        use_adam = bool(n_sma >= 5.0)
-        if not use_adam and not self.degenerated_to_sgd:
-            for name in self.params:
-                self._moments(name, grads[name].float(), self.beta1,
-                              self.beta2)
-            return
-        if use_adam:
-            rect = np.sqrt((f32(1.0) - beta2_t) * (n_sma - f32(4.0))
-                           / (n_sma_max - f32(4.0)) * (n_sma - f32(2.0))
-                           / n_sma * n_sma_max / (n_sma_max - f32(2.0)))
-            step_size = float(f32(rect) / bias1)
-        else:
-            step_size = float(f32(1.0) / bias1)
-        for name, p in self.params.items():
-            m, v = self._moments(name, grads[name].float(), self.beta1,
-                                 self.beta2)
-            wd = self.weight_decay * self.decay[name] * lr
-            if use_adam:
-                delta = (step_size * lr) * m / (v.sqrt() + self.eps)
-            else:
-                delta = (step_size * lr) * m
-            if wd:
-                delta = delta + wd * p
-            p.sub_(delta.to(p.dtype))
+    def step(self, grads: Params, lr: Optional[float] = None) -> None:
+        """One update with `lr` (None: the learning rate filled in)."""
+        t = self._begin(lr)
+        p, m, v, g = self._lists(grads)
+        self._moments(m, v, g, self.beta1, self.beta2)
+        beta2_t = torch.pow(self.beta2, t)
+        n_sma_max = 2.0 / (1.0 - self.beta2) - 1.0
+        n_sma = n_sma_max - 2.0 * t * beta2_t / (1.0 - beta2_t)
+        bias1 = 1.0 - torch.pow(self.beta1, t)
+        use_adam = n_sma >= 5.0
+        rect = torch.sqrt(
+            (1.0 - beta2_t) * (n_sma - 4.0) / (n_sma_max - 4.0)
+            * (n_sma - 2.0) / n_sma * n_sma_max / (n_sma_max - 2.0))
+        # rect is nan for n_sma <= 4 but is only taken when >= 5
+        step_size = torch.where(use_adam, rect, 0.0) / bias1
+        denom = torch._foreach_sqrt(v)
+        torch._foreach_add_(denom, self.eps)
+        if self.degenerated_to_sgd:
+            # SGD below the threshold: divide by 1 instead of the denom
+            on = use_adam.float()
+            torch._foreach_mul_(denom, on)
+            torch._foreach_add_(denom, 1.0 - on)
+            step_size = torch.where(use_adam, step_size, 1.0 / bias1)
+            update = torch.ones_like(use_adam)
+        else:  # no update at all below the threshold
+            update = use_adam
+        delta = torch._foreach_div(m, denom)
+        torch._foreach_mul_(delta, step_size * self.lr)
+        if self._decayed:
+            wd_lr = torch.where(update, self.weight_decay * self.lr, 0.0)
+            torch._foreach_add_(self._pick(delta),
+                                torch._foreach_mul(self._pick(p), wd_lr))
+        torch._foreach_sub_(p, delta)
 
 
 class Adam(_MomentOptimizer):
@@ -133,20 +166,26 @@ class Adam(_MomentOptimizer):
         self.beta1, self.beta2, self.eps = beta1, beta2, eps
 
     @torch.no_grad()
-    def step(self, grads: Params, lr: float) -> None:
-        self.step_count += 1
-        f32 = np.float32
-        t = f32(self.step_count)
-        bias1 = float(f32(1.0) - f32(self.beta1) ** t)
-        bias2 = float(f32(1.0) - f32(self.beta2) ** t)
-        for name, p in self.params.items():
-            g = grads[name].float()
-            wd = self.weight_decay * self.decay[name]
-            if wd:
-                g = g + wd * p.float()
-            m, v = self._moments(name, g, self.beta1, self.beta2)
-            p.sub_((lr * (m / bias1) / ((v / bias2).sqrt() + self.eps)
-                    ).to(p.dtype))
+    def step(self, grads: Params, lr: Optional[float] = None) -> None:
+        """One update with `lr` (None: the learning rate filled in)."""
+        t = self._begin(lr)
+        p, m, v, g = self._lists(grads)
+        if self._decayed:  # torch Adam couples the decay into the gradient
+            g = list(g)
+            decayed = torch._foreach_add(self._pick(g), self._pick(p),
+                                         alpha=self.weight_decay)
+            for i, gi in zip(self._decayed, decayed):
+                g[i] = gi
+        self._moments(m, v, g, self.beta1, self.beta2)
+        bias1 = 1.0 - torch.pow(self.beta1, t)
+        bias2 = 1.0 - torch.pow(self.beta2, t)
+        denom = torch._foreach_div(v, bias2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        delta = torch._foreach_div(m, bias1)
+        torch._foreach_mul_(delta, self.lr)
+        torch._foreach_div_(delta, denom)
+        torch._foreach_sub_(p, delta)
 
 
 def make_optimizer(cfg: OptimizerConfig, params: Params):
@@ -162,17 +201,17 @@ def make_optimizer(cfg: OptimizerConfig, params: Params):
 
 
 def global_norm(grads: Params) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient, float32."""
-    total = sum((g.float() * g.float()).sum() for g in grads.values())
-    return torch.sqrt(total)
+    """sqrt of the sum of squares of every gradient, float32: the norm of
+    the per-tensor norms, as torch's clip_grad_norm_ takes it."""
+    norms = torch._foreach_norm([g.float() for g in grads.values()])
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 @torch.no_grad()
 def clip_by_global_norm(grads: Params, max_norm: float) -> torch.Tensor:
-    """torch clip_grad_norm_ parity, in place; returns the pre-clip
-    norm."""
+    """torch clip_grad_norm_ parity, in place and without a host sync;
+    returns the pre-clip norm."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
-    for g in grads.values():
-        g.mul_(scale.to(g.dtype))
+    torch._foreach_mul_(list(grads.values()), scale)
     return norm

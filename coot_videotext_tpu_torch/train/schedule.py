@@ -5,7 +5,7 @@ by the trainer's "has_improved" signal.
 Copy of coot_videotext_tpu/train/schedule.py (reference
 nntrainer/lr_scheduler.py: LRScheduler :103, ConstantLR :329, NewROPWarmup
 :365); pure Python, so the port keeps its own copy. The train step takes
-`current_lr` as a float each step.
+`current_lr` as a float each step (each group, `lr_varies_per_step`).
 """
 
 from __future__ import annotations
@@ -94,6 +94,14 @@ class LRScheduler:
             return
         self.old_lr = self.current_lr
         self.current_lr = self.get_lr_from_epoch(is_val, has_improved)
+
+    def lr_varies_per_step(self) -> bool:
+        """True while the lr changes from step to step within the current
+        epoch: only during a per-step warmup. The group step applies one lr
+        to its K steps, so the trainer dispatches per step while this holds
+        (JAX schedule.py:102-112)."""
+        return (self._is_warmup()
+                and self.cfg.warmup_type == SchedulerWarmupConst.STEP)
 
     # ---------- internals ----------
 

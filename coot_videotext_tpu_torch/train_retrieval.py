@@ -24,7 +24,10 @@ Runs on the CUDA device unless `--device cpu` is given; asked for CUDA
 without a GPU it raises. The features live in a store in device memory when
 `preload_device` says so ("auto": on a CUDA device when it fits;
 `--preload_device` forces it, also on the CPU), and with `--fixed_shapes`
-the device samples the frames and packs the parts too.
+the device samples the frames and packs the parts too. On that path
+`-o train.steps_per_dispatch=K` trains in groups of K steps, each group K
+replays of a CUDA graph of the train step on the card (step by step on
+the CPU).
 """
 
 from __future__ import annotations
@@ -120,7 +123,9 @@ def build_parser() -> arguments.ArgParser:
 def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     """Run the CLI; returns one result dict per run: the validation
     results, or after training the experiment directory, the trainer
-    state and the per-step training losses."""
+    state, the train loader's batch layout, the train steps dispatched one
+    at a time and in groups (`dispatches`) and the per-step training
+    losses."""
     args = build_parser().parse_args(argv)
     if args.save_embeddings and not args.validate:
         raise ValueError("--save_embeddings works in validation "
@@ -174,6 +179,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
             "path_base": trainer.exp.path_base,
             "state": dataclasses.asdict(trainer.state),
             "layout": train_loader.layout,
+            "dispatches": dict(trainer.dispatches),
             "step_losses": [v for _, v in losses]})
     return all_results
 
@@ -237,9 +243,7 @@ def _validate(args, cfg, mgr: RetrievalModelManager, val_loader,
     results = validate_retrieval(
         mgr.model, cfg, val_loader, mgr.device,
         compute_dtype=mgr.val_dtype, val_clips=cfg.val.val_clips,
-        emb_file=emb_file,
-        generator=torch.Generator(device=mgr.device).manual_seed(42),
-        logger=logger)
+        emb_file=emb_file, cc_seed=42, logger=logger)
     results["emb_file"] = emb_file
     return results
 

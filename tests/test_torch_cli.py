@@ -186,8 +186,7 @@ def test_cli_loads_a_reference_layout_checkpoint(synth, h5_run, tmp_path):
         mgr.cfg, root / "data", seed=0)
     direct = validate_retrieval(
         mgr.model, mgr.cfg, loader, torch.device("cpu"),
-        compute_dtype=torch.float32, val_clips=True,
-        generator=torch.Generator().manual_seed(42),
+        compute_dtype=torch.float32, val_clips=True, cc_seed=42,
         logger=logging.getLogger("test"))
     for key, value in direct["embeddings"].items():
         np.testing.assert_array_equal(results["embeddings"][key], value)

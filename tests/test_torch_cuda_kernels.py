@@ -13,9 +13,17 @@ bits, so the two can land one bf16 step apart); the same for every
 backward output. Dropout masks come from the same Philox bits on both
 sides, so kernel and plain agree on them exactly; the B5 gather is a copy
 and agrees bit for bit, and its fused noise takes the same bits (within
-the tolerance above: the two erfinv may differ in the last bits).
+the tolerance above: the two erfinv may differ in the last bits). Every
+seed is a `philox.Seed`: a seed state on the card and the call's
+position, which the kernels and the plain versions derive the same way.
+A step captured as a CUDA graph and replayed agrees with the same steps
+run eagerly.
 """
 
+import importlib.util
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 
@@ -44,8 +52,13 @@ def cuda():
     return torch.device("cuda")
 
 
+def _seed(device, value, call=0):
+    """The seed of call `call` under a seed state of `value` on device."""
+    return philox.Seed(philox.seed_state(value, device), call)
+
+
 def _rel(out, ref):
-    out, ref = out.float(), ref.float()
+    out, ref = out.detach().float(), ref.detach().float()
     return float((out - ref).abs().max()) / max(1.0,
                                                 float(ref.abs().max()))
 
@@ -141,7 +154,7 @@ def test_genpool_kernel(cuda, dtype, s, length, d, h, heads, rate):
     the tile pass and the pooling pass; the backward tests drive the
     unchanged backward from this forward's stats."""
     args = (*_genpool_fwd_args(cuda, dtype, s, length, d, h, heads),
-            "gelu", rate, 77)
+            "gelu", rate, _seed(cuda, 77, 2))
     assert _run(genpool, genpool_plain, args, "genpool") <= TOL[dtype]
     if rate == 0.0:
         with torch.inference_mode():
@@ -156,13 +169,15 @@ def test_genpool_forward_repeats_bit_for_bit(cuda, d, h, heads):
     (eval and train), give bit-equal pooled rows (dropout on)."""
     f, mask, *params = _genpool_fwd_args(cuda, torch.bfloat16, 96, 80, d, h,
                                          heads)
+    seed = _seed(cuda, 77)
     with torch.inference_mode():
-        first = genpool(f, mask, *params, "gelu", 0.1, 77)
-        assert torch.equal(first, genpool(f, mask, *params, "gelu", 0.1, 77))
+        first = genpool(f, mask, *params, "gelu", 0.1, seed)
+        assert torch.equal(first, genpool(f, mask, *params, "gelu", 0.1,
+                                          seed))
     leaves = [p.clone().requires_grad_() for p in params]
     for _ in range(2):
-        assert torch.equal(genpool(f, mask, *leaves, "gelu", 0.1, 77).detach(),
-                           first)
+        assert torch.equal(genpool(f, mask, *leaves, "gelu", 0.1,
+                                   seed).detach(), first)
 
 
 # (Lq, Lk, d_head, rate): self (L 80), cross (Lq = 1), the paragraph's 300
@@ -190,7 +205,7 @@ def test_attention_kernel(cuda, dtype, lq, lk, dh, rate):
     key_valid = torch.arange(lk, device=cuda)[None] < lens[:, None]
     key_valid[:2] = False
     args = (q.to(dtype), k.to(dtype), v.to(dtype), key_valid, heads,
-            dh ** -0.5, rate, 9)
+            dh ** -0.5, rate, _seed(cuda, 9, 5))
     assert _run(masked_attention, masked_attention_plain, args,
                 "attention") <= TOL[dtype]
     if rate == 0.0:
@@ -207,7 +222,7 @@ def test_attention_forward_repeats_bit_for_bit(cuda, lq, lk):
     give bit-equal outputs (dropout on)."""
     qkv, key_valid, _, heads, dh = _attention_case(cuda, torch.bfloat16, lq,
                                                    lk)
-    args = (key_valid, heads, dh ** -0.5, 0.1, 9)
+    args = (key_valid, heads, dh ** -0.5, 0.1, _seed(cuda, 9))
     with torch.inference_mode():
         first = masked_attention(*qkv, *args)
         assert torch.equal(first, masked_attention(*qkv, *args))
@@ -306,14 +321,15 @@ def _genpool_case(cuda, dtype, s, length, d=384, h=768, heads=2):
 
 
 def _check_genpool_backward(f, mask, params, dout, rate, dtype):
+    seed = _seed(f.device, 77, 1)
     with torch.inference_mode():
-        assert _rel(genpool(f, mask, *params, "gelu", rate, 77),
-                    genpool_plain(f, mask, *params, "gelu", rate, 77)) \
+        assert _rel(genpool(f, mask, *params, "gelu", rate, seed),
+                    genpool_plain(f, mask, *params, "gelu", rate, seed)) \
             <= TOL[dtype]
-    ours = _grads(lambda f_, *p: genpool(f_, mask, *p, "gelu", rate, 77),
+    ours = _grads(lambda f_, *p: genpool(f_, mask, *p, "gelu", rate, seed),
                   [f] + params, dout, "genpool")
     ref = genpool_backward_plain(f, mask, *params, "gelu", dout.to(dtype),
-                                 rate, 77)
+                                 rate, seed)
     for i, (a, r) in enumerate(zip(ours, ref)):
         # db2 (i = 4) is ~0 without dropout: compare it absolutely
         assert _rel(a, r) <= TOL[dtype], i
@@ -363,9 +379,10 @@ def test_genpool_backward_repeats_bit_for_bit(cuda):
     """No float atomics: two bf16 backward calls on the same inputs give
     bit-equal df, dw1, db1, dw2 and db2 (dropout on)."""
     f, mask, params, dout = _genpool_case(cuda, torch.bfloat16, 96, 80)
+    seed = _seed(cuda, 77)
 
     def fn(f_, *p):
-        return genpool(f_, mask, *p, "gelu", 0.1, 77)
+        return genpool(f_, mask, *p, "gelu", 0.1, seed)
 
     first = _grads(fn, [f] + params, dout, "genpool")
     second = _grads(fn, [f] + params, dout, "genpool")
@@ -398,17 +415,18 @@ def test_attention_backward_kernel(cuda, dtype, lq, lk, rate, dh):
     and stored element by element), all-masked rows (zero score gradient
     there), dropout on P."""
     qkv, key_valid, go, heads, dh = _attention_case(cuda, dtype, lq, lk, dh)
+    seed = _seed(cuda, 9, 4)
     with torch.inference_mode():
         assert _rel(masked_attention(*qkv, key_valid, heads, dh ** -0.5,
-                                     rate, 9),
+                                     rate, seed),
                     masked_attention_plain(*qkv, key_valid, heads,
-                                           dh ** -0.5, rate, 9)) \
+                                           dh ** -0.5, rate, seed)) \
             <= TOL[dtype]
     ours = _grads(lambda *a: masked_attention(*a, key_valid, heads,
-                                              dh ** -0.5, rate, 9),
+                                              dh ** -0.5, rate, seed),
                   qkv, go, "attention")
     ref = masked_attention_backward_plain(*qkv, key_valid, go.to(dtype),
-                                          heads, dh ** -0.5, rate, 9)
+                                          heads, dh ** -0.5, rate, seed)
     for a, r in zip(ours, ref):
         assert _rel(a, r) <= TOL[dtype]
     assert float(ours[0][:2 * heads].abs().max()) == 0.0
@@ -422,8 +440,10 @@ def test_attention_backward_repeats_bit_for_bit(cuda, lq, lk):
     qkv, key_valid, go, heads, dh = _attention_case(cuda, torch.bfloat16,
                                                     lq, lk)
 
+    seed = _seed(cuda, 9)
+
     def fn(*a):
-        return masked_attention(*a, key_valid, heads, dh ** -0.5, 0.1, 9)
+        return masked_attention(*a, key_valid, heads, dh ** -0.5, 0.1, seed)
 
     first = _grads(fn, qkv, go, "attention")
     second = _grads(fn, qkv, go, "attention")
@@ -439,14 +459,14 @@ def test_dropout_kernel(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(6)
     x = torch.randn(1001, 383, generator=g, device=cuda).to(dtype)
     before = cuda_build.launch_counts["dropout"]
+    seed = _seed(cuda, 2 ** 50 + 3, 7)
     with torch.inference_mode():
-        y = dropout(x, 2 ** 50 + 3, 0.1)
+        y = dropout(x, seed, 0.1)
     assert cuda_build.launch_counts["dropout"] == before + 1
-    assert torch.equal(y, dropout_plain(x, 2 ** 50 + 3, 0.1))
+    assert torch.equal(y, dropout_plain(x, seed, 0.1))
     gy = torch.randn(1001, 383, generator=g, device=cuda)
-    gx, = _grads(lambda a: dropout(a, 2 ** 50 + 3, 0.1), [x], gy,
-                 "dropout")
-    assert torch.equal(gx, dropout_plain(gy.to(dtype), 2 ** 50 + 3, 0.1))
+    gx, = _grads(lambda a: dropout(a, seed, 0.1), [x], gy, "dropout")
+    assert torch.equal(gx, dropout_plain(gy.to(dtype), seed, 0.1))
 
 
 @pytest.mark.cuda
@@ -459,7 +479,7 @@ def test_dropout_kernel_misaligned_and_strided(cuda, dtype):
     flat = torch.randn(1001 * 383 + 1, generator=g, device=cuda).to(dtype)
     x = flat.view(-1)[1:].view(1001, 383)
     assert x.data_ptr() % 16
-    seed = 2 ** 33 + 5
+    seed = _seed(cuda, 2 ** 33 + 5, 11)
     with torch.inference_mode():
         assert torch.equal(dropout(x, seed, 0.1), dropout_plain(x, seed, 0.1))
     strided = torch.randn(383, 1001, generator=g, device=cuda).to(dtype).t()
@@ -485,7 +505,8 @@ def test_gather_kernel(cuda, dtype, d):
     torch.cuda.synchronize()
     assert cuda_build.launch_counts["gather"] == before + 1
     assert torch.equal(out, gather_rows_plain(table, idx))
-    noise = GatherNoise(0.01, 2 ** 40 + 1, philox.SITE_NOISE_CLIP)
+    noise = GatherNoise(0.01, _seed(cuda, 2 ** 40 + 1, 3),
+                        philox.SITE_NOISE_CLIP)
     noisy = gather_rows(table, idx, noise)
     assert torch.equal(noisy, gather_rows_plain(table, idx, noise))
     assert not torch.equal(noisy, out)
@@ -498,7 +519,8 @@ def test_gather_noise_is_a_truncated_normal(cuda):
     zeros = torch.zeros(1, 1000, device=cuda)
     draws = gather_rows(zeros, torch.zeros(1000, dtype=torch.int32,
                                            device=cuda),
-                        GatherNoise(1.0, 5, philox.SITE_NOISE_VIDEO))
+                        GatherNoise(1.0, _seed(cuda, 5),
+                                    philox.SITE_NOISE_VIDEO))
     assert float(draws.abs().max()) <= 2.0
     assert abs(float(draws.std()) / 0.8796 - 1.0) < 0.02
 
@@ -510,3 +532,176 @@ def test_gather_rejects_unsupported_inputs(cuda):
         gather_rows(torch.zeros(8, 6, device=cuda), idx)
     with pytest.raises(TypeError, match="int32"):
         gather_rows(torch.zeros(8, 8, device=cuda), idx.long())
+
+
+# ---------------- device seeds and the captured step ----------------
+
+@pytest.mark.cuda
+def test_kernels_derive_the_host_derived_seed(cuda):
+    """Each kernel with a seed state on the card equals its plain version
+    given the seed by value, derived on the host (philox.derive_seed): B4
+    and B5's noise bit for bit, B2 and B3 within the tolerance."""
+    value, call = 2 ** 62 + 2 ** 31 + 5, 19
+    seed = _seed(cuda, value, call)
+    host = philox.derive_seed(value, call)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(777, 65, generator=g, device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        assert torch.equal(dropout(x, seed, 0.2), dropout_plain(x, host, 0.2))
+        table = torch.randn(300, 64, generator=g, device=cuda)
+        idx = torch.randint(0, 300, (500,), generator=g, device=cuda,
+                            dtype=torch.int32)
+        assert torch.equal(
+            gather_rows(table, idx, GatherNoise(0.5, seed, 6)),
+            gather_rows_plain(table, idx, GatherNoise(0.5, host, 6)))
+        args = _genpool_fwd_args(cuda, torch.float32, 16, 20, 32, 64, 2)
+        assert _rel(genpool(*args, "gelu", 0.2, seed),
+                    genpool_plain(*args, "gelu", 0.2, host)) <= 1e-4
+        qkv, key_valid, _, heads, dh = _attention_case(cuda, torch.float32,
+                                                       20, 20)
+        assert _rel(masked_attention(*qkv, key_valid, heads, dh ** -0.5, 0.2,
+                                     seed),
+                    masked_attention_plain(*qkv, key_valid, heads,
+                                           dh ** -0.5, 0.2, host)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_masks_change_with_the_step_and_the_call(cuda):
+    """Advancing the seed state (once per train step) or taking the next
+    call gives another mask; the same (state, call) the same mask."""
+    x = torch.ones(4096, device=cuda)
+    state = philox.seed_state(3, cuda)
+    with torch.inference_mode():
+        first = dropout(x, philox.Seed(state, 0), 0.5)
+        assert torch.equal(first, dropout(x, philox.Seed(state, 0), 0.5))
+        other_call = dropout(x, philox.Seed(state, 1), 0.5)
+        state.add_(1)
+        next_step = dropout(x, philox.Seed(state, 0), 0.5)
+    for other in (other_call, next_step):
+        assert not torch.equal(first == 0, other == 0)
+        assert abs(float((other == 0).float().mean()) - 0.5) < 0.05
+
+
+@pytest.mark.cuda
+def test_captured_dropout_replays_new_masks(cuda):
+    """A CUDA graph of (dropout at call 0, advance the state) replayed 3
+    times gives bit for bit the masks of 3 eager runs, each a new one."""
+    x = torch.randn(1000, 33, device=cuda)
+    out = torch.empty_like(x)
+
+    def step(state):
+        out.copy_(dropout(x, philox.Seed(state, 0), 0.3))
+        state.add_(1)
+
+    eager_state = philox.seed_state(11, cuda)
+    eager = []
+    for _ in range(3):
+        step(eager_state)
+        eager.append(out.clone())
+    state = philox.seed_state(11, cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm up, then reset
+        step(state)
+    torch.cuda.current_stream().wait_stream(stream)
+    state.fill_(11)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step(state)
+    for ref in eager:
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+    assert not torch.equal(eager[0] == 0, eager[1] == 0)
+    assert int(state) == int(eager_state) == 14
+
+
+def _id_train_setup(cuda, tmp_path):
+    """A tiny retrieval run on id batches (store on the card, device
+    sampling), dropout 0.1 in the self-attention and the GenPool, frame
+    and word noise 0.05, cycle consistency on; two model managers with the
+    same weights."""
+    from coot_videotext_tpu_torch.data.retrieval_dataset import (
+        create_retrieval_datasets_and_loaders)
+    from coot_videotext_tpu_torch.data.synthetic import (
+        generate_retrieval_dataset)
+    from coot_videotext_tpu_torch.tasks.retrieval.config import (
+        RetrievalConfig)
+    from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
+        RetrievalModelManager)
+    # tests/helpers.py by its path: the card's machine may have another
+    # module named `tests` on its path
+    spec = importlib.util.spec_from_file_location(
+        "coot_test_helpers", Path(__file__).with_name("helpers.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    retrieval_config_dict = helpers.retrieval_config_dict
+    overrides = generate_retrieval_dataset(
+        tmp_path, num_videos=48, num_val_videos=4, mean_clips=3.0,
+        max_clips=5, seed=2, feat_format="npy")
+    cfg_dict = retrieval_config_dict(overrides, batch_size=8)
+    cfg_dict["dataset_train"].update(frames_noise=0.05, words_noise=0.05)
+    for net in ("net_video_local", "net_text_local", "net_video_global",
+                "net_text_global"):
+        cfg_dict[net]["selfatn_config"]["dropout"] = 0.1
+        if cfg_dict[net]["pooler_config"]["name"] == "atn":
+            cfg_dict[net]["pooler_config"]["dropout"] = 0.1
+    cfg = RetrievalConfig(cfg_dict)
+    _, _, loader, _ = create_retrieval_datasets_and_loaders(
+        cfg, tmp_path, seed=0, fixed_shapes=True, device_preload=True,
+        device=cuda)
+    assert loader.layout == "ids"
+    mgrs = [RetrievalModelManager(cfg, cuda, seed=0) for _ in range(2)]
+    return cfg, loader, mgrs
+
+
+@pytest.mark.cuda
+def test_captured_step_replays_like_eager_steps(cuda, tmp_path):
+    """Six steps on id batches, per step (eager) and as two groups of 3
+    (the first step eager, then the captured step replayed 2 and 3
+    times): the same seed state after each (so the same masks and
+    noise), per-step losses and every parameter and moment within 1e-4 of
+    max(1, max |eager|) (float32)."""
+    from coot_videotext_tpu_torch.data.device_store import FeatureSource
+    from coot_videotext_tpu_torch.tasks.retrieval.steps import (
+        TrainState, retrieval_train_group, retrieval_train_step)
+    from coot_videotext_tpu_torch.train.optim import make_optimizer
+    cfg, loader, mgrs = _id_train_setup(cuda, tmp_path)
+    source = FeatureSource.of(loader, 0.05, 0.05)
+    batches = [b for _, b in zip(range(6), loader)]
+    assert len(batches) == 6
+    kw = dict(lr=3e-3, clip_gradient=1.0, compute_dtype=torch.float32,
+              source=source, margin=0.2, loss_cycle_cons=0.001,
+              loss_weights=cfg.train.contrastive_loss_config.as_dict())
+    states = [TrainState(m.model, make_optimizer(
+        cfg.optimizer, dict(m.model.named_parameters())),
+        philox.seed_state(0, cuda)) for m in mgrs]
+    eager = []
+    for b in batches:
+        batch = {"layout": "ids",
+                 "dp_idx": torch.from_numpy(b["dp_idx"]).to(cuda),
+                 "batch_valid": torch.from_numpy(b["batch_valid"]).to(cuda)}
+        eager.append({k: float(v) for k, v in retrieval_train_step(
+            states[0], batch, **kw).items()})
+    grouped = []
+    for g0 in (0, 3):
+        ids = np.stack([b["dp_idx"] for b in batches[g0:g0 + 3]])
+        valid = np.stack([b["batch_valid"] for b in batches[g0:g0 + 3]])
+        out = retrieval_train_group(states[1], ids, valid, 3, **kw)
+        grouped += [{k: float(v[i]) for k, v in out.items()}
+                    for i in range(3)]
+    assert states[1].graph is not None and states[1].graph.graph is not None
+    assert states[0].step == states[1].step == 6
+    assert int(states[0].seed) == int(states[1].seed) == 6
+    assert int(states[1].optimizer.step_count) == 6
+    for e, g in zip(eager, grouped):
+        assert set(e) == set(g)
+        for k in e:
+            assert abs(e[k] - g[k]) <= 1e-4 * max(1.0, abs(e[k])), k
+    for (name, a), b in zip(states[0].optimizer.params.items(),
+                            states[1].optimizer.params.values()):
+        assert _rel(b, a) <= 1e-4, name
+        for moments in ("mu", "nu"):
+            ref = getattr(states[0].optimizer, moments)[name]
+            assert _rel(getattr(states[1].optimizer, moments)[name],
+                        ref) <= 1e-4, (moments, name)

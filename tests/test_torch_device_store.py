@@ -308,9 +308,12 @@ def test_packed_forward_matches_dense_and_jax(bridged):
 
 
 def test_store_train_step_matches_jax(stores, bridged):
-    """One train step on an id batch (device sampling with train jitter,
-    parts packed, store gathers): the port's loss parts and every gradient
-    against JAX's value_and_grad on the same gathered batch."""
+    """One train step on an id batch (device sampling with train jitter
+    from the state's seed state, parts packed, store gathers): its
+    contrastive parts equal those of the batch assembled from the same
+    seed state outside the step; on that batch the step's loss parts (the
+    full-mean cycle consistency: no seed state) and every gradient against
+    JAX's value_and_grad; the step's own cycle consistency subsamples."""
     s = stores
     jmgr, params, tmgr, _, _ = bridged
     meta = copy.copy(s["tmeta"])
@@ -318,14 +321,14 @@ def test_store_train_step_matches_jax(stores, bridged):
     source = FeatureSource(s["tstore"], meta)
     ids = {"layout": "ids", "dp_idx": torch.from_numpy(DP_IDX),
            "batch_valid": torch.from_numpy(VALID)}
-    gathered = assemble_batch(ids, source, sample_generator=torch.Generator(
-        ).manual_seed(5))
+    gathered = assemble_batch(ids, source,
+                              sample_state=philox.seed_state(5))
     assert gathered["clip_feat"].shape[0] == s["packed"]["pack_clips"]
-    state = TrainState(tmgr.model, optim.make_optimizer(
-        s["tcfg"].optimizer, dict(tmgr.model.named_parameters())), None,
-        None, sample=torch.Generator().manual_seed(5))
-    parts, grads = retrieval_loss_and_grads(state, ids, source=source,
-                                            **_loss_kw(s["tcfg"]))
+    opt = optim.make_optimizer(s["tcfg"].optimizer,
+                               dict(tmgr.model.named_parameters()))
+    state = TrainState(tmgr.model, opt, philox.seed_state(5))
+    parts, grads = retrieval_loss_and_grads(TrainState(tmgr.model, opt),
+                                            gathered, **_loss_kw(s["tcfg"]))
     jparts, jgrads = _jax_loss_and_grads(s["jcfg"], jmgr, params,
                                          _np(gathered))
     for key in jparts:
@@ -336,8 +339,17 @@ def test_store_train_step_matches_jax(stores, bridged):
     for name, g in grads.items():
         err = np.abs(g.numpy() - ref[name]).max()
         assert err <= 2e-5 * max(1.0, np.abs(ref[name]).max()), (name, err)
-    with pytest.raises(ValueError, match="sample generator"):
-        retrieval_loss_and_grads(dataclasses.replace(state, sample=None),
+    in_step, _ = retrieval_loss_and_grads(state, ids, source=source,
+                                          **_loss_kw(s["tcfg"]))
+    for key in parts:
+        if key not in ("loss_cc", "loss_total"):
+            np.testing.assert_allclose(float(in_step[key]),
+                                       float(parts[key]), err_msg=key,
+                                       **TOL)
+    assert np.isfinite(float(in_step["loss_cc"]))
+    assert float(in_step["loss_cc"]) != float(parts["loss_cc"])
+    with pytest.raises(ValueError, match="seed state"):
+        retrieval_loss_and_grads(dataclasses.replace(state, seed=None),
                                  ids, source=source, **_loss_kw(s["tcfg"]))
 
 
@@ -434,7 +446,9 @@ def test_store_cli_trains_and_resumes(store_cli):
     assert len(resumed["step_losses"]) == 6
     opt = torch.load(resumed["path_base"] / "models" / "optimizer_2.pth",
                      weights_only=True)
-    assert "sample" in opt and opt["step"] == 6
+    # the run seed (0) advanced once per step; the device step count
+    assert opt["step"] == 6 and int(opt["seed"]) == 6
+    assert int(opt["optimizer"]["step"]) == 6
 
 
 def test_store_cli_validates_like_the_host_path(store_cli, capsys):
@@ -454,17 +468,22 @@ def test_store_cli_validates_like_the_host_path(store_cli, capsys):
 
 
 def test_store_cli_resumes_an_optimizer_file_without_sample(store_cli):
-    """An optimizer_<ep>.pth written before the state had a `sample`
-    generator still loads: the generator keeps the run-seeded state."""
+    """An optimizer_<ep>.pth of an earlier version (no seed state but the
+    CPU and device generators, the step count an int) still loads: the
+    seed state is the run seed advanced by the step count, so the resumed
+    run repeats the unbroken one."""
     argv, store, first, _ = store_cli
     run = ["-r", "old"]
     train_retrieval.main(argv + store + run + ["-o", "train.num_epochs=1"])
     opt_file = first["path_base"].parent / "synth_old1" / "models" / \
         "optimizer_0.pth"
     opt = torch.load(opt_file, weights_only=True)
-    del opt["sample"]
+    del opt["seed"]
+    opt["optimizer"]["step"] = int(opt["optimizer"]["step"])
+    opt.update(seeds=torch.Generator().get_state(),
+               cc=torch.Generator().get_state())
     torch.save(opt, opt_file)
     resumed = train_retrieval.main(argv + store + run + [
         "-o", "train.num_epochs=2"])[0]
     assert resumed["state"]["current_epoch"] == 2
-    assert np.isfinite(resumed["step_losses"]).all()
+    assert resumed["step_losses"] == first["step_losses"]

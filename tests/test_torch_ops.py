@@ -210,7 +210,7 @@ def test_wrappers_refuse_autograd():
     out = masked_attention(*qkv, key_valid, 2, 0.3)
     out.backward(torch.randn_like(out))
     y = t(x).requires_grad_()
-    dropout(y, 5, 0.5).sum().backward()
+    dropout(y, philox.Seed(philox.seed_state(5), 0), 0.5).sum().backward()
     # b2 (heads[3]) shifts a whole softmax column: its gradient is ~0
     for p in params + [f] + heads[:3] + qkv + [y]:
         assert p.grad is not None and bool(p.grad.abs().sum() > 0)
@@ -363,7 +363,7 @@ def test_input_fc_backward_matches_pallas_interpret():
         _close_grad(a.numpy(), np.asarray(r), name)
 
 
-def _torch_genpool_grads(f, mask, heads, act, dout, rate=0.0, seed=0):
+def _torch_genpool_grads(f, mask, heads, act, dout, rate=0.0, seed=None):
     t = torch.from_numpy
     ft = t(f).requires_grad_()
     ht = [t(a).requires_grad_() for a in heads]
@@ -787,7 +787,8 @@ def test_attention_forward_launch_plan():
                 assert cells * bq // 16 >= 4
 
 
-def _attn_grads(q, k, v, key_valid, heads, scale, g, rate=0.0, seed=0):
+def _attn_grads(q, k, v, key_valid, heads, scale, g, rate=0.0,
+                seed=None):
     t = torch.from_numpy
     qkv = [t(a).requires_grad_() for a in (q, k, v)]
     masked_attention(*qkv, t(key_valid), heads, scale, rate,
@@ -855,9 +856,10 @@ def _autograd_of_plain(fn, inputs, g):
 @pytest.mark.parametrize("kernel", ["genpool", "attention", "dropout"])
 def test_backward_with_dropout_matches_autograd_of_plain(kernel):
     """With dropout on, each explicit plain backward equals autograd
-    through the plain forward with the same Philox masks."""
+    through the plain forward with the same Philox masks (the seed: call 3
+    of a seed state)."""
     t = torch.from_numpy
-    rate, seed = 0.3, 1234
+    rate, seed = 0.3, philox.Seed(philox.seed_state(1234), 3)
     if kernel == "genpool":
         f, mask, *heads = _genpool_inputs(4, 20, 32, 64, 2, seed=14)
         inputs = [t(f)] + [t(a) for a in heads]
@@ -909,23 +911,36 @@ def test_kernel_launch_arguments():
     forwards, whose bf16 kernels take B2's logits scratch and B3's tiles
     (forward_plan's three ints before the dtype flag)."""
     x = torch.zeros(3, 5, dtype=torch.bfloat16)
-    args = dropout_mod.launch_args(x, 2 ** 40 + 1, 0.01,
-                                   philox.SITE_DROPOUT, 7)
-    assert args == (2 ** 40 + 1, int(0.01 * 2 ** 32), 1.0 / 0.99,
-                    philox.SITE_DROPOUT, 1, 7)
-    assert args.thresh == philox.kernel_args(0.01, 1)[1]
-    assert dropout_mod.launch_args(x.float(), 5, 0.5, 3).bf16 == 0
+    seed = philox.Seed(philox.seed_state(2 ** 40 + 1), 17)
+    args = dropout_mod.launch_args(x, seed, 0.01, philox.SITE_DROPOUT, 7)
+    assert args == (seed.state.data_ptr(), 17, int(0.01 * 2 ** 32),
+                    1.0 / 0.99, philox.SITE_DROPOUT, 1, 7)
+    assert philox.kernel_args(0.01, seed, x.device)[:3] == args[:3]
+    assert philox.kernel_args(0.0, None, x.device) == (0, 0, 0, 1.0)
+    assert dropout_mod.launch_args(x.float(), seed, 0.5, 3).bf16 == 0
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        dropout_mod.launch_args(x.half(), 5, 0.5, 3)
+        dropout_mod.launch_args(x.half(), seed, 0.5, 3)
     with pytest.raises(ValueError, match="rate"):
-        dropout_mod.launch_args(x, 5, 1.0, 3)
+        dropout_mod.launch_args(x, seed, 1.0, 3)
+    # the seed state is read on the kernel's device, one int64
+    two = philox.Seed(torch.zeros(2, dtype=torch.int64), 0)
+    with pytest.raises(ValueError, match="seed state"):
+        dropout_mod.launch_args(x, two, 0.5, 3)
+    with pytest.raises(TypeError, match="philox.Seed"):
+        dropout_mod.launch_args(x, 5, 0.5, 3)
     assert not needs_dq_scratch(128, True)
     assert needs_dq_scratch(129, True) and needs_dq_scratch(320, True)
     assert not needs_dq_scratch(320, False)
     c = ctypes
     genpool_fwd = cuda_build._SIGNATURES["coot_genpool_fwd"]
     assert genpool_fwd[:9] == [c.c_void_p] * 9  # ..., stats, logits
-    assert len(genpool_fwd) == 20
+    assert len(genpool_fwd) == 21
     attention_fwd = cuda_build._SIGNATURES["coot_attention_fwd"]
     assert attention_fwd[-6:] == [c.c_float] + [c.c_int] * 4 + [c.c_void_p]
-    assert len(attention_fwd) == 21
+    assert len(attention_fwd) == 22
+    # every dropout-taking entry: the seed state's pointer, then the call
+    for name, at in (("coot_genpool_fwd", 15), ("coot_genpool_bwd", 24),
+                     ("coot_attention_fwd", 13), ("coot_attention_bwd", 18),
+                     ("coot_dropout", 3), ("coot_gather_rows", 6)):
+        sig = cuda_build._SIGNATURES[name]
+        assert sig[at:at + 2] == [c.c_void_p, c.c_uint], name

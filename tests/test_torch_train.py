@@ -106,7 +106,7 @@ def test_dropout_module_masks_match_in_forward_and_backward():
     x = torch.randn(64, 48, generator=torch.Generator().manual_seed(0))
     x.requires_grad_()
     drop = Dropout(0.25).train()
-    with philox.dropout_seeds(torch.Generator().manual_seed(1)):
+    with philox.dropout_seeds(philox.seed_state(1)):
         y = drop(x)
     y.backward(torch.ones_like(y))
     assert torch.equal(y == 0, x.grad == 0)
@@ -169,7 +169,7 @@ def _jax_loss_and_grads(jcfg, jmgr, params, batch):
 
 def _train_state(tcfg, tmgr):
     return TrainState(tmgr.model, optim.make_optimizer(
-        tcfg.optimizer, dict(tmgr.model.named_parameters())), None, None)
+        tcfg.optimizer, dict(tmgr.model.named_parameters())))
 
 
 def _loss_kw(cfg):
@@ -208,7 +208,7 @@ def test_train_step_radam_update_matches_jax(bridged):
                                      jnp.float32(3e-3))
     model = copy.deepcopy(tmgr.model)
     state = TrainState(model, optim.make_optimizer(
-        tcfg.optimizer, dict(model.named_parameters())), None, None)
+        tcfg.optimizer, dict(model.named_parameters())))
     retrieval_train_step(
         state, {k: torch.from_numpy(v) for k, v in batch.items()}, lr=3e-3,
         **_loss_kw(tcfg))
