@@ -81,6 +81,23 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    B4 and F.dropout's backward as bare launches, profiler device time,
    host time per call and through autograd; B5 at each store gather of a
    step, with and without noise.
+6. Caption serving at the full width of yc2_2d3d_coot_vidclip_mart.yaml
+   (hidden 768, 2 memory layers, 12 heads, vocabulary 992, f32): COOT
+   embeddings from a seed for every video and clip of the real YouCook2
+   caption splits (`.npz`, vid / ctx 768, clip 384) and the port's model
+   from seed 0 with GloVe, saved as `{"model": state_dict}`; `python -m
+   coot_videotext_tpu_torch.train_caption -c <yaml> --validate
+   --load_model <pth>` in-process on the card over the 457-video val
+   split (batches of 50, greedy), with every kernel's launch count set to
+   0 just before and read just after (the caption path launches none):
+   model and batches on the card, one translated sentence per sentence of
+   the split, finite BLEU-4 / METEOR / ROUGE-L / CIDEr; val videos/s, the
+   median eval-step and decode ms per batch, forwards per batch and peak
+   memory printed. One batch of 8 videos on the card against the port on
+   the CPU (loss within 1e-4 relative, n_correct within 0.5% of n_word, at
+   least 98% of the greedy sentences token-identical); one greedy batch
+   of 50 traced (wall and device-busy ms, launches per decoded token,
+   device time by kernel family).
 
 Prints `{"kernels": [...]}` on the line before the last and
 `{"ok": true, "device": {...}}` as the last line; exits non-zero (and
@@ -1098,6 +1115,219 @@ def phase_synthetic_smoke(tmp: Path) -> None:
             f"its validation in {wall:.1f} s; launches {launches}")
 
 
+CAPTION_CONFIG = (ROOT / "config" / "caption" / "paper2020" /
+                  "yc2_2d3d_coot_vidclip_mart.yaml")
+# Caption serving, one val batch on the card against the port on the CPU,
+# both float32 without TF32: the teacher-forced loss (relative), n_correct
+# (as a share of n_word), the share of token-identical greedy sentences.
+CAPTION_LOSS_RTOL = 1e-4
+CAPTION_CORRECT_TOL = 0.005
+CAPTION_MIN_SAME = 0.98
+
+
+def _caption_inputs(tmp: Path, cfg) -> tuple:
+    """COOT embeddings from a seed for every video and clip of the real
+    YouCook2 caption splits, as `yc2_2d3d_coot_{train,val}.npz` in the
+    export schema (rows of unit length, the config's widths), and the
+    port's model at the config's width from seed 0 with GloVe applied,
+    saved as a reference-layout `{"model": state_dict}`. Returns the
+    embedding dir, the checkpoint and the val annotations."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch.tasks.caption.model_manager import (
+        build_mart_model_manager, load_glove_matrix)
+    ann = ROOT / "annotations" / "youcook2"
+    emb_dir = tmp / "embeddings"
+    emb_dir.mkdir(parents=True)
+    rng = np.random.RandomState(0)
+
+    def unit_rows(n, d):
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    for split in ("train", "val"):
+        data = json.loads((ann / f"captioning_{split}.json").read_text(
+            encoding="utf8"))
+        clip_num = np.asarray([len(v["timestamps"]) for v in data.values()],
+                              np.int64)
+        np.savez(emb_dir / f"{cfg.coot_model_name}_{split}.npz",
+                 key=np.asarray(list(data)), clip_num=clip_num,
+                 vid_emb=unit_rows(len(data), cfg.coot_dim_vid),
+                 vid_context=unit_rows(len(data), cfg.coot_dim_vid),
+                 clip_emb=unit_rows(int(clip_num.sum()), cfg.coot_dim_clip))
+        log(f"  {split}: {len(data)} videos, {int(clip_num.sum())} clips "
+            f"(max {int(clip_num.max())} a video); embeddings vid / ctx "
+            f"{cfg.coot_dim_vid}, clip {cfg.coot_dim_clip}")
+    vocab = json.loads((ann / "mart_word2idx.json").read_text(
+        encoding="utf8"))
+    mgr = build_mart_model_manager(cfg, len(vocab), torch.device("cpu"),
+                                   seed=0, cache_dir=str(ROOT /
+                                                         "cache_caption"))
+    glove = load_glove_matrix(str(ROOT / "cache_caption"), "youcook2")
+    if not torch.equal(mgr.model.embeddings.word_embeddings.weight,
+                       torch.from_numpy(glove)):
+        fail("caption: the GloVe vectors were not applied")
+    pth = tmp / "mart_seed0.pth"
+    torch.save(mgr.state_dict(), pth)
+    log(f"  model: {mgr.count_parameters():,} parameters (hidden "
+        f"{cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
+        f"{cfg.num_attention_heads} heads, vocabulary {len(vocab)}, GloVe "
+        f"{glove.shape[1]}-d), seed 0, saved as {{'model': state_dict}}")
+    val = json.loads((ann / "captioning_val.json").read_text(
+        encoding="utf8"))
+    return emb_dir, pth, val
+
+
+def phase_caption(tmp: Path) -> None:
+    """Phase 6, caption serving at the full width of
+    yc2_2d3d_coot_vidclip_mart.yaml: (a) the inputs (_caption_inputs);
+    (b) `train_caption --validate --load_model` on the card over the whole
+    val split, with the launch counts of B1-B5 set to 0 just before and
+    read just after (the caption path runs none); (c) one val batch of 8
+    videos on the card against the port on the CPU; (d) one greedy batch
+    of 50 videos traced with torch.profiler."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch import train_caption
+    from coot_videotext_tpu_torch.data.caption_dataset import (
+        STACKED_KEYS, RecursiveCaptionDataset)
+    from coot_videotext_tpu_torch.ops import cuda_build
+    from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
+    from coot_videotext_tpu_torch.tasks.caption.model_manager import (
+        build_mart_model_manager)
+    from coot_videotext_tpu_torch.tasks.caption.steps import (
+        caption_eval_step)
+    from coot_videotext_tpu_torch.tasks.caption.translator import Translator
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+
+    def config():
+        return MartConfig(load_yaml_config_file(CAPTION_CONFIG))
+
+    cfg = config()
+    log("(a) inputs: the real YouCook2 caption annotations, embeddings "
+        "from seed 0")
+    emb_dir, pth, val = _caption_inputs(tmp, cfg)
+    max_sen = cfg.max_n_sen + cfg.max_n_sen_add_val
+    n_sentences = sum(min(len(v["sentences"]), max_sen)
+                      for v in val.values())
+
+    log("(b) the CLI on the card over the val split")
+    cuda_build.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by the earlier phases
+    t0 = time.perf_counter()
+    result = train_caption.main([
+        "-c", str(CAPTION_CONFIG), "--validate", "--load_model", str(pth),
+        "--annotations_dir", str(ROOT / "annotations"),
+        "--coot_feat_dir", str(emb_dir),
+        "--cache_dir", str(ROOT / "cache_caption"),
+        "--log_dir", str(tmp / "experiments")])[0]
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    launches = dict(cuda_build.launch_counts)
+    if any(launches.values()):
+        fail(f"caption serving launched the port's kernels: {launches}")
+    if result["model_device"].type != "cuda" \
+            or result["batch_device"].type != "cuda":
+        fail(f"caption serving ran on {result['model_device']} with "
+             f"batches on {result['batch_device']}, not on the card")
+    translations = json.loads(result["translation_file"].read_text(
+        encoding="utf8"))["results"]
+    n_out = sum(len(v) for v in translations.values())
+    if len(translations) != len(val) or n_out != n_sentences:
+        fail(f"caption serving: {len(translations)} videos and {n_out} "
+             f"sentences translated, the split has {len(val)} and "
+             f"{n_sentences}")
+    metrics = json.loads(result["metrics_file"].read_text(encoding="utf8"))
+    for key in ("cap/b4", "cap/met", "cap/rol", "cap/cid"):
+        (_, value), = metrics[key]
+        if not math.isfinite(value) or value < 0:
+            fail(f"caption serving: {key} = {value}")
+    scores = {k: metrics[k][0][1] for k in ("cap/b4", "cap/met", "cap/rol",
+                                            "cap/cid", "val/loss_word",
+                                            "val/acc")}
+    log(f"  on {result['model_device']} (batches on "
+        f"{result['batch_device']}); launches of B1-B5 {launches}")
+    log(f"  {len(val)} val videos, {n_out} sentences, "
+        f"{result['num_batches']} batches of {cfg.val.batch_size}: "
+        f"{len(val) / wall:.2f} val videos/s end to end ({wall:.2f} s, the "
+        f"CLI's main()), {len(val) / result['val_seconds']:.2f} over the "
+        f"validation pass ({result['val_seconds']:.2f} s: eval step, decode "
+        f"and metrics)")
+    log(f"  median per batch: eval step "
+        f"{statistics.median(result['eval_ms']):.2f} ms, greedy decode "
+        f"{statistics.median(result['decode_ms']):.2f} ms; full forwards "
+        f"per batch {result['forwards']}; peak device memory "
+        f"{peak:.3f} GB above the {held / 1e9:.3f} GB the earlier phases "
+        "hold")
+    log(f"  eval ms by batch {[round(v, 2) for v in result['eval_ms']]}; "
+        f"decode ms {[round(v, 1) for v in result['decode_ms']]}")
+    log(f"  metrics (random weights): {json.dumps(scores)}")
+
+    log("(c) one val batch of 8 videos: the card against the CPU, float32")
+    dataset = RecursiveCaptionDataset(
+        "youcook2", cfg.max_t_len, cfg.max_v_len, max_sen, mode="val",
+        coot_model_name=cfg.coot_model_name, coot_mode=cfg.coot_mode,
+        coot_dim_vid=cfg.coot_dim_vid, coot_dim_clip=cfg.coot_dim_clip,
+        annotations_dir=str(ROOT / "annotations"),
+        coot_feat_dir=str(emb_dir))
+    state = torch.load(pth, map_location="cpu", weights_only=True)
+    outs, decs = {}, {}
+    for name in ("cuda", "cpu"):
+        device = torch.device(name)
+        mgr = build_mart_model_manager(config(), len(dataset.word2idx),
+                                       device, seed=1)
+        mgr.load_state(state)
+        stacked, sizes, _ = dataset.collate_fn([dataset[i]
+                                                for i in range(8)])
+        batch = {k: torch.from_numpy(stacked[k]).to(device)
+                 for k in STACKED_KEYS}
+        outs[name] = {k: float(v) for k, v in
+                      caption_eval_step(mgr.model, batch).items()}
+        decs[name] = Translator(mgr.model, mgr.cfg).translate_batch_greedy(
+            batch["input_ids"], batch["video_feature"], batch["input_mask"],
+            batch["token_type_ids"])
+        if name == "cuda":
+            profile_model, profile_cfg = mgr.model, mgr.cfg
+    gpu, cpu = outs["cuda"], outs["cpu"]
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    correct_diff = abs(gpu["n_correct"] - cpu["n_correct"]) / cpu["n_word"]
+    pairs = [(decs["cuda"][s][i], decs["cpu"][s][i])
+             for i, size in enumerate(sizes) for s in range(size)]
+    same = sum(bool(np.array_equal(a, b)) for a, b in pairs)
+    log(f"  loss {gpu['loss']:.6f} / {cpu['loss']:.6f} (relative "
+        f"{loss_rel:.2e}, limit {CAPTION_LOSS_RTOL}); n_correct "
+        f"{gpu['n_correct']:.0f} / {cpu['n_correct']:.0f} of "
+        f"{cpu['n_word']:.0f} words ({correct_diff:.2%}, limit "
+        f"{CAPTION_CORRECT_TOL:.1%}); greedy sentences token-identical "
+        f"{same} of {len(pairs)} (limit {CAPTION_MIN_SAME:.0%})")
+    if loss_rel > CAPTION_LOSS_RTOL or gpu["n_word"] != cpu["n_word"] \
+            or correct_diff > CAPTION_CORRECT_TOL \
+            or same < CAPTION_MIN_SAME * len(pairs):
+        fail("caption serving: the card disagrees with the CPU")
+
+    log("(d) one greedy batch of 50 val videos under torch.profiler")
+    stacked, sizes, _ = dataset.collate_fn(
+        [dataset[i] for i in range(cfg.val.batch_size)])
+    batch = [torch.from_numpy(stacked[k]).cuda() for k in
+             ("input_ids", "video_feature", "input_mask", "token_type_ids")]
+    translator = Translator(profile_model, profile_cfg)
+    translator.translate_batch_greedy(*batch)  # warm
+    wall_ms, busy_ms, kernels, events = _busy_ms(
+        lambda: translator.translate_batch_greedy(*batch))
+    steps = len(stacked["input_ids"])
+    positions = steps * cfg.max_t_len
+    log(f"  S {steps} sentence steps x {cfg.max_t_len} token positions, "
+        f"{translator.forwards} full forwards of N {cfg.val.batch_size} x "
+        f"L {cfg.max_v_len + cfg.max_t_len}: wall {wall_ms:.1f} ms, device "
+        f"busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}); {kernels} kernel "
+        f"launches, {kernels / positions:.1f} per decoded token position, "
+        f"{kernels / translator.forwards:.1f} per forward")
+    log_families(events, translator.forwards)
+
+
 def _busy_ms(fn) -> tuple:
     """(traced wall ms, device-busy ms, kernels seen, the kernels' profiler
     events) of fn() under torch.profiler, synchronised: the busy time sums
@@ -1913,6 +2143,10 @@ def main() -> None:
         phase_group(Path(tmp) / "group")
     log(f"== 5. kernel timing at the training path's shapes {shapes}")
     kernels = phase_timing(launches, shapes, max_errors)
+    with tempfile.TemporaryDirectory(prefix="coot_chip_caption_") as tmp:
+        log("== 6. caption serving: MART at yc2_2d3d_coot_vidclip_mart "
+            "width, greedy, over the YouCook2 val split")
+        phase_caption(Path(tmp))
     log(f"chip_smoke took {time.time() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

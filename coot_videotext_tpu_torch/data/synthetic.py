@@ -2,7 +2,8 @@
 Synthetic retrieval dataset generator producing the exact on-disk layout the
 loaders expect (meta_<name>.json + video_feat_<name>.h5 + text_feat_<name>.h5
 + sentence_splits json, matching reference coot/features_loader.py and
-data_read_youcook2_meta.py outputs).
+data_read_youcook2_meta.py outputs), and the synthetic caption set
+(`generate_caption_dataset`).
 
 Copy of coot_videotext_tpu/data/synthetic.py::generate_retrieval_dataset:
 the same seed gives byte-identical files, so the PyTorch package and the JAX
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 
@@ -192,6 +193,135 @@ def generate_retrieval_dataset(
         "text_feat_name": text_feat_name,
         "text_feat_source": feat_format,
         "text_feat_dim": text_feat_dim,
+    }
+
+
+def generate_caption_dataset(
+        root: Union[str, Path], *,
+        dset_name: str = "youcook2",
+        coot_model_name: str = "synthcoot",
+        num_videos: int = 16,
+        num_val_videos: int = 8,
+        coot_dim_vid: int = 64,
+        coot_dim_clip: int = 32,
+        mean_sentences: float = 3.0,
+        max_sentences: int = 5,
+        vocab_words: int = 40,
+        seed: int = 0,
+        emb_format: Optional[str] = None) -> Dict[str, str]:
+    """
+    Create a synthetic captioning setup: annotation jsons
+    (captioning_train/val.json + *_para.json GT + mart_word2idx.json) under
+    root/annotations/<dset>/ and a COOT-embedding h5 (the retrieval
+    trainer's export schema) under root/provided_embeddings/. Captions are
+    drawn from a small vocabulary correlated with the clip latent so the
+    model can learn. Copy of the JAX package's generate_caption_dataset:
+    the same seed gives the same files. `emb_format` "h5" or "npz" (the
+    same arrays); by default h5 where h5py is installed, else npz.
+
+    Refuses to overwrite an annotations dir it did not create itself (a
+    `.synthetic` marker identifies generator output): with root="." and
+    the default dset_name this would silently clobber the REAL shipped
+    annotations/youcook2 files. Point root at a scratch dir (e.g.
+    data/capsmoke) and pass --annotations_dir/--coot_feat_dir to
+    train_caption instead.
+    """
+    if emb_format is None:
+        try:
+            import h5py  # noqa: F401
+            emb_format = "h5"
+        except ImportError:
+            emb_format = "npz"
+    rng = np.random.RandomState(seed)
+    ann_dir = Path(root) / "annotations" / dset_name
+    emb_dir = Path(root) / "provided_embeddings"
+    marker = ann_dir / ".synthetic"
+    if ann_dir.is_dir() and any(ann_dir.glob("captioning_*.json")) \
+            and not marker.exists():
+        raise RuntimeError(
+            f"{ann_dir} holds annotation files not written by this "
+            "generator (e.g. the real shipped youcook2 annotations); "
+            "refusing to overwrite. Use a scratch root directory.")
+    ann_dir.mkdir(parents=True, exist_ok=True)
+    emb_dir.mkdir(parents=True, exist_ok=True)
+    marker.write_text("generate_caption_dataset output\n",
+                      encoding="utf8")
+
+    # one global latent->embedding map (like generate_retrieval_dataset's
+    # shared_projections): with per-video projections the caption words,
+    # which are derived from the clip latent, are unlearnable from the
+    # embeddings on held-out videos — degenerate decodes zero out CIDEr
+    shared_proj_v = rng.randn(8, coot_dim_vid).astype(np.float32) / 3
+    shared_proj_c = rng.randn(8, coot_dim_clip).astype(np.float32) / 3
+
+    words = [f"word{i}" for i in range(vocab_words)]
+    word2idx = {"[PAD]": 0, "[CLS]": 1, "[SEP]": 2, "[VID]": 3,
+                "[BOS]": 4, "[EOS]": 5, "[UNK]": 6}
+    for w in words + ["the", "a", "person", "adds", "cuts", "."]:
+        word2idx.setdefault(w, len(word2idx))
+    (ann_dir / "mart_word2idx.json").write_text(json.dumps(word2idx),
+                                                encoding="utf8")
+
+    def make_split(n, split, offset):
+        data = {}
+        keys, clip_nums = [], []
+        vid_embs, ctx_embs, clip_embs = [], [], []
+        for i in range(n):
+            vid = f"synthvid{offset + i:04d}"
+            n_sen = int(np.clip(rng.poisson(mean_sentences - 1) + 1, 1,
+                                max_sentences))
+            duration = 20.0 * n_sen
+            bounds = np.linspace(0, duration, n_sen + 1)
+            timestamps = [[float(bounds[j]), float(bounds[j + 1])]
+                          for j in range(n_sen)]
+            latents = rng.randn(n_sen, 8).astype(np.float32)
+            sentences = []
+            for j in range(n_sen):
+                picks = [words[int(abs(latents[j, k]) * 7) % vocab_words]
+                         for k in range(4)]
+                sentences.append("the person " + " ".join(picks) + " .")
+            data[vid] = {"duration": duration,
+                         "timestamps": timestamps,
+                         "sentences": sentences}
+            keys.append(vid)
+            clip_nums.append(n_sen)
+            vid_embs.append(latents.mean(0) @ shared_proj_v)
+            ctx_embs.append(latents.mean(0) @ shared_proj_c)
+            for j in range(n_sen):
+                clip_embs.append(latents[j] @ shared_proj_c)
+        ann_name = ("captioning_train.json" if split == "train"
+                    else "captioning_val.json")
+        (ann_dir / ann_name).write_text(json.dumps(data), encoding="utf8")
+        if split == "val":
+            para = {k: " ".join(v["sentences"]).replace(" .", ".")
+                    for k, v in data.items()}
+            (ann_dir / "captioning_val_para.json").write_text(
+                json.dumps(para), encoding="utf8")
+        arrays = {"clip_num": np.asarray(clip_nums, np.int64),
+                  "vid_emb": np.stack(vid_embs),
+                  "vid_context": np.stack(ctx_embs),
+                  "clip_emb": np.stack(clip_embs)}
+        stem = emb_dir / f"{coot_model_name}_{split}"
+        if emb_format == "npz":
+            np.savez(stem.with_suffix(".npz"), key=np.asarray(keys),
+                     **arrays)
+        else:
+            import h5py
+            with h5py.File(stem.with_suffix(".h5"), "w") as h5:
+                h5["key"] = keys
+                for name, value in arrays.items():
+                    h5[name] = value
+        return data
+
+    make_split(num_videos, "train", 0)
+    make_split(num_val_videos, "val", num_videos)
+    return {
+        "annotations_dir": str(Path(root) / "annotations"),
+        "coot_feat_dir": str(emb_dir),
+        "coot_model_name": coot_model_name,
+        "coot_dim_vid": coot_dim_vid,
+        "coot_dim_clip": coot_dim_clip,
+        "vocab_size": len(word2idx),
     }
 
 

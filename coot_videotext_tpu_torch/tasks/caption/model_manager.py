@@ -1,0 +1,135 @@
+"""
+Caption model factory and manager.
+
+Port of coot_videotext_tpu/tasks/caption/model_manager.py (reference
+mart/model.py:45 create_mart_model and mart/trainer_caption.py:89
+MartModelManager) for the recurrent MART model: builds the model on one
+device from a seed, loads the GloVe word vectors from the cache (reference
+:79-85) and a reference-layout checkpoint `{"model": state_dict}`.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from coot_videotext_tpu_torch.models.caption.mart import (
+    RecursiveTransformer)
+from coot_videotext_tpu_torch.utils.param_bridge import load_mart_checkpoint
+
+
+def load_glove_matrix(cache_dir: str, dataset_name: str) -> np.ndarray:
+    """Load `<dset>_vocab_glove.pt` (a torch-saved float array).
+
+    The released cache is a legacy numpy pickle; rather than full pickle
+    deserialization only the exact numpy constructors it needs are
+    allowlisted under weights_only=True. The pickled module path is the
+    pre-numpy-2 "numpy.core.…", so the callable is registered under that
+    historical name explicitly.
+    """
+    path = Path(cache_dir) / f"{dataset_name}_vocab_glove.pt"
+    try:
+        from numpy._core import multiarray as _multiarray
+    except ImportError:  # numpy < 2
+        from numpy.core import multiarray as _multiarray
+    safe = [(_multiarray._reconstruct, "numpy.core.multiarray._reconstruct"),
+            np.ndarray, np.dtype]
+    try:
+        from numpy import dtypes as _np_dtypes
+        safe += [_np_dtypes.Float32DType, _np_dtypes.Float64DType]
+    except ImportError:
+        pass
+    with torch.serialization.safe_globals(safe):
+        arr = torch.load(str(path), map_location="cpu", weights_only=True)
+    if hasattr(arr, "numpy"):
+        arr = arr.numpy()
+    return np.asarray(arr, np.float32)
+
+
+def check_serving_config(cfg) -> None:
+    """Raise for what the port does not run yet, naming its ROADMAP
+    item."""
+    if not cfg.recurrent or cfg.untied or cfg.mtrans:
+        raise NotImplementedError(
+            "single-sentence, untied and mtrans caption models: ROADMAP A11")
+    if cfg.xl:
+        raise NotImplementedError("the TransformerXL caption model: "
+                                  "ROADMAP A11")
+    if cfg.use_beam:
+        raise NotImplementedError("beam search decoding: ROADMAP A10b")
+    if cfg.coot_model_name is None:
+        raise NotImplementedError("raw MART video features as input: "
+                                  "ROADMAP A11")
+    if cfg.share_wd_cls_weight:
+        raise NotImplementedError("the decoder tied to the word "
+                                  "embeddings (share_wd_cls_weight)")
+
+
+def create_mart_model(cfg, vocab_size: int, device: torch.device, *,
+                      seed: int = 0) -> RecursiveTransformer:
+    """The recurrent MART model for this config on `device`, initialized
+    from `seed` (reference :45), f32."""
+    check_serving_config(cfg)
+    cfg.max_position_embeddings = cfg.max_v_len + cfg.max_t_len
+    cfg.vocab_size = vocab_size
+    model = RecursiveTransformer(
+        cfg, generator=torch.Generator().manual_seed(seed))
+    return model.to(device)
+
+
+class MartModelManager:
+    """Owns the caption model on one device."""
+
+    def __init__(self, cfg, model: RecursiveTransformer,
+                 device: torch.device, *,
+                 cache_dir: str = "cache_caption") -> None:
+        self.cfg = cfg
+        self.model = model
+        self.device = device
+        self.cache_dir = cache_dir
+        self.was_loaded = False
+
+    def apply_glove(self) -> bool:
+        """Replace the word embeddings with the GloVe vectors (reference
+        :79-85); keeps the init when the cache is missing or its shape
+        differs, as the JAX package does. Returns whether it applied."""
+        try:
+            glove = load_glove_matrix(self.cache_dir,
+                                      self.cfg.dataset_train.name)
+        except (FileNotFoundError, OSError):
+            return False
+        weight = self.model.embeddings.word_embeddings.weight
+        if tuple(glove.shape) != tuple(weight.shape):
+            return False
+        with torch.no_grad():
+            weight.copy_(torch.from_numpy(glove))
+        return True
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        """A reference-layout `{"model": state_dict}`."""
+        load_mart_checkpoint(self.model, state)
+        self.was_loaded = True
+
+    def state_dict(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The reference layout, tensors on the CPU."""
+        return {"model": {k: v.detach().cpu() for k, v in
+                          self.model.state_dict().items()}}
+
+    def count_parameters(self) -> int:
+        return sum(p.numel() for p in self.model.parameters())
+
+
+def build_mart_model_manager(cfg, vocab_size: int, device: torch.device,
+                             *, seed: int = 0,
+                             cache_dir: str = "cache_caption",
+                             ) -> MartModelManager:
+    """Model from `seed`, GloVe applied when the config asks for it."""
+    mgr = MartModelManager(
+        cfg, create_mart_model(cfg, vocab_size, device, seed=seed), device,
+        cache_dir=cache_dir)
+    if cfg.use_glove:
+        mgr.apply_glove()
+    return mgr

@@ -43,13 +43,17 @@ class BaseTrainer:
                  *, load_model: Optional[str] = None, load_best: bool = False,
                  load_epoch: Optional[int] = None, reset: bool = False,
                  is_test: bool = False,
-                 log_dir: str = TrainerPathConst.DIR_EXPERIMENTS) -> None:
+                 log_dir: str = TrainerPathConst.DIR_EXPERIMENTS,
+                 exp_files_handler: Optional[ExperimentFilesHandler] = None
+                 ) -> None:
         self.cfg = cfg
         self.model_mgr = model_mgr
         self.device: torch.device = model_mgr.device
         self.is_test = is_test
-        self.exp = ExperimentFilesHandler(model_type, exp_group, exp_name,
-                                          run_name, log_dir=log_dir)
+        # subclasses may pass their own handler (the caption trainer's
+        # adds the caption/ dir of the translations)
+        self.exp = exp_files_handler or ExperimentFilesHandler(
+            model_type, exp_group, exp_name, run_name, log_dir=log_dir)
         self.exp.setup_dirs(reset=reset)
         self.logger: logging.Logger = create_logger(
             LOGGER_NAME, log_dir=self.exp.path_logs)

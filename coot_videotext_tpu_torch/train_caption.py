@@ -1,0 +1,176 @@
+"""
+Caption validation with the PyTorch package: the recurrent MART model,
+greedy decoding and the caption metrics (the flags of the repo's
+train_caption.py).
+
+    python -m coot_videotext_tpu_torch.train_caption -c <yaml> --validate \\
+        [--load_model X.pth] [--ignore_untrained] [--device cpu] \\
+        [--annotations_dir D] [--coot_feat_dir D] [--cache_dir D] \\
+        [--dataset_max N]
+
+validates one checkpoint over the val split: the teacher-forced loss and
+token accuracy, the greedy paragraph translations (written to
+experiments/caption/<group>/<name>_<run>/caption/translations_<ep>_val.json)
+and BLEU 1-4, METEOR, ROUGE-L, CIDEr with the sentence statistics and the
+repetition metrics (`val_ep_<ep>.json`). `--load_model` takes a
+reference-layout `{"model": state_dict}` file; without it the newest
+checkpoint of the experiment directory is loaded, or with
+`--ignore_untrained` the model is validated from its seeded init. The COOT
+embeddings are read from `--coot_feat_dir` as `<coot_model_name>_val.h5`
+or `.npz`. Runs on the CUDA device unless `--device cpu` is given; asked
+for CUDA without a GPU it raises. Training (ROADMAP A9b), beam search
+(A10b) and the other caption models and inputs (A11) raise
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import random
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from coot_videotext_tpu_torch.data.caption_dataset import (
+    create_mart_datasets_and_loaders)
+from coot_videotext_tpu_torch.tasks.caption.config import (
+    MartConfig, MartPathConst)
+from coot_videotext_tpu_torch.tasks.caption.model_manager import (
+    build_mart_model_manager)
+from coot_videotext_tpu_torch.tasks.caption.trainer import MartTrainer
+from coot_videotext_tpu_torch.train_retrieval import resolve_device
+from coot_videotext_tpu_torch.utils import arguments
+from coot_videotext_tpu_torch.utils.general import ExperimentTypesConst
+from coot_videotext_tpu_torch.utils.yaml_utils import load_yaml_config_file
+
+EXP_TYPE = ExperimentTypesConst.CAPTION
+
+
+def add_mart_args(parser) -> None:
+    """MART path/preload flags (reference mart/arguments_mart.py)."""
+    parser.add_argument("--cache_dir", type=str,
+                        default=MartPathConst.CACHE_DIR,
+                        help="Cached vocabulary dir.")
+    parser.add_argument("--coot_feat_dir", type=str,
+                        default=MartPathConst.COOT_FEAT_DIR,
+                        help="COOT embeddings dir.")
+    parser.add_argument("--annotations_dir", type=str,
+                        default=MartPathConst.ANNOTATIONS_DIR,
+                        help="Annotations dir.")
+    parser.add_argument("--video_feature_dir", type=str,
+                        default=MartPathConst.VIDEO_FEATURE_DIR,
+                        help="Dir containing the video features.")
+    parser.add_argument("--dataset_max", type=int, default=None,
+                        help="Reduce dataset size for testing.")
+    parser.add_argument("--preload", action="store_true",
+                        help="Preload video features.")
+    parser.add_argument("--no_preload", action="store_true",
+                        help="Do not preload video features.")
+
+
+def update_mart_config_from_args(config: Dict[str, Any], args
+                                 ) -> Dict[str, Any]:
+    """(reference mart/arguments_mart.py:28)."""
+    if args.dataset_max is not None:
+        assert args.dataset_max > 0
+        config["dataset_train"]["max_datapoints"] = args.dataset_max
+        config["dataset_val"]["max_datapoints"] = args.dataset_max
+    if args.preload:
+        config["dataset_train"]["preload"] = True
+        config["dataset_val"]["preload"] = True
+    if args.no_preload or args.validate:
+        config["dataset_train"]["preload"] = False
+        config["dataset_val"]["preload"] = False
+    return config
+
+
+def build_parser() -> arguments.ArgParser:
+    parser = arguments.ArgParser(description=__doc__)
+    arguments.add_default_args(parser)
+    arguments.add_exp_identifier_args(parser)
+    arguments.add_trainer_args(parser, dataset_path=False)
+    add_mart_args(parser)
+    parser.add_argument("--load_model", type=str, default=None,
+                        help="Load model from a reference-layout .pth.")
+    parser.add_argument("--print_model", action="store_true",
+                        help="Print model")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu.")
+    return parser
+
+
+def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
+    """Run the CLI; returns one result dict per run: the metrics, the
+    translation and metrics files, where the model and the batches were,
+    and the per-batch timings of the eval step and the decode."""
+    args = build_parser().parse_args(argv)
+    if not args.validate:
+        raise NotImplementedError("MART training: ROADMAP A9b")
+    device = resolve_device(args.device)
+    # full f32 products (no TF32), so the card's decode agrees with the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    exp_group, exp_name, config_file = \
+        arguments.setup_experiment_identifier_from_args(args, EXP_TYPE)
+    config = load_yaml_config_file(config_file)
+    config = arguments.update_config_from_args(config, args)
+    config = update_mart_config_from_args(config, args)
+    cfg = MartConfig(config)
+    if args.print_config:
+        print(cfg)
+    if cfg.random_seed is None:
+        cfg.random_seed = random.randint(0, 2 ** 15)
+        print(f"Random seed: {cfg.random_seed}")
+
+    train_set, _, train_loader, val_loader = \
+        create_mart_datasets_and_loaders(
+            cfg, args.coot_feat_dir, args.annotations_dir,
+            seed=cfg.random_seed)
+
+    results = []
+    for run_number in range(args.start_run, args.start_run + args.num_runs):
+        run_name = f"{args.run_name}{run_number}"
+        mgr = build_mart_model_manager(
+            cfg, len(train_set.word2idx), device, seed=cfg.random_seed,
+            cache_dir=args.cache_dir)
+        if args.print_model:
+            print(mgr.model)
+        trainer = MartTrainer(
+            cfg, mgr, exp_group, exp_name, run_name, len(train_loader),
+            log_dir=args.log_dir, annotations_dir=args.annotations_dir,
+            reset=args.reset, load_best=True, load_epoch=args.load_epoch,
+            load_model=args.load_model, is_test=True)
+        if not trainer.load and not args.ignore_untrained:
+            raise ValueError(
+                "Validating an untrained model! No checkpoints were loaded. "
+                "Add --ignore_untrained to validate anyway.")
+        try:
+            loss, score, _, metrics = trainer.validate_epoch(val_loader)
+        except BaseException:
+            trainer.logger.exception("Run aborted by uncaught exception:")
+            raise
+        epoch = trainer.state.current_epoch
+        results.append({
+            "metrics": metrics, "val_loss": loss, "val_score": score,
+            "translation_file": trainer.exp.get_translation_files(
+                epoch, cfg.dataset_val.split),
+            "metrics_file": trainer.exp.path_base / f"val_ep_{epoch}.json",
+            "model_device": next(mgr.model.parameters()).device,
+            "batch_device": trainer.last_batch_device,
+            "num_batches": len(val_loader),
+            "eval_ms": list(trainer.val_timings["eval_ms"]),
+            "decode_ms": list(trainer.val_timings["decode_ms"]),
+            "forwards": list(trainer.val_timings["forwards"]),
+            "val_seconds": trainer.state.time_val,
+        })
+        print(f"Validation: {len(val_loader)} batches in "
+              f"{trainer.state.time_val:.2f} s; eval step "
+              f"{np.median(results[-1]['eval_ms']):.1f} ms, decode "
+              f"{np.median(results[-1]['decode_ms']):.1f} ms per batch "
+              "(median)", flush=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return results
+
+
+if __name__ == "__main__":
+    main()

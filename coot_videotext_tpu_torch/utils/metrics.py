@@ -14,6 +14,7 @@ from __future__ import annotations
 import json
 import logging
 from collections import defaultdict
+from pathlib import Path
 from typing import Dict, List, Tuple
 
 from coot_videotext_tpu_torch.typext import ConstantHolder
@@ -36,6 +37,49 @@ class DefaultMetricsConst(ConstantHolder):
     TRAIN_GRAD_CLIP = "train_base/grad_clip_total_norm"
     TRAIN_LOSS = "train_base/loss"
     PROFILE_RAM_USED = "zram/used"
+
+
+class TextMetricsConst(ConstantHolder):
+    """Caption metric names (reference metric.py:99)."""
+    BLEU_1 = "cap/b1"
+    BLEU_2 = "cap/b2"
+    BLEU_3 = "cap/b3"
+    BLEU_4 = "cap/b4"
+    METEOR = "cap/met"
+    ROUGE_L = "cap/rol"
+    CIDER = "cap/cid"
+    RE1 = "cap/re1"
+    RE2 = "cap/re2"
+    RE3 = "cap/re3"
+    RE4 = "cap/re4"
+    SUBMISSION_VOCAB_SIZE = "cap/voc"
+    SUBMISSION_AVG_SEN_LEN = "cap/slen"
+    SUBMISSION_NUM_SEN = "cap/snum"
+    GT_STAT_VOCAB_SIZE = "capgt/voc"
+    GT_STAT_AVG_SEN_LEN = "capgt/slen"
+    GT_STAT_NUM_SEN = "capgt/snum"
+
+
+# mapping from evaluator result keys to metric names (reference :149)
+TRANSLATION_METRICS: Dict[str, str] = {
+    "Bleu_1": TextMetricsConst.BLEU_1,
+    "Bleu_2": TextMetricsConst.BLEU_2,
+    "Bleu_3": TextMetricsConst.BLEU_3,
+    "Bleu_4": TextMetricsConst.BLEU_4,
+    "METEOR": TextMetricsConst.METEOR,
+    "ROUGE_L": TextMetricsConst.ROUGE_L,
+    "CIDEr": TextMetricsConst.CIDER,
+    "re1": TextMetricsConst.RE1,
+    "re2": TextMetricsConst.RE2,
+    "re3": TextMetricsConst.RE3,
+    "re4": TextMetricsConst.RE4,
+    "submission_vocab_size": TextMetricsConst.SUBMISSION_VOCAB_SIZE,
+    "submission_avg_sen_len": TextMetricsConst.SUBMISSION_AVG_SEN_LEN,
+    "submission_num_sen": TextMetricsConst.SUBMISSION_NUM_SEN,
+    "gt_stat_vocab_size": TextMetricsConst.GT_STAT_VOCAB_SIZE,
+    "gt_stat_avg_sen_len": TextMetricsConst.GT_STAT_AVG_SEN_LEN,
+    "gt_stat_num_sen": TextMetricsConst.GT_STAT_NUM_SEN,
+}
 
 
 class AverageMeter:
@@ -120,6 +164,11 @@ class MetricsWriter:
                 continue
             setattr(self, attr, defaultdict(list, json.loads(
                 file.read_text())))
+
+    def save_epoch_to_file(self, file) -> None:
+        """The per-epoch storage alone, e.g. `val_ep_<ep>.json` of a
+        validation run."""
+        Path(file).write_text(json.dumps(self.storage_epoch))
 
     def save_epoch(self, current_epoch: int) -> None:
         self.exp.get_metrics_step_file(current_epoch).write_text(

@@ -1,5 +1,6 @@
 """
-Weight bridge: JAX RetrievalModel parameters -> this package's state dicts.
+Weight bridge: JAX RetrievalModel and RecursiveTransformer parameters ->
+this package's state dicts, and the reference MART checkpoint loader.
 
 `jax_params_to_state_dict` is the inverse of the JAX package's
 utils/torch_convert.py::convert_coot_net :136 / convert_retrieval_model_state
@@ -12,6 +13,12 @@ package is not imported.
 
 MLP scopes: the Linears map in order onto `mlp.<i>`; a norm inside an MLP
 (never used by the shipped configs) is not bridged and raises.
+
+`jax_mart_params_to_state_dict` is the inverse of the JAX package's
+torch_convert.convert_mart_model_state :473 for the recurrent MART model
+("mart" family, `_convert_mart_key` :209), and `load_mart_checkpoint` reads
+the reference caption layout `{"model": state_dict}` (what
+torch_convert.convert_model_file :543 reads) into the port's model.
 """
 
 from __future__ import annotations
@@ -103,3 +110,60 @@ def jax_params_to_state_dict(params: Any
         key, v = _net_key(path[1:], np.asarray(val))
         out.setdefault(path[0], {})[key] = v
     return out
+
+
+# ---------- MART (RecursiveTransformer) ----------
+
+# flax scope names -> torch module paths of the MART model (the
+# Sequential indices of the embedding stacks and the memory init FC)
+_MART_SCOPES = {
+    "word_ln_in": "word_fc.0", "word_fc": "word_fc.2",
+    "word_ln_out": "word_fc.4", "video_ln_in": "video_embeddings.0",
+    "video_fc": "video_embeddings.2", "video_ln_out": "video_embeddings.4",
+    "init_memory_fc": "init_memory_fc.0",
+    "init_memory_ln": "init_memory_fc.1",
+    "transform_dense": "transform.dense",
+    "transform_ln": "transform.LayerNorm",
+}
+# flax leaf names -> torch names; a Dense kernel is transposed
+_MART_LEAVES = {"kernel": "weight", "scale": "weight",
+                "embedding": "weight", "bias": "bias"}
+# reference state-dict entries that are not parameters of the model: the
+# sincos buffer, the label-smoothing buffer, and the `memory_intermediate`
+# the reference builds but never calls (JAX torch_convert.py:49-55, :213)
+_MART_SKIP = (re.compile(r"(^|\.)position_embeddings\.pe$"),
+              re.compile(r"^loss_func\."),
+              re.compile(r"\.memory_intermediate\."))
+
+
+def jax_mart_params_to_state_dict(params: Any) -> Dict[str, np.ndarray]:
+    """JAX RecursiveTransformer params (nested, or flat {path: array}) ->
+    the reference torch MART state dict {key: array}."""
+    flat = params if (params and isinstance(next(iter(params)), tuple)) \
+        else flatten(params)
+    out: Dict[str, np.ndarray] = {}
+    for path, val in flat.items():
+        val = np.asarray(val)
+        scope, leaf = list(path[:-1]), path[-1]
+        scope = [_MART_SCOPES.get(p, p) for p in scope]
+        scope = [f"layer.{p[6:]}" if re.fullmatch(r"layer_\d+", p) else p
+                 for p in scope]
+        if leaf == "kernel":
+            val = np.ascontiguousarray(val.T)
+        out[".".join(scope + [_MART_LEAVES.get(leaf, leaf)])] = val
+    return out
+
+
+def load_mart_checkpoint(model, state: Dict[str, Any]) -> None:
+    """Load a reference-layout caption checkpoint `{"model": state_dict}`
+    (tensors or arrays) into the port's RecursiveTransformer, strictly:
+    every parameter must be there with its shape, and nothing else but the
+    reference's non-parameter entries."""
+    import torch
+    if set(state) != {"model"}:
+        raise ValueError("a MART checkpoint is {'model': state_dict}, got "
+                         f"the models {sorted(state)}")
+    sd = {k: torch.from_numpy(np.array(v)) if not torch.is_tensor(v)
+          else v for k, v in state["model"].items()
+          if not any(p.search(k) for p in _MART_SKIP)}
+    model.load_state_dict(sd, strict=True)

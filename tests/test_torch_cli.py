@@ -280,15 +280,16 @@ def _imported_modules(path: Path):
 def test_port_never_imports_jax(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "flax", "optax",
+        assert top not in ("jax", "jaxlib", "flax", "optax", "nltk",
                            "coot_videotext_tpu"), f"{path}: imports {name}"
 
 
 def test_port_import_leaves_jax_unloaded():
     code = ("import sys; import coot_videotext_tpu_torch.train_retrieval, "
+            "coot_videotext_tpu_torch.train_caption, "
             "coot_videotext_tpu_torch.utils.param_bridge; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'coot_videotext_tpu')]; "
+            "('jax', 'flax', 'nltk', 'coot_videotext_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
