@@ -99,6 +99,27 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    of 50 traced (wall and device-busy ms, launches per decoded token,
    device time by kernel family).
 
+7. Caption training at the full width of yc2_2d3d_coot_vidclip_mart.yaml
+   (batch 16, S up to 12 sentence steps, dropout 0.1 at every site, the
+   EMA, BertAdam with warmup_linear): `python -m
+   coot_videotext_tpu_torch.train_caption -c <yaml> --seed 0` in-process
+   on the card over the first 320 videos of the YouCook2 train split (20
+   steps an epoch) for 2 epochs, validating on the first 100 val videos,
+   with every kernel's launch count set to 0 just before and read just
+   after (B4's forward and backward must run, B1-B3 and B5 must not):
+   model and batches on the card, finite step losses and grad norms, the
+   checkpoint, EMA and translation files; resumed to epoch 3 with
+   `--load_epoch 1`; `--validate --load_epoch 2` must give the training
+   run's epoch-2 val loss (the EMA weights). One train batch of 8 videos
+   on the card against the port on the CPU, same weights and seed state,
+   3 steps (loss, grad_norm, n_correct, every gradient, the parameters and
+   the EMA after 1 and 3 steps, tolerances at CAPTION_TRAIN_*); one batch
+   of 16 trained 16 steps at a fixed lr (the loss falls; the warm step's
+   median wall ms, one traced step's device-busy ms and launches by
+   family, B4 apart; peak memory); B4 in float32 at the caption shapes
+   (16, 25, 768) and (16, 12, 25, 25), bit-equal to its plain version,
+   timed bare and through autograd beside F.dropout and its bound.
+
 Prints `{"kernels": [...]}` on the line before the last and
 `{"ok": true, "device": {...}}` as the last line; exits non-zero (and
 prints no result) on any failure, without a CUDA device, or outside a
@@ -1328,6 +1349,316 @@ def phase_caption(tmp: Path) -> None:
     log_families(events, translator.forwards)
 
 
+# Caption training, one train batch of 8 videos on the card against the
+# port on the CPU at the config's dropout 0.1 (B4 and dropout_plain draw the
+# same bits, so the masks agree), both float32 without TF32: the loss and
+# grad_norm (relative), n_correct (as a share of n_word), every gradient
+# (relative to the model's largest gradient), and the parameters and the
+# EMA after 1 and after 3 steps at lr 1e-4 (the largest difference of the
+# two, over all 24 M entries, as a share of lr per step: BertAdam divides
+# by sqrt(v) + 1e-6, so where |g| is under ~3e-5 a gradient's rounding
+# error comes out multiplied by up to (1 - beta1) / eps = 1e5).
+CAPTION_TRAIN_LR = 1e-4
+CAPTION_TRAIN_LOSS_RTOL = 1e-4
+CAPTION_TRAIN_GRAD_TOL = 1e-3
+CAPTION_TRAIN_UPDATE_TOL = 0.05
+# the CLI's cuts of the YouCook2 splits: 20 train steps an epoch of batch
+# 16, 2 val batches of 50
+CAPTION_TRAIN_CUTS = {"dataset_train.max_datapoints": 320,
+                      "dataset_val.max_datapoints": 100}
+CAPTION_DROPOUT_SHAPES = ((16, 25, 768), (16, 12, 25, 25))
+
+
+def _state_copy(state) -> dict:
+    """The parameters and the EMA shadow of a caption train state, on the
+    CPU."""
+    return {"params": {n: p.detach().cpu().clone()
+                       for n, p in state.optimizer.params.items()},
+            "ema": {n: s.cpu().clone() for n, s in state.ema.shadow.items()}}
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[n].double() - b[n].double()).abs().max())
+               for n in a)
+
+
+def phase_caption_train(tmp: Path) -> None:
+    """Phase 7, caption training at the full width of
+    yc2_2d3d_coot_vidclip_mart.yaml: (a) the inputs (_caption_inputs);
+    (b) `train_caption` on the card over a cut of the YouCook2 train split,
+    2 epochs with validation on a cut of the val split, with the launch
+    counts of B1-B5 set to 0 just before and read just after (B4 forward
+    and backward must run, nothing else), then resumed to epoch 3 with
+    `--load_epoch`, then `--validate --load_epoch 2` (the EMA weights: the
+    val loss of the training run's epoch 2); (c) one train batch of 8
+    videos on the card against the CPU, 3 steps; (d) one batch of 16 trained
+    16 steps at a fixed lr: the loss falls, the warm step's wall and
+    device-busy ms, launches per step by family, peak memory; (e) B4 at
+    the caption shapes, f32, against its plain version and F.dropout."""
+    import torch
+    from coot_videotext_tpu_torch import train_caption
+    from coot_videotext_tpu_torch.data.caption_dataset import (
+        STACKED_KEYS, RecursiveCaptionDataset)
+    from coot_videotext_tpu_torch.ops import cuda_build
+    from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
+    from coot_videotext_tpu_torch.tasks.caption.model_manager import (
+        build_mart_model_manager)
+    from coot_videotext_tpu_torch.tasks.caption.steps import (
+        caption_loss_and_grads, caption_train_step, caption_update,
+        init_caption_train_state)
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+
+    def config():
+        return MartConfig(load_yaml_config_file(CAPTION_CONFIG))
+
+    cfg = config()
+    log("(a) inputs: the real YouCook2 caption annotations, embeddings "
+        "from seed 0")
+    emb_dir, pth, _ = _caption_inputs(tmp, cfg)
+    exp = tmp / "experiments"
+    cut = ",".join(f"{k}={v}" for k, v in CAPTION_TRAIN_CUTS.items())
+    common = ["-c", str(CAPTION_CONFIG), "--seed", "0",
+              "--annotations_dir", str(ROOT / "annotations"),
+              "--coot_feat_dir", str(emb_dir),
+              "--cache_dir", str(ROOT / "cache_caption"),
+              "--log_dir", str(exp)]
+
+    log(f"(b) the CLI trains on the card: cuts {CAPTION_TRAIN_CUTS}, "
+        "2 epochs")
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_caption.main(
+        common + ["-o", cut + ",train.num_epochs=2"])[0]
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_build.launch_counts)
+    log(f"  launches during the run {launches}")
+    if launches.get("dropout", 0) <= 0 or launches.get("dropout_bwd", 0) <= 0:
+        fail("caption training: B4 forward or backward was not launched")
+    others = {k: v for k, v in launches.items()
+              if v and k not in ("dropout", "dropout_bwd")}
+    if others:
+        fail(f"caption training launched kernels off its path: {others}")
+    if result["model_device"].type != "cuda" \
+            or result["batch_device"].type != "cuda":
+        fail(f"caption training ran on {result['model_device']} with "
+             f"batches on {result['batch_device']}, not on the card")
+    run = result["models_dir"].parent
+    steps = json.loads((run / "metrics" / "metrics_step_1.json").read_text(
+        encoding="utf8"))
+    losses = [v for _, v in steps["train_base/loss"]]
+    norms = [v for _, v in steps["train_base/grad_clip_total_norm"]]
+    if len(losses) != 2 * result["steps_per_epoch"] or not all(
+            math.isfinite(v) for v in losses + norms):
+        fail(f"caption training: step losses {losses}, grad norms {norms}")
+    for name in ("model_1.pth", "modelema_1.pth", "optimizer_1.pth"):
+        if not (result["models_dir"] / name).is_file():
+            fail(f"caption training wrote no {name}")
+    if not (run / "caption" / "translations_1_val.json").is_file():
+        fail("caption training wrote no translations of epoch 1")
+    vps = result["train_videos_per_s"]
+    log(f"  {len(result['epochs'])} epochs of {result['steps_per_epoch']} "
+        f"steps (batch {cfg.train.batch_size}) in {wall:.2f} s (the CLI's "
+        f"main(), validations included); train videos/s by epoch "
+        f"{[round(v, 2) for v in vps]}; step wall ms median "
+        f"{statistics.median(result['step_ms']):.2f} (first "
+        f"{result['step_ms'][0]:.1f}); step losses first / last "
+        f"{losses[0]:.3f} / {losses[-1]:.3f}, grad norms first / last "
+        f"{norms[0]:.3f} / {norms[-1]:.3f}")
+    resumed = train_caption.main(common + [
+        "-o", cut + ",train.num_epochs=3", "--load_epoch", "1"])[0]
+    if resumed["epochs"] != [2] \
+            or resumed["total_step"] != 3 * result["steps_per_epoch"]:
+        fail(f"caption training: resuming trained epochs "
+             f"{resumed['epochs']} to step {resumed['total_step']}")
+    trained = json.loads(resumed["metrics_file"].read_text(
+        encoding="utf8"))
+    val_trained = dict(trained["val/loss_word"])[2]
+    check = train_caption.main(common + ["-o", cut, "--validate",
+                                         "--load_epoch", "2"])[0]
+    val_again = json.loads(check["metrics_file"].read_text(
+        encoding="utf8"))["val/loss_word"][-1]
+    log(f"  resumed to epoch 3 with --load_epoch 1 (epoch 2's videos/s "
+        f"{resumed['train_videos_per_s'][0]:.2f}); val loss per word "
+        f"by epoch {trained['val/loss_word']}; --validate --load_epoch 2 "
+        f"(EMA weights): {val_again}")
+    if val_again[0] != 2 or abs(val_again[1] - val_trained) > \
+            1e-6 * abs(val_trained):
+        fail("caption training: --validate --load_epoch 2 did not evaluate "
+             "the EMA weights of the training run's epoch 2")
+
+    log("(c) one train batch of 8 videos: the card against the CPU, "
+        f"float32, dropout {cfg.hidden_dropout_prob}, 3 steps at lr "
+        f"{CAPTION_TRAIN_LR}")
+    dataset = RecursiveCaptionDataset(
+        "youcook2", cfg.max_t_len, cfg.max_v_len, cfg.max_n_sen,
+        mode="train", coot_model_name=cfg.coot_model_name,
+        coot_mode=cfg.coot_mode, coot_dim_vid=cfg.coot_dim_vid,
+        coot_dim_clip=cfg.coot_dim_clip,
+        annotations_dir=str(ROOT / "annotations"),
+        coot_feat_dir=str(emb_dir))
+    weights = torch.load(pth, map_location="cpu", weights_only=True)
+    stacked, _, _ = dataset.collate_fn([dataset[i] for i in range(8)])
+    seen = {}
+    for name in ("cuda", "cpu"):
+        device = torch.device(name)
+        mgr = build_mart_model_manager(config(), len(dataset.word2idx),
+                                       device, seed=1)
+        mgr.load_state(weights)
+        state = init_caption_train_state(mgr.model, mgr.cfg, seed=0)
+        batch = {k: torch.from_numpy(stacked[k]).to(device)
+                 for k in STACKED_KEYS}
+        rec = {"metrics": [], "states": []}
+        for step in range(3):
+            metrics, grads = caption_loss_and_grads(state, batch)
+            if step == 0:
+                rec["grads"] = {n: g.detach().cpu().clone()
+                                for n, g in grads.items()}
+            metrics["grad_norm"] = caption_update(state, grads,
+                                                  CAPTION_TRAIN_LR)
+            rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+            if step in (0, 2):
+                rec["states"].append(_state_copy(state))
+        seen[name] = rec
+        del mgr, state, batch, grads
+    gpu, cpu = seen["cuda"], seen["cpu"]
+    for step, (g, c) in enumerate(zip(gpu["metrics"], cpu["metrics"])):
+        loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+        norm_rel = abs(g["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
+        correct = abs(g["n_correct"] - c["n_correct"]) / c["n_word"]
+        log(f"  step {step}: loss {g['loss']:.6f} / {c['loss']:.6f} "
+            f"(relative {loss_rel:.2e}), grad_norm {g['grad_norm']:.6f} / "
+            f"{c['grad_norm']:.6f} ({norm_rel:.2e}), n_correct "
+            f"{g['n_correct']:.0f} / {c['n_correct']:.0f} of "
+            f"{c['n_word']:.0f} words ({correct:.2%})")
+        if loss_rel > CAPTION_TRAIN_LOSS_RTOL \
+                or norm_rel > CAPTION_TRAIN_LOSS_RTOL \
+                or g["n_word"] != c["n_word"] \
+                or correct > CAPTION_CORRECT_TOL:
+            fail(f"caption training: step {step} on the card disagrees with "
+                 "the CPU")
+    scale = max(float(v.abs().max()) for v in cpu["grads"].values())
+    grad_err = _max_diff(gpu["grads"], cpu["grads"]) / scale
+    worst = max(cpu["grads"], key=lambda n: float(
+        (gpu["grads"][n] - cpu["grads"][n]).abs().max()))
+    log(f"  gradients: max |card - CPU| {grad_err:.2e} of the largest "
+        f"gradient {scale:.4f} (limit {CAPTION_TRAIN_GRAD_TOL}; worst "
+        f"{worst}) over {len(cpu['grads'])} tensors")
+    if grad_err > CAPTION_TRAIN_GRAD_TOL:
+        fail("caption training: the card's gradients disagree with the "
+             "CPU's")
+    for i, k in enumerate((1, 3)):
+        for what in ("params", "ema"):
+            err = _max_diff(gpu["states"][i][what], cpu["states"][i][what])
+            share = err / CAPTION_TRAIN_LR / k
+            log(f"  after {k} step(s): {what} max |card - CPU| {err:.3e} "
+                f"= {share:.2%} of lr per step (limit "
+                f"{CAPTION_TRAIN_UPDATE_TOL:.0%})")
+            if share > CAPTION_TRAIN_UPDATE_TOL:
+                fail(f"caption training: the card's {what} after {k} steps "
+                     "disagree with the CPU's")
+    del seen, gpu, cpu
+    torch.cuda.empty_cache()
+
+    log("(d) one train batch of 16 videos trained 16 steps at lr "
+        f"{CAPTION_TRAIN_LR} on the card, timed and traced")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    mgr = build_mart_model_manager(config(), len(dataset.word2idx),
+                                   torch.device("cuda"), seed=1)
+    mgr.load_state(weights)
+    state = init_caption_train_state(mgr.model, mgr.cfg, seed=0)
+    stacked, _, _ = dataset.collate_fn(
+        [dataset[i] for i in range(cfg.train.batch_size)])
+    batch = {k: torch.from_numpy(stacked[k]).cuda() for k in STACKED_KEYS}
+    step_losses, step_ms = [], []
+    for _ in range(16):
+        t0 = time.perf_counter()
+        metrics = caption_train_step(state, batch, CAPTION_TRAIN_LR)
+        step_losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(math.isfinite(v) for v in step_losses) \
+            or step_losses[-1] >= step_losses[0]:
+        fail(f"caption training: a fixed batch's loss did not fall: "
+             f"{step_losses}")
+    warm = statistics.median(step_ms[4:])
+    sentences = len(stacked["input_ids"])
+    log(f"  S {sentences} sentence steps x N {cfg.train.batch_size} x L "
+        f"{cfg.max_v_len + cfg.max_t_len}; losses "
+        f"{', '.join(f'{v:.2f}' for v in step_losses)}")
+    log(f"  warm train step: median wall {warm:.2f} ms over steps 5-16 "
+        f"({', '.join(f'{v:.1f}' for v in step_ms)}); "
+        f"{cfg.train.batch_size / warm * 1e3:.1f} train videos/s")
+    cuda_build.reset_launch_counts()
+    wall_ms, busy_ms, kernels, events = _busy_ms(
+        lambda: caption_train_step(state, batch, CAPTION_TRAIN_LR))
+    traced = dict(cuda_build.launch_counts)
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    b4 = [e for e in events if "dropout" in e.key]
+    log(f"  one traced step: wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}); {kernels} kernel "
+        f"launches; B4 {traced.get('dropout', 0)} forward + "
+        f"{traced.get('dropout_bwd', 0)} backward launches, "
+        f"{sum(_dev_us(e) for e in b4) / 1e3:.3f} ms of device time over "
+        f"{sum(e.count for e in b4)} launches; peak device memory "
+        f"{peak:.3f} GB above the {held / 1e9:.3f} GB held before")
+    log_families(events, 1)
+    del mgr, state, batch
+    torch.cuda.empty_cache()
+
+    log("(e) B4 at the caption shapes, float32, rate "
+        f"{cfg.hidden_dropout_prob}")
+    caption_dropout_timing(cfg.hidden_dropout_prob)
+
+
+def caption_dropout_timing(rate: float) -> None:
+    """B4 in float32 at the hidden rows and the attention probabilities of
+    a caption train step: held bit-equal to dropout_plain forward and
+    backward, then timed forward and backward (CUDA events), bare and
+    through the wrapper / autograd, beside F.dropout, and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from coot_videotext_tpu_torch.ops import cuda_build, philox
+    from coot_videotext_tpu_torch.ops import dropout as b4
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    seed = device_seed()
+    for shape in CAPTION_DROPOUT_SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        g = torch.randn(shape, generator=gen, device="cuda")
+        xl = x.clone().requires_grad_()
+        y = b4.dropout(xl, seed, rate)
+        dx, = torch.autograd.grad(y, xl, g, retain_graph=True)
+        if not torch.equal(y, b4.dropout_plain(x, seed, rate)) \
+                or not torch.equal(dx, b4.dropout_plain(g, seed, rate)):
+            fail(f"dropout {shape} f32: kernel and plain differ")
+        numel = x.numel()
+        args = b4.launch_args(x, seed, rate, philox.SITE_DROPOUT,
+                              cuda_build.stream(x))
+        kernel = cuda_build.load_library().coot_dropout
+        out = torch.empty_like(x)
+        xp, yp = x.data_ptr(), out.data_ptr()
+        xl_lib = x.clone().requires_grad_()
+        y_lib = F.dropout(xl_lib, rate, training=True)
+        with torch.inference_mode():
+            bare = time_ms(lambda: kernel(xp, yp, numel, *args), 100)
+            bare_dev = device_ms_per_call(
+                lambda: kernel(xp, yp, numel, *args))
+            fwd = time_ms(lambda: b4.dropout(x, seed, rate), 100)
+            lib = time_ms(lambda: F.dropout(x, rate, training=True), 100)
+            plain = time_ms(lambda: b4.dropout_plain(x, seed, rate))
+        bwd, lib_bwd, _, _ = paired_bwd_ms((y, [xl], g),
+                                           (y_lib, [xl_lib], g), 9)
+        bms, by = bound_ms(8.0 * numel, 1.0 * numel, "float32")
+        log(f"  dropout {str(shape):16s} f32 ({numel} elements): bit-equal "
+            f"to plain forward and backward; bare launch {bare:.4f} ms "
+            f"(CUDA events, 100 back to back), device {bare_dev:.4f} ms "
+            f"(profiler); forward through the wrapper {fwd:.4f} ms, "
+            f"F.dropout {lib:.4f} ms; backward through autograd.grad "
+            f"{bwd:.4f} ms, F.dropout's {lib_bwd:.4f} ms (medians of 9 "
+            f"rounds in turns); plain {plain:.3f} ms; bound {bms:.5f} ms "
+            f"({by})")
+
+
 def _busy_ms(fn) -> tuple:
     """(traced wall ms, device-busy ms, kernels seen, the kernels' profiler
     events) of fn() under torch.profiler, synchronised: the busy time sums
@@ -2147,6 +2478,11 @@ def main() -> None:
         log("== 6. caption serving: MART at yc2_2d3d_coot_vidclip_mart "
             "width, greedy, over the YouCook2 val split")
         phase_caption(Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="coot_chip_caption_train_") \
+            as tmp:
+        log("== 7. caption training: MART at yc2_2d3d_coot_vidclip_mart "
+            "width on cuts of the YouCook2 train and val splits")
+        phase_caption_train(Path(tmp))
     log(f"chip_smoke took {time.time() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,26 +1,45 @@
 """
-MART caption trainer: the validation that `train_caption --validate` runs.
+MART caption trainer: training and validation on one torch device.
 
-Port of the serving parts of coot_videotext_tpu/tasks/caption/trainer.py
-(reference mart/trainer_caption.py:106-693):
+Port of coot_videotext_tpu/tasks/caption/trainer.py (reference
+mart/trainer_caption.py:106-693):
     - MartFilesHandler (:52): the caption/ dir and the translation files
+    - BertAdam (no bias correction, per-parameter clip; masks by JAX's
+      names, `freeze_glove` freezing the word embeddings) with the host's
+      warmup_linear schedule over t_total = steps * epochs (:108-117,
+      :177-181), the EMA shadow updated each step
+    - train_model (:207-257): per epoch `set_epoch`, the train steps
+      (tasks/caption/steps.py `caption_train_step`, each keyed on the
+      seed state cfg.random_seed + total_step, so a resumed run draws the
+      dropout masks of the unbroken one), one read of each step's metrics,
+      the GRAD / TRAIN_LOSS_PER_WORD / TRAIN_ACC meters, validation per
+      val_start / val_freq, the EMA saved as `modelema_<ep>.pth`
+      ({"model": state_dict}), the checkpoint and its cleanup with the
+      epoch's translations and EMA (`get_files_for_cleanup` :449)
     - validate_epoch (:295): teacher-forced loss and accuracy from the
       eval step, free-running greedy translation -> submission json ->
       language / stats / repetition evaluation -> meters; best field =
       CIDEr (:626-630); under is_test the `val_ep_<ep>.json` metrics file
-      (the METEOR -999 patch-up of a trained run's best epoch, :643-656,
-      comes with training)
+      and the METEOR -999 patch-up of the best epoch's metrics file
+      (:429-446)
     - `prefetch` (JAX `_prefetch` :258): a background thread collates the
       next batches, pins them and copies them to the card on a side CUDA
       stream; the step's stream waits on the copy's event.
-The evaluation weights are the model's parameters: the JAX trainer sets its
-EMA to the loaded weights of a reference checkpoint
-(torch_convert.convert_model_file :561-563). Training (BertAdam, EMA, the
-train step) is not ported yet (ROADMAP A9b).
+The evaluation weights (`_eval_params` :170) are the EMA shadow whenever
+the run has one: a training run swaps it into the model for each
+validation and swaps the trained weights back; `--validate` of an epoch
+evaluates that epoch's `modelema_<ep>.pth` where it exists. A model given
+by `--load_model` is evaluated as loaded (the JAX trainer sets its EMA to
+the loaded weights of a reference checkpoint,
+torch_convert.convert_model_file :561-563). The checkpoint's model file
+keeps the reference layout {"model": state_dict}; the optimizer file holds
+BertAdam's moments and step, the train state's step and the seed state.
+Validation runs build no optimizer and no EMA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import queue
 import threading
@@ -45,13 +64,18 @@ from coot_videotext_tpu_torch.tasks.caption.evaluate_stats import (
     evaluate_stats_files)
 from coot_videotext_tpu_torch.tasks.caption.model_manager import (
     MartModelManager)
-from coot_videotext_tpu_torch.tasks.caption.steps import caption_eval_step
+from coot_videotext_tpu_torch.tasks.caption.steps import (
+    CaptionTrainState, caption_eval_step, caption_train_step,
+    init_caption_train_state)
 from coot_videotext_tpu_torch.tasks.caption.translator import Translator
+from coot_videotext_tpu_torch.train import checkpoint as ckpt
+from coot_videotext_tpu_torch.train.optim import warmup_linear
 from coot_videotext_tpu_torch.train.trainer_base import BaseTrainer
 from coot_videotext_tpu_torch.utils.experiments import ExperimentFilesHandler
 from coot_videotext_tpu_torch.utils.general import (
     ExperimentTypesConst, TrainerPathConst)
-from coot_videotext_tpu_torch.utils.metrics import TRANSLATION_METRICS
+from coot_videotext_tpu_torch.utils.metrics import (
+    TRANSLATION_METRICS, TextMetricsConst)
 
 TRANSLATION_METRICS_LOG = ["Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "re4"]
 
@@ -132,7 +156,7 @@ def prefetch(loader, device: torch.device, depth: int = 2
 
 
 class MartTrainer(BaseTrainer):
-    """Caption trainer (reference MartTrainer :106), validation only."""
+    """Caption trainer (reference MartTrainer :106)."""
 
     def __init__(self, cfg: MartConfig, model_mgr: MartModelManager,
                  exp_group: str, exp_name: str, run_name: str,
@@ -152,18 +176,58 @@ class MartTrainer(BaseTrainer):
                          is_test=is_test, log_dir=log_dir,
                          exp_files_handler=files_handler)
         self.cfg: MartConfig = cfg
+        self.metrics.add_meter(MMeters.TRAIN_LOSS_PER_WORD, use_avg=False)
+        self.metrics.add_meter(MMeters.TRAIN_ACC, use_avg=False)
         self.metrics.add_meter(MMeters.VAL_LOSS_PER_WORD, use_avg=False)
         self.metrics.add_meter(MMeters.VAL_ACC, use_avg=False)
+        self.metrics.add_meter(MMeters.GRAD, per_step=True,
+                               reset_avg_each_epoch=True)
         for meter_name in TRANSLATION_METRICS.values():
             self.metrics.add_meter(meter_name, use_avg=False)
         self.logger.info(f"Model: {model_mgr.count_parameters():,} "
                          f"parameters on {self.device}")
+
+        # BertAdam + EMA (reference :190-209)
+        self.t_total = train_loader_length * cfg.train.num_epochs
+        self.train_state: Optional[CaptionTrainState] = None
+        if not is_test:
+            self.train_state = init_caption_train_state(
+                model_mgr.model, cfg, cfg.random_seed or 0)
         self.translator = Translator(model_mgr.model, cfg)
         # per val batch: host ms of the eval step (to its read) and of the
-        # greedy decode, the decode's forwards; the last batch's device
+        # greedy decode, the decode's forwards; per train step its host ms
+        # (to its read), per epoch the train videos/s; the last batch's
+        # device
         self.val_timings: Dict[str, List[float]] = defaultdict(list)
+        self.train_timings: Dict[str, List[float]] = defaultdict(list)
         self.last_batch_device: Optional[torch.device] = None
         self.hook_post_init()
+
+    def current_lr(self) -> float:
+        """The host's warmup_linear schedule (JAX current_lr :177)."""
+        progress = self.state.total_step / max(self.t_total, 1)
+        return float(self.cfg.lr) * warmup_linear(
+            progress, self.cfg.lr_warmup_proportion)
+
+    @contextlib.contextmanager
+    def _eval_weights(self):
+        """The evaluation weights in the model (JAX `_eval_params` :170):
+        the EMA shadow when the run has one, the trained weights restored
+        afterwards."""
+        ema = self.train_state.ema if self.train_state is not None else None
+        if ema is None:
+            yield
+            return
+        with torch.no_grad():
+            trained = {n: p.detach().clone() for n, p in ema.params.items()}
+            for n, p in ema.params.items():
+                p.copy_(ema.shadow[n])
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for n, p in ema.params.items():
+                    p.copy_(trained[n])
 
     # ---------- checkpoint state ----------
 
@@ -171,22 +235,105 @@ class MartTrainer(BaseTrainer):
         return self.model_mgr.state_dict()
 
     def set_model_state(self, state: Dict[str, Any]) -> None:
+        """Loads the weights; the EMA starts from them (JAX's converter
+        does the same, torch_convert.py:561-563) until an EMA file of the
+        epoch is loaded over it."""
         self.model_mgr.load_state(state)
+        if self.train_state is not None and self.train_state.ema is not None:
+            self.train_state.ema.reset()
+
+    def get_opt_state(self) -> Dict[str, Any]:
+        ts = self.train_state
+        return {"optimizer": ts.optimizer.state_dict(),
+                "step": ts.step.clone(), "seed": ts.seed.clone()}
+
+    def set_opt_state(self, state: Dict[str, Any]) -> None:
+        ts = self.train_state
+        ts.optimizer.load_state_dict(state["optimizer"])
+        ts.step.copy_(torch.as_tensor(state["step"]))
+        ts.seed.copy_(state["seed"])
+
+    def _load_checkpoint(self, epoch: int) -> None:
+        """The epoch's checkpoint, then its EMA file where there is one:
+        into the EMA of a training run, into the model itself for a
+        validation."""
+        super()._load_checkpoint(epoch)
+        ema_file = self.exp.get_models_file_ema(epoch)
+        if self.cfg.ema_decay <= 0 or not ema_file.is_file():
+            return
+        state = ckpt.load(ema_file)
+        if self.train_state is None:
+            self.logger.info(f"Evaluating the EMA weights of {ema_file}")
+            self.model_mgr.load_state(state)
+        else:
+            self.train_state.ema.load_state_dict(state["model"])
+
+    def get_files_for_cleanup(self, epoch: int) -> List[Path]:
+        """(reference :683)."""
+        return [self.exp.get_translation_files(epoch, split="val"),
+                self.exp.get_models_file_ema(epoch)]
+
+    # ---------- training ----------
+
+    def train_model(self, train_loader, val_loader) -> None:
+        self.hook_pre_train()
+        videos = len(train_loader.dataset)
+        for _epoch in range(self.state.current_epoch,
+                            self.cfg.train.num_epochs):
+            if self.check_early_stop():
+                break
+            train_loader.set_epoch(self.state.current_epoch)
+            self.hook_pre_train_epoch()
+            total_loss = 0.0
+            n_word_total = 0
+            n_word_correct = 0
+            for step, (batch, _) in enumerate(prefetch(train_loader,
+                                                       self.device)):
+                self.last_batch_device = batch["input_ids"].device
+                self.hook_pre_step_timer()
+                lr = self.current_lr()
+                out = caption_train_step(self.train_state, batch, lr)
+                loss, n_word, n_correct, grad_norm = torch.stack(
+                    [out["loss"], out["n_word"], out["n_correct"],
+                     out["grad_norm"]]).tolist()
+                self.hook_post_forward_step_timer()
+                self.train_timings["step_ms"].append(
+                    self.timedelta_step_forward * 1e3)
+                total_loss += loss
+                n_word_total += int(n_word)
+                n_word_correct += int(n_correct)
+                self.metrics.update_meter(MMeters.GRAD, grad_norm)
+                self.hook_post_step(step, loss, lr, grad_norm=grad_norm)
+            seconds = timer() - self.timer_train_epoch
+            self.train_timings["epoch_videos_per_s"].append(videos / seconds)
+            self.metrics.update_meter(MMeters.TRAIN_LOSS_PER_WORD,
+                                      total_loss / max(n_word_total, 1))
+            self.metrics.update_meter(MMeters.TRAIN_ACC,
+                                      n_word_correct / max(n_word_total, 1))
+
+            is_val = self.check_is_val_epoch()
+            has_improved = False
+            if is_val:
+                _, _, has_improved, _ = self.validate_epoch(val_loader)
+            ema = self.train_state.ema
+            if ema is not None:  # reference :391-393
+                ckpt.save(self.exp.get_models_file_ema(
+                    self.state.current_epoch), {"model": ema.state_dict()})
+            self.hook_post_train_and_val_epoch(is_val, has_improved)
+        self.hook_post_train()
 
     # ---------- validation + translation ----------
 
-    def validate_epoch(self, data_loader
-                       ) -> Tuple[float, float, bool, Dict[str, float]]:
-        self.hook_pre_val_epoch()
+    def _eval_and_translate(self, data_loader
+                            ) -> Tuple[Dict[str, list], float, int, int]:
+        """The eval step and the greedy decode of every val batch with the
+        model's current weights: (translations by video, the summed loss,
+        the word count, the correct words)."""
         total_loss = 0.0
         n_word_total = 0
         n_word_correct = 0
-        self.val_timings.clear()
-        batch_res = {"version": "VERSION 1.0",
-                     "results": defaultdict(list),
-                     "external_data": {"used": "true", "details": "ay"}}
+        results: Dict[str, list] = defaultdict(list)
         dataset = data_loader.dataset
-
         for batch, host in prefetch(data_loader, self.device):
             self.last_batch_device = batch["input_ids"].device
             t0 = timer()
@@ -208,12 +355,23 @@ class MartTrainer(BaseTrainer):
             for ex_idx, (step_size, cur_meta) in enumerate(
                     zip(host["step_sizes"], host["metas"])):
                 for step_idx, step_batch in enumerate(dec[:step_size]):
-                    batch_res["results"][cur_meta["name"]].append({
+                    results[cur_meta["name"]].append({
                         "sentence": dataset.convert_ids_to_sentence(
                             step_batch[ex_idx].tolist()),
                         "timestamp": cur_meta["timestamp"][step_idx],
                         "gt_sentence": cur_meta["gt_sentence"][step_idx],
                     })
+        return results, total_loss, n_word_total, n_word_correct
+
+    def validate_epoch(self, data_loader
+                       ) -> Tuple[float, float, bool, Dict[str, float]]:
+        self.hook_pre_val_epoch()
+        self.val_timings.clear()
+        with self._eval_weights():
+            results, total_loss, n_word_total, n_word_correct = \
+                self._eval_and_translate(data_loader)
+        batch_res = {"version": "VERSION 1.0", "results": results,
+                     "external_data": {"used": "true", "details": "ay"}}
 
         batch_res["results"] = Translator.sort_res(batch_res["results"])
         eval_mode = self.cfg.dataset_val.split
@@ -277,4 +435,25 @@ class MartTrainer(BaseTrainer):
             metrics_file = self.exp.path_base / f"val_ep_{epoch}.json"
             self.metrics.save_epoch_to_file(metrics_file)
             self.logger.info(f"Saved validation results to {metrics_file}")
+            if self.cfg.dataset_val.split == "val":
+                self._patch_meteor(flat_metrics["METEOR"])
         return total_loss, val_score, is_best, flat_metrics
+
+    def _patch_meteor(self, meteor: float) -> None:
+        """Validating the best epoch of a run whose training scored METEOR
+        -999 (no scorer then) writes this score into that epoch's metrics
+        file (reference :643-656)."""
+        best_ep = self.exp.find_best_epoch()
+        if not self.load_ep == best_ep == self.state.current_epoch:
+            return
+        metrics_file = self.exp.get_metrics_epoch_file(best_ep)
+        if not metrics_file.is_file():
+            return
+        data = json.loads(metrics_file.read_text(encoding="utf8"))
+        scores = dict(data[TextMetricsConst.METEOR])
+        if (scores.get(best_ep, 0) + 999) ** 2 < 1e-4:
+            scores[best_ep] = meteor
+            data[TextMetricsConst.METEOR] = list(scores.items())
+            metrics_file.write_text(json.dumps(data), encoding="utf8")
+            self.logger.info(f"METEOR of epoch {best_ep} patched in "
+                             f"{metrics_file}")

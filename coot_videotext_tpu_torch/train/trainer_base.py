@@ -5,7 +5,8 @@ Port of coot_videotext_tpu/train/trainer_base.py (reference
 nntrainer/trainer_base.py:25-765): checkpoint auto-load best/last/epoch/file
 (:144-176), early stopping (:285), val scheduling (:312), best-epoch compare
 with rel/abs threshold (:632), the per-epoch and per-step hooks (:364-630),
-checkpoint save/load/cleanup (:672-753), so the trainerstate and metrics
+checkpoint save/load/cleanup (:672-753, with a subclass's own files of
+an epoch, `get_files_for_cleanup`), so the trainerstate and metrics
 files keep the reference's schema. The device is one torch device; device
 memory is read with torch.cuda.memory_allocated.
 
@@ -20,7 +21,7 @@ import logging
 import resource
 from pathlib import Path
 from timeit import default_timer as timer
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -30,7 +31,8 @@ from coot_videotext_tpu_torch.train.schedule import LRScheduler
 from coot_videotext_tpu_torch.utils import yaml_utils
 from coot_videotext_tpu_torch.utils.experiments import ExperimentFilesHandler
 from coot_videotext_tpu_torch.utils.general import (
-    LOGGER_NAME, MetricComparisonConst, TrainerPathConst, create_logger)
+    LOGGER_NAME, MetricComparisonConst, TrainerPathConst, create_logger,
+    remove_handlers)
 from coot_videotext_tpu_torch.utils.metrics import DefaultMetricsConst as M
 from coot_videotext_tpu_torch.utils.metrics import MetricsWriter
 
@@ -144,6 +146,11 @@ class BaseTrainer:
 
     def set_opt_state(self, state: Any) -> None:
         raise NotImplementedError
+
+    def get_files_for_cleanup(self, _epoch: int) -> List[Path]:
+        """A subclass's own files of an epoch, deleted with its
+        checkpoint."""
+        return []
 
     # ---------- epoch decisions ----------
 
@@ -376,10 +383,15 @@ class BaseTrainer:
             if ep_num in keep or (self.cfg.saving.keep_freq > 0 and
                                   ep_num % self.cfg.saving.keep_freq == 0):
                 continue
-            for file in (self.exp.get_models_file(ep_num),
+            for file in [self.exp.get_models_file(ep_num),
                          self.exp.get_optimizer_file(ep_num),
                          self.exp.get_trainerstate_file(ep_num),
                          self.exp.get_scheduler_file(ep_num),
                          self.exp.get_metrics_epoch_file(ep_num),
-                         self.exp.get_metrics_step_file(ep_num)):
+                         self.exp.get_metrics_step_file(ep_num),
+                         *self.get_files_for_cleanup(ep_num)]:
                 Path(file).unlink(missing_ok=True)
+
+    def close(self) -> None:
+        """Close the run's log file."""
+        remove_handlers(self.logger)

@@ -1,26 +1,32 @@
 """
-Caption validation with the PyTorch package: the recurrent MART model,
-greedy decoding and the caption metrics (the flags of the repo's
-train_caption.py).
+Caption training and validation with the PyTorch package: the recurrent
+MART model, BertAdam with the EMA shadow, greedy decoding and the caption
+metrics (the flags of the repo's train_caption.py).
 
-    python -m coot_videotext_tpu_torch.train_caption -c <yaml> --validate \\
-        [--load_model X.pth] [--ignore_untrained] [--device cpu] \\
+    python -m coot_videotext_tpu_torch.train_caption -c <yaml> \\
+        [-o train.num_epochs=N] [--reset] [--load_epoch E] [--device cpu] \\
         [--annotations_dir D] [--coot_feat_dir D] [--cache_dir D] \\
         [--dataset_max N]
 
-validates one checkpoint over the val split: the teacher-forced loss and
+trains over the train split (rerunning resumes from the newest
+checkpoint, or from `--load_epoch`; `--load_model X.pth` warm-starts) and
+validates per val_start / val_freq, writing under
+experiments/caption/<group>/<name>_<run>/ the checkpoints
+(`models/model_<ep>.pth`, `modelema_<ep>.pth`, `optimizer_<ep>.pth`,
+trainerstate and metrics) and the translations. With `--validate
+[--load_model X.pth | --load_epoch E] [--ignore_untrained]` it validates
+one checkpoint over the val split instead: the teacher-forced loss and
 token accuracy, the greedy paragraph translations (written to
-experiments/caption/<group>/<name>_<run>/caption/translations_<ep>_val.json)
-and BLEU 1-4, METEOR, ROUGE-L, CIDEr with the sentence statistics and the
-repetition metrics (`val_ep_<ep>.json`). `--load_model` takes a
-reference-layout `{"model": state_dict}` file; without it the newest
-checkpoint of the experiment directory is loaded, or with
-`--ignore_untrained` the model is validated from its seeded init. The COOT
-embeddings are read from `--coot_feat_dir` as `<coot_model_name>_val.h5`
-or `.npz`. Runs on the CUDA device unless `--device cpu` is given; asked
-for CUDA without a GPU it raises. Training (ROADMAP A9b), beam search
-(A10b) and the other caption models and inputs (A11) raise
-NotImplementedError.
+caption/translations_<ep>_val.json) and BLEU 1-4, METEOR, ROUGE-L, CIDEr
+with the sentence statistics and the repetition metrics
+(`val_ep_<ep>.json`); an epoch of a run trained with an EMA is evaluated
+with its EMA weights, a `--load_model` file (the reference layout
+`{"model": state_dict}`) as it is. Without a checkpoint `--validate`
+refuses unless `--ignore_untrained` is given. The COOT embeddings are read
+from `--coot_feat_dir` as `<coot_model_name>_<split>.h5` or `.npz`. Runs
+on the CUDA device unless `--device cpu` is given; asked for CUDA without
+a GPU it raises. Beam search (ROADMAP A10b) and the other caption models
+and inputs (A11) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -100,14 +106,15 @@ def build_parser() -> arguments.ArgParser:
 
 
 def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
-    """Run the CLI; returns one result dict per run: the metrics, the
-    translation and metrics files, where the model and the batches were,
-    and the per-batch timings of the eval step and the decode."""
+    """Run the CLI; returns one result dict per run: where the model and
+    the batches were, and for a validation the metrics, the translation
+    and metrics files and the per-batch timings of the eval step and the
+    decode; for training the epochs trained, their train videos/s, the
+    per-step wall ms, the models dir and the last epoch's metrics file
+    (every epoch's meters)."""
     args = build_parser().parse_args(argv)
-    if not args.validate:
-        raise NotImplementedError("MART training: ROADMAP A9b")
     device = resolve_device(args.device)
-    # full f32 products (no TF32), so the card's decode agrees with the CPU
+    # full f32 products (no TF32), so the card agrees with the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
     exp_group, exp_name, config_file = \
         arguments.setup_experiment_identifier_from_args(args, EXP_TYPE)
@@ -137,39 +144,78 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
         trainer = MartTrainer(
             cfg, mgr, exp_group, exp_name, run_name, len(train_loader),
             log_dir=args.log_dir, annotations_dir=args.annotations_dir,
-            reset=args.reset, load_best=True, load_epoch=args.load_epoch,
-            load_model=args.load_model, is_test=True)
-        if not trainer.load and not args.ignore_untrained:
-            raise ValueError(
-                "Validating an untrained model! No checkpoints were loaded. "
-                "Add --ignore_untrained to validate anyway.")
+            reset=args.reset,
+            load_best=args.load_best or (args.validate
+                                         and args.load_epoch is None),
+            load_epoch=args.load_epoch, load_model=args.load_model,
+            is_test=args.validate)
         try:
-            loss, score, _, metrics = trainer.validate_epoch(val_loader)
+            if args.validate:
+                results.append(_validate(args, cfg, trainer, val_loader))
+            else:
+                results.append(_train(cfg, trainer, train_loader,
+                                      val_loader))
         except BaseException:
             trainer.logger.exception("Run aborted by uncaught exception:")
             raise
-        epoch = trainer.state.current_epoch
-        results.append({
-            "metrics": metrics, "val_loss": loss, "val_score": score,
-            "translation_file": trainer.exp.get_translation_files(
-                epoch, cfg.dataset_val.split),
-            "metrics_file": trainer.exp.path_base / f"val_ep_{epoch}.json",
-            "model_device": next(mgr.model.parameters()).device,
-            "batch_device": trainer.last_batch_device,
-            "num_batches": len(val_loader),
-            "eval_ms": list(trainer.val_timings["eval_ms"]),
-            "decode_ms": list(trainer.val_timings["decode_ms"]),
-            "forwards": list(trainer.val_timings["forwards"]),
-            "val_seconds": trainer.state.time_val,
-        })
-        print(f"Validation: {len(val_loader)} batches in "
-              f"{trainer.state.time_val:.2f} s; eval step "
-              f"{np.median(results[-1]['eval_ms']):.1f} ms, decode "
-              f"{np.median(results[-1]['decode_ms']):.1f} ms per batch "
-              "(median)", flush=True)
+        results[-1]["model_device"] = next(mgr.model.parameters()).device
+        results[-1]["batch_device"] = trainer.last_batch_device
+        trainer.close()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return results
+
+
+def _validate(args, cfg: MartConfig, trainer: MartTrainer,
+              val_loader) -> Dict[str, Any]:
+    if not trainer.load and not args.ignore_untrained:
+        raise ValueError(
+            "Validating an untrained model! No checkpoints were loaded. "
+            "Add --ignore_untrained to validate anyway.")
+    loss, score, _, metrics = trainer.validate_epoch(val_loader)
+    epoch = trainer.state.current_epoch
+    result = {
+        "metrics": metrics, "val_loss": loss, "val_score": score,
+        "translation_file": trainer.exp.get_translation_files(
+            epoch, cfg.dataset_val.split),
+        "metrics_file": trainer.exp.path_base / f"val_ep_{epoch}.json",
+        "num_batches": len(val_loader),
+        "eval_ms": list(trainer.val_timings["eval_ms"]),
+        "decode_ms": list(trainer.val_timings["decode_ms"]),
+        "forwards": list(trainer.val_timings["forwards"]),
+        "val_seconds": trainer.state.time_val,
+    }
+    print(f"Validation: {len(val_loader)} batches in "
+          f"{trainer.state.time_val:.2f} s; eval step "
+          f"{np.median(result['eval_ms']):.1f} ms, decode "
+          f"{np.median(result['decode_ms']):.1f} ms per batch (median)",
+          flush=True)
+    return result
+
+
+def _train(cfg: MartConfig, trainer: MartTrainer, train_loader,
+           val_loader) -> Dict[str, Any]:
+    first_epoch = trainer.state.current_epoch
+    trainer.train_model(train_loader, val_loader)
+    timings = trainer.train_timings
+    result = {
+        "epochs": list(range(first_epoch, trainer.state.current_epoch)),
+        "steps_per_epoch": len(train_loader),
+        "train_videos_per_s": list(timings["epoch_videos_per_s"]),
+        "step_ms": list(timings["step_ms"]),
+        "total_step": trainer.state.total_step,
+        "models_dir": trainer.exp.path_models,
+        "metrics_file": trainer.exp.get_metrics_epoch_file(
+            trainer.state.current_epoch - 1),
+    }
+    if result["step_ms"]:
+        print(f"Training: {len(result['epochs'])} epochs of "
+              f"{len(train_loader)} steps; step "
+              f"{np.median(result['step_ms']):.1f} ms (median), train "
+              f"videos/s by epoch "
+              f"{[round(v, 2) for v in result['train_videos_per_s']]}",
+              flush=True)
+    return result
 
 
 if __name__ == "__main__":

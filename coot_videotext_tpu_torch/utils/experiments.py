@@ -75,6 +75,11 @@ class ExperimentFilesHandler:
         return self.path_models / \
             f"{TrainerPathConst.FILE_PREFIX_MODEL}_{epoch}.pth"
 
+    def get_models_file_ema(self, epoch: Union[int, str]) -> Path:
+        """The caption trainer's EMA shadow, `{"model": state_dict}`."""
+        return self.path_models / \
+            f"{TrainerPathConst.FILE_PREFIX_MODELEMA}_{epoch}.pth"
+
     def get_optimizer_file(self, epoch: Union[int, str]) -> Path:
         return self.path_models / \
             f"{TrainerPathConst.FILE_PREFIX_OPTIMIZER}_{epoch}.pth"

@@ -19,6 +19,9 @@ torch_convert.convert_mart_model_state :473 for the recurrent MART model
 ("mart" family, `_convert_mart_key` :209), and `load_mart_checkpoint` reads
 the reference caption layout `{"model": state_dict}` (what
 torch_convert.convert_model_file :543 reads) into the port's model.
+`mart_jax_paths` goes the other way for names: each parameter of the
+port's MART model with the flax path JAX gives it, which BertAdam's masks
+read.
 """
 
 from __future__ import annotations
@@ -134,6 +137,41 @@ _MART_LEAVES = {"kernel": "weight", "scale": "weight",
 _MART_SKIP = (re.compile(r"(^|\.)position_embeddings\.pe$"),
               re.compile(r"^loss_func\."),
               re.compile(r"\.memory_intermediate\."))
+
+
+# torch module scopes (as component pairs) -> flax scope names, and the
+# flax leaf of a `weight` by the module that holds it
+_MART_SCOPES_INV = {tuple(v.split(".")): k for k, v in _MART_SCOPES.items()}
+_MART_WEIGHT_LEAF = {"Linear": "kernel", "LayerNorm": "scale",
+                     "Embedding": "embedding"}
+
+
+def mart_jax_paths(model) -> Dict[str, str]:
+    """{parameter name: its JAX path, "encoder/layer_0/output/LayerNorm/
+    scale"} for the port's RecursiveTransformer (the inverse of
+    jax_mart_params_to_state_dict's names)."""
+    out: Dict[str, str] = {}
+    for module_name, module in model.named_modules():
+        parts = module_name.split(".") if module_name else []
+        scope, i = [], 0
+        while i < len(parts):
+            pair = tuple(parts[i:i + 2])
+            if pair in _MART_SCOPES_INV:
+                scope.append(_MART_SCOPES_INV[pair])
+            elif parts[i] == "layer" and len(pair) == 2 \
+                    and pair[1].isdigit():
+                scope.append(f"layer_{pair[1]}")
+            else:
+                scope.append(parts[i])
+                i += 1
+                continue
+            i += 2
+        for leaf, _ in module.named_parameters(recurse=False):
+            name = ".".join(parts + [leaf])
+            if leaf == "weight":
+                leaf = _MART_WEIGHT_LEAF[type(module).__name__]
+            out[name] = "/".join(scope + [leaf])
+    return out
 
 
 def jax_mart_params_to_state_dict(params: Any) -> Dict[str, np.ndarray]:

@@ -176,17 +176,16 @@ def test_cli_validate_matches_jax_trainer(smoke, monkeypatch):
             assert o == r, key
 
 
-@pytest.mark.parametrize("case", ["training", "beam", "cuda", "untrained"])
+@pytest.mark.parametrize("case", ["mtrans", "beam", "cuda", "untrained"])
 def test_cli_refuses(smoke, case):
     root, info, _ = smoke
-    extra = {"training": ["--device", "cpu"],
+    extra = {"mtrans": ["--device", "cpu", "-o",
+                        "recurrent=false,mtrans=true"],
              "beam": ["--device", "cpu", "-o", "use_beam=true"],
              "cuda": [],
              "untrained": ["--device", "cpu"]}[case]
     argv = _argv(root, info, root / "refused", *extra)
-    if case == "training":
-        argv.remove("--validate")
-    expect = {"training": (NotImplementedError, "ROADMAP A9b"),
+    expect = {"mtrans": (NotImplementedError, "ROADMAP A11"),
               "beam": (NotImplementedError, "ROADMAP A10b"),
               "cuda": (RuntimeError, "--device cpu"),
               "untrained": (ValueError, "ignore_untrained")}[case]
