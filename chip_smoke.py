@@ -120,6 +120,31 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    (16, 25, 768) and (16, 12, 25, 25), bit-equal to its plain version,
    timed bare and through autograd beside F.dropout and its bound.
 
+8. The caption variants of the shipped configs, at full width, inputs
+   from seed 0, each with the launch counts set to 0 just before its CLI
+   run and read just after (B4 forward and backward must run, nothing
+   else). (a) Raw-feature MART at yc2_mart.yaml (3072-d rgb+flow
+   features, L = 100 + 22, batch 16, dropout 0.1): the first 160 train
+   and 100 val videos of the real YouCook2 caption annotations copied to
+   the temporary directory, features generated there by the port's
+   generate_caption_video_features (resnet 2048 + bn 1024 rows at 2 a
+   second of each video's duration, ~2 GB); `train_caption -c
+   yc2_mart.yaml --video_feature_dir <dir>` trains one epoch and
+   validates, then `--validate --load_epoch 0` must give the training
+   run's val loss (the EMA weights); one train batch of 8 videos card
+   against CPU over 3 steps (phase 7's tolerances); one val batch of 4
+   videos: eval step within phase 6's tolerances and greedy tokens
+   identical card against CPU; one batch of 16 trained 16 steps: the loss
+   falls, the warm step's wall and device-busy ms, B4 the only port kernel
+   of a traced step, peak memory. (b) The MTransformer at
+   yc2_100m_coot_vidclip_mtrans.yaml (COOT vid+clip embeddings from seed
+   0, 1152-d, single sentences, batches of 16 and 50): the same checks,
+   the CLI over the sentences of the first 320 train and 100 val videos,
+   a train batch of 16 and a val batch of 50 sentences card against CPU.
+   (c) B4 in float32 bit-equal to its plain version at the new shapes
+   (two of them with element counts that are no multiple of 4), timed
+   bare and through autograd beside F.dropout, and its bound.
+
 Prints `{"kernels": [...]}` on the line before the last and
 `{"ok": true, "device": {...}}` as the last line; exits non-zero (and
 prints no result) on any failure, without a CUDA device, or outside a
@@ -131,6 +156,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1146,17 +1172,12 @@ CAPTION_CORRECT_TOL = 0.005
 CAPTION_MIN_SAME = 0.98
 
 
-def _caption_inputs(tmp: Path, cfg) -> tuple:
-    """COOT embeddings from a seed for every video and clip of the real
-    YouCook2 caption splits, as `yc2_2d3d_coot_{train,val}.npz` in the
-    export schema (rows of unit length, the config's widths), and the
-    port's model at the config's width from seed 0 with GloVe applied,
-    saved as a reference-layout `{"model": state_dict}`. Returns the
-    embedding dir, the checkpoint and the val annotations."""
+def _coot_embeddings(tmp: Path, cfg) -> Path:
+    """COOT embeddings from seed 0 for every video and clip of the real
+    YouCook2 caption splits, as `<coot_model_name>_{train,val}.npz` in the
+    export schema (rows of unit length, the config's widths), under
+    tmp/embeddings, which is returned."""
     import numpy as np
-    import torch
-    from coot_videotext_tpu_torch.tasks.caption.model_manager import (
-        build_mart_model_manager, load_glove_matrix)
     ann = ROOT / "annotations" / "youcook2"
     emb_dir = tmp / "embeddings"
     emb_dir.mkdir(parents=True)
@@ -1179,6 +1200,19 @@ def _caption_inputs(tmp: Path, cfg) -> tuple:
         log(f"  {split}: {len(data)} videos, {int(clip_num.sum())} clips "
             f"(max {int(clip_num.max())} a video); embeddings vid / ctx "
             f"{cfg.coot_dim_vid}, clip {cfg.coot_dim_clip}")
+    return emb_dir
+
+
+def _caption_inputs(tmp: Path, cfg) -> tuple:
+    """The COOT embeddings (_coot_embeddings) and the port's model at the
+    config's width from seed 0 with GloVe applied, saved as a
+    reference-layout `{"model": state_dict}`. Returns the embedding dir,
+    the checkpoint and the val annotations."""
+    import torch
+    from coot_videotext_tpu_torch.tasks.caption.model_manager import (
+        build_mart_model_manager, load_glove_matrix)
+    ann = ROOT / "annotations" / "youcook2"
+    emb_dir = _coot_embeddings(tmp, cfg)
     vocab = json.loads((ann / "mart_word2idx.json").read_text(
         encoding="utf8"))
     mgr = build_mart_model_manager(cfg, len(vocab), torch.device("cpu"),
@@ -1403,9 +1437,6 @@ def phase_caption_train(tmp: Path) -> None:
     from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
     from coot_videotext_tpu_torch.tasks.caption.model_manager import (
         build_mart_model_manager)
-    from coot_videotext_tpu_torch.tasks.caption.steps import (
-        caption_loss_and_grads, caption_train_step, caption_update,
-        init_caption_train_state)
     from coot_videotext_tpu_torch.utils.yaml_utils import (
         load_yaml_config_file)
 
@@ -1498,19 +1529,365 @@ def phase_caption_train(tmp: Path) -> None:
         annotations_dir=str(ROOT / "annotations"),
         coot_feat_dir=str(emb_dir))
     weights = torch.load(pth, map_location="cpu", weights_only=True)
-    stacked, _, _ = dataset.collate_fn([dataset[i] for i in range(8)])
-    seen = {}
-    for name in ("cuda", "cpu"):
-        device = torch.device(name)
+
+    def build(device):
         mgr = build_mart_model_manager(config(), len(dataset.word2idx),
                                        device, seed=1)
         mgr.load_state(weights)
+        return mgr
+
+    stacked, _, _ = dataset.collate_fn([dataset[i] for i in range(8)])
+    hold_train_steps("caption training", build,
+                     {k: stacked[k] for k in STACKED_KEYS}, single=False)
+
+    log("(d) one train batch of 16 videos trained 16 steps at lr "
+        f"{CAPTION_TRAIN_LR} on the card, timed and traced")
+    stacked, _, _ = dataset.collate_fn(
+        [dataset[i] for i in range(cfg.train.batch_size)])
+    log(f"  S {len(stacked['input_ids'])} sentence steps x N "
+        f"{cfg.train.batch_size} x L {cfg.max_v_len + cfg.max_t_len}")
+    time_train_step("caption training", build,
+                    {k: stacked[k] for k in STACKED_KEYS}, single=False,
+                    examples=cfg.train.batch_size, unit="videos")
+
+    log("(e) B4 at the caption shapes, float32, rate "
+        f"{cfg.hidden_dropout_prob}")
+    caption_dropout_timing(cfg.hidden_dropout_prob, CAPTION_DROPOUT_SHAPES)
+
+
+RAW_CONFIG = (ROOT / "config" / "caption" / "paper2020" / "yc2_mart.yaml")
+MTRANS_CONFIG = (ROOT / "config" / "caption" / "paper2020" /
+                 "yc2_100m_coot_vidclip_mtrans.yaml")
+# phase 8's cuts of the YouCook2 caption splits: raw-feature MART trains one
+# epoch on the first 160 train videos (10 steps of 16) and validates on the
+# first 100 val videos (2 batches of 50); the MTransformer trains on the
+# sentences of the first 320 train videos and validates on those of the
+# first 100 val videos
+RAW_VIDEOS = {"train": 160, "val": 100}
+MTRANS_CUTS = {"dataset_train.max_datapoints": 320,
+               "dataset_val.max_datapoints": 100}
+# raw-feature MART's greedy decode card against CPU takes the first 4 val
+# videos: the CPU's decode of a batch of 50 at L = 122 would take minutes
+RAW_DECODE_VIDEOS = 4
+# B4 in float32 at the new paths' dropout shapes: raw-feature MART's hidden
+# rows and attention probabilities (L = 122), the MTransformer's video rows
+# (1152 in, 768 out), text rows and self-, cross- and video-attention
+# probabilities; and two element counts that are no multiple of 4
+VARIANT_DROPOUT_SHAPES = ((16, 122, 768), (16, 12, 122, 122),
+                          (16, 3, 1152), (16, 3, 768), (16, 12, 3, 3),
+                          (16, 22, 768), (16, 12, 22, 22), (16, 12, 22, 3),
+                          (15, 1, 3, 3), (15, 22, 767))
+
+
+def _raw_inputs(tmp: Path) -> tuple:
+    """The cut of the real YouCook2 caption annotations (RAW_VIDEOS, plus
+    captioning_val_para.json and mart_word2idx.json) under
+    tmp/annotations/youcook2, and the port's generate_caption_video_features
+    there at yc2_mart.yaml's widths (resnet 2048 + bn 1024, 2 rows a second
+    of each video's duration, seed 0). Returns the annotations dir and the
+    generator's result."""
+    from coot_videotext_tpu_torch.data.synthetic import (
+        generate_caption_video_features)
+    src = ROOT / "annotations" / "youcook2"
+    ann = tmp / "annotations" / "youcook2"
+    ann.mkdir(parents=True)
+    for split, n in RAW_VIDEOS.items():
+        name = f"captioning_{split}.json"
+        data = json.loads((src / name).read_text(encoding="utf8"))
+        (ann / name).write_text(json.dumps(dict(list(data.items())[:n])),
+                                encoding="utf8")
+    for name in ("captioning_val_para.json", "mart_word2idx.json"):
+        shutil.copy(src / name, ann / name)
+    t0 = time.perf_counter()
+    info = generate_caption_video_features(tmp, dim_resnet=2048,
+                                           dim_bn=1024, seed=0)
+    files = list((Path(info["video_feature_dir"]) / "youcook2").iterdir())
+    rows = [int(line.split(",")[2]) for line in (
+        ann / "captioning_video_feat_duration.csv").read_text().splitlines()]
+    log(f"  {RAW_VIDEOS['train']} train + {RAW_VIDEOS['val']} val videos: "
+        f"{len(files)} .npy files, {sum(f.stat().st_size for f in files) / 1e9:.2f} "
+        f"GB, {statistics.mean(rows):.0f} rows a video (max {max(rows)}), "
+        f"{info['video_feature_size']}-d, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return tmp / "annotations", info
+
+
+def _variant_cli(tag: str, common: list, cuts: str, n_val: int,
+                 unit: str) -> Path:
+    """`train_caption` on the card with the `-o` overrides `cuts` (or
+    none): one epoch of training with validation,
+    the launch counts of B1-B5 set to 0 just before and read just after
+    (B4 forward and backward must run, nothing else), then `--validate
+    --load_epoch 0` (the EMA weights: the training run's val loss);
+    timings and peak memory logged. Returns the trained weights' file,
+    model_0.pth."""
+    import torch
+    from coot_videotext_tpu_torch import train_caption
+    from coot_videotext_tpu_torch.ops import cuda_build
+    cuda_build.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    result = train_caption.main(common + [
+        "-o", ",".join(filter(None, (cuts, "train.num_epochs=1")))])[0]
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    launches = dict(cuda_build.launch_counts)
+    log(f"  launches during the run {launches}")
+    if launches.get("dropout", 0) <= 0 or launches.get("dropout_bwd", 0) <= 0:
+        fail(f"{tag}: B4 forward or backward was not launched")
+    others = {k: v for k, v in launches.items()
+              if v and k not in ("dropout", "dropout_bwd")}
+    if others:
+        fail(f"{tag} launched kernels off its path: {others}")
+    if result["model_device"].type != "cuda" \
+            or result["batch_device"].type != "cuda":
+        fail(f"{tag} ran on {result['model_device']} with batches on "
+             f"{result['batch_device']}, not on the card")
+    run = result["models_dir"].parent
+    steps = json.loads((run / "metrics" / "metrics_step_0.json").read_text(
+        encoding="utf8"))
+    losses = [v for _, v in steps["train_base/loss"]]
+    if len(losses) != result["steps_per_epoch"] \
+            or not all(math.isfinite(v) for v in losses) \
+            or result["train_unit"] != unit:
+        fail(f"{tag}: step losses {losses} ({result['train_unit']})")
+    for name in ("model_0.pth", "modelema_0.pth", "optimizer_0.pth"):
+        if not (result["models_dir"] / name).is_file():
+            fail(f"{tag} wrote no {name}")
+    if not (run / "caption" / "translations_0_val.json").is_file():
+        fail(f"{tag} wrote no translations of epoch 0")
+    trained = dict(json.loads(result["metrics_file"].read_text(
+        encoding="utf8"))["val/loss_word"])[0]
+    log(f"  1 epoch of {result['steps_per_epoch']} steps in {wall:.2f} s "
+        f"(the CLI's main(), validation included): "
+        f"{result['train_videos_per_s'][0]:.2f} train {unit}/s; step wall "
+        f"ms median {statistics.median(result['step_ms']):.2f} (first "
+        f"{result['step_ms'][0]:.1f}); step losses first / last "
+        f"{losses[0]:.3f} / {losses[-1]:.3f}; peak device memory "
+        f"{peak:.3f} GB above the {held / 1e9:.3f} GB held before")
+    val = train_caption.main(common + (["-o", cuts] if cuts else []) + [
+        "--validate", "--load_epoch", "0"])[0]
+    metrics = json.loads(val["metrics_file"].read_text(encoding="utf8"))
+    (epoch, again), = metrics["val/loss_word"][-1:]
+    if epoch != 0 or abs(again - trained) > 1e-6 * abs(trained):
+        fail(f"{tag}: --validate --load_epoch 0 gave val loss {again}, the "
+             f"training run {trained}")
+    for key in ("cap/b4", "cap/met", "cap/rol", "cap/cid"):
+        value = metrics[key][-1][1]
+        if not math.isfinite(value) or value < 0:
+            fail(f"{tag}: {key} = {value}")
+    log(f"  --validate --load_epoch 0 (EMA weights): val loss per word "
+        f"{again:.5f} (the training run's {trained:.5f}); "
+        f"{val['num_batches']} val batches: {n_val / val['val_seconds']:.2f} "
+        f"val videos/s over the validation pass ({val['val_seconds']:.2f} "
+        f"s: eval step, decode and metrics); median per batch: eval step "
+        f"{statistics.median(val['eval_ms']):.2f} ms, greedy decode "
+        f"{statistics.median(val['decode_ms']):.2f} ms; forwards per "
+        f"decode {val['forwards']}")
+    log(f"  eval ms by batch {[round(v, 2) for v in val['eval_ms']]}; "
+        f"decode ms {[round(v, 1) for v in val['decode_ms']]}; metrics "
+        f"(1 epoch from random weights): " + json.dumps(
+            {k: metrics[k][-1][1] for k in ("cap/b4", "cap/met", "cap/rol",
+                                             "cap/cid", "val/acc")}))
+    return result["models_dir"] / "model_0.pth"
+
+
+def hold_decode(tag: str, build, arrays: dict, single: bool) -> None:
+    """One val batch (numpy `arrays`) on the card against the port on the
+    CPU, float32: the eval step's loss (CAPTION_LOSS_RTOL), n_word, n_correct
+    (CAPTION_CORRECT_TOL of n_word), and the greedy decode token-identical."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch.tasks.caption.steps import (
+        caption_eval_step, caption_eval_step_single)
+    from coot_videotext_tpu_torch.tasks.caption.translator import Translator
+    eval_step = caption_eval_step_single if single else caption_eval_step
+    outs, decs = {}, {}
+    for name in ("cuda", "cpu"):
+        device = torch.device(name)
+        mgr = build(device)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+        t0 = time.perf_counter()
+        outs[name] = {k: float(v) for k, v in
+                      eval_step(mgr.model, batch).items()}
+        translator = Translator(mgr.model, mgr.cfg)
+        decs[name] = np.asarray(translator.translate_batch(batch))
+        log(f"  {name}: eval step and greedy decode "
+            f"({translator.forwards} forwards) {time.perf_counter() - t0:.2f}"
+            " s")
+        del mgr, batch
+    gpu, cpu = outs["cuda"], outs["cpu"]
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    correct_diff = abs(gpu["n_correct"] - cpu["n_correct"]) / cpu["n_word"]
+    same = decs["cuda"] == decs["cpu"]
+    rows = same.reshape(-1, same.shape[-1]).all(axis=1)
+    log(f"  loss {gpu['loss']:.6f} / {cpu['loss']:.6f} (relative "
+        f"{loss_rel:.2e}, limit {CAPTION_LOSS_RTOL}); n_correct "
+        f"{gpu['n_correct']:.0f} / {cpu['n_correct']:.0f} of "
+        f"{cpu['n_word']:.0f} words ({correct_diff:.2%}, limit "
+        f"{CAPTION_CORRECT_TOL:.1%}); greedy sentences token-identical "
+        f"{int(rows.sum())} of {rows.size} (every one required), "
+        f"{len(np.unique(decs['cuda']))} distinct tokens")
+    if loss_rel > CAPTION_LOSS_RTOL or gpu["n_word"] != cpu["n_word"] \
+            or correct_diff > CAPTION_CORRECT_TOL or not rows.all():
+        fail(f"{tag}: the card disagrees with the CPU")
+
+
+def phase_caption_variants(tmp: Path) -> None:
+    """Phase 8, the caption variants at the full width of their shipped
+    configs. (a) Raw-feature MART, yc2_mart.yaml (3072-d features, L = 100
+    + 22): the inputs (_raw_inputs), the CLI trains one epoch and validates
+    (_variant_cli), one train batch of 8 videos card against CPU over 3
+    steps (hold_train_steps), one val batch of RAW_DECODE_VIDEOS videos
+    card against CPU (hold_decode), one batch of 16 trained 16 steps, timed
+    and traced (time_train_step), each from the weights the CLI trained
+    (model_0.pth: from random weights the second step's gradient norm
+    jumps twentyfold, 2.8e3 to 5.6e4, and the third step's grad_norm
+    carries the two devices' rounding past the 1e-4 gate: 1.5e-4 on an
+    H100 80GB HBM3).
+    (b) The MTransformer,
+    yc2_100m_coot_vidclip_mtrans.yaml (COOT vid+clip 1152-d, single
+    sentences): embeddings from seed 0 (_coot_embeddings), the same checks
+    on batches of 16 train and 50 val sentences. (c) B4 at the new shapes
+    (caption_dropout_timing)."""
+    import torch
+    from coot_videotext_tpu_torch.data.caption_dataset import (
+        STACKED_KEYS, UNTIED_KEYS, RecursiveCaptionDataset)
+    from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
+    from coot_videotext_tpu_torch.tasks.caption.model_manager import (
+        build_mart_model_manager)
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    cache = str(ROOT / "cache_caption")
+
+    def from_trained(config_file, vocab, pth):
+        """The model of the CLI's epoch (`pth`) on a device."""
+        weights = torch.load(pth, map_location="cpu", weights_only=True)
+
+        def build(device):
+            mgr = build_mart_model_manager(
+                MartConfig(load_yaml_config_file(config_file)), vocab,
+                device, seed=1, cache_dir=cache)
+            mgr.load_state(weights)
+            return mgr
+        return build
+
+    log("(a) raw-feature MART at yc2_mart.yaml: inputs")
+    cfg = MartConfig(load_yaml_config_file(RAW_CONFIG))
+    ann_dir, info = _raw_inputs(tmp / "raw")
+    common = ["-c", str(RAW_CONFIG), "--seed", "0",
+              "--annotations_dir", str(ann_dir),
+              "--video_feature_dir", info["video_feature_dir"],
+              "--cache_dir", cache, "--log_dir", str(tmp / "raw" / "exp")]
+    log("  the CLI trains one epoch on the card and validates")
+    pth = _variant_cli("raw-feature MART", common, "", RAW_VIDEOS["val"],
+                       "videos")
+
+    def dataset(mode, max_n_sen):
+        return RecursiveCaptionDataset(
+            "youcook2", cfg.max_t_len, cfg.max_v_len, max_n_sen, mode=mode,
+            coot_model_name=None, video_feature_dir=info["video_feature_dir"],
+            annotations_dir=str(ann_dir))
+
+    train = dataset("train", cfg.max_n_sen)
+    build = from_trained(RAW_CONFIG, len(train.word2idx), pth)
+    log(f"  one train batch of 8 videos: the card against the CPU, float32, "
+        f"dropout {cfg.hidden_dropout_prob}, 3 steps at lr "
+        f"{CAPTION_TRAIN_LR}")
+    stacked, _, _ = train.collate_fn([train[i] for i in range(8)])
+    hold_train_steps("raw-feature MART", build,
+                     {k: stacked[k] for k in STACKED_KEYS}, single=False)
+    val = dataset("val", cfg.max_n_sen + cfg.max_n_sen_add_val)
+    log(f"  one val batch of {RAW_DECODE_VIDEOS} videos: the card against "
+        "the CPU")
+    stacked, _, _ = val.collate_fn([val[i] for i in
+                                    range(RAW_DECODE_VIDEOS)])
+    hold_decode("raw-feature MART", build,
+                {k: stacked[k] for k in STACKED_KEYS}, single=False)
+    stacked, _, _ = train.collate_fn(
+        [train[i] for i in range(cfg.train.batch_size)])
+    log(f"  one train batch of {cfg.train.batch_size} videos (S "
+        f"{len(stacked['input_ids'])} x N {cfg.train.batch_size} x L "
+        f"{cfg.max_v_len + cfg.max_t_len}) trained 16 steps at lr "
+        f"{CAPTION_TRAIN_LR}, timed and traced")
+    time_train_step("raw-feature MART", build,
+                    {k: stacked[k] for k in STACKED_KEYS}, single=False,
+                    examples=cfg.train.batch_size, unit="videos")
+    del train, val, stacked
+    shutil.rmtree(tmp / "raw")  # ~2 GB of features
+
+    log("(b) the MTransformer at yc2_100m_coot_vidclip_mtrans.yaml: inputs")
+    cfg = MartConfig(load_yaml_config_file(MTRANS_CONFIG))
+    emb_dir = _coot_embeddings(tmp / "mtrans", cfg)
+    cut = ",".join(f"{k}={v}" for k, v in MTRANS_CUTS.items())
+    common = ["-c", str(MTRANS_CONFIG), "--seed", "0",
+              "--annotations_dir", str(ROOT / "annotations"),
+              "--coot_feat_dir", str(emb_dir), "--cache_dir", cache,
+              "--log_dir", str(tmp / "mtrans" / "exp")]
+    log(f"  the CLI trains one epoch on the card and validates, cuts "
+        f"{MTRANS_CUTS}")
+    pth = _variant_cli("MTransformer", common, cut,
+                       MTRANS_CUTS["dataset_val.max_datapoints"],
+                       "sentences")
+
+    def sentences(mode, max_n_sen):
+        return RecursiveCaptionDataset(
+            "youcook2", cfg.max_t_len, cfg.max_v_len, max_n_sen, mode=mode,
+            recurrent=False, untied=True,
+            coot_model_name=cfg.coot_model_name, coot_mode=cfg.coot_mode,
+            coot_dim_vid=cfg.coot_dim_vid, coot_dim_clip=cfg.coot_dim_clip,
+            annotations_dir=str(ROOT / "annotations"),
+            coot_feat_dir=str(emb_dir))
+
+    train = sentences("train", cfg.max_n_sen)
+    build = from_trained(MTRANS_CONFIG, len(train.word2idx), pth)
+    n = cfg.train.batch_size
+    log(f"  one train batch of {n} sentences: the card against the CPU, "
+        f"float32, dropout {cfg.hidden_dropout_prob}, 3 steps at lr "
+        f"{CAPTION_TRAIN_LR}")
+    batch, _, _ = train.collate_fn([train[i] for i in range(n)])
+    arrays = {k: batch[k] for k in UNTIED_KEYS}
+    hold_train_steps("MTransformer", build, arrays, single=True)
+    val = sentences("val", cfg.max_n_sen + cfg.max_n_sen_add_val)
+    log(f"  one val batch of {cfg.val.batch_size} sentences: the card "
+        "against the CPU")
+    vbatch, _, _ = val.collate_fn([val[i] for i in
+                                   range(cfg.val.batch_size)])
+    hold_decode("MTransformer", build, {k: vbatch[k] for k in UNTIED_KEYS},
+                single=True)
+    log(f"  one train batch of {n} sentences (video {cfg.max_v_len} x "
+        f"{cfg.video_feature_size}, text {cfg.max_t_len}) trained 16 steps "
+        f"at lr {CAPTION_TRAIN_LR}, timed and traced")
+    time_train_step("MTransformer", build, arrays, single=True,
+                    examples=n, unit="sentences")
+    torch.cuda.empty_cache()
+
+    log(f"(c) B4 at the new shapes, float32, rate {cfg.hidden_dropout_prob}")
+    caption_dropout_timing(cfg.hidden_dropout_prob, VARIANT_DROPOUT_SHAPES)
+
+
+def hold_train_steps(tag: str, build, arrays: dict, single: bool) -> None:
+    """One train batch (numpy `arrays`) on the card against the port on
+    the CPU, same weights (`build(device)` gives the model manager) and
+    seed state, 3 steps at CAPTION_TRAIN_LR: loss, grad_norm, n_correct,
+    every gradient of step 1, the parameters and the EMA after 1 and 3
+    steps, to the CAPTION_TRAIN_* tolerances. `single`: an untied sentence
+    batch."""
+    import torch
+    from coot_videotext_tpu_torch.tasks.caption.steps import (
+        caption_loss_and_grads, caption_update, init_caption_train_state)
+    seen = {}
+    for name in ("cuda", "cpu"):
+        device = torch.device(name)
+        mgr = build(device)
         state = init_caption_train_state(mgr.model, mgr.cfg, seed=0)
-        batch = {k: torch.from_numpy(stacked[k]).to(device)
-                 for k in STACKED_KEYS}
+        batch = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
         rec = {"metrics": [], "states": []}
         for step in range(3):
-            metrics, grads = caption_loss_and_grads(state, batch)
+            metrics, grads = caption_loss_and_grads(state, batch,
+                                                    single=single)
             if step == 0:
                 rec["grads"] = {n: g.detach().cpu().clone()
                                 for n, g in grads.items()}
@@ -1535,8 +1912,7 @@ def phase_caption_train(tmp: Path) -> None:
                 or norm_rel > CAPTION_TRAIN_LOSS_RTOL \
                 or g["n_word"] != c["n_word"] \
                 or correct > CAPTION_CORRECT_TOL:
-            fail(f"caption training: step {step} on the card disagrees with "
-                 "the CPU")
+            fail(f"{tag}: step {step} on the card disagrees with the CPU")
     scale = max(float(v.abs().max()) for v in cpu["grads"].values())
     grad_err = _max_diff(gpu["grads"], cpu["grads"]) / scale
     worst = max(cpu["grads"], key=lambda n: float(
@@ -1545,8 +1921,7 @@ def phase_caption_train(tmp: Path) -> None:
         f"gradient {scale:.4f} (limit {CAPTION_TRAIN_GRAD_TOL}; worst "
         f"{worst}) over {len(cpu['grads'])} tensors")
     if grad_err > CAPTION_TRAIN_GRAD_TOL:
-        fail("caption training: the card's gradients disagree with the "
-             "CPU's")
+        fail(f"{tag}: the card's gradients disagree with the CPU's")
     for i, k in enumerate((1, 3)):
         for what in ("params", "ema"):
             err = _max_diff(gpu["states"][i][what], cpu["states"][i][what])
@@ -1555,74 +1930,84 @@ def phase_caption_train(tmp: Path) -> None:
                 f"= {share:.2%} of lr per step (limit "
                 f"{CAPTION_TRAIN_UPDATE_TOL:.0%})")
             if share > CAPTION_TRAIN_UPDATE_TOL:
-                fail(f"caption training: the card's {what} after {k} steps "
-                     "disagree with the CPU's")
+                fail(f"{tag}: the card's {what} after {k} steps disagree "
+                     "with the CPU's")
     del seen, gpu, cpu
     torch.cuda.empty_cache()
 
-    log("(d) one train batch of 16 videos trained 16 steps at lr "
-        f"{CAPTION_TRAIN_LR} on the card, timed and traced")
+
+def time_train_step(tag: str, build, arrays: dict, single: bool,
+                    examples: int, unit: str) -> dict:
+    """One train batch (numpy `arrays` of `examples` videos or sentences)
+    trained 16 steps at CAPTION_TRAIN_LR on the card: the loss must fall;
+    the warm step's median wall ms, one traced step's device-busy ms and
+    launches by family, B4's launches and device time, peak memory.
+    Returns those numbers."""
+    import torch
+    from coot_videotext_tpu_torch.ops import cuda_build
+    from coot_videotext_tpu_torch.tasks.caption.steps import (
+        caption_train_step, caption_train_step_single,
+        init_caption_train_state)
+    step_fn = caption_train_step_single if single else caption_train_step
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    mgr = build_mart_model_manager(config(), len(dataset.word2idx),
-                                   torch.device("cuda"), seed=1)
-    mgr.load_state(weights)
+    mgr = build(torch.device("cuda"))
     state = init_caption_train_state(mgr.model, mgr.cfg, seed=0)
-    stacked, _, _ = dataset.collate_fn(
-        [dataset[i] for i in range(cfg.train.batch_size)])
-    batch = {k: torch.from_numpy(stacked[k]).cuda() for k in STACKED_KEYS}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
     step_losses, step_ms = [], []
     for _ in range(16):
         t0 = time.perf_counter()
-        metrics = caption_train_step(state, batch, CAPTION_TRAIN_LR)
+        metrics = step_fn(state, batch, CAPTION_TRAIN_LR)
         step_losses.append(float(metrics["loss"]))
         step_ms.append((time.perf_counter() - t0) * 1e3)
     if not all(math.isfinite(v) for v in step_losses) \
             or step_losses[-1] >= step_losses[0]:
-        fail(f"caption training: a fixed batch's loss did not fall: "
-             f"{step_losses}")
+        fail(f"{tag}: a fixed batch's loss did not fall: {step_losses}")
     warm = statistics.median(step_ms[4:])
-    sentences = len(stacked["input_ids"])
-    log(f"  S {sentences} sentence steps x N {cfg.train.batch_size} x L "
-        f"{cfg.max_v_len + cfg.max_t_len}; losses "
-        f"{', '.join(f'{v:.2f}' for v in step_losses)}")
+    log(f"  losses {', '.join(f'{v:.2f}' for v in step_losses)}")
     log(f"  warm train step: median wall {warm:.2f} ms over steps 5-16 "
         f"({', '.join(f'{v:.1f}' for v in step_ms)}); "
-        f"{cfg.train.batch_size / warm * 1e3:.1f} train videos/s")
+        f"{examples / warm * 1e3:.1f} train {unit}/s")
     cuda_build.reset_launch_counts()
     wall_ms, busy_ms, kernels, events = _busy_ms(
-        lambda: caption_train_step(state, batch, CAPTION_TRAIN_LR))
+        lambda: step_fn(state, batch, CAPTION_TRAIN_LR))
     traced = dict(cuda_build.launch_counts)
     peak = (torch.cuda.max_memory_allocated() - held) / 1e9
     b4 = [e for e in events if "dropout" in e.key]
+    b4_ms = sum(_dev_us(e) for e in b4) / 1e3
     log(f"  one traced step: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}); {kernels} kernel "
         f"launches; B4 {traced.get('dropout', 0)} forward + "
         f"{traced.get('dropout_bwd', 0)} backward launches, "
-        f"{sum(_dev_us(e) for e in b4) / 1e3:.3f} ms of device time over "
+        f"{b4_ms:.3f} ms of device time over "
         f"{sum(e.count for e in b4)} launches; peak device memory "
         f"{peak:.3f} GB above the {held / 1e9:.3f} GB held before")
+    others = {k: v for k, v in traced.items()
+              if v and k not in ("dropout", "dropout_bwd")}
+    if others or not traced.get("dropout") or not traced.get("dropout_bwd"):
+        fail(f"{tag}: a train step launched {traced}, not B4 alone")
     log_families(events, 1)
     del mgr, state, batch
     torch.cuda.empty_cache()
+    return {"warm_ms": warm, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "b4_launches": traced.get("dropout", 0)
+            + traced.get("dropout_bwd", 0), "b4_ms": b4_ms,
+            "peak_gb": peak}
 
-    log("(e) B4 at the caption shapes, float32, rate "
-        f"{cfg.hidden_dropout_prob}")
-    caption_dropout_timing(cfg.hidden_dropout_prob)
 
-
-def caption_dropout_timing(rate: float) -> None:
-    """B4 in float32 at the hidden rows and the attention probabilities of
-    a caption train step: held bit-equal to dropout_plain forward and
-    backward, then timed forward and backward (CUDA events), bare and
-    through the wrapper / autograd, beside F.dropout, and its bound."""
+def caption_dropout_timing(rate: float, shapes) -> None:
+    """B4 in float32 at `shapes` (the hidden rows and the attention
+    probabilities of a caption train step): held bit-equal to dropout_plain
+    forward and backward, then timed forward and backward (CUDA events),
+    bare and through the wrapper / autograd, beside F.dropout, and its
+    bound."""
     import torch
     import torch.nn.functional as F
     from coot_videotext_tpu_torch.ops import cuda_build, philox
     from coot_videotext_tpu_torch.ops import dropout as b4
     gen = torch.Generator(device="cuda").manual_seed(7)
     seed = device_seed()
-    for shape in CAPTION_DROPOUT_SHAPES:
+    for shape in shapes:
         x = torch.randn(shape, generator=gen, device="cuda")
         g = torch.randn(shape, generator=gen, device="cuda")
         xl = x.clone().requires_grad_()
@@ -2483,6 +2868,12 @@ def main() -> None:
         log("== 7. caption training: MART at yc2_2d3d_coot_vidclip_mart "
             "width on cuts of the YouCook2 train and val splits")
         phase_caption_train(Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="coot_chip_caption_var_") \
+            as tmp:
+        log("== 8. the caption variants of the shipped configs: raw-feature "
+            "MART (yc2_mart) and the MTransformer "
+            "(yc2_100m_coot_vidclip_mtrans), trained and served")
+        phase_caption_variants(Path(tmp))
     log(f"chip_smoke took {time.time() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,8 @@ data_read_youcook2_meta.py outputs), and the synthetic caption set
 Copy of coot_videotext_tpu/data/synthetic.py::generate_retrieval_dataset:
 the same seed gives byte-identical files, so the PyTorch package and the JAX
 package can be held against each other on one generated dataset.
+`generate_caption_video_features` adds raw MART video features to a
+caption set.
 """
 
 from __future__ import annotations
@@ -324,6 +326,71 @@ def generate_caption_dataset(
         "vocab_size": len(word2idx),
     }
 
+
+
+def generate_caption_video_features(
+        root: Union[str, Path], *,
+        dset_name: str = "youcook2",
+        dim_resnet: int = 12,
+        dim_bn: int = 8,
+        seed: int = 0) -> Dict[str, object]:
+    """
+    Raw MART video features for the caption annotations under
+    root/annotations/<dset>/ (captioning_train.json, then
+    captioning_val.json): per video `{vid}_resnet.npy` (T, dim_resnet) and
+    `{vid}_bn.npy` (T, dim_bn), float32, under root/video_features/<dset>/,
+    and the frame<->second table `captioning_video_feat_duration.csv`
+    (lines `name,duration_sec,num_frames`) in the annotations dir. T is
+    2 rows a second of the video's duration, so the YouCook2 table
+    resolves to 0.5 s a row and every annotated timestamp indexes inside
+    the file; rows inside sentence j's timestamp share a per-sentence
+    latent. Copy of the JAX package's generate_caption_video_features: the
+    same annotations and seed give the same files.
+
+    Refuses to overwrite a duration table that a generator did not write
+    (one without a `.synthetic` marker beside it, as the repo's real
+    annotations are).
+    """
+    rng = np.random.RandomState(seed + 17)
+    ann_dir = Path(root) / "annotations" / dset_name
+    feat_dir = Path(root) / "video_features" / dset_name
+    csv_file = ann_dir / "captioning_video_feat_duration.csv"
+    marker = ann_dir / ".synthetic"
+    if csv_file.exists() and not marker.exists():
+        raise RuntimeError(
+            f"{csv_file} was not written by a generator (e.g. the real "
+            "shipped table); refusing to overwrite. Copy the annotations "
+            "to a scratch root directory.")
+    feat_dir.mkdir(parents=True, exist_ok=True)
+    marker.write_text("generator output\n", encoding="utf8")
+
+    proj_r = rng.randn(8, dim_resnet).astype(np.float32) / 3
+    proj_b = rng.randn(8, dim_bn).astype(np.float32) / 3
+
+    csv_lines = []
+    for ann_name in ("captioning_train.json", "captioning_val.json"):
+        data = json.loads((ann_dir / ann_name).read_text(encoding="utf8"))
+        for vid, meta in data.items():
+            duration = float(meta["duration"])
+            num_frames = int(round(duration * 2))  # 2 rows a second
+            csv_lines.append(f"{vid},{duration},{num_frames}")
+            # each row's latent is that of the sentence covering it
+            bounds = np.asarray([t[1] for t in meta["timestamps"]])
+            t_frame = (np.arange(num_frames) + 0.5) * 0.5
+            sen_idx = np.searchsorted(bounds, t_frame).clip(
+                0, len(bounds) - 1)
+            latents = rng.randn(len(bounds), 8).astype(np.float32)
+            frame_lat = latents[sen_idx]
+            noise = 0.05 * rng.randn(num_frames, 8).astype(np.float32)
+            np.save(feat_dir / f"{vid}_resnet.npy",
+                    (frame_lat + noise) @ proj_r)
+            np.save(feat_dir / f"{vid}_bn.npy",
+                    (frame_lat - noise) @ proj_b)
+    csv_file.write_text("\n".join(csv_lines), encoding="utf8")
+    return {
+        "video_feature_dir": str(Path(root) / "video_features"),
+        "video_feature_size": dim_resnet + dim_bn,
+    }
 
 def _main() -> None:
     """CLI: generate a synthetic retrieval dataset on disk.

@@ -7,7 +7,8 @@ carrying per-layer memory states; steps arrive stacked as (S, N, L, ...)
 tensors (dummy steps carry IGNORE labels and add exactly zero loss). The
 JAX package's `recurrent_scan` (an nn.scan of steps 1..S-1, a compile-time
 lever with the same math) has no counterpart: the loop here is always the
-plain unrolled one. NonRecurTransformer is not ported yet (ROADMAP A11).
+plain unrolled one. NonRecurTransformer is not ported yet (ROADMAP
+A11b).
 """
 
 from __future__ import annotations

@@ -5,8 +5,10 @@ coot_videotext_tpu/tasks/caption/config.py; one yaml drives both packages).
 Config-surface parity with reference mart/configs_mart.py:33-221 — the
 reference caption yamls parse unchanged, model_type inference and validity
 asserts reproduced. Every key is parsed; `train_caption` runs the recurrent
-MART model with greedy decoding and refuses the rest (beam search, the xl,
-untied, mtrans and single-sentence models) with NotImplementedError.
+MART model and the MTransformer (`mtrans`) with greedy decoding, on COOT
+embeddings or raw video features, and refuses the rest with
+NotImplementedError naming its ROADMAP item: beam search (A10b), the xl,
+untied and joint single-sentence models and share_wd_cls_weight (A11b).
 `recurrent_scan` is a compile-time lever of the JAX package with the same
 math; here the step loop always runs unrolled.
 """

@@ -3,21 +3,30 @@ Caption model factory and manager.
 
 Port of coot_videotext_tpu/tasks/caption/model_manager.py (reference
 mart/model.py:45 create_mart_model and mart/trainer_caption.py:89
-MartModelManager) for the recurrent MART model: builds the model on one
-device from a seed, loads the GloVe word vectors from the cache (reference
-:79-85) and a reference-layout checkpoint `{"model": state_dict}`.
+MartModelManager) for the recurrent MART model and the MTransformer:
+builds the model on one device from a seed, loads the GloVe word vectors
+from the cache (reference :79-85) and a reference-layout checkpoint
+`{"model": state_dict}`.
+
+The MTransformer has no word-embedding table (its word vectors are the
+output matrix, tied), so GloVe has nothing to load into: its init stays
+and a warning says so. The JAX package's `apply_glove` raises KeyError
+'embeddings' there (model_manager.py:111-126).
 """
 
 from __future__ import annotations
 
+import logging
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
 
 from coot_videotext_tpu_torch.models.caption.mart import (
     RecursiveTransformer)
+from coot_videotext_tpu_torch.models.caption.mtransformer import (
+    MTransformer)
 from coot_videotext_tpu_torch.utils.param_bridge import load_mart_checkpoint
 
 
@@ -49,41 +58,45 @@ def load_glove_matrix(cache_dir: str, dataset_name: str) -> np.ndarray:
     return np.asarray(arr, np.float32)
 
 
+CaptionModel = Union[RecursiveTransformer, MTransformer]
+
+
 def check_serving_config(cfg) -> None:
     """Raise for what the port does not run yet, naming its ROADMAP
     item."""
-    if not cfg.recurrent or cfg.untied or cfg.mtrans:
-        raise NotImplementedError(
-            "single-sentence, untied and mtrans caption models: ROADMAP A11")
     if cfg.xl:
         raise NotImplementedError("the TransformerXL caption model: "
-                                  "ROADMAP A11")
+                                  "ROADMAP A11b")
+    if cfg.untied:
+        raise NotImplementedError("the untied caption model "
+                                  "(NonRecurTransformerUntied): ROADMAP A11b")
+    if not cfg.recurrent and not cfg.mtrans:
+        raise NotImplementedError("the single-sentence joint caption model "
+                                  "(NonRecurTransformer): ROADMAP A11b")
     if cfg.use_beam:
         raise NotImplementedError("beam search decoding: ROADMAP A10b")
-    if cfg.coot_model_name is None:
-        raise NotImplementedError("raw MART video features as input: "
-                                  "ROADMAP A11")
     if cfg.share_wd_cls_weight:
-        raise NotImplementedError("the decoder tied to the word "
-                                  "embeddings (share_wd_cls_weight)")
+        raise NotImplementedError("the decoder tied to the word embeddings "
+                                  "(share_wd_cls_weight): ROADMAP A11b")
 
 
 def create_mart_model(cfg, vocab_size: int, device: torch.device, *,
-                      seed: int = 0) -> RecursiveTransformer:
-    """The recurrent MART model for this config on `device`, initialized
-    from `seed` (reference :45), f32."""
+                      seed: int = 0) -> CaptionModel:
+    """The caption model of this config (the recurrent MART model, or the
+    MTransformer under `mtrans`) on `device`, initialized from `seed`
+    (reference :45), f32."""
     check_serving_config(cfg)
     cfg.max_position_embeddings = cfg.max_v_len + cfg.max_t_len
     cfg.vocab_size = vocab_size
-    model = RecursiveTransformer(
-        cfg, generator=torch.Generator().manual_seed(seed))
+    family = MTransformer if cfg.mtrans else RecursiveTransformer
+    model = family(cfg, generator=torch.Generator().manual_seed(seed))
     return model.to(device)
 
 
 class MartModelManager:
     """Owns the caption model on one device."""
 
-    def __init__(self, cfg, model: RecursiveTransformer,
+    def __init__(self, cfg, model: CaptionModel,
                  device: torch.device, *,
                  cache_dir: str = "cache_caption") -> None:
         self.cfg = cfg
@@ -95,7 +108,15 @@ class MartModelManager:
     def apply_glove(self) -> bool:
         """Replace the word embeddings with the GloVe vectors (reference
         :79-85); keeps the init when the cache is missing or its shape
-        differs, as the JAX package does. Returns whether it applied."""
+        differs, as the JAX package does, and when the model has no
+        word-embedding table (the MTransformer), with a warning. Returns
+        whether it applied."""
+        if isinstance(self.model, MTransformer):
+            logging.getLogger(__name__).warning(
+                "use_glove: the MTransformer's word vectors are its output "
+                "matrix (tied), it has no word-embedding table to load "
+                "GloVe into; keeping the initialization")
+            return False
         try:
             glove = load_glove_matrix(self.cache_dir,
                                       self.cfg.dataset_train.name)

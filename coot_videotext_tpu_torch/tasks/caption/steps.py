@@ -1,14 +1,17 @@
 """
-The caption train and eval steps (MART, recurrent).
+The caption train and eval steps: MART (recurrent, stacked batches) and
+the single-sentence untied layout (the MTransformer).
 
 Port of coot_videotext_tpu/tasks/caption/steps.py (`make_caption_train_step`
-:45, `make_caption_eval_step` :103; reference mart/trainer_caption.py
-:253-350, ~420).
+:45, `make_caption_eval_step` :103, `_single_forward` :152,
+`make_caption_train_step_single` :167, `make_caption_eval_step_single`
+:209; reference mart/trainer_caption.py :253-350, ~420).
 
-The train step runs, in order: the model in training mode, the S-step
-teacher-forced forward with dropout (kernel B4 at every site on the card)
-inside `ops/philox.dropout_seeds` of the state's seed state, the caption
-loss (a sum over tokens), the token-accuracy counts of that forward, the
+The train step runs, in order: the model in training mode, the
+teacher-forced forward (S sentence steps, or one untied sentence) with
+dropout (kernel B4 at every site on the card) inside
+`ops/philox.dropout_seeds` of the state's seed state, the caption loss (a
+sum over tokens), the token-accuracy counts of that forward, the
 backward through autograd, clipping by the global norm (whose pre-clip
 value is `grad_norm`), the BertAdam update at the host's lr, the EMA
 update with the state's step before its increment, then step + 1 and seed
@@ -24,14 +27,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from coot_videotext_tpu_torch.models.caption.mart import (
-    RecursiveTransformer)
+from coot_videotext_tpu_torch.models.caption.mtransformer import (
+    MTransformer)
 from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.ops.philox import dropout_seeds
+from coot_videotext_tpu_torch.tasks.caption.model_manager import (
+    CaptionModel)
 from coot_videotext_tpu_torch.train.loss_caption import token_accuracy_counts
 from coot_videotext_tpu_torch.train.optim import (
     EMA, BertAdam, clip_by_global_norm)
-from coot_videotext_tpu_torch.utils.param_bridge import mart_jax_paths
+from coot_videotext_tpu_torch.utils.param_bridge import (
+    mart_jax_paths, mtrans_jax_paths)
 
 # the global-norm clip of the train step, fixed by the JAX trainer
 # (trainer.py:148-150), not read from cfg.train.clip_gradient
@@ -45,14 +51,14 @@ class CaptionTrainState:
     without one), the seed state (a (1,) int64 tensor, ops/philox.py
     `seed_state`) and the step (an int32 scalar), both on the model's
     device (JAX CaptionTrainState :33)."""
-    model: RecursiveTransformer
+    model: CaptionModel
     optimizer: BertAdam
     ema: Optional[EMA]
     seed: torch.Tensor
     step: torch.Tensor
 
 
-def init_caption_train_state(model: RecursiveTransformer, cfg, seed: int
+def init_caption_train_state(model: CaptionModel, cfg, seed: int
                              ) -> CaptionTrainState:
     """The train state of `model` on its device (JAX
     init_caption_train_state :140 and MartTrainer :108-116): BertAdam with
@@ -60,19 +66,21 @@ def init_caption_train_state(model: RecursiveTransformer, cfg, seed: int
     embeddings frozen under use_glove + freeze_glove; the EMA when
     cfg.ema_decay > 0; the seed state of `seed`; step 0."""
     params = dict(model.named_parameters())
+    paths = (mtrans_jax_paths(model) if isinstance(model, MTransformer)
+             else mart_jax_paths(model))
     device = next(iter(params.values())).device
     frozen = (("word_embeddings",) if cfg.use_glove and cfg.freeze_glove
               else ())
     return CaptionTrainState(
         model=model,
-        optimizer=BertAdam(params, mart_jax_paths(model), eps=cfg.eps,
+        optimizer=BertAdam(params, paths, eps=cfg.eps,
                            frozen_names=frozen),
         ema=EMA(params, cfg.ema_decay) if cfg.ema_decay > 0 else None,
         seed=philox.seed_state(seed, device),
         step=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def _forward(model: RecursiveTransformer, batch: Dict[str, torch.Tensor]
+def _forward(model: CaptionModel, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(loss, n_correct, n_word) of the S-step forward in the model's
     mode."""
@@ -89,19 +97,35 @@ def _forward(model: RecursiveTransformer, batch: Dict[str, torch.Tensor]
     return loss, n_correct, n_word
 
 
+def _forward_single(model: CaptionModel, batch: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(loss, n_correct, n_word) of the untied single-sentence forward in
+    the model's mode (JAX `_single_forward` :152); labels from
+    text_labels."""
+    loss, scores = model(batch["video_feature"], batch["video_mask"],
+                         batch["text_ids"], batch["text_mask"],
+                         batch["text_labels"])
+    with torch.no_grad():
+        n_correct, n_word = token_accuracy_counts(scores,
+                                                  batch["text_labels"])
+    return loss, n_correct, n_word
+
+
 def caption_loss_and_grads(state: CaptionTrainState,
-                           batch: Dict[str, torch.Tensor]
+                           batch: Dict[str, torch.Tensor], *,
+                           single: bool = False
                            ) -> Tuple[Dict[str, torch.Tensor],
                                       Dict[str, torch.Tensor]]:
     """The training forward (dropout on, seeded by the state) and its
     backward: ({loss, n_correct, n_word} detached, the float32 gradient of
     every parameter by name; zeros where the loss does not reach, as under
-    jax.grad)."""
+    jax.grad). `single`: an untied single-sentence batch."""
     model = state.model
     model.train()
     params = state.optimizer.params
+    forward = _forward_single if single else _forward
     with dropout_seeds(state.seed):
-        loss, n_correct, n_word = _forward(model, batch)
+        loss, n_correct, n_word = forward(model, batch)
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
@@ -138,7 +162,17 @@ def caption_train_step(state: CaptionTrainState,
     return metrics
 
 
-def caption_eval_step(model: RecursiveTransformer,
+def caption_train_step_single(state: CaptionTrainState,
+                              batch: Dict[str, torch.Tensor], lr: float
+                              ) -> Dict[str, torch.Tensor]:
+    """caption_train_step on an untied (N, ...) sentence batch (JAX
+    make_caption_train_step_single :167)."""
+    metrics, grads = caption_loss_and_grads(state, batch, single=True)
+    metrics["grad_norm"] = caption_update(state, grads, lr)
+    return metrics
+
+
+def caption_eval_step(model: CaptionModel,
                       batch: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:
     """{loss (sum over steps), n_correct, n_word} of one stacked batch,
@@ -146,4 +180,15 @@ def caption_eval_step(model: RecursiveTransformer,
     model.eval()
     with torch.inference_mode():
         loss, n_correct, n_word = _forward(model, batch)
+    return {"loss": loss, "n_correct": n_correct, "n_word": n_word}
+
+
+def caption_eval_step_single(model: CaptionModel,
+                             batch: Dict[str, torch.Tensor]
+                             ) -> Dict[str, torch.Tensor]:
+    """caption_eval_step on an untied (N, ...) sentence batch (JAX
+    make_caption_eval_step_single :209)."""
+    model.eval()
+    with torch.inference_mode():
+        loss, n_correct, n_word = _forward_single(model, batch)
     return {"loss": loss, "n_correct": n_correct, "n_word": n_word}

@@ -1,5 +1,6 @@
 """
-MART caption trainer: training and validation on one torch device.
+Caption trainer (MART and the MTransformer): training and validation on
+one torch device.
 
 Port of coot_videotext_tpu/tasks/caption/trainer.py (reference
 mart/trainer_caption.py:106-693):
@@ -9,7 +10,9 @@ mart/trainer_caption.py:106-693):
       warmup_linear schedule over t_total = steps * epochs (:108-117,
       :177-181), the EMA shadow updated each step
     - train_model (:207-257): per epoch `set_epoch`, the train steps
-      (tasks/caption/steps.py `caption_train_step`, each keyed on the
+      (tasks/caption/steps.py `caption_train_step` on stacked video
+      batches, or `caption_train_step_single` on untied sentence batches
+      when `recurrent` is false, :121-163; each keyed on the
       seed state cfg.random_seed + total_step, so a resumed run draws the
       dropout masks of the unbroken one), one read of each step's metrics,
       the GRAD / TRAIN_LOSS_PER_WORD / TRAIN_ACC meters, validation per
@@ -17,7 +20,8 @@ mart/trainer_caption.py:106-693):
       ({"model": state_dict}), the checkpoint and its cleanup with the
       epoch's translations and EMA (`get_files_for_cleanup` :449)
     - validate_epoch (:295): teacher-forced loss and accuracy from the
-      eval step, free-running greedy translation -> submission json ->
+      eval step, free-running greedy translation (per video and sentence
+      step, or per sentence, :317-357) -> submission json ->
       language / stats / repetition evaluation -> meters; best field =
       CIDEr (:626-630); under is_test the `val_ep_<ep>.json` metrics file
       and the METEOR -999 patch-up of the best epoch's metrics file
@@ -51,7 +55,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from coot_videotext_tpu_torch.data.caption_dataset import STACKED_KEYS
+from coot_videotext_tpu_torch.data.caption_dataset import (
+    STACKED_KEYS, UNTIED_KEYS)
 from coot_videotext_tpu_torch.tasks.caption.config import (
     MartConfig, MartMetersConst as MMeters)
 from coot_videotext_tpu_torch.tasks.caption.eval_tools import (
@@ -65,8 +70,8 @@ from coot_videotext_tpu_torch.tasks.caption.evaluate_stats import (
 from coot_videotext_tpu_torch.tasks.caption.model_manager import (
     MartModelManager)
 from coot_videotext_tpu_torch.tasks.caption.steps import (
-    CaptionTrainState, caption_eval_step, caption_train_step,
-    init_caption_train_state)
+    CaptionTrainState, caption_eval_step, caption_eval_step_single,
+    caption_train_step, caption_train_step_single, init_caption_train_state)
 from coot_videotext_tpu_torch.tasks.caption.translator import Translator
 from coot_videotext_tpu_torch.train import checkpoint as ckpt
 from coot_videotext_tpu_torch.train.optim import warmup_linear
@@ -104,7 +109,8 @@ class MartFilesHandler(ExperimentFilesHandler):
 
 def prefetch(loader, device: torch.device, depth: int = 2
              ) -> Iterator[Tuple[Dict[str, torch.Tensor], Dict[str, Any]]]:
-    """(device batch, host part) of each stacked batch of `loader`.
+    """(device batch, host part) of each batch of `loader`: the stacked
+    arrays of a recurrent batch, the untied arrays of a sentence batch.
 
     A background thread collates the batches `depth` ahead. On a CUDA
     device it pins each batch and copies it non_blocking on a side stream,
@@ -123,8 +129,8 @@ def prefetch(loader, device: torch.device, depth: int = 2
                 torch.cuda.set_device(device)
             for stacked, step_sizes, metas in loader:
                 host = {"step_sizes": step_sizes, "metas": metas}
-                tensors = {k: torch.from_numpy(stacked[k])
-                           for k in STACKED_KEYS}
+                keys = UNTIED_KEYS if step_sizes is None else STACKED_KEYS
+                tensors = {k: torch.from_numpy(stacked[k]) for k in keys}
                 if not cuda:
                     q.put((tensors, host, None))
                     continue
@@ -193,11 +199,17 @@ class MartTrainer(BaseTrainer):
         if not is_test:
             self.train_state = init_caption_train_state(
                 model_mgr.model, cfg, cfg.random_seed or 0)
+        # the untied single-sentence layout (JAX `_untied` :122)
+        self.single = not cfg.recurrent
+        self._train_step = (caption_train_step_single if self.single
+                            else caption_train_step)
+        self._eval_step = (caption_eval_step_single if self.single
+                           else caption_eval_step)
         self.translator = Translator(model_mgr.model, cfg)
         # per val batch: host ms of the eval step (to its read) and of the
         # greedy decode, the decode's forwards; per train step its host ms
-        # (to its read), per epoch the train videos/s; the last batch's
-        # device
+        # (to its read), per epoch the train videos/s (sentences/s in the
+        # single-sentence layout); the last batch's device
         self.val_timings: Dict[str, List[float]] = defaultdict(list)
         self.train_timings: Dict[str, List[float]] = defaultdict(list)
         self.last_batch_device: Optional[torch.device] = None
@@ -277,7 +289,7 @@ class MartTrainer(BaseTrainer):
 
     def train_model(self, train_loader, val_loader) -> None:
         self.hook_pre_train()
-        videos = len(train_loader.dataset)
+        examples = len(train_loader.dataset)
         for _epoch in range(self.state.current_epoch,
                             self.cfg.train.num_epochs):
             if self.check_early_stop():
@@ -289,10 +301,10 @@ class MartTrainer(BaseTrainer):
             n_word_correct = 0
             for step, (batch, _) in enumerate(prefetch(train_loader,
                                                        self.device)):
-                self.last_batch_device = batch["input_ids"].device
+                self.last_batch_device = batch["video_feature"].device
                 self.hook_pre_step_timer()
                 lr = self.current_lr()
-                out = caption_train_step(self.train_state, batch, lr)
+                out = self._train_step(self.train_state, batch, lr)
                 loss, n_word, n_correct, grad_norm = torch.stack(
                     [out["loss"], out["n_word"], out["n_correct"],
                      out["grad_norm"]]).tolist()
@@ -305,7 +317,8 @@ class MartTrainer(BaseTrainer):
                 self.metrics.update_meter(MMeters.GRAD, grad_norm)
                 self.hook_post_step(step, loss, lr, grad_norm=grad_norm)
             seconds = timer() - self.timer_train_epoch
-            self.train_timings["epoch_videos_per_s"].append(videos / seconds)
+            self.train_timings["epoch_videos_per_s"].append(
+                examples / seconds)
             self.metrics.update_meter(MMeters.TRAIN_LOSS_PER_WORD,
                                       total_loss / max(n_word_total, 1))
             self.metrics.update_meter(MMeters.TRAIN_ACC,
@@ -335,23 +348,30 @@ class MartTrainer(BaseTrainer):
         results: Dict[str, list] = defaultdict(list)
         dataset = data_loader.dataset
         for batch, host in prefetch(data_loader, self.device):
-            self.last_batch_device = batch["input_ids"].device
+            self.last_batch_device = batch["video_feature"].device
             t0 = timer()
-            out = caption_eval_step(self.model_mgr.model, batch)
+            out = self._eval_step(self.model_mgr.model, batch)
             loss, n_word, n_correct = torch.stack(
                 [out["loss"], out["n_word"], out["n_correct"]]).tolist()
             t1 = timer()
             total_loss += loss
             n_word_total += int(n_word)
             n_word_correct += int(n_correct)
-            dec = self.translator.translate_batch_greedy(
-                batch["input_ids"], batch["video_feature"],
-                batch["input_mask"], batch["token_type_ids"])
+            dec = self.translator.translate_batch(batch)
             t2 = timer()
             self.val_timings["eval_ms"].append((t1 - t0) * 1e3)
             self.val_timings["decode_ms"].append((t2 - t1) * 1e3)
             self.val_timings["forwards"].append(self.translator.forwards)
 
+            if self.single:
+                for ex_idx, cur_meta in enumerate(host["metas"]):
+                    results[cur_meta["name"]].append({
+                        "sentence": dataset.convert_ids_to_sentence(
+                            dec[ex_idx].tolist()),
+                        "timestamp": cur_meta["timestamp"],
+                        "gt_sentence": cur_meta["gt_sentence"],
+                    })
+                continue
             for ex_idx, (step_size, cur_meta) in enumerate(
                     zip(host["step_sizes"], host["metas"])):
                 for step_idx, step_batch in enumerate(dec[:step_size]):

@@ -1,9 +1,10 @@
 """
-Caption inference: recurrent greedy decoding.
+Caption inference: greedy decoding of the recurrent MART model and of the
+MTransformer.
 
-Port of the greedy recurrent path of
-coot_videotext_tpu/tasks/caption/translator.py (reference
-mart/translator.py), token for token:
+Port of the greedy paths of coot_videotext_tpu/tasks/caption/translator.py
+(reference mart/translator.py), token for token. Recurrent
+(`translate_batch_greedy`):
     - prepare_video_only_inputs blanks all text ids/masks (:424)
     - per sentence step, the token loop runs dec_idx over the text region
       starting from [BOS] at max_v_len; each token re-runs the FULL
@@ -13,9 +14,15 @@ mart/translator.py), token for token:
       [PAD] and one more forward builds the next sentence's memory
       (:231-234).
 The JAX package's `fused=True` (the whole batch as one program) emits the
-same tokens; here there is one path, run eagerly. Beam search and the
-xl / untied / single-sentence decoders are not ported yet (ROADMAP A10b,
-A11); model_manager.check_serving_config refuses their configs.
+same tokens; here there is one path, run eagerly. Untied single sentence
+(`translate_batch_single_sentence_untied_greedy`, JAX :339-386, reference
+:354): the video is encoded once, then max_t_len decoder passes run from
+[BOS] over zeroed ids, each writing the next id at its position; [UNK] is
+suppressed; the whole text region comes back, with no [EOS] masking.
+`translate_batch` dispatches between the two (JAX :585-614). Beam search
+(ROADMAP A10b) and the xl, untied and joint single-sentence decoders
+(A11b) are not ported yet; model_manager.check_serving_config refuses
+their configs.
 """
 
 from __future__ import annotations
@@ -27,8 +34,8 @@ import torch
 
 from coot_videotext_tpu_torch.data.caption_dataset import (
     BOS, EOS, PAD, UNK)
-from coot_videotext_tpu_torch.models.caption.mart import (
-    RecursiveTransformer)
+from coot_videotext_tpu_torch.tasks.caption.model_manager import (
+    CaptionModel)
 
 
 def mask_tokens_after_eos(input_ids: torch.Tensor,
@@ -61,12 +68,13 @@ def prepare_video_only_inputs(input_ids: torch.Tensor,
 
 class Translator:
     """Greedy inference (reference Translator :67) for the recurrent
-    MART model."""
+    MART model and the MTransformer."""
 
-    def __init__(self, model: RecursiveTransformer, cfg) -> None:
+    def __init__(self, model: CaptionModel, cfg) -> None:
         self.model = model
         self.cfg = cfg
-        # full forwards run by the last translate_batch_greedy call
+        # forwards run by the last decode: full forwards of the recurrent
+        # model, or decoder passes (plus the one encode) of the untied one
         self.forwards = 0
 
     def _greedy_sentence(self, prev_ms, input_ids, video_features,
@@ -111,6 +119,39 @@ class Translator:
                 out.append(ids[:, self.cfg.max_v_len:])
             out = torch.stack(out).cpu().numpy()
         return [out[i] for i in range(len(out))]
+
+    def translate_batch_single_sentence_untied_greedy(
+            self, video_features: torch.Tensor, video_masks: torch.Tensor,
+            text_ids: torch.Tensor) -> np.ndarray:
+        """Untied / masked-transformer greedy (reference :354) on (N, ...)
+        tensors on the model's device: the (N, max_t_len) ids, [BOS]
+        first, read from the device once at the end."""
+        model = self.model
+        model.eval()
+        max_t_len = self.cfg.max_t_len
+        with torch.inference_mode():
+            encodings = model.encode(video_features, video_masks)
+            ids = torch.zeros_like(text_ids)
+            next_words = torch.full_like(ids[:, 0], BOS)
+            for dec_idx in range(max_t_len):
+                ids[:, dec_idx] = next_words
+                _, scores = model.decode(ids, None, encodings)
+                row = scores[:, dec_idx].clone()
+                row[:, UNK] = -1e10
+                next_words = row.argmax(dim=1)
+            self.forwards = max_t_len + 1
+            return ids.cpu().numpy()
+
+    def translate_batch(self, batch: Dict[str, torch.Tensor]):
+        """Greedy decode of a collated batch on the model's device (JAX
+        :585): recurrent, [(N, max_t_len)] * S; untied (mtrans), (N,
+        max_t_len)."""
+        if self.cfg.recurrent:
+            return self.translate_batch_greedy(
+                batch["input_ids"], batch["video_feature"],
+                batch["input_mask"], batch["token_type_ids"])
+        return self.translate_batch_single_sentence_untied_greedy(
+            batch["video_feature"], batch["video_mask"], batch["text_ids"])
 
     @classmethod
     def sort_res(cls, res_dict: Dict[str, list]) -> Dict[str, list]:

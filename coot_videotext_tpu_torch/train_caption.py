@@ -1,12 +1,14 @@
 """
 Caption training and validation with the PyTorch package: the recurrent
-MART model, BertAdam with the EMA shadow, greedy decoding and the caption
-metrics (the flags of the repo's train_caption.py).
+MART model (on COOT embeddings or raw rgb+flow video features) and the
+MTransformer (untied single sentences), BertAdam with the EMA shadow,
+greedy decoding and the caption metrics (the flags of the repo's
+train_caption.py).
 
     python -m coot_videotext_tpu_torch.train_caption -c <yaml> \\
         [-o train.num_epochs=N] [--reset] [--load_epoch E] [--device cpu] \\
         [--annotations_dir D] [--coot_feat_dir D] [--cache_dir D] \\
-        [--dataset_max N]
+        [--video_feature_dir D] [--dataset_max N]
 
 trains over the train split (rerunning resumes from the newest
 checkpoint, or from `--load_epoch`; `--load_model X.pth` warm-starts) and
@@ -23,10 +25,16 @@ with the sentence statistics and the repetition metrics
 with its EMA weights, a `--load_model` file (the reference layout
 `{"model": state_dict}`) as it is. Without a checkpoint `--validate`
 refuses unless `--ignore_untrained` is given. The COOT embeddings are read
-from `--coot_feat_dir` as `<coot_model_name>_<split>.h5` or `.npz`. Runs
-on the CUDA device unless `--device cpu` is given; asked for CUDA without
-a GPU it raises. Beam search (ROADMAP A10b) and the other caption models
-and inputs (A11) raise NotImplementedError.
+from `--coot_feat_dir` as `<coot_model_name>_<split>.h5` or `.npz`; with
+`coot_model_name: null` (config/caption/paper2020/yc2_mart.yaml,
+anet_mart.yaml) the raw features from `--video_feature_dir` as
+`<dset>/<video>_{resnet,bn}.npy`, indexed by the annotations'
+captioning_video_feat_duration.csv. `recurrent: false, mtrans: true`
+(yc2_100m_coot_vidclip_mtrans.yaml) trains and decodes the MTransformer
+on single sentences. Runs on the CUDA device unless `--device cpu` is
+given; asked for CUDA without a GPU it raises. Beam search (ROADMAP A10b)
+and the xl, untied and joint single-sentence models (A11b) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -111,7 +119,8 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     and metrics files and the per-batch timings of the eval step and the
     decode; for training the epochs trained, their train videos/s, the
     per-step wall ms, the models dir and the last epoch's metrics file
-    (every epoch's meters)."""
+    (every epoch's meters); `train_unit` says what the train throughput
+    counts: videos, or sentences in the single-sentence layout."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     # full f32 products (no TF32), so the card agrees with the CPU
@@ -131,7 +140,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     train_set, _, train_loader, val_loader = \
         create_mart_datasets_and_loaders(
             cfg, args.coot_feat_dir, args.annotations_dir,
-            seed=cfg.random_seed)
+            args.video_feature_dir, seed=cfg.random_seed)
 
     results = []
     for run_number in range(args.start_run, args.start_run + args.num_runs):
@@ -202,6 +211,7 @@ def _train(cfg: MartConfig, trainer: MartTrainer, train_loader,
         "epochs": list(range(first_epoch, trainer.state.current_epoch)),
         "steps_per_epoch": len(train_loader),
         "train_videos_per_s": list(timings["epoch_videos_per_s"]),
+        "train_unit": "sentences" if trainer.single else "videos",
         "step_ms": list(timings["step_ms"]),
         "total_step": trainer.state.total_step,
         "models_dir": trainer.exp.path_models,
@@ -212,7 +222,7 @@ def _train(cfg: MartConfig, trainer: MartTrainer, train_loader,
         print(f"Training: {len(result['epochs'])} epochs of "
               f"{len(train_loader)} steps; step "
               f"{np.median(result['step_ms']):.1f} ms (median), train "
-              f"videos/s by epoch "
+              f"{result['train_unit']}/s by epoch "
               f"{[round(v, 2) for v in result['train_videos_per_s']]}",
               flush=True)
     return result

@@ -22,6 +22,14 @@ torch_convert.convert_model_file :543 reads) into the port's model.
 `mart_jax_paths` goes the other way for names: each parameter of the
 port's MART model with the flax path JAX gives it, which BertAdam's masks
 read.
+
+`jax_mtrans_params_to_state_dict` and `mtrans_jax_paths` do the same for
+the MTransformer ("mtrans" family, the inverse of `_convert_mtrans_key`
+:399): the reference keys `encoder.video_embeddings.{0,2}.*`,
+`encoder|decoder.layers.N.{selfattn,attention}.layer.w{q,k,v,o}.weight`,
+`...{selfattn,attention,feedforward}.layernorm.{gamma,beta}`,
+`...feedforward.layer.linear{1,2}.*`, `decoder.out.{weight,bias}`.
+`load_mart_checkpoint` loads either model, MART or MTransformer.
 """
 
 from __future__ import annotations
@@ -194,7 +202,8 @@ def jax_mart_params_to_state_dict(params: Any) -> Dict[str, np.ndarray]:
 
 def load_mart_checkpoint(model, state: Dict[str, Any]) -> None:
     """Load a reference-layout caption checkpoint `{"model": state_dict}`
-    (tensors or arrays) into the port's RecursiveTransformer, strictly:
+    (tensors or arrays) into the port's RecursiveTransformer or
+    MTransformer, strictly:
     every parameter must be there with its shape, and nothing else but the
     reference's non-parameter entries."""
     import torch
@@ -205,3 +214,83 @@ def load_mart_checkpoint(model, state: Dict[str, Any]) -> None:
           else v for k, v in state["model"].items()
           if not any(p.search(k) for p in _MART_SKIP)}
     model.load_state_dict(sd, strict=True)
+
+
+
+# ---------- MTransformer ----------
+
+# flax residual scopes -> the reference block that holds the LayerNorm
+# (JAX torch_convert.py:420-428)
+_MTRANS_RES = {"res_attn": "selfattn", "res_self": "selfattn",
+               "res_cross": "attention", "res_ff": "feedforward"}
+_MTRANS_SIDE = {"enc": "encoder", "dec": "decoder"}
+
+
+def _mtrans_key(path: Tuple[str, ...]) -> Tuple[str, bool]:
+    """A flax MTransformer path -> (its reference torch key, whether the
+    value is transposed on the way)."""
+    if path[0] == "video_ln":
+        return f"encoder.video_embeddings.0.{path[1]}", False
+    if path[0] == "video_fc":
+        return (f"encoder.video_embeddings.2.{_MART_LEAVES[path[1]]}",
+                path[1] == "kernel")
+    if path == ("out_kernel",):
+        return "decoder.out.weight", True
+    if path == ("out_bias",):
+        return "decoder.out.bias", False
+    m = re.fullmatch(r"(enc|dec)_layer_(\d+)", path[0])
+    if m is None:
+        raise NotImplementedError(f"unrecognized MTransformer param "
+                                  f"{'/'.join(path)}")
+    base = f"{_MTRANS_SIDE[m.group(1)]}.layers.{m.group(2)}"
+    scope, leaf = path[1], path[-1]
+    if scope in ("selfattn", "attention"):
+        return f"{base}.{scope}.layer.{path[2]}.weight", True
+    if scope in _MTRANS_RES:
+        return f"{base}.{_MTRANS_RES[scope]}.layernorm.{leaf}", False
+    return (f"{base}.feedforward.layer.{path[2]}.{_MART_LEAVES[leaf]}",
+            leaf == "kernel")
+
+
+def mtrans_jax_paths(model) -> Dict[str, str]:
+    """{parameter name: its JAX path, "dec_layer_0/res_cross/layernorm/
+    gamma"} for the port's MTransformer (the inverse of
+    jax_mtrans_params_to_state_dict's names)."""
+    out: Dict[str, str] = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[:2] == ["encoder", "video_embeddings"]:
+            scope = "video_ln" if parts[3] in ("gamma", "beta") \
+                else "video_fc"
+            path = [scope, {"weight": "kernel"}.get(parts[3], parts[3])]
+        elif parts[:2] == ["decoder", "out"]:
+            path = ["out_kernel" if parts[2] == "weight" else "out_bias"]
+        else:
+            side = parts[0][:3]
+            block, kind = parts[3], parts[4]
+            path = [f"{side}_layer_{parts[2]}"]
+            if kind == "layernorm":
+                res = {"selfattn": "res_attn" if side == "enc"
+                       else "res_self", "attention": "res_cross",
+                       "feedforward": "res_ff"}[block]
+                path += [res, "layernorm", parts[5]]
+            elif block == "feedforward":
+                path += ["feedforward", parts[5],
+                         {"weight": "kernel"}.get(parts[6], parts[6])]
+            else:
+                path += [block, parts[5], "kernel"]
+        out[name] = "/".join(path)
+    return out
+
+
+def jax_mtrans_params_to_state_dict(params: Any) -> Dict[str, np.ndarray]:
+    """JAX MTransformer params (nested, or flat {path: array}) -> the
+    reference torch MTransformer state dict {key: array}."""
+    flat = params if (params and isinstance(next(iter(params)), tuple)) \
+        else flatten(params)
+    out: Dict[str, np.ndarray] = {}
+    for path, val in flat.items():
+        key, transpose = _mtrans_key(tuple(path))
+        val = np.asarray(val)
+        out[key] = np.ascontiguousarray(val.T) if transpose else val
+    return out

@@ -12,7 +12,9 @@ the JAX package on the CPU:
   the JAX package's train_caption.py (its MartTrainer, through
   torch_convert.convert_model_file) gives the same translation json and
   the same metrics;
-- what the CLI refuses.
+- what the CLI refuses: the untied, xl and joint single-sentence models
+  (ROADMAP A11b), beam search (A10b), the card without one, an untrained
+  model without --ignore_untrained.
 """
 
 import json
@@ -176,16 +178,21 @@ def test_cli_validate_matches_jax_trainer(smoke, monkeypatch):
             assert o == r, key
 
 
-@pytest.mark.parametrize("case", ["mtrans", "beam", "cuda", "untrained"])
+@pytest.mark.parametrize("case", ["untied", "xl", "single", "beam", "cuda",
+                                  "untrained"])
 def test_cli_refuses(smoke, case):
     root, info, _ = smoke
-    extra = {"mtrans": ["--device", "cpu", "-o",
-                        "recurrent=false,mtrans=true"],
+    extra = {"untied": ["--device", "cpu", "-o",
+                        "recurrent=false,untied=true"],
+             "xl": ["--device", "cpu", "-o", "xl=true"],
+             "single": ["--device", "cpu", "-o", "recurrent=false"],
              "beam": ["--device", "cpu", "-o", "use_beam=true"],
              "cuda": [],
              "untrained": ["--device", "cpu"]}[case]
     argv = _argv(root, info, root / "refused", *extra)
-    expect = {"mtrans": (NotImplementedError, "ROADMAP A11"),
+    expect = {"untied": (NotImplementedError, "ROADMAP A11b"),
+              "xl": (NotImplementedError, "ROADMAP A11b"),
+              "single": (NotImplementedError, "ROADMAP A11b"),
               "beam": (NotImplementedError, "ROADMAP A10b"),
               "cuda": (RuntimeError, "--device cpu"),
               "untrained": (ValueError, "ignore_untrained")}[case]

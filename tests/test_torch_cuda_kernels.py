@@ -488,6 +488,36 @@ def test_dropout_kernel_misaligned_and_strided(cuda, dtype):
         assert torch.equal(gx, dropout_plain(gy, seed, 0.1))
 
 
+# B4's float32 calls in the caption train steps of yc2_mart.yaml (raw
+# features, L = 122: hidden rows and attention probabilities) and of
+# yc2_100m_coot_vidclip_mtrans.yaml (video rows 1152 / 768, text rows,
+# self-, cross- and video-attention probabilities), and two element counts
+# that are not multiples of 4 (the scalar tail after the 16-byte vectors)
+CAPTION_DROPOUT_SHAPES = [
+    (16, 122, 768), (16, 12, 122, 122), (16, 3, 1152), (16, 3, 768),
+    (16, 12, 3, 3), (16, 22, 768), (16, 12, 22, 22), (16, 12, 22, 3),
+    (15, 1, 3, 3), (15, 22, 767)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CAPTION_DROPOUT_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dropout_kernel_caption_shapes(cuda, shape):
+    """Rate 0.1 in float32: forward and backward bit-equal to the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(shape, generator=g, device=cuda)
+    seed = _seed(cuda, 2 ** 40 + 1, 3)
+    before = cuda_build.launch_counts["dropout"]
+    with torch.inference_mode():
+        y = dropout(x, seed, 0.1)
+    assert cuda_build.launch_counts["dropout"] == before + 1
+    assert torch.equal(y, dropout_plain(x, seed, 0.1))
+    gy = torch.randn(shape, generator=g, device=cuda)
+    gx, = _grads(lambda a: dropout(a, seed, 0.1), [x], gy, "dropout")
+    assert torch.equal(gx, dropout_plain(gy, seed, 0.1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [4096, 1536])
