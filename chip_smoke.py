@@ -145,6 +145,30 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    (two of them with element counts that are no multiple of 4), timed
    bare and through autograd beside F.dropout, and its bound.
 
+9. The rest of the caption family at the full width of
+   yc2_2d3d_coot_vidclip_mart.yaml (COOT vid+clip embeddings from seed 0),
+   each reached by `-o` overrides of it and each CLI run with the launch
+   counts set to 0 just before and read just after. (a) Beam search
+   (use_beam=true; beam 2, n_best 1, min_sen_len 5, max_sen_len 30 from
+   the yaml) on MART trained one epoch by the CLI on the first 160 train
+   videos: one val batch of 50 videos beam-decoded on the card and on the
+   CPU in the fixed and the reference_compat mode (at least 98% of the
+   sentences token-identical), beam against greedy on the card (ms,
+   forwards, host reads), one traced beam decode (no port kernel),
+   `--validate --load_epoch 0 -o use_beam=true` over 100 val videos.
+   (b-e) The TransformerXL (xl=true), the untied model
+   (recurrent=false,untied=true), the joint single-sentence model
+   (recurrent=false) and the decoder tied to the word embeddings
+   (share_wd_cls_weight=true,word_vec_size=768,use_glove=false): the CLI
+   trains one epoch on the first 160 train videos and validates on 100
+   (B4 forward and backward, nothing else), `--validate --load_epoch 0`
+   gives its val loss; from its weights a train batch card against CPU
+   over 3 steps (phase 7's tolerances; XL's with xl_grad=true), a val
+   batch's eval step and greedy tokens card against CPU (identical), a
+   train batch of 16 trained 16 steps, timed and traced (B4 the only
+   port kernel). (f) B4 bit-equal to its plain version at the new shapes,
+   timed beside F.dropout, and its bound.
+
 Prints `{"kernels": [...]}` on the line before the last and
 `{"ok": true, "device": {...}}` as the last line; exits non-zero (and
 prints no result) on any failure, without a CUDA device, or outside a
@@ -1936,6 +1960,94 @@ def hold_train_steps(tag: str, build, arrays: dict, single: bool) -> None:
     torch.cuda.empty_cache()
 
 
+def _train_state_snapshot(state) -> dict:
+    """Everything a caption train step reads, on the CPU: the parameters,
+    BertAdam's step and moments, the EMA shadow, the step and the seed
+    state."""
+    opt = state.optimizer.state_dict()
+    return {"params": {n: p.detach().cpu().clone()
+                       for n, p in state.optimizer.params.items()},
+            "opt": {"step": opt["step"].cpu().clone(),
+                    "mu": {n: v.cpu().clone() for n, v in opt["mu"].items()},
+                    "nu": {n: v.cpu().clone() for n, v in opt["nu"].items()}},
+            "ema": {n: s.cpu().clone() for n, s in state.ema.shadow.items()},
+            "step": state.step.cpu().clone(), "seed": state.seed.cpu().clone()}
+
+
+def _load_train_state(state, snap: dict) -> None:
+    import torch
+    with torch.no_grad():
+        for n, p in state.optimizer.params.items():
+            p.copy_(snap["params"][n])
+        for n, s in state.ema.shadow.items():
+            s.copy_(snap["ema"][n])
+    state.optimizer.load_state_dict(snap["opt"])
+    state.step.copy_(snap["step"])
+    state.seed.copy_(snap["seed"])
+
+
+def hold_train_steps_synced(tag: str, build, arrays: dict,
+                            single: bool) -> None:
+    """hold_train_steps for a train trajectory too ill-conditioned to run
+    free on two devices (the TransformerXL: on the CPU alone, weights moved
+    by 1e-6 relative move the third step's grad_norm by ~3e-4): the CPU
+    runs 3 steps at CAPTION_TRAIN_LR from the CLI's weights; the card runs
+    each of them from the CPU's state before it (parameters, BertAdam's
+    moments, the EMA, step and seed state). Each step to the CAPTION_TRAIN_*
+    tolerances: loss, grad_norm, n_correct, every gradient, and the
+    parameters and the EMA after it."""
+    import torch
+    from coot_videotext_tpu_torch.tasks.caption.steps import (
+        caption_loss_and_grads, caption_update, init_caption_train_state)
+
+    def run_step(state, batch):
+        metrics, grads = caption_loss_and_grads(state, batch, single=single)
+        seen = {n: g.detach().cpu().clone() for n, g in grads.items()}
+        metrics["grad_norm"] = caption_update(state, grads, CAPTION_TRAIN_LR)
+        return ({k: float(v) for k, v in metrics.items()}, seen,
+                _train_state_snapshot(state))
+
+    mgr = build(torch.device("cpu"))
+    state = init_caption_train_state(mgr.model, mgr.cfg, seed=0)
+    batch = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    cpu = []
+    for _ in range(3):
+        before = _train_state_snapshot(state)
+        cpu.append((before,) + run_step(state, batch))
+    del mgr, state, batch
+    mgr = build(torch.device("cuda"))
+    state = init_caption_train_state(mgr.model, mgr.cfg, seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+    for step, (before, c, c_grads, c_after) in enumerate(cpu):
+        _load_train_state(state, before)
+        g, g_grads, g_after = run_step(state, batch)
+        loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+        norm_rel = abs(g["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
+        correct = abs(g["n_correct"] - c["n_correct"]) / c["n_word"]
+        scale = max(float(v.abs().max()) for v in c_grads.values())
+        grad_err = _max_diff(g_grads, c_grads) / scale
+        shares = {what: _max_diff(g_after[what], c_after[what])
+                  / CAPTION_TRAIN_LR for what in ("params", "ema")}
+        log(f"  step {step} from the CPU's state: loss {g['loss']:.6f} / "
+            f"{c['loss']:.6f} (relative {loss_rel:.2e}), grad_norm "
+            f"{g['grad_norm']:.6f} / {c['grad_norm']:.6f} ({norm_rel:.2e}), "
+            f"n_correct {g['n_correct']:.0f} / {c['n_correct']:.0f} of "
+            f"{c['n_word']:.0f} words ({correct:.2%}); gradients "
+            f"{grad_err:.2e} of the largest {scale:.4f} (limit "
+            f"{CAPTION_TRAIN_GRAD_TOL}); after it params "
+            f"{shares['params']:.2%} and EMA {shares['ema']:.2%} of lr (limit "
+            f"{CAPTION_TRAIN_UPDATE_TOL:.0%})")
+        if loss_rel > CAPTION_TRAIN_LOSS_RTOL \
+                or norm_rel > CAPTION_TRAIN_LOSS_RTOL \
+                or g["n_word"] != c["n_word"] \
+                or correct > CAPTION_CORRECT_TOL \
+                or grad_err > CAPTION_TRAIN_GRAD_TOL \
+                or max(shares.values()) > CAPTION_TRAIN_UPDATE_TOL:
+            fail(f"{tag}: step {step} on the card disagrees with the CPU")
+    del mgr, state, batch, cpu
+    torch.cuda.empty_cache()
+
+
 def time_train_step(tag: str, build, arrays: dict, single: bool,
                     examples: int, unit: str) -> dict:
     """One train batch (numpy `arrays` of `examples` videos or sentences)
@@ -2042,6 +2154,261 @@ def caption_dropout_timing(rate: float, shapes) -> None:
             f"{bwd:.4f} ms, F.dropout's {lib_bwd:.4f} ms (medians of 9 "
             f"rounds in turns); plain {plain:.3f} ms; bound {bms:.5f} ms "
             f"({by})")
+
+
+# Phase 9, the rest of the caption family at the full width of
+# yc2_2d3d_coot_vidclip_mart.yaml, each reached by `-o` overrides of it. The
+# CLI of each trains one epoch on the first 160 videos of the YouCook2 train
+# split (10 steps of 16 videos, or the sentences of those videos in batches
+# of 16) and validates on the first 100 val videos.
+FAMILY_CUTS = {"dataset_train.max_datapoints": 160,
+               "dataset_val.max_datapoints": 100}
+FAMILY_VARIANTS = (
+    # (tag, -o overrides, the step check's extra overrides, train unit,
+    # whether the card runs each checked step from the CPU's state:
+    # hold_train_steps_synced)
+    ("TransformerXL", {"xl": True}, {"xl_grad": True}, "videos", True),
+    ("untied", {"recurrent": False, "untied": True}, {}, "sentences",
+     False),
+    ("joint single-sentence", {"recurrent": False}, {}, "sentences", False),
+    ("tied decoder", {"share_wd_cls_weight": True, "word_vec_size": 768,
+                      "use_glove": False}, {}, "videos", False),
+)
+# the recurrent variants' greedy decode card against CPU takes the first 8
+# val videos, as phase 6 does: the CPU decodes a batch of 50 in ~45 s
+FAMILY_DECODE_VIDEOS = 8
+# B4 in float32 at the shapes these paths add: XL's (klen, 768) position
+# table at klen 25 and 50 and a (16, 50, 768) block, the untied text
+# embedding at word_vec_size 300, and a short batch whose element count is
+# no multiple of 4
+FAMILY_DROPOUT_SHAPES = ((25, 768), (50, 768), (16, 50, 768), (16, 22, 300),
+                         (13, 22, 301))
+
+
+def _overrides(over: dict) -> str:
+    """An `-o` string of a dict of overrides."""
+    return ",".join(f"{k}={str(v).lower() if isinstance(v, bool) else v}"
+                    for k, v in over.items())
+
+
+def _family_build(over: dict, vocab: int, pth: Path):
+    """build(device): the model manager of CAPTION_CONFIG with `over`,
+    loaded with the weights of `pth`."""
+    import torch
+    from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
+    from coot_videotext_tpu_torch.tasks.caption.model_manager import (
+        build_mart_model_manager)
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    weights = torch.load(pth, map_location="cpu", weights_only=True)
+
+    def build(device):
+        config = load_yaml_config_file(CAPTION_CONFIG)
+        config.update(over)
+        mgr = build_mart_model_manager(MartConfig(config), vocab, device,
+                                       seed=1,
+                                       cache_dir=str(ROOT / "cache_caption"))
+        mgr.load_state(weights)
+        return mgr
+    return build
+
+
+def _family_dataset(cfg, emb_dir: Path, mode: str):
+    from coot_videotext_tpu_torch.data.caption_dataset import (
+        RecursiveCaptionDataset)
+    max_n_sen = cfg.max_n_sen + (cfg.max_n_sen_add_val if mode == "val"
+                                 else 0)
+    return RecursiveCaptionDataset(
+        "youcook2", cfg.max_t_len, cfg.max_v_len, max_n_sen, mode=mode,
+        recurrent=cfg.recurrent, untied=cfg.untied or cfg.mtrans,
+        coot_model_name=cfg.coot_model_name, coot_mode=cfg.coot_mode,
+        coot_dim_vid=cfg.coot_dim_vid, coot_dim_clip=cfg.coot_dim_clip,
+        annotations_dir=str(ROOT / "annotations"),
+        coot_feat_dir=str(emb_dir))
+
+
+def phase_caption_family(tmp: Path) -> None:
+    """Phase 9, the rest of the caption family at the full width of
+    yc2_2d3d_coot_vidclip_mart.yaml (COOT vid+clip embeddings from seed 0,
+    _coot_embeddings). (a) Beam search (use_beam, beam 2) on MART trained
+    one epoch by the CLI (_variant_cli): one val batch of 50 videos
+    decoded by beam search on the card and on the CPU in the fixed and the
+    reference_compat mode (at least CAPTION_MIN_SAME of the sentences
+    token-identical), beam against greedy on the card on that batch (ms,
+    forwards, host reads), one traced beam decode (no port kernel may
+    launch), the CLI's `--validate --load_epoch 0 -o use_beam=true` over
+    the 100 val videos. (b-e) The TransformerXL, the untied model, the
+    joint single-sentence model and the decoder tied to the word
+    embeddings: the CLI trains one epoch and validates (_variant_cli),
+    then from its weights one train batch card against CPU over 3 steps
+    (hold_train_steps; XL's with xl_grad), one val batch's eval step and
+    greedy tokens card against CPU (hold_decode), one train batch trained
+    16 steps, timed and traced (time_train_step). (f) B4 at the new shapes
+    (caption_dropout_timing)."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch import train_caption
+    from coot_videotext_tpu_torch.data.caption_dataset import (
+        STACKED_KEYS, UNTIED_KEYS)
+    from coot_videotext_tpu_torch.ops import cuda_build
+    from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
+    from coot_videotext_tpu_torch.tasks.caption.translator import Translator
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+
+    def config(over: dict):
+        cfg = load_yaml_config_file(CAPTION_CONFIG)
+        cfg.update(over)
+        return MartConfig(cfg)
+
+    cfg = config({})
+    emb_dir = _coot_embeddings(tmp, cfg)
+    cut = _overrides(FAMILY_CUTS)
+    n_val = FAMILY_CUTS["dataset_val.max_datapoints"]
+
+    def common(tag):
+        return ["-c", str(CAPTION_CONFIG), "--seed", "0",
+                "--annotations_dir", str(ROOT / "annotations"),
+                "--coot_feat_dir", str(emb_dir),
+                "--cache_dir", str(ROOT / "cache_caption"),
+                "--log_dir", str(tmp / tag.replace(" ", "_"))]
+
+    log(f"(a) beam search (beam {cfg.beam_size}, n_best {cfg.n_best}, "
+        f"min_sen_len {cfg.min_sen_len}, max_sen_len {cfg.max_sen_len}, "
+        f"block_ngram_repeat {cfg.block_ngram_repeat}, length penalty "
+        f"{cfg.length_penalty_name}) on MART: the CLI trains one epoch, "
+        f"cuts {FAMILY_CUTS}")
+    pth = _variant_cli("MART for beam search", common("beam"), cut, n_val,
+                       "videos")
+    val = _family_dataset(cfg, emb_dir, "val")
+    build = _family_build({}, len(val.word2idx), pth)
+    stacked, sizes, _ = val.collate_fn(
+        [val[i] for i in range(cfg.val.batch_size)])
+    arrays = [stacked[k] for k in
+              ("input_ids", "video_feature", "input_mask", "token_type_ids")]
+    log(f"  one val batch of {cfg.val.batch_size} videos (S "
+        f"{len(stacked['input_ids'])}, {sum(sizes)} sentences), beam decoded "
+        "on the card and on the CPU")
+    decs = {}
+    for name in ("cuda", "cpu"):
+        mgr = build(torch.device(name))
+        translator = Translator(mgr.model, mgr.cfg)
+        batch = [torch.from_numpy(a).to(name) for a in arrays]
+        for compat in (False, True):
+            t0 = time.perf_counter()
+            decs[name, compat] = translator.translate_batch_beam(
+                *batch, reference_compat=compat)
+            log(f"  {name} {'reference_compat' if compat else 'fixed'}: "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms, "
+                f"{translator.forwards} forwards, {translator.host_reads} "
+                "host reads")
+        if name == "cuda":
+            card = mgr, translator, batch
+        else:
+            del mgr, translator, batch
+    for compat in (False, True):
+        pairs = [(decs["cuda", compat][s][i], decs["cpu", compat][s][i])
+                 for i, size in enumerate(sizes) for s in range(size)]
+        same = sum(bool(np.array_equal(a, b)) for a, b in pairs)
+        empty = sum(int((a[1:] == 0).all()) for a, _ in pairs)
+        log(f"  {'reference_compat' if compat else 'fixed'}: beam sentences "
+            f"token-identical card against CPU {same} of {len(pairs)} "
+            f"(limit {CAPTION_MIN_SAME:.0%}); {empty} decode to nothing "
+            f"but [BOS]; {len(np.unique(np.stack(decs['cuda', compat])))} "
+            "distinct tokens")
+        if same < CAPTION_MIN_SAME * len(pairs):
+            fail(f"beam search ({'compat' if compat else 'fixed'}): the card "
+                 "disagrees with the CPU")
+    mgr, translator, batch = card
+    times = {}
+    for what, fn in (("greedy", translator.translate_batch_greedy),
+                     ("beam", translator.translate_batch_beam)):
+        fn(*batch)  # warm
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(*batch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[what] = (statistics.median(ms), translator.forwards,
+                       translator.host_reads)
+    log(f"  on the card, the same batch (median of 3): greedy "
+        f"{times['greedy'][0]:.1f} ms ({times['greedy'][1]} forwards, "
+        f"{times['greedy'][2]} host reads), beam {times['beam'][0]:.1f} ms "
+        f"({times['beam'][1]} forwards of {cfg.beam_size}x the rows, "
+        f"{times['beam'][2]} host reads): beam / greedy "
+        f"{times['beam'][0] / times['greedy'][0]:.2f}")
+    cuda_build.reset_launch_counts()
+    wall_ms, busy_ms, kernels, events = _busy_ms(
+        lambda: translator.translate_batch_beam(*batch))
+    launches = dict(cuda_build.launch_counts)
+    log(f"  one traced beam decode: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}); {kernels} kernel "
+        f"launches, {kernels / translator.forwards:.1f} per forward; port "
+        f"kernel launches {launches}")
+    if any(launches.values()):
+        fail(f"beam search launched the port's kernels: {launches}")
+    log_families(events, translator.forwards)
+    del mgr, translator, batch, card, decs
+    torch.cuda.empty_cache()
+    cuda_build.reset_launch_counts()
+    result = train_caption.main(common("beam") + [
+        "-o", cut + ",use_beam=true", "--validate", "--load_epoch", "0"])[0]
+    launches = dict(cuda_build.launch_counts)
+    metrics = json.loads(result["metrics_file"].read_text(encoding="utf8"))
+    for key in ("cap/b4", "cap/met", "cap/rol", "cap/cid"):
+        value = metrics[key][-1][1]
+        if not math.isfinite(value) or value < 0:
+            fail(f"beam search CLI: {key} = {value}")
+    if any(launches.values()) or result["model_device"].type != "cuda":
+        fail(f"beam search CLI: on {result['model_device']}, launches "
+             f"{launches}")
+    log(f"  the CLI, --validate --load_epoch 0 -o use_beam=true (EMA "
+        f"weights): {n_val / result['val_seconds']:.2f} val videos/s over "
+        f"the validation pass ({result['val_seconds']:.2f} s); per batch "
+        f"decode ms {[round(v, 1) for v in result['decode_ms']]}, eval ms "
+        f"{[round(v, 2) for v in result['eval_ms']]}, forwards "
+        f"{result['forwards']}, host reads {result['host_reads']}; "
+        f"launches {launches}; metrics " + json.dumps(
+            {k: metrics[k][-1][1] for k in ("cap/b4", "cap/met", "cap/rol",
+                                             "cap/cid", "val/acc")}))
+
+    for i, (tag, over, step_over, unit, synced) in enumerate(
+            FAMILY_VARIANTS):
+        cfg = config(over)
+        single = not cfg.recurrent
+        keys = UNTIED_KEYS if cfg.untied else STACKED_KEYS
+        log(f"({'bcde'[i]}) {tag} ({_overrides(over)}): the CLI trains one "
+            "epoch on the card and validates")
+        pth = _variant_cli(tag, common(tag), ",".join((cut, _overrides(over))),
+                           n_val, unit)
+        train = _family_dataset(cfg, emb_dir, "train")
+        n = 8 if not single else cfg.train.batch_size
+        log(f"  one train batch of {n} {unit}: the card against the CPU, "
+            f"float32, dropout {cfg.hidden_dropout_prob}, 3 steps at lr "
+            f"{CAPTION_TRAIN_LR}" + (f", with {_overrides(step_over)}"
+                                     if step_over else ""))
+        batch, _, _ = train.collate_fn([train[j] for j in range(n)])
+        hold = hold_train_steps_synced if synced else hold_train_steps
+        hold(tag, _family_build({**over, **step_over}, len(train.word2idx),
+                                pth), {k: batch[k] for k in keys},
+             single=single)
+        build = _family_build(over, len(train.word2idx), pth)
+        val = _family_dataset(cfg, emb_dir, "val")
+        n = cfg.val.batch_size if single else FAMILY_DECODE_VIDEOS
+        vbatch, _, _ = val.collate_fn([val[j] for j in range(n)])
+        log(f"  one val batch of {n} {unit}: the card against the CPU")
+        hold_decode(tag, build, {k: vbatch[k] for k in keys}, single=single)
+        n = cfg.train.batch_size
+        batch, _, _ = train.collate_fn([train[j] for j in range(n)])
+        log(f"  one train batch of {n} {unit} trained 16 steps at lr "
+            f"{CAPTION_TRAIN_LR}, timed and traced")
+        time_train_step(tag, build, {k: batch[k] for k in keys},
+                        single=single, examples=n, unit=unit)
+        del train, val, batch, vbatch
+        torch.cuda.empty_cache()
+
+    log(f"(f) B4 at the new shapes, float32, rate {cfg.hidden_dropout_prob}")
+    caption_dropout_timing(cfg.hidden_dropout_prob, FAMILY_DROPOUT_SHAPES)
 
 
 def _busy_ms(fn) -> tuple:
@@ -2874,6 +3241,13 @@ def main() -> None:
             "MART (yc2_mart) and the MTransformer "
             "(yc2_100m_coot_vidclip_mtrans), trained and served")
         phase_caption_variants(Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="coot_chip_caption_family_") \
+            as tmp:
+        log("== 9. the rest of the caption family at "
+            "yc2_2d3d_coot_vidclip_mart width: beam search, the "
+            "TransformerXL, the untied and joint single-sentence models and "
+            "the tied decoder, trained and served")
+        phase_caption_family(Path(tmp))
     log(f"chip_smoke took {time.time() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

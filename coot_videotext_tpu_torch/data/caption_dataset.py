@@ -1,6 +1,7 @@
 """
 MART captioning dataset: annotation jsons -> joint video+text sequences ->
-stacked recurrent-step batches, or single sentences in the untied layout.
+stacked recurrent-step batches, or single sentences in the untied or the
+joint layout.
 
 Port of coot_videotext_tpu/data/caption_dataset.py (reference
 mart/recursive_caption_dataset.py:46-766):
@@ -19,7 +20,9 @@ mart/recursive_caption_dataset.py:46-766):
       positions) (:392-426, :529-605)
     - the untied layout (`recurrent: false` with `untied` or `mtrans`):
       one example per sentence, the video part without [CLS]/[SEP] and the
-      text part apart, with shifted text_labels (:140-154, :428, :572)
+      text part apart, with shifted text_labels (:140-154, :428, :572);
+      the joint single-sentence layout (`recurrent: false` alone, the
+      NonRecurTransformer's): one joint sequence per sentence (:379-408)
     - Treebank word tokenization, lowercased, truncated to max_t_len-2
       (:607)
     - the recurrent collation stacks steps into (S, N, L[, D]) arrays and
@@ -33,10 +36,6 @@ with the same arrays (`key`, `clip_num`, `vid_emb`, `vid_context`,
 `clip_emb`: what the port's retrieval export writes). The tokenizer is a
 copy of the Treebank word tokenizer's rules, the tokenizer the JAX package
 falls back to without punkt data, so nltk is not needed.
-
-The joint single-sentence layout (`recurrent: false` without untied or
-mtrans, the NonRecurTransformer's) is not ported yet (ROADMAP A11b): the
-dataset raises for it.
 """
 
 from __future__ import annotations
@@ -181,10 +180,6 @@ class RecursiveCaptionDataset:
                  dataset_max: Optional[int] = None,
                  preload: bool = False) -> None:
         assert not (recurrent and untied)
-        if not recurrent and not untied:
-            raise NotImplementedError(
-                "the joint single-sentence layout (NonRecurTransformer) is "
-                "not ported yet (ROADMAP A11b)")
         self.dset_name = dset_name
         self.annotations_dir = Path(annotations_dir)
         self.coot_model_name = coot_model_name
@@ -484,13 +479,15 @@ class RecursiveCaptionDataset:
         return data, meta
 
     def convert_example_to_features(self, example):
-        """Every sentence step of one video, or one untied sentence
-        (reference :347)."""
+        """Every sentence step of one video, or one sentence, untied or
+        joint (reference :347)."""
         video_feature = self._load_video_feature(example["name"])
         if not self.recurrent:
-            return self.clip_sentence_to_feature_untied(
-                example["name"], example["timestamp"], example["sentence"],
-                video_feature, example["idx"])
+            to_feature = (self.clip_sentence_to_feature_untied if self.untied
+                          else self.clip_sentence_to_feature)
+            return to_feature(example["name"], example["timestamp"],
+                              example["sentence"], video_feature,
+                              example["idx"])
         feats, metas = [], []
         for clip_idx in range(len(example["sentences"])):
             d, m = self.clip_sentence_to_feature(
@@ -523,8 +520,8 @@ class RecursiveCaptionDataset:
         holding (S, N, ...) arrays, S the step count bucketed on
         COUNT_LADDER (the reference's per-step list, :646, stacked). Dummy
         steps repeat step 0 with IGNORE labels.
-        Untied: (collated, None, metas), collated holding (N, ...) arrays
-        (:536-555).
+        Single sentences: (collated, None, metas), collated holding the
+        untied or the joint (N, ...) arrays (:536-555).
         `batch_size` pads a short batch to a static N with IGNORE-labelled
         dummy rows (step_sizes/metas keep only the real examples).
         """
@@ -562,18 +559,19 @@ class RecursiveCaptionDataset:
 
     @staticmethod
     def _collate_single(batch, batch_size: Optional[int]):
-        """The untied sentences stacked (N, ...); dummy rows repeat the
-        first example with IGNORE labels."""
+        """The untied or joint sentences stacked (N, ...); dummy rows
+        repeat the first example with IGNORE labels."""
         batch_meta = [{"name": e[1]["name"], "timestamp": e[1]["timestamp"],
                        "gt_sentence": e[1]["sentence"]} for e in batch]
         examples = [e[0] for e in batch]
         n_real = len(examples)
         n = batch_size if batch_size is not None else n_real
         assert n >= n_real
+        label_key = ("text_labels" if "text_labels" in examples[0]
+                     else "input_labels")
         for _ in range(n - n_real):
             dummy = dict(examples[0])
-            dummy["text_labels"] = np.full_like(examples[0]["text_labels"],
-                                                IGNORE)
+            dummy[label_key] = np.full_like(examples[0][label_key], IGNORE)
             examples.append(dummy)
         collated: Dict[str, Any] = {}
         for key, value in examples[0].items():
@@ -584,7 +582,8 @@ class RecursiveCaptionDataset:
         return collated, None, batch_meta
 
 
-# the arrays of a stacked batch, each (S, N, ...)
+# the arrays of a stacked batch, each (S, N, ...), or of a joint
+# single-sentence batch, each (N, ...)
 STACKED_KEYS = ("input_ids", "input_labels", "input_mask",
                 "token_type_ids", "video_feature")
 # the arrays of an untied single-sentence batch, each (N, ...)
@@ -593,8 +592,8 @@ UNTIED_KEYS = ("video_feature", "video_mask", "text_ids", "text_mask",
 
 
 class CaptionBatchLoader:
-    """Batches of the caption dataset (videos, or sentences in the untied
-    layout), in order or shuffled per epoch from a seed."""
+    """Batches of the caption dataset (videos, or single sentences), in
+    order or shuffled per epoch from a seed."""
 
     def __init__(self, dataset: RecursiveCaptionDataset, batch_size: int,
                  *, shuffle: bool, seed: int = 0) -> None:

@@ -1,8 +1,7 @@
 """
-BERT-style building blocks of the recurrent MART caption model.
+BERT-style building blocks of the MART caption model family.
 
-Port of coot_videotext_tpu/models/caption/bert.py (reference mart/model.py),
-the modules RecursiveTransformer uses:
+Port of coot_videotext_tpu/models/caption/bert.py (reference mart/model.py):
     - TF-style LayerNorm (biased variance, eps inside sqrt, :147) ==
       nn.LayerNorm with the same eps.
     - additive attention mask (1-mask)*-10000 (:198), not the -INF fill of
@@ -10,12 +9,15 @@ the modules RecursiveTransformer uses:
       einsum_f32), no fused attention kernel, so masked rows match JAX.
     - exact-erf gelu (:97), sincos PositionEncoding added to the summed
       embeddings (:108), video+word+token-type embedding sum (:458),
-      prediction head (:802).
+      prediction head (:802), its decoder matrix tied to the word
+      embeddings under share_wd_cls_weight.
     - shifted masks: video prefix fully visible, text suffix causal,
       memory prefix visible (make_shifted_mask :286, make_pad_shifted_mask
       :316).
     - memory: masked mean-pool init with learned bias (:724), GRU-style
       z/c-gated update from attention over states (:751).
+    - the joint single-sentence encoder without memory (BertLayerNoMemory,
+      BertEncoderNoMemory, reference :334-382).
 
 Module and parameter names are the reference torch MART keys (what the JAX
 package's utils/torch_convert.py::_convert_mart_key reads), so a reference
@@ -225,7 +227,41 @@ class MemoryUpdater(nn.Module):
         return (1 - z_t) * c_t + z_t * prev_m
 
 
-# ---------- layers / encoder ----------
+# ---------- layers / encoders ----------
+
+class BertLayerNoMemory(nn.Module):
+    """Plain joint-sequence layer (reference :334)."""
+
+    def __init__(self, cfg) -> None:
+        super().__init__()
+        self.max_v_len = cfg.max_v_len
+        self.max_t_len = cfg.max_t_len
+        self.attention = BertAttention(cfg)
+        self.hidden_intermediate = BertIntermediate(cfg)
+        self.output = BertOutput(cfg)
+
+    def forward(self, hidden_states: torch.Tensor,
+                attention_mask: torch.Tensor) -> torch.Tensor:
+        shifted = make_pad_shifted_mask(attention_mask, self.max_v_len,
+                                        self.max_t_len)
+        att = self.attention(hidden_states, shifted)
+        return self.output(self.hidden_intermediate(att), att)
+
+
+class BertEncoderNoMemory(nn.Module):
+    """Stack of no-memory layers (reference :359)."""
+
+    def __init__(self, cfg) -> None:
+        super().__init__()
+        self.layer = nn.ModuleList(BertLayerNoMemory(cfg)
+                                   for _ in range(cfg.num_hidden_layers))
+
+    def forward(self, hidden_states: torch.Tensor,
+                attention_mask: torch.Tensor) -> torch.Tensor:
+        for layer in self.layer:
+            hidden_states = layer(hidden_states, attention_mask)
+        return hidden_states
+
 
 class BertLayerWithMemory(nn.Module):
     """Memory-augmented layer (reference :383)."""
@@ -304,10 +340,12 @@ def _embedding_stack(cfg, in_size: int) -> nn.Sequential:
 
 class BertEmbeddingsWithVideo(nn.Module):
     """word + video + token-type embeddings summed, then PE + LN + dropout
-    (reference :458)."""
+    (reference :458); without the PE (`add_position_embeddings` false) for
+    the TransformerXL, whose attention is relative."""
 
-    def __init__(self, cfg) -> None:
+    def __init__(self, cfg, add_position_embeddings: bool = True) -> None:
         super().__init__()
+        self.add_position_embeddings = add_position_embeddings
         self.word_embeddings = nn.Embedding(cfg.vocab_size,
                                             cfg.word_vec_size)
         self.word_fc = _embedding_stack(cfg, cfg.word_vec_size)
@@ -328,7 +366,9 @@ class BertEmbeddingsWithVideo(nn.Module):
         w = self.word_fc(self.word_embeddings(input_ids))
         v = self.video_embeddings(video_features)
         t = self.token_type_embeddings(token_type_ids)
-        emb = w + v + t + self.position_table[:input_ids.shape[-1]][None]
+        emb = w + v + t
+        if self.add_position_embeddings:
+            emb = emb + self.position_table[:input_ids.shape[-1]][None]
         return self.dropout(self.LayerNorm(emb))
 
 
@@ -345,15 +385,24 @@ class BertPredictionHeadTransform(nn.Module):
 
 
 class BertLMPredictionHead(nn.Module):
-    """Transform + decoder matrix + bias (reference :802); the decoder
-    tied to the word embeddings (share_wd_cls_weight, in no shipped
-    config) is refused by model_manager.check_serving_config."""
+    """Transform + decoder matrix + bias (reference :802). Under
+    share_wd_cls_weight the decoder's weight IS the word-embedding matrix
+    `word_embeddings` (one Parameter: it takes the gradient of both uses
+    and is decayed and clipped once; the state dict keeps both reference
+    keys), logits = transform(h) @ E^T + bias (JAX mart.py:42-46)."""
 
-    def __init__(self, cfg) -> None:
+    def __init__(self, cfg, word_embeddings: Optional[nn.Embedding] = None
+                 ) -> None:
         super().__init__()
         self.transform = BertPredictionHeadTransform(cfg)
         self.decoder = nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                  bias=False)
+        if cfg.share_wd_cls_weight:
+            if word_embeddings is None:  # JAX asserts (bert.py:436)
+                raise ValueError("share_wd_cls_weight ties the head to the "
+                                 "word embeddings of the joint models; this "
+                                 "model passes none")
+            self.decoder.weight = word_embeddings.weight
         self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,19 @@
 """
-The recurrent MART caption model (RecursiveTransformer).
+The MART caption models: the recurrent RecursiveTransformer and the joint
+single-sentence NonRecurTransformer.
 
-Port of coot_videotext_tpu/models/caption/mart.py::RecursiveTransformer
-:31 (reference mart/model.py:1385). The forward loops over sentence steps
+Port of coot_videotext_tpu/models/caption/mart.py (RecursiveTransformer
+:31, reference mart/model.py:1385; NonRecurTransformer :153, reference
+:1334). The recurrent forward loops over sentence steps
 carrying per-layer memory states; steps arrive stacked as (S, N, L, ...)
 tensors (dummy steps carry IGNORE labels and add exactly zero loss). The
 JAX package's `recurrent_scan` (an nn.scan of steps 1..S-1, a compile-time
 lever with the same math) has no counterpart: the loop here is always the
-plain unrolled one. NonRecurTransformer is not ported yet (ROADMAP
-A11b).
+plain unrolled one. NonRecurTransformer encodes one joint video + text
+sequence with the no-memory encoder (the reference's dead
+`memory_intermediate` parameters are not built; param_bridge skips them
+when loading, JAX torch_convert.py:213-214). Both heads tie their decoder
+matrix to the word embeddings under share_wd_cls_weight.
 """
 
 from __future__ import annotations
@@ -19,8 +24,8 @@ import torch
 from torch import nn
 
 from coot_videotext_tpu_torch.models.caption.bert import (
-    BertEmbeddingsWithVideo, BertEncoderWithMemory, BertLMPredictionHead,
-    init_bert_weights)
+    BertEmbeddingsWithVideo, BertEncoderNoMemory, BertEncoderWithMemory,
+    BertLMPredictionHead, init_bert_weights)
 from coot_videotext_tpu_torch.train.loss_caption import (
     cross_entropy_loss, label_smoothing_loss)
 
@@ -36,7 +41,8 @@ class RecursiveTransformer(nn.Module):
         self.cfg = cfg
         self.embeddings = BertEmbeddingsWithVideo(cfg)
         self.encoder = BertEncoderWithMemory(cfg)
-        self.decoder = BertLMPredictionHead(cfg)
+        self.decoder = BertLMPredictionHead(
+            cfg, self.embeddings.word_embeddings)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_bert_weights(self, cfg.initializer_range, generator)
@@ -85,8 +91,43 @@ class RecursiveTransformer(nn.Module):
 
     def compute_loss(self, scores: torch.Tensor,
                      labels: torch.Tensor) -> torch.Tensor:
-        if self.cfg.label_smoothing != 0:
-            return label_smoothing_loss(scores, labels,
-                                        self.cfg.label_smoothing,
-                                        self.cfg.vocab_size)
-        return cross_entropy_loss(scores, labels)
+        return compute_loss(self.cfg, scores, labels)
+
+
+def compute_loss(cfg, scores: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """The caption loss of `scores` against `labels` (IGNORE = -1):
+    label smoothing when the config sets it, else cross entropy."""
+    if cfg.label_smoothing != 0:
+        return label_smoothing_loss(scores, labels, cfg.label_smoothing,
+                                    cfg.vocab_size)
+    return cross_entropy_loss(scores, labels)
+
+
+class NonRecurTransformer(nn.Module):
+    """Single joint-sequence encoder model (reference :1334). `generator`
+    seeds the init."""
+
+    def __init__(self, cfg, generator: Optional[torch.Generator] = None
+                 ) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = BertEmbeddingsWithVideo(cfg)
+        self.encoder = BertEncoderNoMemory(cfg)
+        self.decoder = BertLMPredictionHead(
+            cfg, self.embeddings.word_embeddings)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_bert_weights(self, cfg.initializer_range, generator)
+
+    def forward(self, input_ids: torch.Tensor, video_features: torch.Tensor,
+                input_masks: torch.Tensor, token_type_ids: torch.Tensor,
+                input_labels: Optional[torch.Tensor] = None
+                ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        """(loss, or None without labels; scores (N, L, vocab)) of (N, L)
+        joint sequences."""
+        emb = self.embeddings(input_ids, video_features, token_type_ids)
+        scores = self.decoder(self.encoder(emb, input_masks))
+        if input_labels is None:
+            return None, scores
+        return compute_loss(self.cfg, scores, input_labels), scores

@@ -253,11 +253,15 @@ class MTransformer(nn.Module):
         return self.encoder(video_features, video_masks)
 
     def decode(self, text_input_ids: torch.Tensor,
+               text_masks: Optional[torch.Tensor],
                text_input_labels: Optional[torch.Tensor],
-               encodings: List[torch.Tensor]
+               encodings: List[torch.Tensor],
+               encoder_masks: Optional[torch.Tensor] = None
                ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-        """(loss or None without labels, scores (N, T, vocab)); the text
-        mask is not read: the decoder's self-attention is causal."""
+        """(loss or None without labels, scores (N, T, vocab)), in the
+        untied model's argument order; the masks are not read: the
+        decoder's self-attention is causal and the encodings are masked."""
+        del text_masks, encoder_masks
         scores = self.decoder(text_input_ids, encodings)
         loss = None
         if text_input_labels is not None:
@@ -275,6 +279,5 @@ class MTransformer(nn.Module):
                 text_input_labels: Optional[torch.Tensor]
                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """The untied batch (JAX `_single_forward` argument order)."""
-        del text_masks  # causal decoder (reference :258)
-        return self.decode(text_input_ids, text_input_labels,
+        return self.decode(text_input_ids, text_masks, text_input_labels,
                            self.encode(video_features, video_masks))

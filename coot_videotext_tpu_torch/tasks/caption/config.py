@@ -4,13 +4,13 @@ coot_videotext_tpu/tasks/caption/config.py; one yaml drives both packages).
 
 Config-surface parity with reference mart/configs_mart.py:33-221 — the
 reference caption yamls parse unchanged, model_type inference and validity
-asserts reproduced. Every key is parsed; `train_caption` runs the recurrent
-MART model and the MTransformer (`mtrans`) with greedy decoding, on COOT
-embeddings or raw video features, and refuses the rest with
-NotImplementedError naming its ROADMAP item: beam search (A10b), the xl,
-untied and joint single-sentence models and share_wd_cls_weight (A11b).
-`recurrent_scan` is a compile-time lever of the JAX package with the same
-math; here the step loop always runs unrolled.
+asserts reproduced. Every key is parsed; `train_caption` runs every
+model family (recurrent MART, xl / xl_grad, untied, mtrans, the joint
+single-sentence model, share_wd_cls_weight) with greedy decoding, and
+beam search (use_beam, beam_reference_compat) on the recurrent MART
+model, on COOT embeddings or raw video features. `recurrent_scan` is a
+compile-time lever of the JAX package with the same math; here the step
+loop always runs unrolled.
 """
 
 from __future__ import annotations

@@ -3,15 +3,19 @@ Caption model factory and manager.
 
 Port of coot_videotext_tpu/tasks/caption/model_manager.py (reference
 mart/model.py:45 create_mart_model and mart/trainer_caption.py:89
-MartModelManager) for the recurrent MART model and the MTransformer:
-builds the model on one device from a seed, loads the GloVe word vectors
-from the cache (reference :79-85) and a reference-layout checkpoint
-`{"model": state_dict}`.
+MartModelManager): builds the model of the config's family (the recurrent
+MART model, the TransformerXL, the untied or joint single-sentence model,
+or the MTransformer; JAX :71-87) on one device from a seed, loads the
+GloVe word vectors from the cache (reference :79-85) and a
+reference-layout checkpoint `{"model": state_dict}`.
 
-The MTransformer has no word-embedding table (its word vectors are the
-output matrix, tied), so GloVe has nothing to load into: its init stays
-and a warning says so. The JAX package's `apply_glove` raises KeyError
-'embeddings' there (model_manager.py:111-126).
+GloVe loads into the word-embedding table when its shape matches (JAX
+:119-121): not into a decoder tied at word_vec_size = hidden_size, whose
+table is wider than the cache's 300-d vectors. The MTransformer has no
+word-embedding table (its word vectors are the output matrix, tied), so
+GloVe has nothing to load into: its init stays and a warning says so. The
+JAX package's `apply_glove` raises KeyError 'embeddings' there
+(model_manager.py:111-126).
 """
 
 from __future__ import annotations
@@ -24,9 +28,12 @@ import numpy as np
 import torch
 
 from coot_videotext_tpu_torch.models.caption.mart import (
-    RecursiveTransformer)
+    NonRecurTransformer, RecursiveTransformer)
 from coot_videotext_tpu_torch.models.caption.mtransformer import (
     MTransformer)
+from coot_videotext_tpu_torch.models.caption.untied import (
+    NonRecurTransformerUntied)
+from coot_videotext_tpu_torch.models.caption.xl import TransformerXL
 from coot_videotext_tpu_torch.utils.param_bridge import load_mart_checkpoint
 
 
@@ -58,38 +65,39 @@ def load_glove_matrix(cache_dir: str, dataset_name: str) -> np.ndarray:
     return np.asarray(arr, np.float32)
 
 
-CaptionModel = Union[RecursiveTransformer, MTransformer]
+CaptionModel = Union[RecursiveTransformer, TransformerXL,
+                     NonRecurTransformerUntied, MTransformer,
+                     NonRecurTransformer]
 
 
 def check_serving_config(cfg) -> None:
-    """Raise for what the port does not run yet, naming its ROADMAP
-    item."""
-    if cfg.xl:
-        raise NotImplementedError("the TransformerXL caption model: "
-                                  "ROADMAP A11b")
+    """Raise for what the JAX package refuses too: beam search decodes the
+    recurrent MART model only (JAX translator.py:592-596)."""
+    if cfg.use_beam and (not cfg.recurrent or cfg.xl):
+        raise ValueError("beam search is wired for the recurrent MART "
+                         "model: set use_beam false for the xl, untied, "
+                         "joint single-sentence and masked transformer "
+                         "models")
+
+
+def model_family(cfg) -> type:
+    """The caption model class of the config (JAX :71-87)."""
+    if cfg.recurrent:
+        return TransformerXL if cfg.xl else RecursiveTransformer
     if cfg.untied:
-        raise NotImplementedError("the untied caption model "
-                                  "(NonRecurTransformerUntied): ROADMAP A11b")
-    if not cfg.recurrent and not cfg.mtrans:
-        raise NotImplementedError("the single-sentence joint caption model "
-                                  "(NonRecurTransformer): ROADMAP A11b")
-    if cfg.use_beam:
-        raise NotImplementedError("beam search decoding: ROADMAP A10b")
-    if cfg.share_wd_cls_weight:
-        raise NotImplementedError("the decoder tied to the word embeddings "
-                                  "(share_wd_cls_weight): ROADMAP A11b")
+        return NonRecurTransformerUntied
+    return MTransformer if cfg.mtrans else NonRecurTransformer
 
 
 def create_mart_model(cfg, vocab_size: int, device: torch.device, *,
                       seed: int = 0) -> CaptionModel:
-    """The caption model of this config (the recurrent MART model, or the
-    MTransformer under `mtrans`) on `device`, initialized from `seed`
-    (reference :45), f32."""
+    """The caption model of this config on `device`, initialized from
+    `seed` (reference :45), f32."""
     check_serving_config(cfg)
     cfg.max_position_embeddings = cfg.max_v_len + cfg.max_t_len
     cfg.vocab_size = vocab_size
-    family = MTransformer if cfg.mtrans else RecursiveTransformer
-    model = family(cfg, generator=torch.Generator().manual_seed(seed))
+    model = model_family(cfg)(
+        cfg, generator=torch.Generator().manual_seed(seed))
     return model.to(device)
 
 
@@ -108,9 +116,9 @@ class MartModelManager:
     def apply_glove(self) -> bool:
         """Replace the word embeddings with the GloVe vectors (reference
         :79-85); keeps the init when the cache is missing or its shape
-        differs, as the JAX package does, and when the model has no
-        word-embedding table (the MTransformer), with a warning. Returns
-        whether it applied."""
+        differs (a decoder tied at hidden width), as the JAX package does,
+        and when the model has no word-embedding table (the MTransformer),
+        with a warning. Returns whether it applied."""
         if isinstance(self.model, MTransformer):
             logging.getLogger(__name__).warning(
                 "use_glove: the MTransformer's word vectors are its output "

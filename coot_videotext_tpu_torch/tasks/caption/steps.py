@@ -1,6 +1,8 @@
 """
-The caption train and eval steps: MART (recurrent, stacked batches) and
-the single-sentence untied layout (the MTransformer).
+The caption train and eval steps: the recurrent models (MART and the
+TransformerXL, stacked batches) and the single-sentence models (the
+untied layout of NonRecurTransformerUntied and the MTransformer, the
+joint layout of NonRecurTransformer).
 
 Port of coot_videotext_tpu/tasks/caption/steps.py (`make_caption_train_step`
 :45, `make_caption_eval_step` :103, `_single_forward` :152,
@@ -8,7 +10,7 @@ Port of coot_videotext_tpu/tasks/caption/steps.py (`make_caption_train_step`
 :209; reference mart/trainer_caption.py :253-350, ~420).
 
 The train step runs, in order: the model in training mode, the
-teacher-forced forward (S sentence steps, or one untied sentence) with
+teacher-forced forward (S sentence steps, or one sentence) with
 dropout (kernel B4 at every site on the card) inside
 `ops/philox.dropout_seeds` of the state's seed state, the caption loss (a
 sum over tokens), the token-accuracy counts of that forward, the
@@ -29,6 +31,7 @@ import torch
 
 from coot_videotext_tpu_torch.models.caption.mtransformer import (
     MTransformer)
+from coot_videotext_tpu_torch.models.caption.xl import TransformerXL
 from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.ops.philox import dropout_seeds
 from coot_videotext_tpu_torch.tasks.caption.model_manager import (
@@ -37,7 +40,7 @@ from coot_videotext_tpu_torch.train.loss_caption import token_accuracy_counts
 from coot_videotext_tpu_torch.train.optim import (
     EMA, BertAdam, clip_by_global_norm)
 from coot_videotext_tpu_torch.utils.param_bridge import (
-    mart_jax_paths, mtrans_jax_paths)
+    mart_jax_paths, mtrans_jax_paths, tied_aliases, xl_jax_paths)
 
 # the global-norm clip of the train step, fixed by the JAX trainer
 # (trainer.py:148-150), not read from cfg.train.clip_gradient
@@ -66,8 +69,12 @@ def init_caption_train_state(model: CaptionModel, cfg, seed: int
     embeddings frozen under use_glove + freeze_glove; the EMA when
     cfg.ema_decay > 0; the seed state of `seed`; step 0."""
     params = dict(model.named_parameters())
-    paths = (mtrans_jax_paths(model) if isinstance(model, MTransformer)
-             else mart_jax_paths(model))
+    if isinstance(model, MTransformer):
+        paths = mtrans_jax_paths(model)
+    elif isinstance(model, TransformerXL):
+        paths = xl_jax_paths(model)
+    else:  # MART, the untied and the joint single-sentence models
+        paths = mart_jax_paths(model)
     device = next(iter(params.values())).device
     frozen = (("word_embeddings",) if cfg.use_glove and cfg.freeze_glove
               else ())
@@ -75,7 +82,8 @@ def init_caption_train_state(model: CaptionModel, cfg, seed: int
         model=model,
         optimizer=BertAdam(params, paths, eps=cfg.eps,
                            frozen_names=frozen),
-        ema=EMA(params, cfg.ema_decay) if cfg.ema_decay > 0 else None,
+        ema=(EMA(params, cfg.ema_decay, tied_aliases(model))
+             if cfg.ema_decay > 0 else None),
         seed=philox.seed_state(seed, device),
         step=torch.zeros((), dtype=torch.int32, device=device))
 
@@ -99,15 +107,20 @@ def _forward(model: CaptionModel, batch: Dict[str, torch.Tensor]
 
 def _forward_single(model: CaptionModel, batch: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(loss, n_correct, n_word) of the untied single-sentence forward in
-    the model's mode (JAX `_single_forward` :152); labels from
-    text_labels."""
-    loss, scores = model(batch["video_feature"], batch["video_mask"],
-                         batch["text_ids"], batch["text_mask"],
-                         batch["text_labels"])
+    """(loss, n_correct, n_word) of the single-sentence forward in the
+    model's mode (JAX `_single_forward` :152): an untied batch (labels
+    from text_labels) or a joint one (from input_labels)."""
+    if "text_ids" in batch:
+        labels = batch["text_labels"]
+        loss, scores = model(batch["video_feature"], batch["video_mask"],
+                             batch["text_ids"], batch["text_mask"], labels)
+    else:
+        labels = batch["input_labels"]
+        loss, scores = model(batch["input_ids"], batch["video_feature"],
+                             batch["input_mask"], batch["token_type_ids"],
+                             labels)
     with torch.no_grad():
-        n_correct, n_word = token_accuracy_counts(scores,
-                                                  batch["text_labels"])
+        n_correct, n_word = token_accuracy_counts(scores, labels)
     return loss, n_correct, n_word
 
 
@@ -119,7 +132,7 @@ def caption_loss_and_grads(state: CaptionTrainState,
     """The training forward (dropout on, seeded by the state) and its
     backward: ({loss, n_correct, n_word} detached, the float32 gradient of
     every parameter by name; zeros where the loss does not reach, as under
-    jax.grad). `single`: an untied single-sentence batch."""
+    jax.grad). `single`: a single-sentence batch (untied or joint)."""
     model = state.model
     model.train()
     params = state.optimizer.params
@@ -165,8 +178,8 @@ def caption_train_step(state: CaptionTrainState,
 def caption_train_step_single(state: CaptionTrainState,
                               batch: Dict[str, torch.Tensor], lr: float
                               ) -> Dict[str, torch.Tensor]:
-    """caption_train_step on an untied (N, ...) sentence batch (JAX
-    make_caption_train_step_single :167)."""
+    """caption_train_step on an (N, ...) sentence batch, untied or joint
+    (JAX make_caption_train_step_single :167)."""
     metrics, grads = caption_loss_and_grads(state, batch, single=True)
     metrics["grad_norm"] = caption_update(state, grads, lr)
     return metrics
@@ -186,8 +199,8 @@ def caption_eval_step(model: CaptionModel,
 def caption_eval_step_single(model: CaptionModel,
                              batch: Dict[str, torch.Tensor]
                              ) -> Dict[str, torch.Tensor]:
-    """caption_eval_step on an untied (N, ...) sentence batch (JAX
-    make_caption_eval_step_single :209)."""
+    """caption_eval_step on an (N, ...) sentence batch, untied or joint
+    (JAX make_caption_eval_step_single :209)."""
     model.eval()
     with torch.inference_mode():
         loss, n_correct, n_word = _forward_single(model, batch)

@@ -1,6 +1,7 @@
 """
-Caption trainer (MART and the MTransformer): training and validation on
-one torch device.
+Caption trainer (every caption model: MART, the TransformerXL, the untied
+and joint single-sentence models, the MTransformer): training and
+validation on one torch device.
 
 Port of coot_videotext_tpu/tasks/caption/trainer.py (reference
 mart/trainer_caption.py:106-693):
@@ -11,8 +12,8 @@ mart/trainer_caption.py:106-693):
       :177-181), the EMA shadow updated each step
     - train_model (:207-257): per epoch `set_epoch`, the train steps
       (tasks/caption/steps.py `caption_train_step` on stacked video
-      batches, or `caption_train_step_single` on untied sentence batches
-      when `recurrent` is false, :121-163; each keyed on the
+      batches, or `caption_train_step_single` on sentence batches, untied
+      or joint, when `recurrent` is false, :121-163; each keyed on the
       seed state cfg.random_seed + total_step, so a resumed run draws the
       dropout masks of the unbroken one), one read of each step's metrics,
       the GRAD / TRAIN_LOSS_PER_WORD / TRAIN_ACC meters, validation per
@@ -20,8 +21,9 @@ mart/trainer_caption.py:106-693):
       ({"model": state_dict}), the checkpoint and its cleanup with the
       epoch's translations and EMA (`get_files_for_cleanup` :449)
     - validate_epoch (:295): teacher-forced loss and accuracy from the
-      eval step, free-running greedy translation (per video and sentence
-      step, or per sentence, :317-357) -> submission json ->
+      eval step, free-running translation (the decode the config selects:
+      greedy, or beam search under use_beam; per video and sentence step,
+      or per sentence, :317-357) -> submission json ->
       language / stats / repetition evaluation -> meters; best field =
       CIDEr (:626-630); under is_test the `val_ep_<ep>.json` metrics file
       and the METEOR -999 patch-up of the best epoch's metrics file
@@ -110,7 +112,8 @@ class MartFilesHandler(ExperimentFilesHandler):
 def prefetch(loader, device: torch.device, depth: int = 2
              ) -> Iterator[Tuple[Dict[str, torch.Tensor], Dict[str, Any]]]:
     """(device batch, host part) of each batch of `loader`: the stacked
-    arrays of a recurrent batch, the untied arrays of a sentence batch.
+    arrays of a recurrent batch, the untied or joint arrays of a sentence
+    batch.
 
     A background thread collates the batches `depth` ahead. On a CUDA
     device it pins each batch and copies it non_blocking on a side stream,
@@ -129,7 +132,7 @@ def prefetch(loader, device: torch.device, depth: int = 2
                 torch.cuda.set_device(device)
             for stacked, step_sizes, metas in loader:
                 host = {"step_sizes": step_sizes, "metas": metas}
-                keys = UNTIED_KEYS if step_sizes is None else STACKED_KEYS
+                keys = UNTIED_KEYS if "text_ids" in stacked else STACKED_KEYS
                 tensors = {k: torch.from_numpy(stacked[k]) for k in keys}
                 if not cuda:
                     q.put((tensors, host, None))
@@ -199,7 +202,7 @@ class MartTrainer(BaseTrainer):
         if not is_test:
             self.train_state = init_caption_train_state(
                 model_mgr.model, cfg, cfg.random_seed or 0)
-        # the untied single-sentence layout (JAX `_untied` :122)
+        # the single-sentence layouts, untied or joint (JAX :121-122)
         self.single = not cfg.recurrent
         self._train_step = (caption_train_step_single if self.single
                             else caption_train_step)
@@ -207,9 +210,9 @@ class MartTrainer(BaseTrainer):
                            else caption_eval_step)
         self.translator = Translator(model_mgr.model, cfg)
         # per val batch: host ms of the eval step (to its read) and of the
-        # greedy decode, the decode's forwards; per train step its host ms
-        # (to its read), per epoch the train videos/s (sentences/s in the
-        # single-sentence layout); the last batch's device
+        # decode, the decode's forwards and host reads; per train step its
+        # host ms (to its read), per epoch the train videos/s (sentences/s
+        # in the single-sentence layouts); the last batch's device
         self.val_timings: Dict[str, List[float]] = defaultdict(list)
         self.train_timings: Dict[str, List[float]] = defaultdict(list)
         self.last_batch_device: Optional[torch.device] = None
@@ -362,6 +365,8 @@ class MartTrainer(BaseTrainer):
             self.val_timings["eval_ms"].append((t1 - t0) * 1e3)
             self.val_timings["decode_ms"].append((t2 - t1) * 1e3)
             self.val_timings["forwards"].append(self.translator.forwards)
+            self.val_timings["host_reads"].append(
+                self.translator.host_reads)
 
             if self.single:
                 for ex_idx, cur_meta in enumerate(host["metas"]):

@@ -288,11 +288,15 @@ class EMA:
     """The EMA shadow (JAX ema_init :258, ema_update :268): a float32
     copy of every parameter, shadow = (1 - d) * p + d * shadow with
     d = min(decay, (1 + t) / (10 + t)), t the train state's step before
-    the step's increment."""
+    the step's increment. `aliases` ({key: parameter name}, a tied
+    parameter's second state-dict key) are written by state_dict, so it
+    is the model's full state dict, and skipped by load_state_dict."""
 
-    def __init__(self, params: Params, decay: float) -> None:
+    def __init__(self, params: Params, decay: float,
+                 aliases: Optional[Dict[str, str]] = None) -> None:
         self.params = dict(params)
         self.decay = decay
+        self.aliases = dict(aliases or {})
         self.shadow = {n: p.detach().float().clone()
                        for n, p in self.params.items()}
         self._names = list(self.params)
@@ -313,10 +317,13 @@ class EMA:
             self.shadow[n].copy_(self.params[n])
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
-        return {n: s.detach().cpu() for n, s in self.shadow.items()}
+        out = {n: s.detach().cpu() for n, s in self.shadow.items()}
+        out.update({a: out[n] for a, n in self.aliases.items()})
+        return out
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        state = {k: v for k, v in state.items() if k not in self.aliases}
         if set(state) != set(self.shadow):
             raise ValueError("EMA state does not match the model's "
                              "parameters")

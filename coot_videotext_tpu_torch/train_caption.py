@@ -1,8 +1,9 @@
 """
-Caption training and validation with the PyTorch package: the recurrent
-MART model (on COOT embeddings or raw rgb+flow video features) and the
-MTransformer (untied single sentences), BertAdam with the EMA shadow,
-greedy decoding and the caption metrics (the flags of the repo's
+Caption training and validation with the PyTorch package: every caption
+model of the JAX package (the recurrent MART model on COOT embeddings or
+raw rgb+flow video features, the TransformerXL, the untied and the joint
+single-sentence models, the MTransformer), BertAdam with the EMA shadow,
+greedy or beam decoding and the caption metrics (the flags of the repo's
 train_caption.py).
 
     python -m coot_videotext_tpu_torch.train_caption -c <yaml> \\
@@ -29,12 +30,24 @@ from `--coot_feat_dir` as `<coot_model_name>_<split>.h5` or `.npz`; with
 `coot_model_name: null` (config/caption/paper2020/yc2_mart.yaml,
 anet_mart.yaml) the raw features from `--video_feature_dir` as
 `<dset>/<video>_{resnet,bn}.npy`, indexed by the annotations'
-captioning_video_feat_duration.csv. `recurrent: false, mtrans: true`
-(yc2_100m_coot_vidclip_mtrans.yaml) trains and decodes the MTransformer
-on single sentences. Runs on the CUDA device unless `--device cpu` is
-given; asked for CUDA without a GPU it raises. Beam search (ROADMAP A10b)
-and the xl, untied and joint single-sentence models (A11b) raise
-NotImplementedError.
+captioning_video_feat_duration.csv. The variants are `-o` overrides of a
+caption yaml:
+    use_beam=true [beam_reference_compat=true]   beam search (beam_size,
+        n_best, min_sen_len, max_sen_len, block_ngram_repeat and the length
+        penalty from the yaml) on the recurrent MART model
+    xl=true [xl_grad=true]                       the TransformerXL
+    recurrent=false,untied=true                  the untied model
+    recurrent=false                              the joint single-sentence
+                                                 NonRecurTransformer
+    recurrent=false,mtrans=true                  the MTransformer
+                                                 (yc2_100m_coot_vidclip_mtrans)
+    share_wd_cls_weight=true,word_vec_size=<hidden_size>,use_glove=false
+                                                 the decoder tied to the word
+                                                 embeddings
+The single-sentence models train on sentences (`train_unit`). Beam search
+on any other model than the recurrent MART one is refused, as the JAX
+package refuses it. Runs on the CUDA device unless `--device cpu` is
+given; asked for CUDA without a GPU it raises.
 """
 
 from __future__ import annotations
@@ -117,7 +130,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     """Run the CLI; returns one result dict per run: where the model and
     the batches were, and for a validation the metrics, the translation
     and metrics files and the per-batch timings of the eval step and the
-    decode; for training the epochs trained, their train videos/s, the
+    decode with the decode's forwards and host reads; for training the epochs trained, their train videos/s, the
     per-step wall ms, the models dir and the last epoch's metrics file
     (every epoch's meters); `train_unit` says what the train throughput
     counts: videos, or sentences in the single-sentence layout."""
@@ -192,6 +205,7 @@ def _validate(args, cfg: MartConfig, trainer: MartTrainer,
         "eval_ms": list(trainer.val_timings["eval_ms"]),
         "decode_ms": list(trainer.val_timings["decode_ms"]),
         "forwards": list(trainer.val_timings["forwards"]),
+        "host_reads": list(trainer.val_timings["host_reads"]),
         "val_seconds": trainer.state.time_val,
     }
     print(f"Validation: {len(val_loader)} batches in "

@@ -30,6 +30,23 @@ the MTransformer ("mtrans" family, the inverse of `_convert_mtrans_key`
 `...{selfattn,attention,feedforward}.layernorm.{gamma,beta}`,
 `...feedforward.layer.linear{1,2}.*`, `decoder.out.{weight,bias}`.
 `load_mart_checkpoint` loads either model, MART or MTransformer.
+
+The joint single-sentence NonRecurTransformer and the untied
+NonRecurTransformerUntied keep names that the MART rules already map
+(`encoder.layer.N...`, `video_embeddings.video_embeddings.N`,
+`decoder.layer.N.{self_attention,dec_enc_attention,norm1,norm2}`,
+`decoder_classifier...`; the inverse of `_convert_untied_key` :316):
+`jax_untied_params_to_state_dict` and `untied_jax_paths` are the MART
+functions under the untied family's name. The TransformerXL has its own,
+`jax_xl_params_to_state_dict` and `xl_jax_paths` (the inverse of
+`_convert_xl_key` :364: `encoder.layers.N`, `pos_ff.CoreNet.{0,3}`).
+
+A decoder tied to the word embeddings (share_wd_cls_weight) is one
+Parameter under two state-dict keys (`tied_aliases`): the loader fills a
+missing `decoder.decoder.weight` from the embeddings, and
+`state_dict_for_jax` drops it, since the JAX package's tied head has no
+`decoder/decoder/kernel` for apply_converted to fill. Like apply_converted
+(:524-530) the loader refuses non-finite values.
 """
 
 from __future__ import annotations
@@ -142,9 +159,10 @@ _MART_LEAVES = {"kernel": "weight", "scale": "weight",
 # reference state-dict entries that are not parameters of the model: the
 # sincos buffer, the label-smoothing buffer, and the `memory_intermediate`
 # the reference builds but never calls (JAX torch_convert.py:49-55, :213)
-_MART_SKIP = (re.compile(r"(^|\.)position_embeddings\.pe$"),
+_MART_SKIP = (re.compile(r"(^|\.)position_embeddings(_text|_video)?\.pe$"),
               re.compile(r"^loss_func\."),
-              re.compile(r"\.memory_intermediate\."))
+              re.compile(r"\.memory_intermediate\."),
+              re.compile(r"^encoder\.pos_emb\.inv_freq$"))
 
 
 # torch module scopes (as component pairs) -> flax scope names, and the
@@ -159,6 +177,7 @@ def mart_jax_paths(model) -> Dict[str, str]:
     scale"} for the port's RecursiveTransformer (the inverse of
     jax_mart_params_to_state_dict's names)."""
     out: Dict[str, str] = {}
+    seen = set()  # a tied parameter is named once, where it is first met
     for module_name, module in model.named_modules():
         parts = module_name.split(".") if module_name else []
         scope, i = [], 0
@@ -174,7 +193,10 @@ def mart_jax_paths(model) -> Dict[str, str]:
                 i += 1
                 continue
             i += 2
-        for leaf, _ in module.named_parameters(recurse=False):
+        for leaf, param in module.named_parameters(recurse=False):
+            if id(param) in seen:
+                continue
+            seen.add(id(param))
             name = ".".join(parts + [leaf])
             if leaf == "weight":
                 leaf = _MART_WEIGHT_LEAF[type(module).__name__]
@@ -200,12 +222,36 @@ def jax_mart_params_to_state_dict(params: Any) -> Dict[str, np.ndarray]:
     return out
 
 
+# the untied model's reference keys are MART's (see the module docstring)
+untied_jax_paths = mart_jax_paths
+jax_untied_params_to_state_dict = jax_mart_params_to_state_dict
+
+
+def tied_aliases(model) -> Dict[str, str]:
+    """{state-dict key: the parameter name it shares} for every parameter
+    the model holds under a second key (`decoder.decoder.weight` ->
+    `embeddings.word_embeddings.weight` under share_wd_cls_weight)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {k: names[id(v)] for k, v in
+            model.state_dict(keep_vars=True).items()
+            if id(v) in names and names[id(v)] != k}
+
+
+def state_dict_for_jax(model) -> Dict[str, np.ndarray]:
+    """The model's state dict as numpy arrays without its tied aliases:
+    what the JAX package's convert_mart_model_state + apply_converted
+    take."""
+    aliases = tied_aliases(model)
+    return {k: v.detach().cpu().numpy()
+            for k, v in model.state_dict().items() if k not in aliases}
+
+
 def load_mart_checkpoint(model, state: Dict[str, Any]) -> None:
     """Load a reference-layout caption checkpoint `{"model": state_dict}`
-    (tensors or arrays) into the port's RecursiveTransformer or
-    MTransformer, strictly:
-    every parameter must be there with its shape, and nothing else but the
-    reference's non-parameter entries."""
+    (tensors or arrays) into any of the port's caption models, strictly:
+    every parameter must be there with its shape and finite values, and
+    nothing else but the reference's non-parameter entries; a tied alias
+    may be left out."""
     import torch
     if set(state) != {"model"}:
         raise ValueError("a MART checkpoint is {'model': state_dict}, got "
@@ -213,7 +259,69 @@ def load_mart_checkpoint(model, state: Dict[str, Any]) -> None:
     sd = {k: torch.from_numpy(np.array(v)) if not torch.is_tensor(v)
           else v for k, v in state["model"].items()
           if not any(p.search(k) for p in _MART_SKIP)}
+    for key, value in sd.items():
+        if value.is_floating_point() and not torch.isfinite(value).all():
+            raise ValueError(
+                f"non-finite values in checkpoint param {key} — corrupted "
+                "or never-initialized (see reference XL r_w_bias); "
+                "refusing to import")
+    for alias, name in tied_aliases(model).items():
+        if alias not in sd and name in sd:
+            sd[alias] = sd[name]
     model.load_state_dict(sd, strict=True)
+
+
+# ---------- TransformerXL ----------
+
+# flax feed-forward scopes -> the reference CoreNet index (JAX
+# torch_convert.py:361)
+_XL_CORENET = {"fc1": "0", "fc2": "3"}
+_XL_CORENET_INV = {v: k for k, v in _XL_CORENET.items()}
+
+
+def xl_jax_paths(model) -> Dict[str, str]:
+    """{parameter name: its JAX path, "encoder/layer_0/pos_ff/fc1/kernel"}
+    for the port's TransformerXL (the inverse of
+    jax_xl_params_to_state_dict's names)."""
+    mart = mart_jax_paths(model)
+    out: Dict[str, str] = {}
+    for name in mart:
+        parts = name.split(".")
+        if parts[:2] != ["encoder", "layers"]:
+            out[name] = mart[name]
+            continue
+        path = ["encoder", f"layer_{parts[2]}", parts[3]]
+        path.append(_XL_CORENET_INV[parts[5]] if parts[4] == "CoreNet"
+                    else parts[4])
+        leaf = parts[-1]
+        if leaf == "weight":
+            leaf = "scale" if parts[4] == "layer_norm" else "kernel"
+        out[name] = "/".join(path + [leaf])
+    return out
+
+
+def jax_xl_params_to_state_dict(params: Any) -> Dict[str, np.ndarray]:
+    """JAX TransformerXL params (nested, or flat {path: array}) -> the
+    reference torch TransformerXL state dict {key: array}."""
+    flat = params if (params and isinstance(next(iter(params)), tuple)) \
+        else flatten(params)
+    out: Dict[str, np.ndarray] = {}
+    rest = {}
+    for path, val in flat.items():
+        if path[0] != "encoder" or len(path) < 4:
+            rest[path] = val  # embeddings, head, r_w_bias, r_r_bias
+            continue
+        val = np.asarray(val)
+        scope = ["encoder", "layers", path[1][6:], path[2]]
+        if path[3] in _XL_CORENET:
+            scope += ["CoreNet", _XL_CORENET[path[3]]]
+        else:
+            scope.append(path[3])
+        if path[-1] == "kernel":
+            val = np.ascontiguousarray(val.T)
+        out[".".join(scope + [_MART_LEAVES[path[-1]]])] = val
+    out.update(jax_mart_params_to_state_dict(rest))
+    return out
 
 
 

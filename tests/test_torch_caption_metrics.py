@@ -12,9 +12,11 @@ the JAX package on the CPU:
   the JAX package's train_caption.py (its MartTrainer, through
   torch_convert.convert_model_file) gives the same translation json and
   the same metrics;
-- what the CLI refuses: the untied, xl and joint single-sentence models
-  (ROADMAP A11b), beam search (A10b), the card without one, an untrained
-  model without --ignore_untrained.
+- the untied, xl and joint single-sentence models and beam search
+  validate through the CLI on the CPU;
+- what the CLI refuses, as the JAX package does: beam search on the xl or
+  a single-sentence model, the tied decoder narrower than hidden; and the
+  card without one, an untrained model without --ignore_untrained.
 """
 
 import json
@@ -178,22 +180,40 @@ def test_cli_validate_matches_jax_trainer(smoke, monkeypatch):
             assert o == r, key
 
 
-@pytest.mark.parametrize("case", ["untied", "xl", "single", "beam", "cuda",
-                                  "untrained"])
-def test_cli_refuses(smoke, case):
+@pytest.mark.parametrize("case", ["untied", "xl", "single", "beam"])
+def test_cli_validates_variant(smoke, case):
+    """Each caption variant the CLI once refused validates on the CPU (an
+    untrained model): translations of every val video."""
     root, info, _ = smoke
-    extra = {"untied": ["--device", "cpu", "-o",
-                        "recurrent=false,untied=true"],
-             "xl": ["--device", "cpu", "-o", "xl=true"],
-             "single": ["--device", "cpu", "-o", "recurrent=false"],
-             "beam": ["--device", "cpu", "-o", "use_beam=true"],
+    over = {"untied": "recurrent=false,untied=true", "xl": "xl=true",
+            "single": "recurrent=false", "beam": "use_beam=true"}[case]
+    result = train_caption.main(_argv(
+        root, info, root / f"variant_{case}", "--device", "cpu",
+        "--ignore_untrained", "-o", over))[0]
+    assert result["model_device"].type == "cpu"
+    res = json.loads(result["translation_file"].read_text())["results"]
+    assert len(res) == 10  # the synthetic val videos
+
+
+@pytest.mark.parametrize("case", ["beam_xl", "beam_single", "tied_width",
+                                  "cuda", "untrained"])
+def test_cli_refuses(smoke, case):
+    """What the JAX package refuses too: beam search on the xl or a
+    single-sentence model (JAX translator.py:592-596), the tied decoder
+    with word_vec_size != hidden_size (config.py:138-141); and the card
+    without one, an untrained model without --ignore_untrained."""
+    root, info, _ = smoke
+    extra = {"beam_xl": ["--device", "cpu", "-o", "use_beam=true,xl=true"],
+             "beam_single": ["--device", "cpu", "-o",
+                             "use_beam=true,recurrent=false"],
+             "tied_width": ["--device", "cpu", "-o",
+                            "share_wd_cls_weight=true,word_vec_size=16"],
              "cuda": [],
              "untrained": ["--device", "cpu"]}[case]
     argv = _argv(root, info, root / "refused", *extra)
-    expect = {"untied": (NotImplementedError, "ROADMAP A11b"),
-              "xl": (NotImplementedError, "ROADMAP A11b"),
-              "single": (NotImplementedError, "ROADMAP A11b"),
-              "beam": (NotImplementedError, "ROADMAP A10b"),
+    expect = {"beam_xl": (ValueError, "recurrent MART model"),
+              "beam_single": (ValueError, "recurrent MART model"),
+              "tied_width": (AssertionError, "word_vec_size == hidden_size"),
               "cuda": (RuntimeError, "--device cpu"),
               "untrained": (ValueError, "ignore_untrained")}[case]
     if case == "cuda" and torch.cuda.is_available():
