@@ -42,8 +42,8 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    0 just before and read just after; `--validate --load_epoch 0` reads
    the checkpoint back; the run resumes for 4 more epochs (16 steps),
    which time training end to end; the store with host-sampled index
-   batches (the config's default, no --fixed_shapes) trains one epoch; the
-   host dense path trains one epoch of 128 videos; one fixed id batch
+   batches (the config's default, no --fixed_shapes) trains one epoch (the
+   host dense path trains in phase 10a); one fixed id batch
    trained 16 steps must lower its loss; the warm train step is timed,
    profiled and its peak memory read.
 4b. synthetic_smoke.yaml trains one epoch through the CLI from the device
@@ -169,6 +169,36 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    port kernel). (f) B4 bit-equal to its plain version at the new shapes,
    timed beside F.dropout, and its bound.
 
+10. The prefetch pipeline and the tail. (a) On a generated 320 + 64-video
+   split at yc2_2d3d_coot width with `preload_device: false`: a train and
+   a val batch of 16 of the dense and the slab layout through
+   data/pipeline.py `prefetch` equal to `to_device`'s on the card
+   (torch.equal, host frame noise on); the dense CLI trains 5 steps of 64
+   and validates (train and val videos/s, the step meter's "other"
+   share), then 1 step and a val batch under torch.profiler (the pinned
+   copies must run on streams of their own; their time under a kernel is
+   printed; tools/host_path.py); B1-B4 must run, B5 not; the slab CLI
+   trains 1 step and validates (B5 runs). (b) S3D at full width, 2
+   generated videos of 256 frames of 256 x 256 (16 windows of 32 each,
+   one batch of 16) through the extractor's CLI where PIL is installed
+   (else its
+   `extract_video` on the arrays, and it says so), float32 and bfloat16,
+   no port kernel launched; bf16 against f32 features (cosine >= 0.99);
+   one window card against CPU (f32 within 1e-4 of max |CPU|, bf16
+   cosine >= 0.99); a batch timed (windows/s), traced (device-busy share,
+   device time by family; the trace must hold a device record for every
+   kernel launched, traced again up to 3 times), its GFLOP a window from
+   the conv shapes and the share of the dense peak, peak memory; bf16
+   NCDHW against channels-last-3d weights. (c) The MLP example trained 2 epochs,
+   resumed to 3 and epoch 2 reloaded on the card (the reloaded val loss
+   equals training's). (d) profile_device_and_ram (a 2 GiB block shows)
+   and a trace() file holding each of its 61 launches as a kernel on the
+   card (traced again, up to 3 times, where it lost some; the first
+   kernel's start after its launch is logged). Every trace first launches
+   and waits for empty kernels (utils/profiling.py `warm_trace`), which
+   are left out of its counts and times; a trace with fewer device
+   records than kernel launches says so.
+
 Prints `{"kernels": [...]}` on the line before the last and
 `{"ok": true, "device": {...}}` as the last line; exits non-zero (and
 prints no result) on any failure, without a CUDA device, or outside a
@@ -188,6 +218,8 @@ import tempfile
 import time
 from pathlib import Path
 
+# the process's start: phase 10d logs the age with the trace's first kernel
+STARTED = time.time()
 ROOT = Path(__file__).resolve().parent
 PACKAGE = ROOT / "coot_videotext_tpu_torch"
 CONFIG = ROOT / "config" / "retrieval" / "paper2020" / "yc2_2d3d_coot.yaml"
@@ -1005,9 +1037,9 @@ def phase_train(tmp: Path):
     steps), validates and checkpoints; the checkpoint is validated back;
     the run resumes for 4 more epochs (16 steps) to time training end to
     end past the first epoch; the store with host-sampled index batches
-    (the config's default, without --fixed_shapes) trains one epoch; the
-    host dense path trains one epoch of 128 videos; one fixed id
-    batch trains 16 steps through B5."""
+    (the config's default, without --fixed_shapes) trains one epoch (the
+    host dense path trains in phase 10a); one fixed id batch trains 16
+    steps through B5."""
     import numpy as np
     import torch
     from coot_videotext_tpu_torch import train_retrieval
@@ -1091,20 +1123,6 @@ def phase_train(tmp: Path):
         f"{', '.join(f'{v:.5f}' for v in losses)}) in {wall:.1f} s; epoch "
         f"time {state['time_total']:.2f} s of which validation "
         f"{state['time_val']:.2f} s; launches {idx_launches}")
-
-    # the host dense path, at its earlier size: 128 train videos, 2 steps
-    host_cfg = _config(tmp / "host", preload_device=False,
-                       pack_transfer=False, max_datapoints=128)
-    result, host_launches, wall = _train_cli(host_cfg, tmp, [])
-    losses, state = result["step_losses"], result["state"]
-    if len(losses) != 2 or host_launches.get("gather", 0) or \
-            result["layout"] != "dense":
-        fail(f"host path: losses {losses}, launches {host_launches}")
-    log(f"CLI (host dense): 1 epoch of {len(losses)} steps in {wall:.1f} s; "
-        f"epoch time {state['time_total']:.2f} s of which validation "
-        f"{state['time_val']:.2f} s; "
-        f"{128 / (state['time_total'] - state['time_val']):.2f} train "
-        f"videos/s end to end; launches {host_launches}")
 
     # one fixed id batch, 16 steps: frames resampled and noised on the
     # device at every step; RAdam's rectified updates start at step 6
@@ -2411,23 +2429,54 @@ def phase_caption_family(tmp: Path) -> None:
     caption_dropout_timing(cfg.hidden_dropout_prob, FAMILY_DROPOUT_SHAPES)
 
 
-def _busy_ms(fn) -> tuple:
+def _busy_ms(fn, require_complete: bool = False) -> tuple:
     """(traced wall ms, device-busy ms, kernels seen, the kernels' profiler
     events) of fn() under torch.profiler, synchronised: the busy time sums
-    the kernels' device time, graph replays' kernels included."""
+    the kernels' device time, graph replays' kernels included. The trace
+    opens with `warm_trace` (utils/profiling.py), left out of the counts;
+    fewer device records than the host's kernel launches are logged, and
+    where `require_complete` fn() is traced again, up to 3 times in all,
+    before the run fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    from coot_videotext_tpu_torch.utils.profiling import (
+        TRACE_WARMUP_LAUNCHES, warm_trace)
+    for attempt in range(3 if require_complete else 1):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
-    return (wall, sum(_dev_us(e) for e in events) / 1e3,
-            sum(e.count for e in events), events)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            warm_trace()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        averages = prof.key_averages()
+        events = _device_events(averages)
+        kernels = sum(e.count for e in events)
+        launches = sum(e.count for e in averages if "LaunchKernel" in e.key
+                       ) - TRACE_WARMUP_LAUNCHES
+        if kernels >= launches:
+            break
+        lost = (f"the trace holds {kernels} device records for {launches} "
+                "kernel launches on the host")
+        log(f"  ({lost}: its busy time is short"
+            f"{'; traced again' if attempt < 2 and require_complete else ''}"
+            ")")
+    else:
+        if require_complete:
+            fail(lost)
+    return (wall, sum(_dev_us(e) for e in events) / 1e3, kernels, events)
+
+
+def _device_events(averages) -> list:
+    """The profiler's device entries with device time, without the trace's
+    warm-up (utils/profiling.py `warm_trace`: its kernels and the device
+    span of its range)."""
+    from coot_videotext_tpu_torch.utils.profiling import (
+        WARMUP_KERNEL, WARMUP_RANGE)
+    return [e for e in averages if str(e.device_type).endswith("CUDA")
+            and _dev_us(e) > 0 and WARMUP_KERNEL not in e.key
+            and e.key != WARMUP_RANGE]
 
 
 # kernel families of a train step by name, first match wins
@@ -2668,6 +2717,7 @@ def profile_step(step_fn, what: str) -> None:
     step and the device time by kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from coot_videotext_tpu_torch.utils.profiling import warm_trace
 
     def step():
         step_fn()
@@ -2676,13 +2726,13 @@ def profile_step(step_fn, what: str) -> None:
     step()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        warm_trace()
         t0 = time.perf_counter()
         step()
         traced_ms = (time.perf_counter() - t0) * 1e3
 
     # kernel entries only: CPU ops also carry their kernels' device time
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
+    events = _device_events(prof.key_averages())
     busy_ms = sum(_dev_us(e) for e in events) / 1e3
     log(f"traced {what} step: {traced_ms:.2f} ms wall, device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / traced_ms:.1f}%); top device "
@@ -2718,20 +2768,21 @@ def kernel_ms(fn, calls: int = 20) -> dict:
     backwards run by autograd's device thread)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from coot_videotext_tpu_torch.utils.profiling import warm_trace
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        warm_trace()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0:
-            name = e.key.replace("(anonymous namespace)::", "").split(
-                "(")[0].split("::")[-1]
-            per_call = _dev_us(e) / e.count * max(1, round(e.count / calls))
-            out[name] = out.get(name, 0.0) + per_call / 1e3
+    for e in _device_events(prof.key_averages()):
+        name = e.key.replace("(anonymous namespace)::", "").split(
+            "(")[0].split("::")[-1]
+        per_call = _dev_us(e) / e.count * max(1, round(e.count / calls))
+        out[name] = out.get(name, 0.0) + per_call / 1e3
     return out
 
 
@@ -3194,6 +3245,385 @@ def phase_timing(launches, shapes, max_errors):
     return [{k: e[k] for k in keys} for e in entries]
 
 
+# ---------- phase 10: the prefetch pipeline and the tail ----------
+
+# the equality check: this many batches of 16 of each loader
+EQUAL_BATCH, EQUAL_BATCHES = 16, 1
+# the traced dense run and the slab run: one train step and one val batch
+SHORT_VIDEOS = 64
+# S3D at the extractor's defaults: windows of 32 frames every 16 of 256 x
+# 256 (extract_frames_from_videos.py:112-113), batches of 16: a video of
+# 256 frames is 16 windows, one batch
+S3D_KERNEL, S3D_STRIDE, S3D_BATCH, S3D_SIZE, S3D_FRAMES = 32, 16, 16, 256, 256
+S3D_VIDEOS = 2
+
+
+def _equal_to_sequential(data: Path, layout: str) -> int:
+    """Two loaders from one seed on the card, batches of EQUAL_BATCH: the
+    first EQUAL_BATCHES train batches (host frame noise drawn in the
+    producer) and val batches through `prefetch` against `to_device`,
+    torch.equal on the card. Returns the tensors compared."""
+    import torch
+    from coot_videotext_tpu_torch.data.pipeline import prefetch
+    from coot_videotext_tpu_torch.data.retrieval_dataset import (
+        HOST_KEYS, create_retrieval_datasets_and_loaders, to_device)
+    from coot_videotext_tpu_torch.tasks.retrieval.config import (
+        RetrievalConfig)
+    from coot_videotext_tpu_torch.tools.host_path import host_config
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    cuda = torch.device("cuda")
+    cfg_file = host_config(ROOT, data.parent / f"equal_{layout}", layout,
+                           -1)
+    loaders = []
+    for _ in range(2):
+        cfg = load_yaml_config_file(cfg_file)
+        cfg["train"]["batch_size"] = cfg["val"]["batch_size"] = EQUAL_BATCH
+        _, _, train, val = create_retrieval_datasets_and_loaders(
+            RetrievalConfig(cfg), data, seed=0, device=cuda)
+        if train.layout != layout:
+            fail(f"equality check: {train.layout} batches, not {layout}")
+        loaders.append((train, val))
+    compared = 0
+    for which in (0, 1):
+        ours = prefetch(loaders[0][which], cuda)
+        theirs = iter(loaders[1][which])
+        for _ in range(EQUAL_BATCHES):
+            tensors, host = next(ours)
+            want = to_device(next(theirs), cuda)
+            got = {**host, **tensors}
+            if set(got) != set(want):
+                fail(f"{layout}: prefetched keys {sorted(got)}")
+            for key, value in want.items():
+                if key in HOST_KEYS:
+                    same = got[key] == value
+                else:
+                    same = (got[key].is_cuda and
+                            torch.equal(got[key], value))
+                if not same:
+                    fail(f"{layout}: prefetched {key} differs from the "
+                         "sequential copy")
+                compared += 1
+        ours.close()
+    torch.cuda.synchronize()
+    return compared
+
+
+def phase_host_prefetch(tmp: Path) -> None:
+    """10a: the host dense and slab paths behind the prefetch pipeline at
+    yc2_2d3d_coot width."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch.ops import cuda_build
+    from coot_videotext_tpu_torch.tools import host_path
+
+    data = tmp / "data"
+    t0 = time.time()
+    host_path.generate(ROOT, data, host_path.VIDEOS, host_path.VAL_VIDEOS)
+    log(f"generated a yc2-like split ({host_path.VIDEOS} train, "
+        f"{host_path.VAL_VIDEOS} val videos) in {time.time() - t0:.1f} s")
+    for layout in ("dense", "slab"):
+        n = _equal_to_sequential(data, layout)
+        log(f"  {layout}: {EQUAL_BATCHES} train and {EQUAL_BATCHES} val "
+            f"batches of {EQUAL_BATCH} through prefetch equal to_device's "
+            f"on the card ({n} fields, torch.equal)")
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    t0 = time.time()
+    record = host_path.measure(ROOT, data, "dense", host_path.VIDEOS,
+                               host_path.VAL_VIDEOS, SHORT_VIDEOS,
+                               tmp / "dense")
+    launches = dict(cuda_build.launch_counts)
+    log(f"  host dense CLI ({time.time() - t0:.1f} s, timed and traced "
+        f"runs): {json.dumps(record)}")
+    log(f"  launches {launches}")
+    if record["layout"] != "dense" or record["steps"] != \
+            host_path.VIDEOS // 64 or not np.isfinite(record["step_ms"]):
+        fail(f"host dense CLI: {record}")
+    for name in ("input_fc", "input_fc_bwd", "genpool", "genpool_bwd",
+                 "attention", "attention_bwd", "dropout", "dropout_bwd"):
+        if launches.get(name, 0) <= 0:
+            fail(f"host dense CLI: kernel {name} was not launched")
+    if launches.get("gather", 0):
+        fail("host dense CLI launched B5")
+    if not record["copy_ms"] > 0 or set(record["copy_streams"]) & set(
+            record["kernel_streams"]):
+        fail("the host-to-device copies are not on a stream of their own: "
+             f"{record}")
+    log(f"  host dense: {record['train_videos_per_s']:.2f} train videos/s, "
+        f"{record['val_videos_per_s']:.2f} val videos/s; step "
+        f"{record['step_ms']:.1f} ms, {record['step_other_share']:.1%} of it "
+        f"outside the step; traced copies {record['copy_ms']:.2f} ms on "
+        f"streams {record['copy_streams']}, "
+        f"{record['copy_overlapped_ms']:.2f} ms of them under a kernel")
+    cuda_build.reset_launch_counts()
+    slab = host_path.train_once(
+        host_path.host_config(ROOT, tmp / "slab", "slab", SHORT_VIDEOS),
+        data, tmp / "slab" / "experiments")
+    launches = dict(cuda_build.launch_counts)
+    if slab["layout"] != "slab" or slab["steps"] != 1 or \
+            launches.get("gather", 0) <= 0:
+        fail(f"host slab CLI: {slab}, launches {launches}")
+    log(f"  host slab CLI: {SHORT_VIDEOS / slab['train_s']:.2f} train "
+        "videos/s, "
+        f"{host_path.VAL_VIDEOS / slab['val_s']:.2f} val videos/s; step "
+        f"{slab['step_ms']:.1f} ms, {slab['step_other_share']:.1%} outside "
+        f"the step; launches {launches}")
+    torch.cuda.empty_cache()
+
+
+def _s3d_flops(model, batch) -> float:
+    """Operations of one forward (2 per multiply-add of every convolution
+    and linear), counted from the shapes by forward hooks."""
+    import torch
+    from coot_videotext_tpu_torch.models import s3d
+    total = [0]
+
+    def hook(mod, _inp, out):
+        w = mod.weight
+        total[0] += 2 * out.numel() * (w[0].numel() if w.dim() == 5
+                                       else w.shape[1])
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (s3d.Conv3d, s3d.Linear))]
+    with torch.no_grad():
+        model(batch)
+    for h in handles:
+        h.remove()
+    return float(total[0])
+
+
+def _s3d_frames(seed: int):
+    """One video's frames, uint8 (S3D_FRAMES, 256, 256, 3): smooth
+    gradients plus noise, so that the jpgs are not pure noise."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    t = np.arange(S3D_FRAMES)[:, None, None, None]
+    y = np.arange(S3D_SIZE)[None, :, None, None]
+    x = np.arange(S3D_SIZE)[None, None, :, None]
+    base = (128 + 60 * np.sin(0.05 * (x + 2 * t) + rng.rand(1, 1, 1, 3) * 6)
+            + 40 * np.cos(0.03 * y + rng.rand(1, 1, 1, 3) * 6))
+    noise = rng.randint(-20, 21, (S3D_FRAMES, S3D_SIZE, S3D_SIZE, 3))
+    return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+def phase_s3d(tmp: Path) -> None:
+    """10b: S3D at full width through the extractor, float32 and
+    bfloat16."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch import extract_100m_features as tool
+    from coot_videotext_tpu_torch.ops import cuda_build
+
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    videos = {f"video{i}": _s3d_frames(i) for i in range(S3D_VIDEOS)}
+    frames_dir = tmp / "frames"
+    if Image is not None:
+        for key, frames in videos.items():
+            (frames_dir / key).mkdir(parents=True)
+            for i, frame in enumerate(frames):
+                Image.fromarray(frame).save(
+                    frames_dir / key / f"frame_{i + 1:010d}.jpg")
+        log(f"  the extractor's CLI on {S3D_VIDEOS} videos of {S3D_FRAMES} "
+            f"jpg frames of {S3D_SIZE} x {S3D_SIZE} (PIL is installed)")
+    else:
+        log("  PIL is missing: extract_video on the frames arrays, not the "
+            "CLI")
+    windows = len(tool.video_windows(videos["video0"], S3D_KERNEL,
+                                     S3D_STRIDE))
+    if windows != S3D_BATCH:
+        fail(f"S3D: {windows} windows a video, expected {S3D_BATCH}")
+    loaders = {}
+    for bf16 in (False, True):
+        dn = "bfloat16" if bf16 else "float32"
+        cuda_build.reset_launch_counts()
+        t0 = time.time()
+        if Image is not None:
+            out = tmp / f"features_{dn}"
+            flags = [str(frames_dir), str(out), "--kernel", str(S3D_KERNEL),
+                     "--stride", str(S3D_STRIDE), "--batch_size",
+                     str(S3D_BATCH), "--output_format", "npy",
+                     "--checkpoint", str(tmp / "no_checkpoint.pth"),
+                     "--layer", "video_embedding,mixed_5c"]
+            result = tool.main(flags + (["--bf16"] if bf16 else []))
+            if result["device"].type != "cuda" or \
+                    sorted(result["written"]) != sorted(videos):
+                fail(f"S3D CLI ({dn}): {result}")
+            feats = {k: np.load(out / f"{k}.npy") for k in videos}
+        else:
+            model = tool.build_model(None, bf16=bf16,
+                                     device=torch.device("cuda"))
+            feats = {k: tool.extract_video(
+                model, v.astype(np.float32) / 255.0, kernel=S3D_KERNEL,
+                stride=S3D_STRIDE, batch_size=S3D_BATCH,
+                layers=("video_embedding", "mixed_5c"),
+                device=torch.device("cuda")) for k, v in videos.items()}
+        wall = time.time() - t0
+        launches = dict(cuda_build.launch_counts)
+        if any(launches.values()):
+            fail(f"S3D launched the port's kernels: {launches}")
+        for k, f in feats.items():
+            if f.shape != (S3D_BATCH, 512 + 1024) or not \
+                    np.isfinite(f).all():
+                fail(f"S3D features of {k} ({dn}): {f.shape}")
+        loaders[dn] = feats
+        log(f"  {dn}: {S3D_VIDEOS} videos -> {S3D_VIDEOS} x "
+            f"{S3D_BATCH} windows of (512 + 1024) features in {wall:.1f} s "
+            "(jpg reads included); no port kernel launched")
+    cos = min(float((a * b).sum() / np.linalg.norm(a) / np.linalg.norm(b))
+              for k in videos
+              for a, b in [(loaders["float32"][k], loaders["bfloat16"][k])])
+    log(f"  bfloat16 against float32 features: cosine {cos:.5f}")
+    if not cos >= MIN_COSINE:
+        fail(f"S3D bf16 against f32 features: cosine {cos}")
+
+    cuda = torch.device("cuda")
+    frames = videos["video0"].astype(np.float32) / 255.0
+    wins = tool.video_windows(frames, S3D_KERNEL, S3D_STRIDE)
+    batch = torch.from_numpy(np.stack(wins)).to(cuda).permute(0, 4, 1, 2, 3)
+    one = batch[:1].contiguous()
+    for bf16 in (False, True):
+        dn = "bfloat16" if bf16 else "float32"
+        model = tool.build_model(None, bf16=bf16, device=cuda)
+        cpu = tool.build_model(None, bf16=bf16,
+                               device=torch.device("cpu"))
+        with torch.no_grad():
+            ref = cpu(one.cpu())
+            out = model(one)
+        for name in ("video_embedding", "mixed_5c"):
+            a, b = out[name].float().cpu(), ref[name].float()
+            err = float((a - b).abs().max())
+            rel = err / float(b.abs().max())
+            cosine = float(torch.nn.functional.cosine_similarity(
+                a.flatten(), b.flatten(), dim=0))
+            log(f"  {dn} one window, card against CPU, {name}: max abs err "
+                f"{err:.3e}, relative to max|CPU| {rel:.3e}, cosine "
+                f"{cosine:.6f}")
+            if (not bf16 and not rel <= TOL["float32"]) or \
+                    (bf16 and not cosine >= MIN_COSINE):
+                fail(f"S3D {dn} card against CPU ({name}): relative "
+                     f"{rel}, cosine {cosine}")
+        flops = _s3d_flops(model, one)
+
+        def forward():
+            with torch.no_grad():
+                model(batch)
+
+        forward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ms = time_ms(forward, iters=5, warmup=1)
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        wall_ms, busy_ms, kernels, events = _busy_ms(
+            forward, require_complete=True)
+        ours = [e.key for e in events if "coot::" in e.key]
+        if ours:
+            fail(f"S3D ran the port's kernels: {ours}")
+        rate = flops * S3D_BATCH / (ms / 1e3)
+        log(f"  {dn} S3D, batch {S3D_BATCH} x {S3D_KERNEL} x {S3D_SIZE} x "
+            f"{S3D_SIZE}: {ms:.2f} ms a batch (CUDA events, 5 batches), "
+            f"{S3D_BATCH / ms * 1e3:.1f} windows/s; {flops / 1e9:.2f} GFLOP "
+            f"a window (from the conv and linear shapes), "
+            f"{rate / 1e12:.2f} TFLOP/s, {rate / PEAK_FLOPS[dn]:.1%} of the "
+            f"card's {PEAK_FLOPS[dn] / 1e12:.0f} TFLOP/s {dn} peak; traced "
+            f"batch {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
+            f"({busy_ms / wall_ms:.1%}), {kernels} kernels; peak "
+            f"{peak:.2f} GB above the {held / 1e9:.2f} GB held")
+        log_families(events, 1)
+        if bf16:  # the layout build_model chose against NCDHW weights
+            model = model.to(memory_format=torch.contiguous_format)
+            ncdhw = time_ms(forward, iters=5, warmup=1)
+            log(f"  bfloat16 with NCDHW weights: {ncdhw:.2f} ms a batch "
+                f"against {ms:.2f} with channels-last-3d weights")
+        del model, cpu
+        torch.cuda.empty_cache()
+
+
+def phase_mlp(tmp: Path) -> None:
+    """10c: the MLP example trained, resumed and reloaded on the card."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch import run_mlp_mnist
+    from coot_videotext_tpu_torch.ops import cuda_build
+
+    cuda_build.reset_launch_counts()
+    argv = ["-g", "default", "-e", "mnist", "--log_dir",
+            str(tmp / "experiments"), "--config_dir", str(ROOT / "config")]
+    t0 = time.time()
+    first = run_mlp_mnist.main(argv + ["-o", "train.num_epochs=2"])[0]
+    resumed = run_mlp_mnist.main(argv + ["-o", "train.num_epochs=3"])[0]
+    val = run_mlp_mnist.main(argv + ["--validate", "--load_epoch", "2"])[0]
+    wall = time.time() - t0
+    if any(r["device"].type != "cuda" for r in (first, resumed, val)):
+        fail("the MLP example did not run on the card")
+    if resumed["state"]["current_epoch"] != 3 or \
+            len(resumed["val_loss"]) != 3 or \
+            not resumed["val_accuracy"][-1] > 0.5:
+        fail(f"the MLP example: {resumed}")
+    if not np.isclose(val["val_loss"], resumed["val_loss"][2], rtol=1e-6,
+                      atol=0):
+        fail(f"the reloaded MLP gives val loss {val['val_loss']}, training "
+             f"gave {resumed['val_loss'][2]}")
+    if any(cuda_build.launch_counts.values()):
+        fail(f"the MLP example launched {dict(cuda_build.launch_counts)}")
+    log(f"  trained 2 epochs, resumed to 3, reloaded epoch 2 on the card in "
+        f"{wall:.1f} s: val accuracy {resumed['val_accuracy']}, val loss "
+        f"{resumed['val_loss'][2]:.6f} (reloaded {val['val_loss']:.6f})")
+    torch.cuda.empty_cache()
+
+
+def phase_profiling(tmp: Path) -> None:
+    """10d: the profiling utilities on the card."""
+    import torch
+    from coot_videotext_tpu_torch.utils import profiling
+
+    before = profiling.profile_device_and_ram()
+    block = torch.empty(2 * 1024 ** 3, dtype=torch.uint8, device="cuda")
+    after = profiling.profile_device_and_ram(torch.device("cuda"))
+    del block
+    grew = after["device_mem_used"] - before["device_mem_used"]
+    log(f"  profile_device_and_ram: {json.dumps(after)}; a 2 GiB block "
+        f"adds {grew:.3f} GB")
+    if abs(grew - 2.0) > 0.01 or not 70 < after["device_mem_limit"] < 100 \
+            or not after["ram_total"] > 0:
+        fail(f"profile_device_and_ram on the card: {before} -> {after}")
+    x = torch.randn(4096, 4096, device="cuda")
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profiling.trace(tmp / "profiles") as prof:
+            for _ in range(20):
+                x = torch.tanh(x @ x / 64.0)
+            x.sum().item()
+        trace = json.loads(prof.trace_file.read_text())["traceEvents"]
+        warm = next(e for e in trace
+                    if e.get("name") == profiling.WARMUP_RANGE
+                    and e.get("cat") == "user_annotation")
+        kernels = [e for e in trace if e.get("cat") == "kernel" and
+                   profiling.WARMUP_KERNEL not in e.get("name", "")]
+        launches = {e["args"].get("correlation"): e["ts"] for e in trace
+                    if e.get("cat") == "cuda_runtime"
+                    and "LaunchKernel" in e.get("name", "")
+                    and not warm["ts"] <= e["ts"] <= warm["ts"] + warm["dur"]}
+        # the first kernel starts some microseconds after its launch; where
+        # the trace lost the first kernels, the first it holds starts later
+        lag = [e["ts"] - launches[e["args"].get("correlation")]
+               for e in kernels if e["args"].get("correlation") in launches]
+        log(f"  trace(): {prof.trace_file.name}, {len(trace)} events, "
+            f"{len(launches)} kernel launches traced on the host after "
+            f"{profiling.TRACE_WARMUP_LAUNCHES} warm-up launches, "
+            f"{len(kernels)} kernels on the card; the first kernel's start "
+            f"{min(lag, default=float('nan')) / 1e3:.3f} ms after its "
+            f"launch, {time.time() - STARTED:.0f} s into the process")
+        if len(launches) >= 40 and len(kernels) >= len(launches):
+            return
+    fail(f"three traces lost kernels: the last holds {len(kernels)} kernels "
+         f"on the card for {len(launches)} launches")
+
+
 def main() -> None:
     if not (PACKAGE / "ops" / "cuda_build.py").is_file() \
             or not CONFIG.is_file():
@@ -3204,50 +3634,65 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
     start = time.time()
-    log("== 1. environment")
+
+    def phase(title: str) -> None:
+        log(f"[{time.time() - start:.0f} s] == {title}")
+
+    phase("1. environment")
     phase_environment()
-    log("== 2. kernels against their plain versions, forward and backward "
-        f"(tolerance f32 {TOL['float32']}, bf16 {TOL['bfloat16']}, "
-        "relative to max(1, max|plain|))")
+    phase("2. kernels against their plain versions, forward and backward "
+          f"(tolerance f32 {TOL['float32']}, bf16 {TOL['bfloat16']}, "
+          "relative to max(1, max|plain|))")
     phase_build()
     max_errors = phase_kernel_checks()
     max_errors["gather"] = phase_gather_checks()
     with tempfile.TemporaryDirectory(prefix="coot_chip_smoke_") as tmp:
-        log("== 3. validation + embedding export at yc2_2d3d_coot width, "
-            "four ways")
+        phase("3. validation + embedding export at yc2_2d3d_coot width, "
+              "four ways")
         phase_slice(Path(tmp) / "val")
-        log("== 4. training at yc2_2d3d_coot width")
+        phase("4. training at yc2_2d3d_coot width")
         launches, shapes = phase_train(Path(tmp) / "train")
-        log("== 4b. synthetic_smoke.yaml trained on the card (ragged input "
-            "FC widths, small GenPool)")
+        phase("4b. synthetic_smoke.yaml trained on the card (ragged input "
+              "FC widths, small GenPool)")
         phase_synthetic_smoke(Path(tmp) / "smoke")
-        log("== 4c. the group step: K train steps a dispatch, each a replay "
-            "of the captured train step")
+        phase("4c. the group step: K train steps a dispatch, each a replay "
+              "of the captured train step")
         phase_group(Path(tmp) / "group")
-    log(f"== 5. kernel timing at the training path's shapes {shapes}")
+    phase(f"5. kernel timing at the training path's shapes {shapes}")
     kernels = phase_timing(launches, shapes, max_errors)
     with tempfile.TemporaryDirectory(prefix="coot_chip_caption_") as tmp:
-        log("== 6. caption serving: MART at yc2_2d3d_coot_vidclip_mart "
-            "width, greedy, over the YouCook2 val split")
+        phase("6. caption serving: MART at yc2_2d3d_coot_vidclip_mart "
+              "width, greedy, over the YouCook2 val split")
         phase_caption(Path(tmp))
     with tempfile.TemporaryDirectory(prefix="coot_chip_caption_train_") \
             as tmp:
-        log("== 7. caption training: MART at yc2_2d3d_coot_vidclip_mart "
-            "width on cuts of the YouCook2 train and val splits")
+        phase("7. caption training: MART at yc2_2d3d_coot_vidclip_mart "
+              "width on cuts of the YouCook2 train and val splits")
         phase_caption_train(Path(tmp))
     with tempfile.TemporaryDirectory(prefix="coot_chip_caption_var_") \
             as tmp:
-        log("== 8. the caption variants of the shipped configs: raw-feature "
-            "MART (yc2_mart) and the MTransformer "
-            "(yc2_100m_coot_vidclip_mtrans), trained and served")
+        phase("8. the caption variants of the shipped configs: raw-feature "
+              "MART (yc2_mart) and the MTransformer "
+              "(yc2_100m_coot_vidclip_mtrans), trained and served")
         phase_caption_variants(Path(tmp))
     with tempfile.TemporaryDirectory(prefix="coot_chip_caption_family_") \
             as tmp:
-        log("== 9. the rest of the caption family at "
-            "yc2_2d3d_coot_vidclip_mart width: beam search, the "
-            "TransformerXL, the untied and joint single-sentence models and "
-            "the tied decoder, trained and served")
+        phase("9. the rest of the caption family at "
+              "yc2_2d3d_coot_vidclip_mart width: beam search, the "
+              "TransformerXL, the untied and joint single-sentence models and "
+              "the tied decoder, trained and served")
         phase_caption_family(Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="coot_chip_tail_") as tmp:
+        phase("10. the prefetch pipeline and the tail: (a) the retrieval "
+              "host path with prefetch at yc2_2d3d_coot width")
+        phase_host_prefetch(Path(tmp) / "host")
+        phase("10b. S3D at full width through the extractor, float32 "
+              "and bfloat16")
+        phase_s3d(Path(tmp) / "s3d")
+        phase("10c. the MLP example")
+        phase_mlp(Path(tmp) / "mlp")
+        phase("10d. profiling")
+        phase_profiling(Path(tmp) / "profiling")
     log(f"chip_smoke took {time.time() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

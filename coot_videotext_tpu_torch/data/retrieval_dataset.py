@@ -7,8 +7,9 @@ packed-transfer `collate_slab` :273, `compute_fixed_shapes` :406,
 `RetrievalBatchLoader` :538 with its device store, device metadata and
 pack_transfer modes, `estimate_store_bytes` :626, `device_store_budget` :638
 and the factory :657. Batches are numpy dicts with validity masks (True =
-valid); `to_device` pins them and copies them to the device without
-blocking the host. JAX's `compute_slab_budgets` :235 is left out: it gives
+valid); the trainers ship them through data/pipeline.py `prefetch`, and
+`to_device`, the sequential copy, is the reference it is held against
+(tests, chip_smoke.py). JAX's `compute_slab_budgets` :235 is left out: it gives
 jit one slab shape, and the eager step takes any.
 
 Each batch names its layout under "layout" (LAYOUTS; the factory picks one
@@ -483,10 +484,11 @@ class RetrievalDataset:
 
 def to_device(batch: Dict[str, Any], device: torch.device
               ) -> Dict[str, Any]:
-    """Array fields -> tensors on `device`. For a CUDA device the host
-    arrays are pinned first and copied with non_blocking=True, so the copy
-    overlaps whatever the host does next; the host-only string fields are
-    passed through unchanged."""
+    """Array fields -> tensors on `device`, in the caller's thread: the
+    sequential reference that data/pipeline.py `prefetch` is held against
+    (no trainer calls it). For a CUDA device the host arrays are pinned
+    first and copied with non_blocking=True; the host-only string fields
+    are passed through unchanged."""
     out: Dict[str, Any] = {}
     cuda = device.type == "cuda"
     for key, value in batch.items():

@@ -28,8 +28,9 @@ mart/trainer_caption.py:106-693):
       CIDEr (:626-630); under is_test the `val_ep_<ep>.json` metrics file
       and the METEOR -999 patch-up of the best epoch's metrics file
       (:429-446)
-    - `prefetch` (JAX `_prefetch` :258): a background thread collates the
-      next batches, pins them and copies them to the card on a side CUDA
+    - the batches of both loops come through data/pipeline.py `prefetch`
+      (JAX `_prefetch` :258): a background thread collates the next
+      batches, pins them and copies them to the card on a side CUDA
       stream; the step's stream waits on the copy's event.
 The evaluation weights (`_eval_params` :170) are the EMA shadow whenever
 the run has one: a training run swaps it into the model for each
@@ -47,18 +48,17 @@ from __future__ import annotations
 
 import contextlib
 import json
-import queue
-import threading
 from collections import defaultdict
 from pathlib import Path
 from timeit import default_timer as timer
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from coot_videotext_tpu_torch.data.caption_dataset import (
     STACKED_KEYS, UNTIED_KEYS)
+from coot_videotext_tpu_torch.data.pipeline import prefetch
 from coot_videotext_tpu_torch.tasks.caption.config import (
     MartConfig, MartMetersConst as MMeters)
 from coot_videotext_tpu_torch.tasks.caption.eval_tools import (
@@ -109,59 +109,15 @@ class MartFilesHandler(ExperimentFilesHandler):
         self.path_caption.mkdir(parents=True, exist_ok=True)
 
 
-def prefetch(loader, device: torch.device, depth: int = 2
-             ) -> Iterator[Tuple[Dict[str, torch.Tensor], Dict[str, Any]]]:
-    """(device batch, host part) of each batch of `loader`: the stacked
-    arrays of a recurrent batch, the untied or joint arrays of a sentence
-    batch.
-
-    A background thread collates the batches `depth` ahead. On a CUDA
-    device it pins each batch and copies it non_blocking on a side stream,
-    recording an event that the consuming stream waits on before the
-    batch is used; on the CPU the tensors are the collated arrays."""
-    cuda = device.type == "cuda"
-    if cuda and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    stream = torch.cuda.Stream(device) if cuda else None
-    q: "queue.Queue" = queue.Queue(maxsize=depth)
-    done = object()
-
-    def producer() -> None:
-        try:
-            if cuda:
-                torch.cuda.set_device(device)
-            for stacked, step_sizes, metas in loader:
-                host = {"step_sizes": step_sizes, "metas": metas}
-                keys = UNTIED_KEYS if "text_ids" in stacked else STACKED_KEYS
-                tensors = {k: torch.from_numpy(stacked[k]) for k in keys}
-                if not cuda:
-                    q.put((tensors, host, None))
-                    continue
-                with torch.cuda.stream(stream):
-                    batch = {k: t.pin_memory().to(device, non_blocking=True)
-                             for k, t in tensors.items()}
-                    event = torch.cuda.Event()
-                    event.record(stream)
-                q.put((batch, host, event))
-        except BaseException as e:  # re-raised in the consumer
-            q.put(e)
-            return
-        q.put(done)
-
-    threading.Thread(target=producer, daemon=True).start()
-    while True:
-        item = q.get()
-        if item is done:
-            return
-        if isinstance(item, BaseException):
-            raise item
-        batch, host, event = item
-        if event is not None:
-            current = torch.cuda.current_stream(device)
-            current.wait_event(event)
-            for t in batch.values():
-                t.record_stream(current)
-        yield batch, host
+def split_caption_batch(item) -> Tuple[Dict[str, np.ndarray],
+                                       Dict[str, Any]]:
+    """(arrays, host part) of a caption loader item (stacked, step_sizes,
+    metas): the stacked arrays of a recurrent batch or the untied or joint
+    arrays of a sentence batch, for data/pipeline.py `prefetch`."""
+    stacked, step_sizes, metas = item
+    keys = UNTIED_KEYS if "text_ids" in stacked else STACKED_KEYS
+    return ({k: stacked[k] for k in keys},
+            {"step_sizes": step_sizes, "metas": metas})
 
 
 class MartTrainer(BaseTrainer):
@@ -302,8 +258,8 @@ class MartTrainer(BaseTrainer):
             total_loss = 0.0
             n_word_total = 0
             n_word_correct = 0
-            for step, (batch, _) in enumerate(prefetch(train_loader,
-                                                       self.device)):
+            for step, (batch, _) in enumerate(prefetch(
+                    train_loader, self.device, split=split_caption_batch)):
                 self.last_batch_device = batch["video_feature"].device
                 self.hook_pre_step_timer()
                 lr = self.current_lr()
@@ -350,7 +306,8 @@ class MartTrainer(BaseTrainer):
         n_word_correct = 0
         results: Dict[str, list] = defaultdict(list)
         dataset = data_loader.dataset
-        for batch, host in prefetch(data_loader, self.device):
+        for batch, host in prefetch(data_loader, self.device,
+                                    split=split_caption_batch):
             self.last_batch_device = batch["video_feature"].device
             t0 = timer()
             out = self._eval_step(self.model_mgr.model, batch)

@@ -5,7 +5,8 @@ Port of coot_videotext_tpu/tasks/retrieval/trainer.py (reference
 coot/trainer_retrieval.py:26-499): `train_model` :184, the per-step epoch
 `_train_epoch_per_step` :232 with the loader modes of `_loader_mode` :104
 (dense, slab, store and id batches; data/device_store.py `FeatureSource`),
-the group epoch `_train_epoch_scan` :258 and `validate_epoch` :317, which
+each behind the prefetch pipeline (data/pipeline.py, JAX :235), the group
+epoch `_train_epoch_scan` :258 and `validate_epoch` :317, which
 reuses tasks/retrieval/validate.py.
 
 With `train.steps_per_dispatch` K > 1 on id batches (the fully
@@ -18,7 +19,9 @@ over its steps in the meters. The checkpoint holds the optimizer (with its
 device step count) and the seed state; a file without the seed state (an
 earlier version's) restores it as the run seed advanced by the step count,
 which is what an unbroken run holds. Deliberate differences:
-    - host batches are copied pinned and non-blocking;
+    - host batches are copied pinned and non-blocking on a side stream,
+      two batches ahead; the wait on the queue falls in the step meter's
+      "other" time;
     - the step's time is booked to the forward meter (the backward meter
       stays 0), as in the JAX trainer, whose jitted step covers both.
 """
@@ -33,8 +36,9 @@ import numpy as np
 import torch
 
 from coot_videotext_tpu_torch.data.device_store import FeatureSource
+from coot_videotext_tpu_torch.data.pipeline import prefetch
 from coot_videotext_tpu_torch.data.retrieval_dataset import (
-    RetrievalBatchLoader, to_device)
+    RetrievalBatchLoader)
 from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.tasks.retrieval.config import (
     CootMetersConst as CMeters, ExperimentTypesConst, RetrievalConfig)
@@ -181,8 +185,9 @@ class RetrievalTrainer(BaseTrainer):
     def _train_epoch_per_step(self, train_loader: RetrievalBatchLoader
                               ) -> None:
         source = self._source(train_loader)
-        for step, host_batch in enumerate(train_loader):
-            batch = to_device(host_batch, self.device)
+        for step, (tensors, host) in enumerate(prefetch(train_loader,
+                                                        self.device)):
+            batch = {**host, **tensors}
             self.hook_pre_step_timer()
             lr = self.lr_scheduler.current_lr
             metrics = retrieval_train_step(

@@ -10,10 +10,11 @@ device, and with `emb_file` the embeddings are written in the h5 schema of
 :374-385 (what test_embeddings_retrieval.py and the caption task read); an
 `.npz` emb_file holds the same arrays under the same names, for machines
 without h5py.
-Every loader mode of the JAX trainer runs: dense and slab batches from the
-host (copied pinned and non-blocking), index batches over the device store
-and id batches sampled on the device (center sampling, no noise); keys and
-sentences come from the host batch. On CUDA the kernels B1-B3 and B5
+Every loader mode of the JAX trainer runs, each behind the prefetch
+pipeline (data/pipeline.py, JAX :339): dense and slab batches from the
+host (copied pinned and non-blocking on a side stream), index batches over
+the device store and id batches sampled on the device (center sampling,
+no noise); keys and sentences come from the host part of the batch. On CUDA the kernels B1-B3 and B5
 always run.
 """
 
@@ -28,9 +29,10 @@ import numpy as np
 import torch
 
 from coot_videotext_tpu_torch.data.device_store import FeatureSource
-from coot_videotext_tpu_torch.ops import philox
+from coot_videotext_tpu_torch.data.pipeline import prefetch
 from coot_videotext_tpu_torch.data.retrieval_dataset import (
-    RetrievalBatchLoader, to_device)
+    RetrievalBatchLoader)
+from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.models.retrieval import RetrievalModel
 from coot_videotext_tpu_torch.tasks.retrieval import eval as retrieval
 from coot_videotext_tpu_torch.tasks.retrieval.steps import (
@@ -89,8 +91,8 @@ def validate_retrieval(model: RetrievalModel, cfg,
     source = FeatureSource.of(val_loader)
     seed_state = (None if cc_seed is None
                   else philox.seed_state(cc_seed, device))
-    for host_batch in val_loader:
-        batch = to_device(host_batch, device)
+    for tensors, host in prefetch(val_loader, device):
+        batch = {**host, **tensors}
         _sync(device)
         t0 = timer()
         embs, parts = retrieval_eval_step(
@@ -107,7 +109,7 @@ def validate_retrieval(model: RetrievalModel, cfg,
             loss_sums[name] += float(parts[name])
         embs = {k: v.float().cpu().numpy() if v.is_floating_point()
                 else v.cpu().numpy() for k, v in embs.items()}
-        bv = host_batch["batch_valid"]
+        bv = tensors["batch_valid"].cpu().numpy()
         valid = {"clip_emb": embs["clip_valid"].astype(bool) & bv[:, None],
                  "sent_emb": embs["sent_valid"].astype(bool) & bv[:, None]}
         for key in EMB_KEYS:
@@ -116,7 +118,7 @@ def validate_retrieval(model: RetrievalModel, cfg,
             collected_raw[key].append(embs[f"{key}_before_norm"][sel])
         clip_nums += list(embs["clip_num"][bv])
         sent_nums += list(embs["sent_num"][bv])
-        keys += list(host_batch["key"])  # only the real datapoints
+        keys += list(host["key"])  # only the real datapoints
 
     data_norm = {k: np.concatenate(v, axis=0) for k, v in collected.items()}
     data_raw = {k: np.concatenate(v, axis=0)

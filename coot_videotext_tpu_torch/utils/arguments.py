@@ -44,6 +44,41 @@ def add_default_args(parser) -> None:
                        dest="log_level")
 
 
+def add_multi_experiment_args(parser) -> None:
+    """Experiment search flags of the results tables."""
+    parser.add_argument("-g", "--exp_group", type=str, default=None,
+                        help="Search experiment group and name. Supports "
+                             ".gitignore-like patterns, separated by comma.")
+    parser.add_argument("-s", "--search", type=str, default=None,
+                        help="Search experiments name only.")
+    parser.add_argument("-l", "--exp_list", type=str, default=None,
+                        help="Experiment list file.")
+
+
+def add_show_args(parser) -> None:
+    """Results-table flags (reference arguments.py:160)."""
+    parser.add_argument("--last", action="store_true",
+                        help="View last epoch results instead of best.")
+    parser.add_argument("--mean", action="store_true",
+                        help="Average over runs with same run name.")
+    parser.add_argument("--add_group", action="store_true",
+                        help="Add experiment group to identifier.")
+    parser.add_argument("--mean_all", action="store_true",
+                        help="Average over all runs of an experiment.")
+    parser.add_argument("--sort_asc", action="store_true",
+                        help="Sort ascending instead of descending.")
+    parser.add_argument("--sort", type=str, default="score",
+                        help="Sorting field, alpha for alphabetic.")
+    parser.add_argument("--compact", action="store_true",
+                        help="Compact the printed table.")
+    parser.add_argument("-m", "--metrics", type=str, default="",
+                        help="Which metric groups to print ('all' or csv).")
+    parser.add_argument("--less_metrics", action="store_true",
+                        help="Hide the basic metrics like loss, score.")
+    parser.add_argument("-f", "--fields", type=str, default="",
+                        help="Field or comma separated fields to print.")
+
+
 def add_exp_group_arg(parser) -> None:
     parser.add_argument("-c", "--config_file", type=str, default=None,
                         help="Specify either config file location or "

@@ -69,6 +69,17 @@ class ExperimentFilesHandler:
             return ep_nums[-1]
         return good[-1]
 
+    def find_last_epoch(self) -> int:
+        ep_nums = self.get_existing_checkpoints()
+        return ep_nums[-1] if ep_nums else -1
+
+    def get_existing_metrics(self) -> List[int]:
+        """Epoch numbers with a metrics_epoch file."""
+        files = glob.glob(str(self.get_metrics_epoch_file("*")))
+        prefix = TrainerPathConst.FILE_PREFIX_METRICS_EPOCH
+        return sorted(int(f.split(f"{prefix}_")[-1].split(".json")[0])
+                      for f in files)
+
     # ---------- File definitions ----------
 
     def get_models_file(self, epoch: Union[int, str]) -> Path:

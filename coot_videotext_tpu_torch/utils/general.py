@@ -62,6 +62,12 @@ def create_logger(name: str = LOGGER_NAME, *, filename: str = "run",
     return logger
 
 
+def create_logger_without_file(name: str = LOGGER_NAME,
+                               log_level: int = logging.INFO
+                               ) -> logging.Logger:
+    return create_logger(name, log_dir="", log_level=log_level)
+
+
 def remove_handlers(logger: logging.Logger) -> None:
     for handler in list(logger.handlers):
         handler.close()

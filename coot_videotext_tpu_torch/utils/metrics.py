@@ -21,6 +21,13 @@ from coot_videotext_tpu_torch.typext import ConstantHolder
 from coot_videotext_tpu_torch.utils.general import LOGGER_NAME
 
 
+class PrintGroupConst(ConstantHolder):
+    """Column groups of the results tables (utils/view_results.py)."""
+    BASE = "base"
+    PROFILE = "profile"
+    PERFORMANCE = "performance"
+
+
 class DefaultMetricsConst(ConstantHolder):
     """Metric names; forward slash groups (reference :45)."""
     TRAIN_EPOCH = "train_base/epoch"
@@ -37,6 +44,14 @@ class DefaultMetricsConst(ConstantHolder):
     TRAIN_GRAD_CLIP = "train_base/grad_clip_total_norm"
     TRAIN_LOSS = "train_base/loss"
     PROFILE_RAM_USED = "zram/used"
+    # offline performance profiles and the experiment identity, read by
+    # the results tables
+    PERF_GFLOPS = "perf/gflops"
+    PERF_PARAMS = "perf/params"
+    PERF_SPEED = "perf/speed"
+    EXP_GROUP = "exp_group"
+    EXP_NAME = "exp_name"
+    RUN_NAME = "run_name"
 
 
 class TextMetricsConst(ConstantHolder):

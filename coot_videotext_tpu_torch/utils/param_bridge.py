@@ -402,3 +402,42 @@ def jax_mtrans_params_to_state_dict(params: Any) -> Dict[str, np.ndarray]:
         val = np.asarray(val)
         out[key] = np.ascontiguousarray(val.T) if transpose else val
     return out
+
+
+# ---------- S3D and the MLP example ----------
+
+_S3D_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+           "var": "running_var"}
+
+
+def jax_s3d_params_to_state_dict(params: Any) -> Dict[str, np.ndarray]:
+    """JAX S3D parameters (models/s3d.py) -> the port's S3D state dict,
+    the keys of the released `s3d_howto100m.pth`: the inverse of JAX's
+    `load_torch_s3d_weights` :240 (conv kernels DHWIO -> OIDHW, Dense (in,
+    out) -> (out, in), BatchNormInference scale / bias / mean / var ->
+    weight / bias / running_mean / running_var)."""
+    out: Dict[str, np.ndarray] = {}
+    for path, val in flatten(params).items():
+        prefix, leaf = ".".join(path[:-1]), path[-1]
+        if leaf == "kernel" and val.ndim == 5:
+            out[f"{prefix}.weight"] = np.ascontiguousarray(
+                np.transpose(val, (4, 3, 0, 1, 2)))
+        elif leaf in ("kernel", "bias") and path[-2] == "fc":
+            name, v = _linear(leaf, val)
+            out[f"{prefix}.{name}"] = v
+        elif leaf in _S3D_BN:
+            out[f"{prefix}.{_S3D_BN[leaf]}"] = val
+        else:
+            raise KeyError(f"S3D parameter {'/'.join(path)} has no rule")
+    return out
+
+
+def jax_mlp_params_to_state_dict(params: Any) -> Dict[str, np.ndarray]:
+    """JAX MLPModel parameters (examples/mlp_mnist.py: `Dense_0`,
+    `Dense_1`) -> the port's MLPModel state dict (`fc1`, `fc2`)."""
+    names = {"Dense_0": "fc1", "Dense_1": "fc2"}
+    out: Dict[str, np.ndarray] = {}
+    for (layer, leaf), val in flatten(params).items():
+        name, v = _linear(leaf, val)
+        out[f"{names[layer]}.{name}"] = v
+    return out
