@@ -151,9 +151,10 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    counts set to 0 just before and read just after. (a) Beam search
    (use_beam=true; beam 2, n_best 1, min_sen_len 5, max_sen_len 30 from
    the yaml) on MART trained one epoch by the CLI on the first 160 train
-   videos: one val batch of 50 videos beam-decoded on the card and on the
-   CPU in the fixed and the reference_compat mode (at least 98% of the
-   sentences token-identical), beam against greedy on the card (ms,
+   videos: one val batch of 50 videos beam-decoded on the card, its first
+   16 on the CPU too, in the fixed and the reference_compat mode (at
+   least 98% of those sentences token-identical), beam against greedy on
+   the card (ms,
    forwards, host reads), one traced beam decode (no port kernel),
    `--validate --load_epoch 0 -o use_beam=true` over 100 val videos.
    (b-e) The TransformerXL (xl=true), the untied model
@@ -169,11 +170,11 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    port kernel). (f) B4 bit-equal to its plain version at the new shapes,
    timed beside F.dropout, and its bound.
 
-10. The prefetch pipeline and the tail. (a) On a generated 320 + 64-video
+10. The prefetch pipeline and the tail. (a) On a generated 192 + 64-video
    split at yc2_2d3d_coot width with `preload_device: false`: a train and
    a val batch of 16 of the dense and the slab layout through
    data/pipeline.py `prefetch` equal to `to_device`'s on the card
-   (torch.equal, host frame noise on); the dense CLI trains 5 steps of 64
+   (torch.equal, host frame noise on); the dense CLI trains 3 steps of 64
    and validates (train and val videos/s, the step meter's "other"
    share), then 1 step and a val batch under torch.profiler (the pinned
    copies must run on streams of their own; their time under a kernel is
@@ -199,6 +200,22 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    are left out of its counts and times; a trace with fewer device
    records than kernel launches says so.
 
+11. Data parallelism (parallel/mesh.py) at yc2_2d3d_coot width, global
+   batch 64, on a generated 128 + 64-video split, the store with device
+   sampling and packing: (a) W = 1 over NCCL (a process group of one
+   rank) bit-equal to no process group over 3 steps and a group of 4
+   (bf16, dropout and noise on; B1-B5 launched); (b) W = 2 rank processes
+   on the one card over gloo (a probe of two NCCL ranks on one card logs
+   NCCL's refusal) against W = 1 in f32 at dropout 0: loss and grad_norm
+   within 1e-4 relative, parameters within 5% of lr a step, the ranks
+   equal; 3 steps at dropout 0.01 launch B1-B5 on each rank, and the
+   first B4 mask of their first step (a forward hook) differs between the
+   ranks while rank 0's equals one process's on the same rows; (c) MART at
+   yc2_2d3d_coot_vidclip_mart width, 3 steps on each rank's 8 of 16
+   videos against W = 1 (phase 7's tolerances), the EMA equal on both
+   ranks; (d) `torchrun --standalone --nproc_per_node=1` of the retrieval
+   CLI (NCCL) writes the single-process CLI's files and model keys.
+
 Prints `{"kernels": [...]}` on the line before the last and
 `{"ok": true, "device": {...}}` as the last line; exits non-zero (and
 prints no result) on any failure, without a CUDA device, or outside a
@@ -217,6 +234,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 # the process's start: phase 10d logs the age with the trace's first kernel
 STARTED = time.time()
@@ -2195,6 +2213,10 @@ FAMILY_VARIANTS = (
 # the recurrent variants' greedy decode card against CPU takes the first 8
 # val videos, as phase 6 does: the CPU decodes a batch of 50 in ~45 s
 FAMILY_DECODE_VIDEOS = 8
+# the beam check's CPU decode takes the first 16 videos of the card's
+# batch of 50 (the card's rows of them are compared; a row's decode does
+# not depend on the others), ~35 s less than all 50 in both modes
+BEAM_CPU_VIDEOS = 16
 # B4 in float32 at the shapes these paths add: XL's (klen, 768) position
 # table at klen 25 and 50 and a (16, 50, 768) block, the untied text
 # embedding at word_vec_size 300, and a short batch whose element count is
@@ -2250,9 +2272,10 @@ def phase_caption_family(tmp: Path) -> None:
     yc2_2d3d_coot_vidclip_mart.yaml (COOT vid+clip embeddings from seed 0,
     _coot_embeddings). (a) Beam search (use_beam, beam 2) on MART trained
     one epoch by the CLI (_variant_cli): one val batch of 50 videos
-    decoded by beam search on the card and on the CPU in the fixed and the
-    reference_compat mode (at least CAPTION_MIN_SAME of the sentences
-    token-identical), beam against greedy on the card on that batch (ms,
+    decoded by beam search on the card, its first BEAM_CPU_VIDEOS on the
+    CPU too, in the fixed and the reference_compat mode (at least
+    CAPTION_MIN_SAME of those sentences token-identical), beam against
+    greedy on the card on the batch of 50 (ms,
     forwards, host reads), one traced beam decode (no port kernel may
     launch), the CLI's `--validate --load_epoch 0 -o use_beam=true` over
     the 100 val videos. (b-e) The TransformerXL, the untied model, the
@@ -2300,18 +2323,20 @@ def phase_caption_family(tmp: Path) -> None:
                        "videos")
     val = _family_dataset(cfg, emb_dir, "val")
     build = _family_build({}, len(val.word2idx), pth)
-    stacked, sizes, _ = val.collate_fn(
-        [val[i] for i in range(cfg.val.batch_size)])
-    arrays = [stacked[k] for k in
-              ("input_ids", "video_feature", "input_mask", "token_type_ids")]
-    log(f"  one val batch of {cfg.val.batch_size} videos (S "
-        f"{len(stacked['input_ids'])}, {sum(sizes)} sentences), beam decoded "
-        "on the card and on the CPU")
+    inputs, sizes = {}, None
+    for name, n in (("cuda", cfg.val.batch_size), ("cpu", BEAM_CPU_VIDEOS)):
+        stacked, sizes, _ = val.collate_fn([val[i] for i in range(n)])
+        inputs[name] = [stacked[k] for k in ("input_ids", "video_feature",
+                                             "input_mask", "token_type_ids")]
+    # `sizes`: the sentences of the CPU's videos, the rows compared
+    log(f"  one val batch of {cfg.val.batch_size} videos beam decoded on "
+        f"the card, its first {BEAM_CPU_VIDEOS} (S {len(inputs['cpu'][0])}, "
+        f"{sum(sizes)} sentences) on the CPU too")
     decs = {}
     for name in ("cuda", "cpu"):
         mgr = build(torch.device(name))
         translator = Translator(mgr.model, mgr.cfg)
-        batch = [torch.from_numpy(a).to(name) for a in arrays]
+        batch = [torch.from_numpy(a).to(name) for a in inputs[name]]
         for compat in (False, True):
             t0 = time.perf_counter()
             decs[name, compat] = translator.translate_batch_beam(
@@ -3251,6 +3276,9 @@ def phase_timing(launches, shapes, max_errors):
 EQUAL_BATCH, EQUAL_BATCHES = 16, 1
 # the traced dense run and the slab run: one train step and one val batch
 SHORT_VIDEOS = 64
+# 10a's host dense CLI: 3 train steps of 64 (tools/host_path.py's own
+# runs, which parent and change are compared on, train 5)
+HOST_VIDEOS = 192
 # S3D at the extractor's defaults: windows of 32 frames every 16 of 256 x
 # 256 (extract_frames_from_videos.py:112-113), batches of 16: a video of
 # 256 frames is 16 windows, one batch
@@ -3319,8 +3347,8 @@ def phase_host_prefetch(tmp: Path) -> None:
 
     data = tmp / "data"
     t0 = time.time()
-    host_path.generate(ROOT, data, host_path.VIDEOS, host_path.VAL_VIDEOS)
-    log(f"generated a yc2-like split ({host_path.VIDEOS} train, "
+    host_path.generate(ROOT, data, HOST_VIDEOS, host_path.VAL_VIDEOS)
+    log(f"generated a yc2-like split ({HOST_VIDEOS} train, "
         f"{host_path.VAL_VIDEOS} val videos) in {time.time() - t0:.1f} s")
     for layout in ("dense", "slab"):
         n = _equal_to_sequential(data, layout)
@@ -3330,7 +3358,7 @@ def phase_host_prefetch(tmp: Path) -> None:
     torch.cuda.synchronize()
     cuda_build.reset_launch_counts()
     t0 = time.time()
-    record = host_path.measure(ROOT, data, "dense", host_path.VIDEOS,
+    record = host_path.measure(ROOT, data, "dense", HOST_VIDEOS,
                                host_path.VAL_VIDEOS, SHORT_VIDEOS,
                                tmp / "dense")
     launches = dict(cuda_build.launch_counts)
@@ -3338,7 +3366,7 @@ def phase_host_prefetch(tmp: Path) -> None:
         f"runs): {json.dumps(record)}")
     log(f"  launches {launches}")
     if record["layout"] != "dense" or record["steps"] != \
-            host_path.VIDEOS // 64 or not np.isfinite(record["step_ms"]):
+            HOST_VIDEOS // 64 or not np.isfinite(record["step_ms"]):
         fail(f"host dense CLI: {record}")
     for name in ("input_fc", "input_fc_bwd", "genpool", "genpool_bwd",
                  "attention", "attention_bwd", "dropout", "dropout_bwd"):
@@ -3624,6 +3652,540 @@ def phase_profiling(tmp: Path) -> None:
          f"on the card for {len(launches)} launches")
 
 
+# ---------------- phase 11: data parallelism ----------------
+
+DP_TRAIN_VIDEOS, DP_VAL_VIDEOS = 128, 64  # 2 global batches of 64 a epoch
+DP_STEPS = 3
+DP_LR = 1e-3
+DP_LOSS_RTOL = 1e-4          # loss and grad_norm, W = 2 against W = 1
+DP_UPDATE_TOL = 0.05         # parameters: a share of lr a step (phase 7's)
+DP_MASK_RATE = 0.01
+DP_CAPTION_SHAPE = (4, 16)   # MART: S sentence steps, N videos (global)
+
+
+def _dp_cfg(tmp: Path, *, dropout: Optional[float], dtype: str):
+    """yc2_2d3d_coot.yaml with npy features (phase 4's _config) at
+    `dropout` on every site (None: the yaml's) and the frame noise off
+    where dropout is 0; float32 or the yaml's bfloat16."""
+    import yaml
+    from coot_videotext_tpu_torch.tasks.retrieval.config import (
+        RetrievalConfig)
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    path = _config(tmp)
+    raw = load_yaml_config_file(path)
+    if dropout is not None:
+        for net in ("net_video_local", "net_video_global", "net_text_local",
+                    "net_text_global"):
+            for group in ("selfatn_config", "crossatn_config",
+                          "pooler_config"):
+                if isinstance(raw[net].get(group), dict) and \
+                        "dropout" in raw[net][group]:
+                    raw[net][group]["dropout"] = dropout
+        if not dropout:
+            raw["dataset_train"]["frames_noise"] = 0
+            raw["dataset_train"]["words_noise"] = 0
+    if dtype == "float32":
+        raw["fp16_train"] = raw["fp16_val"] = False
+    path.write_text(yaml.safe_dump(raw, sort_keys=False), encoding="utf8")
+    return path, RetrievalConfig(load_yaml_config_file(path))
+
+
+def _dp_retrieval(cfg, data: Path, mesh):
+    """(train state from seed 0, id batches, step kwargs) of `cfg` on the
+    device store with device sampling, the batches the rank's rows of
+    each global batch under `mesh`."""
+    import torch
+    from coot_videotext_tpu_torch.data.device_store import FeatureSource
+    from coot_videotext_tpu_torch.data.retrieval_dataset import (
+        create_retrieval_datasets_and_loaders)
+    from coot_videotext_tpu_torch.ops import philox
+    from coot_videotext_tpu_torch.parallel import mesh as pmesh
+    from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
+        RetrievalModelManager)
+    from coot_videotext_tpu_torch.tasks.retrieval.steps import TrainState
+    from coot_videotext_tpu_torch.train.optim import make_optimizer
+    device = mesh.device if mesh is not None else torch.device("cuda")
+    _, _, loader, _ = create_retrieval_datasets_and_loaders(
+        cfg, data, seed=0, device=device, fixed_shapes=True,
+        device_preload=True, mesh=mesh)
+    if loader.layout != "ids":
+        fail(f"phase 11: the loader gives {loader.layout} batches, not ids")
+    mgr = RetrievalModelManager(cfg, device, seed=0)
+    pmesh.broadcast_params(mesh, mgr.model.parameters())
+    state = TrainState(mgr.model, make_optimizer(
+        cfg.optimizer, dict(mgr.model.named_parameters())),
+        philox.seed_state(0, device), mesh=mesh)
+    kw = dict(lr=DP_LR, clip_gradient=1.0,
+              source=FeatureSource.of(loader, cfg.dataset_train.frames_noise,
+                                      cfg.dataset_train.words_noise),
+              loss_cycle_cons=cfg.train.loss_cycle_cons,
+              loss_weights=cfg.train.contrastive_loss_config.as_dict(),
+              margin=cfg.train.contrastive_loss_config.margin,
+              compute_dtype=mgr.train_dtype)
+    return state, list(loader), kw
+
+
+def _dp_train(state, batches, kw, group: bool) -> dict:
+    """DP_STEPS per-step train steps on batches 0, 1, 0 (and with `group` a
+    group of 4 on 0, 1, 0, 1): the losses, grad_norms and parameters."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch.data.retrieval_dataset import to_device
+    from coot_videotext_tpu_torch.tasks.retrieval.steps import (
+        retrieval_train_group, retrieval_train_step)
+    device = state.seed.device
+    out = {"loss": [], "grad_norm": []}
+    for i in range(DP_STEPS):
+        m = retrieval_train_step(state, to_device(batches[i % 2], device),
+                                 **kw)
+        out["loss"].append(m["loss_total"].float().reshape(1))
+        out["grad_norm"].append(m["grad_norm"].float().reshape(1))
+    if group:
+        order = [batches[i % 2] for i in range(4)]
+        m = retrieval_train_group(
+            state, np.stack([b["dp_idx"] for b in order]),
+            np.stack([b["batch_valid"] for b in order]), 4, **kw)
+        out["loss"].append(m["loss_total"].float().clone())
+        out["grad_norm"].append(m["grad_norm"].float().clone())
+    torch.cuda.synchronize(device)
+    return {"loss": torch.cat(out["loss"]).cpu(),
+            "grad_norm": torch.cat(out["grad_norm"]).cpu(),
+            "params": {n: p.detach().cpu().clone()
+                       for n, p in state.optimizer.params.items()}}
+
+
+def _first_dropout_mask(model, run):
+    """Runs `run()` with a forward hook on every Dropout module of `model`:
+    where the first dropout call at a rate in (0, 1) (kernel B4) zeroed a
+    nonzero input, a bool tensor on the CPU."""
+    from coot_videotext_tpu_torch.models.layers import Dropout
+    seen = []
+
+    def hook(module, inputs, output):
+        if module.training and 0 < module.rate < 1 and not seen:
+            seen.append(((inputs[0] != 0) & (output == 0)).cpu())
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, Dropout)]
+    try:
+        run()
+    finally:
+        for handle in handles:
+            handle.remove()
+    if not seen:
+        fail("phase 11: no dropout call at a rate in (0, 1) in the step")
+    return seen[0]
+
+
+def _dp_caption_build(device, vocab: int):
+    """MART at yc2_2d3d_coot_vidclip_mart.yaml width from seed 1 (GloVe
+    applied), every dropout rate 0."""
+    from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
+    from coot_videotext_tpu_torch.tasks.caption.model_manager import (
+        build_mart_model_manager)
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    config = load_yaml_config_file(CAPTION_CONFIG)
+    config.update(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                  memory_dropout_prob=0.0)
+    return build_mart_model_manager(MartConfig(config), vocab, device,
+                                    seed=1,
+                                    cache_dir=str(ROOT / "cache_caption"))
+
+
+def _dp_caption_inputs(cfg, vocab: int) -> dict:
+    """A stacked MART batch (S, N, L) from seed 0: padded video and text
+    slots, about a third of the labels IGNORE."""
+    import numpy as np
+    s, n = DP_CAPTION_SHAPE
+    rng = np.random.RandomState(0)
+    length = cfg.max_v_len + cfg.max_t_len
+    ids = rng.randint(7, vocab, (s, n, length)).astype(np.int64)
+    mask = (np.arange(length)[None, None, :]
+            < rng.randint(cfg.max_v_len // 2, length, (s, n, 1)))
+    labels = np.where(rng.rand(s, n, length) < 0.3, -1,
+                      rng.randint(0, vocab, (s, n, length)))
+    labels[:, :, :cfg.max_v_len] = -1
+    labels = np.where(mask, labels, -1)
+    ttys = np.concatenate([np.zeros((s, n, cfg.max_v_len)),
+                           np.ones((s, n, cfg.max_t_len))], -1)
+    return {"input_ids": ids,
+            "video_feature": rng.randn(s, n, length, cfg.video_feature_size
+                                       ).astype(np.float32),
+            "input_mask": mask.astype(np.float32),
+            "token_type_ids": ttys.astype(np.int64),
+            "input_labels": labels.astype(np.int64)}
+
+
+def _dp_caption_train(mgr, arrays: dict, mesh) -> dict:
+    """DP_STEPS MART train steps at CAPTION_TRAIN_LR on `arrays` (the
+    rank's rows along N under `mesh`): the metrics of each step, the
+    parameters and the EMA after them."""
+    import torch
+    from coot_videotext_tpu_torch.tasks.caption.steps import (
+        caption_train_step, init_caption_train_state)
+    device = next(mgr.model.parameters()).device
+    state = init_caption_train_state(mgr.model, mgr.cfg, 0, mesh)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    metrics = [{k: float(v) for k, v in caption_train_step(
+        state, batch, CAPTION_TRAIN_LR).items()} for _ in range(DP_STEPS)]
+    return {"metrics": metrics, **_state_copy(state)}
+
+
+def _dp_rank(rank: int, world: int, init_file: str, spec_file: str,
+             out_dir: str) -> None:
+    """Phase 11b/11c, rank `rank` of `world` on the one card over gloo:
+    the retrieval steps at dropout 0 (float32), steps at dropout 0.01 with
+    the launch counts set to 0 just before and read just after and the
+    first B4 mask of the first step, and the MART steps; saves
+    out_dir/rank<rank>.pt."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from coot_videotext_tpu_torch.ops import cuda_build
+    from coot_videotext_tpu_torch.parallel import mesh as pmesh
+    from coot_videotext_tpu_torch.tasks.retrieval.config import (
+        RetrievalConfig)
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        spec = torch.load(spec_file, weights_only=False)
+        mesh = pmesh.get_mesh({"data": world}, device=torch.device("cuda", 0))
+        out = {"rank": rank, "backend": mesh.backend}
+        t0 = time.time()
+        cfg, cfg_drop = (RetrievalConfig(load_yaml_config_file(spec[k]))
+                         for k in ("cfg", "cfg_drop"))
+        state, batches, kw = _dp_retrieval(cfg, spec["data"], mesh)
+        out["local_batch"] = len(batches[0]["dp_idx"])
+        out["retrieval"] = _dp_train(state, batches, kw, group=True)
+        out["retrieval_s"] = time.time() - t0
+        del state
+        state, batches, kw = _dp_retrieval(cfg_drop, spec["data"], mesh)
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        out["mask"] = _first_dropout_mask(state.model, lambda: _dp_train(
+            state, batches[:1] * 2, dict(kw), group=False))
+        out["launches"] = dict(cuda_build.launch_counts)
+        del state
+        t0 = time.time()
+        mgr = _dp_caption_build(torch.device("cuda", 0), spec["vocab"])
+        local = DP_CAPTION_SHAPE[1] // world
+        rows = slice(rank * local, (rank + 1) * local)
+        out["caption"] = _dp_caption_train(
+            mgr, {k: v[:, rows].copy() for k, v in spec["caption"].items()},
+            mesh)
+        out["caption_s"] = time.time() - t0
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _nccl_probe(rank: int, init_file: str, out_dir: str) -> None:
+    """Two ranks on the one card over NCCL: one all-reduce; what NCCL
+    says goes to out_dir/nccl<rank>.txt."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    said = Path(out_dir) / f"nccl{rank}.txt"
+    said.write_text("started; no answer (the process ended first)",
+                    encoding="utf8")
+    text = "all-reduce completed"
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                                rank=rank, world_size=2)
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        text += f": {x.tolist()}"
+    except Exception as exc:  # the refusal is what this probe records
+        text = f"{type(exc).__name__}: {str(exc).splitlines()[0][:300]}"
+    said.write_text(text, encoding="utf8")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _hold_dp(tag: str, ref: dict, ranks: list) -> None:
+    """W ranks' retrieval runs against W = 1: loss and grad_norm within
+    DP_LOSS_RTOL relative, the parameters within DP_UPDATE_TOL of lr a
+    step, and every rank's parameters equal to rank 0's."""
+    steps = len(ref["loss"])
+    for rank in ranks:
+        got = rank["retrieval"]
+        rel = {k: float(((got[k] - ref[k]).abs() / ref[k].abs()).max())
+               for k in ("loss", "grad_norm")}
+        share = _max_diff(got["params"], ref["params"]) / DP_LR / steps
+        log(f"  rank {rank['rank']}: {steps} steps, loss relative "
+            f"{rel['loss']:.2e}, grad_norm {rel['grad_norm']:.2e} (limit "
+            f"{DP_LOSS_RTOL}); parameters {share:.2%} of lr a step (limit "
+            f"{DP_UPDATE_TOL:.0%})")
+        if max(rel.values()) > DP_LOSS_RTOL or share > DP_UPDATE_TOL:
+            fail(f"{tag}: rank {rank['rank']} disagrees with W = 1")
+        if _max_diff(got["params"], ranks[0]["retrieval"]["params"]) != 0:
+            fail(f"{tag}: rank {rank['rank']}'s parameters differ from rank "
+                 "0's")
+
+
+def _file_layout(base: Path) -> set:
+    """The files of an experiment directory, relative, with the log files'
+    timestamps masked."""
+    out = set()
+    for path in base.rglob("*"):
+        if path.is_file():
+            rel = path.relative_to(base)
+            if rel.parts[0] == "logs":
+                rel = Path("logs") / "run_<time>.log"
+            out.add(str(rel))
+    return out
+
+
+def phase_dp(tmp: Path) -> None:
+    """Phase 11, data parallelism (parallel/mesh.py) at yc2_2d3d_coot.yaml
+    width, global batch 64, on a generated 128 + 64-video split, the device
+    store with device sampling and packing. (a) W = 1 over NCCL (a
+    process group of one rank, this process) against no process group:
+    3 per-step steps and a group of K = 4 (the graph captured), bfloat16
+    and the yaml's dropout 0.01 and frame noise, bit for bit (losses,
+    grad_norms, every parameter), with the launch counts set to 0 just
+    before the W = 1 run and read just after. (b) W = 2 rank processes
+    sharing the card over gloo (NCCL refuses two ranks on one device: a
+    probe of two NCCL ranks logs what it says): the same steps in float32
+    at dropout 0 and noise 0 against W = 1 in this process (loss and
+    grad_norm within DP_LOSS_RTOL, parameters within DP_UPDATE_TOL of lr a
+    step, the ranks equal), then 3 steps at dropout 0.01 with each rank's
+    launch counts set to 0 just before and read just after (B1-B5 on every
+    rank) and the first B4 mask of the first step taken by a forward hook
+    (the ranks' masks differ; rank 0's equals this process's on the first
+    32 rows of the global batch). (c) MART at yc2_2d3d_coot_vidclip_mart.yaml
+    width (f32, dropout 0), a stacked batch of S = 4, N = 16 from seed 0,
+    3 steps on each rank's 8 rows against W = 1 on the 16 (phase 7's
+    tolerances), the EMA equal on both ranks. (d) `torchrun --standalone
+    --nproc_per_node=1 -m coot_videotext_tpu_torch.train_retrieval` (NCCL,
+    world 1) trains one epoch and validates; rank 0's experiment files
+    have the single-process CLI's layout and model keys."""
+    import multiprocessing
+    import socket
+    import torch
+    import torch.distributed as dist
+    from coot_videotext_tpu_torch.ops import cuda_build
+    from coot_videotext_tpu_torch.parallel import mesh as pmesh
+    t0 = time.time()
+    data = tmp / "data"
+    _yc2_dataset(data, DP_TRAIN_VIDEOS, DP_VAL_VIDEOS, seed=5)
+    log(f"generated a yc2-like split ({DP_TRAIN_VIDEOS} train, "
+        f"{DP_VAL_VIDEOS} val videos) in {time.time() - t0:.1f} s")
+    _, cfg_yaml = _dp_cfg(tmp / "yaml", dropout=None, dtype="bfloat16")
+    path32, cfg32 = _dp_cfg(tmp / "f32", dropout=0.0, dtype="float32")
+    path_drop, cfg_drop = _dp_cfg(tmp / "drop", dropout=DP_MASK_RATE,
+                                  dtype="float32")
+    vocab = len(json.loads((ROOT / "annotations" / "youcook2" /
+                            "mart_word2idx.json").read_text(encoding="utf8")))
+    from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    caption_arrays = _dp_caption_inputs(
+        MartConfig(load_yaml_config_file(CAPTION_CONFIG)), vocab)
+
+    # (b), (c) start first: the ranks and the NCCL probe run while this
+    # process works through (a)
+    ctx = multiprocessing.get_context("spawn")
+    spec_file = tmp / "dp_spec.pt"
+    torch.save({"cfg": str(path32), "cfg_drop": str(path_drop),
+                "data": data,
+                "vocab": vocab, "caption": caption_arrays}, spec_file)
+    ranks = [ctx.Process(target=_dp_rank, args=(
+        r, 2, str(tmp / "gloo_init"), str(spec_file), str(tmp)))
+        for r in range(2)]
+    probes = [ctx.Process(target=_nccl_probe, args=(
+        r, str(tmp / "nccl_init"), str(tmp))) for r in range(2)]
+    t_spawn = time.time()
+    for p in ranks + probes:
+        p.start()
+
+    log("(a) W = 1 over NCCL against no process group, bf16, dropout 0.01, "
+        "frame noise 0.01: 3 steps and a group of 4")
+    t0 = time.time()
+    state, batches, kw = _dp_retrieval(cfg_yaml, data, None)
+    alone = _dp_train(state, batches, kw, group=True)
+    del state
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = pmesh.get_mesh({"data": 1}, "cuda")
+        if mesh.backend != "nccl" or mesh.world != 1:
+            fail(f"(a) mesh {mesh}")
+        state, batches, kw = _dp_retrieval(cfg_yaml, data, mesh)
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        grouped = _dp_train(state, batches, kw, group=True)
+        launches_a = dict(cuda_build.launch_counts)
+        del state
+    finally:
+        dist.destroy_process_group()
+    same = (torch.equal(alone["loss"], grouped["loss"])
+            and torch.equal(alone["grad_norm"], grouped["grad_norm"])
+            and all(torch.equal(alone["params"][n], grouped["params"][n])
+                    for n in alone["params"]))
+    log(f"  losses {[round(v, 6) for v in grouped['loss'].tolist()]}, "
+        f"bit-equal to no process group: {same}; launches {launches_a} "
+        f"({time.time() - t0:.1f} s)")
+    if not same:
+        fail("(a) W = 1 over NCCL differs from the run without a process "
+             "group")
+    for name in KERNELS:
+        if launches_a.get(name, 0) <= 0:
+            fail(f"(a) kernel {name} was not launched on the DP path")
+
+    log("(b) W = 1 reference in this process: float32, dropout 0, noise 0")
+    state, batches, kw = _dp_retrieval(cfg32, data, None)
+    ref = _dp_train(state, batches, kw, group=True)
+    del state
+    state, batches, kw = _dp_retrieval(cfg_drop, data, None)
+    mask_alone = _first_dropout_mask(state.model, lambda: _dp_train(
+        state, batches[:1] * 2, dict(kw), group=False))
+    del state
+    log("(c) W = 1 reference: MART, 3 steps on the 16 videos")
+    mgr = _dp_caption_build(torch.device("cuda"), vocab)
+    cap_ref = _dp_caption_train(mgr, caption_arrays, None)
+    del mgr
+    torch.cuda.empty_cache()
+    for p in ranks + probes:
+        p.join(timeout=600 if p in ranks else 60)
+    for p in probes:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    for r, p in enumerate(ranks):
+        if p.exitcode != 0:
+            fail(f"(b) rank {r} exited with {p.exitcode}")
+    log(f"  the two ranks and the probe took {time.time() - t_spawn:.1f} s "
+        "from their start")
+    for r in range(2):
+        probe = tmp / f"nccl{r}.txt"
+        said = (probe.read_text(encoding="utf8") if probe.is_file()
+                else "no answer within 60 s (killed)")
+        log(f"  NCCL, two ranks on one card, rank {r}: {said}")
+    seen = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+            for r in range(2)]
+    log(f"(b) W = 2 over {seen[0]['backend']} on one card, "
+        f"{seen[0]['local_batch']} rows a rank: "
+        f"{[round(v, 6) for v in seen[0]['retrieval']['loss'].tolist()]} "
+        f"(W = 1: {[round(v, 6) for v in ref['loss'].tolist()]}); "
+        f"{seen[0]['retrieval_s']:.1f} s a rank (both on one card over "
+        "gloo: not a speed measurement)")
+    _hold_dp("(b)", ref, seen)
+    for rank in seen:
+        log(f"  rank {rank['rank']}, 3 steps at dropout {DP_MASK_RATE}: "
+            f"launches {rank['launches']}")
+        for name in KERNELS:
+            if rank["launches"].get(name, 0) <= 0:
+                fail(f"(b) kernel {name} was not launched on rank "
+                     f"{rank['rank']}")
+    masks = [rank["mask"] for rank in seen]
+    rows = masks[0].shape[0]
+    dropped = [float(m.float().mean()) for m in masks]
+    differ = float((masks[0] != masks[1]).float().mean())
+    same0 = bool(torch.equal(masks[0], mask_alone[:rows]))
+    other1 = float((masks[1] != mask_alone[rows:2 * rows]).float().mean())
+    log(f"  the step's first B4 mask at rate {DP_MASK_RATE}, shape "
+        f"{tuple(masks[0].shape)} a rank: dropped {dropped[0]:.3%} / "
+        f"{dropped[1]:.3%}; ranks 0 and 1 differ at {differ:.3%} of "
+        f"elements; rank 0 equals one process's first {rows} rows: {same0}; "
+        f"rank 1 differs from one process's next {rows} rows at "
+        f"{other1:.3%}")
+    if mask_alone.shape[0] != 2 * rows or masks[1].shape != masks[0].shape:
+        fail(f"(b) mask shapes {[tuple(m.shape) for m in masks]}, one "
+             f"process {tuple(mask_alone.shape)}")
+    if min(dropped) == 0 or differ == 0 or other1 == 0:
+        fail("(b) the two ranks' train steps drew the same dropout mask")
+    if not same0:
+        fail("(b) rank 0's dropout mask differs from one process's on the "
+             "same rows")
+
+    log("(c) MART, W = 2 over gloo against W = 1")
+    for rank in seen:
+        got = rank["caption"]
+        for step, (g, c) in enumerate(zip(got["metrics"],
+                                          cap_ref["metrics"])):
+            loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+            norm_rel = abs(g["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
+            correct = abs(g["n_correct"] - c["n_correct"]) / c["n_word"]
+            log(f"  rank {rank['rank']} step {step}: loss {g['loss']:.6f} / "
+                f"{c['loss']:.6f} ({loss_rel:.2e}), grad_norm "
+                f"{g['grad_norm']:.6f} / {c['grad_norm']:.6f} "
+                f"({norm_rel:.2e}), n_word {g['n_word']:.0f} / "
+                f"{c['n_word']:.0f}")
+            if loss_rel > CAPTION_TRAIN_LOSS_RTOL \
+                    or norm_rel > CAPTION_TRAIN_LOSS_RTOL \
+                    or g["n_word"] != c["n_word"] \
+                    or correct > CAPTION_CORRECT_TOL:
+                fail(f"(c) rank {rank['rank']} step {step} disagrees with "
+                     "W = 1")
+        for what in ("params", "ema"):
+            share = _max_diff(got[what], cap_ref[what]) / CAPTION_TRAIN_LR \
+                / DP_STEPS
+            log(f"  rank {rank['rank']}: {what} {share:.2%} of lr a step "
+                f"(limit {CAPTION_TRAIN_UPDATE_TOL:.0%})")
+            if share > CAPTION_TRAIN_UPDATE_TOL:
+                fail(f"(c) rank {rank['rank']}'s {what} disagree with W = 1")
+    if _max_diff(seen[0]["caption"]["ema"], seen[1]["caption"]["ema"]) != 0:
+        fail("(c) the two ranks' EMA differ")
+    log(f"  the EMA is equal on both ranks ({seen[0]['caption_s']:.1f} s a "
+        "rank)")
+
+    log("(d) torchrun --standalone --nproc_per_node=1 train_retrieval "
+        "(NCCL) against the single-process CLI")
+    config = _config(tmp / "cli")
+    runs = {}
+    for name in ("torchrun", "single"):
+        log_dir = tmp / f"exp_{name}"
+        args = ["-m", "coot_videotext_tpu_torch.train_retrieval", "-c",
+                str(config), "--data_path", str(data), "--log_dir",
+                str(log_dir), "-o", "train.num_epochs=1,val.val_start=0",
+                "--preload_device", "--fixed_shapes"]
+        t0 = time.time()
+        if name == "torchrun":
+            done = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node=1"] + args, cwd=ROOT,
+                capture_output=True, text=True, timeout=600)
+            if done.returncode != 0:
+                print(done.stdout[-4000:], done.stderr[-4000:], flush=True)
+                fail(f"(d) torchrun exited with {done.returncode}")
+            said = [ln for ln in done.stdout.splitlines()
+                    if "rank 0 of 1" in ln]
+            log(f"  torchrun: {time.time() - t0:.1f} s; {said[:1]}")
+        else:
+            from coot_videotext_tpu_torch import train_retrieval
+            train_retrieval.main(args[2:])
+            log(f"  single process: {time.time() - t0:.1f} s")
+        bases = list((log_dir / "retrieval").rglob("models"))
+        if len(bases) != 1:
+            fail(f"(d) {name}: {len(bases)} experiment directories")
+        runs[name] = bases[0].parent
+    layouts = {k: _file_layout(v) for k, v in runs.items()}
+    if layouts["torchrun"] != layouts["single"]:
+        fail(f"(d) files differ: {layouts['torchrun'] ^ layouts['single']}")
+    keys = {k: {net: sorted(sd) for net, sd in torch.load(
+        v / "models" / "model_0.pth", weights_only=True).items()}
+        for k, v in runs.items()}
+    if keys["torchrun"] != keys["single"] or any(
+            k.startswith("module.") for sd in keys["torchrun"].values()
+            for k in sd):
+        fail("(d) the torchrun checkpoint's keys differ")
+    log(f"  the same {len(layouts['single'])} files and model keys "
+        f"({sum(len(v) for v in keys['single'].values())} tensors)")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not (PACKAGE / "ops" / "cuda_build.py").is_file() \
             or not CONFIG.is_file():
@@ -3693,6 +4255,11 @@ def main() -> None:
         phase_mlp(Path(tmp) / "mlp")
         phase("10d. profiling")
         phase_profiling(Path(tmp) / "profiling")
+    with tempfile.TemporaryDirectory(prefix="coot_chip_dp_") as tmp:
+        phase("11. data parallelism at yc2_2d3d_coot width: W = 1 over "
+              "NCCL, W = 2 over gloo on the card (retrieval and MART), "
+              "torchrun")
+        phase_dp(Path(tmp))
     log(f"chip_smoke took {time.time() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

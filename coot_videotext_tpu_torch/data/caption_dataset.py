@@ -50,6 +50,7 @@ import numpy as np
 
 from coot_videotext_tpu_torch.data.retrieval_dataset import (
     COUNT_LADDER, bucket_size)
+from coot_videotext_tpu_torch.parallel.mesh import Mesh, batch_rows
 
 # special tokens (reference :47-61)
 PAD_TOKEN = "[PAD]"
@@ -514,7 +515,8 @@ class RecursiveCaptionDataset:
 
     # ---------- collation ----------
 
-    def collate_fn(self, batch, *, batch_size: Optional[int] = None):
+    def collate_fn(self, batch, *, batch_size: Optional[int] = None,
+                   steps: Optional[int] = None):
         """
         Recurrent: (stacked_batch, step_sizes, metas), stacked_batch
         holding (S, N, ...) arrays, S the step count bucketed on
@@ -523,7 +525,8 @@ class RecursiveCaptionDataset:
         Single sentences: (collated, None, metas), collated holding the
         untied or the joint (N, ...) arrays (:536-555).
         `batch_size` pads a short batch to a static N with IGNORE-labelled
-        dummy rows (step_sizes/metas keep only the real examples).
+        dummy rows (step_sizes/metas keep only the real examples); `steps`
+        sets S (a data-parallel rank takes its global batch's).
         """
         if not self.recurrent:
             return self._collate_single(batch, batch_size)
@@ -535,7 +538,8 @@ class RecursiveCaptionDataset:
         } for m in raw_meta]
         examples = [e[0] for e in batch]
         step_sizes = [len(e) for e in examples]
-        s = bucket_size(max(step_sizes), COUNT_LADDER)
+        s = (steps if steps is not None
+             else bucket_size(max(step_sizes), COUNT_LADDER))
 
         n_real = len(examples)
         n = batch_size if batch_size is not None else n_real
@@ -593,15 +597,30 @@ UNTIED_KEYS = ("video_feature", "video_mask", "text_ids", "text_mask",
 
 class CaptionBatchLoader:
     """Batches of the caption dataset (videos, or single sentences), in
-    order or shuffled per epoch from a seed."""
+    order or shuffled per epoch from a seed. Under a data-parallel `mesh`
+    `batch_size` is the global batch (JAX's) and each rank gets its rows
+    of every global batch, padded with dummy rows to its `local_batch`
+    (a rank may hold dummy rows only), with the global batch's S."""
 
     def __init__(self, dataset: RecursiveCaptionDataset, batch_size: int,
-                 *, shuffle: bool, seed: int = 0) -> None:
+                 *, shuffle: bool, seed: int = 0,
+                 mesh: Optional[Mesh] = None) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
+        self.mesh = mesh
+        self.rows = batch_rows(mesh, batch_size)
+        self.local_batch = self.rows.stop - self.rows.start
+
+    def unsharded(self) -> "CaptionBatchLoader":
+        """The same batches whole, as one process sees them (the decode
+        runs unsharded)."""
+        loader = CaptionBatchLoader(self.dataset, self.batch_size,
+                                    shuffle=self.shuffle, seed=self.seed)
+        loader.epoch = self.epoch
+        return loader
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -617,19 +636,41 @@ class CaptionBatchLoader:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(order)
         for start in range(0, n, self.batch_size):
-            idx = order[start:start + self.batch_size]
-            points = [self.dataset[int(i)] for i in idx]
-            yield self.dataset.collate_fn(points,
-                                          batch_size=self.batch_size)
+            yield self._rank_rows(order[start:start + self.batch_size])
+
+    def _rank_rows(self, idx: np.ndarray):
+        """The rank's rows of the global batch `idx` (all of it in one
+        process), at the global batch's S."""
+        ds = self.dataset
+        steps = None
+        if ds.recurrent:
+            steps = bucket_size(max(len(ds.data[int(i)]["sentences"])
+                                    for i in idx), COUNT_LADDER)
+        own = idx[self.rows]
+        if len(own):
+            points = [ds[int(i)] for i in own]
+            return ds.collate_fn(points, batch_size=self.local_batch,
+                                 steps=steps)
+        # no real row: the global batch's first example as a dummy row
+        arrays, _, _ = ds.collate_fn([ds[int(idx[0])]],
+                                     batch_size=self.local_batch,
+                                     steps=steps)
+        for key in ("input_labels", "text_labels"):
+            if key in arrays:
+                arrays[key][...] = IGNORE
+        if "step_valid" in arrays:
+            arrays["step_valid"][...] = False
+        return arrays, ([] if ds.recurrent else None), []
 
 
 def create_mart_datasets_and_loaders(
         cfg, coot_feat_dir: str = "provided_embeddings",
         annotations_dir: str = "annotations",
         video_feature_dir: str = "data/mart_video_feature", *,
-        seed: int = 0):
+        seed: int = 0, mesh: Optional[Mesh] = None):
     """Factory (reference :735). Val uses max_n_sen + max_n_sen_add_val
-    sentences (reference :749)."""
+    sentences (reference :749). `mesh`: the loaders yield the rank's rows
+    of each global batch."""
     common: Dict[str, Any] = dict(
         recurrent=cfg.recurrent, untied=cfg.untied or cfg.mtrans,
         video_feature_dir=video_feature_dir,
@@ -648,7 +689,8 @@ def create_mart_datasets_and_loaders(
         preload=cfg.dataset_val.preload, **common)
     train_loader = CaptionBatchLoader(
         train_dataset, cfg.train.batch_size,
-        shuffle=cfg.dataset_train.shuffle, seed=seed)
+        shuffle=cfg.dataset_train.shuffle, seed=seed, mesh=mesh)
     val_loader = CaptionBatchLoader(
-        val_dataset, cfg.val.batch_size, shuffle=False, seed=seed)
+        val_dataset, cfg.val.batch_size, shuffle=False, seed=seed,
+        mesh=mesh)
     return train_dataset, val_dataset, train_loader, val_loader

@@ -33,6 +33,8 @@ import torch
 
 from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.ops.gather import GatherNoise, gather_rows
+from coot_videotext_tpu_torch.parallel.mesh import Mesh, batch_rows
+
 
 def _upload(arrays, dim: int, dtype: torch.dtype,
             device: torch.device) -> torch.Tensor:
@@ -96,27 +98,13 @@ class RetrievalDeviceStore:
         `vid_idx (B, Lv)`, `clip_idx (B, N, Lc)`, `par_idx (B, Lp)`,
         `sent_idx (B, N, Ls)`. Points are the dataset's `get_indices`.
         """
-        from coot_videotext_tpu_torch.data.retrieval_dataset import (
-            COUNT_LADDER, LENGTH_LADDER, bucket_size)
         n_real = len(points)
         b = batch_size if batch_size is not None else n_real
-        if fixed_shapes is not None:
-            lv, lc = fixed_shapes["lv"], fixed_shapes["lc"]
-            ls, lp = fixed_shapes["ls"], fixed_shapes["lp"]
-            n_parts = fixed_shapes["n_parts"]
-        else:
-            lv = bucket_size(max(len(p["vid_idx"]) for p in points),
-                             LENGTH_LADDER)
-            lp = bucket_size(max(p["par_len"] for p in points),
-                             LENGTH_LADDER)
-            n_parts = bucket_size(
-                max(p["clip_num"] for p in points), COUNT_LADDER)
-            lc = bucket_size(
-                max(len(c) for p in points for c in p["clip_idx"]),
-                LENGTH_LADDER)
-            ls = bucket_size(
-                max(s for p in points for s in p["sent_split"]),
-                LENGTH_LADDER)
+        if fixed_shapes is None:
+            fixed_shapes = index_dims(points)
+        lv, lc = fixed_shapes["lv"], fixed_shapes["lc"]
+        ls, lp = fixed_shapes["ls"], fixed_shapes["lp"]
+        n_parts = fixed_shapes["n_parts"]
 
         batch = {
             "key": [p["key"] for p in points],
@@ -179,6 +167,24 @@ class RetrievalDeviceStore:
             batch["sent_len"][i, 0] = 1
             batch["sent_valid"][i, 0] = True
         return batch
+
+
+def index_dims(points) -> Dict[str, int]:
+    """The bucketed padded dims (lv, lc, ls, lp, n_parts) of a batch of
+    the dataset's `get_indices` points."""
+    from coot_videotext_tpu_torch.data.retrieval_dataset import (
+        COUNT_LADDER, LENGTH_LADDER, bucket_size)
+    return {
+        "lv": bucket_size(max(len(p["vid_idx"]) for p in points),
+                          LENGTH_LADDER),
+        "lc": bucket_size(max(len(c) for p in points for c in p["clip_idx"]),
+                          LENGTH_LADDER),
+        "ls": bucket_size(max(s for p in points for s in p["sent_split"]),
+                          LENGTH_LADDER),
+        "lp": bucket_size(max(p["par_len"] for p in points), LENGTH_LADDER),
+        "n_parts": bucket_size(max(p["clip_num"] for p in points),
+                               COUNT_LADDER),
+    }
 
 
 # the batch's index fields, their feature fields, their store and noise site
@@ -469,8 +475,8 @@ class FeatureSource:
 def assemble_batch(batch: Dict[str, Any],
                    source: Optional[FeatureSource] = None, *,
                    sample_state: Optional[torch.Tensor] = None,
-                   noise_seed: Optional[philox.Seed] = None
-                   ) -> Dict[str, Any]:
+                   noise_seed: Optional[philox.Seed] = None,
+                   mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """
     Any loader batch on the device -> the dense batch the model takes, by
     its "layout" (data/retrieval_dataset.py LAYOUTS; a batch without one
@@ -478,7 +484,11 @@ def assemble_batch(batch: Dict[str, Any],
     device: train jitter from the seed state `sample_state`, center
     sampling without one. Index batches gather their rows through B5 from
     the store, slab batches from the slabs they carry; `noise_seed`
-    (training) adds the source's noise to store gathers only.
+    (training) adds the source's noise to store gathers only. Under a
+    data-parallel `mesh` the batch holds the rank's rows of the global
+    batch: the jitter's uniforms are drawn for the global batch and the
+    rank takes its rows of them, so W ranks sample the frames one process
+    would.
     """
     layout = batch.get("layout", "dense")
     if layout == "dense":
@@ -491,8 +501,11 @@ def assemble_batch(batch: Dict[str, Any],
         meta = source.meta
         uniforms = None
         if sample_state is not None:
-            uniforms = draw_uniforms(sample_state, batch["dp_idx"].shape[0],
-                                     meta.shapes)
+            local = batch["dp_idx"].shape[0]
+            world = mesh.world if mesh is not None else 1
+            rows = batch_rows(mesh, local * world)
+            uniforms = tuple(u[rows] for u in draw_uniforms(
+                sample_state, local * world, meta.shapes))
         dp_idx, batch_valid = batch.pop("dp_idx"), batch.pop("batch_valid")
         batch.update(device_sample_batch(
             meta.tables, dp_idx, meta.shapes, meta.max_frames,

@@ -39,8 +39,10 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from coot_videotext_tpu_torch.data.device_store import index_dims
 from coot_videotext_tpu_torch.data.features_loader import (
     TextFeaturesLoader, VideoFeatureLoader)
+from coot_videotext_tpu_torch.parallel.mesh import Mesh, batch_rows
 from coot_videotext_tpu_torch.tasks.retrieval.config import (
     RetrievalDatasetConfig)
 from coot_videotext_tpu_torch.utils import maths
@@ -59,6 +61,8 @@ COUNT_LADDER = [1, 2, 4, 6, 8, 12, 16, 20, 24, 32, 40, 48, 64, 80, 96, 128]
 HOST_KEYS = ("key", "data_key", "sentences", "layout")
 # the batch layouts, from the least the host ships to the most
 LAYOUTS = ("ids", "indices", "slab", "dense")
+# a batch's padded dims, as `compute_fixed_shapes` names them
+DIM_KEYS = ("lv", "lc", "ls", "lp", "n_parts")
 
 
 def bucket_size(n: int, ladder: List[int]) -> int:
@@ -259,9 +263,7 @@ class RetrievalDataset:
         """(lv, lc, ls, lp, n_parts) of a batch of feature points: the
         dataset-static shapes, or the batch maxima bucketed."""
         if fixed_shapes is not None:
-            return (fixed_shapes["lv"], fixed_shapes["lc"],
-                    fixed_shapes["ls"], fixed_shapes["lp"],
-                    fixed_shapes["n_parts"])
+            return tuple(fixed_shapes[k] for k in DIM_KEYS)
         return (
             bucket_size(max(p["vid_feat"].shape[0] for p in points),
                         LENGTH_LADDER),
@@ -291,8 +293,7 @@ class RetrievalDataset:
         n_real = len(points)
         b = batch_size if batch_size is not None else n_real
         assert b >= n_real
-        dv = points[0]["vid_feat"].shape[-1]
-        dt = points[0]["par_feat"].shape[-1]
+        dv, dt = self.cfg.vid_feat_dim, self.cfg.text_feat_dim
         lv, lc, ls, lp, n_parts = self._batch_dims(points, fixed_shapes)
 
         # row 0 of each slab is an all-zero row: every padded index points
@@ -416,8 +417,7 @@ class RetrievalDataset:
         b = batch_size if batch_size is not None else n_real
         assert b >= n_real
 
-        dv = points[0]["vid_feat"].shape[-1]
-        dt = points[0]["par_feat"].shape[-1]
+        dv, dt = self.cfg.vid_feat_dim, self.cfg.text_feat_dim
         lv, lc, ls, lp, n_parts = self._batch_dims(points, fixed_shapes)
 
         batch = {
@@ -512,13 +512,21 @@ class RetrievalBatchLoader:
     (LAYOUTS) and says so under "layout": "ids" needs `device_meta`,
     "indices" `device_store`, and both need `fixed_shapes` (the dataset's
     `compute_fixed_shapes`) or None for per-batch bucketing.
+
+    Under a data-parallel `mesh` (parallel/mesh.py) `batch_size` is the
+    global batch, as in JAX, and each rank gets its `local_batch` rows of
+    every global batch in the same order (a short last batch is padded at
+    its end, so a rank may hold padded rows only). The host layouts
+    sample every point of the global batch (the host's random stream of
+    one process) and collate the rank's rows at the global batch's dims.
     """
 
     def __init__(self, dataset: RetrievalDataset, batch_size: int, *,
                  shuffle: bool, drop_last: bool = False, seed: int = 0,
                  layout: str = "dense",
                  fixed_shapes: Optional[Dict[str, int]] = None,
-                 device_store=None, device_meta=None) -> None:
+                 device_store=None, device_meta=None,
+                 mesh: Optional[Mesh] = None) -> None:
         if layout not in LAYOUTS:
             raise ValueError(f"layout {layout!r} is not one of {LAYOUTS}")
         if (layout == "ids") != (device_meta is not None) or \
@@ -536,6 +544,9 @@ class RetrievalBatchLoader:
         self.fixed_shapes = fixed_shapes
         self.device_store = device_store
         self.device_meta = device_meta
+        self.mesh = mesh
+        self.rows = batch_rows(mesh, batch_size)
+        self.local_batch = self.rows.stop - self.rows.start
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -548,9 +559,9 @@ class RetrievalBatchLoader:
 
     def _id_batch(self, idx: np.ndarray) -> Dict[str, Any]:
         ds = self.dataset
-        dp_idx = np.zeros(self.batch_size, np.int32)
+        dp_idx = np.zeros(self.local_batch, np.int32)
         dp_idx[:len(idx)] = idx
-        batch_valid = np.zeros(self.batch_size, bool)
+        batch_valid = np.zeros(self.local_batch, bool)
         batch_valid[:len(idx)] = True
         keys = [ds.keys[int(i)] for i in idx]
         return {
@@ -563,16 +574,22 @@ class RetrievalBatchLoader:
         }
 
     def _collate(self, idx: np.ndarray) -> Dict[str, Any]:
+        """The rank's rows of the global batch `idx` (all of it at world
+        1)."""
         if self.layout == "ids":
-            return self._id_batch(idx)
-        kw = dict(batch_size=self.batch_size, fixed_shapes=self.fixed_shapes)
+            return self._id_batch(idx[self.rows])
         if self.layout == "indices":
             points = [self.dataset.get_indices(int(i)) for i in idx]
-            return self.device_store.collate_indices(points, **kw)
+            return self.device_store.collate_indices(
+                points[self.rows], batch_size=self.local_batch,
+                fixed_shapes=self.fixed_shapes or index_dims(points))
         points = [self.dataset[int(i)] for i in idx]
+        dims = self.fixed_shapes or dict(zip(
+            DIM_KEYS, self.dataset._batch_dims(points, None)))
+        kw = dict(batch_size=self.local_batch, fixed_shapes=dims)
         if self.layout == "slab":
-            return self.dataset.collate_slab(points, **kw)
-        return self.dataset.collate_fn(points, **kw)
+            return self.dataset.collate_slab(points[self.rows], **kw)
+        return self.dataset.collate_fn(points[self.rows], **kw)
 
     def __iter__(self):
         n = len(self.dataset)
@@ -669,14 +686,17 @@ def create_retrieval_datasets_and_loaders(
         cfg, path_data: Union[str, Path], *, seed: int = 0,
         verbose: bool = False, fixed_shapes: Optional[bool] = None,
         device_preload: Optional[bool] = None,
-        device: torch.device = torch.device("cpu")):
+        device: torch.device = torch.device("cpu"),
+        mesh: Optional[Mesh] = None):
     """Factory (reference dataset_retrieval.py:466, JAX :657). `fixed_shapes`
     defaults to the config's `pad_fixed_shapes`, `device_preload` to its
     `preload_device` (see `_decide_store`). With the store, the loaders
     yield index batches over a `RetrievalDeviceStore` on `device`; with the
     store, fixed shapes and `sample_on_device`, id batches sampled on the
     device (`RetrievalDeviceMeta`, parts packed unless `pack_parts` is
-    false); see `_layout`."""
+    false); see `_layout`. Under a data-parallel `mesh` every rank holds
+    the whole store on its device (JAX replicates it) and gets its rows of
+    each global batch; the pack budgets are those of a rank's rows."""
     from coot_videotext_tpu_torch.data.device_store import (
         RetrievalDeviceMeta, RetrievalDeviceStore)
     if fixed_shapes is None:
@@ -698,15 +718,16 @@ def create_retrieval_datasets_and_loaders(
         if use_store:
             store = RetrievalDeviceStore(dataset, dtype=_store_dtype(cfg),
                                          device=device)
+        rows = batch_rows(mesh, batch_size)
         if layout == "ids":
             meta = RetrievalDeviceMeta(store, shapes, dset_cfg.max_frames,
-                                       batch_size=batch_size,
+                                       batch_size=rows.stop - rows.start,
                                        pack_parts=dset_cfg.pack_parts)
         return RetrievalBatchLoader(
             dataset, batch_size, shuffle=train and dset_cfg.shuffle,
             drop_last=train and dset_cfg.drop_last, seed=seed,
             layout=layout, fixed_shapes=shapes, device_store=store,
-            device_meta=meta)
+            device_meta=meta, mesh=mesh)
 
     train_loader = loader(train_set, cfg.dataset_train, cfg.train.batch_size,
                           True)

@@ -9,7 +9,9 @@ Copy of coot_videotext_tpu/data/synthetic.py::generate_retrieval_dataset:
 the same seed gives byte-identical files, so the PyTorch package and the JAX
 package can be held against each other on one generated dataset.
 `generate_caption_video_features` adds raw MART video features to a
-caption set.
+caption set. `RETRIEVAL_PRESETS` and `generate_preset` hold the parameters
+of the repo-root scripts data_gen_yc2like.py and data_gen_yc2big.py (the
+port's own: coot_videotext_tpu_torch/data_gen_{yc2like,yc2big}.py).
 """
 
 from __future__ import annotations
@@ -19,6 +21,43 @@ from pathlib import Path
 from typing import Dict, Optional, Union
 
 import numpy as np
+
+
+# the yc2-scale datasets of the repo-root scripts (YouCook2 "2d3d" widths
+# and clip statistics): yc2like at 1/6 of the reference's split sizes,
+# yc2big at its full 1333 / 457 videos with noised modalities
+_YC2 = dict(vid_feat_name="video_feat_2d3d", vid_feat_dim=4096,
+            text_feat_dim=1536, mean_clips=7.7, max_clips=16, fps=1.0,
+            mean_duration_sec=320.0, tokens_per_sentence=18, seed=0)
+RETRIEVAL_PRESETS = {
+    "yc2like": dict(_YC2, dataset_name="yc2like",
+                    text_feat_name="text_feat_yc2like", num_videos=192,
+                    num_val_videos=48),
+    "yc2big": dict(_YC2, dataset_name="yc2big",
+                   text_feat_name="text_feat_yc2big", num_videos=1333,
+                   num_val_videos=457, signal_scale=0.55,
+                   modality_noise=0.7),
+}
+
+
+def default_feat_format() -> str:
+    """h5 where h5py is installed, the npy source otherwise."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return "npy"
+    return "h5"
+
+
+def generate_preset(name: str, root: Union[str, Path], *,
+                    feat_format: Optional[str] = None,
+                    **overrides) -> Dict[str, str]:
+    """The dataset of RETRIEVAL_PRESETS[name] under root/<dataset_name>/
+    (`overrides` replace preset parameters, e.g. fewer videos); returns
+    the config overrides, with the feature source."""
+    params = dict(RETRIEVAL_PRESETS[name], **overrides)
+    params["feat_format"] = feat_format or default_feat_format()
+    return generate_retrieval_dataset(root, **params)
 
 
 class _NpyDir:

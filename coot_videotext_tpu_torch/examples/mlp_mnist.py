@@ -13,12 +13,16 @@ draws, so the same bytes), the loader :54, the config :94, `MLPModel`
 them), the manager :131 and the trainer :151. The model file is the
 module's state dict; batches reach the device through data/pipeline.py.
 The digits are synthetic (class-dependent patterns plus noise, 28 x 28):
-the reference downloads MNIST.
+the reference downloads MNIST. Under a data-parallel mesh
+(parallel/mesh.py; JAX :206-243 shards each batch over `data`) each rank
+takes its rows of every global batch; the weighted mean loss divides by
+the global batch's weight, and the gradients and the validation sums are
+summed over ranks, so every rank takes the one step of the global batch.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +31,7 @@ from torch import nn
 
 from coot_videotext_tpu_torch.config import base as trainer_configs
 from coot_videotext_tpu_torch.data.pipeline import prefetch
+from coot_videotext_tpu_torch.parallel import mesh as pmesh
 from coot_videotext_tpu_torch.train.optim import Adam
 from coot_videotext_tpu_torch.train.schedule import make_lr_scheduler
 from coot_videotext_tpu_torch.train.trainer_base import BaseTrainer
@@ -58,15 +63,18 @@ def make_synthetic_mnist(num_train: int = 512, num_val: int = 256,
 
 class MLPMNISTDataLoader:
     """Shuffled batches of a static size; the last batch is padded with
-    copies of its first row, weighted 0."""
+    copies of its first row, weighted 0. Under a data-parallel `mesh`
+    each rank gets its rows of every (global) batch."""
 
     def __init__(self, images, labels, batch_size: int, *,
-                 shuffle: bool, seed: int = 0) -> None:
+                 shuffle: bool, seed: int = 0,
+                 mesh: Optional[pmesh.Mesh] = None) -> None:
         self.images, self.labels = images, labels
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
+        self.rows = pmesh.batch_rows(mesh, batch_size)
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -90,7 +98,8 @@ class MLPMNISTDataLoader:
                 labels = np.concatenate([labels, labels[:1].repeat(pad)])
                 weights = np.concatenate([weights, np.zeros(pad,
                                                             np.float32)])
-            yield {"images": images, "labels": labels, "weights": weights}
+            yield {"images": images[self.rows], "labels": labels[self.rows],
+                   "weights": weights[self.rows]}
 
 
 def split_all(batch: Dict[str, np.ndarray]):
@@ -161,6 +170,22 @@ def nll_per_row(logits: torch.Tensor, labels: torch.Tensor
     return -logp.gather(1, labels.long()[:, None])[:, 0]
 
 
+def mlp_train_step(model: MLPModel, optimizer: Adam,
+                   batch: Dict[str, torch.Tensor], lr: float,
+                   mesh: Optional[pmesh.Mesh] = None) -> torch.Tensor:
+    """Weighted mean NLL over the global batch, its gradients (summed over
+    the ranks of `mesh`) and one Adam update; returns the loss."""
+    params = dict(model.named_parameters())
+    nll = nll_per_row(model(batch["images"]), batch["labels"])
+    w = batch["weights"]
+    total_w = pmesh.all_reduce_sum(mesh, w.sum())
+    loss = (nll * w).sum() / total_w.clamp(min=1.0)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    optimizer.step(pmesh.all_reduce_grads(mesh, dict(zip(params, grads))),
+                   lr)
+    return pmesh.all_reduce_sum(mesh, loss.detach())
+
+
 # ---------- trainer ----------
 
 class MLPMNISTTrainer(BaseTrainer):
@@ -172,12 +197,13 @@ class MLPMNISTTrainer(BaseTrainer):
                  *, log_dir: str = TrainerPathConst.DIR_EXPERIMENTS,
                  load_model=None, load_best: bool = False,
                  load_epoch=None, reset: bool = False,
-                 is_test: bool = False) -> None:
+                 is_test: bool = False,
+                 mesh: Optional[pmesh.Mesh] = None) -> None:
         super().__init__(cfg, model_mgr, exp_group, exp_name, run_name,
                          train_loader_length, EXP_TYPE,
                          load_model=load_model, load_best=load_best,
                          load_epoch=load_epoch, reset=reset,
-                         is_test=is_test, log_dir=log_dir)
+                         is_test=is_test, log_dir=log_dir, mesh=mesh)
         self.model = model_mgr.model
         self.optimizer = Adam(dict(self.model.named_parameters()), 0.9,
                               cfg.optimizer.adam_beta2,
@@ -188,6 +214,7 @@ class MLPMNISTTrainer(BaseTrainer):
             cfg.lr_scheduler, cfg.optimizer.lr, cfg.train.num_epochs,
             train_loader_length, self.logger)
         self.hook_post_init()
+        pmesh.broadcast_params(self.mesh, self.model.parameters())
 
     # ---------- state ----------
 
@@ -208,14 +235,8 @@ class MLPMNISTTrainer(BaseTrainer):
 
     def train_step(self, batch: Dict[str, torch.Tensor], lr: float
                    ) -> torch.Tensor:
-        """Weighted mean NLL, its gradients and one Adam update."""
-        params = dict(self.model.named_parameters())
-        nll = nll_per_row(self.model(batch["images"]), batch["labels"])
-        w = batch["weights"]
-        loss = (nll * w).sum() / w.sum().clamp(min=1.0)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        self.optimizer.step(dict(zip(params, grads)), lr)
-        return loss.detach()
+        return mlp_train_step(self.model, self.optimizer, batch, lr,
+                              self.mesh)
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]
@@ -225,8 +246,9 @@ class MLPMNISTTrainer(BaseTrainer):
         correct = ((logits.argmax(-1) == batch["labels"].long()).float()
                    * w).sum()
         nll = nll_per_row(logits, batch["labels"])
-        return {"correct": correct, "count": w.sum(),
-                "loss_sum": (nll * w).sum()}
+        return pmesh.all_reduce_metrics(self.mesh, {
+            "correct": correct, "count": w.sum(),
+            "loss_sum": (nll * w).sum()})
 
     # ---------- loops ----------
 

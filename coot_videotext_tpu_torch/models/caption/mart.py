@@ -65,9 +65,12 @@ class RecursiveTransformer(nn.Module):
                 input_masks_list: torch.Tensor,
                 token_type_ids_list: torch.Tensor,
                 input_labels_list: Optional[torch.Tensor] = None, *,
-                return_memory: bool = False):
+                return_memory: bool = False,
+                token_counts: Optional[torch.Tensor] = None):
         """
-        Args: stacked (S, N, L[, D]) tensors, one entry per sentence step.
+        Args: stacked (S, N, L[, D]) tensors, one entry per sentence step;
+        `token_counts` (S,): each step's valid tokens over the global batch
+        under data parallelism (the mean cross entropy divides by them).
 
         Returns (caption_loss, prediction_scores_list), or the list of
         per-step memories when return_memory (reference :1427-1464).
@@ -85,23 +88,22 @@ class RecursiveTransformer(nn.Module):
             return memory_list
         caption_loss = scores_list[0].new_zeros((), dtype=torch.float32)
         for idx, scores in enumerate(scores_list):
-            caption_loss = caption_loss + self.compute_loss(
-                scores, input_labels_list[idx])
+            caption_loss = caption_loss + compute_loss(
+                self.cfg, scores, input_labels_list[idx],
+                None if token_counts is None else token_counts[idx])
         return caption_loss, scores_list
 
-    def compute_loss(self, scores: torch.Tensor,
-                     labels: torch.Tensor) -> torch.Tensor:
-        return compute_loss(self.cfg, scores, labels)
 
 
-def compute_loss(cfg, scores: torch.Tensor,
-                 labels: torch.Tensor) -> torch.Tensor:
+def compute_loss(cfg, scores: torch.Tensor, labels: torch.Tensor,
+                 count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The caption loss of `scores` against `labels` (IGNORE = -1):
-    label smoothing when the config sets it, else cross entropy."""
+    label smoothing when the config sets it, else cross entropy (a mean
+    over `count` tokens, default the valid ones of `labels`)."""
     if cfg.label_smoothing != 0:
         return label_smoothing_loss(scores, labels, cfg.label_smoothing,
                                     cfg.vocab_size)
-    return cross_entropy_loss(scores, labels)
+    return cross_entropy_loss(scores, labels, count=count)
 
 
 class NonRecurTransformer(nn.Module):
@@ -122,12 +124,14 @@ class NonRecurTransformer(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, video_features: torch.Tensor,
                 input_masks: torch.Tensor, token_type_ids: torch.Tensor,
-                input_labels: Optional[torch.Tensor] = None
+                input_labels: Optional[torch.Tensor] = None,
+                token_count: Optional[torch.Tensor] = None
                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """(loss, or None without labels; scores (N, L, vocab)) of (N, L)
-        joint sequences."""
+        joint sequences; `token_count` as `compute_loss`'s count."""
         emb = self.embeddings(input_ids, video_features, token_type_ids)
         scores = self.decoder(self.encoder(emb, input_masks))
         if input_labels is None:
             return None, scores
-        return compute_loss(self.cfg, scores, input_labels), scores
+        return compute_loss(self.cfg, scores, input_labels,
+                            token_count), scores

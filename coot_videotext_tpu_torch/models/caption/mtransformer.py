@@ -256,11 +256,14 @@ class MTransformer(nn.Module):
                text_masks: Optional[torch.Tensor],
                text_input_labels: Optional[torch.Tensor],
                encodings: List[torch.Tensor],
-               encoder_masks: Optional[torch.Tensor] = None
+               encoder_masks: Optional[torch.Tensor] = None,
+               token_count: Optional[torch.Tensor] = None
                ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """(loss or None without labels, scores (N, T, vocab)), in the
         untied model's argument order; the masks are not read: the
-        decoder's self-attention is causal and the encodings are masked."""
+        decoder's self-attention is causal and the encodings are masked.
+        `token_count`: the mean cross entropy's valid tokens over the
+        global batch under data parallelism."""
         del text_masks, encoder_masks
         scores = self.decoder(text_input_ids, encodings)
         loss = None
@@ -270,14 +273,17 @@ class MTransformer(nn.Module):
                                             self.cfg.label_smoothing,
                                             self.cfg.vocab_size)
             else:
-                loss = cross_entropy_loss(scores, text_input_labels)
+                loss = cross_entropy_loss(scores, text_input_labels,
+                                          count=token_count)
         return loss, scores
 
     def forward(self, video_features: torch.Tensor,
                 video_masks: torch.Tensor, text_input_ids: torch.Tensor,
                 text_masks: torch.Tensor,
-                text_input_labels: Optional[torch.Tensor]
+                text_input_labels: Optional[torch.Tensor],
+                token_count: Optional[torch.Tensor] = None
                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """The untied batch (JAX `_single_forward` argument order)."""
         return self.decode(text_input_ids, text_masks, text_input_labels,
-                           self.encode(video_features, video_masks))
+                           self.encode(video_features, video_masks),
+                           token_count=token_count)

@@ -191,22 +191,26 @@ class NonRecurTransformerUntied(nn.Module):
     def decode(self, text_input_ids: torch.Tensor,
                text_masks: torch.Tensor,
                text_input_labels: Optional[torch.Tensor],
-               encoder_outputs: torch.Tensor, encoder_masks: torch.Tensor
+               encoder_outputs: torch.Tensor, encoder_masks: torch.Tensor,
+               token_count: Optional[torch.Tensor] = None
                ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-        """(loss, or None without labels; scores (N, T, vocab))."""
+        """(loss, or None without labels; scores (N, T, vocab));
+        `token_count` as mart.py `compute_loss`'s count."""
         dec = self.decoder(self.embeddings(text_input_ids), text_masks,
                            encoder_outputs, encoder_masks)
         scores = self.decoder_classifier(dec)
         if text_input_labels is None:
             return None, scores
-        return compute_loss(self.cfg, scores, text_input_labels), scores
+        return compute_loss(self.cfg, scores, text_input_labels,
+                            token_count), scores
 
     def forward(self, video_features: torch.Tensor,
                 video_masks: torch.Tensor, text_input_ids: torch.Tensor,
                 text_masks: torch.Tensor,
-                text_input_labels: Optional[torch.Tensor]
+                text_input_labels: Optional[torch.Tensor],
+                token_count: Optional[torch.Tensor] = None
                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """The untied batch (JAX `_single_forward` argument order)."""
         return self.decode(text_input_ids, text_masks, text_input_labels,
                            self.encode(video_features, video_masks),
-                           video_masks)
+                           video_masks, token_count)

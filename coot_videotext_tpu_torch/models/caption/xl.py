@@ -232,9 +232,11 @@ class TransformerXL(nn.Module):
                 video_features_list: torch.Tensor,
                 input_masks_list: torch.Tensor,
                 token_type_ids_list: torch.Tensor,
-                input_labels_list: torch.Tensor):
+                input_labels_list: torch.Tensor,
+                token_counts: Optional[torch.Tensor] = None):
         """Stacked (S, N, L[, D]) steps, the teacher sentence's mask as
-        the next step's previous mask: (caption loss, scores list)."""
+        the next step's previous mask: (caption loss, scores list);
+        `token_counts` as the recurrent MART's."""
         prev_ms = None
         scores_list = []
         for idx in range(len(input_ids_list)):
@@ -245,6 +247,7 @@ class TransformerXL(nn.Module):
             scores_list.append(scores)
         loss = scores_list[0].new_zeros((), dtype=torch.float32)
         for idx, scores in enumerate(scores_list):
-            loss = loss + compute_loss(self.cfg, scores,
-                                       input_labels_list[idx])
+            loss = loss + compute_loss(
+                self.cfg, scores, input_labels_list[idx],
+                None if token_counts is None else token_counts[idx])
         return loss, scores_list

@@ -80,19 +80,23 @@ class MultiGenPool(nn.Module):
             d_input, cfg.hidden_dim, cfg.num_heads, cfg.activation,
             cfg.dropout)])
 
-    def forward(self, features, mask, lengths):
+    def forward(self, features, mask, lengths, max_length=None):
         return self.pools[0](features, mask, lengths)
 
 
 class TemporalAvgPool(nn.Module):
     """The reference's 'avg_special' pool (poolers.py:232): sums the rows
     with index < max(lengths), padded positions included, and divides by
-    the valid length; the mask is deliberately not used."""
+    the valid length; the mask is deliberately not used. So a row's
+    output depends on the other rows of the batch, as in the reference:
+    under data parallelism the step passes the global batch's longest
+    length as `max_length` (default: max(lengths))."""
 
-    def forward(self, features, mask, lengths):
-        batch_max = lengths.max()
+    def forward(self, features, mask, lengths, max_length=None):
+        if max_length is None:
+            max_length = lengths.max()
         in_ref_rows = torch.arange(features.shape[1],
-                                   device=features.device) < batch_max
+                                   device=features.device) < max_length
         summed = (features * in_ref_rows[None, :, None].to(features.dtype)
                   ).sum(dim=1)
         return summed / torch.clamp(
@@ -102,7 +106,7 @@ class TemporalAvgPool(nn.Module):
 class TemporalAvgPoolMasked(nn.Module):
     """Masked mean (reference TemporalAvgPoolFixed poolers.py:244)."""
 
-    def forward(self, features, mask, lengths):
+    def forward(self, features, mask, lengths, max_length=None):
         valid = mask.to(features.dtype)[:, :, None]
         summed = (features * valid).sum(dim=1)
         return summed / torch.clamp(
@@ -112,7 +116,7 @@ class TemporalAvgPoolMasked(nn.Module):
 class TemporalMaxPool(nn.Module):
     """Masked max over the sequence (reference poolers.py:211)."""
 
-    def forward(self, features, mask, lengths):
+    def forward(self, features, mask, lengths, max_length=None):
         filled = torch.where(mask.bool()[:, :, None], features,
                              torch.full_like(features, -INF))
         return filled.max(dim=1).values
@@ -121,7 +125,7 @@ class TemporalMaxPool(nn.Module):
 class TemporalLastPool(nn.Module):
     """Last valid element (reference poolers.py 'last')."""
 
-    def forward(self, features, mask, lengths):
+    def forward(self, features, mask, lengths, max_length=None):
         idx = torch.clamp(lengths.long() - 1, min=0)
         return features[torch.arange(features.shape[0],
                                      device=features.device), idx]
@@ -130,12 +134,14 @@ class TemporalLastPool(nn.Module):
 class TemporalFirstPool(nn.Module):
     """First element, e.g. CLS (reference poolers.py 'first')."""
 
-    def forward(self, features, mask, lengths):
+    def forward(self, features, mask, lengths, max_length=None):
         return features[:, 0]
 
 
 def make_pooler(cfg: PoolerConfig, d_input: int) -> nn.Module:
-    """Pooler factory (reference poolers.py:24 make_pooler_module)."""
+    """Pooler factory (reference poolers.py:24 make_pooler_module). Every
+    pooler takes (features, mask, lengths, max_length); only avg_special
+    reads max_length."""
     if cfg.name == PoolerConst.ATN:
         return MultiGenPool(cfg, d_input)
     simple = {PoolerConst.AVG_SPECIAL: TemporalAvgPool,

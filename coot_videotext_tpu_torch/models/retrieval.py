@@ -27,6 +27,12 @@ from coot_videotext_tpu_torch.models.transformer import CootTransformer
 from coot_videotext_tpu_torch.typext import ConstantHolder
 
 
+# the lengths that the nets pool over: a sequence's, its parts', its count
+# of parts
+LENGTH_KEYS = ("vid_len", "clip_len", "clip_num", "par_len", "sent_len",
+               "sent_num")
+
+
 class RetrievalNetworksConst(ConstantHolder):
     """The 4 network names (reference configs_retrieval.py:182)."""
     NET_VIDEO_LOCAL = "net_video_local"
@@ -37,7 +43,8 @@ class RetrievalNetworksConst(ConstantHolder):
 
 def _encode_hierarchy(net_local: CootTransformer,
                       net_global: CootTransformer, batch, prefix: str,
-                      part: str, dtype: torch.dtype
+                      part: str, dtype: torch.dtype,
+                      max_lengths: Optional[Dict[str, torch.Tensor]]
                       ) -> Dict[str, torch.Tensor]:
     """
     Shared video/text hierarchy encoding (reference encode_visual :86 /
@@ -47,16 +54,23 @@ def _encode_hierarchy(net_local: CootTransformer,
     real part, num (B,), and feat/mask/len either dense (B, N, Lp, D) /
     (B, N, Lp) / (B, N) or packed (P, Lp, D) / (P, Lp) / (P,) with
     `<part>_owner`, `<part>_pos` and `<part>_slot_valid` (P,).
+    `max_lengths`: the global batch's longest `<prefix>_len`, `<part>_len`
+    and `<part>_num` (`LENGTH_KEYS`) under data parallelism, else None.
     """
+    def longest(key: str) -> Optional[torch.Tensor]:
+        return None if max_lengths is None else max_lengths[key]
+
     context, _ = net_local(batch[f"{prefix}_feat"].to(dtype),
-                           batch[f"{prefix}_mask"], batch[f"{prefix}_len"])
+                           batch[f"{prefix}_mask"], batch[f"{prefix}_len"],
+                           max_length=longest(f"{prefix}_len"))
     part_feat = batch[f"{part}_feat"]
     part_valid = batch[f"{part}_valid"]
     b, n = part_valid.shape
     if part_feat.dim() == 3:  # packed: the local net sees real parts only
         part_emb_flat, _ = net_local(part_feat.to(dtype),
                                      batch[f"{part}_mask"],
-                                     batch[f"{part}_len"])
+                                     batch[f"{part}_len"],
+                                     max_length=longest(f"{part}_len"))
         slot_valid = batch[f"{part}_slot_valid"]
         # `where`, not multiply, then a collision-free scatter into zeros:
         # unpacked slots keep zeros, as the dense layout's where gives,
@@ -70,7 +84,8 @@ def _encode_hierarchy(net_local: CootTransformer,
         _, _, lp, d = part_feat.shape
         part_emb, _ = net_local(part_feat.reshape(b * n, lp, d).to(dtype),
                                 batch[f"{part}_mask"].reshape(b * n, lp),
-                                batch[f"{part}_len"].reshape(b * n))
+                                batch[f"{part}_len"].reshape(b * n),
+                                max_length=longest(f"{part}_len"))
         part_emb = part_emb.view(b, n, -1)
         # zero padded part slots: the reference scatters local embeddings
         # into a zero-initialized (B, max_parts, D) tensor
@@ -80,7 +95,8 @@ def _encode_hierarchy(net_local: CootTransformer,
                                torch.zeros_like(part_emb))
     part_num = batch[f"{part}_num"]
     hidden = context if net_global.cfg.use_context else None
-    emb, _ = net_global(part_emb, part_valid, part_num, hidden)
+    emb, _ = net_global(part_emb, part_valid, part_num, hidden,
+                        max_length=longest(f"{part}_num"))
     return {"emb": emb, "part_emb": part_emb, "context": context}
 
 
@@ -116,14 +132,19 @@ class RetrievalModel(nn.Module):
             net.reset_parameters(generator)
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                compute_dtype: torch.dtype = torch.float32
+                compute_dtype: torch.dtype = torch.float32,
+                max_lengths: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Dict[str, torch.Tensor]:
         """Both branches (reference model_retrieval.py:86/:143); output
-        keys as the JAX model."""
+        keys as the JAX model. `max_lengths`: the global batch's longest
+        lengths (`LENGTH_KEYS`) under data parallelism; None: the
+        batch's."""
         vis = _encode_hierarchy(self.net_video_local, self.net_video_global,
-                                batch, "vid", "clip", compute_dtype)
+                                batch, "vid", "clip", compute_dtype,
+                                max_lengths)
         txt = _encode_hierarchy(self.net_text_local, self.net_text_global,
-                                batch, "par", "sent", compute_dtype)
+                                batch, "par", "sent", compute_dtype,
+                                max_lengths)
         return {
             "vid_emb": vis["emb"], "clip_emb": vis["part_emb"],
             "vid_context": vis["context"],

@@ -126,7 +126,8 @@ class CootTransformer(nn.Module):
 
     def forward(self, features: torch.Tensor, mask: torch.Tensor,
                 lengths: torch.Tensor,
-                hidden_state: Optional[torch.Tensor] = None
+                hidden_state: Optional[torch.Tensor] = None,
+                max_length: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """
         Args:
@@ -134,6 +135,9 @@ class CootTransformer(nn.Module):
             mask: validity mask (B, L); True = real token
             lengths: (B,)
             hidden_state: optional context vector (B, D_ctx) for cross-attn
+            max_length: the longest of `lengths` over the global batch
+                under data parallelism (the avg_special pool reads it);
+                None: max(lengths)
 
         Returns:
             (pooled (B, output_dim), seq_features (B, L[+1], hidden))
@@ -156,6 +160,8 @@ class CootTransformer(nn.Module):
 
         if cfg.add_local_cls_token:
             x, mask, lengths = self.net_cls(x, mask, lengths)
+            if max_length is not None:
+                max_length = max_length + 1
         if cfg.positional_encoding == PositionalEncodingConst.SINCOS:
             x = self.embedding(x)
 
@@ -169,7 +175,7 @@ class CootTransformer(nn.Module):
             query = hidden_state.to(x.dtype)[:, None, :]
             add_after_pool = self.tf_context(query, x, mask)[:, 0]
 
-        pooled = self.pooler(x, mask, lengths)
+        pooled = self.pooler(x, mask, lengths, max_length)
         if add_after_pool is not None:
             pooled = torch.cat([pooled, add_after_pool], dim=-1)
         if cfg.use_output_fc:

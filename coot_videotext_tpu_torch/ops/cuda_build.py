@@ -63,16 +63,19 @@ def _source_hash() -> str:
 def build_library() -> Path:
     """Compile the kernels (if not built yet) and return the .so path.
     The compiler's register and spill report goes to `build.log` beside
-    the library."""
+    the library. Processes that build at once (the ranks of a
+    data-parallel run on a fresh checkout) compile into directories of
+    their own and each moves a whole library into place."""
     out_dir = BUILD_ROOT / _source_hash()
     lib = out_dir / "libcoot_kernels.so"
     if lib.is_file():
         return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
+    work = out_dir / f"work{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
     for name in SOURCES:
-        obj = out_dir / (Path(name).stem + ".o")
+        obj = work / (Path(name).stem + ".o")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c",
                str(CSRC_DIR / name), "-o", str(obj)]
         procs.append((name, obj, subprocess.Popen(
@@ -85,17 +88,19 @@ def build_library() -> Path:
         log.append(f"===== {name} (rc {proc.returncode})\n{out}")
         if proc.returncode != 0:
             failed.append(name)
-    (out_dir / "build.log").write_text("\n".join(log), encoding="utf8")
+    (work / "build.log").write_text("\n".join(log), encoding="utf8")
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
-    tmp = out_dir / f"libcoot_kernels.{os.getpid()}.so"
+    tmp = work / "libcoot_kernels.so"
     link = subprocess.run(
         [nvcc, "-shared", "-o", str(tmp)]
         + [str(obj) for _, obj, _ in procs],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+    os.replace(work / "build.log", out_dir / "build.log")
     os.replace(tmp, lib)
+    shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

@@ -227,15 +227,24 @@ def truncnorm(shape, seed: SeedLike, site: int,
 _seed_state: Optional[torch.Tensor] = None
 _calls = 0
 
+# the calls of one rank of a data-parallel group start at rank * RANK_CALLS
+RANK_CALLS = 1 << 20
+
 
 @contextlib.contextmanager
-def dropout_seeds(state: Optional[torch.Tensor]) -> Iterator[None]:
-    """Give the random calls made inside the seeds (state, 0), (state, 1),
-    ... in the order they are made; None: no seeds, training-mode dropout
-    raises."""
+def dropout_seeds(state: Optional[torch.Tensor],
+                  rank: int = 0) -> Iterator[None]:
+    """Give the random calls made inside the seeds (state, c), (state, c +
+    1), ... in the order they are made, from c = rank * RANK_CALLS; None:
+    no seeds, training-mode dropout raises. The ranks of a data-parallel
+    group hold the same seed state and make the same calls on their own
+    rows, so the rank keeps their masks and noise apart (rank 0's calls
+    are those of a single process)."""
     global _seed_state, _calls
+    if not 0 <= rank < (1 << 32) // RANK_CALLS:
+        raise ValueError(f"rank {rank} outside the seeds' call range")
     previous = _seed_state, _calls
-    _seed_state, _calls = state, 0
+    _seed_state, _calls = state, rank * RANK_CALLS
     try:
         yield
     finally:

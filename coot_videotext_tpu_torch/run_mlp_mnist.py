@@ -9,8 +9,9 @@ trains on synthetic MNIST-like digits (checkpoints in
 experiments/mlp/<group>/<name>_<run>/, a rerun resumes) or validates a
 checkpoint. Port of run_mlp_mnist.py at the repo root (reference
 run_mlp_mnist.py). Runs on the CUDA device unless `--device cpu` is given;
-asked for CUDA without a GPU it raises. Returns per run the trainer's
-state and its validation metrics by epoch.
+asked for CUDA without a GPU it raises; under `torchrun
+--nproc_per_node=W` it runs W data-parallel ranks (parallel/mesh.py).
+Returns per run the trainer's state and its validation metrics by epoch.
 """
 
 import dataclasses
@@ -19,6 +20,7 @@ from typing import Any, Dict, List, Optional
 from coot_videotext_tpu_torch.examples.mlp_mnist import (
     EXP_TYPE, MLPMNISTDataLoader, MLPMNISTExperimentConfig,
     MLPMNISTTrainer, MLPModelManager, make_synthetic_mnist)
+from coot_videotext_tpu_torch.parallel import mesh as pmesh
 from coot_videotext_tpu_torch.train_retrieval import resolve_device
 from coot_videotext_tpu_torch.utils import arguments
 from coot_videotext_tpu_torch.utils.arguments import ArgParser
@@ -42,14 +44,23 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     cfg = MLPMNISTExperimentConfig(config)
     if args.print_config:
         print(cfg)
+    mesh = pmesh.get_mesh(cfg.mesh_shape, device.type)
+    try:
+        return _run(args, cfg, exp_group, exp_name, mesh)
+    finally:
+        pmesh.destroy(mesh)
 
+
+def _run(args, cfg: MLPMNISTExperimentConfig, exp_group: str,
+         exp_name: str, mesh: pmesh.Mesh) -> List[Dict[str, Any]]:
+    device = mesh.device
     seed = cfg.random_seed or 0
     (train_x, train_y), (val_x, val_y) = make_synthetic_mnist()
     train_loader = MLPMNISTDataLoader(train_x, train_y,
                                       cfg.train.batch_size, shuffle=True,
-                                      seed=seed)
+                                      seed=seed, mesh=mesh)
     val_loader = MLPMNISTDataLoader(val_x, val_y, cfg.val.batch_size,
-                                    shuffle=False)
+                                    shuffle=False, mesh=mesh)
 
     results = []
     for run_number in range(args.start_run,
@@ -62,7 +73,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
             load_best=args.load_best or (args.validate
                                          and args.load_epoch is None),
             load_epoch=args.load_epoch, load_model=args.load_model,
-            is_test=args.validate)
+            is_test=args.validate, mesh=mesh)
         try:
             if args.validate:
                 loss, acc, _ = trainer.validate_epoch(val_loader)

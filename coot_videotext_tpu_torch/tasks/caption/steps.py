@@ -20,6 +20,16 @@ update with the state's step before its increment, then step + 1 and seed
 state + 1. The eval step runs the same forward in eval mode under
 torch.inference_mode(). Both return device tensors that the caller reads
 once per batch.
+
+Under a data-parallel mesh (parallel/mesh.py; JAX shards dim 1 of the
+stacked (S, N, ...) batches and dim 0 of the single-sentence ones over
+`data`, :39-42, :93-100) each rank holds its rows. The caption loss is a
+sum over tokens and the rows are independent, so the sum over ranks of
+the gradients and of loss, n_correct and n_word is the global step's
+(the mean cross entropy divides by the global token count, which the
+step all-reduces and passes to the model); both are summed before
+`caption_update`, so clipping, BertAdam and the EMA update alike on every
+rank. Dropout folds the rank into its seeds.
 """
 
 from __future__ import annotations
@@ -34,9 +44,12 @@ from coot_videotext_tpu_torch.models.caption.mtransformer import (
 from coot_videotext_tpu_torch.models.caption.xl import TransformerXL
 from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.ops.philox import dropout_seeds
+from coot_videotext_tpu_torch.parallel.mesh import (
+    Mesh, all_reduce_grads, all_reduce_metrics, all_reduce_sum)
 from coot_videotext_tpu_torch.tasks.caption.model_manager import (
     CaptionModel)
-from coot_videotext_tpu_torch.train.loss_caption import token_accuracy_counts
+from coot_videotext_tpu_torch.train.loss_caption import (
+    IGNORE, token_accuracy_counts)
 from coot_videotext_tpu_torch.train.optim import (
     EMA, BertAdam, clip_by_global_norm)
 from coot_videotext_tpu_torch.utils.param_bridge import (
@@ -53,15 +66,18 @@ class CaptionTrainState:
     state dict, its step count and lr on the device), the EMA shadow (None
     without one), the seed state (a (1,) int64 tensor, ops/philox.py
     `seed_state`) and the step (an int32 scalar), both on the model's
-    device (JAX CaptionTrainState :33)."""
+    device (JAX CaptionTrainState :33); `mesh` the data-parallel group
+    (None: one process)."""
     model: CaptionModel
     optimizer: BertAdam
     ema: Optional[EMA]
     seed: torch.Tensor
     step: torch.Tensor
+    mesh: Optional[Mesh] = None
 
 
-def init_caption_train_state(model: CaptionModel, cfg, seed: int
+def init_caption_train_state(model: CaptionModel, cfg, seed: int,
+                             mesh: Optional[Mesh] = None
                              ) -> CaptionTrainState:
     """The train state of `model` on its device (JAX
     init_caption_train_state :140 and MartTrainer :108-116): BertAdam with
@@ -85,16 +101,30 @@ def init_caption_train_state(model: CaptionModel, cfg, seed: int
         ema=(EMA(params, cfg.ema_decay, tied_aliases(model))
              if cfg.ema_decay > 0 else None),
         seed=philox.seed_state(seed, device),
-        step=torch.zeros((), dtype=torch.int32, device=device))
+        step=torch.zeros((), dtype=torch.int32, device=device), mesh=mesh)
 
 
-def _forward(model: CaptionModel, batch: Dict[str, torch.Tensor]
+def _token_counts(labels: torch.Tensor, mesh: Optional[Mesh]
+                  ) -> Optional[torch.Tensor]:
+    """The valid tokens of the global batch under a data-parallel mesh,
+    one count a sentence step of stacked (S, N, L) labels, one of (N, L)
+    labels (one all-reduce); None in one process."""
+    if mesh is None or not mesh.distributed:
+        return None
+    valid = (labels != IGNORE).float()
+    counts = valid.sum() if labels.dim() == 2 else valid.sum(dim=(1, 2))
+    return all_reduce_sum(mesh, counts)
+
+
+def _forward(model: CaptionModel, batch: Dict[str, torch.Tensor],
+             mesh: Optional[Mesh] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(loss, n_correct, n_word) of the S-step forward in the model's
-    mode."""
+    mode, the rank's part of the global batch's under `mesh`."""
     loss, scores_list = model(
         batch["input_ids"], batch["video_feature"], batch["input_mask"],
-        batch["token_type_ids"], batch["input_labels"])
+        batch["token_type_ids"], batch["input_labels"],
+        token_counts=_token_counts(batch["input_labels"], mesh))
     n_correct = loss.new_zeros(())
     n_word = loss.new_zeros(())
     with torch.no_grad():
@@ -105,7 +135,8 @@ def _forward(model: CaptionModel, batch: Dict[str, torch.Tensor]
     return loss, n_correct, n_word
 
 
-def _forward_single(model: CaptionModel, batch: Dict[str, torch.Tensor]
+def _forward_single(model: CaptionModel, batch: Dict[str, torch.Tensor],
+                    mesh: Optional[Mesh] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(loss, n_correct, n_word) of the single-sentence forward in the
     model's mode (JAX `_single_forward` :152): an untied batch (labels
@@ -113,12 +144,13 @@ def _forward_single(model: CaptionModel, batch: Dict[str, torch.Tensor]
     if "text_ids" in batch:
         labels = batch["text_labels"]
         loss, scores = model(batch["video_feature"], batch["video_mask"],
-                             batch["text_ids"], batch["text_mask"], labels)
+                             batch["text_ids"], batch["text_mask"], labels,
+                             _token_counts(labels, mesh))
     else:
         labels = batch["input_labels"]
         loss, scores = model(batch["input_ids"], batch["video_feature"],
                              batch["input_mask"], batch["token_type_ids"],
-                             labels)
+                             labels, _token_counts(labels, mesh))
     with torch.no_grad():
         n_correct, n_word = token_accuracy_counts(scores, labels)
     return loss, n_correct, n_word
@@ -132,19 +164,22 @@ def caption_loss_and_grads(state: CaptionTrainState,
     """The training forward (dropout on, seeded by the state) and its
     backward: ({loss, n_correct, n_word} detached, the float32 gradient of
     every parameter by name; zeros where the loss does not reach, as under
-    jax.grad). `single`: a single-sentence batch (untied or joint)."""
+    jax.grad). `single`: a single-sentence batch (untied or joint). Under a
+    mesh both are summed over its ranks."""
     model = state.model
     model.train()
     params = state.optimizer.params
     forward = _forward_single if single else _forward
-    with dropout_seeds(state.seed):
-        loss, n_correct, n_word = forward(model, batch)
+    mesh = state.mesh
+    with dropout_seeds(state.seed, mesh.rank if mesh is not None else 0):
+        loss, n_correct, n_word = forward(model, batch, mesh)
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
              for (n, p), g in zip(params.items(), grads)}
-    return {"loss": loss.detach(), "n_correct": n_correct,
-            "n_word": n_word}, grads
+    metrics = {"loss": loss.detach(), "n_correct": n_correct,
+               "n_word": n_word}
+    return all_reduce_metrics(mesh, metrics), all_reduce_grads(mesh, grads)
 
 
 def caption_update(state: CaptionTrainState,
@@ -186,22 +221,27 @@ def caption_train_step_single(state: CaptionTrainState,
 
 
 def caption_eval_step(model: CaptionModel,
-                      batch: Dict[str, torch.Tensor]
+                      batch: Dict[str, torch.Tensor],
+                      mesh: Optional[Mesh] = None
                       ) -> Dict[str, torch.Tensor]:
     """{loss (sum over steps), n_correct, n_word} of one stacked batch,
-    as 0-d f32 tensors on the batch's device."""
+    as 0-d f32 tensors on the batch's device; under a mesh summed over its
+    ranks."""
     model.eval()
     with torch.inference_mode():
-        loss, n_correct, n_word = _forward(model, batch)
-    return {"loss": loss, "n_correct": n_correct, "n_word": n_word}
+        loss, n_correct, n_word = _forward(model, batch, mesh)
+    return all_reduce_metrics(mesh, {"loss": loss, "n_correct": n_correct,
+                                     "n_word": n_word})
 
 
 def caption_eval_step_single(model: CaptionModel,
-                             batch: Dict[str, torch.Tensor]
+                             batch: Dict[str, torch.Tensor],
+                             mesh: Optional[Mesh] = None
                              ) -> Dict[str, torch.Tensor]:
     """caption_eval_step on an (N, ...) sentence batch, untied or joint
     (JAX make_caption_eval_step_single :209)."""
     model.eval()
     with torch.inference_mode():
-        loss, n_correct, n_word = _forward_single(model, batch)
-    return {"loss": loss, "n_correct": n_correct, "n_word": n_word}
+        loss, n_correct, n_word = _forward_single(model, batch, mesh)
+    return all_reduce_metrics(mesh, {"loss": loss, "n_correct": n_correct,
+                                     "n_word": n_word})

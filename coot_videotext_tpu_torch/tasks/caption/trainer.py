@@ -42,6 +42,14 @@ torch_convert.convert_model_file :561-563). The checkpoint's model file
 keeps the reference layout {"model": state_dict}; the optimizer file holds
 BertAdam's moments and step, the train state's step and the seed state.
 Validation runs build no optimizer and no EMA.
+
+Under a data-parallel mesh (parallel/mesh.py; JAX :147-164, :276) each
+rank trains and runs the eval step on its rows of every global batch, the
+sums over ranks making the global step (tasks/caption/steps.py); the
+parameters are broadcast from rank 0 once they are initialised or
+loaded. The decode runs unsharded, as JAX's translator has no mesh: rank
+0 decodes and scores the whole split while the others wait, and every
+rank takes its scores. Only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ import torch
 from coot_videotext_tpu_torch.data.caption_dataset import (
     STACKED_KEYS, UNTIED_KEYS)
 from coot_videotext_tpu_torch.data.pipeline import prefetch
+from coot_videotext_tpu_torch.parallel import mesh as pmesh
 from coot_videotext_tpu_torch.tasks.caption.config import (
     MartConfig, MartMetersConst as MMeters)
 from coot_videotext_tpu_torch.tasks.caption.eval_tools import (
@@ -130,7 +139,8 @@ class MartTrainer(BaseTrainer):
                  annotations_dir: str = TrainerPathConst.DIR_ANNOTATIONS,
                  load_model: Optional[str] = None, load_best: bool = False,
                  load_epoch: Optional[int] = None, reset: bool = False,
-                 is_test: bool = False) -> None:
+                 is_test: bool = False,
+                 mesh: Optional[pmesh.Mesh] = None) -> None:
         files_handler = MartFilesHandler(
             exp_group, exp_name, run_name, log_dir=log_dir,
             annotations_dir=annotations_dir)
@@ -139,7 +149,7 @@ class MartTrainer(BaseTrainer):
                          load_model=load_model, load_best=load_best,
                          load_epoch=load_epoch, reset=reset,
                          is_test=is_test, log_dir=log_dir,
-                         exp_files_handler=files_handler)
+                         exp_files_handler=files_handler, mesh=mesh)
         self.cfg: MartConfig = cfg
         self.metrics.add_meter(MMeters.TRAIN_LOSS_PER_WORD, use_avg=False)
         self.metrics.add_meter(MMeters.TRAIN_ACC, use_avg=False)
@@ -157,7 +167,7 @@ class MartTrainer(BaseTrainer):
         self.train_state: Optional[CaptionTrainState] = None
         if not is_test:
             self.train_state = init_caption_train_state(
-                model_mgr.model, cfg, cfg.random_seed or 0)
+                model_mgr.model, cfg, cfg.random_seed or 0, self.mesh)
         # the single-sentence layouts, untied or joint (JAX :121-122)
         self.single = not cfg.recurrent
         self._train_step = (caption_train_step_single if self.single
@@ -173,6 +183,7 @@ class MartTrainer(BaseTrainer):
         self.train_timings: Dict[str, List[float]] = defaultdict(list)
         self.last_batch_device: Optional[torch.device] = None
         self.hook_post_init()
+        pmesh.broadcast_params(self.mesh, model_mgr.model.parameters())
 
     def current_lr(self) -> float:
         """The host's warmup_linear schedule (JAX current_lr :177)."""
@@ -288,7 +299,7 @@ class MartTrainer(BaseTrainer):
             if is_val:
                 _, _, has_improved, _ = self.validate_epoch(val_loader)
             ema = self.train_state.ema
-            if ema is not None:  # reference :391-393
+            if ema is not None and self.is_writer:  # reference :391-393
                 ckpt.save(self.exp.get_models_file_ema(
                     self.state.current_epoch), {"model": ema.state_dict()})
             self.hook_post_train_and_val_epoch(is_val, has_improved)
@@ -298,9 +309,25 @@ class MartTrainer(BaseTrainer):
 
     def _eval_and_translate(self, data_loader
                             ) -> Tuple[Dict[str, list], float, int, int]:
-        """The eval step and the greedy decode of every val batch with the
+        """The eval step and the decode of every val batch with the
         model's current weights: (translations by video, the summed loss,
-        the word count, the correct words)."""
+        the word count, the correct words). Under a data-parallel mesh
+        every rank runs the eval step on its rows, then rank 0 decodes the
+        whole batches (the other ranks' translations are empty)."""
+        if not self.mesh.distributed:
+            return self._eval_batches(data_loader, decode=True)
+        sums = self._eval_batches(data_loader, decode=False)
+        results: Dict[str, list] = {}
+        if self.is_writer:
+            results = self._eval_batches(data_loader.unsharded(),
+                                         evaluate=False, decode=True)[0]
+        return (results,) + sums[1:]
+
+    def _eval_batches(self, data_loader, *, evaluate: bool = True,
+                      decode: bool = True
+                      ) -> Tuple[Dict[str, list], float, int, int]:
+        """The eval step (`evaluate`) and the decode (`decode`) of every
+        batch of `data_loader`."""
         total_loss = 0.0
         n_word_total = 0
         n_word_correct = 0
@@ -310,16 +337,20 @@ class MartTrainer(BaseTrainer):
                                     split=split_caption_batch):
             self.last_batch_device = batch["video_feature"].device
             t0 = timer()
-            out = self._eval_step(self.model_mgr.model, batch)
-            loss, n_word, n_correct = torch.stack(
-                [out["loss"], out["n_word"], out["n_correct"]]).tolist()
+            if evaluate:
+                out = self._eval_step(self.model_mgr.model, batch,
+                                      self.mesh)
+                loss, n_word, n_correct = torch.stack(
+                    [out["loss"], out["n_word"], out["n_correct"]]).tolist()
+                total_loss += loss
+                n_word_total += int(n_word)
+                n_word_correct += int(n_correct)
+                self.val_timings["eval_ms"].append((timer() - t0) * 1e3)
+            if not decode:
+                continue
             t1 = timer()
-            total_loss += loss
-            n_word_total += int(n_word)
-            n_word_correct += int(n_correct)
             dec = self.translator.translate_batch(batch)
             t2 = timer()
-            self.val_timings["eval_ms"].append((t1 - t0) * 1e3)
             self.val_timings["decode_ms"].append((t2 - t1) * 1e3)
             self.val_timings["forwards"].append(self.translator.forwards)
             self.val_timings["host_reads"].append(
@@ -352,11 +383,60 @@ class MartTrainer(BaseTrainer):
         with self._eval_weights():
             results, total_loss, n_word_total, n_word_correct = \
                 self._eval_and_translate(data_loader)
-        batch_res = {"version": "VERSION 1.0", "results": results,
-                     "external_data": {"used": "true", "details": "ay"}}
-
-        batch_res["results"] = Translator.sort_res(batch_res["results"])
         eval_mode = self.cfg.dataset_val.split
+        flat_metrics = (self._score_translations(results, eval_mode)
+                        if self.is_writer else None)
+        flat_metrics = pmesh.broadcast_object(self.mesh, flat_metrics)
+        for result_key, meter_name in TRANSLATION_METRICS.items():
+            if result_key in flat_metrics:
+                self.metrics.update_meter(meter_name,
+                                          flat_metrics[result_key])
+
+        self.logger.info(
+            f"Done with translation, epoch {self.state.current_epoch} "
+            f"split {eval_mode}")
+        self.logger.info(", ".join(
+            f"{name} {flat_metrics[name]:.2%}"
+            for name in TRANSLATION_METRICS_LOG if name in flat_metrics))
+
+        loss_per_word = total_loss / max(n_word_total, 1)
+        accuracy = n_word_correct / max(n_word_total, 1)
+        self.metrics.update_meter(MMeters.VAL_LOSS_PER_WORD, loss_per_word)
+        self.metrics.update_meter(MMeters.VAL_ACC, accuracy)
+        decode_ms = self.val_timings["decode_ms"]
+        self.logger.info(
+            f"Loss {loss_per_word:.5f} Acc {accuracy:.3%} total "
+            f"{timer() - self.timer_val_epoch:.3f}s, eval step "
+            f"{np.median(self.val_timings['eval_ms']):.1f} ms"
+            + (f", decode {np.median(decode_ms):.1f} ms" if decode_ms
+               else "") + " per batch (median)")
+
+        if self.cfg.val.det_best_field != "cider":
+            raise NotImplementedError(
+                f"best field {self.cfg.val.det_best_field} not known")
+        val_score = flat_metrics["CIDEr"]
+        is_best = self.check_is_new_best(val_score)
+        self.hook_post_val_epoch(loss_per_word, is_best)
+
+        if self.is_test:
+            epoch = self.state.current_epoch
+            self.metrics.feed_metrics(False, self.state.total_step, epoch)
+            if not self.is_writer:
+                return total_loss, val_score, is_best, flat_metrics
+            metrics_file = self.exp.path_base / f"val_ep_{epoch}.json"
+            self.metrics.save_epoch_to_file(metrics_file)
+            self.logger.info(f"Saved validation results to {metrics_file}")
+            if self.cfg.dataset_val.split == "val":
+                self._patch_meteor(flat_metrics["METEOR"])
+        return total_loss, val_score, is_best, flat_metrics
+
+    def _score_translations(self, results: Dict[str, list],
+                            eval_mode: str) -> Dict[str, float]:
+        """Writes the translations of the epoch and scores them: language
+        metrics, sentence statistics and repetition, flattened."""
+        batch_res = {"version": "VERSION 1.0",
+                     "results": Translator.sort_res(results),
+                     "external_data": {"used": "true", "details": "ay"}}
         file_translation_raw = self.exp.get_translation_files(
             self.state.current_epoch, eval_mode)
         file_translation_raw.write_text(json.dumps(batch_res),
@@ -379,47 +459,8 @@ class MartTrainer(BaseTrainer):
                     flat_metrics[f"{key}_{subkey}"] = subval
             else:
                 flat_metrics[key] = val
-        flat_metrics = {k: (float(v) if isinstance(v, np.floating) else v)
-                        for k, v in flat_metrics.items()}
-        for result_key, meter_name in TRANSLATION_METRICS.items():
-            if result_key in flat_metrics:
-                self.metrics.update_meter(meter_name,
-                                          flat_metrics[result_key])
-
-        self.logger.info(
-            f"Done with translation, epoch {self.state.current_epoch} "
-            f"split {eval_mode}")
-        self.logger.info(", ".join(
-            f"{name} {flat_metrics[name]:.2%}"
-            for name in TRANSLATION_METRICS_LOG if name in flat_metrics))
-
-        loss_per_word = total_loss / max(n_word_total, 1)
-        accuracy = n_word_correct / max(n_word_total, 1)
-        self.metrics.update_meter(MMeters.VAL_LOSS_PER_WORD, loss_per_word)
-        self.metrics.update_meter(MMeters.VAL_ACC, accuracy)
-        self.logger.info(
-            f"Loss {loss_per_word:.5f} Acc {accuracy:.3%} total "
-            f"{timer() - self.timer_val_epoch:.3f}s, eval step "
-            f"{np.median(self.val_timings['eval_ms']):.1f} ms, decode "
-            f"{np.median(self.val_timings['decode_ms']):.1f} ms per batch "
-            "(median)")
-
-        if self.cfg.val.det_best_field != "cider":
-            raise NotImplementedError(
-                f"best field {self.cfg.val.det_best_field} not known")
-        val_score = flat_metrics["CIDEr"]
-        is_best = self.check_is_new_best(val_score)
-        self.hook_post_val_epoch(loss_per_word, is_best)
-
-        if self.is_test:
-            epoch = self.state.current_epoch
-            self.metrics.feed_metrics(False, self.state.total_step, epoch)
-            metrics_file = self.exp.path_base / f"val_ep_{epoch}.json"
-            self.metrics.save_epoch_to_file(metrics_file)
-            self.logger.info(f"Saved validation results to {metrics_file}")
-            if self.cfg.dataset_val.split == "val":
-                self._patch_meteor(flat_metrics["METEOR"])
-        return total_loss, val_score, is_best, flat_metrics
+        return {k: (float(v) if isinstance(v, np.floating) else v)
+                for k, v in flat_metrics.items()}
 
     def _patch_meteor(self, meteor: float) -> None:
         """Validating the best epoch of a run whose training scored METEOR

@@ -32,6 +32,25 @@ per-step calls on the same state.
 The eval step builds its batch the same way with center sampling and no
 noise, runs the forward in eval mode and returns the val loss parts and
 the raw and L2-normalized embeddings, all on the batch's device.
+
+Data parallelism (parallel/mesh.py, JAX's `data` axis :125-141, :211-221,
+:319-330): under a mesh of W > 1 ranks each rank's batch holds its rows of
+the global batch. The step gathers the loss inputs of every rank
+(`all_gather_rows`, in rank order) and computes the global loss on every
+rank, so the contrastive negatives and the cycle-consistency draws are
+those of the global batch (the avg_special pool, which sums up to the
+batch's longest sequence, takes the global batch's longest, which the
+step all-reduces and passes to the model); the backward keeps the rank's
+rows, and the
+gradients are summed over ranks in one all-reduce before clipping. The
+jitter's uniforms are drawn for the global batch (data/device_store.py
+`assemble_batch`); dropout and the store's noise fold the rank into their
+seeds (ops/philox.py `dropout_seeds`). The eval step gathers its loss
+inputs the same way and returns the rank's rows of the embeddings. The
+group step captures its collectives into the CUDA graph under NCCL (the
+first, eager step of the group has run them on the capture's stream);
+under gloo, whose collectives run on the host, it runs its steps eagerly.
+At W = 1 nothing of this runs.
 """
 
 from __future__ import annotations
@@ -44,8 +63,11 @@ import torch
 
 from coot_videotext_tpu_torch.data.device_store import (
     FeatureSource, assemble_batch)
-from coot_videotext_tpu_torch.models.retrieval import RetrievalModel
+from coot_videotext_tpu_torch.models.retrieval import (
+    LENGTH_KEYS, RetrievalModel)
 from coot_videotext_tpu_torch.ops.philox import dropout_seeds, next_seed
+from coot_videotext_tpu_torch.parallel.mesh import (
+    Mesh, all_gather_rows, all_reduce_grads, all_reduce_max)
 from coot_videotext_tpu_torch.train.losses import (
     compute_total_retrieval_loss, l2_normalize)
 from coot_videotext_tpu_torch.train.optim import clip_by_global_norm
@@ -65,16 +87,34 @@ class TrainState:
     `seed_state`; None: no random draws, so dropout raises and id batches
     are refused) and the host's count of steps taken (JAX TrainState :34
     and the rng split of :78). `graph` caches the captured step of
-    `retrieval_train_group` on the card."""
+    `retrieval_train_group` on the card. `mesh`: the data-parallel group
+    (None: one process)."""
     model: RetrievalModel
     optimizer: object
     seed: Optional[torch.Tensor] = None
     step: int = 0
     graph: Optional["StepGraph"] = None
+    mesh: Optional[Mesh] = None
 
 
-def _loss_inputs(out: Dict[str, torch.Tensor]):
-    return ({k: out[k] for k in VISUAL_KEYS}, {k: out[k] for k in TEXT_KEYS})
+def _loss_inputs(out: Dict[str, torch.Tensor], batch_valid: torch.Tensor,
+                 mesh: Optional[Mesh]):
+    """(visual, text, batch_valid) of the loss: every rank's rows under a
+    data-parallel mesh."""
+    visual = {k: all_gather_rows(mesh, out[k]) for k in VISUAL_KEYS}
+    text = {k: all_gather_rows(mesh, out[k]) for k in TEXT_KEYS}
+    return visual, text, all_gather_rows(mesh, batch_valid)
+
+
+def _longest(batch: Dict[str, torch.Tensor], mesh: Optional[Mesh]
+             ) -> Optional[Dict[str, torch.Tensor]]:
+    """The global batch's longest lengths (`LENGTH_KEYS`) under a
+    data-parallel mesh, by one all-reduce; None in one process."""
+    if mesh is None or not mesh.distributed:
+        return None
+    local = torch.stack([batch[k].max().to(torch.int64)
+                         for k in LENGTH_KEYS])
+    return dict(zip(LENGTH_KEYS, all_reduce_max(mesh, local)))
 
 
 def retrieval_loss_and_grads(
@@ -94,22 +134,25 @@ def retrieval_loss_and_grads(
     model = state.model
     model.train()
     params = state.optimizer.params
-    with dropout_seeds(state.seed):
+    mesh = state.mesh
+    with dropout_seeds(state.seed, mesh.rank if mesh is not None else 0):
         noise_seed = None
         if source is not None and source.noisy and state.seed is not None:
             noise_seed = next_seed()
         batch = assemble_batch(batch, source, sample_state=state.seed,
-                               noise_seed=noise_seed)
-        out = model(batch, compute_dtype=compute_dtype)
-    visual, text = _loss_inputs(out)
+                               noise_seed=noise_seed, mesh=mesh)
+        out = model(batch, compute_dtype=compute_dtype,
+                    max_lengths=_longest(batch, mesh))
+    visual, text, batch_valid = _loss_inputs(out, batch["batch_valid"], mesh)
     loss, parts = compute_total_retrieval_loss(
         visual, text, loss_weights, margin, loss_cycle_cons,
-        seed_state=state.seed, batch_valid=batch["batch_valid"])
+        seed_state=state.seed, batch_valid=batch_valid)
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
              for (n, p), g in zip(params.items(), grads)}
-    return {k: v.detach() for k, v in parts.items()}, grads
+    return ({k: v.detach() for k, v in parts.items()},
+            all_reduce_grads(mesh, grads))
 
 
 def _train_step_body(state: TrainState, batch: Dict[str, Any], *,
@@ -120,7 +163,9 @@ def _train_step_body(state: TrainState, batch: Dict[str, Any], *,
                      ) -> Dict[str, torch.Tensor]:
     """One step on the device, without touching the host's step count:
     the body that the per-step call runs and the group step captures. lr
-    None: the optimizer's learning rate as filled in."""
+    None: the optimizer's learning rate as filled in. Under a mesh the
+    loss parts are the global batch's, the same on every rank, and the
+    gradients are clipped after their sum over ranks."""
     metrics, grads = retrieval_loss_and_grads(
         state, batch, loss_weights=loss_weights, margin=margin,
         loss_cycle_cons=loss_cycle_cons, compute_dtype=compute_dtype,
@@ -165,7 +210,10 @@ class StepGraph:
     step runs eagerly on `stream` and is a real step; the capture that
     follows on the same stream runs nothing. The kernels' launch counts
     (ops/cuda_build.py) rise where their wrappers run: in the eager step and
-    once more at the capture; a replay runs no Python and counts nothing."""
+    once more at the capture; a replay runs no Python and counts nothing.
+    Under an NCCL mesh the eager step's collectives run on `stream` before
+    the capture, so the communicator is set up and warm when the capture
+    records them."""
 
     def __init__(self, key, device: torch.device, k: int, b: int,
                  step_kw: Dict[str, Any]) -> None:
@@ -251,6 +299,7 @@ def retrieval_train_group(state: TrainState, dp_idx, batch_valid,
     k, b = dp_idx.shape
     if not 1 <= num_steps <= k:
         raise ValueError(f"num_steps {num_steps} outside [1, {k}]")
+    mesh = state.mesh
     if source is None or source.meta is None or state.seed is None:
         raise ValueError("the group step takes id batches: a source with "
                          "device metadata and a state with a seed state")
@@ -260,9 +309,9 @@ def retrieval_train_group(state: TrainState, dp_idx, batch_valid,
                    source=source)
     state.optimizer.lr.fill_(lr)
     device = state.seed.device
-    if device.type == "cpu":
-        ids = _host_array(dp_idx, torch.int32)
-        valid = _host_array(batch_valid, torch.bool)
+    if device.type == "cpu" or (mesh is not None and not mesh.capturable):
+        ids = _host_array(dp_idx, torch.int32).to(device)
+        valid = _host_array(batch_valid, torch.bool).to(device)
         rows = [_train_step_body(state, {"layout": "ids", "dp_idx": ids[i],
                                          "batch_valid": valid[i]},
                                  lr=None, **step_kw)
@@ -293,19 +342,23 @@ def retrieval_eval_step(model: RetrievalModel,
                         loss_cycle_cons: float,
                         compute_dtype: torch.dtype = torch.float32,
                         seed_state: Optional[torch.Tensor] = None,
-                        source: Optional[FeatureSource] = None
+                        source: Optional[FeatureSource] = None,
+                        mesh: Optional[Mesh] = None
                         ) -> Tuple[Dict[str, torch.Tensor],
                                    Dict[str, torch.Tensor]]:
     """Returns (embeddings, loss parts) of any loader batch (center
     sampling, no noise). `seed_state` keys the cycle-consistency
-    subsampling (ops/philox.py); None takes its deterministic full mean."""
-    batch = assemble_batch(batch, source)
+    subsampling (ops/philox.py); None takes its deterministic full mean.
+    Under a data-parallel `mesh` the loss parts are the global batch's and
+    the embeddings the rank's rows (JAX :220, out_shardings (data, rep))."""
+    batch = assemble_batch(batch, source, mesh=mesh)
     model.eval()
-    out = model(batch, compute_dtype=compute_dtype)
-    visual, text = _loss_inputs(out)
+    out = model(batch, compute_dtype=compute_dtype,
+                max_lengths=_longest(batch, mesh))
+    visual, text, batch_valid = _loss_inputs(out, batch["batch_valid"], mesh)
     _, parts = compute_total_retrieval_loss(
         visual, text, loss_weights, margin, loss_cycle_cons,
-        seed_state=seed_state, batch_valid=batch["batch_valid"])
+        seed_state=seed_state, batch_valid=batch_valid)
     embs = {f"{k}_before_norm": out[k] for k in EMB_KEYS}
     embs.update({k: l2_normalize(out[k]) for k in EMB_KEYS})
     for k in ("clip_valid", "sent_valid", "clip_num", "sent_num"):

@@ -24,6 +24,11 @@ which is what an unbroken run holds. Deliberate differences:
       "other" time;
     - the step's time is booked to the forward meter (the backward meter
       stays 0), as in the JAX trainer, whose jitted step covers both.
+Under a data-parallel mesh (parallel/mesh.py) every rank trains on its
+rows of each global batch (JAX :99, :236, :340), the parameters are
+broadcast from rank 0 once they are initialised or loaded, and
+validation gathers the embeddings of the whole split on every rank; only
+rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from coot_videotext_tpu_torch.data.pipeline import prefetch
 from coot_videotext_tpu_torch.data.retrieval_dataset import (
     RetrievalBatchLoader)
 from coot_videotext_tpu_torch.ops import philox
+from coot_videotext_tpu_torch.parallel.mesh import Mesh, broadcast_params
 from coot_videotext_tpu_torch.tasks.retrieval.config import (
     CootMetersConst as CMeters, ExperimentTypesConst, RetrievalConfig)
 from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
@@ -66,13 +72,13 @@ class RetrievalTrainer(BaseTrainer):
                  *, log_dir: str = TrainerPathConst.DIR_EXPERIMENTS,
                  load_model: Optional[str] = None, load_best: bool = False,
                  load_epoch: Optional[int] = None, reset: bool = False,
-                 is_test: bool = False) -> None:
+                 is_test: bool = False, mesh: Optional[Mesh] = None) -> None:
         super().__init__(
             cfg, model_mgr, exp_group, exp_name, run_name,
             train_loader_length, ExperimentTypesConst.RETRIEVAL,
             load_model=load_model, load_best=load_best,
             load_epoch=load_epoch, reset=reset, is_test=is_test,
-            log_dir=log_dir)
+            log_dir=log_dir, mesh=mesh)
         self.cfg: RetrievalConfig = cfg
         # loss meters (reference :87-103)
         self.metrics.add_meter(CMeters.VAL_LOSS_CC, use_avg=False)
@@ -94,7 +100,7 @@ class RetrievalTrainer(BaseTrainer):
             model=model,
             optimizer=make_optimizer(cfg.optimizer,
                                      dict(model.named_parameters())),
-            seed=philox.seed_state(self.seed, self.device))
+            seed=philox.seed_state(self.seed, self.device), mesh=self.mesh)
         # train steps dispatched one at a time ("step") and in groups
         self.dispatches: collections.Counter = collections.Counter()
         self.lr_scheduler = make_lr_scheduler(
@@ -108,6 +114,7 @@ class RetrievalTrainer(BaseTrainer):
             margin=cfg.train.contrastive_loss_config.margin,
             loss_cycle_cons=cfg.train.loss_cycle_cons)
         self.hook_post_init()
+        broadcast_params(self.mesh, model.parameters())
 
     # ---------- state accessors for checkpointing ----------
 
@@ -215,7 +222,7 @@ class RetrievalTrainer(BaseTrainer):
         metrics per group; the group's time is split evenly over its
         steps, in the forward meter and in the step total."""
         source = self._source(train_loader)
-        bsz = self.cfg.train.batch_size
+        bsz = train_loader.local_batch
         batches = list(train_loader)  # (B,) ids each: a few hundred bytes
         for g0 in range(0, len(batches), k):
             group = batches[g0:g0 + k]
@@ -254,13 +261,14 @@ class RetrievalTrainer(BaseTrainer):
             self.cfg.val.val_clips
             and self.state.current_epoch % self.cfg.val.val_clips_freq == 0)
         emb_file = None
-        if save_embs or self.cfg.val.save_embeddings:
+        if (save_embs or self.cfg.val.save_embeddings) and self.is_writer:
             emb_file = (self.exp.path_embeddings /
                         f"embeddings_{self.state.current_epoch}.h5")
         results = validate_retrieval(
             self.model_mgr.model, self.cfg, val_loader, self.device,
             compute_dtype=self.model_mgr.val_dtype, val_clips=val_clips,
-            emb_file=emb_file, cc_seed=42, logger=self.logger)
+            emb_file=emb_file, cc_seed=42, logger=self.logger,
+            mesh=self.mesh)
         self.metrics.update_meter(CMeters.VAL_LOSS_CONTRASTIVE,
                                   results["loss_contrastive"])
         self.metrics.update_meter(CMeters.VAL_LOSS_CC, results["loss_cc"])

@@ -15,7 +15,11 @@ pipeline (data/pipeline.py, JAX :339): dense and slab batches from the
 host (copied pinned and non-blocking on a side stream), index batches over
 the device store and id batches sampled on the device (center sampling,
 no noise); keys and sentences come from the host part of the batch. On CUDA the kernels B1-B3 and B5
-always run.
+always run. Under a data-parallel mesh each rank runs the eval step on its
+rows of every val batch; the batch's embeddings, validity and keys are
+gathered in the global batch's order, so every rank collects the whole
+split and computes the same val loss and ranks (JAX :339-400 on its
+`data` axis).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from coot_videotext_tpu_torch.data.retrieval_dataset import (
     RetrievalBatchLoader)
 from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.models.retrieval import RetrievalModel
+from coot_videotext_tpu_torch.parallel.mesh import (
+    Mesh, all_gather_rows, gather_objects)
 from coot_videotext_tpu_torch.tasks.retrieval import eval as retrieval
 from coot_videotext_tpu_torch.tasks.retrieval.steps import (
     EMB_KEYS, retrieval_eval_step)
@@ -66,8 +72,8 @@ def validate_retrieval(model: RetrievalModel, cfg,
                        val_clips: bool,
                        emb_file: Optional[Path] = None,
                        cc_seed: Optional[int] = None,
-                       logger: Optional[logging.Logger] = None
-                       ) -> Dict[str, Any]:
+                       logger: Optional[logging.Logger] = None,
+                       mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """One validation pass. With `cc_seed` the val loss subsamples the
     cycle consistency from a seed state of that value, advanced once per
     batch (ops/philox.py); without it takes the full mean. Returns the
@@ -99,7 +105,9 @@ def validate_retrieval(model: RetrievalModel, cfg,
             model, batch, loss_weights=loss_w, margin=margin,
             loss_cycle_cons=cfg.train.loss_cycle_cons,
             compute_dtype=compute_dtype, seed_state=seed_state,
-            source=source)
+            source=source, mesh=mesh)
+        embs = {k: all_gather_rows(mesh, v) for k, v in embs.items()}
+        batch_valid = all_gather_rows(mesh, tensors["batch_valid"])
         if seed_state is not None:
             seed_state.add_(1)
         _sync(device)
@@ -109,7 +117,7 @@ def validate_retrieval(model: RetrievalModel, cfg,
             loss_sums[name] += float(parts[name])
         embs = {k: v.float().cpu().numpy() if v.is_floating_point()
                 else v.cpu().numpy() for k, v in embs.items()}
-        bv = tensors["batch_valid"].cpu().numpy()
+        bv = batch_valid.cpu().numpy()
         valid = {"clip_emb": embs["clip_valid"].astype(bool) & bv[:, None],
                  "sent_emb": embs["sent_valid"].astype(bool) & bv[:, None]}
         for key in EMB_KEYS:
@@ -118,7 +126,8 @@ def validate_retrieval(model: RetrievalModel, cfg,
             collected_raw[key].append(embs[f"{key}_before_norm"][sel])
         clip_nums += list(embs["clip_num"][bv])
         sent_nums += list(embs["sent_num"][bv])
-        keys += list(host["key"])  # only the real datapoints
+        for rank_keys in gather_objects(mesh, list(host["key"])):
+            keys += rank_keys  # only the real datapoints
 
     data_norm = {k: np.concatenate(v, axis=0) for k, v in collected.items()}
     data_raw = {k: np.concatenate(v, axis=0)

@@ -8,12 +8,16 @@ KL(smoothed_one_hot || softmax(logits)), where the smoothed target puts
 `1 - ls` on the gold class and `ls / (V - 1)` elsewhere; tokens with label
 == ignore_index (-1) are dropped. The constant sum p*log(p) term is
 included (F.kl_div semantics) so logged loss values match the reference.
+
+Under a data-parallel mesh the label-smoothing loss and the counts are
+sums, which the ranks' sums add up to; the mean cross entropy divides by
+the token count of the global batch, which the step passes as `count`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,15 +46,21 @@ def label_smoothing_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_index: int = IGNORE) -> torch.Tensor:
+                       ignore_index: int = IGNORE,
+                       count: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """nn.CrossEntropyLoss(ignore_index=-1): MEAN over valid tokens (used
-    when label_smoothing == 0, reference model.py:1397)."""
+    when label_smoothing == 0, reference model.py:1397). `count`: the
+    valid tokens of the global batch under data parallelism; None: those
+    of `labels`."""
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     nll = -torch.gather(log_probs, -1, safe.unsqueeze(-1)).squeeze(-1)
     total = torch.where(valid, nll, torch.zeros_like(nll)).sum()
-    return total / valid.float().sum().clamp(min=1.0)
+    if count is None:
+        count = valid.float().sum()
+    return total / count.clamp(min=1.0)
 
 
 def token_accuracy_counts(logits: torch.Tensor, labels: torch.Tensor,

@@ -10,6 +10,13 @@ an epoch, `get_files_for_cleanup`), so the trainerstate and metrics
 files keep the reference's schema. The device is one torch device; device
 memory is read with torch.cuda.memory_allocated.
 
+Under a data-parallel mesh (parallel/mesh.py; JAX builds its mesh here,
+:70) each rank runs the whole lifecycle on its rows, and only rank 0
+writes: the experiment dirs (a reset included), the log file, the config,
+the trainerstate, the metrics, the checkpoints and their cleanup. Every
+rank reads them back; barriers keep the reads after rank 0's writes. The
+step meter counts global steps (one per global batch).
+
 Subclasses implement train_model / validate_epoch and the four state
 accessors (get/set model and optimizer state).
 """
@@ -26,6 +33,7 @@ from typing import Any, List, Optional, Tuple
 import torch
 
 from coot_videotext_tpu_torch.config.base import BaseTrainerState
+from coot_videotext_tpu_torch.parallel import mesh as pmesh
 from coot_videotext_tpu_torch.train import checkpoint as ckpt
 from coot_videotext_tpu_torch.train.schedule import LRScheduler
 from coot_videotext_tpu_torch.utils import yaml_utils
@@ -46,28 +54,34 @@ class BaseTrainer:
                  load_epoch: Optional[int] = None, reset: bool = False,
                  is_test: bool = False,
                  log_dir: str = TrainerPathConst.DIR_EXPERIMENTS,
-                 exp_files_handler: Optional[ExperimentFilesHandler] = None
-                 ) -> None:
+                 exp_files_handler: Optional[ExperimentFilesHandler] = None,
+                 mesh: Optional[pmesh.Mesh] = None) -> None:
         self.cfg = cfg
         self.model_mgr = model_mgr
         self.device: torch.device = model_mgr.device
+        self.mesh = mesh if mesh is not None else pmesh.single(self.device)
+        self.is_writer = self.mesh.is_writer
         self.is_test = is_test
         # subclasses may pass their own handler (the caption trainer's
         # adds the caption/ dir of the translations)
         self.exp = exp_files_handler or ExperimentFilesHandler(
             model_type, exp_group, exp_name, run_name, log_dir=log_dir)
-        self.exp.setup_dirs(reset=reset)
+        if self.is_writer:
+            self.exp.setup_dirs(reset=reset)
+        pmesh.barrier(self.mesh)
         self.logger: logging.Logger = create_logger(
-            LOGGER_NAME, log_dir=self.exp.path_logs)
+            LOGGER_NAME, log_dir=self.exp.path_logs if self.is_writer else "")
         self.logger.info(
             f"Experiment: {exp_group}/{exp_name}/{run_name} type "
             f"{model_type} in {self.exp.path_base} on {self.device}; "
-            f"compute dtype {cfg.compute_dtype}")
+            f"compute dtype {cfg.compute_dtype}; rank {self.mesh.rank} of "
+            f"{self.mesh.world}")
         self.state = BaseTrainerState()
         self.metrics = MetricsWriter(self.exp)
         self.logger.info(f"Random seed: {self.cfg.random_seed}")
-        yaml_utils.dump_yaml_config_file(
-            self.exp.path_base / "config.yaml", self.cfg.config_orig)
+        if self.is_writer:
+            yaml_utils.dump_yaml_config_file(
+                self.exp.path_base / "config.yaml", self.cfg.config_orig)
 
         self.load_model = load_model
         self.load, self.load_ep = self._resolve_auto_load(load_epoch,
@@ -278,8 +292,10 @@ class BaseTrainer:
                          + " ".join(parts))
         self.metrics.feed_metrics(False, self.state.total_step,
                                   self.state.current_epoch)
-        self._save_checkpoint()
-        self._cleanup_files()
+        if self.is_writer:
+            self._save_checkpoint()
+            self._cleanup_files()
+        pmesh.barrier(self.mesh)
         self.state.current_epoch += 1
 
     # ---------- step hooks ----------
@@ -344,7 +360,7 @@ class BaseTrainer:
     # ---------- checkpointing ----------
 
     def _save_checkpoint(self) -> None:
-        """Save the epoch's artifacts (reference :672)."""
+        """Save the epoch's artifacts (reference :672); rank 0 calls it."""
         epoch = self.state.current_epoch
         self.state.save(self.exp.get_trainerstate_file(epoch))
         self.metrics.save_epoch(epoch)

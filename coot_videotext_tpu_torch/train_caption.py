@@ -47,7 +47,10 @@ caption yaml:
 The single-sentence models train on sentences (`train_unit`). Beam search
 on any other model than the recurrent MART one is refused, as the JAX
 package refuses it. Runs on the CUDA device unless `--device cpu` is
-given; asked for CUDA without a GPU it raises.
+given; asked for CUDA without a GPU it raises. Under `torchrun
+--nproc_per_node=W` it runs W data-parallel ranks (parallel/mesh.py; NCCL
+on the card, gloo with `--device cpu`): the yaml's batch size is the
+global batch, rank 0 decodes and writes.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ import torch
 
 from coot_videotext_tpu_torch.data.caption_dataset import (
     create_mart_datasets_and_loaders)
+from coot_videotext_tpu_torch.parallel import mesh as pmesh
 from coot_videotext_tpu_torch.tasks.caption.config import (
     MartConfig, MartPathConst)
 from coot_videotext_tpu_torch.tasks.caption.model_manager import (
@@ -146,14 +150,25 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     cfg = MartConfig(config)
     if args.print_config:
         print(cfg)
+    mesh = pmesh.get_mesh(cfg.mesh_shape, device.type)
+    try:
+        return _run(args, cfg, exp_group, exp_name, mesh)
+    finally:
+        pmesh.destroy(mesh)
+
+
+def _run(args, cfg: MartConfig, exp_group: str, exp_name: str,
+         mesh: pmesh.Mesh) -> List[Dict[str, Any]]:
+    device = mesh.device
     if cfg.random_seed is None:
-        cfg.random_seed = random.randint(0, 2 ** 15)
+        cfg.random_seed = pmesh.broadcast_object(
+            mesh, random.randint(0, 2 ** 15))
         print(f"Random seed: {cfg.random_seed}")
 
     train_set, _, train_loader, val_loader = \
         create_mart_datasets_and_loaders(
             cfg, args.coot_feat_dir, args.annotations_dir,
-            args.video_feature_dir, seed=cfg.random_seed)
+            args.video_feature_dir, seed=cfg.random_seed, mesh=mesh)
 
     results = []
     for run_number in range(args.start_run, args.start_run + args.num_runs):
@@ -170,7 +185,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
             load_best=args.load_best or (args.validate
                                          and args.load_epoch is None),
             load_epoch=args.load_epoch, load_model=args.load_model,
-            is_test=args.validate)
+            is_test=args.validate, mesh=mesh)
         try:
             if args.validate:
                 results.append(_validate(args, cfg, trainer, val_loader))

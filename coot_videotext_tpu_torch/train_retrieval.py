@@ -28,6 +28,14 @@ the device samples the frames and packs the parts too. On that path
 `-o train.steps_per_dispatch=K` trains in groups of K steps, each group K
 replays of a CUDA graph of the train step on the card (step by step on
 the CPU).
+
+    torchrun --standalone --nproc_per_node=W \
+        -m coot_videotext_tpu_torch.train_retrieval -c <yaml> [...]
+
+runs W data-parallel ranks (parallel/mesh.py): rank r on cuda:r over NCCL,
+or on the CPU over gloo with `--device cpu`; the yaml's batch size is the
+global batch, and only rank 0 writes. `mesh_shape` must match the ranks
+(`--single_gpu` asks for one), and a `model` axis raises.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch
 
 from coot_videotext_tpu_torch.data.retrieval_dataset import (
     create_retrieval_datasets_and_loaders)
+from coot_videotext_tpu_torch.parallel import mesh as pmesh
 from coot_videotext_tpu_torch.tasks.retrieval.config import (
     ExperimentTypesConst, RetrievalConfig)
 from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
@@ -145,12 +154,23 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     cfg = RetrievalConfig(config, is_train=not args.validate)
     if args.print_config:
         print(cfg)
+    mesh = pmesh.get_mesh(cfg.mesh_shape, device.type)
+    try:
+        return _run(args, cfg, path_data, exp_group, exp_name, mesh)
+    finally:
+        pmesh.destroy(mesh)
+
+
+def _run(args, cfg, path_data, exp_group: str, exp_name: str,
+         mesh: pmesh.Mesh) -> List[Dict[str, Any]]:
+    device = mesh.device
     seed = cfg.random_seed if cfg.random_seed is not None else 0
     train_set, _, train_loader, val_loader = \
         create_retrieval_datasets_and_loaders(
             cfg, path_data, seed=seed, device=device,
-            fixed_shapes=True if args.fixed_shapes else None)
-    _print_data_path(train_loader, val_loader)
+            fixed_shapes=True if args.fixed_shapes else None, mesh=mesh)
+    if mesh.is_writer:
+        _print_data_path(train_loader, val_loader)
     if args.test_dataset:
         _print_batch(len(train_set), train_loader)
         return []
@@ -162,13 +182,14 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
         mgr = RetrievalModelManager(cfg, device, seed=seed)
         if args.validate:
             all_results.append(_validate(args, cfg, mgr, val_loader,
-                                         exp_group, exp_name, run_name))
+                                         exp_group, exp_name, run_name,
+                                         mesh))
             continue
         trainer = RetrievalTrainer(
             cfg, mgr, exp_group, exp_name, run_name, len(train_loader),
             log_dir=args.log_dir, reset=args.reset,
             load_best=args.load_best, load_epoch=args.load_epoch,
-            load_model=args.load_model)
+            load_model=args.load_model, mesh=mesh)
         try:
             trainer.train_model(train_loader, val_loader)
         except BaseException:
@@ -180,7 +201,8 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
             "state": dataclasses.asdict(trainer.state),
             "layout": train_loader.layout,
             "dispatches": dict(trainer.dispatches),
-            "step_losses": [v for _, v in losses]})
+            "step_losses": [v for _, v in losses],
+            "rank": mesh.rank, "world": mesh.world})
     return all_results
 
 
@@ -216,12 +238,14 @@ def _print_batch(num_points: int, loader) -> None:
 
 
 def _validate(args, cfg, mgr: RetrievalModelManager, val_loader,
-              exp_group: str, exp_name: str, run_name: str
-              ) -> Dict[str, Any]:
+              exp_group: str, exp_name: str, run_name: str,
+              mesh: pmesh.Mesh) -> Dict[str, Any]:
     path_base = (Path(args.log_dir) / EXP_TYPE / exp_group /
                  f"{exp_name}_{run_name}")
-    logger = create_logger(LOGGER_NAME,
-                           log_dir=path_base / TrainerPathConst.DIR_LOGS)
+    logger = create_logger(
+        LOGGER_NAME,
+        log_dir=path_base / TrainerPathConst.DIR_LOGS if mesh.is_writer
+        else "")
     logger.info(f"Model: {mgr.count_parameters():,} parameters on "
                 f"{mgr.device}, val dtype {mgr.val_dtype}")
     ckpt = _checkpoint_to_load(path_base / TrainerPathConst.DIR_MODELS,
@@ -236,6 +260,7 @@ def _validate(args, cfg, mgr: RetrievalModelManager, val_loader,
         raise ValueError(
             "Validating an untrained model! No checkpoints were loaded. "
             "Add --ignore_untrained to validate anyway.")
+    pmesh.broadcast_params(mesh, mgr.model.parameters())
     emb_file = None
     if args.save_embeddings or cfg.val.save_embeddings:
         emb_file = (path_base / TrainerPathConst.DIR_EMBEDDINGS /
@@ -243,7 +268,8 @@ def _validate(args, cfg, mgr: RetrievalModelManager, val_loader,
     results = validate_retrieval(
         mgr.model, cfg, val_loader, mgr.device,
         compute_dtype=mgr.val_dtype, val_clips=cfg.val.val_clips,
-        emb_file=emb_file, cc_seed=42, logger=logger)
+        emb_file=emb_file if mesh.is_writer else None, cc_seed=42,
+        logger=logger, mesh=mesh)
     results["emb_file"] = emb_file
     return results
 

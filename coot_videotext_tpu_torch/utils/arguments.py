@@ -110,8 +110,8 @@ def _add_gpu_args(parser) -> None:
     parser.add_argument("--no_cuda", action="store_true",
                         help="(compat) no effect; use --device cpu.")
     parser.add_argument("--single_gpu", action="store_true",
-                        help="(compat) the PyTorch package runs on one "
-                             "device.")
+                        help="One rank: mesh_shape {data: 1}; under "
+                             "torchrun with more ranks it raises.")
 
 
 def add_path_args(parser, *, dataset_path: bool = True,

@@ -11,6 +11,7 @@ metrics must be equal.
 
 import ast
 import copy
+import json
 import logging
 import subprocess
 import sys
@@ -263,6 +264,137 @@ def test_preload_device_true_raises(synth, monkeypatch):
                         lambda device: 1.0)
     with pytest.raises(RuntimeError, match="feature store needs"):
         create_retrieval_datasets_and_loaders(cfg, root / "data")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn_cli(cli, argvs, tmp_path, keys):
+    """Two ranks of `cli` started as torchrun starts them, one main() per
+    argv; their results."""
+    import multiprocessing
+    from tests import torch_parallel_worker as worker
+    ctx = multiprocessing.get_context("spawn")
+    ports = [_free_port() for _ in argvs]
+    procs = [ctx.Process(target=worker.cli_rank, args=(
+        r, 2, ports, argvs, str(tmp_path), cli, keys)) for r in range(2)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def _join(procs, tmp_path):
+    for p in procs:
+        p.join(timeout=600)
+    for p in procs:
+        if p.is_alive():  # hung: end it before failing
+            p.kill()
+            p.join()
+    assert [p.exitcode for p in procs] == [0] * len(procs)
+    return [torch.load(tmp_path / f"cli{r}.pt", weights_only=False)
+            for r in range(2)]
+
+
+def test_cli_trains_under_two_gloo_ranks_and_resumes(tmp_path):
+    """synthetic_smoke.yaml trained by train_retrieval under two ranks on
+    the CPU, started as torchrun starts them (gloo through MASTER_PORT),
+    one epoch and then resumed to two: both ranks see the losses of one
+    process run the same way (1e-5 relative; a resumed host path samples
+    its frames anew from the seed, so an unbroken run differs), rank 0
+    writes the reference `.pth` layout (one file per net key, no `module.`
+    prefix), and both ranks load epoch 0 to resume."""
+    smoke = ROOT / "config" / "retrieval" / "default" / "synthetic_smoke.yaml"
+    generate_retrieval_dataset(tmp_path / "data", num_videos=16,
+                               num_val_videos=8, seed=0)
+
+    def argv(log_dir, epochs):
+        return ["-c", str(smoke), "--data_path", str(tmp_path / "data"),
+                "--log_dir", str(tmp_path / log_dir), "--device", "cpu",
+                "-o", f"train.num_epochs={epochs}"]
+
+    procs = _spawn_cli("train_retrieval", [argv("dp", 1), argv("dp", 2)],
+                       tmp_path, ("path_base", "state", "step_losses",
+                                  "rank", "world"))
+    train_retrieval.main(argv("one", 1))
+    alone = train_retrieval.main(argv("one", 2))[0]
+    ranks = _join(procs, tmp_path)
+    ref = alone["step_losses"]
+    assert len(ref) == 4
+    for r, (first, resumed) in enumerate(ranks):
+        assert (first["rank"], first["world"]) == (r, 2)
+        assert resumed["state"]["current_epoch"] == 2
+        np.testing.assert_allclose(first["step_losses"], ref[:2], rtol=1e-5)
+        np.testing.assert_allclose(resumed["step_losses"], ref, rtol=1e-5)
+    assert ranks[0][1]["step_losses"] == ranks[1][1]["step_losses"]
+    models = ranks[0][1]["path_base"] / "models"
+    for ep in (0, 1):
+        ours = torch.load(models / f"model_{ep}.pth", weights_only=True)
+        one = torch.load(alone["path_base"] / "models" / f"model_{ep}.pth",
+                         weights_only=True)
+        assert ours.keys() == one.keys()
+        for net in ours:
+            assert ours[net].keys() == one[net].keys()
+            assert not any(k.startswith("module.") for k in ours[net])
+
+
+def test_caption_and_mlp_clis_under_two_gloo_ranks(tmp_path):
+    """train_caption (synthetic_smoke.yaml at dropout 0, one epoch with
+    its validation: rank 0 decodes and scores the whole split) and
+    run_mlp_mnist (one epoch) under two ranks on the CPU: every epoch
+    meter but the timings equal one process's within 1e-4 relative."""
+    from coot_videotext_tpu_torch import run_mlp_mnist, train_caption
+    from coot_videotext_tpu_torch.data.synthetic import (
+        generate_caption_dataset)
+    info = generate_caption_dataset(tmp_path / "data", num_videos=16,
+                                    num_val_videos=8, seed=1)
+    smoke = ROOT / "config" / "caption" / "default" / "synthetic_smoke.yaml"
+
+    def caption_argv(log_dir):
+        return ["-c", str(smoke), "--device", "cpu", "--log_dir",
+                str(tmp_path / log_dir), "--annotations_dir",
+                info["annotations_dir"], "--coot_feat_dir",
+                info["coot_feat_dir"], "--cache_dir", str(tmp_path),
+                "-o", "train.num_epochs=1,hidden_dropout_prob=0,"
+                "attention_probs_dropout_prob=0,memory_dropout_prob=0"]
+
+    def mlp_argv(log_dir):
+        return ["-g", "default", "-e", "mnist", "--device", "cpu",
+                "--config_dir", str(ROOT / "config"), "--log_dir",
+                str(tmp_path / log_dir), "-o", "train.num_epochs=1"]
+
+    (tmp_path / "cap").mkdir()
+    (tmp_path / "mlp").mkdir()
+    caption = _spawn_cli("train_caption", [caption_argv("dp_cap")],
+                         tmp_path / "cap", ("metrics_file", "total_step"))
+    mlp = _spawn_cli("run_mlp_mnist", [mlp_argv("dp_mlp")],
+                     tmp_path / "mlp", ("val_loss", "val_accuracy"))
+    cap_one = train_caption.main(caption_argv("one_cap"))[0]
+    mlp_one = run_mlp_mnist.main(mlp_argv("one_mlp"))[0]
+    cap_ranks = _join(caption, tmp_path / "cap")
+    mlp_ranks = _join(mlp, tmp_path / "mlp")
+
+    def meters(path):
+        data = json.loads(Path(path).read_text())
+        return {k: [v for _, v in vals] for k, vals in data.items()
+                if "time" not in k and "profile" not in k}
+
+    ref = meters(cap_one["metrics_file"])
+    assert "cap/b4" in ref  # the decode's scores
+    for (rank,) in cap_ranks:
+        assert rank["total_step"] == cap_one["total_step"]
+        got = meters(rank["metrics_file"])
+        assert got.keys() == ref.keys()
+        for key, values in ref.items():
+            np.testing.assert_allclose(got[key], values, rtol=1e-4,
+                                       err_msg=key)
+    for (rank,) in mlp_ranks:
+        for key in ("val_loss", "val_accuracy"):
+            np.testing.assert_allclose(rank[key], mlp_one[key], rtol=1e-4,
+                                       err_msg=key)
 
 
 def _imported_modules(path: Path):
