@@ -104,7 +104,7 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    EMA, BertAdam with warmup_linear): `python -m
    coot_videotext_tpu_torch.train_caption -c <yaml> --seed 0` in-process
    on the card over the first 320 videos of the YouCook2 train split (20
-   steps an epoch) for 2 epochs, validating on the first 100 val videos,
+   steps an epoch) for 2 epochs, validating on the first 50 val videos,
    with every kernel's launch count set to 0 just before and read just
    after (B4's forward and backward must run, B1-B3 and B5 must not):
    model and batches on the card, finite step losses and grad norms, the
@@ -125,7 +125,7 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    run and read just after (B4 forward and backward must run, nothing
    else). (a) Raw-feature MART at yc2_mart.yaml (3072-d rgb+flow
    features, L = 100 + 22, batch 16, dropout 0.1): the first 160 train
-   and 100 val videos of the real YouCook2 caption annotations copied to
+   and 50 val videos of the real YouCook2 caption annotations copied to
    the temporary directory, features generated there by the port's
    generate_caption_video_features (resnet 2048 + bn 1024 rows at 2 a
    second of each video's duration, ~2 GB); `train_caption -c
@@ -139,7 +139,7 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    of a traced step, peak memory. (b) The MTransformer at
    yc2_100m_coot_vidclip_mtrans.yaml (COOT vid+clip embeddings from seed
    0, 1152-d, single sentences, batches of 16 and 50): the same checks,
-   the CLI over the sentences of the first 320 train and 100 val videos,
+   the CLI over the sentences of the first 320 train and 50 val videos,
    a train batch of 16 and a val batch of 50 sentences card against CPU.
    (c) B4 in float32 bit-equal to its plain version at the new shapes
    (two of them with element counts that are no multiple of 4), timed
@@ -152,16 +152,16 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    (use_beam=true; beam 2, n_best 1, min_sen_len 5, max_sen_len 30 from
    the yaml) on MART trained one epoch by the CLI on the first 160 train
    videos: one val batch of 50 videos beam-decoded on the card, its first
-   16 on the CPU too, in the fixed and the reference_compat mode (at
+   8 on the CPU too, in the fixed and the reference_compat mode (at
    least 98% of those sentences token-identical), beam against greedy on
    the card (ms,
    forwards, host reads), one traced beam decode (no port kernel),
-   `--validate --load_epoch 0 -o use_beam=true` over 100 val videos.
+   `--validate --load_epoch 0 -o use_beam=true` over 50 val videos.
    (b-e) The TransformerXL (xl=true), the untied model
    (recurrent=false,untied=true), the joint single-sentence model
    (recurrent=false) and the decoder tied to the word embeddings
    (share_wd_cls_weight=true,word_vec_size=768,use_glove=false): the CLI
-   trains one epoch on the first 160 train videos and validates on 100
+   trains one epoch on the first 160 train videos and validates on 50
    (B4 forward and backward, nothing else), `--validate --load_epoch 0`
    gives its val loss; from its weights a train batch card against CPU
    over 3 steps (phase 7's tolerances; XL's with xl_grad=true), a val
@@ -215,6 +215,20 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    videos against W = 1 (phase 7's tolerances), the EMA equal on both
    ranks; (d) `torchrun --standalone --nproc_per_node=1` of the retrieval
    CLI (NCCL) writes the single-process CLI's files and model keys.
+
+12. Tensor parallelism (parallel/tp.py) at {data: 1, model: 2}: two rank
+   processes on the one card over gloo, started beside phase 11's, each
+   holding half of the 26 COOT and 22 MART kernels that JAX's rules shard:
+   (a) phase 11b's retrieval run against one process (the same
+   tolerances), the ranks' whole parameters equal, the eval batch on the
+   sharded model against the checkpoint rank 0 saved (whole tensors)
+   loaded into one process (loss parts within 1e-4); (b) 3 steps at
+   dropout 0.01 launch B1-B5 on each rank, B1 at dout 192 and B3 at 4
+   heads, the first B4 mask (a replicated site) equal on both ranks and
+   B3's first keep mask (the rank's heads) different; (c) phase 11c's
+   MART steps against one process, the EMA equal on both ranks, and a
+   greedy decode of the batch token-identical to one process's with the
+   saved weights.
 
 Prints `{"kernels": [...]}` on the line before the last and
 `{"ok": true, "device": {...}}` as the last line; exits non-zero (and
@@ -594,6 +608,21 @@ def phase_kernel_checks():
             ("attention", dn, "cross Lq=1 Lk=130 dropout 0.1", 0.1,
              lambda dt=dtype: attention_inputs(64, 8, 1, 130, 48, dt, gen,
                                                2)),
+        ]
+    for dtype in (torch.bfloat16, torch.float32):
+        # B1 column-parallel under a model axis (parallel/tp.py): dout
+        # 384 / M, a data rank's 33,280 clip frames at {data: 2}; drawn
+        # after the cases above, which keep their inputs
+        dn = str(dtype).split(".")[-1]
+        cases += [
+            ("input_fc", dn, "TP M=2 clips S=33280 4096->192", 0.0,
+             lambda dt=dtype: input_fc_inputs(33280, 4096, 192, dt, gen, 5)),
+            ("input_fc", dn, "TP M=4 clips S=33280 4096->96", 0.0,
+             lambda dt=dtype: input_fc_inputs(33280, 4096, 96, dt, gen, 5)),
+            ("input_fc", dn, "TP M=2 text, ragged S=1001 1536->192", 0.0,
+             lambda dt=dtype: input_fc_inputs(1001, 1536, 192, dt, gen, 3)),
+            ("input_fc", dn, "TP M=4 text, ragged S=1001 1536->96", 0.0,
+             lambda dt=dtype: input_fc_inputs(1001, 1536, 96, dt, gen, 3)),
         ]
     seed = device_seed()
     funcs = {
@@ -1457,9 +1486,9 @@ CAPTION_TRAIN_LOSS_RTOL = 1e-4
 CAPTION_TRAIN_GRAD_TOL = 1e-3
 CAPTION_TRAIN_UPDATE_TOL = 0.05
 # the CLI's cuts of the YouCook2 splits: 20 train steps an epoch of batch
-# 16, 2 val batches of 50
+# 16, 1 val batch of 50 (cut from 100 for the time limit, PERF.md §6)
 CAPTION_TRAIN_CUTS = {"dataset_train.max_datapoints": 320,
-                      "dataset_val.max_datapoints": 100}
+                      "dataset_val.max_datapoints": 50}
 CAPTION_DROPOUT_SHAPES = ((16, 25, 768), (16, 12, 25, 25))
 
 
@@ -1620,12 +1649,12 @@ MTRANS_CONFIG = (ROOT / "config" / "caption" / "paper2020" /
                  "yc2_100m_coot_vidclip_mtrans.yaml")
 # phase 8's cuts of the YouCook2 caption splits: raw-feature MART trains one
 # epoch on the first 160 train videos (10 steps of 16) and validates on the
-# first 100 val videos (2 batches of 50); the MTransformer trains on the
+# first 50 val videos (1 batch of 50); the MTransformer trains on the
 # sentences of the first 320 train videos and validates on those of the
-# first 100 val videos
-RAW_VIDEOS = {"train": 160, "val": 100}
+# first 50 val videos (both cut from 100 for the time limit, PERF.md §6)
+RAW_VIDEOS = {"train": 160, "val": 50}
 MTRANS_CUTS = {"dataset_train.max_datapoints": 320,
-               "dataset_val.max_datapoints": 100}
+               "dataset_val.max_datapoints": 50}
 # raw-feature MART's greedy decode card against CPU takes the first 4 val
 # videos: the CPU's decode of a batch of 50 at L = 122 would take minutes
 RAW_DECODE_VIDEOS = 4
@@ -2196,9 +2225,12 @@ def caption_dropout_timing(rate: float, shapes) -> None:
 # yc2_2d3d_coot_vidclip_mart.yaml, each reached by `-o` overrides of it. The
 # CLI of each trains one epoch on the first 160 videos of the YouCook2 train
 # split (10 steps of 16 videos, or the sentences of those videos in batches
-# of 16) and validates on the first 100 val videos.
+# of 16) and validates on the first 50 val videos (cut from 100 for the
+# time limit, PERF.md §6). (The XL's card-vs-CPU steps start from these
+# trained weights; 96 videos gave weights whose third step's update missed
+# by 6.6% of lr.)
 FAMILY_CUTS = {"dataset_train.max_datapoints": 160,
-               "dataset_val.max_datapoints": 100}
+               "dataset_val.max_datapoints": 50}
 FAMILY_VARIANTS = (
     # (tag, -o overrides, the step check's extra overrides, train unit,
     # whether the card runs each checked step from the CPU's state:
@@ -2210,13 +2242,14 @@ FAMILY_VARIANTS = (
     ("tied decoder", {"share_wd_cls_weight": True, "word_vec_size": 768,
                       "use_glove": False}, {}, "videos", False),
 )
-# the recurrent variants' greedy decode card against CPU takes the first 8
-# val videos, as phase 6 does: the CPU decodes a batch of 50 in ~45 s
-FAMILY_DECODE_VIDEOS = 8
-# the beam check's CPU decode takes the first 16 videos of the card's
-# batch of 50 (the card's rows of them are compared; a row's decode does
-# not depend on the others), ~35 s less than all 50 in both modes
-BEAM_CPU_VIDEOS = 16
+# the recurrent variants' greedy decode card against CPU takes the first 4
+# val videos (cut from 8 for the time limit, PERF.md §6): the CPU decodes
+# a batch of 50 in ~45 s
+FAMILY_DECODE_VIDEOS = 4
+# the beam check's CPU decode takes the first 8 videos of the card's batch
+# of 50 (cut from 16 for the time limit, PERF.md §6; the card's rows of
+# them are compared, and a row's decode does not depend on the others)
+BEAM_CPU_VIDEOS = 8
 # B4 in float32 at the shapes these paths add: XL's (klen, 768) position
 # table at klen 25 and 50 and a (16, 50, 768) block, the untied text
 # embedding at word_vec_size 300, and a short batch whose element count is
@@ -2278,7 +2311,7 @@ def phase_caption_family(tmp: Path) -> None:
     greedy on the card on the batch of 50 (ms,
     forwards, host reads), one traced beam decode (no port kernel may
     launch), the CLI's `--validate --load_epoch 0 -o use_beam=true` over
-    the 100 val videos. (b-e) The TransformerXL, the untied model, the
+    the 50 val videos. (b-e) The TransformerXL, the untied model, the
     joint single-sentence model and the decoder tied to the word
     embeddings: the CLI trains one epoch and validates (_variant_cli),
     then from its weights one train batch card against CPU over 3 steps
@@ -3944,7 +3977,7 @@ def _file_layout(base: Path) -> set:
     return out
 
 
-def phase_dp(tmp: Path) -> None:
+def phase_dp(tmp: Path) -> dict:
     """Phase 11, data parallelism (parallel/mesh.py) at yc2_2d3d_coot.yaml
     width, global batch 64, on a generated 128 + 64-video split, the device
     store with device sampling and packing. (a) W = 1 over NCCL (a
@@ -3967,7 +4000,9 @@ def phase_dp(tmp: Path) -> None:
     tolerances), the EMA equal on both ranks. (d) `torchrun --standalone
     --nproc_per_node=1 -m coot_videotext_tpu_torch.train_retrieval` (NCCL,
     world 1) trains one epoch and validates; rank 0's experiment files
-    have the single-process CLI's layout and model keys."""
+    have the single-process CLI's layout and model keys. Phase 12's ranks
+    start beside (b)'s; returns the references and inputs phase 12
+    shares."""
     import multiprocessing
     import socket
     import torch
@@ -4006,6 +4041,8 @@ def phase_dp(tmp: Path) -> None:
     t_spawn = time.time()
     for p in ranks + probes:
         p.start()
+    # phase 12's ranks ({data: 1, model: 2}) run beside phase 11's
+    tp_ranks = _tp_spawn(tmp, path32, path_drop, data, vocab, caption_arrays)
 
     log("(a) W = 1 over NCCL against no process group, bf16, dropout 0.01, "
         "frame noise 0.01: 3 steps and a group of 4")
@@ -4184,6 +4221,330 @@ def phase_dp(tmp: Path) -> None:
     log(f"  the same {len(layouts['single'])} files and model keys "
         f"({sum(len(v) for v in keys['single'].values())} tensors)")
     torch.cuda.empty_cache()
+    return {"ref": ref, "cap_ref": cap_ref, "cfg32": cfg32, "data": data,
+            "vocab": vocab, "caption_arrays": caption_arrays,
+            "tp_ranks": tp_ranks}
+
+
+# ---------------- phase 12: tensor parallelism ----------------
+
+TP_SHAPE = {"data": 1, "model": 2}
+TP_EVAL_RTOL = 1e-4      # eval loss parts: the TP checkpoint in one process
+TP_LIMIT_S = 90.0        # the phase's time budget (logged against)
+
+
+def _tp_eval(model, cfg, data: Path, mesh) -> dict:
+    """The loss parts (floats) and vid_emb of the eval step on the first
+    val batch of `cfg`'s split, float32 (the data rank's rows under
+    `mesh`)."""
+    import torch
+    from coot_videotext_tpu_torch.data.device_store import FeatureSource
+    from coot_videotext_tpu_torch.data.retrieval_dataset import (
+        create_retrieval_datasets_and_loaders, to_device)
+    from coot_videotext_tpu_torch.tasks.retrieval.steps import (
+        retrieval_eval_step)
+    device = next(model.parameters()).device
+    _, _, _, val = create_retrieval_datasets_and_loaders(
+        cfg, data, seed=0, device=device, fixed_shapes=True,
+        device_preload=True, mesh=mesh)
+    w = cfg.train.contrastive_loss_config
+    embs, parts = retrieval_eval_step(
+        model, to_device(next(iter(val)), device), loss_weights=w.as_dict(),
+        margin=w.margin, loss_cycle_cons=cfg.train.loss_cycle_cons,
+        source=FeatureSource.of(val), mesh=mesh)
+    torch.cuda.synchronize(device)
+    return {"parts": {k: float(v) for k, v in parts.items()},
+            "vid_emb": embs["vid_emb"].float().cpu()}
+
+
+def _record_calls(calls: dict):
+    """Wraps the models' calls of B1 and B3 to record B1's output widths,
+    B3's heads and the keep mask of B3's first call that drops (its
+    philox bits, drawn as the kernel draws them); returns an undo
+    function."""
+    from coot_videotext_tpu_torch.models import attention, transformer
+    from coot_videotext_tpu_torch.ops import philox
+    fc, attn = transformer.fused_input_fc, attention.masked_attention
+
+    def fc_rec(x, gain, bias, weight, b, eps, act):
+        calls.setdefault("input_fc_dout", set()).add(weight.shape[0])
+        return fc(x, gain, bias, weight, b, eps, act)
+
+    def attn_rec(q, k, v, key_valid, num_heads, scale, rate, seed):
+        calls.setdefault("attention_heads", set()).add(num_heads)
+        if rate > 0 and "attention_keep" not in calls:
+            calls["attention_keep"] = philox.keep_factor(
+                (q.shape[0], q.shape[1], k.shape[1]), seed,
+                philox.SITE_ATTENTION, rate, q.device).bool().cpu()
+        return attn(q, k, v, key_valid, num_heads, scale, rate, seed)
+
+    transformer.fused_input_fc, attention.masked_attention = fc_rec, attn_rec
+
+    def undo():
+        transformer.fused_input_fc, attention.masked_attention = fc, attn
+    return undo
+
+
+def _tp_rank(rank: int, world: int, init_file: str, spec_file: str,
+             out_dir: str) -> None:
+    """Phase 12, rank `rank` of {data: 1, model: 2} on the one card over
+    gloo: (a) the retrieval steps of phase 11b on the sharded model, then
+    the eval batch, and rank 0 saves the whole checkpoint; (b) 3 steps at
+    dropout 0.01 with the launch counts set to 0 just before and read just
+    after, B1's widths and B3's heads recorded, the first B4 mask and B3's
+    first keep mask; (c) the MART steps of phase 11c on the sharded model,
+    the whole parameters and EMA, and a greedy decode of the batch (rank 0
+    saves the weights it decoded with). Saves out_dir/tp<rank>.pt."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from coot_videotext_tpu_torch.ops import cuda_build
+    from coot_videotext_tpu_torch.parallel import mesh as pmesh
+    from coot_videotext_tpu_torch.parallel.tp import shard_model_for_tp
+    from coot_videotext_tpu_torch.tasks.caption.steps import (
+        caption_train_step, init_caption_train_state)
+    from coot_videotext_tpu_torch.tasks.caption.translator import Translator
+    from coot_videotext_tpu_torch.tasks.retrieval.config import (
+        RetrievalConfig)
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        spec = torch.load(spec_file, weights_only=False)
+        mesh = pmesh.get_mesh(TP_SHAPE, device=torch.device("cuda", 0))
+        out = {"rank": rank, "model_rank": mesh.model_rank}
+        t0 = time.time()
+        cfg, cfg_drop = (RetrievalConfig(load_yaml_config_file(spec[k]))
+                         for k in ("cfg", "cfg_drop"))
+        state, batches, kw = _dp_retrieval(cfg, spec["data"], mesh)
+        state.tp = shard_model_for_tp(state.model, state.optimizer, None,
+                                      mesh)
+        out["shards"] = len(state.tp.shards)
+        run = _dp_train(state, batches, kw, group=True)
+        run["params"] = state.tp.gather(run["params"])
+        out["retrieval"] = run
+        out["eval"] = _tp_eval(state.model, cfg, spec["data"], mesh)
+        whole = {net: state.tp.gather(sd, f"{net}.")
+                 for net, sd in ((n, m.state_dict()) for n, m in
+                                 state.model.nets().items())}
+        if mesh.is_writer:
+            torch.save(whole, Path(out_dir) / "tp_model.pth")
+        out["retrieval_s"] = time.time() - t0
+        del state
+        state, batches, kw = _dp_retrieval(cfg_drop, spec["data"], mesh)
+        state.tp = shard_model_for_tp(state.model, state.optimizer, None,
+                                      mesh)
+        calls: dict = {}
+        undo = _record_calls(calls)
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        try:
+            out["mask"] = _first_dropout_mask(state.model, lambda: _dp_train(
+                state, batches[:1] * 2, dict(kw), group=False))
+        finally:
+            undo()
+        out["launches"] = dict(cuda_build.launch_counts)
+        out["attention_keep"] = calls.pop("attention_keep")
+        out["calls"] = calls
+        del state
+        t0 = time.time()
+        mgr = _dp_caption_build(torch.device("cuda", 0), spec["vocab"])
+        cstate = init_caption_train_state(mgr.model, mgr.cfg, 0, mesh)
+        cstate.tp = shard_model_for_tp(mgr.model, cstate.optimizer,
+                                       cstate.ema, mesh)
+        device = torch.device("cuda", 0)
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in spec["caption"].items()}
+        metrics = [{k: float(v) for k, v in caption_train_step(
+            cstate, batch, CAPTION_TRAIN_LR).items()}
+            for _ in range(DP_STEPS)]
+        snap = _state_copy(cstate)
+        out["caption"] = {"metrics": metrics,
+                          "params": cstate.tp.gather(snap["params"]),
+                          "ema": cstate.tp.gather(snap["ema"]),
+                          "shards": len(cstate.tp.shards)}
+        tokens = Translator(mgr.model, mgr.cfg).translate_batch_greedy(
+            batch["input_ids"], batch["video_feature"], batch["input_mask"],
+            batch["token_type_ids"])
+        out["tokens"] = [np.asarray(t) for t in tokens]
+        if mesh.is_writer:
+            torch.save(out["caption"]["params"], Path(out_dir) / "tp_mart.pt")
+        out["caption_s"] = time.time() - t0
+        torch.save(out, Path(out_dir) / f"tp{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_spawn(tmp: Path, path32: Path, path_drop: Path, data: Path,
+              vocab: int, caption_arrays: dict) -> list:
+    """Starts phase 12's two rank processes (_tp_rank); returns them."""
+    import multiprocessing
+    import torch
+    out = tmp / "tp"
+    out.mkdir()
+    spec_file = out / "spec.pt"
+    torch.save({"cfg": str(path32), "cfg_drop": str(path_drop),
+                "data": data, "vocab": vocab, "caption": caption_arrays},
+               spec_file)
+    ctx = multiprocessing.get_context("spawn")
+    ranks = [ctx.Process(target=_tp_rank, args=(
+        r, 2, str(out / "gloo_init"), str(spec_file), str(out)))
+        for r in range(2)]
+    for p in ranks:
+        p.start()
+    return ranks
+
+
+def phase_tp(tmp: Path, shared: dict) -> None:
+    """Phase 12, tensor parallelism (parallel/tp.py) at yc2_2d3d_coot.yaml
+    and yc2_2d3d_coot_vidclip_mart.yaml width: {data: 1, model: 2}, two
+    rank processes sharing the card over gloo (NCCL refuses two ranks on
+    one device, phase 11), each holding half of every sharded kernel,
+    started beside phase 11's ranks (`shared`: phase 11's one-process
+    references, inputs and these ranks). (a) Phase 11b's retrieval run
+    (float32, dropout 0 and noise 0, 3 steps and a group of 4 on the
+    generated split, global batch 64) against one process (DP_LOSS_RTOL,
+    DP_UPDATE_TOL), the two ranks' whole parameters equal; the eval batch
+    on the sharded model against the checkpoint rank 0 saved (whole
+    tensors) loaded into one process, loss parts within TP_EVAL_RTOL. (b)
+    3 steps at dropout 0.01: B1-B5 launched on both ranks, B1 at dout 192
+    and B3 at 4 heads; the first B4 mask (a replicated site) equal on both
+    ranks, B3's first keep mask (the rank's heads) different. (c) MART
+    (f32, dropout 0, S = 4, N = 16) 3 steps against one process (phase
+    7's tolerances), 22 kernels sharded, the EMA equal on both ranks, and a
+    greedy decode of the batch equal, token for token, to one process's
+    with the weights rank 0 saved."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch.models.retrieval import (
+        RetrievalNetworksConst)
+    from coot_videotext_tpu_torch.tasks.caption.translator import Translator
+    from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
+        RetrievalModelManager)
+    t_phase = time.time()
+    ref, cap_ref, cfg32 = shared["ref"], shared["cap_ref"], shared["cfg32"]
+    data, vocab = shared["data"], shared["vocab"]
+    caption_arrays = shared["caption_arrays"]
+    ranks = shared["tp_ranks"]
+    out = tmp / "tp"
+    for p in ranks:
+        p.join(timeout=600)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    for r, p in enumerate(ranks):
+        if p.exitcode != 0:
+            fail(f"phase 12: rank {r} exited with {p.exitcode}")
+    seen = [torch.load(out / f"tp{r}.pt", weights_only=False)
+            for r in range(2)]
+    log(f"(a) {{data: 1, model: 2}} over gloo on one card, "
+        f"{seen[0]['shards']} retrieval kernels sharded: "
+        f"{[round(v, 6) for v in seen[0]['retrieval']['loss'].tolist()]} "
+        f"(one process: {[round(v, 6) for v in ref['loss'].tolist()]}); "
+        f"{seen[0]['retrieval_s']:.1f} s a rank (both on one card over "
+        "gloo: not a speed measurement)")
+    if seen[0]["shards"] != 26:
+        fail(f"phase 12: {seen[0]['shards']} retrieval kernels sharded, "
+             "not 26")
+    _hold_dp("phase 12 (a)", ref, seen)
+    mgr = RetrievalModelManager(cfg32, torch.device("cuda"))
+    mgr.load_file(str(out / "tp_model.pth"))
+    if set(torch.load(out / "tp_model.pth", weights_only=True)) != set(
+            RetrievalNetworksConst.values()):
+        fail("phase 12 (a): the TP checkpoint's nets")
+    alone = _tp_eval(mgr.model, cfg32, data, None)
+    del mgr
+    for rank in seen:
+        rel = max(abs(rank["eval"]["parts"][k] - v) / max(abs(v), 1e-12)
+                  for k, v in alone["parts"].items())
+        emb = float((rank["eval"]["vid_emb"] - alone["vid_emb"]).abs().max())
+        loss = rank["eval"]["parts"]["loss_total"]
+        log(f"  rank {rank['rank']}: eval loss {loss:.6f} / the TP "
+            f"checkpoint in one process "
+            f"{alone['parts']['loss_total']:.6f}, parts relative {rel:.2e} "
+            f"(limit {TP_EVAL_RTOL}); vid_emb max diff {emb:.2e}")
+        if rel > TP_EVAL_RTOL:
+            fail(f"phase 12 (a): rank {rank['rank']}'s eval loss disagrees "
+                 "with its checkpoint in one process")
+    log("(b) 3 steps at dropout 0.01 on the sharded model")
+    for rank in seen:
+        log(f"  rank {rank['rank']}: launches {rank['launches']}; B1 dout "
+            f"{sorted(rank['calls']['input_fc_dout'])}, B3 heads "
+            f"{sorted(rank['calls']['attention_heads'])}")
+        for name in KERNELS:
+            if rank["launches"].get(name, 0) <= 0:
+                fail(f"phase 12 (b): kernel {name} was not launched on rank "
+                     f"{rank['rank']}")
+        if rank["calls"]["input_fc_dout"] != {192} \
+                or rank["calls"]["attention_heads"] != {4}:
+            fail("phase 12 (b): B1 or B3 ran at unsharded widths")
+    masks = [rank["mask"] for rank in seen]
+    keeps = [rank["attention_keep"] for rank in seen]
+    same_b4 = bool(torch.equal(masks[0], masks[1]))
+    b3_differ = float((keeps[0] != keeps[1]).float().mean())
+    log(f"  the first B4 mask, shape {tuple(masks[0].shape)}: dropped "
+        f"{float(masks[0].float().mean()):.3%}, equal on both ranks: "
+        f"{same_b4}; B3's first keep mask (the rank's 4 heads), shape "
+        f"{tuple(keeps[0].shape)}: the ranks differ at {b3_differ:.3%}")
+    if not same_b4 or not masks[0].any():
+        fail("phase 12 (b): the replicated B4 site drew different masks")
+    if b3_differ == 0:
+        fail("phase 12 (b): the ranks' heads drew the same B3 mask")
+    log("(c) MART on {data: 1, model: 2} against one process")
+    for rank in seen:
+        got = rank["caption"]
+        if got["shards"] != 22:
+            fail(f"phase 12 (c): {got['shards']} MART kernels sharded")
+        for step, (g, c) in enumerate(zip(got["metrics"],
+                                          cap_ref["metrics"])):
+            loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+            norm_rel = abs(g["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
+            log(f"  rank {rank['rank']} step {step}: loss {g['loss']:.6f} / "
+                f"{c['loss']:.6f} ({loss_rel:.2e}), grad_norm "
+                f"{g['grad_norm']:.6f} / {c['grad_norm']:.6f} "
+                f"({norm_rel:.2e})")
+            if loss_rel > CAPTION_TRAIN_LOSS_RTOL \
+                    or norm_rel > CAPTION_TRAIN_LOSS_RTOL \
+                    or g["n_word"] != c["n_word"]:
+                fail(f"phase 12 (c): rank {rank['rank']} step {step} "
+                     "disagrees with one process")
+        for what in ("params", "ema"):
+            share = _max_diff(got[what], cap_ref[what]) / CAPTION_TRAIN_LR \
+                / DP_STEPS
+            log(f"  rank {rank['rank']}: {what} {share:.2%} of lr a step "
+                f"(limit {CAPTION_TRAIN_UPDATE_TOL:.0%})")
+            if share > CAPTION_TRAIN_UPDATE_TOL:
+                fail(f"phase 12 (c): rank {rank['rank']}'s {what} disagree "
+                     "with one process")
+    if _max_diff(seen[0]["caption"]["ema"], seen[1]["caption"]["ema"]) != 0:
+        fail("phase 12 (c): the two ranks' EMA differ")
+    mgr = _dp_caption_build(torch.device("cuda"), vocab)
+    saved = torch.load(out / "tp_mart.pt", weights_only=True)
+    with torch.no_grad():
+        for n, p in mgr.model.named_parameters():
+            p.copy_(saved[n])
+    batch = {k: torch.from_numpy(v).cuda() for k, v in caption_arrays.items()}
+    tokens = Translator(mgr.model, mgr.cfg).translate_batch_greedy(
+        batch["input_ids"], batch["video_feature"], batch["input_mask"],
+        batch["token_type_ids"])
+    same = [all(np.array_equal(a, b) for a, b in zip(rank["tokens"], tokens))
+            for rank in seen]
+    log(f"  greedy decode of the {DP_CAPTION_SHAPE[1]} videos x "
+        f"{DP_CAPTION_SHAPE[0]} sentences: each rank's tokens equal one "
+        f"process's with the same weights: {same}")
+    if not all(same):
+        fail("phase 12 (c): the greedy tokens differ from one process's")
+    del mgr
+    torch.cuda.empty_cache()
+    log(f"  phase 12 took {time.time() - t_phase:.1f} s after phase 11 "
+        f"(budget {TP_LIMIT_S:.0f} s); its ranks ran "
+        f"{seen[0]['retrieval_s'] + seen[0]['caption_s']:.1f} s of work "
+        "beside phase 11's")
 
 
 def main() -> None:
@@ -4259,7 +4620,11 @@ def main() -> None:
         phase("11. data parallelism at yc2_2d3d_coot width: W = 1 over "
               "NCCL, W = 2 over gloo on the card (retrieval and MART), "
               "torchrun")
-        phase_dp(Path(tmp))
+        shared = phase_dp(Path(tmp))
+        phase("12. tensor parallelism at yc2_2d3d_coot and "
+              "yc2_2d3d_coot_vidclip_mart width: {data: 1, model: 2} over "
+              "gloo on the card (retrieval, eval, checkpoint, MART, greedy)")
+        phase_tp(Path(tmp), shared)
     log(f"chip_smoke took {time.time() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

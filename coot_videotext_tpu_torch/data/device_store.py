@@ -502,7 +502,7 @@ def assemble_batch(batch: Dict[str, Any],
         uniforms = None
         if sample_state is not None:
             local = batch["dp_idx"].shape[0]
-            world = mesh.world if mesh is not None else 1
+            world = mesh.data_world if mesh is not None else 1
             rows = batch_rows(mesh, local * world)
             uniforms = tuple(u[rows] for u in draw_uniforms(
                 sample_state, local * world, meta.shapes))

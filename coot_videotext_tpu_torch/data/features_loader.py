@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import json
 import os
+import uuid
 from pathlib import Path
 from typing import Dict, List, Tuple, Union
 
@@ -57,14 +58,19 @@ class VideoFeatureLoader:
         self.npz_dir = self.dataset_path / "features" / self.features_name
         self.npy_dir = self.dataset_path / self.features_name
 
-        # per-video frame counts over the FULL store, cached as json
+        # per-video frame counts over the FULL store, cached as json;
+        # written whole under a name of its own, then renamed, so that the
+        # ranks of a fresh run reading it at once never see a part of it
         self.num_frames_file = (
             self.dataset_path / f"{self.features_name}_num_frames.json")
         if not self.num_frames_file.is_file():
             num_frames = {key: int(data.shape[0])
                           for key, data in self.iter_all()}
-            self.num_frames_file.write_text(
-                json.dumps(num_frames, sort_keys=True), encoding="utf8")
+            part = self.num_frames_file.with_name(
+                f"{self.num_frames_file.name}.{uuid.uuid4().hex}.part")
+            part.write_text(json.dumps(num_frames, sort_keys=True),
+                            encoding="utf8")
+            os.replace(part, self.num_frames_file)
         self.num_frames: Dict[str, int] = json.loads(
             self.num_frames_file.read_text(encoding="utf8"))
 

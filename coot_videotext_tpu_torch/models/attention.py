@@ -14,6 +14,8 @@ transformer_legacy.py:347-605):
       FFN sublayer (JAX :253-254), dropout inside the FFN (:218, :224)
     - in training mode B3 also drops the attention probabilities (JAX
       :187-192), with its own seed per call
+    - under tensor parallelism (parallel/tp.py) an attention block runs
+      the rank's heads; the FFN and the norms stay replicated
 Module names follow the reference state-dict keys
 (`encoder_layers.<i>.self_attention_layer.sublayer.query_projection`, ...).
 Mask convention: True = valid token.
@@ -22,7 +24,7 @@ Mask convention: True = valid token.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -32,6 +34,8 @@ from coot_videotext_tpu_torch.models.layers import (
     Dropout, Linear, make_activation, make_normalization)
 from coot_videotext_tpu_torch.ops.attention import masked_attention
 from coot_videotext_tpu_torch.ops.philox import next_seed
+from coot_videotext_tpu_torch.parallel.mesh import Mesh
+from coot_videotext_tpu_torch.parallel.tp import copy_inputs, place_linear
 from coot_videotext_tpu_torch.typext import INF
 
 
@@ -47,7 +51,11 @@ def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor],
 
 
 class MultiHeadAttention(nn.Module):
-    """Multi-head attention (reference transformer_legacy.py:470)."""
+    """Multi-head attention (reference transformer_legacy.py:470). Under
+    tensor parallelism (`place_tp`) it runs the rank's heads: q, k and v
+    column-parallel, each distinct input through `copy_to_model`, B3 on
+    num_heads / M heads with a seed of the rank's own, the final projection
+    row-parallel."""
 
     def __init__(self, num_heads: int, d_model: int,
                  dropout: float = 0.0) -> None:
@@ -62,6 +70,25 @@ class MultiHeadAttention(nn.Module):
         self.key_projection = Linear(d_model, d_model)
         self.value_projection = Linear(d_model, d_model)
         self.final_projection = Linear(d_model, d_model)
+        self.tp: Optional[Mesh] = None
+
+    def place_tp(self, mesh: Mesh, shards: Dict[str, int]):
+        """Runs the rank's heads where q, k, v are sharded by output and
+        the final projection by input and the heads split evenly; else
+        leaves the Linears to gather their weights. Returns (the
+        parameters placed, their partial gradients)."""
+        qkv = [f"{p}_projection.weight" for p in ("query", "key", "value")]
+        if (any(shards.get(n) != 0 for n in qkv)
+                or shards.get("final_projection.weight") != 1
+                or self.num_heads % mesh.model_world):
+            return set(), set()
+        self.tp = mesh
+        partial = set()
+        for p in ("query", "key", "value"):
+            place_linear(getattr(self, f"{p}_projection"), "column", mesh, 0)
+            partial.add(f"{p}_projection.bias")
+        place_linear(self.final_projection, "row", mesh, 1)
+        return set(qkv) | {"final_projection.weight"}, partial
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor,
@@ -75,6 +102,9 @@ class MultiHeadAttention(nn.Module):
         lk = key.shape[1]
         h = self.num_heads
         dh = self.d_model // h
+        if self.tp is not None:
+            h //= self.tp.model_world
+            query, key, value = copy_inputs(self.tp, query, key, value)
 
         def heads_first(x: torch.Tensor, length: int) -> torch.Tensor:
             return x.view(b, length, h, dh).transpose(1, 2).reshape(
@@ -87,10 +117,10 @@ class MultiHeadAttention(nn.Module):
             key_valid = torch.ones((b, lk), dtype=torch.bool,
                                    device=query.device)
         rate = self.dropout if self.training else 0.0
+        seed = next_seed(self.tp is not None) if rate > 0 else None
         ctx = masked_attention(q, k, v, key_valid, h, 1.0 / math.sqrt(dh),
-                               rate, next_seed() if rate > 0 else None)
-        ctx = ctx.view(b, h, lq, dh).transpose(1, 2).reshape(
-            b, lq, self.d_model)
+                               rate, seed)
+        ctx = ctx.view(b, h, lq, dh).transpose(1, 2).reshape(b, lq, h * dh)
         return self.final_projection(ctx)
 
 

@@ -22,7 +22,10 @@ Port of coot_videotext_tpu/models/caption/bert.py (reference mart/model.py):
 Module and parameter names are the reference torch MART keys (what the JAX
 package's utils/torch_convert.py::_convert_mart_key reads), so a reference
 `{"model": state_dict}` loads as it is. Dropout sites use the port's
-`models/layers.Dropout` (identity in eval). Init: weights normal(0,
+`models/layers.Dropout` (identity in eval); the attention and
+intermediate projections are `models/layers.Linear` (float32 here, as
+nn.Linear), which tensor parallelism places (parallel/tp.py: the rank's
+heads and FFN columns of recurrent MART). Init: weights normal(0,
 initializer_range), biases zero, LN ones/zeros (reference
 init_bert_weights :1401-1413).
 """
@@ -30,14 +33,17 @@ init_bert_weights :1401-1413).
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from coot_videotext_tpu_torch.models.layers import Dropout
+from coot_videotext_tpu_torch.models.layers import Dropout, Linear
+from coot_videotext_tpu_torch.parallel.mesh import Mesh
+from coot_videotext_tpu_torch.parallel.tp import (
+    copy_inputs, copy_to_model, gather_from_model, place_linear)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -100,27 +106,61 @@ def make_video_only_mask(input_mask: torch.Tensor,
 # ---------- attention ----------
 
 class BertSelfAttention(nn.Module):
-    """Multi-head attention with additive -10000 mask (reference :164)."""
+    """Multi-head attention with additive -10000 mask (reference :164).
+    Under tensor parallelism (`place_tp`) it runs the rank's heads: q, k
+    and v column-parallel, each distinct input through `copy_to_model`,
+    the probability dropout on a seed of the rank's own; its context is
+    gathered (`gather_out`) unless a row-parallel output projection takes
+    the rank's columns (BertAttention)."""
 
     def __init__(self, cfg) -> None:
         super().__init__()
         assert cfg.hidden_size % cfg.num_attention_heads == 0
         self.n_heads = cfg.num_attention_heads
         self.d_head = cfg.hidden_size // cfg.num_attention_heads
-        self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.query = Linear(cfg.hidden_size, cfg.hidden_size)
+        self.key = Linear(cfg.hidden_size, cfg.hidden_size)
+        self.value = Linear(cfg.hidden_size, cfg.hidden_size)
         self.dropout = Dropout(cfg.attention_probs_dropout_prob)
+        self.tp: Optional[Mesh] = None
+        self.gather_out = True
+
+    def heads_shardable(self, mesh: Mesh, shards: Dict[str, int]) -> bool:
+        """Whether q, k and v are sharded by output and the heads split
+        evenly over the model group."""
+        return (all(shards.get(f"{n}.weight") == 0
+                    for n in ("query", "key", "value"))
+                and self.n_heads % mesh.model_world == 0)
+
+    def place_heads(self, mesh: Mesh, gather_out: bool):
+        """Runs the rank's heads; returns (the parameters placed, their
+        partial gradients)."""
+        self.tp, self.gather_out = mesh, gather_out
+        self.dropout.sharded = True
+        for n in ("query", "key", "value"):
+            place_linear(getattr(self, n), "column", mesh, 0)
+        return ({f"{n}.weight" for n in ("query", "key", "value")},
+                {f"{n}.bias" for n in ("query", "key", "value")})
+
+    def place_tp(self, mesh: Mesh, shards: Dict[str, int]):
+        """The rank's heads with the context gathered, where they split;
+        else the Linears gather their weights."""
+        if not self.heads_shardable(mesh, shards):
+            return set(), set()
+        return self.place_heads(mesh, gather_out=True)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         b, length, _ = x.shape
-        return x.view(b, length, self.n_heads, self.d_head).transpose(1, 2)
+        return x.view(b, length, -1, self.d_head).transpose(1, 2)
 
     def forward(self, query_states: torch.Tensor, key_states: torch.Tensor,
                 value_states: torch.Tensor,
                 attention_mask: torch.Tensor) -> torch.Tensor:
         """query_states (N, Lq, D), key/value_states (N, L, D),
         attention_mask (N, Lq, L) with 1 = attend."""
+        if self.tp is not None:
+            query_states, key_states, value_states = copy_inputs(
+                self.tp, query_states, key_states, value_states)
         add_mask = (1.0 - attention_mask.float()[:, None]) * -10000.0
         q = self._heads(self.query(query_states))
         k = self._heads(self.key(key_states))
@@ -129,7 +169,10 @@ class BertSelfAttention(nn.Module):
         scores = scores / math.sqrt(self.d_head) + add_mask
         probs = self.dropout(torch.softmax(scores, dim=-1))
         ctx = torch.matmul(probs, v).transpose(1, 2)
-        return ctx.reshape(ctx.shape[0], ctx.shape[1], -1)
+        ctx = ctx.reshape(ctx.shape[0], ctx.shape[1], -1)
+        if self.tp is not None and self.gather_out:
+            ctx = gather_from_model(ctx, self.tp, -1)
+        return ctx
 
 
 class BertSelfOutput(nn.Module):
@@ -137,7 +180,7 @@ class BertSelfOutput(nn.Module):
 
     def __init__(self, cfg, in_size: Optional[int] = None) -> None:
         super().__init__()
-        self.dense = nn.Linear(in_size or cfg.hidden_size, cfg.hidden_size)
+        self.dense = Linear(in_size or cfg.hidden_size, cfg.hidden_size)
         self.LayerNorm = bert_layernorm(cfg, cfg.hidden_size)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 
@@ -148,12 +191,26 @@ class BertSelfOutput(nn.Module):
 
 
 class BertAttention(nn.Module):
-    """Self-attention block (reference :240)."""
+    """Self-attention block (reference :240). Under tensor parallelism
+    with its output projection sharded by input, the rank's heads feed it
+    their columns (Megatron's attention block)."""
 
     def __init__(self, cfg) -> None:
         super().__init__()
         self.self = BertSelfAttention(cfg)
         self.output = BertSelfOutput(cfg)
+
+    def place_tp(self, mesh: Mesh, shards: Dict[str, int]):
+        """Returns (the parameters placed, their partial gradients)."""
+        inner = {k[len("self."):]: d for k, d in shards.items()
+                 if k.startswith("self.")}
+        if (shards.get("output.dense.weight") != 1
+                or not self.self.heads_shardable(mesh, inner)):
+            return set(), set()
+        took, partial = self.self.place_heads(mesh, gather_out=False)
+        place_linear(self.output.dense, "row", mesh, 1)
+        return ({f"self.{n}" for n in took} | {"output.dense.weight"},
+                {f"self.{n}" for n in partial})
 
     def forward(self, input_tensor: torch.Tensor,
                 attention_mask: torch.Tensor) -> torch.Tensor:
@@ -163,14 +220,27 @@ class BertAttention(nn.Module):
 
 
 class BertIntermediate(nn.Module):
-    """Dense + gelu (reference :259)."""
+    """Dense + gelu (reference :259); under tensor parallelism
+    column-parallel, its columns gathered."""
 
     def __init__(self, cfg) -> None:
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.dense = Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.tp: Optional[Mesh] = None
+
+    def place_tp(self, mesh: Mesh, shards: Dict[str, int]):
+        """Returns (the parameters placed, their partial gradients)."""
+        if shards.get("dense.weight") != 0:
+            return set(), set()
+        self.tp = mesh
+        place_linear(self.dense, "column", mesh, 0)
+        return {"dense.weight"}, {"dense.bias"}
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
-        return gelu(self.dense(hidden_states))
+        if self.tp is None:
+            return gelu(self.dense(hidden_states))
+        out = gelu(self.dense(copy_to_model(hidden_states, self.tp)))
+        return gather_from_model(out, self.tp, -1)
 
 
 class BertOutput(BertSelfOutput):

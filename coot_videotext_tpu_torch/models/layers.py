@@ -45,18 +45,22 @@ from coot_videotext_tpu_torch.ops.philox import next_seed
 class Dropout(nn.Module):
     """Dropout with the module semantics of JAX models/layers.py:38:
     identity in eval mode or at rate 0, zeros at rate 1, else
-    x * keep / (1 - rate) through kernel B4 with the step's next seed."""
+    x * keep / (1 - rate) through kernel B4 with the step's next seed.
+    `sharded`: its input is this rank's shard of a tensor split over the
+    `model` axis (a rank's attention heads), which takes a seed of its own
+    (ops/philox.py `next_seed`)."""
 
     def __init__(self, rate: float) -> None:
         super().__init__()
         self.rate = float(rate)
+        self.sharded = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        return dropout(x, next_seed(), self.rate)
+        return dropout(x, next_seed(self.sharded), self.rate)
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}"
@@ -99,9 +103,18 @@ def init_bias_(t: torch.Tensor, init_type: str, init_std: float,
 
 class Linear(nn.Linear):
     """nn.Linear with float32 parameters that computes in the input's
-    dtype (JAX nn.Dense with param_dtype=float32)."""
+    dtype (JAX nn.Dense with param_dtype=float32). `tp`: its placement
+    under tensor parallelism (parallel/tp.py `LinearPlacement`: column,
+    row or gathered), None when its weight is whole."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True) -> None:
+        super().__init__(in_features, out_features, bias)
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.linear(self, x)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
 

@@ -11,7 +11,8 @@ shape of every shipped config (layernorm_coot, no input dropout, one FC
 layer with gelu/none and no residual or output norm; JAX
 `_fused_input_act` :105-133) runs norm + FC + activation through kernel B1
 (ops/input_fc.py), on the detached input: the kernel forms no input
-gradient (JAX :181 `stop_gradient`). Everything else here is plain
+gradient (JAX :181 `stop_gradient`); under tensor parallelism it runs on
+the rank's output columns (`place_tp`). Everything else here is plain
 PyTorch: the global nets'
 input norm, the positional encoding, the cross-attention with the context
 vector as a length-1 query (:219-227) and the output heads; attention and
@@ -21,7 +22,7 @@ Returns (pooled, seq_features). Mask convention: True = valid.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,6 +37,9 @@ from coot_videotext_tpu_torch.models.layers import (
     PositionalEncodingSinCos, init_weight_, make_normalization)
 from coot_videotext_tpu_torch.models.poolers import GenPool, make_pooler
 from coot_videotext_tpu_torch.ops.input_fc import fused_input_fc
+from coot_videotext_tpu_torch.parallel.mesh import Mesh
+from coot_videotext_tpu_torch.parallel.tp import (
+    gather_from_model, shard_slice)
 
 
 def fused_input_act(cfg: TransformerConfig) -> Optional[str]:
@@ -77,6 +81,7 @@ class CootTransformer(nn.Module):
         if cfg.use_input_fc:
             self.input_fc = MLP(cfg.input_fc_config, input_dim)
         self.fused_act = fused_input_act(cfg) if input_is_data else None
+        self.tp: Optional[Mesh] = None
         if cfg.add_local_cls_token:
             self.net_cls = LearnableClsToken(d_model)
         if cfg.positional_encoding == PositionalEncodingConst.SINCOS:
@@ -96,6 +101,20 @@ class CootTransformer(nn.Module):
             pooled_dim = cfg.output_fc_config.output_dim
         if cfg.linear_out:
             self.linear_out = Linear(pooled_dim, pooled_dim)
+
+    def place_tp(self, mesh: Mesh, shards: Dict[str, int]):
+        """Under tensor parallelism the fused input stage runs B1
+        column-parallel: the rank's rows of the FC weight and its slice of
+        the bias, the norm over the whole input on every rank, the output
+        columns gathered before the encoder. The kernel's dgain and dbias
+        are then sums over the rank's columns. Returns (the parameters
+        placed, their partial gradients); an input stage that is not fused
+        leaves its Linears to gather their weights."""
+        if self.fused_act is None or shards.get("input_fc.mlp.0.weight") != 0:
+            return set(), set()
+        self.tp = mesh
+        return ({"input_fc.mlp.0.weight"},
+                {"input_fc.mlp.0.bias", "norm_input.gain", "norm_input.bias"})
 
     @property
     def output_dim(self) -> int:
@@ -147,10 +166,15 @@ class CootTransformer(nn.Module):
         if self.fused_act is not None:
             bsz, seq, din = x.shape
             fc = self.input_fc.mlp[0]
+            bias = fc.bias
+            if self.tp is not None:  # the rank's output columns
+                bias = bias.narrow(0, *shard_slice(self.tp, bias.shape[0]))
             x = fused_input_fc(
                 x.detach().reshape(bsz * seq, din), self.norm_input.gain,
-                self.norm_input.bias, fc.weight, fc.bias,
+                self.norm_input.bias, fc.weight, bias,
                 self.norm_input.eps, self.fused_act).view(bsz, seq, -1)
+            if self.tp is not None:
+                x = gather_from_model(x, self.tp, -1)
         else:
             x = self.dropout_input(x)
             if self.norm_input is not None:

@@ -226,38 +226,57 @@ def truncnorm(shape, seed: SeedLike, site: int,
 
 _seed_state: Optional[torch.Tensor] = None
 _calls = 0
+_first = 0
+_shard_base = 0
 
 # the calls of one rank of a data-parallel group start at rank * RANK_CALLS
 RANK_CALLS = 1 << 20
+# a call on a tensor sharded over the `model` axis (a rank's heads) adds
+# model rank * SHARD_CALLS to its position; a step makes fewer calls
+SHARD_CALLS = 1 << 16
 
 
 @contextlib.contextmanager
-def dropout_seeds(state: Optional[torch.Tensor],
-                  rank: int = 0) -> Iterator[None]:
+def dropout_seeds(state: Optional[torch.Tensor], rank: int = 0,
+                  model_rank: int = 0) -> Iterator[None]:
     """Give the random calls made inside the seeds (state, c), (state, c +
     1), ... in the order they are made, from c = rank * RANK_CALLS; None:
-    no seeds, training-mode dropout raises. The ranks of a data-parallel
-    group hold the same seed state and make the same calls on their own
-    rows, so the rank keeps their masks and noise apart (rank 0's calls
-    are those of a single process)."""
-    global _seed_state, _calls
+    no seeds, training-mode dropout raises. `rank` is the data rank: the
+    ranks of a data-parallel group hold the same seed state and make the
+    same calls on their own rows, so the rank keeps their masks and noise
+    apart (rank 0's calls are those of a single process). The ranks of
+    one model group (tensor parallelism, parallel/tp.py) share their data
+    rank, so a call on a replicated tensor draws the same bits on each; a
+    call on a tensor sharded by `model_rank` asks `next_seed(sharded=True)`
+    and is moved by model_rank * SHARD_CALLS."""
+    global _seed_state, _calls, _first, _shard_base
     if not 0 <= rank < (1 << 32) // RANK_CALLS:
         raise ValueError(f"rank {rank} outside the seeds' call range")
-    previous = _seed_state, _calls
+    if not 0 <= model_rank < RANK_CALLS // SHARD_CALLS:
+        raise ValueError(f"model rank {model_rank} outside the seeds' call "
+                         "range")
+    previous = _seed_state, _calls, _first, _shard_base
     _seed_state, _calls = state, rank * RANK_CALLS
+    _first, _shard_base = _calls, model_rank * SHARD_CALLS
     try:
         yield
     finally:
-        _seed_state, _calls = previous
+        _seed_state, _calls, _first, _shard_base = previous
 
 
-def next_seed() -> Seed:
-    """The seed of the next random call of the step."""
+def next_seed(sharded: bool = False) -> Seed:
+    """The seed of the next random call of the step; `sharded`: a call on
+    this rank's shard of a tensor split over the `model` axis."""
     global _calls
     if _seed_state is None:
         raise RuntimeError(
             "dropout in training mode needs seeds: run the forward inside "
             "ops.philox.dropout_seeds(state), or call model.eval()")
-    seed = Seed(_seed_state, _calls)
+    call = _calls
+    if sharded and _shard_base:
+        if call - _first >= SHARD_CALLS:
+            raise RuntimeError(f"a step of more than {SHARD_CALLS} random "
+                               "calls under tensor parallelism")
+        call += _shard_base
     _calls += 1
-    return seed
+    return Seed(_seed_state, call)

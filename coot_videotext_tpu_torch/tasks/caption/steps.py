@@ -29,7 +29,14 @@ the gradients and of loss, n_correct and n_word is the global step's
 (the mean cross entropy divides by the global token count, which the
 step all-reduces and passes to the model); both are summed before
 `caption_update`, so clipping, BertAdam and the EMA update alike on every
-rank. Dropout folds the rank into its seeds.
+rank. Dropout folds the data rank into its seeds.
+
+Under a `model` axis (parallel/tp.py; JAX's `state_shardings` :47-52)
+recurrent MART runs its attention heads and FFN columns sharded over the
+model group, which holds the same rows; the partial gradients are summed
+over the group, and the global norm and BertAdam's per-tensor norms count
+a sharded gradient over it. The attention-probability dropout on a rank's
+heads draws its own mask; every other site the group's.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.ops.philox import dropout_seeds
 from coot_videotext_tpu_torch.parallel.mesh import (
     Mesh, all_reduce_grads, all_reduce_metrics, all_reduce_sum)
+from coot_videotext_tpu_torch.parallel.tp import Layout
 from coot_videotext_tpu_torch.tasks.caption.model_manager import (
     CaptionModel)
 from coot_videotext_tpu_torch.train.loss_caption import (
@@ -66,14 +74,16 @@ class CaptionTrainState:
     state dict, its step count and lr on the device), the EMA shadow (None
     without one), the seed state (a (1,) int64 tensor, ops/philox.py
     `seed_state`) and the step (an int32 scalar), both on the model's
-    device (JAX CaptionTrainState :33); `mesh` the data-parallel group
-    (None: one process)."""
+    device (JAX CaptionTrainState :33); `mesh` the mesh of data and tensor
+    parallelism (None: one process), `tp` the model's sharding
+    (parallel/tp.py `shard_model_for_tp`) under a `model` axis."""
     model: CaptionModel
     optimizer: BertAdam
     ema: Optional[EMA]
     seed: torch.Tensor
     step: torch.Tensor
     mesh: Optional[Mesh] = None
+    tp: Optional[Layout] = None
 
 
 def init_caption_train_state(model: CaptionModel, cfg, seed: int,
@@ -109,7 +119,7 @@ def _token_counts(labels: torch.Tensor, mesh: Optional[Mesh]
     """The valid tokens of the global batch under a data-parallel mesh,
     one count a sentence step of stacked (S, N, L) labels, one of (N, L)
     labels (one all-reduce); None in one process."""
-    if mesh is None or not mesh.distributed:
+    if mesh is None or not mesh.data_parallel:
         return None
     valid = (labels != IGNORE).float()
     counts = valid.sum() if labels.dim() == 2 else valid.sum(dim=(1, 2))
@@ -171,12 +181,15 @@ def caption_loss_and_grads(state: CaptionTrainState,
     params = state.optimizer.params
     forward = _forward_single if single else _forward
     mesh = state.mesh
-    with dropout_seeds(state.seed, mesh.rank if mesh is not None else 0):
+    ranks = (mesh.data_rank, mesh.model_rank) if mesh is not None else ()
+    with dropout_seeds(state.seed, *ranks):
         loss, n_correct, n_word = forward(model, batch, mesh)
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
              for (n, p), g in zip(params.items(), grads)}
+    if state.tp is not None:
+        grads = state.tp.reduce_partial(grads)
     metrics = {"loss": loss.detach(), "n_correct": n_correct,
                "n_word": n_word}
     return all_reduce_metrics(mesh, metrics), all_reduce_grads(mesh, grads)
@@ -189,8 +202,8 @@ def caption_update(state: CaptionTrainState,
     CLIP_GRADIENT (the gradients in place), BertAdam at `lr`, the EMA with
     the step before its increment, then step + 1 and seed state + 1.
     Returns the pre-clip norm."""
-    norm = clip_by_global_norm(grads, CLIP_GRADIENT)
-    state.optimizer.step(grads, lr)
+    norm = clip_by_global_norm(grads, CLIP_GRADIENT, state.tp)
+    state.optimizer.step(grads, lr, state.tp)
     if state.ema is not None:
         state.ema.update(state.step)
     state.step.add_(1)

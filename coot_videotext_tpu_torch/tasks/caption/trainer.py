@@ -50,6 +50,12 @@ parameters are broadcast from rank 0 once they are initialised or
 loaded. The decode runs unsharded, as JAX's translator has no mesh: rank
 0 decodes and scores the whole split while the others wait, and every
 rank takes its scores. Only rank 0 writes files.
+
+Under a `model` axis (parallel/tp.py) the trainer shards recurrent MART,
+BertAdam's moments and the EMA by the rules once they are loaded; the
+ranks of data rank 0's model group decode together, and the model, EMA
+and optimizer files hold whole tensors (gathered by every rank, written
+by rank 0). Every other caption model refuses a `model` axis.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from coot_videotext_tpu_torch.data.caption_dataset import (
     STACKED_KEYS, UNTIED_KEYS)
 from coot_videotext_tpu_torch.data.pipeline import prefetch
 from coot_videotext_tpu_torch.parallel import mesh as pmesh
+from coot_videotext_tpu_torch.parallel.tp import Layout, shard_model_for_tp
 from coot_videotext_tpu_torch.tasks.caption.config import (
     MartConfig, MartMetersConst as MMeters)
 from coot_videotext_tpu_torch.tasks.caption.eval_tools import (
@@ -165,6 +172,8 @@ class MartTrainer(BaseTrainer):
         # BertAdam + EMA (reference :190-209)
         self.t_total = train_loader_length * cfg.train.num_epochs
         self.train_state: Optional[CaptionTrainState] = None
+        # a validation run's layout (it has no train state to hold it)
+        self._eval_tp: Optional[Layout] = None
         if not is_test:
             self.train_state = init_caption_train_state(
                 model_mgr.model, cfg, cfg.random_seed or 0, self.mesh)
@@ -184,6 +193,23 @@ class MartTrainer(BaseTrainer):
         self.last_batch_device: Optional[torch.device] = None
         self.hook_post_init()
         pmesh.broadcast_params(self.mesh, model_mgr.model.parameters())
+        # the model, BertAdam's moments and the EMA sharded by the rules
+        if self.mesh.tensor_parallel:
+            ts = self.train_state
+            tp = shard_model_for_tp(
+                model_mgr.model, ts.optimizer if ts is not None else None,
+                ts.ema if ts is not None else None, self.mesh)
+            if ts is None:
+                self._eval_tp = tp
+            else:
+                ts.tp = tp
+
+    @property
+    def tp(self) -> Optional[Layout]:
+        """The tensor-parallel layout (None without a `model` axis): the
+        train state's, or a validation run's."""
+        ts = self.train_state
+        return self._eval_tp if ts is None else ts.tp
 
     def current_lr(self) -> float:
         """The host's warmup_linear schedule (JAX current_lr :177)."""
@@ -214,24 +240,45 @@ class MartTrainer(BaseTrainer):
     # ---------- checkpoint state ----------
 
     def get_model_state(self) -> Dict[str, Any]:
-        return self.model_mgr.state_dict()
+        """{"model": state_dict} of whole tensors (gathered over the model
+        group under tensor parallelism)."""
+        state = self.model_mgr.state_dict()
+        if self.tp is None:
+            return state
+        return {"model": self.tp.gather(state["model"])}
 
     def set_model_state(self, state: Dict[str, Any]) -> None:
         """Loads the weights; the EMA starts from them (JAX's converter
         does the same, torch_convert.py:561-563) until an EMA file of the
         epoch is loaded over it."""
+        if self.tp is not None:
+            state = {"model": self.tp.localize(state["model"])}
         self.model_mgr.load_state(state)
         if self.train_state is not None and self.train_state.ema is not None:
             self.train_state.ema.reset()
 
     def get_opt_state(self) -> Dict[str, Any]:
         ts = self.train_state
-        return {"optimizer": ts.optimizer.state_dict(),
-                "step": ts.step.clone(), "seed": ts.seed.clone()}
+        opt = ts.optimizer.state_dict()
+        if self.tp is not None:
+            opt.update(mu=self.tp.gather(opt["mu"]),
+                       nu=self.tp.gather(opt["nu"]))
+        return {"optimizer": opt, "step": ts.step.clone(),
+                "seed": ts.seed.clone()}
+
+    def ema_state(self) -> Dict[str, torch.Tensor]:
+        """The EMA's state dict of whole tensors (gathered over the model
+        group under tensor parallelism: every rank calls it)."""
+        state = self.train_state.ema.state_dict()
+        return state if self.tp is None else self.tp.gather(state)
 
     def set_opt_state(self, state: Dict[str, Any]) -> None:
         ts = self.train_state
-        ts.optimizer.load_state_dict(state["optimizer"])
+        opt = state["optimizer"]
+        if self.tp is not None:
+            opt = dict(opt, mu=self.tp.localize(opt["mu"]),
+                       nu=self.tp.localize(opt["nu"]))
+        ts.optimizer.load_state_dict(opt)
         ts.step.copy_(torch.as_tensor(state["step"]))
         ts.seed.copy_(state["seed"])
 
@@ -244,6 +291,8 @@ class MartTrainer(BaseTrainer):
         if self.cfg.ema_decay <= 0 or not ema_file.is_file():
             return
         state = ckpt.load(ema_file)
+        if self.tp is not None:
+            state = {"model": self.tp.localize(state["model"])}
         if self.train_state is None:
             self.logger.info(f"Evaluating the EMA weights of {ema_file}")
             self.model_mgr.load_state(state)
@@ -299,9 +348,12 @@ class MartTrainer(BaseTrainer):
             if is_val:
                 _, _, has_improved, _ = self.validate_epoch(val_loader)
             ema = self.train_state.ema
-            if ema is not None and self.is_writer:  # reference :391-393
-                ckpt.save(self.exp.get_models_file_ema(
-                    self.state.current_epoch), {"model": ema.state_dict()})
+            if ema is not None and (self.is_writer
+                                    or self.mesh.tensor_parallel):
+                state = self.ema_state()  # reference :391-393
+                if self.is_writer:
+                    ckpt.save(self.exp.get_models_file_ema(
+                        self.state.current_epoch), {"model": state})
             self.hook_post_train_and_val_epoch(is_val, has_improved)
         self.hook_post_train()
 
@@ -312,13 +364,14 @@ class MartTrainer(BaseTrainer):
         """The eval step and the decode of every val batch with the
         model's current weights: (translations by video, the summed loss,
         the word count, the correct words). Under a data-parallel mesh
-        every rank runs the eval step on its rows, then rank 0 decodes the
-        whole batches (the other ranks' translations are empty)."""
-        if not self.mesh.distributed:
+        every rank runs the eval step on its rows, then data rank 0 (its
+        model group together, under tensor parallelism) decodes the whole
+        batches (the other ranks' translations are empty)."""
+        if not self.mesh.data_parallel:
             return self._eval_batches(data_loader, decode=True)
         sums = self._eval_batches(data_loader, decode=False)
         results: Dict[str, list] = {}
-        if self.is_writer:
+        if self.mesh.data_rank == 0:
             results = self._eval_batches(data_loader.unsharded(),
                                          evaluate=False, decode=True)[0]
         return (results,) + sums[1:]

@@ -44,13 +44,22 @@ step all-reduces and passes to the model); the backward keeps the rank's
 rows, and the
 gradients are summed over ranks in one all-reduce before clipping. The
 jitter's uniforms are drawn for the global batch (data/device_store.py
-`assemble_batch`); dropout and the store's noise fold the rank into their
-seeds (ops/philox.py `dropout_seeds`). The eval step gathers its loss
+`assemble_batch`); dropout and the store's noise fold the data rank into
+their seeds (ops/philox.py `dropout_seeds`). The eval step gathers its loss
 inputs the same way and returns the rank's rows of the embeddings. The
 group step captures its collectives into the CUDA graph under NCCL (the
 first, eager step of the group has run them on the capture's stream);
 under gloo, whose collectives run on the host, it runs its steps eagerly.
 At W = 1 nothing of this runs.
+
+Tensor parallelism (parallel/tp.py, JAX's `state_shardings` :48, :240):
+under a `model` axis the ranks of one model group hold the same rows and
+run the model's sharded layers together (their collectives are the
+layers'); the step sums the partial gradients over the model group
+(`Layout.reduce_partial`) before the data all-reduce, and the global norm
+counts each sharded gradient over the group. A replicated dropout site
+draws the same mask on every rank of the group; B3 on a rank's heads
+draws its own.
 """
 
 from __future__ import annotations
@@ -68,6 +77,7 @@ from coot_videotext_tpu_torch.models.retrieval import (
 from coot_videotext_tpu_torch.ops.philox import dropout_seeds, next_seed
 from coot_videotext_tpu_torch.parallel.mesh import (
     Mesh, all_gather_rows, all_reduce_grads, all_reduce_max)
+from coot_videotext_tpu_torch.parallel.tp import Layout
 from coot_videotext_tpu_torch.train.losses import (
     compute_total_retrieval_loss, l2_normalize)
 from coot_videotext_tpu_torch.train.optim import clip_by_global_norm
@@ -87,14 +97,17 @@ class TrainState:
     `seed_state`; None: no random draws, so dropout raises and id batches
     are refused) and the host's count of steps taken (JAX TrainState :34
     and the rng split of :78). `graph` caches the captured step of
-    `retrieval_train_group` on the card. `mesh`: the data-parallel group
-    (None: one process)."""
+    `retrieval_train_group` on the card. `mesh`: the mesh of data and
+    tensor parallelism (None: one process); `tp` the model's sharding
+    (parallel/tp.py `shard_model_for_tp`, JAX's `state_shardings`) when
+    it has a `model` axis."""
     model: RetrievalModel
     optimizer: object
     seed: Optional[torch.Tensor] = None
     step: int = 0
     graph: Optional["StepGraph"] = None
     mesh: Optional[Mesh] = None
+    tp: Optional[Layout] = None
 
 
 def _loss_inputs(out: Dict[str, torch.Tensor], batch_valid: torch.Tensor,
@@ -110,7 +123,7 @@ def _longest(batch: Dict[str, torch.Tensor], mesh: Optional[Mesh]
              ) -> Optional[Dict[str, torch.Tensor]]:
     """The global batch's longest lengths (`LENGTH_KEYS`) under a
     data-parallel mesh, by one all-reduce; None in one process."""
-    if mesh is None or not mesh.distributed:
+    if mesh is None or not mesh.data_parallel:
         return None
     local = torch.stack([batch[k].max().to(torch.int64)
                          for k in LENGTH_KEYS])
@@ -135,7 +148,8 @@ def retrieval_loss_and_grads(
     model.train()
     params = state.optimizer.params
     mesh = state.mesh
-    with dropout_seeds(state.seed, mesh.rank if mesh is not None else 0):
+    ranks = (mesh.data_rank, mesh.model_rank) if mesh is not None else ()
+    with dropout_seeds(state.seed, *ranks):
         noise_seed = None
         if source is not None and source.noisy and state.seed is not None:
             noise_seed = next_seed()
@@ -151,6 +165,8 @@ def retrieval_loss_and_grads(
                                 allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
              for (n, p), g in zip(params.items(), grads)}
+    if state.tp is not None:
+        grads = state.tp.reduce_partial(grads)
     return ({k: v.detach() for k, v in parts.items()},
             all_reduce_grads(mesh, grads))
 
@@ -171,7 +187,8 @@ def _train_step_body(state: TrainState, batch: Dict[str, Any], *,
         loss_cycle_cons=loss_cycle_cons, compute_dtype=compute_dtype,
         source=source)
     if clip_gradient > 0:
-        metrics["grad_norm"] = clip_by_global_norm(grads, clip_gradient)
+        metrics["grad_norm"] = clip_by_global_norm(grads, clip_gradient,
+                                                   state.tp)
     state.optimizer.step(grads, lr)
     if state.seed is not None:
         state.seed.add_(1)

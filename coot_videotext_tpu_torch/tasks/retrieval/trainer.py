@@ -28,7 +28,10 @@ Under a data-parallel mesh (parallel/mesh.py) every rank trains on its
 rows of each global batch (JAX :99, :236, :340), the parameters are
 broadcast from rank 0 once they are initialised or loaded, and
 validation gathers the embeddings of the whole split on every rank; only
-rank 0 writes files.
+rank 0 writes files. Under a `model` axis (parallel/tp.py) the trainer
+then shards the model and the optimizer by the rules, and its checkpoints
+hold the whole tensors (gathered over the model group, sliced again on a
+resume).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from coot_videotext_tpu_torch.data.retrieval_dataset import (
     RetrievalBatchLoader)
 from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.parallel.mesh import Mesh, broadcast_params
+from coot_videotext_tpu_torch.parallel.tp import shard_model_for_tp
 from coot_videotext_tpu_torch.tasks.retrieval.config import (
     CootMetersConst as CMeters, ExperimentTypesConst, RetrievalConfig)
 from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
@@ -115,19 +119,34 @@ class RetrievalTrainer(BaseTrainer):
             loss_cycle_cons=cfg.train.loss_cycle_cons)
         self.hook_post_init()
         broadcast_params(self.mesh, model.parameters())
+        if self.mesh.tensor_parallel:
+            self.train_state.tp = shard_model_for_tp(
+                model, self.train_state.optimizer, None, self.mesh)
 
     # ---------- state accessors for checkpointing ----------
 
     def get_model_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        return self.model_mgr.state_dict()
+        """{net: state_dict} of whole tensors (gathered over the model
+        group under tensor parallelism)."""
+        state = self.model_mgr.state_dict()
+        tp = self.train_state.tp
+        if tp is None:
+            return state
+        return {net: tp.gather(sd, f"{net}.") for net, sd in state.items()}
 
     def set_model_state(self, state) -> None:
+        tp = self.train_state.tp
+        if tp is not None:
+            state = {net: tp.localize(sd, f"{net}.")
+                     for net, sd in state.items()}
         self.model_mgr.load_state(state)
 
     def get_opt_state(self) -> Dict[str, Any]:
         ts = self.train_state
-        return {"optimizer": ts.optimizer.state_dict(), "step": ts.step,
-                "seed": ts.seed.clone()}
+        opt = ts.optimizer.state_dict()
+        if ts.tp is not None:
+            opt.update(mu=ts.tp.gather(opt["mu"]), nu=ts.tp.gather(opt["nu"]))
+        return {"optimizer": opt, "step": ts.step, "seed": ts.seed.clone()}
 
     def set_opt_state(self, state: Dict[str, Any]) -> None:
         """Restores an `optimizer_<ep>.pth` in place (a captured step keeps
@@ -136,7 +155,11 @@ class RetrievalTrainer(BaseTrainer):
         the run seed advanced by its step count, as an unbroken run of this
         version would hold it."""
         ts = self.train_state
-        ts.optimizer.load_state_dict(state["optimizer"])
+        opt = state["optimizer"]
+        if ts.tp is not None:
+            opt = dict(opt, mu=ts.tp.localize(opt["mu"]),
+                       nu=ts.tp.localize(opt["nu"]))
+        ts.optimizer.load_state_dict(opt)
         ts.step = int(state["step"])
         if "seed" in state:
             ts.seed.copy_(state["seed"])

@@ -254,12 +254,17 @@ class BertAdam(_MomentOptimizer):
                        if n not in self.frozen]
 
     @torch.no_grad()
-    def step(self, grads: Params, lr: Optional[float] = None) -> None:
+    def step(self, grads: Params, lr: Optional[float] = None,
+             tp=None) -> None:
         """One update with `lr` (None: the learning rate filled in); the
-        gradients are not changed."""
+        gradients are not changed. Under tensor parallelism (`tp`: the
+        parallel/tp.py `Layout` of the sharded parameters) a sharded
+        tensor's norm spans the model group."""
         self._begin(lr)
         p, m, v, g = self._lists(grads)
         norms = torch.stack(torch._foreach_norm(g))  # JAX :217-223
+        if tp is not None:
+            norms = tensor_norms(tp, self._names, norms)
         scales = torch.clamp(self.MAX_GRAD_NORM / (norms + 1e-6), max=1.0)
         g = torch._foreach_mul(g, list(scales.unbind()))
         self._moments(m, v, g, self.BETA1, self.BETA2)
@@ -331,18 +336,33 @@ class EMA:
             s.copy_(state[n])
 
 
-def global_norm(grads: Params) -> torch.Tensor:
+def tensor_norms(tp, names: List[str], norms: torch.Tensor) -> torch.Tensor:
+    """Each tensor's norm with a sharded tensor's squares summed over the
+    model group (`tp`: parallel/tp.py `Layout`)."""
+    sharded = tp.sharded_mask(names, norms.device)
+    sq = tp.sum_over_model(torch.where(sharded, norms * norms, 0.0))
+    return torch.where(sharded, torch.sqrt(sq), norms)
+
+
+def global_norm(grads: Params, tp=None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, float32: the norm of
-    the per-tensor norms, as torch's clip_grad_norm_ takes it."""
-    norms = torch._foreach_norm([g.float() for g in grads.values()])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    the per-tensor norms, as torch's clip_grad_norm_ takes it. Under
+    tensor parallelism (`tp`: parallel/tp.py `Layout`) a sharded
+    gradient's squares are summed over the model group, a replicated one's
+    counted once."""
+    norms = torch.stack(torch._foreach_norm([g.float()
+                                             for g in grads.values()]))
+    if tp is not None:
+        norms = tensor_norms(tp, list(grads), norms)
+    return torch.linalg.vector_norm(norms)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: Params, max_norm: float,
+                        tp=None) -> torch.Tensor:
     """torch clip_grad_norm_ parity, in place and without a host sync;
-    returns the pre-clip norm."""
-    norm = global_norm(grads)
+    returns the pre-clip norm (`tp`: as global_norm)."""
+    norm = global_norm(grads, tp)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     torch._foreach_mul_(list(grads.values()), scale)
     return norm

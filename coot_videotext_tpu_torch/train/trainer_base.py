@@ -15,7 +15,11 @@ Under a data-parallel mesh (parallel/mesh.py; JAX builds its mesh here,
 writes: the experiment dirs (a reset included), the log file, the config,
 the trainerstate, the metrics, the checkpoints and their cleanup. Every
 rank reads them back; barriers keep the reads after rank 0's writes. The
-step meter counts global steps (one per global batch).
+step meter counts global steps (one per global batch). Under a `model`
+axis (parallel/tp.py) the checkpoints hold whole tensors, the reference
+layout a single process writes and reads: every rank gathers them over
+its model group and rank 0 writes; a resume loads the whole file before
+the trainer shards the model.
 
 Subclasses implement train_model / validate_epoch and the four state
 accessors (get/set model and optimizer state).
@@ -75,7 +79,10 @@ class BaseTrainer:
             f"Experiment: {exp_group}/{exp_name}/{run_name} type "
             f"{model_type} in {self.exp.path_base} on {self.device}; "
             f"compute dtype {cfg.compute_dtype}; rank {self.mesh.rank} of "
-            f"{self.mesh.world}")
+            f"{self.mesh.world}"
+            + (f" (data {self.mesh.data_rank} of {self.mesh.data_world}, "
+               f"model {self.mesh.model_rank} of {self.mesh.model_world})"
+               if self.mesh.tensor_parallel else ""))
         self.state = BaseTrainerState()
         self.metrics = MetricsWriter(self.exp)
         self.logger.info(f"Random seed: {self.cfg.random_seed}")
@@ -292,8 +299,9 @@ class BaseTrainer:
                          + " ".join(parts))
         self.metrics.feed_metrics(False, self.state.total_step,
                                   self.state.current_epoch)
-        if self.is_writer:
+        if self.is_writer or self.mesh.tensor_parallel:
             self._save_checkpoint()
+        if self.is_writer:
             self._cleanup_files()
         pmesh.barrier(self.mesh)
         self.state.current_epoch += 1
@@ -360,14 +368,20 @@ class BaseTrainer:
     # ---------- checkpointing ----------
 
     def _save_checkpoint(self) -> None:
-        """Save the epoch's artifacts (reference :672); rank 0 calls it."""
+        """Save the epoch's artifacts (reference :672); rank 0 writes them.
+        Under tensor parallelism every rank calls it: the whole tensors are
+        gathered over each model group (the accessors' collectives)."""
         epoch = self.state.current_epoch
+        model_state = self.get_model_state()
+        opt_state = (self.get_opt_state() if self.cfg.saving.save_opt_state
+                     else None)
+        if not self.is_writer:
+            return
         self.state.save(self.exp.get_trainerstate_file(epoch))
         self.metrics.save_epoch(epoch)
-        ckpt.save(self.exp.get_models_file(epoch), self.get_model_state())
-        if self.cfg.saving.save_opt_state:
-            ckpt.save(self.exp.get_optimizer_file(epoch),
-                      self.get_opt_state())
+        ckpt.save(self.exp.get_models_file(epoch), model_state)
+        if opt_state is not None:
+            ckpt.save(self.exp.get_optimizer_file(epoch), opt_state)
             if self.lr_scheduler is not None:
                 yaml_utils.dump_json(self.lr_scheduler.state_dict(),
                                      self.exp.get_scheduler_file(epoch))

@@ -50,7 +50,9 @@ package refuses it. Runs on the CUDA device unless `--device cpu` is
 given; asked for CUDA without a GPU it raises. Under `torchrun
 --nproc_per_node=W` it runs W data-parallel ranks (parallel/mesh.py; NCCL
 on the card, gloo with `--device cpu`): the yaml's batch size is the
-global batch, rank 0 decodes and writes.
+global batch, rank 0 decodes and writes. A yaml with `mesh_shape: {data:
+D, model: M}` (D x M = W) adds tensor parallelism to recurrent MART
+(parallel/tp.py); every other caption model refuses a `model` axis.
 """
 
 from __future__ import annotations

@@ -35,7 +35,10 @@ the CPU).
 runs W data-parallel ranks (parallel/mesh.py): rank r on cuda:r over NCCL,
 or on the CPU over gloo with `--device cpu`; the yaml's batch size is the
 global batch, and only rank 0 writes. `mesh_shape` must match the ranks
-(`--single_gpu` asks for one), and a `model` axis raises.
+(`--single_gpu` asks for one). A yaml with `mesh_shape: {data: D,
+model: M}` (D x M = W) adds tensor parallelism (parallel/tp.py): the model
+is sharded by JAX's rules over each group of M ranks, which share their
+rows of the batch.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ import torch
 from coot_videotext_tpu_torch.data.retrieval_dataset import (
     create_retrieval_datasets_and_loaders)
 from coot_videotext_tpu_torch.parallel import mesh as pmesh
+from coot_videotext_tpu_torch.parallel.tp import shard_model_for_tp
 from coot_videotext_tpu_torch.tasks.retrieval.config import (
     ExperimentTypesConst, RetrievalConfig)
 from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
@@ -261,6 +265,8 @@ def _validate(args, cfg, mgr: RetrievalModelManager, val_loader,
             "Validating an untrained model! No checkpoints were loaded. "
             "Add --ignore_untrained to validate anyway.")
     pmesh.broadcast_params(mesh, mgr.model.parameters())
+    if mesh.tensor_parallel:
+        shard_model_for_tp(mgr.model, None, None, mesh)
     emb_file = None
     if args.save_embeddings or cfg.val.save_embeddings:
         emb_file = (path_base / TrainerPathConst.DIR_EMBEDDINGS /

@@ -21,7 +21,8 @@ the reference caption layout `{"model": state_dict}` (what
 torch_convert.convert_model_file :543 reads) into the port's model.
 `mart_jax_paths` goes the other way for names: each parameter of the
 port's MART model with the flax path JAX gives it, which BertAdam's masks
-read.
+and the tensor-parallel rules (parallel/tp.py) read; `coot_jax_paths` does
+the same for the retrieval model.
 
 `jax_mtrans_params_to_state_dict` and `mtrans_jax_paths` do the same for
 the MTransformer ("mtrans" family, the inverse of `_convert_mtrans_key`
@@ -137,6 +138,55 @@ def jax_params_to_state_dict(params: Any
     for path, val in flat.items():
         key, v = _net_key(path[1:], np.asarray(val))
         out.setdefault(path[0], {})[key] = v
+    return out
+
+
+_FFN_INDEX = {"0": "fc1", "3": "fc2"}
+
+
+def _coot_path(key: str) -> str:
+    """One torch key inside a COOT net -> its JAX path (the inverse of
+    `_net_key`)."""
+    parts = key.split(".")
+    leaf = {"weight": "kernel"}.get(parts[-1], parts[-1])
+    head = parts[0]
+    if head == "norm_input":
+        return f"CootLayerNorm_0/{parts[1]}"
+    if head in ("input_fc", "output_fc"):
+        if parts[1] == "mlp":
+            return f"{head}/fc_{parts[2]}/{leaf}"
+        if parts[1] == "residual":
+            return f"{head}/residual_fc/{leaf}"
+    if key == "net_cls.cls_param":
+        return "cls_token/cls_token"
+    if head == "linear_out":
+        return f"linear_out/{leaf}"
+    if head in ("tf", "tf_context") and parts[1] == "encoder_layers":
+        base = f"{head}/layer_{parts[2]}"
+        rest = parts[3:]
+        if rest[:2] == ["self_attention_layer", "sublayer"]:
+            return f"{base}/self_attention/{rest[2]}/{leaf}"
+        if rest[:2] == ["self_attention_layer", "layer_normalization"]:
+            return f"{base}/CootLayerNorm_0/{rest[2]}"
+        if rest[:3] == ["pointwise_feedforward_layer", "sublayer",
+                        "feed_forward"]:
+            return f"{base}/pointwise_ff/{_FFN_INDEX[rest[3]]}/{leaf}"
+        if rest[:2] == ["pointwise_feedforward_layer",
+                        "layer_normalization"]:
+            return f"{base}/CootLayerNorm_1/{rest[2]}"
+    if head == "pooler" and parts[1] == "pools":
+        return f"pooler/pool_{parts[2]}/{parts[3]}"
+    raise NotImplementedError(f"unrecognized COOT net key {key}")
+
+
+def coot_jax_paths(model) -> Dict[str, str]:
+    """{parameter name: its JAX path, "net_video_local/tf/layer_0/
+    self_attention/query_projection/kernel"} for the port's RetrievalModel
+    (the inverse of jax_params_to_state_dict's names)."""
+    out: Dict[str, str] = {}
+    for name, _ in model.named_parameters():
+        net, key = name.split(".", 1)
+        out[name] = f"{net}/{_coot_path(key)}"
     return out
 
 

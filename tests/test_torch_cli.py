@@ -425,3 +425,23 @@ def test_port_import_leaves_jax_unloaded():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("jar", ["none", "fake_jar"])
+def test_meteor_test_prints_the_root_script_s_lines(tmp_path, jar):
+    """`python -m coot_videotext_tpu_torch.meteor_test` prints what the
+    repo's meteor_test.py prints on this machine: without a jar, and with
+    $METEOR_JAR naming a file (the scorer then starts only where java
+    runs it)."""
+    import os
+    env = {k: v for k, v in os.environ.items() if k != "METEOR_JAR"}
+    if jar == "fake_jar":
+        (tmp_path / "meteor-1.5.jar").write_bytes(b"")
+        env["METEOR_JAR"] = str(tmp_path / "meteor-1.5.jar")
+    outs = [subprocess.run([sys.executable] + cmd, cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=300,
+                           check=True).stdout
+            for cmd in (["meteor_test.py"],
+                        ["-m", "coot_videotext_tpu_torch.meteor_test"])]
+    assert outs[0].startswith("METEOR jar: ")
+    assert outs[1] == outs[0]

@@ -271,6 +271,26 @@ def test_input_fc_backward_kernel(cuda, dtype, s, din, const, offset):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dout", [192, 96])
+def test_input_fc_kernel_at_tensor_parallel_widths(cuda, dtype, dout):
+    """B1 column-parallel over a `model` axis of 2 and 4 (parallel/tp.py):
+    dout 384 / M at both input widths, forward and backward, against the
+    plain versions."""
+    for s, din in ((4099, 4096), (1001, 1536)):
+        x, params, dy = _fc_args(cuda, dtype, s, din, dout)
+        args = (x, *params, 1e-6, "gelu")
+        assert _run(fused_input_fc, fused_input_fc_plain, args,
+                    "input_fc") <= TOL[dtype]
+        ours = _grads(lambda *p: fused_input_fc(x, *p, 1e-6, "gelu"),
+                      params, dy, "input_fc")
+        ref = fused_input_fc_backward_plain(x, *params, 1e-6, "gelu",
+                                            dy.to(dtype))
+        for a, r in zip(ours, ref):
+            assert _rel(a, r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_input_fc_backward_repeats_bit_for_bit(cuda, dtype):
     """No float atomics: two backward calls on the same inputs give
     bit-equal dgain, dbias, dW and db."""

@@ -31,7 +31,8 @@ SGD on its first step, so one step's update is lr x gradient.
   on the same rows;
 - in the test's own process: the loaders' rank rows (every layout, the
   ragged tail, the caption loader's global S) put together give one
-  process's batch; the refusals of get_mesh and batch_rows.
+  process's batch; the refusals of get_mesh and batch_rows (a `model`
+  axis is tests/test_torch_tp.py's).
 """
 
 from __future__ import annotations
@@ -555,14 +556,16 @@ def test_rank_folded_dropout_masks_differ(dp):
 
 def test_get_mesh_refusals():
     """A mesh_shape that asks for more ranks than the group has (also
-    --single_gpu's {data: 1} under more ranks), a `model` axis, an unknown
-    axis, and a global batch that does not split."""
+    --single_gpu's {data: 1} under more ranks, and a `model` axis that
+    does not match the world), an unknown axis, and a global batch that
+    does not split; a `model` axis that matches the world is accepted."""
     assert pmesh.get_mesh(None, "cpu").world == 1
     assert pmesh.get_mesh({"data": 1}, "cpu").world == 1
     with pytest.raises(ValueError, match="needs 2 ranks"):
         pmesh.get_mesh({"data": 2}, "cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        pmesh.get_mesh({"data": 1, "model": 2}, "cpu")
+    pmesh._check_shape({"data": 1, "model": 2}, 2)
+    with pytest.raises(ValueError, match="needs 3 ranks"):
+        pmesh._check_shape({"data": 1, "model": 3}, 2)
     with pytest.raises(ValueError, match="unknown axis"):
         pmesh.get_mesh({"data": 1, "pipe": 2}, "cpu")
     with pytest.raises(ValueError, match="--single_gpu"):
@@ -638,6 +641,41 @@ def test_caption_loader_rank_rows(tmp_path):
             np.testing.assert_array_equal(got, want, err_msg=name)
         seen += 1
     assert seen == 2  # 6 videos: a full batch and the ragged tail of 2
+
+
+def test_ranks_of_a_fresh_run_read_the_frame_count_cache_whole(
+        tmp_path, monkeypatch):
+    """The ranks of a run on a fresh dataset start at once and each may
+    write the frame-count cache while another reads it: it is written
+    under a name of its own and renamed, so it is never written in place,
+    and ranks starting together all read the same counts."""
+    import concurrent.futures
+    from pathlib import Path
+    from coot_videotext_tpu_torch.data.features_loader import (
+        VideoFeatureLoader)
+    generate_retrieval_dataset(tmp_path, num_videos=6, num_val_videos=2,
+                               mean_clips=2.0, max_clips=3, seed=0,
+                               feat_format="npy")
+    root = tmp_path / "synth"
+    cache = root / "video_feat_synth_num_frames.json"
+    cache.unlink(missing_ok=True)
+    written = []
+    write_text = Path.write_text
+
+    def record(self, *args, **kwargs):
+        written.append(self.name)
+        return write_text(self, *args, **kwargs)
+    monkeypatch.setattr(Path, "write_text", record)
+
+    def load(_):
+        return VideoFeatureLoader(root, "video_feat_synth", "npy",
+                                  []).num_frames
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        counts = list(pool.map(load, range(8)))
+    assert written and cache.name not in written
+    assert all(c == counts[0] for c in counts) and len(counts[0]) == 8
+    assert sorted(p.name for p in root.iterdir()
+                  if p.name.startswith(cache.name)) == [cache.name]
 
 
 if __name__ == "__main__":
