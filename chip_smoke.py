@@ -34,7 +34,9 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    and packing via --fixed_shapes), each with every kernel's launch count
    set to 0 just before and read just after; checks finite embeddings,
    every mode's rows against mode 1's (cosine), device ranks against host
-   ranks, and one batch against the port on the CPU in float32.
+   ranks, and one batch against the port on the CPU in float32; the
+   captured eval step on an id batch of mode 4 is traced in a warm
+   replay, where B1, B2, B3 and B5 must each appear by kernel name.
 4. Training at full width (bf16 compute, f32 master weights, dropout 0.01
    at every site, frame noise 0.01): on a generated 256-video train split
    the CLI trains one epoch from the device store with on-device sampling
@@ -60,8 +62,8 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    from the same state (no wrapper runs during them): seed states equal,
    losses and parameters within the bf16 tolerance, the loss falling; for
    K = 1, 4 and 8, the warm wall ms per step, the profiler's device-busy ms
-   per step, train videos/s and peak device memory, and for K = 4 the
-   device time per step by kernel family.
+   per step (max(K, 2) steps traced), train videos/s and peak device
+   memory, and for K = 4 the device time per step by kernel family.
 5. Times each kernel, forward and backward, at the main path's shapes (CUDA
    events) beside its plain version, its library yardstick where one
    exists, and its bound; B1 at all four calls of a step (clips, video
@@ -76,8 +78,8 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    through autograd with the profiler's device time of the tile pass and
    the weight-gradient products apart; B3's forward at the step's six
    shapes (clips, video context, paragraph, sentences, global, cross),
-   train and eval, in turns with SDPA; B3's backward also at the
-   paragraph's L = 320;
+   train and eval, in turns with SDPA; B3's backward at the clips, the
+   video context, the paragraph's L = 320 (its D pass) and the sentences;
    B4 and F.dropout's backward as bare launches, profiler device time,
    host time per call and through autograd; B5 at each store gather of a
    step, with and without noise.
@@ -95,9 +97,11 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    median eval-step and decode ms per batch, forwards per batch and peak
    memory printed. One batch of 8 videos on the card against the port on
    the CPU (loss within 1e-4 relative, n_correct within 0.5% of n_word, at
-   least 98% of the greedy sentences token-identical); one greedy batch
-   of 50 traced (wall and device-busy ms, launches per decoded token,
-   device time by kernel family).
+   least 98% of the greedy sentences token-identical); the first 2
+   sentence steps of a greedy batch of 50 traced (wall and device-busy
+   ms, launches per decoded token, device time by kernel family). The
+   decodes and eval steps run as CUDA graphs (phase 13 holds them against
+   the eager path).
 
 7. Caption training at the full width of yc2_2d3d_coot_vidclip_mart.yaml
    (batch 16, S up to 12 sentence steps, dropout 0.1 at every site, the
@@ -131,8 +135,8 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    second of each video's duration, ~2 GB); `train_caption -c
    yc2_mart.yaml --video_feature_dir <dir>` trains one epoch and
    validates, then `--validate --load_epoch 0` must give the training
-   run's val loss (the EMA weights); one train batch of 8 videos card
-   against CPU over 3 steps (phase 7's tolerances); one val batch of 4
+   run's val loss (the EMA weights); one train batch of 4 videos card
+   against CPU over 3 steps (phase 7's tolerances); one val batch of 2
    videos: eval step within phase 6's tolerances and greedy tokens
    identical card against CPU; one batch of 16 trained 16 steps: the loss
    falls, the warm step's wall and device-busy ms, B4 the only port kernel
@@ -152,10 +156,11 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    (use_beam=true; beam 2, n_best 1, min_sen_len 5, max_sen_len 30 from
    the yaml) on MART trained one epoch by the CLI on the first 160 train
    videos: one val batch of 50 videos beam-decoded on the card, its first
-   8 on the CPU too, in the fixed and the reference_compat mode (at
+   4 on the CPU too, in the fixed and the reference_compat mode (at
    least 98% of those sentences token-identical), beam against greedy on
    the card (ms,
-   forwards, host reads), one traced beam decode (no port kernel),
+   forwards, host reads), one traced beam decode of its first
+   TRACE_STEPS sentence steps (no port kernel),
    `--validate --load_epoch 0 -o use_beam=true` over 50 val videos.
    (b-e) The TransformerXL (xl=true), the untied model
    (recurrent=false,untied=true), the joint single-sentence model
@@ -170,11 +175,11 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    port kernel). (f) B4 bit-equal to its plain version at the new shapes,
    timed beside F.dropout, and its bound.
 
-10. The prefetch pipeline and the tail. (a) On a generated 192 + 64-video
+10. The prefetch pipeline and the tail. (a) On a generated 64 + 64-video
    split at yc2_2d3d_coot width with `preload_device: false`: a train and
    a val batch of 16 of the dense and the slab layout through
    data/pipeline.py `prefetch` equal to `to_device`'s on the card
-   (torch.equal, host frame noise on); the dense CLI trains 3 steps of 64
+   (torch.equal, host frame noise on); the dense CLI trains 1 step of 64
    and validates (train and val videos/s, the step meter's "other"
    share), then 1 step and a val batch under torch.profiler (the pinned
    copies must run on streams of their own; their time under a kernel is
@@ -228,9 +233,50 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    B3's first keep mask (the rank's heads) different; (c) phase 11c's
    MART steps against one process, the EMA equal on both ranks, and a
    greedy decode of the batch token-identical to one process's with the
-   saved weights.
+   saved weights (eagerly on the ranks: gloo runs on the host; through
+   the graphs in one process).
 
-Prints `{"kernels": [...]}` on the line before the last and
+13. The serving programs as CUDA graphs (utils/graphs.py), each against
+   the eager path on the same weights and inputs: (a) MART at
+   yc2_2d3d_coot_vidclip_mart width over the 457-video YouCook2 val split
+   (phase 6's inputs): the eval step (equal to eager within 1e-5), then
+   greedy and beam (fixed) decoded eagerly and through the graphs, every
+   sentence token-identical, beam reference_compat on the first batch;
+   ms, forwards, host reads and program runs a batch, the graphs' extra
+   peak memory, the first 2 sentence steps of batch 0 traced each way
+   (device busy, the host's kernel launches a forward); (b) the
+   TransformerXL, the untied and joint models (phase 9's widths) and the
+   MTransformer (yc2_100m_coot_vidclip_mtrans) from seed 0: the eval step
+   and the greedy decode of one val batch, identical; (c) retrieval on
+   yc2_2d3d_coot.yaml id batches (128 generated val videos): validation
+   through the graph (capturing, then warm) and eagerly, embeddings,
+   losses and metrics equal (bf16 within 1e-2 allowed; bit for bit
+   expected), device ranks equal host ranks, the warm eval step timed and
+   traced each way: the wrappers' launches (a replay runs none) and the
+   port's kernels on the device by name, B1, B2, B3 and B5 each present
+   in the traced replay and as many as in the eager step; (d, e)
+   anet_coot.yaml (2048-d video) and yc2_100m_coot.yaml (512-d video),
+   one batch of 64 generated val videos each: the same,
+   the card in f32 against the CPU (1e-4), and B1-B3 against their plain
+   versions at the batch's shapes. The phase logs its time against
+   SERVING_LIMIT_S. Phase 2b runs B3's bf16 backward against its plain
+   version over B3_SEEDS draws at each of phase 2's shapes, each held to
+   phase 2's gate.
+
+The order of a run: phase 1 and the build of phase 2; then phases 6-8
+and phase 9 (the caption family, which shares nothing with the rest) in
+two processes of their own (`--side-phases`, each with SIDE_THREADS
+intra-op threads on the host), beside the rest of phase 2, 2b, 3, 4, 4b
+and 10-12 in the main one, whose host and device times they share; their
+logs are printed after phase 12; then, with the card the main process's
+alone, 4c, 5 and 13, which time it. The synthetic retrieval splits
+(DATA_SPLITS) are written by DATA_WORKERS worker processes from the
+start, each moved into its phase's directory when the phase needs it.
+Every worker and side process is stopped at exit.
+
+Prints `{"kernels": [...]}` on the line before the last (each entry's
+`eval_graph_launches`: the port's kernels of its source on the device in
+the traced replay of (c)'s captured eval step, by name) and
 `{"ok": true, "device": {...}}` as the last line; exits non-zero (and
 prints no result) on any failure, without a CUDA device, or outside a
 checkout of the repository.
@@ -238,10 +284,12 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -372,6 +420,27 @@ def attention_inputs(b, heads, lq, lk, dh, dtype, gen, masked_rows=0):
     key_valid = torch.arange(lk, device=dev)[None] < lens[:, None]
     key_valid[:masked_rows] = False  # every key masked
     return q.to(dtype), k.to(dtype), v.to(dtype), key_valid
+
+
+# B3 at phase 2's shapes: (description, dropout rate, attention_inputs'
+# (b, heads, lq, lk, dh[, masked rows]))
+B3_SHAPES = (
+    ("local N=8192 L=80", 0.0, (1024, 8, 80, 80, 48, 16)),
+    ("local N=8192 L=80 dropout 0.1", 0.1, (1024, 8, 80, 80, 48, 16)),
+    ("global Lq=Lk=16", 0.0, (64, 8, 16, 16, 48, 4)),
+    ("cross Lq=1 Lk=16", 0.0, (64, 8, 1, 16, 48, 4)),
+    ("paragraph Lq=Lk=300", 0.0, (64, 8, 300, 300, 48, 2)),
+    ("sentences N=8192 L=24 dropout 0.1", 0.1, (1024, 8, 24, 24, 48, 16)),
+    ("paragraph N=512 L=320 dropout 0.01", 0.01, (64, 8, 320, 320, 48, 2)),
+    ("ragged Lq=37 Lk=130 dropout 0.1", 0.1, (64, 8, 37, 130, 48, 2)),
+    ("video ctx N=512 L=80 dropout 0.01", 0.01, (64, 8, 80, 80, 48, 2)),
+    ("Dh=16 Lq=37 Lk=130 dropout 0.1", 0.1, (64, 8, 37, 130, 16, 2)),
+    ("Dh=64 Lq=37 Lk=130 dropout 0.1", 0.1, (64, 8, 37, 130, 64, 2)),
+    ("cross Lq=1 Lk=130 dropout 0.1", 0.1, (64, 8, 1, 130, 48, 2)),
+)
+# B3's bf16 backward over many draws (phase_b3_seeds): draws per shape,
+# each held to phase 2's gate
+B3_SEEDS = 32
 
 
 # ---------------- phases ----------------
@@ -573,42 +642,10 @@ def phase_kernel_checks():
             ("genpool", dn, "D=512 H=512 S=64 L=37 dropout 0.1", 0.1,
              lambda dt=dtype: genpool_inputs(64, 37, 512, 512, 2, dt, gen,
                                              2)),
-            ("attention", dn, "local N=8192 L=80", 0.0,
-             lambda dt=dtype: attention_inputs(1024, 8, 80, 80, 48, dt, gen,
-                                               16)),
-            ("attention", dn, "local N=8192 L=80 dropout 0.1", 0.1,
-             lambda dt=dtype: attention_inputs(1024, 8, 80, 80, 48, dt, gen,
-                                               16)),
-            ("attention", dn, "global Lq=Lk=16", 0.0,
-             lambda dt=dtype: attention_inputs(64, 8, 16, 16, 48, dt, gen,
-                                               4)),
-            ("attention", dn, "cross Lq=1 Lk=16", 0.0,
-             lambda dt=dtype: attention_inputs(64, 8, 1, 16, 48, dt, gen, 4)),
-            ("attention", dn, "paragraph Lq=Lk=300", 0.0,
-             lambda dt=dtype: attention_inputs(64, 8, 300, 300, 48, dt, gen,
-                                               2)),
-            ("attention", dn, "sentences N=8192 L=24 dropout 0.1", 0.1,
-             lambda dt=dtype: attention_inputs(1024, 8, 24, 24, 48, dt, gen,
-                                               16)),
-            ("attention", dn, "paragraph N=512 L=320 dropout 0.01", 0.01,
-             lambda dt=dtype: attention_inputs(64, 8, 320, 320, 48, dt, gen,
-                                               2)),
-            ("attention", dn, "ragged Lq=37 Lk=130 dropout 0.1", 0.1,
-             lambda dt=dtype: attention_inputs(64, 8, 37, 130, 48, dt, gen,
-                                               2)),
-            ("attention", dn, "video ctx N=512 L=80 dropout 0.01", 0.01,
-             lambda dt=dtype: attention_inputs(64, 8, 80, 80, 48, dt, gen,
-                                               2)),
-            ("attention", dn, "Dh=16 Lq=37 Lk=130 dropout 0.1", 0.1,
-             lambda dt=dtype: attention_inputs(64, 8, 37, 130, 16, dt, gen,
-                                               2)),
-            ("attention", dn, "Dh=64 Lq=37 Lk=130 dropout 0.1", 0.1,
-             lambda dt=dtype: attention_inputs(64, 8, 37, 130, 64, dt, gen,
-                                               2)),
-            ("attention", dn, "cross Lq=1 Lk=130 dropout 0.1", 0.1,
-             lambda dt=dtype: attention_inputs(64, 8, 1, 130, 48, dt, gen,
-                                               2)),
-        ]
+        ] + [("attention", dn, desc, rate,
+               lambda dt=dtype, a=args: attention_inputs(*a[:5], dt, gen,
+                                                         *a[5:]))
+              for desc, rate, args in B3_SHAPES]
     for dtype in (torch.bfloat16, torch.float32):
         # B1 column-parallel under a model axis (parallel/tp.py): dout
         # 384 / M, a data rank's 33,280 clip frames at {data: 2}; drawn
@@ -723,6 +760,93 @@ def phase_kernel_checks():
                 "bit-equal")
     torch.cuda.empty_cache()
     return worst
+
+
+def _bf16_ulp(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    import torch
+    x = torch.as_tensor(x, dtype=torch.float32).abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+
+def phase_b3_seeds() -> dict:
+    """B3's bf16 backward against its plain version over B3_SEEDS draws at
+    each of phase 2's shapes (B3_SHAPES): each draw its own inputs,
+    cotangent and dropout seed. Per shape: the gate's relative error (max
+    abs error over max(1, max |plain|)) of the worst gradient, its
+    quantiles over the draws; for the worst draw the gradient, the
+    element, |plain| there, and the error in bf16 ulps of |plain| at that
+    element and of the gradient's largest |plain|. Both versions round
+    their f32 sums to bf16, so rounding shows as one or two ulps. Every
+    draw is held to phase 2's gate (TOL): a draw over it, or a non-finite
+    gradient, fails the run. Returns the summary by shape."""
+    import torch
+    from coot_videotext_tpu_torch.ops import philox
+    from coot_videotext_tpu_torch.ops.attention import (
+        masked_attention, masked_attention_backward_plain)
+    t0 = time.time()
+    bf = torch.bfloat16
+    tol = TOL["bfloat16"]
+    summary = {}
+    ulp_hist = {}
+    for desc, rate, shape in B3_SHAPES:
+        rels, worst = [], None
+        for draw in range(B3_SEEDS):
+            gen = torch.Generator(device="cuda").manual_seed(7919 + draw)
+            q, k, v, kv = attention_inputs(*shape[:5], bf, gen, *shape[5:])
+            g = torch.randn(q.shape, generator=gen, device="cuda")
+            seed = philox.Seed(philox.seed_state(20261016 + draw, "cuda"),
+                               0)
+            ours = _grads(lambda *a: masked_attention(
+                *a, kv, 8, 48 ** -0.5, rate, seed), [q, k, v], g)
+            ref = masked_attention_backward_plain(
+                q, k, v, kv, g.to(bf), 8, 48 ** -0.5, rate, seed)
+            draw_worst = None
+            for name, a, r in zip(("dq", "dk", "dv"), ours, ref):
+                a, r = a.float(), r.float()
+                if not bool(a.isfinite().all()):
+                    fail(f"B3 bf16 backward {desc} draw {draw}: {name} is "
+                         "not finite")
+                diff = (a - r).abs()
+                top = float(r.abs().max())
+                idx = int(diff.argmax())
+                err = float(diff.view(-1)[idx])
+                at = float(r.view(-1)[idx])
+                rec = dict(draw=draw, grad=name, rel=err / max(1.0, top),
+                           abs=err, plain_at=at, max_plain=top,
+                           ulps_at=err / float(_bf16_ulp(at)),
+                           ulps_max=err / float(_bf16_ulp(top)),
+                           index=tuple(int(i) for i in torch.unravel_index(
+                               torch.tensor(idx), r.shape)))
+                if draw_worst is None or rec["rel"] > draw_worst["rel"]:
+                    draw_worst = rec
+            rels.append(draw_worst["rel"])
+            # whole ulps, 17 for more than 16 (an element near 0)
+            key = min(math.ceil(draw_worst["ulps_at"] - 1e-6), 17)
+            ulp_hist[key] = ulp_hist.get(key, 0) + 1
+            if worst is None or draw_worst["rel"] > worst["rel"]:
+                worst = draw_worst
+        rels.sort()
+        over = sum(r > tol for r in rels)
+        summary[desc] = dict(worst, median=rels[len(rels) // 2],
+                             p90=rels[int(0.9 * (len(rels) - 1))],
+                             over_tol=over)
+        log(f"  B3 bf16 bwd {desc:36s} rel max {rels[-1]:.3e} p90 "
+            f"{summary[desc]['p90']:.3e} median {summary[desc]['median']:.3e}"
+            f"; {over} of {B3_SEEDS} draws over {tol:.0e}; worst: draw "
+            f"{worst['draw']} {worst['grad']}{list(worst['index'])} abs "
+            f"{worst['abs']:.4g} at |plain| {abs(worst['plain_at']):.4g} "
+            f"(max {worst['max_plain']:.4g}): {worst['ulps_at']:.2f} ulps "
+            f"there, {worst['ulps_max']:.2f} of the max")
+    log(f"  each draw's worst error in bf16 ulps at its element, rounded "
+        f"up, 17 for more than 16 (count of draws): "
+        f"{dict(sorted(ulp_hist.items()))}; "
+        f"{len(B3_SHAPES) * B3_SEEDS} draws in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    failed = {d: v for d, v in summary.items() if v["over_tol"]}
+    if failed:
+        fail(f"B3 bf16 backward: draws over the gate {tol}: {failed}")
+    return summary
 
 
 # standard normal truncated at +-2: the std of B5's noise draws
@@ -864,10 +988,8 @@ def phase_slice(tmp: Path):
     from coot_videotext_tpu_torch.ops import cuda_build
     from coot_videotext_tpu_torch.tasks.retrieval.steps import EMB_KEYS
 
-    t0 = time.time()
-    _yc2_dataset(tmp / "data", 4, 128, seed=0)
-    log(f"generated the synthetic yc2-like set (128 val videos) in "
-        f"{time.time() - t0:.1f} s")
+    made = _take_data("val", tmp / "data")
+    log(f"the synthetic yc2-like set (128 val videos): {made}")
     runs = []
     for i, (name, dataset, flags) in enumerate(VAL_MODES):
         mode_dir = tmp / f"mode{i + 1}"
@@ -891,7 +1013,13 @@ def phase_slice(tmp: Path):
             f"{n_vid / results['total_s']:.2f} videos/s end to end (pass "
             f"{results['total_s']:.2f} s, main() {wall:.2f} s), "
             f"{results['forward_s'] / batches * 1e3:.2f} ms per batch in "
-            f"the eval step, peak device memory {peak_gb:.2f} GB")
+            f"the eval step ({results['eval_step']}), peak device memory "
+            f"{peak_gb:.2f} GB")
+        # id batches (fixed shapes) run the captured step, the rest eagerly
+        expect = "CUDA graph" if "--fixed_shapes" in flags else "eager"
+        if results["eval_step"] != expect:
+            fail(f"validation mode {i + 1}: the eval step ran as "
+                 f"{results['eval_step']}, not {expect}")
         for kernel in ("input_fc", "genpool", "attention"):
             if launches.get(kernel, 0) <= 0:
                 fail(f"kernel {kernel} was not launched in validation mode "
@@ -924,22 +1052,7 @@ def phase_slice(tmp: Path):
     embs = results["embeddings"]
     log(f"v2p {results['v2p']} c2s {results['c2s']}")
 
-    # ranks on the card == ranks on the host from the same similarities
-    from coot_videotext_tpu_torch.tasks.retrieval.eval import _ranks_both
-    for k1, k2 in (("vid_emb", "par_emb"), ("clip_emb", "sent_emb")):
-        e1 = torch.from_numpy(embs[k1]).cuda()
-        e2 = torch.from_numpy(embs[k2]).cuda()
-        r12, _, r21, _ = _ranks_both(e1, e2)
-        sim = (e1 @ e2.t()).cpu().numpy()
-        diag = np.diagonal(sim)
-        h12 = (sim > diag[:, None]).sum(1)
-        h21 = (sim > diag[None, :]).sum(0)
-        if not (np.array_equal(h12, r12.cpu().numpy())
-                and np.array_equal(h21, r21.cpu().numpy())):
-            fail(f"device ranks differ from host ranks for {k1}/{k2}")
-        host_sim = embs[k1] @ embs[k2].T
-        if np.abs(host_sim - sim).max() > 1e-4:
-            fail(f"device similarities differ from host for {k1}/{k2}")
+    _hold_ranks(embs)
     log("device ranks == host ranks (vid/par, clip/sent)")
 
     # one batch on the card (bf16) against the CPU (f32), same weights
@@ -966,11 +1079,11 @@ def phase_slice(tmp: Path):
     cpu = RetrievalModelManager(cfg, torch.device("cpu"), seed=0)
     e_gpu, _ = retrieval_eval_step(
         gpu.model, to_device(host_batch, torch.device("cuda")),
-        compute_dtype=gpu.val_dtype, **kw)
+        compute_dtype=gpu.val_dtype, eager=True, **kw)
     t0 = time.time()
     e_cpu, _ = retrieval_eval_step(
         cpu.model, to_device(host_batch, torch.device("cpu")),
-        compute_dtype=torch.float32, **kw)
+        compute_dtype=torch.float32, eager=True, **kw)
     log(f"CPU float32 forward of one batch: {time.time() - t0:.1f} s")
     bv = torch.from_numpy(host_batch["batch_valid"])
     worst_cos = 1.0
@@ -1001,11 +1114,15 @@ def phase_slice(tmp: Path):
     id_batch = to_device(next(iter(id_loader)), torch.device("cuda"))
     source = FeatureSource.of(id_loader)
 
+    # as validation runs them: host dense batches eagerly, id batches
+    # through the captured step (phase 13 times both ways); the traced
+    # replay of the captured step holds B1, B2, B3 and B5 by name
     for what, batch, src in (("host dense", dev_batch, None),
                              ("id batch, store", id_batch, source)):
         def eval_step():
             retrieval_eval_step(gpu.model, batch, source=src,
-                                compute_dtype=gpu.val_dtype, **kw)
+                                compute_dtype=gpu.val_dtype,
+                                eager=src is None, **kw)
             torch.cuda.synchronize()
 
         eval_step()
@@ -1017,7 +1134,15 @@ def phase_slice(tmp: Path):
         walls.sort()
         log(f"eval step on a warm card ({what}, batch 0, 5 runs): median "
             f"{walls[2]:.2f} ms, min {walls[0]:.2f}, max {walls[-1]:.2f}")
-        profile_step(eval_step, f"eval ({what})")
+        events = profile_step(eval_step, f"eval ({what})")
+        if src is not None:
+            counts = _port_kernel_counts(events)
+            log(f"  the port's kernels on the device in the traced replay: "
+                f"{counts}")
+            missing = [k for k in EVAL_KERNELS if counts.get(k, 0) <= 0]
+            if missing:
+                fail(f"the traced replay of the captured eval step on an id "
+                     f"batch holds no {missing} kernels: {counts}")
     del gpu, e_gpu, dev_batch, id_batch, source, id_loader
     torch.cuda.empty_cache()
     return [launches for launches, _ in runs]
@@ -1028,12 +1153,13 @@ KERNELS = ("input_fc", "input_fc_bwd", "genpool", "genpool_bwd",
 
 
 def _yc2_dataset(root: Path, num_videos: int, num_val_videos: int,
-                 seed: int) -> None:
+                 seed: int, config: Path = CONFIG) -> None:
+    """A synthetic split at the widths of the retrieval `config`."""
     from coot_videotext_tpu_torch.data.synthetic import (
         generate_retrieval_dataset)
     from coot_videotext_tpu_torch.utils.yaml_utils import (
         load_yaml_config_file)
-    ds = load_yaml_config_file(CONFIG)["dataset_train"]
+    ds = load_yaml_config_file(config)["dataset_train"]
     generate_retrieval_dataset(
         root, dataset_name=ds["name"], metadata_name=ds["metadata_name"],
         vid_feat_name=ds["vid_feat_name"],
@@ -1042,6 +1168,73 @@ def _yc2_dataset(root: Path, num_videos: int, num_val_videos: int,
         text_feat_dim=ds["text_feat_dim"], mean_clips=7.7, max_clips=16,
         fps=1.0, mean_duration_sec=320.0, tokens_per_sentence=18, seed=seed,
         feat_format="npy")
+
+
+# ---------- the synthetic splits, made beside the phases ----------
+
+# worker processes that write the synthetic retrieval splits (numpy on the
+# host, the same files as written in line) while the phases before the
+# one that needs each run
+DATA_WORKERS = 3
+_DATA = {}        # split -> its pending result in the pool
+_DATA_ROOT = []   # the working directory: the splits under data/
+_CHILDREN = []    # the pool and the processes of the side phases
+
+
+def _make_data(split: str, root: str) -> float:
+    """Writes `split` of DATA_SPLITS to `root` (in a worker process);
+    returns the seconds it took."""
+    t0 = time.time()
+    _yc2_dataset(Path(root), *DATA_SPLITS[split])
+    return time.time() - t0
+
+
+def _start_data(work: Path) -> None:
+    """Starts writing every split of DATA_SPLITS under `work`/data, in
+    the order the phases need them, DATA_WORKERS at a time."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(DATA_WORKERS)
+    _CHILDREN.append(pool)
+    _DATA_ROOT.append(work)
+    for split in DATA_SPLITS:
+        _DATA[split] = pool.apply_async(
+            _make_data, (split, str(work / "data" / split)))
+    pool.close()
+
+
+def _take_data(split: str, dest: Path) -> str:
+    """Waits for `split`, moves it to `dest` and says how it was made."""
+    t0 = time.time()
+    took = _DATA.pop(split).get()
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    shutil.move(str(_DATA_ROOT[0] / "data" / split), str(dest))
+    return (f"made in a worker process in {took:.1f} s beside the phases "
+            f"before, waited {time.time() - t0:.1f} s for it")
+
+
+def _stop_children() -> None:
+    """Stops the data workers and the side phases' processes that are
+    still running and removes the working directory (at exit, on success
+    or failure)."""
+    for child in _CHILDREN:
+        if not isinstance(child, subprocess.Popen):
+            child.terminate()  # the pool
+            child.join()
+        elif child.poll() is None:
+            child.terminate()
+            try:
+                child.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+            lines = child.log_path.read_text(
+                encoding="utf8", errors="replace").splitlines()
+            log(f"== stopped the side process {child.args[2:4]}; the end "
+                "of its log:\n" + "\n".join(lines[-40:]))
+    for root in _DATA_ROOT:
+        shutil.rmtree(root, ignore_errors=True)
+    _CHILDREN.clear()
+    _DATA_ROOT.clear()
 
 
 def _train_cli(config: Path, tmp: Path, extra, epochs: int = 1,
@@ -1104,10 +1297,8 @@ def phase_train(tmp: Path):
     from coot_videotext_tpu_torch.utils.yaml_utils import (
         load_yaml_config_file)
 
-    t0 = time.time()
-    _yc2_dataset(tmp / "data", 256, 64, seed=1)
-    log(f"generated a yc2-like train split (256 videos, 64 val) in "
-        f"{time.time() - t0:.1f} s")
+    made = _take_data("train", tmp / "data")
+    log(f"a yc2-like train split (256 videos, 64 val): {made}")
     config = _config(tmp / "store")
     result, launches, wall = _train_cli(config, tmp, ["--fixed_shapes"])
     log(f"training path launches (store, device sampling + packing): "
@@ -1328,8 +1519,9 @@ def phase_caption(tmp: Path) -> None:
     (b) `train_caption --validate --load_model` on the card over the whole
     val split, with the launch counts of B1-B5 set to 0 just before and
     read just after (the caption path runs none); (c) one val batch of 8
-    videos on the card against the port on the CPU; (d) one greedy batch
-    of 50 videos traced with torch.profiler."""
+    videos on the card against the port on the CPU; (d) the first
+    TRACE_STEPS sentence steps of a greedy batch of 50 videos traced with
+    torch.profiler."""
     import numpy as np
     import torch
     from coot_videotext_tpu_torch import train_caption
@@ -1452,16 +1644,17 @@ def phase_caption(tmp: Path) -> None:
             or same < CAPTION_MIN_SAME * len(pairs):
         fail("caption serving: the card disagrees with the CPU")
 
-    log("(d) one greedy batch of 50 val videos under torch.profiler")
+    log(f"(d) the first {TRACE_STEPS} sentence steps of a greedy batch of "
+        "50 val videos under torch.profiler (through the graphs)")
     stacked, sizes, _ = dataset.collate_fn(
         [dataset[i] for i in range(cfg.val.batch_size)])
-    batch = [torch.from_numpy(stacked[k]).cuda() for k in
+    batch = [torch.from_numpy(stacked[k][:TRACE_STEPS]).cuda() for k in
              ("input_ids", "video_feature", "input_mask", "token_type_ids")]
     translator = Translator(profile_model, profile_cfg)
     translator.translate_batch_greedy(*batch)  # warm
     wall_ms, busy_ms, kernels, events = _busy_ms(
         lambda: translator.translate_batch_greedy(*batch))
-    steps = len(stacked["input_ids"])
+    steps = TRACE_STEPS
     positions = steps * cfg.max_t_len
     log(f"  S {steps} sentence steps x {cfg.max_t_len} token positions, "
         f"{translator.forwards} full forwards of N {cfg.val.batch_size} x "
@@ -1655,9 +1848,13 @@ MTRANS_CONFIG = (ROOT / "config" / "caption" / "paper2020" /
 RAW_VIDEOS = {"train": 160, "val": 50}
 MTRANS_CUTS = {"dataset_train.max_datapoints": 320,
                "dataset_val.max_datapoints": 50}
-# raw-feature MART's greedy decode card against CPU takes the first 4 val
-# videos: the CPU's decode of a batch of 50 at L = 122 would take minutes
-RAW_DECODE_VIDEOS = 4
+# raw-feature MART's greedy decode card against CPU takes the first 2 val
+# videos (cut from 4 for the time limit): the CPU's decode of a batch of
+# 50 at L = 122 would take minutes; its train steps card against CPU take
+# RAW_TRAIN_VIDEOS (cut from 8: 3 CPU steps at L = 122 took ~100 s beside
+# the other phases)
+RAW_DECODE_VIDEOS = 2
+RAW_TRAIN_VIDEOS = 4
 # B4 in float32 at the new paths' dropout shapes: raw-feature MART's hidden
 # rows and attention probabilities (L = 122), the MTransformer's video rows
 # (1152 in, 768 out), text rows and self-, cross- and video-attention
@@ -1828,8 +2025,8 @@ def phase_caption_variants(tmp: Path) -> None:
     """Phase 8, the caption variants at the full width of their shipped
     configs. (a) Raw-feature MART, yc2_mart.yaml (3072-d features, L = 100
     + 22): the inputs (_raw_inputs), the CLI trains one epoch and validates
-    (_variant_cli), one train batch of 8 videos card against CPU over 3
-    steps (hold_train_steps), one val batch of RAW_DECODE_VIDEOS videos
+    (_variant_cli), one train batch of RAW_TRAIN_VIDEOS videos card against
+    CPU over 3 steps (hold_train_steps), one val batch of RAW_DECODE_VIDEOS videos
     card against CPU (hold_decode), one batch of 16 trained 16 steps, timed
     and traced (time_train_step), each from the weights the CLI trained
     (model_0.pth: from random weights the second step's gradient norm
@@ -1882,10 +2079,11 @@ def phase_caption_variants(tmp: Path) -> None:
 
     train = dataset("train", cfg.max_n_sen)
     build = from_trained(RAW_CONFIG, len(train.word2idx), pth)
-    log(f"  one train batch of 8 videos: the card against the CPU, float32, "
-        f"dropout {cfg.hidden_dropout_prob}, 3 steps at lr "
+    log(f"  one train batch of {RAW_TRAIN_VIDEOS} videos: the card against "
+        f"the CPU, float32, dropout {cfg.hidden_dropout_prob}, 3 steps at lr "
         f"{CAPTION_TRAIN_LR}")
-    stacked, _, _ = train.collate_fn([train[i] for i in range(8)])
+    stacked, _, _ = train.collate_fn([train[i] for i in
+                                      range(RAW_TRAIN_VIDEOS)])
     hold_train_steps("raw-feature MART", build,
                      {k: stacked[k] for k in STACKED_KEYS}, single=False)
     val = dataset("val", cfg.max_n_sen + cfg.max_n_sen_add_val)
@@ -1967,8 +2165,9 @@ def hold_train_steps(tag: str, build, arrays: dict, single: bool) -> None:
     import torch
     from coot_videotext_tpu_torch.tasks.caption.steps import (
         caption_loss_and_grads, caption_update, init_caption_train_state)
-    seen = {}
+    seen, took = {}, {}
     for name in ("cuda", "cpu"):
+        t0 = time.perf_counter()
         device = torch.device(name)
         mgr = build(device)
         state = init_caption_train_state(mgr.model, mgr.cfg, seed=0)
@@ -1987,6 +2186,9 @@ def hold_train_steps(tag: str, build, arrays: dict, single: bool) -> None:
                 rec["states"].append(_state_copy(state))
         seen[name] = rec
         del mgr, state, batch, grads
+        took[name] = time.perf_counter() - t0
+    log(f"  3 steps on the card in {took['cuda']:.1f} s, on the CPU in "
+        f"{took['cpu']:.1f} s")
     gpu, cpu = seen["cuda"], seen["cpu"]
     for step, (g, c) in enumerate(zip(gpu["metrics"], cpu["metrics"])):
         loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
@@ -2242,14 +2444,15 @@ FAMILY_VARIANTS = (
     ("tied decoder", {"share_wd_cls_weight": True, "word_vec_size": 768,
                       "use_glove": False}, {}, "videos", False),
 )
-# the recurrent variants' greedy decode card against CPU takes the first 4
-# val videos (cut from 8 for the time limit, PERF.md §6): the CPU decodes
-# a batch of 50 in ~45 s
-FAMILY_DECODE_VIDEOS = 4
-# the beam check's CPU decode takes the first 8 videos of the card's batch
-# of 50 (cut from 16 for the time limit, PERF.md §6; the card's rows of
-# them are compared, and a row's decode does not depend on the others)
-BEAM_CPU_VIDEOS = 8
+# the recurrent variants' greedy decode card against CPU takes the first 2
+# val videos (cut from 8, then 4, for the time limit, PERF.md §6): the CPU
+# decodes a batch of 50 in ~45 s
+FAMILY_DECODE_VIDEOS = 2
+# the beam check's CPU decode takes the first 4 videos of the card's batch
+# of 50 (cut from 16, then 8, for the time limit, PERF.md §6; the card's
+# rows of them are compared, and a row's decode does not depend on the
+# others)
+BEAM_CPU_VIDEOS = 4
 # B4 in float32 at the shapes these paths add: XL's (klen, 768) position
 # table at klen 25 and 50 and a (16, 50, 768) block, the untied text
 # embedding at word_vec_size 300, and a short batch whose element count is
@@ -2308,12 +2511,12 @@ def phase_caption_family(tmp: Path) -> None:
     decoded by beam search on the card, its first BEAM_CPU_VIDEOS on the
     CPU too, in the fixed and the reference_compat mode (at least
     CAPTION_MIN_SAME of those sentences token-identical), beam against
-    greedy on the card on the batch of 50 (ms,
-    forwards, host reads), one traced beam decode (no port kernel may
-    launch), the CLI's `--validate --load_epoch 0 -o use_beam=true` over
-    the 50 val videos. (b-e) The TransformerXL, the untied model, the
-    joint single-sentence model and the decoder tied to the word
-    embeddings: the CLI trains one epoch and validates (_variant_cli),
+    greedy on the card on the batch of 50 (ms, forwards, host reads), one
+    traced beam decode of the batch's first TRACE_STEPS sentence steps (no
+    port kernel may launch), the CLI's `--validate --load_epoch 0 -o
+    use_beam=true` over the 50 val videos. (b-e) The TransformerXL, the
+    untied model, the joint single-sentence model and the decoder tied to
+    the word embeddings: the CLI trains one epoch and validates (_variant_cli),
     then from its weights one train batch card against CPU over 3 steps
     (hold_train_steps; XL's with xl_grad), one val batch's eval step and
     greedy tokens card against CPU (hold_decode), one train batch trained
@@ -2415,9 +2618,11 @@ def phase_caption_family(tmp: Path) -> None:
         f"{times['beam'][0] / times['greedy'][0]:.2f}")
     cuda_build.reset_launch_counts()
     wall_ms, busy_ms, kernels, events = _busy_ms(
-        lambda: translator.translate_batch_beam(*batch))
+        lambda: translator.translate_batch_beam(
+            *(b[:TRACE_STEPS] for b in batch)))
     launches = dict(cuda_build.launch_counts)
-    log(f"  one traced beam decode: wall {wall_ms:.1f} ms, device busy "
+    log(f"  one traced beam decode of {TRACE_STEPS} sentence steps: wall "
+        f"{wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}); {kernels} kernel "
         f"launches, {kernels / translator.forwards:.1f} per forward; port "
         f"kernel launches {launches}")
@@ -2487,14 +2692,17 @@ def phase_caption_family(tmp: Path) -> None:
     caption_dropout_timing(cfg.hidden_dropout_prob, FAMILY_DROPOUT_SHAPES)
 
 
-def _busy_ms(fn, require_complete: bool = False) -> tuple:
+def _busy_ms(fn, require_complete: bool = False,
+             host: bool = False) -> tuple:
     """(traced wall ms, device-busy ms, kernels seen, the kernels' profiler
     events) of fn() under torch.profiler, synchronised: the busy time sums
     the kernels' device time, graph replays' kernels included. The trace
     opens with `warm_trace` (utils/profiling.py), left out of the counts;
     fewer device records than the host's kernel launches are logged, and
     where `require_complete` fn() is traced again, up to 3 times in all,
-    before the run fails."""
+    before the run fails. With `host`, a fifth entry counts the host's
+    calls: {"kernel_launches": cudaLaunchKernel and the like, outside the
+    warm-up, "graph_launches": cudaGraphLaunch}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from coot_videotext_tpu_torch.utils.profiling import (
@@ -2523,7 +2731,11 @@ def _busy_ms(fn, require_complete: bool = False) -> tuple:
     else:
         if require_complete:
             fail(lost)
-    return (wall, sum(_dev_us(e) for e in events) / 1e3, kernels, events)
+    out = (wall, sum(_dev_us(e) for e in events) / 1e3, kernels, events)
+    if host:
+        graphs = sum(e.count for e in averages if "GraphLaunch" in e.key)
+        out += ({"kernel_launches": launches, "graph_launches": graphs},)
+    return out
 
 
 def _device_events(averages) -> list:
@@ -2535,6 +2747,30 @@ def _device_events(averages) -> list:
     return [e for e in averages if str(e.device_type).endswith("CUDA")
             and _dev_us(e) > 0 and WARMUP_KERNEL not in e.key
             and e.key != WARMUP_RANGE]
+
+
+def _port_kernel_counts(events) -> dict:
+    """The port's kernels among a trace's device events (graph replays'
+    nodes included), counted by the name of each `__global__` function
+    and summed by the source that defines it: {"input_fc", "genpool",
+    "attention", "gather", "dropout"} (csrc/<name>.cu; the shared TN
+    kernels of csrc/*.cuh are not counted)."""
+    owner = {}
+    for src in sorted((PACKAGE / "csrc").glob("*.cu")):
+        for name in re.findall(
+                r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(\w+)\s*\(", src.read_text(encoding="utf8")):
+            owner[name] = src.stem
+    counts = {}
+    for e in events:
+        m = re.search(r"coot::(?:\(anonymous namespace\)::)?(\w+)", e.key)
+        if m and m.group(1) in owner:
+            stem = owner[m.group(1)]
+            counts[stem] = counts.get(stem, 0) + e.count
+    return counts
+
+
+EVAL_KERNELS = ("input_fc", "genpool", "attention", "gather")
 
 
 # kernel families of a train step by name, first match wins
@@ -2598,10 +2834,8 @@ def phase_group(tmp: Path) -> dict:
         load_yaml_config_file)
 
     cuda = torch.device("cuda")
-    t0 = time.time()
-    _yc2_dataset(tmp / "data", 640, 64, seed=2)
-    log(f"generated a yc2-like train split (640 videos, 64 val) in "
-        f"{time.time() - t0:.1f} s")
+    made = _take_data("group", tmp / "data")
+    log(f"a yc2-like train split (640 videos, 64 val): {made}")
     config = _config(tmp / "group")
     result, launches, wall = _train_cli(
         config, tmp, ["--preload_device", "--fixed_shapes"],
@@ -2721,9 +2955,11 @@ def phase_group(tmp: Path) -> dict:
     torch.cuda.empty_cache()
 
     # warm steps per K: 16 steps over the epoch's batches, 3 rounds after
-    # one round of warm-up (the capture included), then 8 steps traced
+    # one round of warm-up (the capture included), then max(K, 2) steps
+    # traced (the profiler's processing of an eager step takes seconds)
     timing = {}
     for k in (1, 4, 8):
+        n_traced = max(k, 2)
         ts = new_state()
         order = [batches[i % len(batches)] for i in range(16)]
         dev = [to_device(x, cuda) for x in order] if k == 1 else None
@@ -2749,30 +2985,32 @@ def phase_group(tmp: Path) -> dict:
             steps(16)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3 / 16)
-        traced, busy, kernels, events = _busy_ms(lambda: steps(8))
+        traced, busy, kernels, events = _busy_ms(lambda: steps(n_traced))
         peak = torch.cuda.max_memory_allocated() / 1e9
         med = statistics.median(walls)
-        timing[k] = dict(wall_ms=med, busy_ms=busy / 8, traced_ms=traced / 8,
+        traced, busy = traced / n_traced, busy / n_traced
+        timing[k] = dict(wall_ms=med, busy_ms=busy, traced_ms=traced,
                          videos_s=b / med * 1e3, peak_gb=peak)
         log(f"K={k}: warm wall per step {med:.2f} ms (rounds of 16: "
             f"{', '.join(f'{w:.2f}' for w in walls)}), {b / med * 1e3:.1f} "
-            f"train videos/s; traced 8 steps: {traced / 8:.2f} ms per step "
-            f"wall, device busy {busy / 8:.2f} ms per step "
+            f"train videos/s; traced {n_traced} steps: {traced:.2f} ms per "
+            f"step wall, device busy {busy:.2f} ms per step "
             f"({kernels} kernels, {100 * busy / traced:.1f}% busy); peak "
             f"device memory {peak:.2f} GB")
         if busy <= 0:
             fail(f"K={k}: the profiler saw no device time")
         if k == 4:
             log("  K=4, device time per step by kernel family:")
-            log_families(events, 8)
+            log_families(events, n_traced)
         del ts, dev, events
         torch.cuda.empty_cache()
     return timing
 
 
-def profile_step(step_fn, what: str) -> None:
+def profile_step(step_fn, what: str) -> list:
     """One warm step under torch.profiler: the device's busy share of the
-    step and the device time by kernel."""
+    step and the device time by kernel. Returns the trace's device
+    events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from coot_videotext_tpu_torch.utils.profiling import warm_trace
@@ -2811,6 +3049,7 @@ def profile_step(step_fn, what: str) -> None:
         log(f"  {family} ({'*, '.join(pattern)}*): "
             f"{sum(_dev_us(e) for e in mine) / 1e3:.3f} ms device time over "
             f"{sum(e.count for e in mine)} launches in the step")
+    return events
 
 
 def device_ms_per_call(fn, calls: int = 100) -> float:
@@ -3186,11 +3425,16 @@ def phase_timing(launches, shapes, max_errors):
                   times["train"][1], nbytes, flops)
         del q, k, v, kv, add_mask, qkv, leaves, plain_out
         torch.cuda.empty_cache()
-    # B3 backward at the clips (the kernels line) and at the paragraph
-    # local net's call (L = lp, 320): through autograd in turns with SDPA's
-    # backward, and the profiler's device time per backward call
-    for what, b_, length in (("clips", rows, lc),
-                             ("paragraph", shapes["b"], shapes["lp"])):
+    # B3 backward at the clips (the kernels line), the video context, the
+    # paragraph local net's call (L = lp, 320: more than one key block,
+    # so the D pass runs) and the sentences: through autograd in turns with
+    # SDPA's backward, and the profiler's device time per backward call
+    for what, b_, length in (
+            ("clips", rows, lc),
+            ("video ctx", shapes["b"], shapes["lv"]),
+            ("paragraph", shapes["b"], shapes["lp"]),
+            ("sentences", shapes.get("pack_sents", shapes["b"]
+                                     * shapes["n_parts"]), shapes["ls"])):
         q, k, v, kv = attention_inputs(b_, 8, length, length, dh, bf, gen)
         n_ = b_ * 8
         add_mask = torch.where(kv, 0.0, -INF).to(bf).repeat_interleave(
@@ -3309,9 +3553,9 @@ def phase_timing(launches, shapes, max_errors):
 EQUAL_BATCH, EQUAL_BATCHES = 16, 1
 # the traced dense run and the slab run: one train step and one val batch
 SHORT_VIDEOS = 64
-# 10a's host dense CLI: 3 train steps of 64 (tools/host_path.py's own
+# 10a's host dense CLI: 1 train step of 64 (tools/host_path.py's own
 # runs, which parent and change are compared on, train 5)
-HOST_VIDEOS = 192
+HOST_VIDEOS = 64
 # S3D at the extractor's defaults: windows of 32 frames every 16 of 256 x
 # 256 (extract_frames_from_videos.py:112-113), batches of 16: a video of
 # 256 frames is 16 windows, one batch
@@ -3379,10 +3623,9 @@ def phase_host_prefetch(tmp: Path) -> None:
     from coot_videotext_tpu_torch.tools import host_path
 
     data = tmp / "data"
-    t0 = time.time()
-    host_path.generate(ROOT, data, HOST_VIDEOS, host_path.VAL_VIDEOS)
-    log(f"generated a yc2-like split ({HOST_VIDEOS} train, "
-        f"{host_path.VAL_VIDEOS} val videos) in {time.time() - t0:.1f} s")
+    made = _take_data("host", data)
+    log(f"a yc2-like split ({HOST_VIDEOS} train, {host_path.VAL_VIDEOS} val "
+        f"videos): {made}")
     for layout in ("dense", "slab"):
         n = _equal_to_sequential(data, layout)
         log(f"  {layout}: {EQUAL_BATCHES} train and {EQUAL_BATCHES} val "
@@ -4011,9 +4254,9 @@ def phase_dp(tmp: Path) -> dict:
     from coot_videotext_tpu_torch.parallel import mesh as pmesh
     t0 = time.time()
     data = tmp / "data"
-    _yc2_dataset(data, DP_TRAIN_VIDEOS, DP_VAL_VIDEOS, seed=5)
-    log(f"generated a yc2-like split ({DP_TRAIN_VIDEOS} train, "
-        f"{DP_VAL_VIDEOS} val videos) in {time.time() - t0:.1f} s")
+    made = _take_data("dp", data)
+    log(f"a yc2-like split ({DP_TRAIN_VIDEOS} train, {DP_VAL_VIDEOS} val "
+        f"videos): {made}")
     _, cfg_yaml = _dp_cfg(tmp / "yaml", dropout=None, dtype="bfloat16")
     path32, cfg32 = _dp_cfg(tmp / "f32", dropout=0.0, dtype="float32")
     path_drop, cfg_drop = _dp_cfg(tmp / "drop", dropout=DP_MASK_RATE,
@@ -4368,7 +4611,9 @@ def _tp_rank(rank: int, world: int, init_file: str, spec_file: str,
                           "params": cstate.tp.gather(snap["params"]),
                           "ema": cstate.tp.gather(snap["ema"]),
                           "shards": len(cstate.tp.shards)}
-        tokens = Translator(mgr.model, mgr.cfg).translate_batch_greedy(
+        # eagerly: the model group's gloo collectives run on the host
+        tokens = Translator(mgr.model, mgr.cfg,
+                            eager=True).translate_batch_greedy(
             batch["input_ids"], batch["video_feature"], batch["input_mask"],
             batch["token_type_ids"])
         out["tokens"] = [np.asarray(t) for t in tokens]
@@ -4547,28 +4792,625 @@ def phase_tp(tmp: Path, shared: dict) -> None:
         "beside phase 11's")
 
 
+
+# ---------- phase 13: the serving programs as CUDA graphs ----------
+
+SERVING_LIMIT_S = 180.0  # the phase's time budget (logged against)
+# the captured retrieval eval step against the eager one: bit for bit is
+# expected; if cuBLAS took another algorithm under capture, at most this
+# far apart (relative to the largest |value| of each output)
+SERVING_EVAL_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the retrieval configs that never ran on the card before: one val batch
+# each of synthetic features at their widths
+SERVING_RETRIEVAL_CONFIGS = ("anet_coot.yaml", "yc2_100m_coot.yaml")
+SERVING_VAL_VIDEOS = 64
+DECODE_KEYS = ("input_ids", "video_feature", "input_mask", "token_type_ids")
+# the traced decodes (phases 6d, 9a, 13a) take this many sentence steps of
+# a batch of 50 videos (a whole batch is ~80,000 kernels to process)
+TRACE_STEPS = 2
+
+
+def _outputs_apart(graph: dict, eager: dict) -> float:
+    """The largest difference of two dicts of arrays or tensors, relative
+    to max(1, the largest |eager| value) of each."""
+    import numpy as np
+    worst = 0.0
+    for key, ref in eager.items():
+        a = np.asarray(graph[key].float().cpu() if hasattr(graph[key], "cpu")
+                       else graph[key], np.float64)
+        b = np.asarray(ref.float().cpu() if hasattr(ref, "cpu") else ref,
+                       np.float64)
+        if a.shape != b.shape:
+            fail(f"{key}: shape {a.shape} against {b.shape}")
+        if b.size:
+            worst = max(worst, float(np.abs(a - b).max())
+                        / max(1.0, float(np.abs(b).max())))
+    return worst
+
+
+def _hold_ranks(embs: dict) -> None:
+    """Ranks on the card equal ranks on the host from the same
+    similarities (vid/par, clip/sent), and the similarities agree."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch.tasks.retrieval.eval import _ranks_both
+    for k1, k2 in (("vid_emb", "par_emb"), ("clip_emb", "sent_emb")):
+        e1 = torch.from_numpy(embs[k1]).cuda()
+        e2 = torch.from_numpy(embs[k2]).cuda()
+        r12, _, r21, _ = _ranks_both(e1, e2)
+        sim = (e1 @ e2.t()).cpu().numpy()
+        diag = np.diagonal(sim)
+        h12 = (sim > diag[:, None]).sum(1)
+        h21 = (sim > diag[None, :]).sum(0)
+        if not (np.array_equal(h12, r12.cpu().numpy())
+                and np.array_equal(h21, r21.cpu().numpy())):
+            fail(f"device ranks differ from host ranks for {k1}/{k2}")
+        host_sim = embs[k1] @ embs[k2].T
+        if np.abs(host_sim - sim).max() > 1e-4:
+            fail(f"device similarities differ from host for {k1}/{k2}")
+
+
+def _decode_pass(translator, batches, beam: bool, compat: bool = False):
+    """Every batch decoded: (tokens per batch, wall ms per batch, forwards,
+    host reads and program runs per batch)."""
+    import numpy as np
+    import torch
+    tokens, ms, counts = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if beam:
+            out = translator.translate_batch_beam(*batch,
+                                                  reference_compat=compat)
+        else:
+            out = translator.translate_batch_greedy(*batch)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        tokens.append(np.stack(out))
+        counts.append((translator.forwards, translator.host_reads,
+                       translator.replays))
+    return tokens, ms, counts
+
+
+def _serving_eval(tag: str, step, model, batch: dict) -> None:
+    """A caption eval step (`step`) on `batch` through its graph against
+    eagerly: the capture, then warm replays, equal to the eager step
+    (SERVING_EVAL_RTOL in f32); warm ms each way."""
+    import torch
+    out, ms = {}, {}
+    for name, eager in (("eager", True), ("graph", False)):
+        out[name] = {k: float(v) for k, v in
+                     step(model, batch, eager=eager).items()}
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = {k: float(v) for k, v in
+                   step(model, batch, eager=eager).items()}
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if got != out[name]:
+                fail(f"{tag} eval step ({name}): two calls differ")
+        ms[name] = statistics.median(walls)
+    apart = max(abs(out["graph"][k] - v) / max(1.0, abs(v))
+                for k, v in out["eager"].items())
+    log(f"  {tag} eval step: {out['graph']} through its graph, "
+        f"{apart:.3e} apart from eager (limit "
+        f"{SERVING_EVAL_RTOL['float32']:.0e}); warm {ms['graph']:.2f} ms "
+        f"against {ms['eager']:.2f} ms eagerly")
+    if not apart <= SERVING_EVAL_RTOL["float32"]:
+        fail(f"{tag}: the captured eval step disagrees with the eager one")
+
+
+def _serving_decode(tag: str, mgr, batches, beam: bool) -> None:
+    """One decode mode over `batches` eagerly, then through the programs
+    (CUDA graphs): the tokens of every batch identical; median ms per
+    batch, forwards, host reads and replays per batch, the graphs' extra
+    peak memory, and one warm batch traced each way (wall, device busy,
+    the host's kernel launches per forward)."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch.tasks.caption.translator import Translator
+    from coot_videotext_tpu_torch.utils.graphs import cache_of
+    runs = {}
+    for name, eager in (("eager", True), ("graph", False)):
+        translator = Translator(mgr.model, mgr.cfg, eager=eager)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        built = cache_of(mgr.model).captures
+        tokens, ms, counts = _decode_pass(translator, batches, beam)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        kept = torch.cuda.memory_allocated() - held
+        runs[name] = dict(tokens=tokens, ms=ms, counts=counts, peak=peak,
+                          kept=kept, translator=translator,
+                          captures=cache_of(mgr.model).captures - built)
+    for i, (a, b) in enumerate(zip(runs["graph"]["tokens"],
+                                   runs["eager"]["tokens"])):
+        if not np.array_equal(a, b):
+            rows = (a == b).reshape(-1, a.shape[-1]).all(axis=1)
+            fail(f"{tag}: batch {i} decoded through the graphs differs "
+                 f"from the eager decode ({int(rows.sum())} of {rows.size} "
+                 "sentences identical)")
+    sentences = sum(int(t.shape[0] * t.shape[1]) for t in
+                    runs["eager"]["tokens"])
+    for name, run in runs.items():
+        f, h, r = (statistics.median(c[j] for c in run["counts"])
+                   for j in range(3))
+        # the graph pass's first batches of each shape include captures
+        ms = run["ms"][1:] if name == "graph" else run["ms"]
+        log(f"  {tag} {name:5s}: median {statistics.median(ms):.2f} ms a "
+            f"batch (all {[round(v, 1) for v in run['ms']]}), {f:.0f} "
+            f"forwards, {h:.0f} host reads, {r:.0f} program runs a batch; "
+            f"{run['captures']} programs built; peak device memory "
+            f"{run['peak'] / 1e9:.3f} GB above the model and batches, "
+            f"{run['kept'] / 1e9:.3f} GB kept after the pass")
+    log(f"  {tag}: {len(batches)} batches, {sentences} sentences, every one "
+        f"token-identical through the graphs; the graphs' extra peak "
+        f"memory {(runs['graph']['peak'] - runs['eager']['peak']) / 1e9:.3f}"
+        " GB")
+    # the trace takes the first TRACE_STEPS sentence steps of batch 0: the
+    # profiler's processing of a whole eager batch (~80,000 kernels and
+    # launches) takes a minute
+    batch = [x[:TRACE_STEPS] for x in batches[0]]
+    t0 = time.time()
+    for name, run in runs.items():
+        translator = run["translator"]
+
+        def decode():
+            if beam:
+                translator.translate_batch_beam(*batch)
+            else:
+                translator.translate_batch_greedy(*batch)
+        wall, busy, kernels, _, host = _busy_ms(decode, host=True)
+        log(f"  {tag} {name:5s} traced (batch 0, {TRACE_STEPS} sentence "
+            f"steps): wall {wall:.1f} ms, device "
+            f"busy {busy:.1f} ms ({busy / wall:.1%}); {kernels} kernels on "
+            f"the device; the host launched {host['kernel_launches']} "
+            f"kernels ({host['kernel_launches'] / translator.forwards:.2f} "
+            f"a forward) and {host['graph_launches']} graphs for "
+            f"{translator.forwards} forwards ({time.time() - t0:.1f} s of "
+            "tracing so far)")
+
+
+def _retrieval_serving(tmp: Path, source_yaml: Path,
+                       cpu_check: bool) -> dict:
+    """A val split of synthetic videos at the widths of `source_yaml` (npy
+    features, DATA_SPLITS' `serving_<stem>`) on the device store with device sampling
+    (id batches, fixed shapes). validate_retrieval through the captured
+    eval step against the eager one (embeddings, losses, metrics), device
+    ranks against host ranks; the warm eval step's ms and device-busy ms
+    each way and the port's kernel launches in a step (a replay launches
+    none); with `cpu_check` one batch on the card in f32 against the CPU
+    (the kernels' plain versions) and B1-B3 against their plain versions
+    at the batch's shapes. Returns the launches of one eager step."""
+    import numpy as np
+    import torch
+    import yaml
+    from coot_videotext_tpu_torch.data.device_store import (
+        FeatureSource, assemble_batch)
+    from coot_videotext_tpu_torch.data.retrieval_dataset import (
+        create_retrieval_datasets_and_loaders, to_device)
+    from coot_videotext_tpu_torch.ops import cuda_build
+    from coot_videotext_tpu_torch.ops.attention import (
+        masked_attention, masked_attention_plain)
+    from coot_videotext_tpu_torch.ops.genpool import genpool, genpool_plain
+    from coot_videotext_tpu_torch.ops.input_fc import (
+        fused_input_fc, fused_input_fc_plain)
+    from coot_videotext_tpu_torch.tasks.retrieval import validate
+    from coot_videotext_tpu_torch.tasks.retrieval.config import (
+        RetrievalConfig)
+    from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
+        RetrievalModelManager)
+    from coot_videotext_tpu_torch.tasks.retrieval.steps import (
+        retrieval_eval_step)
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    cuda = torch.device("cuda")
+    raw = load_yaml_config_file(source_yaml)
+    ds = raw["dataset_train"]
+    made = _take_data(f"serving_{source_yaml.stem}", tmp / "data")
+    num_val, seed = DATA_SPLITS[f"serving_{source_yaml.stem}"][1:3]
+    ds.update(vid_feat_source="npy", text_feat_source="npy", frames_noise=0)
+    raw["dataset_val"]["split"] = "val"  # the generator's split
+    path = tmp / source_yaml.name
+    path.write_text(yaml.safe_dump(raw, sort_keys=False), encoding="utf8")
+    cfg = RetrievalConfig(load_yaml_config_file(path), is_train=False)
+    _, _, _, loader = create_retrieval_datasets_and_loaders(
+        cfg, tmp / "data", seed=0, device=cuda, fixed_shapes=True,
+        device_preload=True)
+    if loader.layout != "ids":
+        fail(f"{source_yaml.name}: the val loader's layout is "
+             f"{loader.layout}, not ids")
+    mgr = RetrievalModelManager(cfg, cuda, seed=0)
+    dn = str(mgr.val_dtype).split(".")[-1]
+    log(f"  {source_yaml.name}: {num_val} val videos at {ds['vid_feat_dim']}"
+        f"-d video / {ds['text_feat_dim']}-d text ({made}), val batch {cfg.val.batch_size}, "
+        f"{dn}, val_clips {cfg.val.val_clips}")
+    kw = dict(compute_dtype=mgr.val_dtype, val_clips=cfg.val.val_clips,
+              cc_seed=42)
+    results = {}
+    # the first graph pass captures the step (a program per batch shape),
+    # the second replays only
+    for name in ("graph, capturing", "eager", "graph"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[name] = validate.validate_retrieval(
+            mgr.model, cfg, loader, cuda, eager=name == "eager", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = results[name]
+        log(f"  validation, eval step {res['eval_step']}: "
+            f"{res['num_videos']} videos in {res['num_batches']} batches, "
+            f"{res['num_videos'] / wall:.2f} val videos/s ({wall:.3f} s, "
+            f"forward {res['forward_s']:.3f} s)")
+    if results["graph"]["eval_step"] != "CUDA graph" \
+            or results["eager"]["eval_step"] != "eager":
+        fail(f"{source_yaml.name}: the eval steps ran as "
+             f"{results['graph']['eval_step']} / "
+             f"{results['eager']['eval_step']}")
+    apart = _outputs_apart(results["graph"]["embeddings"],
+                           results["eager"]["embeddings"])
+    losses = max(abs(results["graph"][k] - results["eager"][k])
+                 / max(1.0, abs(results["eager"][k]))
+                 for k in ("loss_total", "loss_contrastive", "loss_cc"))
+    metric_keys = [k for k in ("v2p", "p2v", "c2s", "s2c")
+                   if k in results["eager"]]
+    same = all(results["graph"][k] == results["eager"][k]
+               for k in metric_keys)
+    log(f"  graph against eager: embeddings {apart:.3e} apart, losses "
+        f"{losses:.3e} (limit {SERVING_EVAL_RTOL[dn]:.0e}; 0 is bit for "
+        f"bit), metrics {metric_keys} equal: {same}")
+    if not (apart <= SERVING_EVAL_RTOL[dn] and losses <= SERVING_EVAL_RTOL[dn]
+            and same):
+        fail(f"{source_yaml.name}: the captured eval step disagrees with "
+             "the eager one")
+    if cfg.val.val_clips:
+        _hold_ranks(results["graph"]["embeddings"])
+        log("  device ranks == host ranks (vid/par, clip/sent) on the "
+            "graph's embeddings")
+
+    batch = to_device(next(iter(loader)), cuda)
+    source = FeatureSource.of(loader)
+    step_kw = dict(loss_weights=cfg.train.contrastive_loss_config.as_dict(),
+                   margin=cfg.train.contrastive_loss_config.margin,
+                   loss_cycle_cons=cfg.train.loss_cycle_cons,
+                   compute_dtype=mgr.val_dtype, source=source)
+    launches, traced = {}, {}
+    for name, eager in (("eager", True), ("graph", False)):
+        def step():
+            retrieval_eval_step(mgr.model, batch, eager=eager, **step_kw)
+            torch.cuda.synchronize()
+        step()
+        cuda_build.reset_launch_counts()
+        step()
+        launches[name] = dict(cuda_build.launch_counts)
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall, busy, kernels, events, host = _busy_ms(step, host=True)
+        traced[name] = _port_kernel_counts(events)
+        log(f"  eval step {name:5s} (batch 0, warm, median of 5): "
+            f"{statistics.median(walls):.2f} ms (min {min(walls):.2f}); "
+            f"traced {wall:.2f} ms, device busy {busy:.2f} ms "
+            f"({busy / wall:.1%}), {kernels} kernels, the host launched "
+            f"{host['kernel_launches']} kernels and {host['graph_launches']}"
+            f" graphs; wrapper launches in one step {launches[name]}; the "
+            f"port's kernels on the device in the traced step "
+            f"{traced[name]}")
+    if any(launches["graph"].values()):
+        fail(f"{source_yaml.name}: a replay of the eval step ran the "
+             f"wrappers: {launches['graph']}")
+    for kernel in EVAL_KERNELS:
+        if launches["eager"].get(kernel, 0) <= 0:
+            fail(f"{source_yaml.name}: {kernel} did not run in the eval "
+                 "step")
+        if traced["graph"].get(kernel, 0) <= 0:
+            fail(f"{source_yaml.name}: the trace of a graph replay holds "
+                 f"no {kernel} kernel: {traced['graph']}")
+    if traced["graph"] != traced["eager"]:
+        fail(f"{source_yaml.name}: the replay ran other kernels of the port "
+             f"({traced['graph']}) than the eager step ({traced['eager']})")
+    if not cpu_check:
+        return traced["graph"]
+
+    log("  one batch on the card in f32 (the kernels) against the CPU "
+        "(their plain versions)")
+    dense = assemble_batch(batch, source)
+    gpu_kw = dict(step_kw, compute_dtype=torch.float32)
+    e_gpu, p_gpu = retrieval_eval_step(mgr.model, batch, eager=True,
+                                       **gpu_kw)
+    cpu = RetrievalModelManager(cfg, torch.device("cpu"), seed=0)
+    host_batch = {k: v.cpu() if torch.is_tensor(v) else v
+                  for k, v in dense.items()}
+    t0 = time.time()
+    e_cpu, p_cpu = retrieval_eval_step(cpu.model, host_batch, eager=True,
+                                       **dict(step_kw, source=None,
+                                              compute_dtype=torch.float32))
+    apart = _outputs_apart(e_gpu, e_cpu)
+    log(f"  card f32 against the CPU ({time.time() - t0:.1f} s on the CPU):"
+        f" embeddings {apart:.3e} apart (limit {TOL['float32']:.0e})")
+    if not apart <= TOL["float32"]:
+        fail(f"{source_yaml.name}: the card disagrees with the CPU")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    clips = dense["clip_feat"]
+    rows, length = clips.shape[0], clips.shape[1]
+    din = clips.shape[2]
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        args = input_fc_inputs(rows * length, din, 384, dt, gen, 5)
+        with torch.inference_mode():
+            check_tol("input_fc", name, f"clips S={rows * length} "
+                      f"{din}->384", *errors(
+                          fused_input_fc(*args, 1e-6, "gelu"),
+                          fused_input_fc_plain(*args, 1e-6, "gelu")))
+            args = genpool_inputs(rows, length, 384, 768, 2, dt, gen)
+            check_tol("genpool", name, f"clips S={rows} L={length}", *errors(
+                genpool(*args, "gelu", 0.0, None),
+                genpool_plain(*args, "gelu", 0.0, None)))
+            args = attention_inputs(rows, 8, length, length, 48, dt, gen)
+            check_tol("attention", name, f"clips N={rows * 8} L={length}",
+                      *errors(masked_attention(*args, 8, 48 ** -0.5),
+                              masked_attention_plain(*args, 8, 48 ** -0.5)))
+    del mgr, cpu, loader, batch, dense
+    torch.cuda.empty_cache()
+    return traced["graph"]
+
+
+def phase_serving_graphs(tmp: Path) -> dict:
+    """Phase 13, the serving programs as CUDA graphs (utils/graphs.py),
+    each against the eager path on the same weights and inputs. (a) MART
+    at yc2_2d3d_coot_vidclip_mart width over the 457-video YouCook2 val
+    split (phase 6's inputs, seed 0): greedy and beam (fixed) decoded
+    eagerly and through the graphs, every sentence token-identical, beam
+    reference_compat on the first batch; ms, forwards, host reads and
+    program runs a batch, the graphs' extra peak memory, one traced batch
+    each way. (b) The TransformerXL, the untied and joint models (phase
+    9's widths) and the MTransformer (yc2_100m_coot_vidclip_mtrans) from
+    seed 0: one val batch each, token-identical. (c) Retrieval on
+    yc2_2d3d_coot.yaml id batches (128 val videos): validation through the
+    graph against the eager step, ranks against host ranks, the warm eval
+    step each way, the port's launches in a step. (d) anet_coot.yaml and
+    yc2_100m_coot.yaml, which no earlier phase runs: one val batch each at
+    their widths through the graph against eager, the card against the
+    CPU in f32, B1-B3 against their plain versions at the batch's shapes.
+    Returns the port's kernels on the device in one traced replay of the
+    captured yc2_2d3d_coot eval step, counted by name
+    (`_port_kernel_counts`), each of B1, B2, B3 and B5 required there."""
+    import numpy as np
+    import torch
+    from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
+    from coot_videotext_tpu_torch.data.caption_dataset import STACKED_KEYS
+    from coot_videotext_tpu_torch.tasks.caption.model_manager import (
+        build_mart_model_manager)
+    from coot_videotext_tpu_torch.tasks.caption.steps import (
+        caption_eval_step, caption_eval_step_single)
+    from coot_videotext_tpu_torch.tasks.caption.translator import Translator
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    t_phase = time.time()
+    cuda = torch.device("cuda")
+
+    def config(path, over):
+        cfg = load_yaml_config_file(path)
+        cfg.update(over)
+        return MartConfig(cfg)
+
+    cfg = config(CAPTION_CONFIG, {})
+    def mark(what: str) -> None:
+        log(f"  [{time.time() - t_phase:.1f} s into phase 13] {what}")
+
+    log("(a) MART over the YouCook2 val split, greedy and beam, eager "
+        "against the graphs")
+    emb_dir, pth, _ = _caption_inputs(tmp / "mart", cfg)
+    val = _family_dataset(cfg, emb_dir, "val")
+    mgr = _family_build({}, len(val.word2idx), pth)(cuda)
+    n = cfg.val.batch_size
+    batches = []
+    for start in range(0, len(val), n):
+        stacked, _, _ = val.collate_fn(
+            [val[i] for i in range(start, min(start + n, len(val)))])
+        if not batches:
+            first = {k: torch.from_numpy(stacked[k]).cuda()
+                     for k in STACKED_KEYS}
+        batches.append([torch.from_numpy(stacked[k]).cuda()
+                        for k in DECODE_KEYS])
+    mark(f"{len(val)} videos in {len(batches)} batches of {n}")
+    _serving_eval("MART", caption_eval_step, mgr.model, first)
+    _serving_decode("greedy", mgr, batches, beam=False)
+    mark("greedy done")
+    _serving_decode(f"beam {cfg.beam_size}", mgr, batches, beam=True)
+    mark("beam done")
+    decs = [np.stack(Translator(mgr.model, mgr.cfg, eager=eager)
+                     .translate_batch_beam(*batches[0],
+                                           reference_compat=True))
+            for eager in (True, False)]
+    if not np.array_equal(*decs):
+        fail("beam reference_compat: the graphs' tokens differ from eager")
+    log("  beam reference_compat, batch 0: token-identical through the "
+        "graphs")
+    del mgr, batches, decs
+    torch.cuda.empty_cache()
+
+    log("(b) the rest of the family, one val batch each, seed 0")
+    family = [(tag, CAPTION_CONFIG, over, emb_dir)
+              for tag, over, _, _, _ in FAMILY_VARIANTS
+              if tag != "tied decoder"]
+    mcfg = config(MTRANS_CONFIG, {})
+    family.append(("MTransformer", MTRANS_CONFIG, {},
+                   _coot_embeddings(tmp / "mtrans", mcfg)))
+    for tag, path, over, emb in family:
+        cfg = config(path, over)
+        val = _family_dataset(cfg, emb, "val")
+        mgr = build_mart_model_manager(cfg, len(val.word2idx), cuda, seed=0,
+                                       cache_dir=str(ROOT / "cache_caption"))
+        stacked, _, _ = val.collate_fn([val[j] for j in range(
+            cfg.val.batch_size)])
+        batch = {k: torch.from_numpy(v).cuda() for k, v in stacked.items()
+                 if isinstance(v, np.ndarray)}
+        _serving_eval(tag, caption_eval_step if cfg.recurrent
+                      else caption_eval_step_single, mgr.model, batch)
+        out, ms = {}, {}
+        for name, eager in (("eager", True), ("graph", False), ("replay",
+                                                                False)):
+            translator = Translator(mgr.model, mgr.cfg, eager=eager)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = np.asarray(translator.translate_batch(batch))
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        if not (np.array_equal(out["graph"], out["eager"])
+                and np.array_equal(out["replay"], out["eager"])):
+            fail(f"{tag}: the graphs' tokens differ from the eager decode")
+        mark(f"{tag} done")
+        log(f"  {tag}: {out['eager'].size // out['eager'].shape[-1]} "
+            f"sentences token-identical; eager {ms['eager']:.1f} ms, first "
+            f"graph call (captures) {ms['graph']:.1f} ms, replays "
+            f"{ms['replay']:.1f} ms; {translator.forwards} forwards, "
+            f"{translator.replays} program runs, "
+            f"{len(np.unique(out['eager']))} distinct tokens")
+        del mgr, batch, translator
+        torch.cuda.empty_cache()
+
+    mark("(b) done")
+    log("(c) the retrieval eval step on yc2_2d3d_coot.yaml id batches")
+    launches = _retrieval_serving(tmp / "yc2", CONFIG, cpu_check=False)
+    for i, name in enumerate(SERVING_RETRIEVAL_CONFIGS):
+        mark(f"({'de'[i]}) starts")
+        log(f"({'de'[i]}) {name}: one val batch at its widths")
+        _retrieval_serving(tmp / name.split(".")[0], CONFIG.parent / name,
+                           cpu_check=True)
+    log(f"  phase 13 took {time.time() - t_phase:.1f} s (budget "
+        f"{SERVING_LIMIT_S:.0f} s)")
+    return launches
+
+
+# the synthetic retrieval splits, in the order the phases need them:
+# split -> _yc2_dataset's (train videos, val videos, seed[, config])
+DATA_SPLITS = {
+    "val": (4, 128, 0),                                     # phase 3
+    "train": (256, 64, 1),                                  # phase 4
+    # tools/host_path.py's `generate`: VAL_VIDEOS 64, seed 2
+    "host": (HOST_VIDEOS, 64, 2),                           # phase 10a
+    "dp": (DP_TRAIN_VIDEOS, DP_VAL_VIDEOS, 5),              # phase 11
+    "group": (640, 64, 2),                                  # phase 4c
+    "serving_yc2_2d3d_coot": (4, 128, 0),                   # phase 13c
+    **{f"serving_{name.split('.')[0]}": (                   # 13d, 13e
+        4, SERVING_VAL_VIDEOS, i + 1, CONFIG.parent / name)
+       for i, name in enumerate(SERVING_RETRIEVAL_CONFIGS)},
+}
+
+# The caption family shares nothing with the other phases: phases 6-8 and
+# phase 9 run in two processes of their own (`--side-phases`), beside
+# phases 2-4b and 10-12 of the main one. Phases 4c, 5 and 13, which time
+# the card, run after them, alone on it.
+SIDE_PHASES = (("6", "7", "8"), ("9",))
+SIDE_THREADS = 4  # each side process's intra-op threads on the host
+SIDE_PHASE = {
+    "6": (phase_caption, "caption serving: MART at "
+          "yc2_2d3d_coot_vidclip_mart width, greedy, over the YouCook2 val "
+          "split"),
+    "7": (phase_caption_train, "caption training: MART at "
+          "yc2_2d3d_coot_vidclip_mart width on cuts of the YouCook2 train "
+          "and val splits"),
+    "8": (phase_caption_variants, "the caption variants of the shipped "
+          "configs: raw-feature MART (yc2_mart) and the MTransformer "
+          "(yc2_100m_coot_vidclip_mtrans), trained and served"),
+    "9": (phase_caption_family, "the rest of the caption family at "
+          "yc2_2d3d_coot_vidclip_mart width: beam search, the "
+          "TransformerXL, the untied and joint single-sentence models and "
+          "the tied decoder, trained and served"),
+}
+
+
+def side_main(numbers: str, start: float) -> None:
+    """The side phases `numbers` ("6,7,8"), each in a temporary directory
+    of its own; times are logged from `start`, the main process's."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this needs an NVIDIA GPU")
+    sys.path.insert(0, str(ROOT))
+    from coot_videotext_tpu_torch.ops import cuda_build
+    # two side processes and the main one share the host's cores
+    torch.set_num_threads(SIDE_THREADS)
+    phase_environment()
+    cuda_build.build_library()
+    cuda_build.load_library()
+    for number in numbers.split(","):
+        run, title = SIDE_PHASE[number]
+        with tempfile.TemporaryDirectory(
+                prefix=f"coot_chip_phase{number}_") as tmp:
+            log(f"[{time.time() - start:.0f} s] == {number}. {title}")
+            run(Path(tmp))
+
+
+def _spawn_side(numbers, start: float, logs: Path) -> tuple:
+    """Starts the side phases `numbers` in a process of their own, its
+    output to a file under `logs`."""
+    out = logs / f"phases_{'_'.join(numbers)}.log"
+    with open(out, "w", encoding="utf8") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--side-phases",
+             ",".join(numbers), repr(start)], cwd=ROOT, stdout=fh,
+            stderr=subprocess.STDOUT)
+    proc.log_path = out
+    _CHILDREN.append(proc)
+    return numbers, proc, out
+
+
+def _join_side(side) -> None:
+    """Waits for a side process, prints its log and fails with it."""
+    numbers, proc, out = side
+    t0 = time.time()
+    rc = proc.wait()
+    log(f"== phases {', '.join(numbers)}, which ran in a process of their "
+        f"own beside phases 2-4b and 10-12 (waited {time.time() - t0:.1f} s "
+        "more for them), logged:")
+    text = out.read_text(encoding="utf8", errors="replace")
+    sys.stdout.write(text if text.endswith("\n") else text + "\n")
+    sys.stdout.flush()
+    if rc != 0:
+        failed = [line for line in text.splitlines() if "FAILED" in line]
+        fail(f"phases {', '.join(numbers)} exited with {rc}: "
+             f"{failed[-1] if failed else 'see their log above'}")
+
+
 def main() -> None:
     if not (PACKAGE / "ops" / "cuda_build.py").is_file() \
             or not CONFIG.is_file():
         fail("run from a checkout of the repository (the port package and "
              "config/ are missing beside chip_smoke.py)")
+    if sys.argv[1:2] == ["--side-phases"]:
+        side_main(sys.argv[2], float(sys.argv[3]))
+        return
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
     start = time.time()
+    atexit.register(_stop_children)
+    # a stop from outside (SIGTERM) stops the workers and side phases too
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
 
     def phase(title: str) -> None:
         log(f"[{time.time() - start:.0f} s] == {title}")
 
+    work = Path(tempfile.mkdtemp(prefix="coot_chip_work_"))
+    _start_data(work)
     phase("1. environment")
     phase_environment()
     phase("2. kernels against their plain versions, forward and backward "
           f"(tolerance f32 {TOL['float32']}, bf16 {TOL['bfloat16']}, "
           "relative to max(1, max|plain|))")
     phase_build()
+    log(f"phases {' and '.join(', '.join(n) for n in SIDE_PHASES)} start "
+        "in processes of their own (their logs follow phase 12)")
+    sides = [_spawn_side(numbers, start, work) for numbers in SIDE_PHASES]
     max_errors = phase_kernel_checks()
     max_errors["gather"] = phase_gather_checks()
+    phase(f"2b. B3's bf16 backward over {B3_SEEDS} draws at each of its "
+          "phase-2 shapes: rounding or a fault")
+    phase_b3_seeds()
     with tempfile.TemporaryDirectory(prefix="coot_chip_smoke_") as tmp:
         phase("3. validation + embedding export at yc2_2d3d_coot width, "
               "four ways")
@@ -4578,33 +5420,6 @@ def main() -> None:
         phase("4b. synthetic_smoke.yaml trained on the card (ragged input "
               "FC widths, small GenPool)")
         phase_synthetic_smoke(Path(tmp) / "smoke")
-        phase("4c. the group step: K train steps a dispatch, each a replay "
-              "of the captured train step")
-        phase_group(Path(tmp) / "group")
-    phase(f"5. kernel timing at the training path's shapes {shapes}")
-    kernels = phase_timing(launches, shapes, max_errors)
-    with tempfile.TemporaryDirectory(prefix="coot_chip_caption_") as tmp:
-        phase("6. caption serving: MART at yc2_2d3d_coot_vidclip_mart "
-              "width, greedy, over the YouCook2 val split")
-        phase_caption(Path(tmp))
-    with tempfile.TemporaryDirectory(prefix="coot_chip_caption_train_") \
-            as tmp:
-        phase("7. caption training: MART at yc2_2d3d_coot_vidclip_mart "
-              "width on cuts of the YouCook2 train and val splits")
-        phase_caption_train(Path(tmp))
-    with tempfile.TemporaryDirectory(prefix="coot_chip_caption_var_") \
-            as tmp:
-        phase("8. the caption variants of the shipped configs: raw-feature "
-              "MART (yc2_mart) and the MTransformer "
-              "(yc2_100m_coot_vidclip_mtrans), trained and served")
-        phase_caption_variants(Path(tmp))
-    with tempfile.TemporaryDirectory(prefix="coot_chip_caption_family_") \
-            as tmp:
-        phase("9. the rest of the caption family at "
-              "yc2_2d3d_coot_vidclip_mart width: beam search, the "
-              "TransformerXL, the untied and joint single-sentence models and "
-              "the tied decoder, trained and served")
-        phase_caption_family(Path(tmp))
     with tempfile.TemporaryDirectory(prefix="coot_chip_tail_") as tmp:
         phase("10. the prefetch pipeline and the tail: (a) the retrieval "
               "host path with prefetch at yc2_2d3d_coot width")
@@ -4625,6 +5440,26 @@ def main() -> None:
               "yc2_2d3d_coot_vidclip_mart width: {data: 1, model: 2} over "
               "gloo on the card (retrieval, eval, checkpoint, MART, greedy)")
         phase_tp(Path(tmp), shared)
+    for side in sides:
+        _join_side(side)
+    phase("the card is the main process's alone from here on")
+    with tempfile.TemporaryDirectory(prefix="coot_chip_group_") as tmp:
+        phase("4c. the group step: K train steps a dispatch, each a replay "
+              "of the captured train step")
+        phase_group(Path(tmp) / "group")
+    phase(f"5. kernel timing at the training path's shapes {shapes}")
+    kernels = phase_timing(launches, shapes, max_errors)
+    with tempfile.TemporaryDirectory(prefix="coot_chip_serving_") as tmp:
+        phase("13. serving graphs: the caption decodes and the retrieval "
+              "and caption eval steps as CUDA graphs against eager, at full "
+              "width")
+        graph_launches = phase_serving_graphs(Path(tmp))
+    for entry in kernels:
+        # the port's kernels on the device in a traced replay of the
+        # captured yc2_2d3d_coot eval step, by name
+        entry["eval_graph_launches"] = int(graph_launches.get(entry["name"],
+                                                              0))
+    _stop_children()
     log(f"chip_smoke took {time.time() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -75,14 +75,21 @@
 // the products: one Philox call per 4 consecutive elements, one byte per
 // element in shared memory (groups that straddle a row when Lk % 4 != 0 are
 // drawn once for each row, with the bits of csrc/philox.cuh). P*f and dS
-// are rounded to bf16 for their products, as the inputs are; the larger
-// error against the plain version is D, formed from the forward's bf16 o
-// where the plain version recomputes o in f32. Ragged Lq, Lk
-// and Dh are padded with zero rows and columns in shared memory and masked
-// out of every output. float32 inputs (only the checks use them) keep the
-// scalar kernels (a) masked_attention_bwd_dkdv, one block per (cell, 128
-// keys), a lane per key, and (b) masked_attention_bwd_dq, one block per
-// (cell, 32 queries).
+// are rounded to bf16 for their products, as the inputs are. D is
+// sum_j P_ij f_ij dPd_ij in f32, the rowsum of g and the f32 o that the
+// plain version forms: with one key block each warp sums its 16 keys of a
+// 16-query tile and the warps' partials are added in a fixed order before
+// dS; with more, the same kernel walks the key blocks once before the
+// pass forming D alone (kDeltaPass) into an f32 row of the cell's own.
+// D formed from the forward's bf16 o instead, as FlashAttention does,
+// leaves the rounding of o in dS = P (dPd f - D), and dk sums it over the
+// Lq queries: on a row whose only valid key is j, where dS_ij is 0, dk_j
+// reached 5.5 bf16 ulps of max |dk| with dropout on (ROADMAP C4).
+// Ragged Lq, Lk and Dh are padded with zero rows and columns in shared
+// memory and masked out of every output. float32 inputs (only the checks
+// use them) keep the scalar kernels (a) masked_attention_bwd_dkdv, one
+// block per (cell, 128 keys), a lane per key, and (b)
+// masked_attention_bwd_dq, one block per (cell, 32 queries).
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -446,7 +453,8 @@ __host__ __device__ __forceinline__ size_t bwd_mma_smem_bytes(int kD,
                                                               BwdTiles t) {
   const size_t ld = kD + 8;
   return 2 * (2 * t.bq * ld + 2 * t.bk * ld + (size_t)t.bk * (t.bq + 8)) +
-         sizeof(float) * t.bq * (3 + kD / 8) + t.bk + (size_t)t.bq * t.bk;
+         sizeof(float) * (t.bq * 3 + 16 * kMmaWarps) + t.bk +
+         (size_t)t.bq * t.bk;
 }
 
 // Fewest parts of at most kMmaWarps 16-row tiles, tiles split evenly.
@@ -459,12 +467,16 @@ int balanced_tiles(int len) {
 // At most 128 registers a thread for Dh <= 48, so that three blocks of 5
 // warps (L = 80, ~58 KB of shared memory each) fit on an SM: the kernel is
 // bound by latency between its phases, and a third block hides it.
-template <int kD>
+// kDeltaPass: the same walk over the key blocks, forming D alone (no dS,
+// dq, dk, dv) into `delta`, block by block in a fixed order; the pass that
+// follows reads it. Only cells of more than one key block need it: with
+// one, the pass forms D itself.
+template <int kD, bool kDeltaPass>
 __global__ void __launch_bounds__(kMmaWarps * 32, kD <= 48 ? 2 : 1)
 masked_attention_bwd_mma(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
-                         const bf16* __restrict__ o,
+                         float* __restrict__ delta,
                          const bf16* __restrict__ g,
                          const uint8_t* __restrict__ key_valid,
                          const float* __restrict__ row_max,
@@ -474,8 +486,7 @@ masked_attention_bwd_mma(const bf16* __restrict__ q,
                          int Lq, int Lk, int Dh, int num_heads, float scale,
                          DropParams drop, BwdTiles t) {
   resolve_seed(drop);
-  constexpr int kLd = kD + 8, kSteps = kD / 16, kNt = kD / 8,
-                kChunks = kD / 8;
+  constexpr int kLd = kD + 8, kSteps = kD / 16, kNt = kD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Bq = t.bq, Bk = t.bk, dld = Bq + 8;
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // Bq x kLd
@@ -486,8 +497,8 @@ masked_attention_bwd_mma(const bf16* __restrict__ q,
   float* sM = reinterpret_cast<float*>(sDsT + Bk * dld);  // Bq
   float* sI = sM + Bq;                                     // Bq
   float* sD = sI + Bq;                                     // Bq
-  float* sDpart = sD + Bq;                // Bq x kChunks: D's partials
-  uint8_t* sValid = reinterpret_cast<uint8_t*>(sDpart + Bq * kChunks);  // Bk
+  float* sDw = sD + Bq;                      // kMmaWarps x 16: D's partials
+  uint8_t* sValid = reinterpret_cast<uint8_t*>(sDw + 16 * kMmaWarps);  // Bk
   uint8_t* sKeep = sValid + Bk;                            // Bq x Bk
 
   const int n = blockIdx.x, b = n / num_heads;
@@ -500,8 +511,7 @@ masked_attention_bwd_mma(const bf16* __restrict__ q,
   const bool vec =
       Dh % 8 == 0 &&
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g) |
-        reinterpret_cast<uintptr_t>(o)) &
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g)) &
        15) == 0;
   const bool drop_on = drop.thresh != 0u;
   const bool one_chunk = Lq <= Bq, one_block = Lk <= Bk;
@@ -537,33 +547,9 @@ masked_attention_bwd_mma(const bf16* __restrict__ q,
         for (int i = threadIdx.x; i < q_tiles * 16; i += blockDim.x) {
           sM[i] = i < q_rows ? row_max[row0 + i] : 0.f;
           sI[i] = i < q_rows ? row_inv[row0 + i] : 0.f;
-        }
-        // D = rowsum(g * o): partial sums of 8 elements, all loads issued
-        // at once (a warp per row would wait on each row in turn)
-        for (int i = threadIdx.x; i < q_tiles * 16 * kChunks;
-             i += blockDim.x) {
-          const int r = i / kChunks, c = (i % kChunks) * 8;
-          float acc = 0.f;
-          if (r < q_rows && c < Dh) {
-            const size_t at = (row0 + r) * Dh + c;
-            if (vec) {
-              const uint4 gv = *reinterpret_cast<const uint4*>(g + at);
-              const uint4 ov = *reinterpret_cast<const uint4*>(o + at);
-              const uint32_t* gw = reinterpret_cast<const uint32_t*>(&gv);
-              const uint32_t* ow = reinterpret_cast<const uint32_t*>(&ov);
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {  // bf16 pairs, low half first
-                acc = fmaf(__uint_as_float(gw[j] << 16),
-                           __uint_as_float(ow[j] << 16), acc);
-                acc = fmaf(__uint_as_float(gw[j] & 0xffff0000u),
-                           __uint_as_float(ow[j] & 0xffff0000u), acc);
-              }
-            } else {
-              for (int j = 0; j < 8 && c + j < Dh; ++j)
-                acc = fmaf(to_f32(g[at + j]), to_f32(o[at + j]), acc);
-            }
-          }
-          sDpart[i] = acc;
+          // one key block (and the D pass): D is formed tile by tile below
+          if (!one_block && !kDeltaPass)
+            sD[i] = i < q_rows ? delta[row0 + i] : 0.f;
         }
       }
       if (drop_on) {
@@ -587,15 +573,6 @@ masked_attention_bwd_mma(const bf16* __restrict__ q,
       }
       cp_async_wait_all();
       __syncthreads();
-      if (!one_chunk || kb == 0) {
-        for (int r = threadIdx.x; r < q_tiles * 16; r += blockDim.x) {
-          float acc = 0.f;
-#pragma unroll
-          for (int c = 0; c < kChunks; ++c) acc += sDpart[r * kChunks + c];
-          sD[r] = acc;
-        }
-        __syncthreads();
-      }
       if (q0 == 0) {  // this warp's 16 keys of the block as A fragments
 #pragma unroll
         for (int s = 0; s < kSteps; ++s) {
@@ -627,7 +604,7 @@ masked_attention_bwd_mma(const bf16* __restrict__ q,
           mma_bf16(p_acc[1], va[s], bg4[2], bg4[3]);
         }
         // element (j, i): key gq + 8 (i / 2), query 8 j + 2 tq + i % 2
-        float pd[2][4], ds[2][4];
+        float pd[2][4], ds[2][4], pr[2][4], fr[2][4];
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -642,7 +619,57 @@ masked_attention_bwd_mma(const bf16* __restrict__ q,
               if (drop_on) f = sKeep[ql * Bk + kl] ? drop.scale : 0.f;
             }
             pd[j][i] = p * f;
-            ds[j][i] = valid == 1 ? p * (p_acc[j][i] * f - sD[ql]) : 0.f;
+            pr[j][i] = p;
+            fr[j][i] = f;
+          }
+        if (one_block || kDeltaPass) {
+          // D of the tile's 16 queries, sum_j P f dPd over the block's
+          // keys (with one block, all the cell's): this warp's 16, then the
+          // warps in a fixed order
+          float part[2][2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              part[j][c] = fmaf(pd[j][c], p_acc[j][c],
+                                pd[j][c + 2] * p_acc[j][c + 2]);
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int c = 0; c < 2; ++c)
+                part[j][c] += __shfl_xor_sync(0xffffffffu, part[j][c], off);
+          if (gq == 0) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int c = 0; c < 2; ++c)
+                sDw[warp * 16 + j * 8 + tq * 2 + c] = part[j][c];
+          }
+          __syncthreads();
+          if (threadIdx.x < 16) {
+            float acc = 0.f;
+            for (int w = 0; w < nwarps; ++w) acc += sDw[w * 16 + threadIdx.x];
+            const int ql = t16 * 16 + threadIdx.x;
+            if (!kDeltaPass) {
+              sD[ql] = acc;
+            } else if (ql < q_rows) {  // the sum over the key blocks so far
+              delta[row0 + ql] = kb == 0 ? acc : delta[row0 + ql] + acc;
+            }
+          }
+          __syncthreads();
+          if (kDeltaPass) continue;
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int kl = warp * 16 + gq + (i >> 1) * 8;
+            const int ql = t16 * 16 + j * 8 + tq * 2 + (i & 1);
+            ds[j][i] = sValid[kl] == 1
+                           ? pr[j][i] * (p_acc[j][i] * fr[j][i] - sD[ql])
+                           : 0.f;
           }
         const uint32_t pa[4] = {pack_bf16(pd[0][0], pd[0][1]),
                                 pack_bf16(pd[0][2], pd[0][3]),
@@ -670,6 +697,7 @@ masked_attention_bwd_mma(const bf16* __restrict__ q,
         *reinterpret_cast<uint32_t*>(dst + 8 * dld) = da[1];
         *reinterpret_cast<uint32_t*>(dst + 8 * dld + 8) = da[3];
       }
+      if (kDeltaPass) continue;
       __syncthreads();  // dS^T of the chunk is complete
 
       // dq (chunk rows) = dS k over the block's keys, in 16 x 16 tiles
@@ -719,6 +747,7 @@ masked_attention_bwd_mma(const bf16* __restrict__ q,
       }
     }
 
+    if (kDeltaPass) continue;
 #pragma unroll
     for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
@@ -737,26 +766,35 @@ masked_attention_bwd_mma(const bf16* __restrict__ q,
 
 template <int kD>
 cudaError_t launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v,
-                           const bf16* o, const bf16* g, const uint8_t* kv,
+                           const bf16* g, const uint8_t* kv,
                            const float* rm, const float* ri, bf16* dq,
-                           bf16* dk, bf16* dv, float* dq_acc, int N, int Lq,
-                           int Lk, int Dh, int num_heads, float scale,
-                           DropParams drop, cudaStream_t st) {
+                           bf16* dk, bf16* dv, float* dq_acc, float* delta,
+                           int N, int Lq, int Lk, int Dh, int num_heads,
+                           float scale, DropParams drop, cudaStream_t st) {
   // the largest tile, set on every launch: the attribute belongs to the
   // current device
-  const cudaError_t err = cudaFuncSetAttribute(
-      masked_attention_bwd_mma<kD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(
-          bwd_mma_smem_bytes(kD, BwdTiles{kMmaMaxRows, kMmaMaxRows})));
+  const int most = static_cast<int>(
+      bwd_mma_smem_bytes(kD, BwdTiles{kMmaMaxRows, kMmaMaxRows}));
+  cudaError_t err = cudaFuncSetAttribute(
+      masked_attention_bwd_mma<kD, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(masked_attention_bwd_mma<kD, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most);
   if (err != cudaSuccess) return err;
   const int warps = balanced_tiles(Lk);
   const BwdTiles t{16 * balanced_tiles(Lq), 16 * warps};
-  if (Lk > t.bk && dq_acc == nullptr) return cudaErrorInvalidValue;
-  masked_attention_bwd_mma<kD><<<N, warps * 32, bwd_mma_smem_bytes(kD, t),
-                                 st>>>(q, k, v, o, g, kv, rm, ri, dq, dk, dv,
-                                       dq_acc, Lq, Lk, Dh, num_heads, scale,
-                                       drop, t);
+  const size_t smem = bwd_mma_smem_bytes(kD, t);
+  if (Lk > t.bk) {  // D over the key blocks first
+    if (dq_acc == nullptr || delta == nullptr) return cudaErrorInvalidValue;
+    masked_attention_bwd_mma<kD, true><<<N, warps * 32, smem, st>>>(
+        q, k, v, delta, g, kv, rm, ri, dq, dk, dv, dq_acc, Lq, Lk, Dh,
+        num_heads, scale, drop, t);
+  }
+  masked_attention_bwd_mma<kD, false><<<N, warps * 32, smem, st>>>(
+      q, k, v, delta, g, kv, rm, ri, dq, dk, dv, dq_acc, Lq, Lk, Dh,
+      num_heads, scale, drop, t);
   return cudaGetLastError();
 }
 
@@ -1043,13 +1081,15 @@ extern "C" int coot_attention_fwd(const void* q, const void* k,
 // The forward's inputs and residuals (o, row_max, row_inv) and the
 // cotangent g (N, Lq, Dh); writes dq, dk, dv in the compute dtype.
 // dq_acc: N * Lq * Dh float32 scratch, needed in bf16 when Lk > 128 (the
-// dq sum over key blocks), else null.
+// dq sum over key blocks), else null. delta: N * Lq float32 scratch for
+// D, needed in bf16 when Lk > 128 (one key block forms D in the pass; the
+// f32 kernels form it from their f32 o), else null.
 extern "C" int coot_attention_bwd(const void* q, const void* k,
                                   const void* v, const void* o,
                                   const void* g, const void* key_valid,
                                   const void* row_max, const void* row_inv,
                                   void* dq, void* dk, void* dv, void* dq_acc,
-                                  int N, int Lq, int Lk, int Dh,
+                                  void* delta, int N, int Lq, int Lk, int Dh,
                                   int num_heads, float scale,
                                   const void* seed_state, unsigned int call,
                                   unsigned int thresh, float drop_scale,
@@ -1067,10 +1107,10 @@ extern "C" int coot_attention_bwd(const void* q, const void* k,
                                    : launch_bwd_mma<64>;
     return static_cast<int>(launch(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-        static_cast<const bf16*>(g), kv, rm, ri, static_cast<bf16*>(dq),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        static_cast<float*>(dq_acc), N, Lq, Lk, Dh, num_heads, scale, drop,
+        static_cast<const bf16*>(v), static_cast<const bf16*>(g), kv, rm, ri,
+        static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), static_cast<float*>(dq_acc),
+        static_cast<float*>(delta), N, Lq, Lk, Dh, num_heads, scale, drop,
         st));
   }
   const size_t smem = dkdv_smem_bytes();

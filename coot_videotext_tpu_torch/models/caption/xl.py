@@ -51,13 +51,21 @@ from coot_videotext_tpu_torch.typext import INF
 XL_LN_EPS = 1e-5
 
 
+_INV_FREQ: dict = {}
+
+
 def positional_embedding_xl(pos_seq: torch.Tensor,
                             d_model: int) -> torch.Tensor:
     """(K,) positions -> (K, D) [sin | cos] (reference
-    PositionalEmbeddingXL)."""
-    inv_freq = 1.0 / (10000 ** (np.arange(0.0, d_model, 2.0) / d_model))
-    sinusoid = pos_seq[:, None] * torch.as_tensor(
-        inv_freq, dtype=pos_seq.dtype, device=pos_seq.device)[None]
+    PositionalEmbeddingXL). The frequencies are cached on the device: no
+    host-to-device copy per call, so a CUDA graph can capture it after a
+    first eager call."""
+    key = (d_model, pos_seq.dtype, pos_seq.device)
+    if key not in _INV_FREQ:
+        inv_freq = 1.0 / (10000 ** (np.arange(0.0, d_model, 2.0) / d_model))
+        _INV_FREQ[key] = torch.as_tensor(inv_freq, dtype=pos_seq.dtype,
+                                         device=pos_seq.device)
+    sinusoid = pos_seq[:, None] * _INV_FREQ[key][None]
     return torch.cat([torch.sin(sinusoid), torch.cos(sinusoid)], dim=-1)
 
 

@@ -156,7 +156,8 @@ def _launch_fwd(q, k, v, key_valid, num_heads, scale, rate, seed,
 
 def needs_dq_scratch(lk: int, bf16: bool) -> bool:
     """The bf16 backward sums dq over key blocks of at most 128 keys in an
-    f32 scratch (csrc/attention.cu kMmaMaxRows); one block needs none."""
+    f32 scratch (csrc/attention.cu kMmaMaxRows), and forms D before the
+    pass in another; one block needs neither."""
     return bf16 and lk > MMA_MAX_KEYS
 
 
@@ -171,12 +172,17 @@ def _launch_bwd(q, k, v, o, g, valid_u8, stats, num_heads, scale, rate,
         torch.empty_like(v)
     scratch = (torch.empty(n * lq * dh, dtype=torch.float32, device=q.device)
                if needs_dq_scratch(lk, bf16) else None)
+    # D = rowsum(g * o) in f32 from a kernel of its own, where the bf16
+    # pass cannot form it over one key block
+    delta = (torch.empty(n * lq, dtype=torch.float32, device=q.device)
+             if needs_dq_scratch(lk, bf16) else None)
     lib = cuda_build.load_library()
     err = lib.coot_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
         valid_u8.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        0 if scratch is None else scratch.data_ptr(), n, lq, lk, dh,
+        0 if scratch is None else scratch.data_ptr(),
+        0 if delta is None else delta.data_ptr(), n, lq, lk, dh,
         num_heads, float(scale), *philox.kernel_args(rate, seed, q.device),
         int(bf16), cuda_build.stream(q))
     cuda_build.check(err, KERNEL + "_bwd")

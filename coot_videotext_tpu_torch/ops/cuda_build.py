@@ -131,9 +131,9 @@ _SIGNATURES = {
     "coot_attention_fwd": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _P, _U, _U, _F,
                                       _I, _I, _I, _I, _P],
     # q, k, v, o, g, key_valid, row_max, row_inv, dq, dk, dv, dq scratch,
-    # N, Lq, Lk, Dh, num_heads, scale, seed state, call, thresh, drop
-    # scale, bf16, stream
-    "coot_attention_bwd": [_P] * 12 + [_I, _I, _I, _I, _I, _F, _P, _U, _U,
+    # D scratch, N, Lq, Lk, Dh, num_heads, scale, seed state, call,
+    # thresh, drop scale, bf16, stream
+    "coot_attention_bwd": [_P] * 13 + [_I, _I, _I, _I, _I, _F, _P, _U, _U,
                                        _F, _I, _P],
     # x, y, n, seed state, call, thresh, scale, site, bf16, stream
     "coot_dropout": [_P, _P, _LL, _P, _U, _U, _F, _U, _I, _P],

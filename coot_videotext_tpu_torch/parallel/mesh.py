@@ -126,11 +126,26 @@ class Mesh:
         """Rank 0 writes the run's files; every rank reads them."""
         return self.rank == 0
 
-    @property
-    def capturable(self) -> bool:
-        """Whether a CUDA graph may capture this mesh's collectives: NCCL
-        collectives can be captured, gloo's run on the host."""
-        return not self.distributed or self.backend == "nccl"
+
+
+def capturable(mesh: Optional[Mesh]) -> bool:
+    """Whether the group step (tasks/retrieval/steps.py `StepGraph`) is
+    captured with its collectives under `mesh` (None: no mesh): NCCL
+    collectives can be captured, gloo's run on the host. Its graph is
+    released with its train state, before the process group ends."""
+    return mesh is None or not mesh.distributed or mesh.backend == "nccl"
+
+
+def serves_captured(mesh: Optional[Mesh]) -> bool:
+    """Whether the eval steps and the caption decodes run as captured
+    programs (utils/graphs.py) under `mesh`: the one rule of both eval
+    steps, validation and the caption trainer's decodes. Only where no
+    collective crosses ranks (no mesh, or one rank). Their programs live
+    in the model's graph cache, which outlives a run; on four cards over
+    NCCL a CLI run whose validations had gone through captured eval steps
+    (and agreed across ranks) hung at exit until the NCCL watchdog aborted
+    it, so under a mesh of more than one rank they run eagerly."""
+    return mesh is None or not mesh.distributed
 
 
 def single(device: torch.device = torch.device("cpu")) -> Mesh:

@@ -18,8 +18,10 @@ backward through autograd, clipping by the global norm (whose pre-clip
 value is `grad_norm`), the BertAdam update at the host's lr, the EMA
 update with the state's step before its increment, then step + 1 and seed
 state + 1. The eval step runs the same forward in eval mode under
-torch.inference_mode(). Both return device tensors that the caller reads
-once per batch.
+torch.inference_mode(), as a program of the model's graph cache
+(utils/graphs.py: a CUDA graph on the card, one per batch shape, as JAX
+jits it, :103, :209; `eager=True` runs it op by op). Both return device
+tensors that the caller reads once per batch.
 
 Under a data-parallel mesh (parallel/mesh.py; JAX shards dim 1 of the
 stacked (S, N, ...) batches and dim 0 of the single-sentence ones over
@@ -52,7 +54,8 @@ from coot_videotext_tpu_torch.models.caption.xl import TransformerXL
 from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.ops.philox import dropout_seeds
 from coot_videotext_tpu_torch.parallel.mesh import (
-    Mesh, all_reduce_grads, all_reduce_metrics, all_reduce_sum)
+    Mesh, all_reduce_grads, all_reduce_metrics, all_reduce_sum,
+    serves_captured)
 from coot_videotext_tpu_torch.parallel.tp import Layout
 from coot_videotext_tpu_torch.tasks.caption.model_manager import (
     CaptionModel)
@@ -60,6 +63,7 @@ from coot_videotext_tpu_torch.train.loss_caption import (
     IGNORE, token_accuracy_counts)
 from coot_videotext_tpu_torch.train.optim import (
     EMA, BertAdam, clip_by_global_norm)
+from coot_videotext_tpu_torch.utils.graphs import cache_of, signature
 from coot_videotext_tpu_torch.utils.param_bridge import (
     mart_jax_paths, mtrans_jax_paths, tied_aliases, xl_jax_paths)
 
@@ -233,28 +237,47 @@ def caption_train_step_single(state: CaptionTrainState,
     return metrics
 
 
+def _eval(model: CaptionModel, batch: Dict[str, torch.Tensor],
+          mesh: Optional[Mesh], single: bool, eager: bool
+          ) -> Dict[str, torch.Tensor]:
+    """The eval step (`_forward` or `_forward_single` in eval mode, summed
+    over the mesh's ranks) as a program of the model's graph cache
+    (utils/graphs.py; JAX jits it), keyed on the batch's shapes and dtypes:
+    a CUDA graph on the card, its body run eagerly on its static buffers
+    on the CPU; eagerly with `eager` or under a mesh of more than one rank
+    (parallel/mesh.py `serves_captured`)."""
+    forward = _forward_single if single else _forward
+
+    def body(x):
+        model.eval()
+        loss, n_correct, n_word = forward(model, x, mesh)
+        return all_reduce_metrics(mesh, {"loss": loss, "n_correct": n_correct,
+                                         "n_word": n_word})
+    with torch.inference_mode():
+        if eager or not serves_captured(mesh):
+            return body(batch)
+        inputs = {k: v for k, v in batch.items() if torch.is_tensor(v)}
+        key = ("caption_eval", single, signature(inputs), id(mesh))
+        return cache_of(model).get(key, body, inputs)(inputs)
+
+
 def caption_eval_step(model: CaptionModel,
                       batch: Dict[str, torch.Tensor],
-                      mesh: Optional[Mesh] = None
+                      mesh: Optional[Mesh] = None, *, eager: bool = False
                       ) -> Dict[str, torch.Tensor]:
     """{loss (sum over steps), n_correct, n_word} of one stacked batch,
     as 0-d f32 tensors on the batch's device; under a mesh summed over its
-    ranks."""
-    model.eval()
-    with torch.inference_mode():
-        loss, n_correct, n_word = _forward(model, batch, mesh)
-    return all_reduce_metrics(mesh, {"loss": loss, "n_correct": n_correct,
-                                     "n_word": n_word})
+    ranks. A captured program (`_eval`) unless `eager`: on the card the
+    tensors are the graph's outputs, valid until the next run of a
+    program of the model's graph cache (validate_epoch reads them first)."""
+    return _eval(model, batch, mesh, False, eager)
 
 
 def caption_eval_step_single(model: CaptionModel,
                              batch: Dict[str, torch.Tensor],
-                             mesh: Optional[Mesh] = None
+                             mesh: Optional[Mesh] = None, *,
+                             eager: bool = False
                              ) -> Dict[str, torch.Tensor]:
     """caption_eval_step on an (N, ...) sentence batch, untied or joint
     (JAX make_caption_eval_step_single :209)."""
-    model.eval()
-    with torch.inference_mode():
-        loss, n_correct, n_word = _forward_single(model, batch, mesh)
-    return all_reduce_metrics(mesh, {"loss": loss, "n_correct": n_correct,
-                                     "n_word": n_word})
+    return _eval(model, batch, mesh, True, eager)

@@ -183,7 +183,10 @@ class MartTrainer(BaseTrainer):
                             else caption_train_step)
         self._eval_step = (caption_eval_step_single if self.single
                            else caption_eval_step)
-        self.translator = Translator(model_mgr.model, cfg)
+        # the decodes run as captured programs (CUDA graphs on the card),
+        # eagerly under a mesh of more than one rank (serves_captured)
+        self.translator = Translator(
+            model_mgr.model, cfg, eager=not pmesh.serves_captured(self.mesh))
         # per val batch: host ms of the eval step (to its read) and of the
         # decode, the decode's forwards and host reads; per train step its
         # host ms (to its read), per epoch the train videos/s (sentences/s

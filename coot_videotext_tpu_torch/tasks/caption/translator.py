@@ -14,7 +14,8 @@ mart/translator.py), token for token. Greedy, recurrent
       [PAD] and one more forward builds the next sentence's memory
       (:231-234).
 The JAX package's `fused=True` (the whole batch as one program) emits the
-same tokens; here there is one path, run eagerly. The TransformerXL
+same tokens; here a sentence is one program (`Translator`). The
+TransformerXL
 (`translate_batch_greedy_xl`, JAX :268-337) runs the same loop with its
 forward_step's signature (token types before masks) and threads the
 previous sentence's masks, the EOS-masked decoded ones, beside its
@@ -60,6 +61,8 @@ from coot_videotext_tpu_torch.data.caption_dataset import (
 from coot_videotext_tpu_torch.tasks.caption.beam_search import BeamSearch
 from coot_videotext_tpu_torch.tasks.caption.model_manager import (
     CaptionModel, check_serving_config)
+from coot_videotext_tpu_torch.utils.graphs import (
+    Program, cache_of, signature)
 
 
 def mask_tokens_after_eos(input_ids: torch.Tensor,
@@ -99,21 +102,57 @@ def _next_words(scores: torch.Tensor, dec_idx: int) -> torch.Tensor:
 
 class Translator:
     """Greedy and beam inference (reference Translator :67) for every
-    caption model."""
+    caption model. Each decode runs as programs of the model's graph cache
+    (utils/graphs.py, keyed as JAX keys its jit cache :190-206, :325, :507:
+    the program, `first_step` for the recurrent ones, the input shapes and
+    dtypes), CUDA graphs on the card, their bodies run eagerly on the CPU;
+    `eager` runs every decode eagerly instead, op by op. Both emit the
+    same tokens.
 
-    def __init__(self, model: CaptionModel, cfg) -> None:
+    - Recurrent greedy (MART, the TransformerXL): one program a sentence,
+      the whole token loop unrolled at its positions, the [EOS] masking
+      and the memory forward, replayed S times a batch with the memories
+      carried between replays in its static buffers (JAX
+      `_greedy_sentence_fn` :79, `_greedy_xl_fn` :268; JAX's opt-in
+      `fused` program emits the same tokens and has no counterpart).
+    - Single sentence, joint and untied / MTransformer: one program of
+      the whole loop (JAX :217, :339), the untied encode inside it.
+    - Beam: one token program a `first_step` (JAX `_beam_token_fn` :388),
+      replayed once a token: it writes the host's predictions at
+      `dec_idx`, both device tensors in its static buffers, and reads the
+      log-probabilities out at `dec_idx`; the rows are reordered in place
+      in its static buffers between replays; the memory rebuild is a
+      program of its own (`_beam_memory_fn` :568).
+
+    Every decode reads its tokens from the device once a batch (beam:
+    its inputs once, one (N x beam, vocab) array a token)."""
+
+    def __init__(self, model: CaptionModel, cfg, eager: bool = False) -> None:
         self.model = model
         self.cfg = cfg
+        self.eager = eager
         # forwards run by the last decode: full forwards of the recurrent
         # and joint models, or decoder passes (plus the one encode) of the
-        # untied ones; and its reads of results from the device
+        # untied ones; its reads of results from the device; and its
+        # program runs (graph replays on the card; 0 when eager)
         self.forwards = 0
         self.host_reads = 0
+        self.replays = 0
 
     def _begin(self) -> None:
         self.model.eval()
         self.forwards = 0
         self.host_reads = 0
+        self.replays = 0
+
+    def _run(self, key, body: Callable, inputs: Dict):
+        """body(inputs) eagerly, or as the program of `key` of the model's
+        graph cache."""
+        if self.eager:
+            return body(inputs)
+        self.replays += 1
+        return cache_of(self.model).get(
+            key + (signature(inputs),), body, inputs)(inputs)
 
     def _greedy_tokens(self, scores_fn: Callable, input_ids: torch.Tensor,
                        input_masks: torch.Tensor, start: int, stop: int):
@@ -126,7 +165,6 @@ class Translator:
             ids[:, dec_idx] = next_words
             masks[:, dec_idx] = 1
             next_words = _next_words(scores_fn(ids, masks), dec_idx)
-        self.forwards += stop - start
         return ids, masks
 
     def _read(self, out: List[torch.Tensor]) -> List[np.ndarray]:
@@ -135,29 +173,41 @@ class Translator:
         self.host_reads += 1
         return [out[i] for i in range(len(out))]
 
-    def _greedy_recurrent(self, step: Callable, prev, input_ids_list,
-                          video_features_list, input_masks_list,
-                          token_type_ids_list) -> List[np.ndarray]:
+    def _greedy_recurrent(self, kind: str, step: Callable, first_prev,
+                          input_ids_list, video_features_list,
+                          input_masks_list, token_type_ids_list
+                          ) -> List[np.ndarray]:
         """The recurrent greedy loop over stacked (S, N, ...) inputs:
         step(prev, ids, feats, masks, ttypes) -> (the next sentence's prev,
-        scores). Returns [(N, max_t_len)] * S, read once at the end."""
+        scores), `first_prev` the first sentence's prev. One sentence is
+        one program (`kind`, first_step). Returns [(N, max_t_len)] * S,
+        read once at the end."""
         cfg = self.cfg
         self._begin()
         lo, hi = cfg.max_v_len, cfg.max_v_len + cfg.max_t_len
+
+        def sentence(x):
+            prev = x.get("prev", first_prev)
+            ids, masks = self._greedy_tokens(
+                lambda i, m: step(prev, i, x["feats"], m, x["ttypes"])[1],
+                x["ids"], x["masks"], lo, hi)
+            ids, masks = mask_tokens_after_eos(ids, masks)
+            prev, _ = step(prev, ids, x["feats"], masks, x["ttypes"])
+            return prev, ids[:, lo:]
+
         with torch.inference_mode():
             ids_st, masks_st = prepare_video_only_inputs(
                 input_ids_list, input_masks_list, token_type_ids_list)
-            out = []
+            out, prev = [], None
             for idx in range(len(ids_st)):
-                feats = video_features_list[idx]
-                ttypes = token_type_ids_list[idx]
-                ids, masks = self._greedy_tokens(
-                    lambda i, m: step(prev, i, feats, m, ttypes)[1],
-                    ids_st[idx], masks_st[idx], lo, hi)
-                ids, masks = mask_tokens_after_eos(ids, masks)
-                prev, _ = step(prev, ids, feats, masks, ttypes)
-                self.forwards += 1
-                out.append(ids[:, lo:])
+                x = {"ids": ids_st[idx], "masks": masks_st[idx],
+                     "feats": video_features_list[idx],
+                     "ttypes": token_type_ids_list[idx]}
+                if idx:
+                    x["prev"] = prev
+                prev, ids = self._run((kind, idx == 0), sentence, x)
+                out.append(ids.clone())  # the next run overwrites it
+                self.forwards += hi - lo + 1
             return self._read(out)
 
     def translate_batch_greedy(self, input_ids_list: torch.Tensor,
@@ -174,8 +224,9 @@ class Translator:
             ms, _, scores = model.forward_step(ms, ids, feats, masks, ttypes)
             return ms, scores
         return self._greedy_recurrent(
-            step, [None] * self.cfg.num_hidden_layers, input_ids_list,
-            video_features_list, input_masks_list, token_type_ids_list)
+            "greedy", step, [None] * self.cfg.num_hidden_layers,
+            input_ids_list, video_features_list, input_masks_list,
+            token_type_ids_list)
 
     def translate_batch_greedy_xl(self, input_ids_list: torch.Tensor,
                                   video_features_list: torch.Tensor,
@@ -193,8 +244,8 @@ class Translator:
                                                masks, prev[1])
             return (ms, masks), scores
         return self._greedy_recurrent(
-            step, (None, None), input_ids_list, video_features_list,
-            input_masks_list, token_type_ids_list)
+            "greedy_xl", step, (None, None), input_ids_list,
+            video_features_list, input_masks_list, token_type_ids_list)
 
     def translate_batch_single_sentence_greedy(
             self, input_ids: torch.Tensor, video_features: torch.Tensor,
@@ -207,13 +258,21 @@ class Translator:
         cfg, model = self.cfg, self.model
         self._begin()
         lo = cfg.max_v_len
+
+        def decode(x):
+            ids, _ = self._greedy_tokens(
+                lambda i, m: model(i, x["feats"], m, x["ttypes"])[1],
+                x["ids"], x["masks"], lo, lo + cfg.max_t_len)
+            return ids[:, lo:]
+
         with torch.inference_mode():
             ids, masks = prepare_video_only_inputs(input_ids, input_masks,
                                                    token_type_ids)
-            ids, _ = self._greedy_tokens(
-                lambda i, m: model(i, video_features, m, token_type_ids)[1],
-                ids, masks, lo, lo + cfg.max_t_len)
-            return self._read([ids[:, lo:]])[0]
+            ids = self._run(("greedy_single",), decode, {
+                "ids": ids, "masks": masks, "feats": video_features,
+                "ttypes": token_type_ids})
+            self.forwards = cfg.max_t_len
+            return self._read([ids])[0]
 
     def translate_batch_single_sentence_untied_greedy(
             self, video_features: torch.Tensor, video_masks: torch.Tensor,
@@ -223,38 +282,54 @@ class Translator:
         first, read from the device once at the end."""
         model = self.model
         self._begin()
-        with torch.inference_mode():
-            encodings = model.encode(video_features, video_masks)
-            self.forwards = 1
+
+        def decode(x):
+            encodings = model.encode(x["feats"], x["vmasks"])
             ids, _ = self._greedy_tokens(
                 lambda i, m: model.decode(i, m, None, encodings,
-                                          video_masks)[1],
-                torch.zeros_like(text_ids), torch.zeros_like(text_masks),
+                                          x["vmasks"])[1],
+                torch.zeros_like(x["ids"]), torch.zeros_like(x["masks"]),
                 0, self.cfg.max_t_len)
+            return ids
+
+        with torch.inference_mode():
+            ids = self._run(("greedy_untied",), decode, {
+                "feats": video_features, "vmasks": video_masks,
+                "ids": text_ids, "masks": text_masks})
+            self.forwards = 1 + self.cfg.max_t_len
             return self._read([ids])[0]
 
     # ---------- beam (recurrent) ----------
 
     def _beam_logprobs(self, ms, ids, feats, masks, ttypes,
-                       dec_idx: int, reference_compat: bool
+                       dec_idx: torch.Tensor, reference_compat: bool
                        ) -> torch.Tensor:
-        """The (rows, vocab) f32 log-probabilities at dec_idx (JAX
-        `_beam_token_fn` :388)."""
+        """The (rows, vocab) f32 log-probabilities at dec_idx, a (1,) int64
+        tensor on the model's device as JAX traces it (`_beam_token_fn`
+        :388)."""
         _, _, scores = self.model.forward_step(ms, ids, feats, masks,
                                                ttypes)
-        self.forwards += 1
-        row = scores[:, dec_idx].float()
+        row = scores.index_select(1, dec_idx)[:, 0].float()
         if reference_compat:
             # the reference's `pred_scores[:, UNK] = -1e10`
             # (translator.py:133) writes POSITION UNK (= 6) across the
             # vocabulary: [UNK] is not suppressed, and the readout at
             # dec_idx == 6 is all -1e10 (uniform); then log(softmax)
-            if dec_idx == UNK:
-                row = torch.full_like(row, -1e10)
+            row = torch.where(dec_idx == UNK, torch.full_like(row, -1e10),
+                              row)
             return torch.log(torch.softmax(row, dim=-1))
         row = row.clone()
         row[:, UNK] = -1e10  # the token axis, as the greedy paths do
         return torch.log_softmax(row, dim=-1)
+
+    def _beam_memory(self, x) -> tuple:
+        """The next sentence's memories from the best hypotheses (JAX
+        `_beam_memory_fn` :568): (memories, the EOS-masked text ids)."""
+        ids, masks = mask_tokens_after_eos(x["ids"], x["masks"])
+        ms = x.get("ms", [None] * self.cfg.num_hidden_layers)
+        ms, _, _ = self.model.forward_step(ms, ids, x["feats"], masks,
+                                           x["ttypes"])
+        return ms, ids[:, self.cfg.max_v_len:]
 
     def translate_batch_beam(self, input_ids_list: torch.Tensor,
                              video_features_list: torch.Tensor,
@@ -265,7 +340,7 @@ class Translator:
         """Recurrent beam search (reference :79-180). Inputs stacked (S, N,
         ...) on the model's device; returns [(N, max_t_len)] * S decoded
         text ids."""
-        cfg, model = self.cfg, self.model
+        cfg = self.cfg
         self._begin()
         beam_size = cfg.beam_size
         lo = cfg.max_v_len
@@ -282,21 +357,34 @@ class Translator:
             device = ids_st.device
             batch_size = ids_st.shape[1]
             total_rows = batch_size * beam_size
+            # the host's predictions and row orders go to the device
+            # through pinned buffers; every token's read of the
+            # log-probabilities waits for their copies before the host
+            # writes them again
+            pin = device.type == "cuda"
+            preds_host = torch.zeros(total_rows, dtype=torch.int64,
+                                     pin_memory=pin)
+            perm_host = torch.zeros(total_rows, dtype=torch.int64,
+                                    pin_memory=pin)
+            positions = torch.arange(lo, lo + cfg.max_t_len, device=device)
             out = []
-            prev_ms = [None] * cfg.num_hidden_layers
+            prev_ms = None
             for idx in range(len(ids_st)):
                 init_ids = host_ids[idx].copy()
                 init_masks = host_masks[idx].copy()
                 init_feats = video_features_list[idx]
                 init_ttypes = token_type_ids_list[idx]
                 # tile x beam, batch-major blocks (reference tile :33)
-                ids, masks, feats, ttypes = (
-                    x.repeat_interleave(beam_size, dim=0) for x in (
-                        ids_st[idx], masks_st[idx], init_feats,
-                        init_ttypes))
-                ms = [None if m is None
-                      else m.repeat_interleave(beam_size, dim=0)
-                      for m in prev_ms]
+                rows = {k: v.repeat_interleave(beam_size, dim=0)
+                        for k, v in (("ids", ids_st[idx]),
+                                     ("masks", masks_st[idx]),
+                                     ("feats", init_feats),
+                                     ("ttypes", init_ttypes))}
+                if idx:
+                    rows["ms"] = [m.repeat_interleave(beam_size, dim=0)
+                                  for m in prev_ms]
+                token = self._beam_token(idx == 0, reference_compat, rows,
+                                         positions[:1], preds_host)
                 beam = BeamSearch(
                     beam_size, batch_size, PAD, BOS, EOS, cfg.n_best,
                     cfg.min_sen_len, max_len, cfg.block_ngram_repeat,
@@ -305,14 +393,18 @@ class Translator:
                     length_penalty_alpha=cfg.length_penalty_alpha)
                 n_alive = total_rows
                 for dec_idx in range(lo, lo + cfg.max_t_len):
-                    preds = np.zeros(total_rows, np.int64)
+                    preds = preds_host.numpy()
+                    preds[:] = 0
                     preds[:n_alive] = beam.current_predictions
-                    ids[:, dec_idx] = torch.from_numpy(preds).to(device)
-                    masks[:, dec_idx] = 1
-                    logprobs = self._beam_logprobs(
-                        ms, ids, feats, masks, ttypes, dec_idx,
-                        reference_compat)
-                    lp = logprobs.cpu().numpy()[:n_alive]
+                    token.load({"dec_idx": positions[dec_idx - lo:][:1],
+                                "preds": preds_host})
+                    if self.eager:
+                        lp = token.body(token.inputs)
+                    else:
+                        lp = token()
+                        self.replays += 1
+                    lp = lp.cpu().numpy()[:n_alive]
+                    self.forwards += 1
                     self.host_reads += 1
                     beam.advance(lp)
                     if beam.is_finished.any():
@@ -326,15 +418,16 @@ class Translator:
                         continue
                     else:
                         sel = beam.current_origin
-                    perm = np.zeros(total_rows, np.int64)
+                    perm = perm_host.numpy()
+                    perm[:] = 0
                     perm[:len(sel)] = sel
                     n_alive = len(sel)
-                    perm = torch.from_numpy(perm).to(device)
-                    ids, masks, feats, ttypes = (
-                        x.index_select(0, perm)
-                        for x in (ids, masks, feats, ttypes))
-                    ms = [None if m is None else m.index_select(0, perm)
-                          for m in ms]
+                    perm = perm_host.to(device, non_blocking=True)
+                    for name, value in token.inputs.items():
+                        if name in ("dec_idx", "preds"):
+                            continue
+                        for buf in (value if name == "ms" else [value]):
+                            buf.copy_(buf.index_select(0, perm))
 
                 # the top hypotheses into the untiled inputs (reference
                 # :163-180)
@@ -345,14 +438,48 @@ class Translator:
                                + [EOS])[:cfg.max_t_len]
                     init_ids[b, lo:lo + len(sen_ids)] = sen_ids
                     init_masks[b, lo:lo + len(sen_ids)] = 1
-                dec_ids, dec_masks = mask_tokens_after_eos(
-                    torch.from_numpy(init_ids).to(device),
-                    torch.from_numpy(init_masks).to(device))
-                prev_ms, _, _ = model.forward_step(
-                    prev_ms, dec_ids, init_feats, dec_masks, init_ttypes)
+                x = {"ids": torch.from_numpy(init_ids).to(device),
+                     "masks": torch.from_numpy(init_masks).to(device),
+                     "feats": init_feats, "ttypes": init_ttypes}
+                if idx:
+                    x["ms"] = prev_ms
+                prev_ms, dec_ids = self._run(("beam_memory", idx == 0),
+                                             self._beam_memory, x)
                 self.forwards += 1
-                out.append(dec_ids[:, lo:])
+                # the token program's runs would overwrite them
+                prev_ms = [m.clone() for m in prev_ms]
+                out.append(dec_ids.clone())
             return self._read(out)
+
+    def _beam_token(self, first: bool, reference_compat: bool,
+                    rows: Dict, dec_idx: torch.Tensor,
+                    preds: torch.Tensor) -> Program:
+        """The token step of one sentence over its tiled `rows` (ids,
+        masks, feats, ttypes and, after the first sentence, the memories
+        "ms"), with `dec_idx` and the predictions as inputs too: the
+        program of (first_step, reference_compat) with `rows` loaded into
+        its static buffers, or, eagerly, a program of its own whose body
+        the caller runs op by op. The rows are reordered in place in its
+        `inputs`."""
+        def body(x):
+            x["ids"].index_copy_(1, x["dec_idx"],
+                                 x["preds"][:, None].to(x["ids"].dtype))
+            x["masks"].index_fill_(1, x["dec_idx"], 1)
+            return self._beam_logprobs(
+                x.get("ms", [None] * self.cfg.num_hidden_layers), x["ids"],
+                x["feats"], x["masks"], x["ttypes"], x["dec_idx"],
+                reference_compat)
+
+        inputs = {**rows, "dec_idx": dec_idx,
+                  "preds": preds.to(dec_idx.device)}
+        if self.eager:
+            return Program(body, inputs)
+        program = cache_of(self.model).get(
+            ("beam_token", first, reference_compat, signature(inputs)),
+            body, inputs)
+        program.load(rows)
+        return program
+
 
     # ---------- dispatch ----------
 

@@ -31,7 +31,11 @@ per-step calls on the same state.
 
 The eval step builds its batch the same way with center sampling and no
 noise, runs the forward in eval mode and returns the val loss parts and
-the raw and L2-normalized embeddings, all on the batch's device.
+the raw and L2-normalized embeddings, all on the batch's device. It runs
+as a program of the model's graph cache (utils/graphs.py): a CUDA graph
+on the card, captured once per layout, shapes and loss settings and
+replayed after each batch is copied into its static buffers, as JAX jits
+it (:144-220); `eager=True` runs it op by op.
 
 Data parallelism (parallel/mesh.py, JAX's `data` axis :125-141, :211-221,
 :319-330): under a mesh of W > 1 ranks each rank's batch holds its rows of
@@ -76,11 +80,14 @@ from coot_videotext_tpu_torch.models.retrieval import (
     LENGTH_KEYS, RetrievalModel)
 from coot_videotext_tpu_torch.ops.philox import dropout_seeds, next_seed
 from coot_videotext_tpu_torch.parallel.mesh import (
-    Mesh, all_gather_rows, all_reduce_grads, all_reduce_max)
+    Mesh, all_gather_rows, all_reduce_grads, all_reduce_max, capturable,
+    serves_captured)
 from coot_videotext_tpu_torch.parallel.tp import Layout
 from coot_videotext_tpu_torch.train.losses import (
     compute_total_retrieval_loss, l2_normalize)
 from coot_videotext_tpu_torch.train.optim import clip_by_global_norm
+from coot_videotext_tpu_torch.utils.graphs import (
+    cache_of, capture, signature)
 
 VISUAL_KEYS = ("vid_emb", "clip_emb", "vid_context", "clip_valid",
                "clip_num")
@@ -225,7 +232,8 @@ class StepGraph:
     `ids` and `valid`, writes its metrics (the columns `names`) into that
     row of `metrics` and advances `index`, all on the device. The first
     step runs eagerly on `stream` and is a real step; the capture that
-    follows on the same stream runs nothing. The kernels' launch counts
+    follows on the same stream runs nothing (utils/graphs.py `capture`,
+    which the serving programs share). The kernels' launch counts
     (ops/cuda_build.py) rise where their wrappers run: in the eager step and
     once more at the capture; a replay runs no Python and counts nothing.
     Under an NCCL mesh the eager step's collectives run on `stream` before
@@ -266,15 +274,7 @@ class StepGraph:
         capture; every other step is a replay."""
         self.index.zero_()
         if self.graph is None:
-            current = torch.cuda.current_stream(self.ids.device)
-            self.stream.wait_stream(current)
-            with torch.cuda.stream(self.stream):
-                self._step(state)
-            current.wait_stream(self.stream)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=self.stream):
-                self._step(state)
-            self.graph = graph
+            self.graph, _ = capture(lambda: self._step(state), self.stream)
             num_steps -= 1
         for _ in range(num_steps):
             self.graph.replay()
@@ -326,7 +326,7 @@ def retrieval_train_group(state: TrainState, dp_idx, batch_valid,
                    source=source)
     state.optimizer.lr.fill_(lr)
     device = state.seed.device
-    if device.type == "cpu" or (mesh is not None and not mesh.capturable):
+    if device.type == "cpu" or not capturable(mesh):
         ids = _host_array(dp_idx, torch.int32).to(device)
         valid = _host_array(batch_valid, torch.bool).to(device)
         rows = [_train_step_body(state, {"layout": "ids", "dp_idx": ids[i],
@@ -352,22 +352,13 @@ def retrieval_train_group(state: TrainState, dp_idx, batch_valid,
     return metrics
 
 
-@torch.inference_mode()
-def retrieval_eval_step(model: RetrievalModel,
-                        batch: Dict[str, torch.Tensor], *,
-                        loss_weights: Dict[str, float], margin: float,
-                        loss_cycle_cons: float,
-                        compute_dtype: torch.dtype = torch.float32,
-                        seed_state: Optional[torch.Tensor] = None,
-                        source: Optional[FeatureSource] = None,
-                        mesh: Optional[Mesh] = None
-                        ) -> Tuple[Dict[str, torch.Tensor],
-                                   Dict[str, torch.Tensor]]:
-    """Returns (embeddings, loss parts) of any loader batch (center
-    sampling, no noise). `seed_state` keys the cycle-consistency
-    subsampling (ops/philox.py); None takes its deterministic full mean.
-    Under a data-parallel `mesh` the loss parts are the global batch's and
-    the embeddings the rank's rows (JAX :220, out_shardings (data, rep))."""
+def _eval_body(model: RetrievalModel, batch: Dict[str, Any], *,
+               loss_weights: Dict[str, float], margin: float,
+               loss_cycle_cons: float, compute_dtype: torch.dtype,
+               seed_state: Optional[torch.Tensor],
+               source: Optional[FeatureSource], mesh: Optional[Mesh]
+               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The eval step's device work: assembly, forward, loss, embeddings."""
     batch = assemble_batch(batch, source, mesh=mesh)
     model.eval()
     out = model(batch, compute_dtype=compute_dtype,
@@ -381,3 +372,55 @@ def retrieval_eval_step(model: RetrievalModel,
     for k in ("clip_valid", "sent_valid", "clip_num", "sent_num"):
         embs[k] = out[k]
     return embs, parts
+
+
+@torch.inference_mode()
+def retrieval_eval_step(model: RetrievalModel,
+                        batch: Dict[str, Any], *,
+                        loss_weights: Dict[str, float], margin: float,
+                        loss_cycle_cons: float,
+                        compute_dtype: torch.dtype = torch.float32,
+                        seed_state: Optional[torch.Tensor] = None,
+                        source: Optional[FeatureSource] = None,
+                        mesh: Optional[Mesh] = None,
+                        eager: bool = False
+                        ) -> Tuple[Dict[str, torch.Tensor],
+                                   Dict[str, torch.Tensor]]:
+    """Returns (embeddings, loss parts) of any loader batch (center
+    sampling, no noise). `seed_state` keys the cycle-consistency
+    subsampling (ops/philox.py); None takes its deterministic full mean.
+    Under a data-parallel `mesh` the loss parts are the global batch's and
+    the embeddings the rank's rows (JAX :220, out_shardings (data, rep)).
+
+    The step is a program of the model's graph cache (utils/graphs.py,
+    JAX jits it, :144-220), keyed on the batch's layout, shapes and dtypes,
+    the loss settings, the seed state's presence and the source: on the
+    card a CUDA graph (B5 and the forward halves of B1-B3 inside it),
+    replayed after the batch's
+    tensors and the seed state are copied into its static buffers; on the
+    CPU its body runs eagerly on them. The returned tensors are then views
+    of the program's outputs, valid until the next run of a program of the
+    model's cache: the caller reads them before the next step
+    (validate_retrieval copies them to the host). `eager` runs the step
+    eagerly, as it also runs under a mesh of more than one rank
+    (parallel/mesh.py `serves_captured`); a batch whose shapes vary (host
+    dense batches) is best run so, since each new shape is a new
+    capture."""
+    kw = dict(loss_weights=loss_weights, margin=margin,
+              loss_cycle_cons=loss_cycle_cons, compute_dtype=compute_dtype,
+              source=source, mesh=mesh)
+    if eager or not serves_captured(mesh):
+        return _eval_body(model, batch, seed_state=seed_state, **kw)
+    layout = batch.get("layout", "dense")
+    inputs = {"batch": {k: v for k, v in batch.items() if torch.is_tensor(v)}}
+    if seed_state is not None:
+        inputs["seed"] = seed_state
+    key = ("retrieval_eval", layout, signature(inputs), compute_dtype,
+           margin, loss_cycle_cons, tuple(sorted(loss_weights.items())),
+           None if source is None else (id(source.store), id(source.meta)),
+           id(mesh))
+
+    def body(x):
+        return _eval_body(model, {**x["batch"], "layout": layout},
+                          seed_state=x.get("seed"), **kw)
+    return cache_of(model).get(key, body, inputs)(inputs)

@@ -20,6 +20,14 @@ rows of every val batch; the batch's embeddings, validity and keys are
 gathered in the global batch's order, so every rank collects the whole
 split and computes the same val loss and ranks (JAX :339-400 on its
 `data` axis).
+The eval step runs as a captured program (tasks/retrieval/steps.py
+`retrieval_eval_step`, a CUDA graph on the card) on the layouts whose
+shapes are fixed: id batches, and index and slab batches under fixed
+shapes; host dense batches, whose shapes vary per batch, and any batch
+under a mesh of more than one rank (parallel/mesh.py `serves_captured`)
+run it eagerly. The log line and the results say which ran
+(`eval_step`). The step's outputs are views of the program's outputs, so
+every batch is read to the host before the next batch's step.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from coot_videotext_tpu_torch.data.retrieval_dataset import (
 from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.models.retrieval import RetrievalModel
 from coot_videotext_tpu_torch.parallel.mesh import (
-    Mesh, all_gather_rows, gather_objects)
+    Mesh, all_gather_rows, gather_objects, serves_captured)
 from coot_videotext_tpu_torch.tasks.retrieval import eval as retrieval
 from coot_videotext_tpu_torch.tasks.retrieval.steps import (
     EMB_KEYS, retrieval_eval_step)
@@ -73,7 +81,8 @@ def validate_retrieval(model: RetrievalModel, cfg,
                        emb_file: Optional[Path] = None,
                        cc_seed: Optional[int] = None,
                        logger: Optional[logging.Logger] = None,
-                       mesh: Optional[Mesh] = None) -> Dict[str, Any]:
+                       mesh: Optional[Mesh] = None,
+                       eager: bool = False) -> Dict[str, Any]:
     """One validation pass. With `cc_seed` the val loss subsamples the
     cycle consistency from a seed state of that value, advanced once per
     batch (ops/philox.py); without it takes the full mean. Returns the
@@ -81,7 +90,9 @@ def validate_retrieval(model: RetrievalModel, cfg,
     (`v2p`, `p2v`, and with val_clips `c2s`, `s2c`), `val_score` from
     `cfg.val.det_best_field`, timings (`forward_s` is the device time of
     the eval steps, `total_s` the whole pass) and the collected
-    L2-normalized embeddings (`embeddings`, numpy)."""
+    L2-normalized embeddings (`embeddings`, numpy). The eval step runs
+    eagerly with `eager`, on host dense batches and under a mesh of more
+    than one rank, else as a captured program; `eval_step` says which."""
     log = logger.info if logger is not None else print
     loss_w = cfg.train.contrastive_loss_config.as_dict()
     margin = cfg.train.contrastive_loss_config.margin
@@ -97,6 +108,12 @@ def validate_retrieval(model: RetrievalModel, cfg,
     source = FeatureSource.of(val_loader)
     seed_state = (None if cc_seed is None
                   else philox.seed_state(cc_seed, device))
+    eager = eager or not serves_captured(mesh) or not (
+        val_loader.layout == "ids" or (val_loader.layout != "dense"
+                                       and val_loader.fixed_shapes))
+    eval_mode = ("eager" if eager else
+                 "CUDA graph" if device.type == "cuda" else
+                 "program body, eagerly on the cpu")
     for tensors, host in prefetch(val_loader, device):
         batch = {**host, **tensors}
         _sync(device)
@@ -105,7 +122,7 @@ def validate_retrieval(model: RetrievalModel, cfg,
             model, batch, loss_weights=loss_w, margin=margin,
             loss_cycle_cons=cfg.train.loss_cycle_cons,
             compute_dtype=compute_dtype, seed_state=seed_state,
-            source=source, mesh=mesh)
+            source=source, mesh=mesh, eager=eager)
         embs = {k: all_gather_rows(mesh, v) for k, v in embs.items()}
         batch_valid = all_gather_rows(mesh, tensors["batch_valid"])
         if seed_state is not None:
@@ -158,7 +175,7 @@ def validate_retrieval(model: RetrievalModel, cfg,
     log(f"Loss {losses['loss_total']:.5f} (Contr: "
         f"{losses['loss_contrastive']:.5f}, CC: {losses['loss_cc']:.5f}) "
         f"Retrieval: {str_vp}{str_cs}total {total_s:.3f}s, forward "
-        f"{forward_s:.3f}s")
+        f"{forward_s:.3f}s (eval step: {eval_mode})")
 
     best_field = cfg.val.det_best_field
     if best_field == "val_score_at_1":
@@ -174,5 +191,6 @@ def validate_retrieval(model: RetrievalModel, cfg,
         raise NotImplementedError(f"best field {best_field} not known")
     results.update(
         val_score=val_score, num_videos=len(keys), num_batches=num_steps,
-        forward_s=forward_s, total_s=total_s, embeddings=data_norm)
+        forward_s=forward_s, total_s=total_s, embeddings=data_norm,
+        eval_step=eval_mode)
     return results

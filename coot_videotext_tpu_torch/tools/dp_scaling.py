@@ -21,6 +21,10 @@ over each group of M ranks, written to the yaml's mesh_shape):
   parameters within CHECK_UPDATE_TOL of lr a step (the tolerances of
   chip_smoke.py phase 11b). The tool exits non-zero where a mesh
   disagrees.
+- the eval step: each check and speed record lists how the run's
+  validations ran it (`eval_steps`, the trainer log's `(eval step: ...)`:
+  eagerly under a mesh of more than one rank, parallel/mesh.py
+  `serves_captured`).
 - the speed: the yaml as it is (bfloat16, dropout 0.01), EPOCHS epochs of
   the VIDEOS videos; train videos/s and wall ms per step over epochs 1 ..
   EPOCHS-1 (epoch 0 holds the graph's capture) from the trainer's own
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -137,6 +142,14 @@ def _torchrun(world: int, config: Path, data: Path, log_dir: Path,
     return models.parent
 
 
+def _eval_steps(exp: Path) -> List[str]:
+    """How the run's validations ran the eval step, in order, from the
+    trainer log's `(eval step: ...)`."""
+    return [label for log in sorted(exp.rglob("*.log"))
+            for label in re.findall(r"\(eval step: ([^)]*)\)",
+                                    log.read_text(encoding="utf8"))]
+
+
 def _metrics(exp: Path, kind: str, epoch: int) -> dict:
     """The metrics file of `kind` ("step" or "epoch") after `epoch`."""
     return json.loads((exp / "metrics" / f"metrics_{kind}_{epoch}.json"
@@ -167,6 +180,7 @@ def check(mesh: Dict[str, int], config: Path, data: Path,
             "loss": _series(_metrics(exp, "step", 0), "train_base/loss"),
             "val": _series(epoch, "val_base/loss")
             + _series(epoch, "val_base/best_field"),
+            "eval_steps": _eval_steps(exp),
             "params": torch.load(exp / "models" / "model_0.pth",
                                  weights_only=True)}
 
@@ -190,6 +204,9 @@ def hold(got: dict, ref: dict, lr: float) -> dict:
     record = {"world": got["world"], "against": ref["world"],
               "steps": steps,
               "max_rel": rel, "params_share_of_lr": share,
+              "eval_steps": got["eval_steps"],
+              "ref_eval_steps": ref["eval_steps"],
+              "val": got["val"], "ref_val": ref["val"],
               "loss": got["loss"], "ref_loss": ref["loss"]}
     print(json.dumps({"check": record}), flush=True)
     if rel > CHECK_RTOL or share > CHECK_UPDATE_TOL:
@@ -222,6 +239,7 @@ def speed(mesh: Dict[str, int], config: Path, data: Path,
             "train_videos_per_s": (EPOCHS - 1) * VIDEOS / sum(train_s),
             "ms_per_step": 1e3 * sum(train_s) / ((EPOCHS - 1) * steps),
             "epoch_train_s": train_s, "run_wall_s": wall,
+            "eval_steps": _eval_steps(exp),
             "last_epoch_losses": losses}
 
 

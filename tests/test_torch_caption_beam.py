@@ -156,7 +156,7 @@ def test_beam_logprobs_match_jax(mart, compat):
             ours = translator._beam_logprobs(
                 [None] * cfg.num_hidden_layers, t_ids,
                 torch.from_numpy(feats), t_masks, torch.from_numpy(ttys),
-                dec_idx, compat)
+                torch.tensor([dec_idx]), compat)
         ref = np.asarray(ref)
         assert np.abs(ours.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
         if compat and dec_idx == 6:  # the position-axis bug: uniform

@@ -453,6 +453,39 @@ def test_attention_backward_kernel(cuda, dtype, lq, lk, rate, dh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,rate", [(80, 80, 0.01), (24, 24, 0.1),
+                                        (320, 320, 0.01), (37, 130, 0.1)])
+def test_attention_backward_rows_of_one_key(cuda, lq, lk, rate):
+    """C4: where a batch row's only valid key is key 0, the score gradient
+    is 0, and so is dk there in the plain version. The bf16 kernel forms
+    D = rowsum(g * o) in f32, as sum_j P f (g . v), so its dk there is 0
+    up to f32 rounding too (formed from the forward's bf16 o, it reached
+    0.17 with dropout on: 5.5 bf16 ulps of max |dk|, over the gate); over 8
+    draws with 8 such rows each, every gradient within the gate."""
+    b, heads, dh = 16, 8, 48
+    for draw in range(8):
+        g = torch.Generator(device=cuda).manual_seed(100 + draw)
+        qkv = [torch.randn(b * heads, n, dh, generator=g,
+                           device=cuda).to(torch.bfloat16)
+               for n in (lq, lk, lk)]
+        lens = torch.randint(1, lk + 1, (b,), generator=g, device=cuda)
+        lens[:8] = 1
+        key_valid = torch.arange(lk, device=cuda)[None] < lens[:, None]
+        go = torch.randn(b * heads, lq, dh, generator=g, device=cuda)
+        seed = _seed(cuda, 20261016 + draw)
+        ours = _grads(lambda *a: masked_attention(*a, key_valid, heads,
+                                                  dh ** -0.5, rate, seed),
+                      qkv, go, "attention")
+        ref = masked_attention_backward_plain(
+            *qkv, key_valid, go.to(torch.bfloat16), heads, dh ** -0.5, rate,
+            seed)
+        for a, r in zip(ours, ref):
+            assert _rel(a, r) <= TOL[torch.bfloat16], draw
+        assert float(ref[1][:8 * heads, 0].float().abs().max()) <= 1e-4
+        assert float(ours[1][:8 * heads, 0].float().abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lq,lk", [(80, 80), (320, 320), (37, 130)])
 def test_attention_backward_repeats_bit_for_bit(cuda, lq, lk):
     """No float atomics: two backward calls on the same inputs give

@@ -940,7 +940,7 @@ def test_kernel_launch_arguments():
     assert len(attention_fwd) == 22
     # every dropout-taking entry: the seed state's pointer, then the call
     for name, at in (("coot_genpool_fwd", 15), ("coot_genpool_bwd", 24),
-                     ("coot_attention_fwd", 13), ("coot_attention_bwd", 18),
+                     ("coot_attention_fwd", 13), ("coot_attention_bwd", 19),
                      ("coot_dropout", 3), ("coot_gather_rows", 6)):
         sig = cuda_build._SIGNATURES[name]
         assert sig[at:at + 2] == [c.c_void_p, c.c_uint], name
