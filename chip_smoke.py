@@ -234,7 +234,9 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    MART steps against one process, the EMA equal on both ranks, and a
    greedy decode of the batch token-identical to one process's with the
    saved weights (eagerly on the ranks: gloo runs on the host; through
-   the graphs in one process).
+   the graphs in one process); (d) the TransformerXL and the joint model,
+   which run replicated under a `model` axis as JAX runs them: one step
+   on each rank equal, bit for bit, to one process's.
 
 13. The serving programs as CUDA graphs (utils/graphs.py), each against
    the eager path on the same weights and inputs: (a) MART at
@@ -263,20 +265,47 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    version over B3_SEEDS draws at each of phase 2's shapes, each held to
    phase 2's gate.
 
+14. The caption train step as a captured program (tasks/caption/steps.py
+   `train_programs`) for every caption model the CLI trains, from seed 0
+   at its yaml's dropout (B4 at every site) and batch size: MART at
+   yc2_2d3d_coot_vidclip_mart width over two sentence-step buckets (S = 4
+   and 12), raw-feature MART (yc2_mart), the TransformerXL with and
+   without xl_grad, the tied decoder, the untied and joint models (phase
+   9's widths) and the MTransformer (yc2_100m_coot_vidclip_mtrans): 8
+   steps through the programs and 8 eager steps from an equal state on the
+   same batches at changing lrs, every step's metrics and the whole state
+   after them bit for bit equal, each key's first call exactly one step;
+   each path's warm step (wall ms, the trainer's one read included), one
+   traced warm step each way (device busy, the host's kernel and graph
+   launches, the port's kernels by name: B4 alone, as many in the replay
+   as eagerly) and each path's peak memory (the programs' extra). The
+   phase logs its time against TRAIN_PROGRAMS_LIMIT_S. Phases 7-9 time
+   the eager step (`eager=True`); their CLI runs train through the
+   programs.
+
 The order of a run: phase 1 and the build of phase 2; then phases 6-8
 and phase 9 (the caption family, which shares nothing with the rest) in
 two processes of their own (`--side-phases`, each with SIDE_THREADS
 intra-op threads on the host), beside the rest of phase 2, 2b, 3, 4, 4b
 and 10-12 in the main one, whose host and device times they share; their
 logs are printed after phase 12; then, with the card the main process's
-alone, 4c, 5 and 13, which time it. The synthetic retrieval splits
+alone, 4c, 5, 13 and 14, which time it. Phase 4c also logs what the
+in-process CLI runs left allocated on the card (as left, after a garbage
+collection, after utils/graphs.py `release_all`). The synthetic retrieval splits
 (DATA_SPLITS) are written by DATA_WORKERS worker processes from the
 start, each moved into its phase's directory when the phase needs it.
 Every worker and side process is stopped at exit.
 
 Prints `{"kernels": [...]}` on the line before the last (each entry's
 `eval_graph_launches`: the port's kernels of its source on the device in
-the traced replay of (c)'s captured eval step, by name) and
+the traced replay of (c)'s captured eval step, by name;
+`caption_train_graph_launches`: B4's kernel in a traced warm replay of
+MART's captured train step in phase 14, by name: B4's forward and
+backward are one kernel function, so the count holds both directions and
+stands on `dropout`, with 0 on `dropout_bwd` and the other kernels;
+`caption_train_eager_launches`: the same step run eagerly, by the
+wrappers' counts, forward on `dropout` and backward on `dropout_bwd`,
+whose sum phase 14 holds equal to the replay's count) and
 `{"ok": true, "device": {...}}` as the last line; exits non-zero (and
 prints no result) on any failure, without a CUDA device, or outside a
 checkout of the repository.
@@ -2318,9 +2347,10 @@ def hold_train_steps_synced(tag: str, build, arrays: dict,
 def time_train_step(tag: str, build, arrays: dict, single: bool,
                     examples: int, unit: str) -> dict:
     """One train batch (numpy `arrays` of `examples` videos or sentences)
-    trained 16 steps at CAPTION_TRAIN_LR on the card: the loss must fall;
-    the warm step's median wall ms, one traced step's device-busy ms and
-    launches by family, B4's launches and device time, peak memory.
+    trained 16 eager steps (`eager=True`; phase 14 holds the captured
+    programs against them) at CAPTION_TRAIN_LR on the card: the loss must
+    fall; the warm step's median wall ms, one traced step's device-busy ms
+    and launches by family, B4's launches and device time, peak memory.
     Returns those numbers."""
     import torch
     from coot_videotext_tpu_torch.ops import cuda_build
@@ -2336,7 +2366,7 @@ def time_train_step(tag: str, build, arrays: dict, single: bool,
     step_losses, step_ms = [], []
     for _ in range(16):
         t0 = time.perf_counter()
-        metrics = step_fn(state, batch, CAPTION_TRAIN_LR)
+        metrics = step_fn(state, batch, CAPTION_TRAIN_LR, eager=True)
         step_losses.append(float(metrics["loss"]))
         step_ms.append((time.perf_counter() - t0) * 1e3)
     if not all(math.isfinite(v) for v in step_losses) \
@@ -2349,7 +2379,7 @@ def time_train_step(tag: str, build, arrays: dict, single: bool,
         f"{examples / warm * 1e3:.1f} train {unit}/s")
     cuda_build.reset_launch_counts()
     wall_ms, busy_ms, kernels, events = _busy_ms(
-        lambda: step_fn(state, batch, CAPTION_TRAIN_LR))
+        lambda: step_fn(state, batch, CAPTION_TRAIN_LR, eager=True))
     traced = dict(cuda_build.launch_counts)
     peak = (torch.cuda.max_memory_allocated() - held) / 1e9
     b4 = [e for e in events if "dropout" in e.key]
@@ -2876,6 +2906,7 @@ def phase_group(tmp: Path) -> dict:
             f"{', '.join(f'{t:.3f}' for t in per_epoch)}; "
             f"{2 * 640 / sum(per_epoch):.2f} train videos/s end to end "
             f"(run of {wall:.1f} s, dispatches {result['dispatches']})")
+    held_after_cli(cuda)
 
     cfg = RetrievalConfig(load_yaml_config_file(config))
     _, _, loader, _ = create_retrieval_datasets_and_loaders(
@@ -3005,6 +3036,28 @@ def phase_group(tmp: Path) -> dict:
         del ts, dev, events
         torch.cuda.empty_cache()
     return timing
+
+
+def held_after_cli(device) -> dict:
+    """The device memory the in-process CLI runs left allocated (GB): as
+    they left it, after a garbage collection (what reference cycles held),
+    and after utils/graphs.py `release_all` (what the captured graphs of
+    live objects held). Logged and returned."""
+    import gc
+    import torch
+    from coot_videotext_tpu_torch.utils.graphs import release_all
+    torch.cuda.synchronize(device)
+    held = {"as_left": torch.cuda.memory_allocated(device) / 1e9}
+    gc.collect()
+    held["after_gc"] = torch.cuda.memory_allocated(device) / 1e9
+    dropped = release_all()
+    gc.collect()
+    held["after_release_all"] = torch.cuda.memory_allocated(device) / 1e9
+    log(f"  device memory the CLI runs left allocated: "
+        f"{held['as_left']:.3f} GB as they left it, {held['after_gc']:.3f} "
+        f"GB after gc.collect(), {held['after_release_all']:.3f} GB after "
+        f"release_all() dropped {dropped} more graphs")
+    return held
 
 
 def profile_step(step_fn, what: str) -> list:
@@ -4528,6 +4581,52 @@ def _record_calls(calls: dict):
     return undo
 
 
+# phase 12 (d): caption models that run replicated under a `model` axis
+TP_REPLICATED = (("TransformerXL", {"xl": True}),
+                 ("joint single-sentence", {"recurrent": False}))
+
+
+def _tp_replicated_step(over: dict, vocab: int, arrays: dict, mesh,
+                        eager: bool) -> dict:
+    """One train step at CAPTION_TRAIN_LR of the caption model of `over`
+    at yc2_2d3d_coot_vidclip_mart.yaml width (seed 1, dropout 0) on the
+    card under `mesh` (None: one process) and the layout
+    `shard_model_for_tp` gives it: its sharded tensors, the metrics, the
+    parameters and the EMA. The joint model takes the first sentence step
+    of the stacked `arrays`."""
+    import torch
+    from coot_videotext_tpu_torch.parallel.tp import shard_model_for_tp
+    from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
+    from coot_videotext_tpu_torch.tasks.caption.model_manager import (
+        build_mart_model_manager)
+    from coot_videotext_tpu_torch.tasks.caption.steps import (
+        caption_train_step, caption_train_step_single,
+        init_caption_train_state)
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    config = load_yaml_config_file(CAPTION_CONFIG)
+    config.update(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                  memory_dropout_prob=0.0, **over)
+    cfg = MartConfig(config)
+    device = torch.device("cuda", 0)
+    mgr = build_mart_model_manager(cfg, vocab, device, seed=1,
+                                   cache_dir=str(ROOT / "cache_caption"))
+    state = init_caption_train_state(mgr.model, cfg, 0, mesh)
+    shards = -1
+    if mesh is not None:
+        state.tp = shard_model_for_tp(mgr.model, state.optimizer, state.ema,
+                                      mesh)
+        shards = len(state.tp.shards)
+    single = not cfg.recurrent
+    batch = {k: torch.from_numpy(v[0] if single else v).to(device)
+             for k, v in arrays.items()}
+    step = caption_train_step_single if single else caption_train_step
+    metrics = {k: float(v) for k, v in step(
+        state, batch, CAPTION_TRAIN_LR, eager=eager).items()}
+    return {"shards": shards, "type": type(mgr.model).__name__,
+            "metrics": metrics, **_state_copy(state)}
+
+
 def _tp_rank(rank: int, world: int, init_file: str, spec_file: str,
              out_dir: str) -> None:
     """Phase 12, rank `rank` of {data: 1, model: 2} on the one card over
@@ -4537,7 +4636,9 @@ def _tp_rank(rank: int, world: int, init_file: str, spec_file: str,
     after, B1's widths and B3's heads recorded, the first B4 mask and B3's
     first keep mask; (c) the MART steps of phase 11c on the sharded model,
     the whole parameters and EMA, and a greedy decode of the batch (rank 0
-    saves the weights it decoded with). Saves out_dir/tp<rank>.pt."""
+    saves the weights it decoded with); (d) one step of each caption model
+    of TP_REPLICATED, which the mesh runs replicated. Saves
+    out_dir/tp<rank>.pt."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4619,6 +4720,10 @@ def _tp_rank(rank: int, world: int, init_file: str, spec_file: str,
         out["tokens"] = [np.asarray(t) for t in tokens]
         if mesh.is_writer:
             torch.save(out["caption"]["params"], Path(out_dir) / "tp_mart.pt")
+        del mgr, cstate
+        out["replicated"] = {tag: _tp_replicated_step(
+            over, spec["vocab"], spec["caption"], mesh, eager=False)
+            for tag, over in TP_REPLICATED}
         out["caption_s"] = time.time() - t0
         torch.save(out, Path(out_dir) / f"tp{rank}.pt")
     finally:
@@ -4663,7 +4768,10 @@ def phase_tp(tmp: Path, shared: dict) -> None:
     (f32, dropout 0, S = 4, N = 16) 3 steps against one process (phase
     7's tolerances), 22 kernels sharded, the EMA equal on both ranks, and a
     greedy decode of the batch equal, token for token, to one process's
-    with the weights rank 0 saved."""
+    with the weights rank 0 saved. (d) The TransformerXL and the joint
+    model (TP_REPLICATED: replicated under the `model` axis, as JAX runs
+    them; f32, dropout 0): one step on each rank (eagerly: gloo) equal, bit
+    for bit, to one process's eager step on the card."""
     import numpy as np
     import torch
     from coot_videotext_tpu_torch.models.retrieval import (
@@ -4786,6 +4894,27 @@ def phase_tp(tmp: Path, shared: dict) -> None:
         fail("phase 12 (c): the greedy tokens differ from one process's")
     del mgr
     torch.cuda.empty_cache()
+    log("(d) the caption models that run replicated under a `model` axis")
+    for tag, over in TP_REPLICATED:
+        alone = _tp_replicated_step(over, vocab, caption_arrays, None,
+                                    eager=True)
+        for rank in seen:
+            got = rank["replicated"][tag]
+            equal = (got["metrics"] == alone["metrics"]
+                     and _max_diff(got["params"], alone["params"]) == 0
+                     and _max_diff(got["ema"], alone["ema"]) == 0)
+            log(f"  {tag} ({got['type']}), rank {rank['rank']}: "
+                f"{got['shards']} tensors sharded; loss "
+                f"{got['metrics']['loss']:.6f} / one process "
+                f"{alone['metrics']['loss']:.6f}, grad_norm "
+                f"{got['metrics']['grad_norm']:.6f} / "
+                f"{alone['metrics']['grad_norm']:.6f}; metrics, parameters "
+                f"and EMA bit for bit equal: {equal}")
+            if got["shards"] != 0 or not equal:
+                fail(f"phase 12 (d): {tag} on rank {rank['rank']} differs "
+                     "from one process")
+        del alone
+        torch.cuda.empty_cache()
     log(f"  phase 12 took {time.time() - t_phase:.1f} s after phase 11 "
         f"(budget {TP_LIMIT_S:.0f} s); its ranks ran "
         f"{seen[0]['retrieval_s'] + seen[0]['caption_s']:.1f} s of work "
@@ -5285,6 +5414,230 @@ def phase_serving_graphs(tmp: Path) -> dict:
     return launches
 
 
+# ---------- phase 14: the caption train programs ----------
+
+TRAIN_PROGRAMS_LIMIT_S = 240.0  # the phase's time budget (logged against)
+# (tag, config, -o overrides, the stacked batches' sentence steps S, or
+# None for a sentence batch); MART over two buckets of COUNT_LADDER
+TRAIN_PROGRAM_MODELS = (
+    ("MART", CAPTION_CONFIG, {}, (4, 12)),
+    ("raw-feature MART", RAW_CONFIG, {}, (6,)),
+    ("TransformerXL", CAPTION_CONFIG, {"xl": True}, (6,)),
+    ("TransformerXL xl_grad", CAPTION_CONFIG, {"xl": True, "xl_grad": True},
+     (6,)),
+    ("tied decoder", CAPTION_CONFIG, {"share_wd_cls_weight": True,
+                                      "word_vec_size": 768,
+                                      "use_glove": False}, (6,)),
+    ("untied", CAPTION_CONFIG, {"recurrent": False, "untied": True}, None),
+    ("joint single-sentence", CAPTION_CONFIG, {"recurrent": False}, None),
+    ("MTransformer", MTRANS_CONFIG, {}, None),
+)
+TRAIN_PROGRAM_STEPS = 8
+TRAIN_PROGRAM_LRS = (1e-4, 3e-5, 2e-4)
+
+
+def _train_batch(cfg, vocab: int, s, n: int, seed: int) -> dict:
+    """A caption train batch from `seed` at the config's shapes: stacked
+    (S, N, L) for the recurrent models (S = `s`), untied (N, ...) for the
+    untied model and the MTransformer, joint (N, L) for the joint model;
+    padded slots and about a third of the labels IGNORE."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    v, t = cfg.max_v_len, cfg.max_t_len
+    if cfg.untied or cfg.mtrans:
+        tmask = (np.arange(t)[None] < rng.randint(4, t + 1, (n, 1)))
+        ids = np.where(tmask, rng.randint(7, vocab, (n, t)), 0)
+        labels = np.where(tmask, np.roll(ids, -1, axis=1), -1)
+        labels[:, -1] = -1
+        vmask = (np.arange(v)[None] < rng.randint(1, v + 1, (n, 1)))
+        return {"video_feature": rng.randn(n, v, cfg.video_feature_size
+                                           ).astype(np.float32),
+                "video_mask": vmask.astype(np.float32),
+                "text_ids": ids.astype(np.int64),
+                "text_mask": tmask.astype(np.float32),
+                "text_labels": labels.astype(np.int64)}
+    lead = (s, n) if cfg.recurrent else (n,)
+    length = v + t
+    ids = rng.randint(7, vocab, lead + (length,))
+    mask = (np.arange(length) < rng.randint(v + 3, length + 1, lead + (1,)))
+    labels = np.where(rng.rand(*lead, length) < 0.3, -1,
+                      rng.randint(0, vocab, lead + (length,)))
+    labels[..., :v] = -1
+    labels = np.where(mask, labels, -1)
+    ttys = np.concatenate([np.zeros(lead + (v,)), np.ones(lead + (t,))], -1)
+    return {"input_ids": ids.astype(np.int64),
+            "video_feature": rng.randn(*lead, length, cfg.video_feature_size
+                                       ).astype(np.float32),
+            "input_mask": mask.astype(np.float32),
+            "token_type_ids": ttys.astype(np.int64),
+            "input_labels": labels.astype(np.int64)}
+
+
+def _caption_state_tensors(state) -> list:
+    """Every tensor of a caption train state, in one order."""
+    opt = state.optimizer
+    return (list(opt.params.values()) + list(opt.mu.values())
+            + list(opt.nu.values()) + list(state.ema.shadow.values())
+            + [opt.step_count, opt.lr, state.step, state.seed])
+
+
+def train_program_check(tag: str, cfg, vocab: int, sizes) -> dict:
+    """One caption model on the card from seed 0 at its config's dropout:
+    TRAIN_PROGRAM_STEPS steps through the captured programs and as many
+    eager steps from an equal state, on the same batches (S cycling over
+    `sizes`; None: a sentence batch) at lrs cycling over
+    TRAIN_PROGRAM_LRS, each path alone (its wall ms a step, the trainer's
+    one read included, and its peak memory). Every step's metrics and the
+    whole state after them must be equal bit for bit, and each key's first
+    call one step; the warm wall ms of each key apart. Then one warm step
+    of each path on the last key traced: wall and device-busy ms, the
+    host's kernel launches and graph launches, the port's kernels by name
+    (B4 alone in both). Returns the record."""
+    import torch
+    from coot_videotext_tpu_torch.ops import cuda_build
+    from coot_videotext_tpu_torch.tasks.caption.model_manager import (
+        build_mart_model_manager)
+    from coot_videotext_tpu_torch.tasks.caption.steps import (
+        caption_train_step, caption_train_step_single,
+        init_caption_train_state, train_programs)
+    cuda = torch.device("cuda")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    states = {}
+    for eager in (True, False):
+        mgr = build_mart_model_manager(cfg, vocab, cuda, seed=0,
+                                       cache_dir=str(ROOT / "cache_caption"))
+        states[eager] = init_caption_train_state(mgr.model, cfg, 0)
+    step = caption_train_step if cfg.recurrent else caption_train_step_single
+    keys = list(sizes) if sizes else [None]
+    batches = [{k: torch.from_numpy(v).to(cuda) for k, v in _train_batch(
+        cfg, vocab, s, cfg.train.batch_size, seed=i).items()}
+        for i, s in enumerate(keys)]
+    order = [(batches[i % len(batches)], TRAIN_PROGRAM_LRS[
+        i % len(TRAIN_PROGRAM_LRS)]) for i in range(TRAIN_PROGRAM_STEPS)]
+    run = {}
+    for eager, state in states.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        rows, ms = [], []
+        for i, (batch, lr) in enumerate(order):
+            t0 = time.perf_counter()
+            out = step(state, batch, lr, eager=eager)
+            rows.append(torch.stack([out["loss"], out["n_word"],
+                                     out["n_correct"],
+                                     out["grad_norm"]]).tolist())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not eager and i < len(batches) and int(state.step) != i + 1:
+                fail(f"{tag}: the first call of key {i} took "
+                     f"{int(state.step) - i} steps")
+        run[eager] = {"rows": rows, "ms": ms,
+                      "peak_gb": (torch.cuda.max_memory_allocated() - held)
+                      / 1e9}
+    same = run[True]["rows"] == run[False]["rows"] and all(
+        torch.equal(a, b) for a, b in zip(
+            _caption_state_tensors(states[True]),
+            _caption_state_tensors(states[False])))
+    cache = train_programs(states[False])
+    warm = len(batches)  # steps past each key's first call
+    rec = {"tag": tag, "keys": len(cache.programs),
+           "captures": cache.captures, "equal": same, "sizes": keys}
+    for eager, name in ((True, "eager"), (False, "program")):
+        # the warm steps of each key (every len(batches)-th, past its first)
+        rec[f"{name}_wall_ms"] = [statistics.median(
+            run[eager]["ms"][warm + i::warm]) for i in range(warm)]
+        rec[f"{name}_first_ms"] = run[eager]["ms"][:warm]
+        rec[f"{name}_peak_gb"] = run[eager]["peak_gb"]
+    for eager, name in ((True, "eager"), (False, "program")):
+        batch, lr = order[warm - 1]  # the last (largest) key
+        cuda_build.reset_launch_counts()
+        wall, busy, kernels, events, host = _busy_ms(
+            lambda: step(states[eager], batch, lr, eager=eager)[
+                "loss"].item(), host=True)
+        ports = _port_kernel_counts(events)
+        rec.update({f"{name}_traced_ms": wall, f"{name}_busy_ms": busy,
+                    f"{name}_kernels": kernels,
+                    f"{name}_host_launches": host["kernel_launches"],
+                    f"{name}_graph_launches": host["graph_launches"],
+                    f"{name}_b4": ports.get("dropout", 0)})
+        if set(ports) != {"dropout"}:
+            fail(f"{tag}: a traced {name} step ran the port's kernels "
+                 f"{ports}, not B4 alone")
+        if eager:
+            # the wrappers' counts of the eager step, by direction (a
+            # replay runs no wrapper; by name the two are one kernel)
+            rec["eager_b4_fwd"] = cuda_build.launch_counts["dropout"]
+            rec["eager_b4_bwd"] = cuda_build.launch_counts["dropout_bwd"]
+    rec["extra_peak_gb"] = rec["program_peak_gb"] - rec["eager_peak_gb"]
+    def by_key(values):
+        return ", ".join(f"{v:.2f}" for v in values)
+    log(f"  {tag}: {len(order)} steps a path, {rec['keys']} program(s) "
+        f"(S {list(keys)}), bit for bit equal to eager: {same}; warm step "
+        f"wall by key {by_key(rec['program_wall_ms'])} ms through the "
+        f"program / {by_key(rec['eager_wall_ms'])} eager (first calls "
+        f"{', '.join(f'{v:.1f}' for v in rec['program_first_ms'])} / "
+        f"{', '.join(f'{v:.1f}' for v in rec['eager_first_ms'])}); traced "
+        f"step (S {keys[-1]}): wall {rec['program_traced_ms']:.2f} / "
+        f"{rec['eager_traced_ms']:.2f} ms, device busy "
+        f"{rec['program_busy_ms']:.2f} / {rec['eager_busy_ms']:.2f} ms "
+        f"({rec['program_busy_ms'] / rec['program_traced_ms']:.1%} / "
+        f"{rec['eager_busy_ms'] / rec['eager_traced_ms']:.1%} busy), "
+        f"{rec['program_kernels']} / {rec['eager_kernels']} kernels on the "
+        f"device, host kernel launches {rec['program_host_launches']} / "
+        f"{rec['eager_host_launches']}, graph launches "
+        f"{rec['program_graph_launches']} / {rec['eager_graph_launches']}, "
+        f"B4 by name {rec['program_b4']} / {rec['eager_b4']} (the eager "
+        f"step's wrappers: {rec['eager_b4_fwd']} forward + "
+        f"{rec['eager_b4_bwd']} backward); peak memory "
+        f"above the two states' {(torch.cuda.memory_allocated() - base) / 1e9:.3f} "
+        f"GB: {rec['program_peak_gb']:.3f} / {rec['eager_peak_gb']:.3f} GB "
+        f"(the programs' extra {rec['extra_peak_gb']:+.3f} GB)")
+    if not same:
+        fail(f"{tag}: the captured train steps differ from the eager ones")
+    if rec["keys"] != len(batches) or rec["captures"] != len(batches):
+        fail(f"{tag}: {rec['captures']} captures for {len(batches)} keys")
+    if rec["program_b4"] != rec["eager_b4"] or rec["program_b4"] <= 0 \
+            or rec["eager_b4_fwd"] + rec["eager_b4_bwd"] != rec["eager_b4"]:
+        fail(f"{tag}: B4 ran {rec['program_b4']} times in a replay, "
+             f"{rec['eager_b4']} eagerly by name, {rec['eager_b4_fwd']} + "
+             f"{rec['eager_b4_bwd']} by the eager step's wrappers")
+    del states, batches, order
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_programs() -> dict:
+    """Phase 14, the caption train step as a captured program
+    (tasks/caption/steps.py `train_programs`) for every caption model the
+    CLI trains, each against the eager step from an equal state on the
+    same batches (train_program_check): MART at
+    yc2_2d3d_coot_vidclip_mart.yaml width over two sentence-step buckets
+    (S = 4 and 12), raw-feature MART at yc2_mart.yaml, the TransformerXL
+    (with and without xl_grad), the tied decoder, the untied and the joint
+    models at phase 9's widths and the MTransformer at
+    yc2_100m_coot_vidclip_mtrans.yaml, each from seed 0 at its yaml's
+    dropout and batch size. Logs the phase's time against
+    TRAIN_PROGRAMS_LIMIT_S. Returns {tag: record}; MART's record holds
+    B4's launches by kernel name in a traced warm replay."""
+    import json as _json
+    from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    t_phase = time.time()
+    vocab = len(_json.loads((ROOT / "annotations" / "youcook2" /
+                             "mart_word2idx.json").read_text(
+        encoding="utf8")))
+    records = {}
+    for tag, path, over, sizes in TRAIN_PROGRAM_MODELS:
+        config = load_yaml_config_file(path)
+        config.update(over)
+        cfg = MartConfig(config)
+        records[tag] = train_program_check(tag, cfg, vocab, sizes)
+    log(f"  phase 14 took {time.time() - t_phase:.1f} s (budget "
+        f"{TRAIN_PROGRAMS_LIMIT_S:.0f} s)")
+    return records
+
+
 # the synthetic retrieval splits, in the order the phases need them:
 # split -> _yc2_dataset's (train videos, val videos, seed[, config])
 DATA_SPLITS = {
@@ -5454,11 +5807,24 @@ def main() -> None:
               "and caption eval steps as CUDA graphs against eager, at full "
               "width")
         graph_launches = phase_serving_graphs(Path(tmp))
+    phase("14. the caption train programs: every caption model's train "
+          "step captured, against the eager step, at full width")
+    programs = phase_train_programs()
+    mart = programs["MART"]
     for entry in kernels:
         # the port's kernels on the device in a traced replay of the
         # captured yc2_2d3d_coot eval step, by name
         entry["eval_graph_launches"] = int(graph_launches.get(entry["name"],
                                                               0))
+        # B4 in a traced warm replay of MART's captured train step, by
+        # name: its forward and backward are one kernel function, so the
+        # count (both directions) stands on `dropout` alone
+        entry["caption_train_graph_launches"] = (
+            mart["program_b4"] if entry["name"] == "dropout" else 0)
+        # the same step run eagerly, by its wrappers' counts per direction
+        entry["caption_train_eager_launches"] = {
+            "dropout": mart["eager_b4_fwd"],
+            "dropout_bwd": mart["eager_b4_bwd"]}.get(entry["name"], 0)
     _stop_children()
     log(f"chip_smoke took {time.time() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

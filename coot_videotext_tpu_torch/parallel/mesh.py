@@ -61,6 +61,8 @@ from typing import Any, Dict, Iterable, List, Optional
 import torch
 import torch.distributed as dist
 
+from coot_videotext_tpu_torch.utils.graphs import release_all
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
@@ -127,25 +129,15 @@ class Mesh:
         return self.rank == 0
 
 
-
 def capturable(mesh: Optional[Mesh]) -> bool:
-    """Whether the group step (tasks/retrieval/steps.py `StepGraph`) is
-    captured with its collectives under `mesh` (None: no mesh): NCCL
-    collectives can be captured, gloo's run on the host. Its graph is
-    released with its train state, before the process group ends."""
+    """Whether the programs that JAX compiles run captured as CUDA graphs
+    under `mesh` (None: no mesh), with their collectives: the one rule of
+    the retrieval group step, both eval steps and validation, the caption
+    train programs and the decodes. NCCL collectives can be captured; gloo's run on the host, so
+    under gloo every step runs eagerly. `destroy` drops every captured
+    graph before the process group ends (utils/graphs.py
+    `release_all`)."""
     return mesh is None or not mesh.distributed or mesh.backend == "nccl"
-
-
-def serves_captured(mesh: Optional[Mesh]) -> bool:
-    """Whether the eval steps and the caption decodes run as captured
-    programs (utils/graphs.py) under `mesh`: the one rule of both eval
-    steps, validation and the caption trainer's decodes. Only where no
-    collective crosses ranks (no mesh, or one rank). Their programs live
-    in the model's graph cache, which outlives a run; on four cards over
-    NCCL a CLI run whose validations had gone through captured eval steps
-    (and agreed across ranks) hung at exit until the NCCL watchdog aborted
-    it, so under a mesh of more than one rank they run eagerly."""
-    return mesh is None or not mesh.distributed
 
 
 def single(device: torch.device = torch.device("cpu")) -> Mesh:
@@ -402,7 +394,14 @@ def barrier(mesh: Optional[Mesh]) -> None:
 
 
 def destroy(mesh: Optional[Mesh]) -> None:
-    """End the process group where `get_mesh` initialised it (a group that
-    the caller set up stays)."""
-    if mesh is not None and mesh.owned and dist.is_initialized():
+    """Drops every captured graph of the process (utils/graphs.py
+    `release_all`: graphs that hold NCCL collectives keep NCCL's
+    communicators alive, and destroying the group under them hangs), then
+    ends the process group where `get_mesh` initialised it (a group that
+    the caller set up stays: the caller calls `release_all` before ending
+    it)."""
+    if mesh is None or mesh.group is None:
+        return
+    release_all()
+    if mesh.owned and dist.is_initialized():
         dist.destroy_process_group()

@@ -75,6 +75,23 @@ DEFAULT_TP_RULES: List[Tuple[str, Spec]] = [
 ]
 
 
+def _replicated(model: nn.Module) -> bool:
+    """Whether `model` is a caption model that runs replicated under a
+    `model` axis, as JAX runs it: the TransformerXL (none of its kernels
+    matches a rule), the untied and joint single-sentence models and the
+    MTransformer (JAX's caption trainer and single-sentence step pass no
+    state shardings, tasks/caption/trainer.py:148-164, steps.py:167-204)."""
+    from coot_videotext_tpu_torch.models.caption.mart import (
+        NonRecurTransformer)
+    from coot_videotext_tpu_torch.models.caption.mtransformer import (
+        MTransformer)
+    from coot_videotext_tpu_torch.models.caption.untied import (
+        NonRecurTransformerUntied)
+    from coot_videotext_tpu_torch.models.caption.xl import TransformerXL
+    return isinstance(model, (TransformerXL, NonRecurTransformer,
+                              NonRecurTransformerUntied, MTransformer))
+
+
 def jax_paths(model: nn.Module) -> Dict[str, str]:
     """{parameter name: JAX path} of a model that tensor parallelism
     covers: the retrieval model and recurrent MART."""
@@ -86,9 +103,8 @@ def jax_paths(model: nn.Module) -> Dict[str, str]:
     if isinstance(model, RecursiveTransformer):
         return mart_jax_paths(model)
     raise NotImplementedError(
-        f"tensor parallelism (a `model` mesh axis) covers the retrieval "
-        f"model and recurrent MART, not {type(model).__name__}; run it on "
-        "the `data` axis only")
+        f"tensor parallelism (a `model` mesh axis) shards the retrieval "
+        f"model and recurrent MART, not {type(model).__name__}")
 
 
 def infer_param_shardings(model: nn.Module, model_world: int,
@@ -351,10 +367,15 @@ def shard_model_for_tp(model: nn.Module, optimizer, ema,
     shadow (`ema`, or None) alike, and places the layers. Scalars (the
     step count, the lr) and the replicated tensors stay as they are. The
     model's parameters must be whole and equal on every rank of the group.
-    Returns the layout (None without a `model` axis: nothing changes).
+    Returns the layout (None without a `model` axis: nothing changes). The
+    TransformerXL, the untied and joint models and the MTransformer get a
+    layout that shards nothing (`_replicated`): each model group repeats
+    its data rank's step.
     """
     if not mesh.tensor_parallel:
         return None
+    if _replicated(model):
+        return Layout(mesh, {}, ())
     paths = jax_paths(model)
     shards = {n: d for n, d in infer_param_shardings(
         model, mesh.model_world, rules, paths).items() if d is not None}

@@ -17,11 +17,19 @@ sum over tokens), the token-accuracy counts of that forward, the
 backward through autograd, clipping by the global norm (whose pre-clip
 value is `grad_norm`), the BertAdam update at the host's lr, the EMA
 update with the state's step before its increment, then step + 1 and seed
-state + 1. The eval step runs the same forward in eval mode under
-torch.inference_mode(), as a program of the model's graph cache
-(utils/graphs.py: a CUDA graph on the card, one per batch shape, as JAX
-jits it, :103, :209; `eager=True` runs it op by op). Both return device
-tensors that the caller reads once per batch.
+state + 1. It runs as a program of the train state's graph cache
+(utils/graphs.py, `train_programs`: a CUDA graph on the card, one per
+batch shape, as JAX jits one, :45, :167): the host's lr goes into
+BertAdam's device lr before each call and the body reads it there; the
+first call of a shape is the capture's eager run, which is the step, and
+every later call one replay, so n calls are n steps. The programs read
+the parameters, BertAdam's moments, step count and lr, the EMA shadow, the
+seed state and the step, and are dropped when one of them moves
+(`load_state_dict` and the EMA swap copy in place and keep them).
+`eager=True` runs the step op by op. The eval step runs the same forward
+in eval mode under torch.inference_mode(), as a program of the model's
+graph cache (JAX jits it, :103, :209; `eager=True` runs it op by op).
+Both return device tensors that the caller reads once per batch.
 
 Under a data-parallel mesh (parallel/mesh.py; JAX shards dim 1 of the
 stacked (S, N, ...) batches and dim 0 of the single-sentence ones over
@@ -38,13 +46,23 @@ recurrent MART runs its attention heads and FFN columns sharded over the
 model group, which holds the same rows; the partial gradients are summed
 over the group, and the global norm and BertAdam's per-tensor norms count
 a sharded gradient over it. The attention-probability dropout on a rank's
-heads draws its own mask; every other site the group's.
+heads draws its own mask; every other site the group's. The other caption
+models run replicated under a `model` axis, as JAX runs them (its caption
+steps take no state shardings): each model group repeats its data rank's
+step.
+
+The programs capture every collective of the step under NCCL (the
+gradient and metric all-reduces, the token counts', tensor parallelism's
+sums and gathers) after the eager first call has set the communicators
+up; under gloo the steps run eagerly (parallel/mesh.py `capturable`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import itertools
+import weakref
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -54,8 +72,7 @@ from coot_videotext_tpu_torch.models.caption.xl import TransformerXL
 from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.ops.philox import dropout_seeds
 from coot_videotext_tpu_torch.parallel.mesh import (
-    Mesh, all_reduce_grads, all_reduce_metrics, all_reduce_sum,
-    serves_captured)
+    Mesh, all_reduce_grads, all_reduce_metrics, all_reduce_sum, capturable)
 from coot_videotext_tpu_torch.parallel.tp import Layout
 from coot_videotext_tpu_torch.tasks.caption.model_manager import (
     CaptionModel)
@@ -63,7 +80,8 @@ from coot_videotext_tpu_torch.train.loss_caption import (
     IGNORE, token_accuracy_counts)
 from coot_videotext_tpu_torch.train.optim import (
     EMA, BertAdam, clip_by_global_norm)
-from coot_videotext_tpu_torch.utils.graphs import cache_of, signature
+from coot_videotext_tpu_torch.utils.graphs import (
+    GraphCache, cache_of, programs_of, signature)
 from coot_videotext_tpu_torch.utils.param_bridge import (
     mart_jax_paths, mtrans_jax_paths, tied_aliases, xl_jax_paths)
 
@@ -80,7 +98,8 @@ class CaptionTrainState:
     `seed_state`) and the step (an int32 scalar), both on the model's
     device (JAX CaptionTrainState :33); `mesh` the mesh of data and tensor
     parallelism (None: one process), `tp` the model's sharding
-    (parallel/tp.py `shard_model_for_tp`) under a `model` axis."""
+    (parallel/tp.py `shard_model_for_tp`) under a `model` axis;
+    `programs` the captured train steps (`train_programs`)."""
     model: CaptionModel
     optimizer: BertAdam
     ema: Optional[EMA]
@@ -88,6 +107,8 @@ class CaptionTrainState:
     step: torch.Tensor
     mesh: Optional[Mesh] = None
     tp: Optional[Layout] = None
+    programs: Optional[GraphCache] = dataclasses.field(default=None,
+                                                       repr=False)
 
 
 def init_caption_train_state(model: CaptionModel, cfg, seed: int,
@@ -200,12 +221,13 @@ def caption_loss_and_grads(state: CaptionTrainState,
 
 
 def caption_update(state: CaptionTrainState,
-                   grads: Dict[str, torch.Tensor], lr: float
+                   grads: Dict[str, torch.Tensor], lr: Optional[float]
                    ) -> torch.Tensor:
     """The step after the backward: clipping by the global norm to
-    CLIP_GRADIENT (the gradients in place), BertAdam at `lr`, the EMA with
-    the step before its increment, then step + 1 and seed state + 1.
-    Returns the pre-clip norm."""
+    CLIP_GRADIENT (the gradients in place), BertAdam at `lr` (None: the lr
+    filled into BertAdam's device lr), the EMA with the step before its
+    increment, then step + 1 and seed state + 1. Returns the pre-clip
+    norm."""
     norm = clip_by_global_norm(grads, CLIP_GRADIENT, state.tp)
     state.optimizer.step(grads, lr, state.tp)
     if state.ema is not None:
@@ -215,26 +237,67 @@ def caption_update(state: CaptionTrainState,
     return norm
 
 
+def _state_tensors(state: CaptionTrainState) -> Iterable[torch.Tensor]:
+    """Every tensor a train program reads or writes besides its inputs."""
+    opt = state.optimizer
+    return itertools.chain(
+        state.model.parameters(), state.model.buffers(),
+        opt.params.values(), opt.mu.values(), opt.nu.values(),
+        (opt.step_count, opt.lr, state.seed, state.step),
+        state.ema.shadow.values() if state.ema is not None else ())
+
+
+def train_programs(state: CaptionTrainState) -> GraphCache:
+    """The state's cache of captured train steps (made at the first call),
+    checked: valid while every tensor of `_state_tensors` keeps its
+    address."""
+    return programs_of(state, _state_tensors)
+
+
+def _step(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
+          lr: Optional[float], single: bool) -> Dict[str, torch.Tensor]:
+    metrics, grads = caption_loss_and_grads(state, batch, single=single)
+    metrics["grad_norm"] = caption_update(state, grads, lr)
+    return metrics
+
+
+def _train(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
+           lr: float, single: bool, eager: bool) -> Dict[str, torch.Tensor]:
+    """One train step: eagerly with `eager` or under a gloo mesh of more
+    than one rank, else the program of the batch's shapes (a stateful
+    program: its first call is the step, every later one a replay), which
+    reads the lr filled into BertAdam's device lr."""
+    if eager or not capturable(state.mesh):
+        return _step(state, batch, lr, single)
+    ref = weakref.ref(state)  # the cache on the state holds the body
+    inputs = {k: v for k, v in batch.items() if torch.is_tensor(v)}
+    state.optimizer.lr.fill_(lr)
+    key = ("caption_train", single, signature(inputs))
+    return train_programs(state).get(
+        key, lambda x: _step(ref(), x, None, single), inputs,
+        stateful=True)(inputs)
+
+
 def caption_train_step(state: CaptionTrainState,
-                       batch: Dict[str, torch.Tensor], lr: float
-                       ) -> Dict[str, torch.Tensor]:
+                       batch: Dict[str, torch.Tensor], lr: float, *,
+                       eager: bool = False) -> Dict[str, torch.Tensor]:
     """One train step on a stacked (S, N, ...) batch on the model's device;
     returns {loss (sum over steps), n_correct, n_word, grad_norm} as 0-d
     float32 device tensors. The parameters, the optimizer, the EMA, the
-    step and the seed state are updated in place."""
-    metrics, grads = caption_loss_and_grads(state, batch)
-    metrics["grad_norm"] = caption_update(state, grads, lr)
-    return metrics
+    step and the seed state are updated in place. A captured program
+    (`_train`) unless `eager`: on the card the tensors after a shape's
+    first call are the graph's outputs, valid until the next call of a
+    train program of the state (train_model reads them first)."""
+    return _train(state, batch, lr, False, eager)
 
 
 def caption_train_step_single(state: CaptionTrainState,
-                              batch: Dict[str, torch.Tensor], lr: float
+                              batch: Dict[str, torch.Tensor], lr: float, *,
+                              eager: bool = False
                               ) -> Dict[str, torch.Tensor]:
     """caption_train_step on an (N, ...) sentence batch, untied or joint
     (JAX make_caption_train_step_single :167)."""
-    metrics, grads = caption_loss_and_grads(state, batch, single=True)
-    metrics["grad_norm"] = caption_update(state, grads, lr)
-    return metrics
+    return _train(state, batch, lr, True, eager)
 
 
 def _eval(model: CaptionModel, batch: Dict[str, torch.Tensor],
@@ -244,8 +307,8 @@ def _eval(model: CaptionModel, batch: Dict[str, torch.Tensor],
     over the mesh's ranks) as a program of the model's graph cache
     (utils/graphs.py; JAX jits it), keyed on the batch's shapes and dtypes:
     a CUDA graph on the card, its body run eagerly on its static buffers
-    on the CPU; eagerly with `eager` or under a mesh of more than one rank
-    (parallel/mesh.py `serves_captured`)."""
+    on the CPU; eagerly with `eager` or under a gloo mesh of more than
+    one rank (parallel/mesh.py `capturable`)."""
     forward = _forward_single if single else _forward
 
     def body(x):
@@ -254,7 +317,7 @@ def _eval(model: CaptionModel, batch: Dict[str, torch.Tensor],
         return all_reduce_metrics(mesh, {"loss": loss, "n_correct": n_correct,
                                          "n_word": n_word})
     with torch.inference_mode():
-        if eager or not serves_captured(mesh):
+        if eager or not capturable(mesh):
             return body(batch)
         inputs = {k: v for k, v in batch.items() if torch.is_tensor(v)}
         key = ("caption_eval", single, signature(inputs), id(mesh))

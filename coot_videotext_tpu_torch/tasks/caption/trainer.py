@@ -15,7 +15,10 @@ mart/trainer_caption.py:106-693):
       batches, or `caption_train_step_single` on sentence batches, untied
       or joint, when `recurrent` is false, :121-163; each keyed on the
       seed state cfg.random_seed + total_step, so a resumed run draws the
-      dropout masks of the unbroken one), one read of each step's metrics,
+      dropout masks of the unbroken one; each a captured program of the
+      train state, one per batch shape, as JAX jits one, with the host's
+      lr filled into BertAdam's device lr), one read of each step's
+      metrics,
       the GRAD / TRAIN_LOSS_PER_WORD / TRAIN_ACC meters, validation per
       val_start / val_freq, the EMA saved as `modelema_<ep>.pth`
       ({"model": state_dict}), the checkpoint and its cleanup with the
@@ -55,7 +58,9 @@ Under a `model` axis (parallel/tp.py) the trainer shards recurrent MART,
 BertAdam's moments and the EMA by the rules once they are loaded; the
 ranks of data rank 0's model group decode together, and the model, EMA
 and optimizer files hold whole tensors (gathered by every rank, written
-by rank 0). Every other caption model refuses a `model` axis.
+by rank 0). The other caption models run replicated under a `model`
+axis, as JAX's caption trainer runs them (it passes no state shardings,
+:148-164): each model group repeats its data rank's step.
 """
 
 from __future__ import annotations
@@ -97,6 +102,7 @@ from coot_videotext_tpu_torch.train.trainer_base import BaseTrainer
 from coot_videotext_tpu_torch.utils.experiments import ExperimentFilesHandler
 from coot_videotext_tpu_torch.utils.general import (
     ExperimentTypesConst, TrainerPathConst)
+from coot_videotext_tpu_torch.utils.graphs import mode, runs_of
 from coot_videotext_tpu_torch.utils.metrics import (
     TRANSLATION_METRICS, TextMetricsConst)
 
@@ -183,16 +189,19 @@ class MartTrainer(BaseTrainer):
                             else caption_train_step)
         self._eval_step = (caption_eval_step_single if self.single
                            else caption_eval_step)
-        # the decodes run as captured programs (CUDA graphs on the card),
-        # eagerly under a mesh of more than one rank (serves_captured)
+        # the train steps and the decodes run as captured programs (CUDA
+        # graphs on the card), eagerly under gloo (capturable)
         self.translator = Translator(
-            model_mgr.model, cfg, eager=not pmesh.serves_captured(self.mesh))
+            model_mgr.model, cfg, eager=not pmesh.capturable(self.mesh))
         # per val batch: host ms of the eval step (to its read) and of the
         # decode, the decode's forwards and host reads; per train step its
         # host ms (to its read), per epoch the train videos/s (sentences/s
         # in the single-sentence layouts); the last batch's device
         self.val_timings: Dict[str, List[float]] = defaultdict(list)
         self.train_timings: Dict[str, List[float]] = defaultdict(list)
+        # per eval step and decode of the last validation: whether it ran
+        # through a program (the graph caches' and the translator's counts)
+        self.program_calls: List[bool] = []
         self.last_batch_device: Optional[torch.device] = None
         self.hook_post_init()
         pmesh.broadcast_params(self.mesh, model_mgr.model.parameters())
@@ -213,6 +222,11 @@ class MartTrainer(BaseTrainer):
         train state's, or a validation run's."""
         ts = self.train_state
         return self._eval_tp if ts is None else ts.tp
+
+    def _train_runs(self) -> int:
+        """The program runs of the train state's cache so far."""
+        programs = self.train_state.programs
+        return 0 if programs is None else programs.counts["runs"]
 
     def current_lr(self) -> float:
         """The host's warmup_linear schedule (JAX current_lr :177)."""
@@ -321,6 +335,7 @@ class MartTrainer(BaseTrainer):
             total_loss = 0.0
             n_word_total = 0
             n_word_correct = 0
+            runs, steps = self._train_runs(), 0
             for step, (batch, _) in enumerate(prefetch(
                     train_loader, self.device, split=split_caption_batch)):
                 self.last_batch_device = batch["video_feature"].device
@@ -338,9 +353,15 @@ class MartTrainer(BaseTrainer):
                 n_word_correct += int(n_correct)
                 self.metrics.update_meter(MMeters.GRAD, grad_norm)
                 self.hook_post_step(step, loss, lr, grad_norm=grad_norm)
+                steps += 1
             seconds = timer() - self.timer_train_epoch
             self.train_timings["epoch_videos_per_s"].append(
                 examples / seconds)
+            self.logger.info(f"Epoch {self.state.current_epoch}: "
+                             f"{examples / seconds:.2f} train examples/s "
+                             f"(rank {self.mesh.rank}, train step: "
+                             f"{mode(self._train_runs() - runs, steps,
+                                     self.device)})")
             self.metrics.update_meter(MMeters.TRAIN_LOSS_PER_WORD,
                                       total_loss / max(n_word_total, 1))
             self.metrics.update_meter(MMeters.TRAIN_ACC,
@@ -389,13 +410,15 @@ class MartTrainer(BaseTrainer):
         n_word_correct = 0
         results: Dict[str, list] = defaultdict(list)
         dataset = data_loader.dataset
+        model = self.model_mgr.model
         for batch, host in prefetch(data_loader, self.device,
                                     split=split_caption_batch):
             self.last_batch_device = batch["video_feature"].device
             t0 = timer()
             if evaluate:
-                out = self._eval_step(self.model_mgr.model, batch,
-                                      self.mesh)
+                runs = runs_of(model)
+                out = self._eval_step(model, batch, self.mesh)
+                self.program_calls.append(runs_of(model) > runs)
                 loss, n_word, n_correct = torch.stack(
                     [out["loss"], out["n_word"], out["n_correct"]]).tolist()
                 total_loss += loss
@@ -406,6 +429,7 @@ class MartTrainer(BaseTrainer):
                 continue
             t1 = timer()
             dec = self.translator.translate_batch(batch)
+            self.program_calls.append(self.translator.replays > 0)
             t2 = timer()
             self.val_timings["decode_ms"].append((t2 - t1) * 1e3)
             self.val_timings["forwards"].append(self.translator.forwards)
@@ -436,6 +460,7 @@ class MartTrainer(BaseTrainer):
                        ) -> Tuple[float, float, bool, Dict[str, float]]:
         self.hook_pre_val_epoch()
         self.val_timings.clear()
+        self.program_calls = []
         with self._eval_weights():
             results, total_loss, n_word_total, n_word_correct = \
                 self._eval_and_translate(data_loader)
@@ -460,12 +485,15 @@ class MartTrainer(BaseTrainer):
         self.metrics.update_meter(MMeters.VAL_LOSS_PER_WORD, loss_per_word)
         self.metrics.update_meter(MMeters.VAL_ACC, accuracy)
         decode_ms = self.val_timings["decode_ms"]
+        calls = self.program_calls
         self.logger.info(
             f"Loss {loss_per_word:.5f} Acc {accuracy:.3%} total "
             f"{timer() - self.timer_val_epoch:.3f}s, eval step "
             f"{np.median(self.val_timings['eval_ms']):.1f} ms"
             + (f", decode {np.median(decode_ms):.1f} ms" if decode_ms
-               else "") + " per batch (median)")
+               else "") + f" per batch (median) (rank {self.mesh.rank}, "
+            f"eval step and decode: "
+            f"{mode(sum(calls), len(calls), self.device)})")
 
         if self.cfg.val.det_best_field != "cider":
             raise NotImplementedError(

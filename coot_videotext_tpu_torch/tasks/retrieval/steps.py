@@ -18,16 +18,17 @@ call's position in the step. Nothing in the step reads a value back to the
 host.
 
 The group step (`retrieval_train_group`) runs up to K such steps on id
-batches from a (K, B) id array. On the card it replays a CUDA graph of one
-step (`StepGraph`): the step reads its ids and validity at a device step
-index, writes its metrics into that row of a (K, M) buffer and advances
-the index, so a group is K replays with no Python between them, and a tail
-group is just fewer replays (JAX runs identity steps on its padding,
-:252-256, :308-310). The graph is captured once per (K, B, dtype, source,
-loss settings) after a first step run eagerly on the capture's stream;
-that first step is a real step of the group. On the CPU the group runs the
-same step body eagerly, step by step. Either way K grouped steps equal K
-per-step calls on the same state.
+batches from a (K, B) id array, as calls of a stateful program of the
+train state's graph cache (utils/graphs.py, `train_programs`): the step
+reads its ids and validity at a device step index, writes its metrics
+into that row of a (K, M) buffer and advances the index, so on the card a
+group is K replays of a CUDA graph of one step with no host work between
+them, and a tail group is just fewer replays (JAX runs identity steps on
+its padding, :252-256, :308-310). The program is captured once per (K, B,
+dtype, source, loss settings); its first call, the capture's eager run,
+is a real step of the group. On the CPU the program's body runs eagerly,
+step by step. Either way K grouped steps equal K per-step calls on the
+same state.
 
 The eval step builds its batch the same way with center sampling and no
 noise, runs the forward in eval mode and returns the val loss parts and
@@ -69,7 +70,9 @@ draws its own.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import itertools
+import weakref
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,14 +83,13 @@ from coot_videotext_tpu_torch.models.retrieval import (
     LENGTH_KEYS, RetrievalModel)
 from coot_videotext_tpu_torch.ops.philox import dropout_seeds, next_seed
 from coot_videotext_tpu_torch.parallel.mesh import (
-    Mesh, all_gather_rows, all_reduce_grads, all_reduce_max, capturable,
-    serves_captured)
+    Mesh, all_gather_rows, all_reduce_grads, all_reduce_max, capturable)
 from coot_videotext_tpu_torch.parallel.tp import Layout
 from coot_videotext_tpu_torch.train.losses import (
     compute_total_retrieval_loss, l2_normalize)
 from coot_videotext_tpu_torch.train.optim import clip_by_global_norm
 from coot_videotext_tpu_torch.utils.graphs import (
-    cache_of, capture, signature)
+    GraphCache, Program, cache_of, programs_of, signature)
 
 VISUAL_KEYS = ("vid_emb", "clip_emb", "vid_context", "clip_valid",
                "clip_num")
@@ -103,18 +105,19 @@ class TrainState:
     the seed state (a (1,) int64 tensor on the model's device, ops/philox.py
     `seed_state`; None: no random draws, so dropout raises and id batches
     are refused) and the host's count of steps taken (JAX TrainState :34
-    and the rng split of :78). `graph` caches the captured step of
-    `retrieval_train_group` on the card. `mesh`: the mesh of data and
-    tensor parallelism (None: one process); `tp` the model's sharding
+    and the rng split of :78). `mesh`: the mesh of data and tensor
+    parallelism (None: one process); `tp` the model's sharding
     (parallel/tp.py `shard_model_for_tp`, JAX's `state_shardings`) when
-    it has a `model` axis."""
+    it has a `model` axis; `programs` the group's captured steps
+    (`train_programs`)."""
     model: RetrievalModel
     optimizer: object
     seed: Optional[torch.Tensor] = None
     step: int = 0
-    graph: Optional["StepGraph"] = None
     mesh: Optional[Mesh] = None
     tp: Optional[Layout] = None
+    programs: Optional[GraphCache] = dataclasses.field(default=None,
+                                                       repr=False)
 
 
 def _loss_inputs(out: Dict[str, torch.Tensor], batch_valid: torch.Tensor,
@@ -226,58 +229,52 @@ def _host_array(x, dtype) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x)).to(dtype)
 
 
-class StepGraph:
-    """One train step on id batches captured as a CUDA graph. The step
-    reads the ids and validity of row `index` of the static (K, B) buffers
-    `ids` and `valid`, writes its metrics (the columns `names`) into that
-    row of `metrics` and advances `index`, all on the device. The first
-    step runs eagerly on `stream` and is a real step; the capture that
-    follows on the same stream runs nothing (utils/graphs.py `capture`,
-    which the serving programs share). The kernels' launch counts
-    (ops/cuda_build.py) rise where their wrappers run: in the eager step and
-    once more at the capture; a replay runs no Python and counts nothing.
-    Under an NCCL mesh the eager step's collectives run on `stream` before
-    the capture, so the communicator is set up and warm when the capture
-    records them."""
+def _state_tensors(state: TrainState) -> Iterable[torch.Tensor]:
+    """Every tensor a group program reads or writes besides its inputs."""
+    opt = state.optimizer
+    return itertools.chain(
+        state.model.parameters(), state.model.buffers(),
+        opt.params.values(), opt.mu.values(), opt.nu.values(),
+        (opt.step_count, opt.lr, state.seed))
 
-    def __init__(self, key, device: torch.device, k: int, b: int,
-                 step_kw: Dict[str, Any]) -> None:
-        self.key = key
-        self.step_kw = step_kw
-        self.ids = torch.zeros((k, b), dtype=torch.int32, device=device)
-        self.valid = torch.zeros((k, b), dtype=torch.bool, device=device)
-        self.index = torch.zeros(1, dtype=torch.int64, device=device)
-        self.stream = torch.cuda.Stream(device)
-        self.names: Tuple[str, ...] = ()
-        self.metrics: Optional[torch.Tensor] = None
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
 
-    def _step(self, state: TrainState) -> None:
+def train_programs(state: TrainState) -> GraphCache:
+    """The state's cache of group programs (made at the first call),
+    checked: valid while every tensor of `_state_tensors` keeps its
+    address."""
+    return programs_of(state, _state_tensors)
+
+
+def _group_program(state: TrainState, k: int, b: int,
+                   step_kw: Dict[str, Any]) -> Program:
+    """The stateful program of one step on id batches: it reads the ids
+    and validity of row `index` of its (K, B) inputs `ids` and `valid`,
+    writes its metrics into that row of a (K, M) buffer (made by its first
+    run, which names the columns) and advances `index`, all on the device;
+    it returns the buffer's columns by name."""
+    ref = weakref.ref(state)  # the cache on the state holds the body
+    names: list = []
+    rows: list = []
+
+    def body(x):
         batch = {"layout": "ids",
-                 "dp_idx": self.ids.index_select(0, self.index)[0],
-                 "batch_valid": self.valid.index_select(0, self.index)[0]}
-        metrics = _train_step_body(state, batch, lr=None, **self.step_kw)
-        if self.metrics is None:  # the eager first step names the columns
-            self.names = tuple(metrics)
-            self.metrics = torch.zeros(
-                (self.ids.shape[0], len(self.names)), dtype=torch.float32,
-                device=self.ids.device)
-        row = torch.stack([metrics[n].float().reshape(())
-                           for n in self.names])
-        self.metrics.index_copy_(0, self.index, row[None])
-        self.index.add_(1)
-
-    def run(self, state: TrainState, num_steps: int) -> None:
-        """Steps 0 .. num_steps-1 of the group whose ids and validity are
-        in the buffers, on `state` (always the same one: the graph holds
-        its tensors' addresses): the first of all groups eagerly, then the
-        capture; every other step is a replay."""
-        self.index.zero_()
-        if self.graph is None:
-            self.graph, _ = capture(lambda: self._step(state), self.stream)
-            num_steps -= 1
-        for _ in range(num_steps):
-            self.graph.replay()
+                 "dp_idx": x["ids"].index_select(0, x["index"])[0],
+                 "batch_valid": x["valid"].index_select(0, x["index"])[0]}
+        metrics = _train_step_body(ref(), batch, lr=None, **step_kw)
+        if not rows:  # the eager first run names the columns
+            names.extend(metrics)
+            rows.append(torch.zeros((k, len(names)), dtype=torch.float32,
+                                    device=x["ids"].device))
+        row = torch.stack([metrics[n].float().reshape(()) for n in names])
+        rows[0].index_copy_(0, x["index"], row[None])
+        x["index"].add_(1)
+        return {n: rows[0][:, j] for j, n in enumerate(names)}
+    device = state.seed.device
+    inputs = {"ids": torch.zeros((k, b), dtype=torch.int32, device=device),
+              "valid": torch.zeros((k, b), dtype=torch.bool, device=device),
+              "index": torch.zeros(1, dtype=torch.int64, device=device)}
+    return train_programs(state).get(_group_key(k, b, step_kw), body,
+                                     inputs, stateful=True)
 
 
 def _group_key(k, b, step_kw):
@@ -310,8 +307,8 @@ def retrieval_train_group(state: TrainState, dp_idx, batch_valid,
         source: the loader's FeatureSource with device metadata (id batches)
 
     Returns each metric of the step stacked over the group: (num_steps,)
-    float32 on the device. On the card these are views of the captured
-    step's buffer, valid until the state's next group.
+    float32 on the device. Under a gloo mesh of more than one rank the
+    steps run eagerly (parallel/mesh.py `capturable`).
     """
     k, b = dp_idx.shape
     if not 1 <= num_steps <= k:
@@ -325,8 +322,8 @@ def retrieval_train_group(state: TrainState, dp_idx, batch_valid,
                    clip_gradient=clip_gradient, compute_dtype=compute_dtype,
                    source=source)
     state.optimizer.lr.fill_(lr)
-    device = state.seed.device
-    if device.type == "cpu" or not capturable(mesh):
+    if not capturable(mesh):
+        device = state.seed.device
         ids = _host_array(dp_idx, torch.int32).to(device)
         valid = _host_array(batch_valid, torch.bool).to(device)
         rows = [_train_step_body(state, {"layout": "ids", "dp_idx": ids[i],
@@ -336,18 +333,17 @@ def retrieval_train_group(state: TrainState, dp_idx, batch_valid,
         metrics = {n: torch.stack([r[n].float() for r in rows])
                    for n in rows[0]}
     else:
-        key = _group_key(k, b, step_kw)
-        if state.graph is None or state.graph.key != key:
-            state.graph = None  # frees the old graph's pool first
-            state.graph = StepGraph(key, device, k, b, step_kw)
-        graph = state.graph
-        for buf, host, dtype in ((graph.ids, dp_idx, torch.int32),
-                                 (graph.valid, batch_valid, torch.bool)):
-            buf.copy_(_host_array(host, dtype).pin_memory(),
-                      non_blocking=True)
-        graph.run(state, num_steps)
-        metrics = {n: graph.metrics[:num_steps, j]
-                   for j, n in enumerate(graph.names)}
+        program = _group_program(state, k, b, step_kw)
+        for name, host, dtype in (("ids", dp_idx, torch.int32),
+                                  ("valid", batch_valid, torch.bool)):
+            host = _host_array(host, dtype)
+            program.load({name: host.pin_memory()
+                          if program.device.type == "cuda" else host})
+        program.inputs["index"].zero_()
+        for _ in range(num_steps):
+            out = program()
+        # copies: the buffer is the next group's
+        metrics = {n: v[:num_steps].clone() for n, v in out.items()}
     state.step += num_steps
     return metrics
 
@@ -402,14 +398,14 @@ def retrieval_eval_step(model: RetrievalModel,
     of the program's outputs, valid until the next run of a program of the
     model's cache: the caller reads them before the next step
     (validate_retrieval copies them to the host). `eager` runs the step
-    eagerly, as it also runs under a mesh of more than one rank
-    (parallel/mesh.py `serves_captured`); a batch whose shapes vary (host
+    eagerly, as it also runs under a gloo mesh of more than one rank
+    (parallel/mesh.py `capturable`); a batch whose shapes vary (host
     dense batches) is best run so, since each new shape is a new
     capture."""
     kw = dict(loss_weights=loss_weights, margin=margin,
               loss_cycle_cons=loss_cycle_cons, compute_dtype=compute_dtype,
               source=source, mesh=mesh)
-    if eager or not serves_captured(mesh):
+    if eager or not capturable(mesh):
         return _eval_body(model, batch, seed_state=seed_state, **kw)
     layout = batch.get("layout", "dense")
     inputs = {"batch": {k: v for k, v in batch.items() if torch.is_tensor(v)}}

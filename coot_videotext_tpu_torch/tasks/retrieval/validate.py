@@ -24,7 +24,7 @@ The eval step runs as a captured program (tasks/retrieval/steps.py
 `retrieval_eval_step`, a CUDA graph on the card) on the layouts whose
 shapes are fixed: id batches, and index and slab batches under fixed
 shapes; host dense batches, whose shapes vary per batch, and any batch
-under a mesh of more than one rank (parallel/mesh.py `serves_captured`)
+under a gloo mesh of more than one rank (parallel/mesh.py `capturable`)
 run it eagerly. The log line and the results say which ran
 (`eval_step`). The step's outputs are views of the program's outputs, so
 every batch is read to the host before the next batch's step.
@@ -47,10 +47,11 @@ from coot_videotext_tpu_torch.data.retrieval_dataset import (
 from coot_videotext_tpu_torch.ops import philox
 from coot_videotext_tpu_torch.models.retrieval import RetrievalModel
 from coot_videotext_tpu_torch.parallel.mesh import (
-    Mesh, all_gather_rows, gather_objects, serves_captured)
+    Mesh, all_gather_rows, capturable, gather_objects)
 from coot_videotext_tpu_torch.tasks.retrieval import eval as retrieval
 from coot_videotext_tpu_torch.tasks.retrieval.steps import (
     EMB_KEYS, retrieval_eval_step)
+from coot_videotext_tpu_torch.utils.graphs import mode, runs_of
 
 
 def write_embeddings(path: Path, arrays: Dict[str, np.ndarray]) -> None:
@@ -108,12 +109,10 @@ def validate_retrieval(model: RetrievalModel, cfg,
     source = FeatureSource.of(val_loader)
     seed_state = (None if cc_seed is None
                   else philox.seed_state(cc_seed, device))
-    eager = eager or not serves_captured(mesh) or not (
+    eager = eager or not capturable(mesh) or not (
         val_loader.layout == "ids" or (val_loader.layout != "dense"
                                        and val_loader.fixed_shapes))
-    eval_mode = ("eager" if eager else
-                 "CUDA graph" if device.type == "cuda" else
-                 "program body, eagerly on the cpu")
+    runs = runs_of(model)
     for tensors, host in prefetch(val_loader, device):
         batch = {**host, **tensors}
         _sync(device)
@@ -159,6 +158,8 @@ def validate_retrieval(model: RetrievalModel, cfg,
         write_embeddings(emb_file, arrays)
         log(f"Saved embeddings to {emb_file}")
 
+    # how the steps ran, from the model's graph cache's count of runs
+    eval_mode = mode(runs_of(model) - runs, num_steps, device)
     losses = {k: v / max(num_steps, 1) for k, v in loss_sums.items()}
     log(retrieval.VALHEADER)
     results: Dict[str, Any] = dict(losses)

@@ -22,9 +22,13 @@ over each group of M ranks, written to the yaml's mesh_shape):
   chip_smoke.py phase 11b). The tool exits non-zero where a mesh
   disagrees.
 - the eval step: each check and speed record lists how the run's
-  validations ran it (`eval_steps`, the trainer log's `(eval step: ...)`:
-  eagerly under a mesh of more than one rank, parallel/mesh.py
-  `serves_captured`).
+  validations ran it on every rank (`eval_steps`, the `(eval step: ...)`
+  of the ranks' logs in torchrun's output): through its CUDA graph, also
+  over NCCL (parallel/mesh.py `capturable`); the tool fails where one ran
+  eagerly.
+- every torchrun must exit with 0 within RUN_LIMIT_S: a run that hangs
+  (at the process group's end, say) is killed with its ranks and fails
+  the tool, instead of waiting for NCCL's watchdog.
 - the speed: the yaml as it is (bfloat16, dropout 0.01), EPOCHS epochs of
   the VIDEOS videos; train videos/s and wall ms per step over epochs 1 ..
   EPOCHS-1 (epoch 0 holds the graph's capture) from the trainer's own
@@ -40,6 +44,20 @@ over each group of M ranks, written to the yaml's mesh_shape):
   time. An NCCL kernel runs from its launch until every rank of its group
   has joined, so its span holds the wait for the slowest rank.
   `--trace_only` runs this part alone.
+- the caption meshes, CAPTION_MESHES ({data: 4} and {data: 2, model: 2}),
+  first, on every call but `--trace_only`: MART at
+  yc2_2d3d_coot_vidclip_mart.yaml width (the real YouCook2 annotations,
+  COOT embeddings from seed 0, dropout 0) trains one epoch on the first
+  CAPTION_VIDEOS train videos at the yaml's global batch of 16 and
+  validates on CAPTION_VAL_VIDEOS val videos, under torchrun at each mesh
+  and in one process without one. Each mesh is held against the one
+  process at chip_smoke.py phase 11's tolerances: the epoch's train and
+  val loss per word and accuracy and every step's grad norm within
+  CHECK_RTOL relative, rank 0's saved parameters and EMA within
+  CHECK_UPDATE_TOL of lr a step, at least CAPTION_MIN_SAME of the greedy
+  val sentences identical. Every rank must log its train steps, eval
+  steps and decodes as CUDA graphs, as counted by the programs' caches
+  (`train step: CUDA graph`, `eval step and decode: CUDA graph`).
 
 Prints the cards' names and power limits (nvidia-smi), then one JSON line
 per mesh and run.
@@ -49,7 +67,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -68,6 +88,12 @@ CHECK_RTOL = 1e-4
 CHECK_UPDATE_TOL = 0.05      # a share of lr a step
 NETS = ("net_video_local", "net_video_global", "net_text_local",
         "net_text_global")
+RUN_LIMIT_S = 300            # one torchrun, ranks' start and exit included
+CAPTION_CONFIG = (ROOT / "config" / "caption" / "paper2020" /
+                  "yc2_2d3d_coot_vidclip_mart.yaml")
+CAPTION_MESHES = ({"data": 4}, {"data": 2, "model": 2})
+CAPTION_VIDEOS, CAPTION_VAL_VIDEOS = 64, 32
+CAPTION_MIN_SAME = 0.98      # greedy val sentences identical (phase 6's)
 
 
 def _config(work: Path, name: str, *, check: bool,
@@ -118,36 +144,59 @@ def _generate(data: Path) -> None:
         feat_format="npy")
 
 
-def _run(world: int, args: list) -> subprocess.CompletedProcess:
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc_per_node={world}"] + args
-    done = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=1800)
+def _run(world: Optional[int], args: list) -> subprocess.CompletedProcess:
+    """`torchrun --standalone --nproc_per_node=world` of `args` (world
+    None: one python process), in a session of its own: past RUN_LIMIT_S
+    the whole session (torchrun and its ranks) is killed and the run
+    fails."""
+    cmd = ([sys.executable] + args if world is None else
+           [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={world}"] + args)
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    t0 = time.time()
+    try:
+        out, err = proc.communicate(timeout=RUN_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        print(out[-3000:], err[-3000:], flush=True)
+        raise RuntimeError(f"{' '.join(cmd[1:6])}: no exit within "
+                           f"{RUN_LIMIT_S} s (hung); killed with its ranks")
+    done = subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+    done.seconds = time.time() - t0
     if done.returncode != 0:
         print(done.stdout[-3000:], done.stderr[-3000:], flush=True)
-        raise RuntimeError(f"torchrun at {world} ranks exited with "
+        raise RuntimeError(f"the run at {world or 1} rank(s) exited with "
                            f"{done.returncode}")
     return done
 
 
 def _torchrun(world: int, config: Path, data: Path, log_dir: Path,
-              epochs: int) -> Path:
-    """One torchrun of the CLI at `world` ranks; its experiment dir."""
-    _run(world, ["-m", "coot_videotext_tpu_torch.train_retrieval", "-c",
-                 str(config), "--data_path", str(data), "--log_dir",
-                 str(log_dir), "--preload_device", "--fixed_shapes", "-o",
-                 f"train.num_epochs={epochs},val.val_start=0,"
-                 "saving.keep_freq=1"])
+              epochs: int) -> tuple:
+    """One torchrun of the CLI at `world` ranks: (its experiment dir, how
+    every rank's validations ran the eval step, in the order logged)."""
+    done = _run(world, [
+        "-m", "coot_videotext_tpu_torch.train_retrieval", "-c",
+        str(config), "--data_path", str(data), "--log_dir", str(log_dir),
+        "--preload_device", "--fixed_shapes", "-o",
+        f"train.num_epochs={epochs},val.val_start=0,saving.keep_freq=1"])
     (models,) = list(log_dir.rglob("models"))
-    return models.parent
+    return models.parent, _labels(done, "eval step")
 
 
-def _eval_steps(exp: Path) -> List[str]:
-    """How the run's validations ran the eval step, in order, from the
-    trainer log's `(eval step: ...)`."""
-    return [label for log in sorted(exp.rglob("*.log"))
-            for label in re.findall(r"\(eval step: ([^)]*)\)",
-                                    log.read_text(encoding="utf8"))]
+def _labels(done, what: str) -> List[str]:
+    """Every `(...what: <label>)` of the ranks' logs in a run's output."""
+    return re.findall(rf"{what}: ([^)]*)\)", done.stdout + done.stderr)
+
+
+def _all_captured(labels: List[str], world: int, what: str) -> None:
+    """Fails unless every rank logged and every label is `CUDA graph`."""
+    if not labels or len(labels) % world \
+            or any(label != "CUDA graph" for label in labels):
+        raise RuntimeError(f"{what} at {world} rank(s): {labels} (every "
+                           f"rank must run it as a CUDA graph)")
 
 
 def _metrics(exp: Path, kind: str, epoch: int) -> dict:
@@ -173,14 +222,15 @@ def check(mesh: Dict[str, int], config: Path, data: Path,
     """The check run under `mesh`: its per-step losses, val loss and
     score, and rank 0's parameters."""
     import torch
-    exp = _torchrun(_world(mesh), config, data,
-                    work / f"check_{_name(mesh)}", 1)
+    exp, labels = _torchrun(_world(mesh), config, data,
+                            work / f"check_{_name(mesh)}", 1)
+    _all_captured(labels, _world(mesh), "the eval step")
     epoch = _metrics(exp, "epoch", 0)
     return {"world": _name(mesh),
             "loss": _series(_metrics(exp, "step", 0), "train_base/loss"),
             "val": _series(epoch, "val_base/loss")
             + _series(epoch, "val_base/best_field"),
-            "eval_steps": _eval_steps(exp),
+            "eval_steps": labels,
             "params": torch.load(exp / "models" / "model_0.pth",
                                  weights_only=True)}
 
@@ -221,9 +271,10 @@ def speed(mesh: Dict[str, int], config: Path, data: Path,
           work: Path) -> dict:
     """The timed run under `mesh`; its record."""
     t0 = time.time()
-    exp = _torchrun(_world(mesh), config, data, work / f"w{_name(mesh)}",
-                    EPOCHS)
+    exp, labels = _torchrun(_world(mesh), config, data,
+                            work / f"w{_name(mesh)}", EPOCHS)
     wall = time.time() - t0
+    _all_captured(labels, _world(mesh), "the eval step")
 
     def state(ep):
         return json.loads((exp / "models" / f"trainerstate_{ep}.json"
@@ -239,7 +290,7 @@ def speed(mesh: Dict[str, int], config: Path, data: Path,
             "train_videos_per_s": (EPOCHS - 1) * VIDEOS / sum(train_s),
             "ms_per_step": 1e3 * sum(train_s) / ((EPOCHS - 1) * steps),
             "epoch_train_s": train_s, "run_wall_s": wall,
-            "eval_steps": _eval_steps(exp),
+            "eval_steps": labels,
             "last_epoch_losses": losses}
 
 
@@ -350,6 +401,149 @@ def trace(mesh: Dict[str, int], config: Path, data: Path) -> dict:
     return json.loads(line[len("TRACE "):])
 
 
+# ---------- the caption meshes ----------
+
+def _caption_embeddings(emb_dir: Path, config: Path) -> None:
+    """COOT embeddings from seed 0 for every video and clip of the real
+    YouCook2 caption splits, `<coot_model_name>_{train,val}.npz` in the
+    export schema (unit rows at the config's widths)."""
+    import numpy as np
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    cfg = load_yaml_config_file(config)
+    ann = ROOT / "annotations" / "youcook2"
+    emb_dir.mkdir(parents=True)
+    rng = np.random.RandomState(0)
+
+    def unit_rows(n, d):
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    for split in ("train", "val"):
+        data = json.loads((ann / f"captioning_{split}.json").read_text(
+            encoding="utf8"))
+        clip_num = np.asarray([len(v["timestamps"]) for v in data.values()],
+                              np.int64)
+        np.savez(emb_dir / f"{cfg['coot_model_name']}_{split}.npz",
+                 key=np.asarray(list(data)), clip_num=clip_num,
+                 vid_emb=unit_rows(len(data), cfg["coot_dim_vid"]),
+                 vid_context=unit_rows(len(data), cfg["coot_dim_vid"]),
+                 clip_emb=unit_rows(int(clip_num.sum()),
+                                    cfg["coot_dim_clip"]))
+
+
+def _caption_config(work: Path, name: str,
+                    mesh: Optional[Dict[str, int]]) -> Path:
+    """CAPTION_CONFIG at dropout 0 for one epoch on the first
+    CAPTION_VIDEOS train and CAPTION_VAL_VIDEOS val videos (val batches of
+    half of them), validating after it; a `model` axis written as its
+    mesh_shape."""
+    import yaml
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    cfg = load_yaml_config_file(CAPTION_CONFIG)
+    cfg.update(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+               memory_dropout_prob=0.0)
+    cfg["dataset_train"]["max_datapoints"] = CAPTION_VIDEOS
+    cfg["dataset_val"]["max_datapoints"] = CAPTION_VAL_VIDEOS
+    cfg["train"]["num_epochs"] = 1
+    # a global val batch that splits over 4 data ranks
+    cfg["val"].update(val_start=0, val_freq=1,
+                      batch_size=CAPTION_VAL_VIDEOS // 2)
+    if mesh is not None and mesh.get("model", 1) > 1:
+        cfg["mesh_shape"] = dict(mesh)
+    path = work / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False), encoding="utf8")
+    return path
+
+
+def caption_check(mesh: Optional[Dict[str, int]], work: Path) -> dict:
+    """The caption CLI's epoch under `mesh` (torchrun; None: one process
+    without one): its record, rank 0's parameters and EMA, and the greedy
+    val sentences. Fails unless every rank ran its train steps, eval steps
+    and decodes as CUDA graphs."""
+    import torch
+    name = "one" if mesh is None else _name(mesh)
+    world = None if mesh is None else _world(mesh)
+    config = _caption_config(work, f"caption_{name}", mesh)
+    log_dir = work / f"caption_{name}"
+    done = _run(world, [
+        "-m", "coot_videotext_tpu_torch.train_caption", "-c", str(config),
+        "--log_dir", str(log_dir), "--coot_feat_dir",
+        str(work / "caption_embeddings"), "--seed", "0"])
+    labels = {what: _labels(done, what)
+              for what in ("train step", "eval step and decode")}
+    for what, found in labels.items():
+        _all_captured(found, world or 1, what)
+    (models,) = list(log_dir.rglob("models"))
+    exp = models.parent
+    epoch = _metrics(exp, "epoch", 0)
+    (translations,) = list(exp.rglob("translations_0_val.json"))
+    results = json.loads(translations.read_text(encoding="utf8"))["results"]
+    return {"world": name, "run_s": done.seconds, "labels": labels,
+            "values": [_series(epoch, k)[-1] for k in (
+                "train/loss_word", "train/acc", "val/loss_word", "val/acc")]
+            + _series(_metrics(exp, "step", 0), "train/grad"),
+            "cider": _series(epoch, "val/cider") or _series(epoch, "CIDEr"),
+            "params": torch.load(models / "model_0.pth",
+                                 weights_only=True)["model"],
+            "ema": torch.load(models / "modelema_0.pth",
+                              weights_only=True)["model"],
+            "sentences": [s["sentence"] for v in sorted(results)
+                          for s in results[v]]}
+
+
+def caption_hold(got: dict, ref: dict, lr: float) -> dict:
+    """A caption mesh's record against the one process: the relative
+    differences of its values, the parameters' and the EMA's largest
+    difference as a share of lr a step, the share of identical greedy
+    sentences; raises past the tolerances."""
+    if len(got["values"]) != len(ref["values"]):
+        raise RuntimeError(f"caption {got['world']}: {len(got['values'])} "
+                           f"values against {len(ref['values'])}")
+    rel = max(abs(a - b) / max(abs(b), 1e-12)
+              for a, b in zip(got["values"], ref["values"]))
+    steps = len(ref["values"]) - 4
+    shares = {what: max(float((got[what][k].float()
+                               - ref[what][k].float()).abs().max())
+                        for k in ref[what]) / lr / steps
+              for what in ("params", "ema")}
+    same = (sum(a == b for a, b in zip(got["sentences"], ref["sentences"]))
+            / max(len(ref["sentences"]), 1))
+    record = {"caption_world": got["world"], "against": ref["world"],
+              "steps": steps, "max_rel": rel,
+              "params_share_of_lr": shares["params"],
+              "ema_share_of_lr": shares["ema"],
+              "sentences": len(ref["sentences"]),
+              "same_sentences": same, "labels": got["labels"],
+              "run_s": got["run_s"], "ref_run_s": ref["run_s"],
+              "values": got["values"], "ref_values": ref["values"]}
+    print(json.dumps({"caption_check": record}), flush=True)
+    if rel > CHECK_RTOL or max(shares.values()) > CHECK_UPDATE_TOL \
+            or len(got["sentences"]) != len(ref["sentences"]) \
+            or same < CAPTION_MIN_SAME:
+        raise RuntimeError(
+            f"caption {got['world']} disagrees with one process: {rel:.3e} "
+            f"relative (limit {CHECK_RTOL}), parameters / EMA "
+            f"{shares['params']:.3%} / {shares['ema']:.3%} of lr a step "
+            f"(limit {CHECK_UPDATE_TOL:.0%}), {same:.1%} sentences "
+            f"identical (at least {CAPTION_MIN_SAME:.0%})")
+    return record
+
+
+def captions(work: Path) -> None:
+    """The caption meshes, each against one process."""
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
+    _caption_embeddings(work / "caption_embeddings", CAPTION_CONFIG)
+    ref = caption_check(None, work)
+    print(json.dumps({"caption_one_process": {
+        k: ref[k] for k in ("run_s", "labels", "values")}}), flush=True)
+    lr = float(load_yaml_config_file(CAPTION_CONFIG)["lr"])
+    for mesh in CAPTION_MESHES:
+        caption_hold(caption_check(mesh, work), ref, lr)
+
+
 def _meshes(spec: str) -> List[Dict[str, int]]:
     out = []
     for item in spec.split(","):
@@ -366,7 +560,7 @@ def main(argv=None) -> None:
                              "separated; the first is the check's reference")
     parser.add_argument("--trace_only", action="store_true",
                         help="only the traced runs (no check, no timed CLI "
-                             "runs)")
+                             "runs, no caption meshes)")
     parser.add_argument("--trace_rank", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--data", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -374,19 +568,23 @@ def main(argv=None) -> None:
         trace_rank(Path(args.trace_rank), Path(args.data))
         return
     meshes = _meshes(args.meshes)
+    sys.path.insert(0, str(ROOT))
+    from coot_videotext_tpu_torch.utils.yaml_utils import (
+        load_yaml_config_file)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    sys.path.insert(0, str(ROOT))
     from coot_videotext_tpu_torch.ops import cuda_build
-    from coot_videotext_tpu_torch.utils.yaml_utils import (
-        load_yaml_config_file)
     t0 = time.time()  # built once, before the ranks load it
     print(f"kernels {cuda_build.build_library()} in "
           f"{time.time() - t0:.1f} s", flush=True)
     with tempfile.TemporaryDirectory(prefix="dp_scaling_") as tmp:
         work = Path(tmp)
+        if not args.trace_only:
+            t0 = time.time()
+            captions(work)
+            print(f"caption meshes in {time.time() - t0:.1f} s", flush=True)
         t0 = time.time()
         _generate(work / "data")
         print(f"generated {VIDEOS} + {VAL_VIDEOS} videos in "

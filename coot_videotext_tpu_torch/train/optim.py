@@ -338,7 +338,10 @@ class EMA:
 
 def tensor_norms(tp, names: List[str], norms: torch.Tensor) -> torch.Tensor:
     """Each tensor's norm with a sharded tensor's squares summed over the
-    model group (`tp`: parallel/tp.py `Layout`)."""
+    model group (`tp`: parallel/tp.py `Layout`; one that shards nothing
+    leaves them as they are)."""
+    if not tp.shards:
+        return norms
     sharded = tp.sharded_mask(names, norms.device)
     sq = tp.sum_over_model(torch.where(sharded, norms * norms, 0.0))
     return torch.where(sharded, torch.sqrt(sq), norms)

@@ -52,7 +52,11 @@ given; asked for CUDA without a GPU it raises. Under `torchrun
 on the card, gloo with `--device cpu`): the yaml's batch size is the
 global batch, rank 0 decodes and writes. A yaml with `mesh_shape: {data:
 D, model: M}` (D x M = W) adds tensor parallelism to recurrent MART
-(parallel/tp.py); every other caption model refuses a `model` axis.
+(parallel/tp.py); every other caption model runs replicated over the
+model group, as JAX runs it. Training, the eval steps and the decodes run
+as captured programs (CUDA graphs) on the card, also over NCCL, and
+eagerly under gloo; the trainer logs which (`train step: ...`, `eval
+step and decode: ...`).
 """
 
 from __future__ import annotations

@@ -12,6 +12,10 @@ the card's machine, which has none:
   the tokens of the first call (capture) and of a second (replays only)
   equal the eager decode's;
 - the caption eval steps: equal to the eager step;
+- the caption train programs of every caption model the CLI trains, at
+  dropout 0.1 (B4 at every site): a key's first call is exactly one step
+  (the state equal to one eager step's), then 8 replays equal 8 eager
+  steps from equal states, bit for bit, at lrs that change;
 - validation on id and slab batches (fixed shapes): the eval step is a
   CUDA graph, and its embeddings, losses and ranks equal the eager
   step's (bit for bit expected; 1e-5 relative allowed, in case cuBLAS
@@ -36,7 +40,8 @@ from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
 from coot_videotext_tpu_torch.tasks.caption.model_manager import (
     create_mart_model)
 from coot_videotext_tpu_torch.tasks.caption.steps import (
-    caption_eval_step, caption_eval_step_single)
+    caption_eval_step, caption_eval_step_single, caption_train_step,
+    caption_train_step_single, init_caption_train_state, train_programs)
 from coot_videotext_tpu_torch.tasks.caption.translator import Translator
 from coot_videotext_tpu_torch.tasks.retrieval import validate
 from coot_videotext_tpu_torch.tasks.retrieval.config import RetrievalConfig
@@ -76,11 +81,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _caption(variant: str, device):
-    """(model, cfg, batch on the device) at dropout 0, matrices scaled up
-    and [EOS] favoured so decodes vary and beams finish."""
-    cfg = MartConfig(helpers.caption_config_dict({**NO_DROPOUT,
-                                          **VARIANTS[variant]}))
+def _caption(variant: str, device, over=None):
+    """(model, cfg, batch on the device) at dropout 0 (or the config of
+    `over`), matrices scaled up and [EOS] favoured so decodes vary and
+    beams finish."""
+    cfg = MartConfig(helpers.caption_config_dict(
+        over if over is not None else {**NO_DROPOUT, **VARIANTS[variant]}))
     model = create_mart_model(cfg, VOCAB, device, seed=3)
     with torch.no_grad():
         for p in model.parameters():
@@ -90,7 +96,7 @@ def _caption(variant: str, device):
             model.decoder.bias[EOS] += 2.0
     rng = np.random.RandomState(0)
     v, t = cfg.max_v_len, cfg.max_t_len
-    if variant in ("untied", "mtrans"):
+    if cfg.untied or cfg.mtrans:
         batch = {
             "video_feature": rng.randn(N, v, cfg.video_feature_size),
             "video_mask": np.ones((N, v)), "text_ids": np.zeros((N, t)),
@@ -183,3 +189,53 @@ def test_validation_graph_equals_eager(cuda, tmp_path, layout):
     for key in ("loss_total", "loss_contrastive", "loss_cc"):
         assert abs(graph[key] - eager[key]) <= REL_TOL * max(
             abs(eager[key]), 1.0), key
+
+
+# every caption model the CLI trains: the -o overrides of a caption config
+TRAIN_VARIANTS = {
+    "mart": {},
+    "raw_mart": {"coot_model_name": None, "max_v_len": 8,
+                 "video_feature_size": 20},
+    "xl": {"xl": True},
+    "xl_grad": {"xl": True, "xl_grad": True},
+    "tied": {"share_wd_cls_weight": True, "word_vec_size": 32},
+    "untied": {"recurrent": False, "untied": True},
+    "joint": {"recurrent": False},
+    "mtrans": {"recurrent": False, "mtrans": True},
+}
+TRAIN_LRS = (1e-3, 3e-4, 2e-3)
+
+
+def _train_state_tensors(state) -> list:
+    opt = state.optimizer
+    return (list(opt.params.values()) + list(opt.mu.values())
+            + list(opt.nu.values()) + list(state.ema.shadow.values())
+            + [opt.step_count, state.step, state.seed])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(TRAIN_VARIANTS))
+def test_train_programs_equal_eager(cuda, variant):
+    over = {**TRAIN_VARIANTS[variant], "hidden_dropout_prob": 0.1,
+            "attention_probs_dropout_prob": 0.1,
+            "memory_dropout_prob": 0.1}
+    states, batch = {}, None
+    for eager in (False, True):
+        model, cfg, batch = _caption(variant, cuda, over)
+        states[eager] = init_caption_train_state(model, cfg, 0)
+    step = caption_train_step if cfg.recurrent else caption_train_step_single
+    for i in range(9):
+        lr = TRAIN_LRS[i % len(TRAIN_LRS)]
+        out = {eager: {k: v.clone() for k, v in
+                       step(st, batch, lr, eager=eager).items()}
+               for eager, st in states.items()}
+        for key in ("loss", "n_correct", "n_word", "grad_norm"):
+            assert torch.equal(out[False][key], out[True][key]), (i, key)
+        if i == 0:  # the first call of the key is one step
+            assert int(states[False].step) == 1
+        for a, b in zip(_train_state_tensors(states[False]),
+                        _train_state_tensors(states[True])):
+            assert torch.equal(a, b), i
+    assert train_programs(states[False]).captures == 1
+    assert int(states[False].step) == 9
+

@@ -773,7 +773,9 @@ def test_captured_step_replays_like_eager_steps(cuda, tmp_path):
         out = retrieval_train_group(states[1], ids, valid, 3, **kw)
         grouped += [{k: float(v[i]) for k, v in out.items()}
                     for i in range(3)]
-    assert states[1].graph is not None and states[1].graph.graph is not None
+    (program,) = states[1].programs.programs.values()
+    assert program.graph is not None
+    assert states[1].programs.counts == {"runs": 6, "replays": 5}
     assert states[0].step == states[1].step == 6
     assert int(states[0].seed) == int(states[1].seed) == 6
     assert int(states[1].optimizer.step_count) == 6

@@ -27,6 +27,12 @@ there).
   follow the live weights either way.
 - Validation: id batches run the program, host dense batches the eager
   step, and both give the same metrics.
+- The mesh: one capture rule for every program (NCCL captures, gloo runs
+  eagerly); `destroy` resets every registered graph (the model caches',
+  the caption train programs', the retrieval group's) before the group
+  ends.
+- The caches count their programs' runs, from which the logs say how the
+  steps ran (`mode`).
 
 The weights come from the port's seeded init, carried into JAX by
 utils/param_bridge.py and the JAX converter; the inputs from numpy seeds
@@ -437,17 +443,110 @@ def test_validation_eager_keyword_runs_id_batches_eagerly(synth):
         assert results[True][key] == results[False][key], key
 
 
-@pytest.mark.parametrize("backend,world,group,serving", [
-    (None, 1, True, True), ("gloo", 1, True, True), ("nccl", 2, True, False),
-    ("gloo", 2, False, False)])
-def test_capture_rules_of_a_mesh(backend, world, group, serving):
-    """The group step captures its collectives under NCCL, not gloo's; the
-    eval steps and decodes are captured only where no collective crosses
-    ranks (no mesh, one rank)."""
-    from coot_videotext_tpu_torch.parallel.mesh import (
-        Mesh, capturable, serves_captured)
-    assert capturable(None) and serves_captured(None)
-    mesh = Mesh(rank=0, world=world, device=torch.device("cpu"),
-                backend=backend)
-    assert capturable(mesh) is group
-    assert serves_captured(mesh) is serving
+@pytest.mark.parametrize("backend,world,model_world,captured", [
+    (None, 1, 1, True), ("gloo", 1, 1, True), ("nccl", 2, 1, True),
+    ("gloo", 2, 1, False), ("nccl", 4, 2, True)])
+def test_capture_rules_of_a_mesh(backend, world, model_world, captured):
+    """One rule for every captured program (the group step, the eval
+    steps, the decodes, the caption train programs): NCCL collectives are
+    captured, under any mesh; gloo's run on the host, so a gloo mesh of
+    more than one rank runs every step eagerly."""
+    from coot_videotext_tpu_torch.parallel import mesh as pmesh
+    assert pmesh.capturable(None)
+    assert not hasattr(pmesh, "serves_captured")
+    mesh = pmesh.Mesh(rank=0, world=world, device=torch.device("cpu"),
+                      backend=backend, model_world=model_world)
+    assert pmesh.capturable(mesh) is captured
+
+
+class _FakeGraph:
+    """Stands for a captured torch.cuda.CUDAGraph: logs its reset."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def reset(self):
+        self.log.append("reset")
+
+
+def test_destroy_releases_every_graph_before_the_group_ends(monkeypatch,
+                                                            synth):
+    """parallel/mesh.py `destroy` with a mocked NCCL process group: every
+    live graph cache (a model's, a caption train state's and a retrieval
+    train state's) holds no graph when destroy_process_group runs, and
+    each graph was reset before it."""
+    from coot_videotext_tpu_torch.parallel import mesh as pmesh
+    from coot_videotext_tpu_torch.tasks.caption.steps import train_programs
+    from coot_videotext_tpu_torch.tasks.retrieval import steps as rsteps
+    from coot_videotext_tpu_torch.tasks.retrieval.config import (
+        RetrievalConfig)
+    from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
+        RetrievalModelManager)
+    from coot_videotext_tpu_torch.train.optim import make_optimizer
+    from coot_videotext_tpu_torch.utils import graphs
+    log = []
+    _, _, _, model, _, inputs = make_pair("joint")
+    caption_eval_step_single(model, batch_of("joint", inputs))
+    state = init_caption_train_state(model, MartConfig(caption_config_dict(
+        {"recurrent": False})), 0)
+    cache = train_programs(state)
+    cache.get("k", lambda x: x, {"a": torch.zeros(2)}).graph = \
+        _FakeGraph(log)
+    for program in cache_of(model).programs.values():
+        program.graph = _FakeGraph(log)
+    cfg = RetrievalConfig(copy.deepcopy(synth[1]))
+    mgr = RetrievalModelManager(cfg, torch.device("cpu"), seed=0)
+    rstate = rsteps.TrainState(mgr.model, make_optimizer(
+        cfg.optimizer, dict(mgr.model.named_parameters())),
+        philox.seed_state(0))
+    group = rsteps.train_programs(rstate)
+    group.get("g", lambda x: x, {"a": torch.zeros(2)}).graph = \
+        _FakeGraph(log)
+    holders = (cache_of(model), cache, group)
+
+    def destroy_process_group():
+        assert all(h.programs == {} for h in holders)
+        log.append("destroy")
+    monkeypatch.setattr(pmesh.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(pmesh.dist, "destroy_process_group",
+                        destroy_process_group)
+    mesh = pmesh.Mesh(rank=0, world=2, device=torch.device("cpu"),
+                      group=object(), backend="nccl", owned=True)
+    pmesh.destroy(mesh)
+    assert log == ["reset"] * 3 + ["destroy"]
+    assert all(h in graphs._LIVE for h in holders)
+
+
+@pytest.mark.parametrize("runs,calls,device,label", [
+    (0, 3, "cuda", "eager"),
+    (3, 3, "cuda", "CUDA graph"),
+    (3, 3, "cpu", "program body, eagerly on the cpu"),
+    (2, 3, "cuda", "2 of 3 through programs"),
+])
+def test_mode_reads_what_ran(runs, calls, device, label):
+    """utils/graphs.py `mode`: the label of `calls` calls from the `runs`
+    of them that went through a program."""
+    from coot_videotext_tpu_torch.utils.graphs import mode
+    assert mode(runs, calls, torch.device(device)) == label
+
+
+def test_caches_count_their_programs_runs():
+    """A cache's `counts` gains a run at each call of one of its programs
+    (on the CPU a body run, never a replay) and keeps it across a
+    release; `runs_of` reads a module's; validation's `eval_step` label is
+    built from it."""
+    from coot_videotext_tpu_torch.utils.graphs import GraphCache, runs_of
+    cache = GraphCache(lambda: ())
+    program = cache.get("k", lambda x: {"y": x["a"] + 1},
+                        {"a": torch.zeros(2)})
+    program({"a": torch.ones(2)})
+    program()
+    assert cache.counts == {"runs": 2}
+    cache.release()
+    cache.get("k", lambda x: x, {"a": torch.zeros(2)})()
+    assert cache.counts == {"runs": 3}
+    _, _, _, model, _, inputs = make_pair("joint")
+    assert runs_of(model) == 0
+    caption_eval_step_single(model, batch_of("joint", inputs))
+    caption_eval_step_single(model, batch_of("joint", inputs), eager=True)
+    assert runs_of(model) == 1

@@ -339,6 +339,51 @@ def test_group_equals_per_step_calls(synth):
         retrieval_train_group(states[1], ids, valid, 4, **kw)
 
 
+def test_group_program_is_kept_and_dropped_with_its_state(synth):
+    """The group runs as one stateful program of the train state's cache
+    (`train_programs`): two groups of the same shapes share it, one run a
+    step; replacing a moment of the optimizer drops it, and the next group
+    builds a new one. Every group equals as many per-step calls from the
+    same state, bit for bit."""
+    from coot_videotext_tpu_torch.tasks.retrieval.steps import (
+        train_programs)
+    root, cfg_dict = synth
+    cfg = RetrievalConfig(_with_dropout_and_noise(cfg_dict))
+    _, _, loader, _ = create_retrieval_datasets_and_loaders(
+        cfg, root, seed=0, fixed_shapes=True, device_preload=True)
+    source = FeatureSource.of(loader, 0.05, 0.05)
+    batches = list(loader)[:2]
+    states = []
+    for _ in range(2):
+        mgr = RetrievalModelManager(cfg, CPU, seed=0)
+        states.append(TrainState(mgr.model, optim.make_optimizer(
+            cfg.optimizer, dict(mgr.model.named_parameters())),
+            philox.seed_state(0)))
+    kw = dict(lr=3e-3, clip_gradient=1.0, source=source, **_loss_kw(cfg))
+    ids = np.stack([b["dp_idx"] for b in batches])
+    valid = np.stack([b["batch_valid"] for b in batches])
+    cache = None
+    for group in range(3):
+        if group == 2:  # a moment replaced: the program must go
+            name = next(iter(states[1].optimizer.mu))
+            states[1].optimizer.mu[name] = \
+                states[1].optimizer.mu[name].clone()
+        out = retrieval_train_group(states[1], ids, valid, 2, **kw)
+        eager = [retrieval_train_step(
+            states[0], {"layout": "ids", "dp_idx": torch.from_numpy(i),
+                        "batch_valid": torch.from_numpy(v)}, **kw)
+            for i, v in zip(ids, valid)]
+        for n in eager[0]:
+            assert torch.equal(out[n], torch.stack([e[n] for e in eager]))
+        cache = train_programs(states[1])
+        assert len(cache.programs) == 1
+        assert cache.captures == (1 if group < 2 else 2)
+        assert cache.counts["runs"] == 2 * (group + 1)
+    for a, b in zip(states[0].optimizer.params.values(),
+                    states[1].optimizer.params.values()):
+        assert torch.equal(a, b)
+
+
 def test_group_matches_jax_scan(tmp_path):
     """A group of 4 and a tail of 3 from bridged weights against JAX's
     scan (the tail padded with an identity step), where no draw reaches

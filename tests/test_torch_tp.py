@@ -26,7 +26,10 @@ tests/test_parallel.py's: loss 1e-4 relative, parameters rtol 1e-3 and atol
   against the whole one, in this process;
 - the CLI under {data: 2, model: 2}: a checkpoint round trip (one epoch,
   then a fresh sharded resume) equal to the unbroken run, and a model
-  file with the keys and shapes that one process writes.
+  file with the keys and shapes that one process writes;
+- the TransformerXL, the untied and joint models and the MTransformer at
+  {data: 1, model: 2}: replicated (nothing sharded), each rank's step
+  against JAX's at that mesh and equal to one process's.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ from coot_videotext_tpu.tasks.caption.model_manager import (
     create_mart_model as jcreate_mart)
 from coot_videotext_tpu.tasks.caption.steps import (
     CaptionTrainState as JCapState, make_caption_train_step,
-    stacked_batch_sharding)
+    single_batch_sharding, stacked_batch_sharding)
 from coot_videotext_tpu.tasks.retrieval.config import (
     RetrievalConfig as JRetrievalConfig)
 from coot_videotext_tpu.tasks.retrieval.model_manager import (
@@ -75,6 +78,8 @@ from coot_videotext_tpu_torch.parallel.tp import (
 from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
 from coot_videotext_tpu_torch.tasks.caption.model_manager import (
     create_mart_model)
+from coot_videotext_tpu_torch.tasks.caption.steps import (
+    init_caption_train_state)
 from coot_videotext_tpu_torch.tasks.retrieval import eval as tret
 from coot_videotext_tpu_torch.tasks.retrieval.config import RetrievalConfig
 from coot_videotext_tpu_torch.tasks.retrieval.model_manager import (
@@ -643,22 +648,88 @@ def test_caption_cli_trains_validates_and_resumes_under_tp(tmp_path):
             assert flat[key].shape == value.shape, (name, key)
 
 
-@pytest.mark.parametrize("over,name", [
-    ({"xl": True}, "TransformerXL"),
-    ({"recurrent": False, "untied": True}, "NonRecurTransformerUntied"),
-    ({"recurrent": False}, "NonRecurTransformer"),
-    ({"recurrent": False, "mtrans": True}, "MTransformer")])
-def test_other_caption_models_refuse_a_model_axis(over, name):
-    """Tensor parallelism covers recurrent MART: every other caption model
-    refuses a `model` axis by its name, before any collective."""
-    from coot_videotext_tpu_torch.parallel import mesh as pmesh
-    from coot_videotext_tpu_torch.parallel.tp import shard_model_for_tp
-    cfg = MartConfig(caption_config_dict(over))
-    model = create_mart_model(cfg, VOCAB, CPU)
-    assert type(model).__name__ == name
-    mesh = pmesh.Mesh(rank=0, world=2, device=CPU, model_world=2)
-    with pytest.raises(NotImplementedError, match=name):
-        shard_model_for_tp(model, None, None, mesh)
+REPLICATED = {"xl": "TransformerXL", "untied": "NonRecurTransformerUntied",
+              "joint": "NonRecurTransformer", "mtrans": "MTransformer"}
+REPLICATED_SHAPE = {"data": 1, "model": 2}
+
+
+@pytest.fixture(scope="module")
+def replicated(tmp_path_factory):
+    """Two rank processes at {data: 1, model: 2} over gloo, each running
+    one step of the four caption models of REPLICATED from the bridged
+    weights (tests/test_torch_caption_graphs.py `caption_pair`), and the
+    pairs."""
+    from tests.test_torch_caption_graphs import (
+        MODELS, NO_DROPOUT as NO_DROP, caption_pair, keys)
+    pairs = {n: caption_pair(n) for n in REPLICATED}
+    spec = {"mesh_shape": REPLICATED_SHAPE, "vocab": VOCAB, "replicated": {
+        n: {"cfg": caption_config_dict({**NO_DROP, **MODELS[n][0]}),
+            "weights": pair[2].state_dict(),
+            "inputs": dict(zip(keys(n), pair[4]))}
+        for n, pair in pairs.items()}}
+    out = tmp_path_factory.mktemp("tp_replicated")
+    procs = _spawn(2, spec, out)
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    for p in procs:
+        if p.is_alive():  # hung: end it before failing
+            p.kill()
+            p.join()
+    assert [p.exitcode for p in procs] == [0, 0]
+    return pairs, [torch.load(out / f"rank{r}.pt", weights_only=False)
+                   for r in range(2)]
+
+
+@pytest.mark.parametrize("name", list(REPLICATED))
+def test_other_caption_models_run_replicated_under_a_model_axis(replicated,
+                                                                name):
+    """The TransformerXL, the untied and joint models and the MTransformer
+    under {data: 1, model: 2}: replicated, as JAX runs them (its caption
+    steps take no state shardings; none of the XL's kernels matches a
+    rule). Each rank's step against JAX's step under get_mesh({data: 1,
+    model: 2}) (loss, grad_norm and n_correct 1e-4 relative, n_word equal,
+    parameters and EMA as test_tp_caption_step_matches_jax holds them) and
+    against one process bit for bit."""
+    from tests.test_torch_caption_graphs import (
+        MODELS, batch_of, by_name, copy_model, jax_step, keys, step_fn)
+    pairs, ranks = replicated
+    jmodel, params, model, cfg, inputs = pairs[name]
+    mesh = j_get_mesh(REPLICATED_SHAPE)
+    jopt, jstep = jax_step(name, jmodel, mesh=mesh)
+    sharding = (stacked_batch_sharding(mesh) if MODELS[name][1] == "stacked"
+                else single_batch_sharding(mesh))
+    jbatch = {k: jax.device_put(jnp.asarray(v), sharding)
+              for k, v in zip(keys(name), inputs)}
+    state, jm = jstep(JCapState(params, jopt.init(params),
+                                joptim.ema_init(params), jnp.int32(0)),
+                      jbatch, jnp.float32(LR), jax.random.PRNGKey(1))
+    jparams = by_name(name, state.params)
+    jema = by_name(name, state.ema.shadow)
+    one = init_caption_train_state(copy_model(name, model), cfg, 0)
+    ref = {k: v.numpy() for k, v in
+           step_fn(name)(one, batch_of(name, inputs), LR).items()}
+    for rank in ranks:
+        got = rank["replicated"][name]
+        assert got["type"] == REPLICATED[name]
+        assert got["shards"] == {}
+        for key in ("loss", "grad_norm", "n_correct"):
+            assert _rel(got["metrics"][key], jm[key]) <= LOSS_RTOL, key
+        assert float(got["metrics"]["n_word"]) == float(jm["n_word"]) > 0
+        for n, value in got["params"].items():
+            np.testing.assert_allclose(value, jparams[n], **EMA_TOL,
+                                       err_msg=n)
+        for n, value in got["ema"].items():
+            np.testing.assert_allclose(value, jema[n], **EMA_TOL,
+                                       err_msg=n)
+        for key, value in ref.items():
+            assert np.array_equal(got["metrics"][key], value), key
+        for n, p in one.model.named_parameters():
+            assert np.array_equal(got["params"][n], p.detach().numpy()), n
+        for n, v in one.ema.shadow.items():
+            assert np.array_equal(got["ema"][n], v.numpy()), n
+
 
 if __name__ == "__main__":
     sys.exit(pytest.main([__file__, "-q"]))

@@ -27,7 +27,7 @@ from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
 from coot_videotext_tpu_torch.tasks.caption.model_manager import (
     create_mart_model)
 from coot_videotext_tpu_torch.tasks.caption.steps import (
-    caption_train_step, init_caption_train_state)
+    caption_train_step, caption_train_step_single, init_caption_train_state)
 from coot_videotext_tpu_torch.tasks.caption.translator import Translator
 from coot_videotext_tpu_torch.tasks.retrieval.config import RetrievalConfig
 from coot_videotext_tpu_torch.tasks.retrieval.steps import (
@@ -119,6 +119,31 @@ def caption_run(spec: Dict[str, Any], mesh) -> Dict[str, Any]:
             "decodes": decodes(model, cfg, inputs)}
 
 
+def replicated_runs(spec: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """One train step of each caption model of spec["replicated"] (the
+    TransformerXL, the untied, joint and MTransformer models) from its
+    weights on its whole batch (the mesh has one data rank), under the
+    layout that `shard_model_for_tp` gives it: its type, the shards, the
+    metrics, the parameters and the EMA."""
+    out = {}
+    for name, run in spec["replicated"].items():
+        cfg = MartConfig(copy.deepcopy(run["cfg"]))
+        model = create_mart_model(cfg, spec["vocab"], CPU)
+        model.load_state_dict(run["weights"])
+        state = init_caption_train_state(model, cfg, 0, mesh)
+        state.tp = shard_model_for_tp(model, state.optimizer, state.ema,
+                                      mesh)
+        step = caption_train_step if cfg.recurrent else \
+            caption_train_step_single
+        metrics = step(state, _torch(run["inputs"]), LR)
+        out[name] = {"type": type(model).__name__,
+                     "shards": dict(state.tp.shards),
+                     "metrics": _np(metrics),
+                     "params": _np(dict(model.named_parameters())),
+                     "ema": _np(state.ema.shadow)}
+    return out
+
+
 def run(rank: int, world: int, init_file: str, spec_file: str,
         out_dir: str) -> None:
     """Rank `rank` of `world`: joins the group, takes its place in
@@ -137,6 +162,8 @@ def run(rank: int, world: int, init_file: str, spec_file: str,
             out["retrieval"] = retrieval_runs(spec, mesh)
         if spec.get("caption_cfg"):
             out["caption"] = caption_run(spec, mesh)
+        if spec.get("replicated"):
+            out["replicated"] = replicated_runs(spec, mesh)
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
