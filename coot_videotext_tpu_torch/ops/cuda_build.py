@@ -10,8 +10,9 @@ nothing here includes PyTorch's headers, which keeps the build to seconds.
 
 Every C entry launches on the stream it is given and returns
 `cudaGetLastError()`; `check()` raises when that is not 0. `launch_counts`
-counts wrapper calls that launched a kernel, by kernel name; a backward
-counts under `<name>_bwd`.
+counts wrapper calls that launched a kernel of B1-B5, by kernel name; a
+backward counts under `<name>_bwd` (the train steps' phase marks,
+ops/phase.py, are not counted).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("input_fc.cu", "genpool.cu", "attention.cu", "dropout.cu",
-           "gather.cu")
+           "gather.cu", "phase.cu")
 HEADERS = ("common.cuh", "mma.cuh", "philox.cuh", "tn_mma.cuh",
            "tn_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -141,6 +142,8 @@ _SIGNATURES = {
     # span, bf16, stream
     "coot_gather_rows": [_P, _P, _P, _LL, _LL, _LL, _P, _U, _U, _F, _F, _F,
                          _I, _P],
+    # phase, stream
+    "coot_phase_mark": [_I, _P],
 }
 
 

@@ -26,10 +26,15 @@ every later call one replay, so n calls are n steps. The programs read
 the parameters, BertAdam's moments, step count and lr, the EMA shadow, the
 seed state and the step, and are dropped when one of them moves
 (`load_state_dict` and the EMA swap copy in place and keep them).
-`eager=True` runs the step op by op. The eval step runs the same forward
-in eval mode under torch.inference_mode(), as a program of the model's
-graph cache (JAX jits it, :103, :209; `eager=True` runs it op by op).
-Both return device tensors that the caller reads once per batch.
+`eager=True` runs the step op by op. Four empty kernels mark the step's
+phases for a device trace (ops/phase.py): forward, backward, optimizer
+(from clipping on), end (after the EMA). Under a torch profiler each train
+step is a host span (utils/profiling.py `span`, `caption.train_step`)
+holding `prepare` (the lr, the key) and the graph layer's spans. The eval
+step runs the same forward in eval mode under torch.inference_mode(), as
+a program of the model's graph cache (JAX jits it, :103, :209;
+`eager=True` runs it op by op). Both return device tensors that the
+caller reads once per batch.
 
 Under a data-parallel mesh (parallel/mesh.py; JAX shards dim 1 of the
 stacked (S, N, ...) batches and dim 0 of the single-sentence ones over
@@ -69,7 +74,7 @@ import torch
 from coot_videotext_tpu_torch.models.caption.mtransformer import (
     MTransformer)
 from coot_videotext_tpu_torch.models.caption.xl import TransformerXL
-from coot_videotext_tpu_torch.ops import philox
+from coot_videotext_tpu_torch.ops import phase, philox
 from coot_videotext_tpu_torch.ops.philox import dropout_seeds
 from coot_videotext_tpu_torch.parallel.mesh import (
     Mesh, all_reduce_grads, all_reduce_metrics, all_reduce_sum, capturable)
@@ -82,6 +87,7 @@ from coot_videotext_tpu_torch.train.optim import (
     EMA, BertAdam, clip_by_global_norm)
 from coot_videotext_tpu_torch.utils.graphs import (
     GraphCache, cache_of, programs_of, signature)
+from coot_videotext_tpu_torch.utils.profiling import span
 from coot_videotext_tpu_torch.utils.param_bridge import (
     mart_jax_paths, mtrans_jax_paths, tied_aliases, xl_jax_paths)
 
@@ -204,11 +210,13 @@ def caption_loss_and_grads(state: CaptionTrainState,
     model = state.model
     model.train()
     params = state.optimizer.params
+    phase.mark("forward", state.seed)
     forward = _forward_single if single else _forward
     mesh = state.mesh
     ranks = (mesh.data_rank, mesh.model_rank) if mesh is not None else ()
     with dropout_seeds(state.seed, *ranks):
         loss, n_correct, n_word = forward(model, batch, mesh)
+    phase.mark("backward", state.seed)
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
@@ -226,14 +234,16 @@ def caption_update(state: CaptionTrainState,
     """The step after the backward: clipping by the global norm to
     CLIP_GRADIENT (the gradients in place), BertAdam at `lr` (None: the lr
     filled into BertAdam's device lr), the EMA with the step before its
-    increment, then step + 1 and seed state + 1. Returns the pre-clip
-    norm."""
+    increment, then step + 1 and seed state + 1, between the optimizer and
+    end phase marks. Returns the pre-clip norm."""
+    phase.mark("optimizer", state.seed)
     norm = clip_by_global_norm(grads, CLIP_GRADIENT, state.tp)
     state.optimizer.step(grads, lr, state.tp)
     if state.ema is not None:
         state.ema.update(state.step)
     state.step.add_(1)
     state.seed.add_(1)
+    phase.mark("end", state.seed)
     return norm
 
 
@@ -267,15 +277,17 @@ def _train(state: CaptionTrainState, batch: Dict[str, torch.Tensor],
     than one rank, else the program of the batch's shapes (a stateful
     program: its first call is the step, every later one a replay), which
     reads the lr filled into BertAdam's device lr."""
-    if eager or not capturable(state.mesh):
-        return _step(state, batch, lr, single)
-    ref = weakref.ref(state)  # the cache on the state holds the body
-    inputs = {k: v for k, v in batch.items() if torch.is_tensor(v)}
-    state.optimizer.lr.fill_(lr)
-    key = ("caption_train", single, signature(inputs))
-    return train_programs(state).get(
-        key, lambda x: _step(ref(), x, None, single), inputs,
-        stateful=True)(inputs)
+    with span("caption.train_step"):
+        if eager or not capturable(state.mesh):
+            return _step(state, batch, lr, single)
+        ref = weakref.ref(state)  # the cache on the state holds the body
+        with span("prepare"):
+            inputs = {k: v for k, v in batch.items() if torch.is_tensor(v)}
+            state.optimizer.lr.fill_(lr)
+            key = ("caption_train", single, signature(inputs))
+        return train_programs(state).get(
+            key, lambda x: _step(ref(), x, None, single), inputs,
+            stateful=True)(inputs)
 
 
 def caption_train_step(state: CaptionTrainState,

@@ -47,6 +47,10 @@ zeroed and the next sentence's memory is built from them.
 
 `translate_batch` dispatches between them (JAX :585-614); beam search is
 refused for a model that is not the recurrent MART one, as JAX asserts.
+Under a torch profiler each of its calls is a host span
+(utils/profiling.py `span`, `caption.translate_batch`) holding `prepare`
+(each program's key), the graph layer's spans and `read` (the reads of
+results to the host).
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from coot_videotext_tpu_torch.tasks.caption.model_manager import (
     CaptionModel, check_serving_config)
 from coot_videotext_tpu_torch.utils.graphs import (
     Program, cache_of, signature)
+from coot_videotext_tpu_torch.utils.profiling import span
 
 
 def mask_tokens_after_eos(input_ids: torch.Tensor,
@@ -151,8 +156,10 @@ class Translator:
         if self.eager:
             return body(inputs)
         self.replays += 1
-        return cache_of(self.model).get(
-            key + (signature(inputs),), body, inputs)(inputs)
+        cache = cache_of(self.model)
+        with span("prepare"):
+            key = key + (signature(inputs),)
+        return cache.get(key, body, inputs)(inputs)
 
     def _greedy_tokens(self, scores_fn: Callable, input_ids: torch.Tensor,
                        input_masks: torch.Tensor, start: int, stop: int):
@@ -169,7 +176,9 @@ class Translator:
 
     def _read(self, out: List[torch.Tensor]) -> List[np.ndarray]:
         """Stacked (S, ...) results read from the device once."""
-        out = torch.stack(out).cpu().numpy()
+        out = torch.stack(out)
+        with span("read"):
+            out = out.cpu().numpy()
         self.host_reads += 1
         return [out[i] for i in range(len(out))]
 
@@ -351,8 +360,9 @@ class Translator:
         with torch.inference_mode():
             ids_st, masks_st = prepare_video_only_inputs(
                 input_ids_list, input_masks_list, token_type_ids_list)
-            host_ids = ids_st.cpu().numpy()
-            host_masks = masks_st.cpu().numpy()
+            with span("read"):
+                host_ids = ids_st.cpu().numpy()
+                host_masks = masks_st.cpu().numpy()
             self.host_reads += 2
             device = ids_st.device
             batch_size = ids_st.shape[1]
@@ -403,7 +413,8 @@ class Translator:
                     else:
                         lp = token()
                         self.replays += 1
-                    lp = lp.cpu().numpy()[:n_alive]
+                    with span("read"):
+                        lp = lp.cpu().numpy()[:n_alive]
                     self.forwards += 1
                     self.host_reads += 1
                     beam.advance(lp)
@@ -490,22 +501,23 @@ class Translator:
         (untied, MTransformer or joint), (N, max_t_len)."""
         cfg = self.cfg
         check_serving_config(cfg)
-        if cfg.recurrent:
-            args = (batch["input_ids"], batch["video_feature"],
-                    batch["input_mask"], batch["token_type_ids"])
-            if cfg.use_beam:
-                return self.translate_batch_beam(
-                    *args, reference_compat=cfg.beam_reference_compat)
-            if cfg.xl:
-                return self.translate_batch_greedy_xl(*args)
-            return self.translate_batch_greedy(*args)
-        if cfg.untied or cfg.mtrans:
-            return self.translate_batch_single_sentence_untied_greedy(
-                batch["video_feature"], batch["video_mask"],
-                batch["text_ids"], batch["text_mask"])
-        return self.translate_batch_single_sentence_greedy(
-            batch["input_ids"], batch["video_feature"],
-            batch["input_mask"], batch["token_type_ids"])
+        with span("caption.translate_batch"):
+            if cfg.recurrent:
+                args = (batch["input_ids"], batch["video_feature"],
+                        batch["input_mask"], batch["token_type_ids"])
+                if cfg.use_beam:
+                    return self.translate_batch_beam(
+                        *args, reference_compat=cfg.beam_reference_compat)
+                if cfg.xl:
+                    return self.translate_batch_greedy_xl(*args)
+                return self.translate_batch_greedy(*args)
+            if cfg.untied or cfg.mtrans:
+                return self.translate_batch_single_sentence_untied_greedy(
+                    batch["video_feature"], batch["video_mask"],
+                    batch["text_ids"], batch["text_mask"])
+            return self.translate_batch_single_sentence_greedy(
+                batch["input_ids"], batch["video_feature"],
+                batch["input_mask"], batch["token_type_ids"])
 
     @classmethod
     def sort_res(cls, res_dict: Dict[str, list]) -> Dict[str, list]:

@@ -11,11 +11,12 @@ gathers with the frame/word noise. Then it runs the 4-net forward in the
 compute dtype with dropout on, the total loss (with the cycle-consistency
 subsampling), the backward through autograd and the kernels' backward,
 the optional global-norm clipping, the optimizer update in place, and
-advances the state's seed state by one. Every random draw of the step is
-keyed on that seed state (ops/philox.py): the jitter and the subsampling
-on the state itself, the noise and each dropout on (state, call), the
-call's position in the step. Nothing in the step reads a value back to the
-host.
+advances the state's seed state by one. Four empty kernels mark its
+phases for a device trace (ops/phase.py): forward, backward, optimizer,
+end. Every random draw of the step is keyed on that seed state
+(ops/philox.py): the jitter and the subsampling on the state itself, the
+noise and each dropout on (state, call), the call's position in the step.
+Nothing in the step reads a value back to the host.
 
 The group step (`retrieval_train_group`) runs up to K such steps on id
 batches from a (K, B) id array, as calls of a stateful program of the
@@ -37,6 +38,11 @@ as a program of the model's graph cache (utils/graphs.py): a CUDA graph
 on the card, captured once per layout, shapes and loss settings and
 replayed after each batch is copied into its static buffers, as JAX jits
 it (:144-220); `eager=True` runs it op by op.
+
+Under a torch profiler each call of the group and of the eval step is a
+host span (utils/profiling.py `span`: `retrieval.train_group`,
+`retrieval.eval_step`) holding `prepare` (its own host work before the
+program: the lr, the host arrays, the key) and the graph layer's spans.
 
 Data parallelism (parallel/mesh.py, JAX's `data` axis :125-141, :211-221,
 :319-330): under a mesh of W > 1 ranks each rank's batch holds its rows of
@@ -81,6 +87,7 @@ from coot_videotext_tpu_torch.data.device_store import (
     FeatureSource, assemble_batch)
 from coot_videotext_tpu_torch.models.retrieval import (
     LENGTH_KEYS, RetrievalModel)
+from coot_videotext_tpu_torch.ops import phase
 from coot_videotext_tpu_torch.ops.philox import dropout_seeds, next_seed
 from coot_videotext_tpu_torch.parallel.mesh import (
     Mesh, all_gather_rows, all_reduce_grads, all_reduce_max, capturable)
@@ -90,6 +97,7 @@ from coot_videotext_tpu_torch.train.losses import (
 from coot_videotext_tpu_torch.train.optim import clip_by_global_norm
 from coot_videotext_tpu_torch.utils.graphs import (
     GraphCache, Program, cache_of, programs_of, signature)
+from coot_videotext_tpu_torch.utils.profiling import span
 
 VISUAL_KEYS = ("vid_emb", "clip_emb", "vid_context", "clip_valid",
                "clip_num")
@@ -157,6 +165,8 @@ def retrieval_loss_and_grads(
     model = state.model
     model.train()
     params = state.optimizer.params
+    like = next(iter(params.values()))
+    phase.mark("forward", like)
     mesh = state.mesh
     ranks = (mesh.data_rank, mesh.model_rank) if mesh is not None else ()
     with dropout_seeds(state.seed, *ranks):
@@ -171,6 +181,7 @@ def retrieval_loss_and_grads(
     loss, parts = compute_total_retrieval_loss(
         visual, text, loss_weights, margin, loss_cycle_cons,
         seed_state=state.seed, batch_valid=batch_valid)
+    phase.mark("backward", like)
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
@@ -196,12 +207,15 @@ def _train_step_body(state: TrainState, batch: Dict[str, Any], *,
         state, batch, loss_weights=loss_weights, margin=margin,
         loss_cycle_cons=loss_cycle_cons, compute_dtype=compute_dtype,
         source=source)
+    like = next(iter(state.optimizer.params.values()))
+    phase.mark("optimizer", like)
     if clip_gradient > 0:
         metrics["grad_norm"] = clip_by_global_norm(grads, clip_gradient,
                                                    state.tp)
     state.optimizer.step(grads, lr)
     if state.seed is not None:
         state.seed.add_(1)
+    phase.mark("end", like)
     return metrics
 
 
@@ -310,42 +324,45 @@ def retrieval_train_group(state: TrainState, dp_idx, batch_valid,
     float32 on the device. Under a gloo mesh of more than one rank the
     steps run eagerly (parallel/mesh.py `capturable`).
     """
-    k, b = dp_idx.shape
-    if not 1 <= num_steps <= k:
-        raise ValueError(f"num_steps {num_steps} outside [1, {k}]")
-    mesh = state.mesh
-    if source is None or source.meta is None or state.seed is None:
-        raise ValueError("the group step takes id batches: a source with "
-                         "device metadata and a state with a seed state")
-    step_kw = dict(loss_weights=loss_weights, margin=margin,
-                   loss_cycle_cons=loss_cycle_cons,
-                   clip_gradient=clip_gradient, compute_dtype=compute_dtype,
-                   source=source)
-    state.optimizer.lr.fill_(lr)
-    if not capturable(mesh):
+    with span("retrieval.train_group"):
+        k, b = dp_idx.shape
+        if not 1 <= num_steps <= k:
+            raise ValueError(f"num_steps {num_steps} outside [1, {k}]")
+        mesh = state.mesh
+        if source is None or source.meta is None or state.seed is None:
+            raise ValueError("the group step takes id batches: a source "
+                             "with device metadata and a state with a seed "
+                             "state")
+        step_kw = dict(loss_weights=loss_weights, margin=margin,
+                       loss_cycle_cons=loss_cycle_cons,
+                       clip_gradient=clip_gradient,
+                       compute_dtype=compute_dtype, source=source)
         device = state.seed.device
-        ids = _host_array(dp_idx, torch.int32).to(device)
-        valid = _host_array(batch_valid, torch.bool).to(device)
-        rows = [_train_step_body(state, {"layout": "ids", "dp_idx": ids[i],
-                                         "batch_valid": valid[i]},
-                                 lr=None, **step_kw)
+        graphed = capturable(mesh)
+        with span("prepare"):
+            state.optimizer.lr.fill_(lr)
+            ids = _host_array(dp_idx, torch.int32)
+            valid = _host_array(batch_valid, torch.bool)
+            if graphed and device.type == "cuda":
+                ids, valid = ids.pin_memory(), valid.pin_memory()
+        if not graphed:
+            ids, valid = ids.to(device), valid.to(device)
+            rows = [_train_step_body(
+                state, {"layout": "ids", "dp_idx": ids[i],
+                        "batch_valid": valid[i]}, lr=None, **step_kw)
                 for i in range(num_steps)]
-        metrics = {n: torch.stack([r[n].float() for r in rows])
-                   for n in rows[0]}
-    else:
-        program = _group_program(state, k, b, step_kw)
-        for name, host, dtype in (("ids", dp_idx, torch.int32),
-                                  ("valid", batch_valid, torch.bool)):
-            host = _host_array(host, dtype)
-            program.load({name: host.pin_memory()
-                          if program.device.type == "cuda" else host})
-        program.inputs["index"].zero_()
-        for _ in range(num_steps):
-            out = program()
-        # copies: the buffer is the next group's
-        metrics = {n: v[:num_steps].clone() for n, v in out.items()}
-    state.step += num_steps
-    return metrics
+            metrics = {n: torch.stack([r[n].float() for r in rows])
+                       for n in rows[0]}
+        else:
+            program = _group_program(state, k, b, step_kw)
+            program.load({"ids": ids, "valid": valid})
+            program.inputs["index"].zero_()
+            for _ in range(num_steps):
+                out = program()
+            # copies: the buffer is the next group's
+            metrics = {n: v[:num_steps].clone() for n, v in out.items()}
+        state.step += num_steps
+        return metrics
 
 
 def _eval_body(model: RetrievalModel, batch: Dict[str, Any], *,
@@ -405,18 +422,22 @@ def retrieval_eval_step(model: RetrievalModel,
     kw = dict(loss_weights=loss_weights, margin=margin,
               loss_cycle_cons=loss_cycle_cons, compute_dtype=compute_dtype,
               source=source, mesh=mesh)
-    if eager or not capturable(mesh):
-        return _eval_body(model, batch, seed_state=seed_state, **kw)
-    layout = batch.get("layout", "dense")
-    inputs = {"batch": {k: v for k, v in batch.items() if torch.is_tensor(v)}}
-    if seed_state is not None:
-        inputs["seed"] = seed_state
-    key = ("retrieval_eval", layout, signature(inputs), compute_dtype,
-           margin, loss_cycle_cons, tuple(sorted(loss_weights.items())),
-           None if source is None else (id(source.store), id(source.meta)),
-           id(mesh))
+    with span("retrieval.eval_step"):
+        if eager or not capturable(mesh):
+            return _eval_body(model, batch, seed_state=seed_state, **kw)
+        with span("prepare"):
+            layout = batch.get("layout", "dense")
+            inputs = {"batch": {k: v for k, v in batch.items()
+                                if torch.is_tensor(v)}}
+            if seed_state is not None:
+                inputs["seed"] = seed_state
+            key = ("retrieval_eval", layout, signature(inputs),
+                   compute_dtype, margin, loss_cycle_cons,
+                   tuple(sorted(loss_weights.items())),
+                   None if source is None
+                   else (id(source.store), id(source.meta)), id(mesh))
 
-    def body(x):
-        return _eval_body(model, {**x["batch"], "layout": layout},
-                          seed_state=x.get("seed"), **kw)
-    return cache_of(model).get(key, body, inputs)(inputs)
+        def body(x):
+            return _eval_body(model, {**x["batch"], "layout": layout},
+                              seed_state=x.get("seed"), **kw)
+        return cache_of(model).get(key, body, inputs)(inputs)

@@ -47,7 +47,11 @@ well as the parameters'.
 
 Each cache counts its programs' calls (`counts`: "runs", every call
 through a program; "replays", the graph replays among them), so that a
-caller can say how its steps ran from what ran (`mode`).
+caller can say how its steps ran from what ran (`mode`). Under a torch
+profiler the host side of each call is recorded as spans
+(utils/profiling.py `span`): `graphs.check` (a cache's address check),
+`graphs.load` (the input copies), `graphs.capture`, `graphs.replay` and,
+on the CPU, `graphs.run` (the eager body).
 
 A program keeps its body only until its capture: after it the graph
 replays without Python, and no reference cycle through a module's cache
@@ -71,6 +75,8 @@ from typing import (Any, Callable, Dict, Hashable, Iterable, Optional,
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_map
+
+from coot_videotext_tpu_torch.utils.profiling import span
 
 
 def capture(run: Callable[[], Any], stream: torch.cuda.Stream,
@@ -137,15 +143,17 @@ class Program:
     def load(self, inputs: Dict[str, Any]) -> None:
         """Copies each entry of `inputs` into the static buffer of that
         name (same shapes)."""
-        for name, value in inputs.items():
-            dst, _ = tree_flatten(self.inputs[name])
-            src, _ = tree_flatten(value)
-            if [d.shape for d in dst] != [s.shape for s in src]:
-                raise ValueError(f"input {name!r}: shapes "
-                                 f"{[tuple(s.shape) for s in src]} against "
-                                 f"the static {[tuple(d.shape) for d in dst]}")
-            for d, s in zip(dst, src):
-                d.copy_(s, non_blocking=True)
+        with span("graphs.load"):
+            for name, value in inputs.items():
+                dst, _ = tree_flatten(self.inputs[name])
+                src, _ = tree_flatten(value)
+                if [d.shape for d in dst] != [s.shape for s in src]:
+                    raise ValueError(
+                        f"input {name!r}: shapes "
+                        f"{[tuple(s.shape) for s in src]} against the "
+                        f"static {[tuple(d.shape) for d in dst]}")
+                for d, s in zip(dst, src):
+                    d.copy_(s, non_blocking=True)
 
     def __call__(self, inputs: Optional[Dict[str, Any]] = None):
         """Loads `inputs` (if any) and runs the body: its outputs, which
@@ -155,7 +163,8 @@ class Program:
             self.load(inputs)
         self.counts["runs"] += 1
         if self.device.type != "cuda":
-            self.outputs = self.body(self.inputs)
+            with span("graphs.run"):
+                self.outputs = self.body(self.inputs)
             return self.outputs
         if self.graph is None:
             if self.body is None:
@@ -165,14 +174,16 @@ class Program:
             def run():
                 runs.append(self.body(self.inputs))
                 return runs[-1]
-            self.graph, self.outputs = capture(
-                run, torch.cuda.Stream(self.device), self.pool)
+            with span("graphs.capture"):
+                self.graph, self.outputs = capture(
+                    run, torch.cuda.Stream(self.device), self.pool)
             # the graph needs no Python: dropping the body (which holds
             # the model) leaves no reference cycle through the cache
             self.body = None
             if self.stateful:
                 return runs[0]
-        self.graph.replay()
+        with span("graphs.replay"):
+            self.graph.replay()
         self.counts["replays"] += 1
         return self.outputs
 
@@ -204,10 +215,11 @@ class GraphCache:
     def check(self) -> "GraphCache":
         """Drops every program if a tensor moved; call once per top-level
         call, before `get`."""
-        addresses = tuple(t.data_ptr() for t in self.tensors())
-        if addresses != self.addresses:
-            self.release()
-            self.addresses = addresses
+        with span("graphs.check"):
+            addresses = tuple(t.data_ptr() for t in self.tensors())
+            if addresses != self.addresses:
+                self.release()
+                self.addresses = addresses
         return self
 
     def get(self, key: Hashable, body: Callable[[Any], Any],
