@@ -1623,7 +1623,7 @@ def phase_caption(tmp: Path) -> None:
         f"and metrics)")
     log(f"  median per batch: eval step "
         f"{statistics.median(result['eval_ms']):.2f} ms, greedy decode "
-        f"{statistics.median(result['decode_ms']):.2f} ms; full forwards "
+        f"{statistics.median(result['decode_ms']):.2f} ms; forwards "
         f"per batch {result['forwards']}; peak device memory "
         f"{peak:.3f} GB above the {held / 1e9:.3f} GB the earlier phases "
         "hold")
@@ -1686,8 +1686,9 @@ def phase_caption(tmp: Path) -> None:
     steps = TRACE_STEPS
     positions = steps * cfg.max_t_len
     log(f"  S {steps} sentence steps x {cfg.max_t_len} token positions, "
-        f"{translator.forwards} full forwards of N {cfg.val.batch_size} x "
-        f"L {cfg.max_v_len + cfg.max_t_len}: wall {wall_ms:.1f} ms, device "
+        f"{translator.forwards} forwards of N {cfg.val.batch_size} x "
+        f"L {cfg.max_v_len + cfg.max_t_len} ({translator.cached_tokens} of "
+        f"them token steps on the caches): wall {wall_ms:.1f} ms, device "
         f"busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}); {kernels} kernel "
         f"launches, {kernels / positions:.1f} per decoded token position, "
         f"{kernels / translator.forwards:.1f} per forward")

@@ -18,6 +18,12 @@ Port of coot_videotext_tpu/models/caption/bert.py (reference mart/model.py):
       z/c-gated update from attention over states (:751).
     - the joint single-sentence encoder without memory (BertLayerNoMemory,
       BertEncoderNoMemory, reference :334-382).
+    - the cached greedy decode of recurrent MART, inference only
+      (`decode_*` methods, the attention's `project` / `attend`):
+      forward's rows a position at a time over per-layer key / value
+      caches, each block's products as `rows_linear` and q, k and v in one
+      product; no counterpart in JAX or the reference, which re-run the
+      full forward a token (tasks/caption/translator.py).
 
 Module and parameter names are the reference torch MART keys (what the JAX
 package's utils/torch_convert.py::_convert_mart_key reads), so a reference
@@ -174,6 +180,56 @@ class BertSelfAttention(nn.Module):
             ctx = gather_from_model(ctx, self.tp, -1)
         return ctx
 
+    # the cached greedy decode (inference, whole weights)
+
+    def stacked_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """q, k and v's weights and biases stacked: one product a row."""
+        return (torch.cat([self.query.weight, self.key.weight,
+                           self.value.weight]),
+                torch.cat([self.query.bias, self.key.bias, self.value.bias]))
+
+    def project(self, states: torch.Tensor,
+                stacked: Tuple[torch.Tensor, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The queries (N, H, L, d_head) and the keys and values (N, H, L,
+        2, d_head) of `states` (N, L, D), from one product with the
+        `stacked_weights`."""
+        n, length, d = states.shape
+        qkv = rows_linear(states, *stacked)
+        kv = qkv[..., d:].view(n, length, 2, self.n_heads, self.d_head)
+        return self._heads(qkv[..., :d]), kv.permute(0, 3, 1, 2, 4)
+
+    def new_cache(self, states: torch.Tensor, length: int) -> torch.Tensor:
+        """Zeroed keys and values (N, H, length, 2, d_head) for `project`'s
+        rows."""
+        return states.new_zeros(states.shape[0], self.n_heads, length, 2,
+                                self.d_head)
+
+    def attend(self, q: torch.Tensor, kv: torch.Tensor,
+               add_mask: torch.Tensor) -> torch.Tensor:
+        """forward's attention of the queries q (N, H, Lq, d_head) over the
+        keys and values kv (N, H, L, 2, d_head); add_mask (N, Lq or 1, L)
+        is the additive mask (`additive_mask`)."""
+        scores = torch.matmul(q, kv[..., 0, :].transpose(-1, -2))
+        scores = scores / math.sqrt(self.d_head) + add_mask[:, None]
+        probs = self.dropout(torch.softmax(scores, dim=-1))
+        ctx = torch.matmul(probs, kv[..., 1, :]).transpose(1, 2)
+        return ctx.reshape(ctx.shape[0], ctx.shape[1], -1)
+
+
+def additive_mask(mask: torch.Tensor) -> torch.Tensor:
+    """The -10000 additive form of a 1 = attend mask, as
+    BertSelfAttention.forward forms it."""
+    return (1.0 - mask.float()) * -10000.0
+
+
+def rows_linear(x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """F.linear(x, weight, bias) as the product, then the bias: for the
+    cached decode's few rows (50 a token) cuBLAS's fused-bias path takes a
+    split-K kernel at twice the time on an H100 in float32."""
+    return F.linear(x, weight) + bias
+
 
 class BertSelfOutput(nn.Module):
     """Dense -> dropout -> residual LN (reference :230)."""
@@ -187,6 +243,13 @@ class BertSelfOutput(nn.Module):
     def forward(self, hidden_states: torch.Tensor,
                 input_tensor: torch.Tensor) -> torch.Tensor:
         h = self.dropout(self.dense(hidden_states))
+        return self.LayerNorm(h + input_tensor)
+
+    def decode_rows(self, hidden_states: torch.Tensor,
+                    input_tensor: torch.Tensor) -> torch.Tensor:
+        """forward for the cached decode's rows (`rows_linear`)."""
+        h = self.dropout(rows_linear(hidden_states, self.dense.weight,
+                                     self.dense.bias))
         return self.LayerNorm(h + input_tensor)
 
 
@@ -241,6 +304,11 @@ class BertIntermediate(nn.Module):
             return gelu(self.dense(hidden_states))
         out = gelu(self.dense(copy_to_model(hidden_states, self.tp)))
         return gather_from_model(out, self.tp, -1)
+
+    def decode_rows(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        """forward for the cached decode's rows (`rows_linear`)."""
+        return gelu(rows_linear(hidden_states, self.dense.weight,
+                                self.dense.bias))
 
 
 class BertOutput(BertSelfOutput):
@@ -378,6 +446,80 @@ class BertLayerWithMemory(nn.Module):
         layer_out = self.output(self.memory_projection(mem_att), att)
         return updated_m, layer_out
 
+    # ---------- the cached greedy decode ----------
+    # forward's rows, computed a position at a time. The text is causal
+    # and the memory fixed within a sentence, so a row's keys and values
+    # do not change once computed; masked columns add exp(-10000) = 0 in
+    # float32, so a row over its visible prefix is forward's row. The
+    # memory update is left to the sentence's full forward.
+
+    def decode_prefix(self, prev_m: Optional[torch.Tensor],
+                      hidden_states: torch.Tensor, masks: torch.Tensor
+                      ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The pass over the video rows `hidden_states` (N, V, D) once a
+        sentence: (the layer's caches for `decode_token`, the rows'
+        output). `masks` (N, L): the video mask, every text column 1 (a
+        token step opens its own position). The caches hold both
+        attentions' stacked weights and additive masks, and the keys and
+        values of the self-attention over the L positions ("kv") and of
+        the memory attention over the memory cells and the L positions
+        ("mem_kv"), filled as far as the video rows."""
+        n_video, length = hidden_states.shape[1], masks.shape[1]
+        sa, ma = self.attention.self, self.memory_augmented_attention
+        cache = {"sa": sa.stacked_weights(), "ma": ma.stacked_weights(),
+                 "add": additive_mask(masks),
+                 "kv": sa.new_cache(hidden_states, length)}
+        att = self._decode_attention(cache, hidden_states, 0)
+        inter = self.hidden_intermediate.decode_rows(att)
+        if prev_m is None:
+            prev_m = self.memory_initilizer(inter, masks[:, :n_video])
+        n_cells = prev_m.shape[1]
+        cache["mem_add"] = additive_mask(torch.cat(
+            [masks.new_ones(masks.shape[0], n_cells), masks], dim=-1))
+        cache["mem_kv"] = ma.new_cache(hidden_states, n_cells + length)
+        cache["mem_kv"][:, :, :n_cells] = ma.project(prev_m, cache["ma"])[1]
+        return cache, self._decode_memory(cache, att, inter, n_cells)
+
+    def decode_token(self, cache: Dict[str, torch.Tensor],
+                     hidden_state: torch.Tensor, pos: int) -> torch.Tensor:
+        """forward's output row at position `pos` (N, 1, D) from its input
+        row, attending over the positions up to `pos`; writes the row's
+        keys and values into `cache`."""
+        att = self._decode_attention(cache, hidden_state, pos)
+        inter = self.hidden_intermediate.decode_rows(att)
+        n_cells = cache["mem_kv"].shape[2] - cache["kv"].shape[2]
+        return self._decode_memory(cache, att, inter, n_cells + pos)
+
+    def _decode_attention(self, cache: Dict[str, torch.Tensor],
+                          hidden: torch.Tensor, start: int) -> torch.Tensor:
+        """The self-attention block's output of the rows of `hidden` at
+        positions start.., over the positions up to their last; their
+        keys and values written into the cache."""
+        sa = self.attention.self
+        stop = start + hidden.shape[1]
+        q, kv = sa.project(hidden, cache["sa"])
+        cache["kv"][:, :, start:stop] = kv
+        ctx = sa.attend(q, cache["kv"][:, :, :stop],
+                        cache["add"][:, None, :stop])
+        return self.attention.output.decode_rows(ctx, hidden)
+
+    def _decode_memory(self, cache: Dict[str, torch.Tensor],
+                       att: torch.Tensor, inter: torch.Tensor,
+                       start: int) -> torch.Tensor:
+        """The layer's output of the rows of `inter` at the memory
+        attention's positions start.. (after the memory cells), over the
+        positions up to their last; their keys and values written into
+        the cache."""
+        ma = self.memory_augmented_attention
+        stop = start + inter.shape[1]
+        q, kv = ma.project(inter, cache["ma"])
+        cache["mem_kv"][:, :, start:stop] = kv
+        ctx = ma.attend(q, cache["mem_kv"][:, :, :stop],
+                        cache["mem_add"][:, None, :stop])
+        return self.output.decode_rows(
+            rows_linear(ctx, self.memory_projection.weight,
+                        self.memory_projection.bias), att)
+
 
 class BertEncoderWithMemory(nn.Module):
     """Stack of memory layers threading per-layer memory (reference
@@ -396,6 +538,25 @@ class BertEncoderWithMemory(nn.Module):
             prev_ms[i], hidden_states = layer(prev_ms[i], hidden_states,
                                               attention_mask)
         return prev_ms, hidden_states
+
+    def decode_prefix(self, prev_ms: List[Optional[torch.Tensor]],
+                      hidden_states: torch.Tensor, masks: torch.Tensor
+                      ) -> List[Dict[str, torch.Tensor]]:
+        """Every layer's caches after the video rows' pass
+        (BertLayerWithMemory.decode_prefix)."""
+        caches = []
+        for prev_m, layer in zip(prev_ms, self.layer):
+            cache, hidden_states = layer.decode_prefix(prev_m, hidden_states,
+                                                       masks)
+            caches.append(cache)
+        return caches
+
+    def decode_token(self, caches: List[Dict[str, torch.Tensor]],
+                     hidden_state: torch.Tensor, pos: int) -> torch.Tensor:
+        """The last layer's output row at position `pos`."""
+        for cache, layer in zip(caches, self.layer):
+            hidden_state = layer.decode_token(cache, hidden_state, pos)
+        return hidden_state
 
 
 # ---------- embeddings / head ----------
@@ -441,6 +602,26 @@ class BertEmbeddingsWithVideo(nn.Module):
             emb = emb + self.position_table[:input_ids.shape[-1]][None]
         return self.dropout(self.LayerNorm(emb))
 
+    def decode_prefix(self, input_ids: torch.Tensor,
+                      video_features: torch.Tensor,
+                      token_type_ids: torch.Tensor, n_video: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The cached greedy decode's embeddings once a sentence: forward
+        of the first n_video rows, and the part of every later row that
+        does not depend on its word (video + token type + position)."""
+        rest = (self.video_embeddings(video_features[:, n_video:])
+                + self.token_type_embeddings(token_type_ids[:, n_video:])
+                + self.position_table[n_video:input_ids.shape[-1]][None])
+        return self(input_ids[:, :n_video], video_features[:, :n_video],
+                    token_type_ids[:, :n_video]), rest
+
+    def decode_word(self, word_ids: torch.Tensor,
+                    rest: torch.Tensor) -> torch.Tensor:
+        """forward's row of the words `word_ids` (N, 1) given the row's
+        `rest` from decode_prefix (N, 1, D)."""
+        w = self.word_fc(self.word_embeddings(word_ids))
+        return self.dropout(self.LayerNorm(w + rest))
+
 
 class BertPredictionHeadTransform(nn.Module):
     """Dense -> gelu -> LN (reference :790)."""
@@ -452,6 +633,11 @@ class BertPredictionHeadTransform(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
         return self.LayerNorm(gelu(self.dense(hidden_states)))
+
+    def decode_rows(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        """forward for the cached decode's rows (`rows_linear`)."""
+        return self.LayerNorm(gelu(rows_linear(
+            hidden_states, self.dense.weight, self.dense.bias)))
 
 
 class BertLMPredictionHead(nn.Module):
@@ -477,6 +663,12 @@ class BertLMPredictionHead(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.transform(hidden_states)) + self.bias
+
+    def decode_rows(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        """forward for the cached decode's rows (`rows_linear`; the
+        decoder matrix has no bias of its own)."""
+        return (self.decoder(self.transform.decode_rows(hidden_states))
+                + self.bias)
 
 
 def init_bert_weights(module: nn.Module, std: float,

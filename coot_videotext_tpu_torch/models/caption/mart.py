@@ -18,7 +18,7 @@ matrix to the word embeddings under share_wd_cls_weight.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -59,6 +59,42 @@ class RecursiveTransformer(nn.Module):
         prev_ms, encoded = self.encoder(prev_ms, emb, input_masks)
         scores = self.decoder(encoded)
         return prev_ms, encoded, scores
+
+    # ---------- the cached greedy decode (inference, whole weights) ----------
+
+    def decode_prefix(self, prev_ms: Memories, input_ids: torch.Tensor,
+                      video_features: torch.Tensor,
+                      input_masks: torch.Tensor,
+                      token_type_ids: torch.Tensor) -> Dict:
+        """A sentence's pass once before its token steps, on forward_step's
+        (N, L) inputs: the embeddings' word-independent rows and every
+        layer's caches after the video rows (the first sentence's memory
+        built from them, as forward_step builds it)."""
+        n_video = self.cfg.max_v_len
+        emb, rest = self.embeddings.decode_prefix(
+            input_ids, video_features, token_type_ids, n_video)
+        masks = input_masks.clone()
+        masks[:, n_video:] = 1
+        return {"rest": rest,
+                "layers": self.encoder.decode_prefix(prev_ms, emb, masks)}
+
+    def decode_token(self, state: Dict, word_ids: torch.Tensor,
+                     pos: int) -> torch.Tensor:
+        """forward_step's scores (N, vocab) at position `pos`, given the
+        words (N,) at `pos` and the rows before it in `state`; the memory
+        update is left out (only the sentence's last forward keeps it)."""
+        rest = state["rest"][:, pos - self.cfg.max_v_len][:, None]
+        hidden = self.embeddings.decode_word(word_ids[:, None], rest)
+        hidden = self.encoder.decode_token(state["layers"], hidden, pos)
+        return self.decoder.decode_rows(hidden)[:, 0]
+
+    def next_memories(self, prev_ms: Memories, input_ids: torch.Tensor,
+                      video_features: torch.Tensor,
+                      input_masks: torch.Tensor,
+                      token_type_ids: torch.Tensor) -> List[torch.Tensor]:
+        """forward_step's memories, without its prediction head."""
+        emb = self.embeddings(input_ids, video_features, token_type_ids)
+        return self.encoder(prev_ms, emb, input_masks)[0]
 
     def forward(self, input_ids_list: torch.Tensor,
                 video_features_list: torch.Tensor,

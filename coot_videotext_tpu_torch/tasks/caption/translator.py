@@ -7,12 +7,23 @@ mart/translator.py), token for token. Greedy, recurrent
 (`translate_batch_greedy`):
     - prepare_video_only_inputs blanks all text ids/masks (:424)
     - per sentence step, the token loop runs dec_idx over the text region
-      starting from [BOS] at max_v_len; each token re-runs the FULL
-      forward_step with the previous sentence's memory and reads the
-      scores at dec_idx; UNK is suppressed (-1e10), argmax picks the next
-      token; after the sentence, tokens after the first [EOS] become
-      [PAD] and one more forward builds the next sentence's memory
-      (:231-234).
+      starting from [BOS] at max_v_len and reads the scores at dec_idx;
+      UNK is suppressed (-1e10), argmax picks the next token; after the
+      sentence, tokens after the first [EOS] become [PAD] and one more
+      forward builds the next sentence's memory (:231-234).
+    - JAX and the reference re-run the FULL forward_step a token. Here
+      the token loop runs on per-layer key / value caches
+      (RecursiveTransformer.decode_prefix / decode_token): one pass over
+      the video rows a sentence (the first sentence's memory built from
+      them), then one new position a token: its word's embedding row,
+      each layer's attention over the cached positions up to dec_idx,
+      and the head on that row alone. make_shifted_mask is causal over
+      the text and the memory is fixed within a sentence, so the rows
+      before dec_idx do not change as tokens are added; masked columns
+      add exp(-10000) = 0 in float32, so each row is the full forward's
+      row. The memory forward stays one full forward over the
+      EOS-masked sentence, without the head (`next_memories`). A model
+      placed by parallel/tp.py keeps the full forward a token.
 The JAX package's `fused=True` (the whole batch as one program) emits the
 same tokens; here a sentence is one program (`Translator`). The
 TransformerXL
@@ -62,6 +73,7 @@ import torch
 
 from coot_videotext_tpu_torch.data.caption_dataset import (
     BOS, EOS, PAD, UNK)
+from coot_videotext_tpu_torch.models.caption.mart import RecursiveTransformer
 from coot_videotext_tpu_torch.tasks.caption.beam_search import BeamSearch
 from coot_videotext_tpu_torch.tasks.caption.model_manager import (
     CaptionModel, check_serving_config)
@@ -98,11 +110,19 @@ def prepare_video_only_inputs(input_ids: torch.Tensor,
             torch.where(text, torch.zeros_like(input_masks), input_masks))
 
 
-def _next_words(scores: torch.Tensor, dec_idx: int) -> torch.Tensor:
-    """argmax of the scores at dec_idx with [UNK] suppressed."""
-    row = scores[:, dec_idx].clone()
+def _best_words(row: torch.Tensor) -> torch.Tensor:
+    """argmax of the scores row (N, vocab) with [UNK] suppressed."""
+    row = row.clone()
     row[:, UNK] = -1e10
     return row.argmax(dim=1)
+
+
+def runs_cached(model: CaptionModel) -> bool:
+    """Whether greedy decoding runs `model` on key / value caches: a
+    recurrent MART model whose layers parallel/tp.py has not placed."""
+    return (isinstance(model, RecursiveTransformer)
+            and all(getattr(m, "tp", None) is None
+                    for m in model.modules()))
 
 
 class Translator:
@@ -120,6 +140,12 @@ class Translator:
       carried between replays in its static buffers (JAX
       `_greedy_sentence_fn` :79, `_greedy_xl_fn` :268; JAX's opt-in
       `fused` program emits the same tokens and has no counterpart).
+      MART's token loop runs on key / value caches (`runs_cached`): one
+      new position a token. The others re-run the full forward a token:
+      the XL's relative attention threads the previous sentence's masks,
+      beam search reorders its rows every token, the single-sentence
+      models are other models, and a model placed by parallel/tp.py
+      runs its attention over the model group.
     - Single sentence, joint and untied / MTransformer: one program of
       the whole loop (JAX :217, :339), the untied encode inside it.
     - Beam: one token program a `first_step` (JAX `_beam_token_fn` :388),
@@ -136,19 +162,25 @@ class Translator:
         self.model = model
         self.cfg = cfg
         self.eager = eager
-        # forwards run by the last decode: full forwards of the recurrent
-        # and joint models, or decoder passes (plus the one encode) of the
-        # untied ones; its reads of results from the device; and its
-        # program runs (graph replays on the card; 0 when eager)
+        # forwards run by the last decode: token steps and memory forwards
+        # of the recurrent models (one a token, on the caches or full,
+        # plus one a sentence), full forwards of the joint model, or
+        # decoder passes (plus the one encode) of the untied ones; its
+        # reads of results from the device; and its program runs (graph
+        # replays on the card; 0 when eager)
         self.forwards = 0
         self.host_reads = 0
         self.replays = 0
+        # token steps of the last decode that ran on key / value caches
+        # (recurrent MART greedy: S x max_t_len; 0 for every other decode)
+        self.cached_tokens = 0
 
     def _begin(self) -> None:
         self.model.eval()
         self.forwards = 0
         self.host_reads = 0
         self.replays = 0
+        self.cached_tokens = 0
 
     def _run(self, key, body: Callable, inputs: Dict):
         """body(inputs) eagerly, or as the program of `key` of the model's
@@ -171,7 +203,7 @@ class Translator:
         for dec_idx in range(start, stop):
             ids[:, dec_idx] = next_words
             masks[:, dec_idx] = 1
-            next_words = _next_words(scores_fn(ids, masks), dec_idx)
+            next_words = _best_words(scores_fn(ids, masks)[:, dec_idx])
         return ids, masks
 
     def _read(self, out: List[torch.Tensor]) -> List[np.ndarray]:
@@ -182,24 +214,47 @@ class Translator:
         self.host_reads += 1
         return [out[i] for i in range(len(out))]
 
+    def _cached_tokens(self, prev, x) -> tuple:
+        """The token loop of a recurrent MART sentence on the layers' key /
+        value caches: one pass over the video rows, then one new position
+        a token (RecursiveTransformer.decode_prefix / decode_token). The
+        ids and masks, as _greedy_tokens leaves them."""
+        model, lo = self.model, self.cfg.max_v_len
+        ids, masks = x["ids"].clone(), x["masks"].clone()
+        state = model.decode_prefix(prev, ids, x["feats"], masks,
+                                    x["ttypes"])
+        next_words = torch.full_like(ids[:, 0], BOS)
+        for dec_idx in range(lo, lo + self.cfg.max_t_len):
+            ids[:, dec_idx] = next_words
+            masks[:, dec_idx] = 1
+            next_words = _best_words(
+                model.decode_token(state, ids[:, dec_idx], dec_idx))
+        return ids, masks
+
     def _greedy_recurrent(self, kind: str, step: Callable, first_prev,
                           input_ids_list, video_features_list,
-                          input_masks_list, token_type_ids_list
-                          ) -> List[np.ndarray]:
+                          input_masks_list, token_type_ids_list,
+                          cached: bool = False) -> List[np.ndarray]:
         """The recurrent greedy loop over stacked (S, N, ...) inputs:
         step(prev, ids, feats, masks, ttypes) -> (the next sentence's prev,
         scores), `first_prev` the first sentence's prev. One sentence is
-        one program (`kind`, first_step). Returns [(N, max_t_len)] * S,
-        read once at the end."""
+        one program (`kind`, first_step). `cached`: the tokens come from
+        _cached_tokens, and `step` builds only the next sentence's prev
+        (its scores unused). Returns [(N, max_t_len)] * S, read once at
+        the end."""
         cfg = self.cfg
         self._begin()
         lo, hi = cfg.max_v_len, cfg.max_v_len + cfg.max_t_len
 
         def sentence(x):
             prev = x.get("prev", first_prev)
-            ids, masks = self._greedy_tokens(
-                lambda i, m: step(prev, i, x["feats"], m, x["ttypes"])[1],
-                x["ids"], x["masks"], lo, hi)
+            if cached:
+                ids, masks = self._cached_tokens(prev, x)
+            else:
+                ids, masks = self._greedy_tokens(
+                    lambda i, m: step(prev, i, x["feats"], m,
+                                      x["ttypes"])[1],
+                    x["ids"], x["masks"], lo, hi)
             ids, masks = mask_tokens_after_eos(ids, masks)
             prev, _ = step(prev, ids, x["feats"], masks, x["ttypes"])
             return prev, ids[:, lo:]
@@ -214,9 +269,11 @@ class Translator:
                      "ttypes": token_type_ids_list[idx]}
                 if idx:
                     x["prev"] = prev
-                prev, ids = self._run((kind, idx == 0), sentence, x)
+                prev, ids = self._run((kind, idx == 0, cached), sentence,
+                                      x)
                 out.append(ids.clone())  # the next run overwrites it
                 self.forwards += hi - lo + 1
+                self.cached_tokens += (hi - lo) * cached
             return self._read(out)
 
     def translate_batch_greedy(self, input_ids_list: torch.Tensor,
@@ -228,14 +285,18 @@ class Translator:
         on the model's device. Returns [(N, max_t_len)] * S decoded text
         ids, read from the device once at the end."""
         model = self.model
+        cached = runs_cached(model)
 
         def step(ms, ids, feats, masks, ttypes):
+            if cached:
+                return model.next_memories(ms, ids, feats, masks,
+                                           ttypes), None
             ms, _, scores = model.forward_step(ms, ids, feats, masks, ttypes)
             return ms, scores
         return self._greedy_recurrent(
             "greedy", step, [None] * self.cfg.num_hidden_layers,
             input_ids_list, video_features_list, input_masks_list,
-            token_type_ids_list)
+            token_type_ids_list, cached=cached)
 
     def translate_batch_greedy_xl(self, input_ids_list: torch.Tensor,
                                   video_features_list: torch.Tensor,

@@ -434,15 +434,19 @@ def test_tp_caption_step_matches_jax(tp):
 def test_tp_caption_decodes_match_one_process(tp):
     """Greedy and beam decoding of the stacked batch on the sharded MART
     (after its step) at {data: 2, model: 2}: every rank's tokens equal one
-    process's with the same (gathered) weights."""
+    process's with the same (gathered) weights. The sharded model's greedy
+    decode runs the full forward a token, one process's the key / value
+    caches."""
     ranks = tp["results"]["d2m2"]
     cfg = MartConfig(copy.deepcopy(tp["ccfg"]))
     model = create_mart_model(cfg, VOCAB, CPU)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in
                            ranks[0]["caption"]["params"].items()})
     ref = worker.decodes(model, cfg, dict(zip(CAPTION_KEYS, tp["cinputs"])))
+    assert ref["cached_tokens"] == 3 * cfg.max_t_len
     for rank in ranks:
         got = rank["caption"]["decodes"]
+        assert got["cached_tokens"] == 0
         for mode in ("greedy", "beam"):
             assert len(got[mode]) == len(ref[mode]) == 3
             for a, b in zip(got[mode], ref[mode]):

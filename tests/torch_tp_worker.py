@@ -89,12 +89,15 @@ def retrieval_runs(spec: Dict[str, Any], mesh) -> Dict[str, Any]:
 
 def decodes(model, cfg, inputs: Dict[str, np.ndarray]) -> Dict[str, Any]:
     """Greedy and beam tokens of `model` (eval mode) on the stacked
-    inputs: [(N, max_t_len)] * S each."""
+    inputs: [(N, max_t_len)] * S each, and the greedy decode's token steps
+    on key / value caches."""
     args = [torch.from_numpy(np.asarray(inputs[k])) for k in
             ("input_ids", "video_feature", "input_mask", "token_type_ids")]
     translator = Translator(model, cfg)
-    return {"greedy": translator.translate_batch_greedy(*args),
-            "beam": translator.translate_batch_beam(*args)}
+    out = {"greedy": translator.translate_batch_greedy(*args),
+           "cached_tokens": translator.cached_tokens}
+    out["beam"] = translator.translate_batch_beam(*args)
+    return out
 
 
 def caption_run(spec: Dict[str, Any], mesh) -> Dict[str, Any]:
