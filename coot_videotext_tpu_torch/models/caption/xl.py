@@ -31,6 +31,11 @@ utils/torch_convert.py::_convert_xl_key reads (`encoder.r_w_bias`,
 `encoder.layers.N.dec_attn.{qkv_net,r_net,o_net,layer_norm}`,
 `encoder.layers.N.pos_ff.{CoreNet.0,CoreNet.3,layer_norm}`, the joint
 model's `embeddings.*` and `decoder.*`).
+
+Each relative attention is bracketed by the phase marks `relattn` and
+`relattn_end` (ops/phase.py `Bracket`): in the forward at its entry and
+exit, and in the backward again, so that a device trace of a captured
+train step reads the attention's time in both.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from coot_videotext_tpu_torch.models.caption.bert import (
     make_shifted_mask)
 from coot_videotext_tpu_torch.models.caption.mart import compute_loss
 from coot_videotext_tpu_torch.models.layers import Dropout
+from coot_videotext_tpu_torch.ops import phase
 from coot_videotext_tpu_torch.typext import INF
 
 XL_LN_EPS = 1e-5
@@ -111,6 +117,7 @@ class RelPartialLearnableMultiHeadAttn(nn.Module):
                 mems: Optional[torch.Tensor] = None) -> torch.Tensor:
         """w (N, L, D); r (K, D); the biases (H, Dh); attn_mask (N, L, K)
         with 1 = masked; mems (N, M, D) or None."""
+        w = phase.Bracket.apply(w, "relattn", "relattn_end")
         n, qlen, _ = w.shape
         cat = w if mems is None else torch.cat([mems, w], dim=1)
         q, k, v = self.qkv_net(cat).chunk(3, dim=-1)
@@ -128,7 +135,8 @@ class RelPartialLearnableMultiHeadAttn(nn.Module):
         prob = torch.softmax(score, dim=-1)
         vec = torch.einsum("bhqk,bkhd->bqhd", prob, v).reshape(
             n, qlen, self.n_head * self.d_head)
-        return self.layer_norm(w + self.drop(self.o_net(vec)))
+        out = self.layer_norm(w + self.drop(self.o_net(vec)))
+        return phase.Bracket.apply(out, "relattn_end", "relattn")
 
 
 class RelPartialLearnableDecoderLayer(nn.Module):
