@@ -1178,7 +1178,8 @@ def phase_slice(tmp: Path):
 
 
 KERNELS = ("input_fc", "input_fc_bwd", "genpool", "genpool_bwd",
-           "attention", "attention_bwd", "dropout", "dropout_bwd", "gather")
+           "attention", "attention_bwd", "dropout", "dropout_bwd", "gather",
+           "coot_norm", "coot_norm_bwd")
 
 
 def _yc2_dataset(root: Path, num_videos: int, num_val_videos: int,
@@ -2784,8 +2785,8 @@ def _port_kernel_counts(events) -> dict:
     """The port's kernels among a trace's device events (graph replays'
     nodes included), counted by the name of each `__global__` function
     and summed by the source that defines it: {"input_fc", "genpool",
-    "attention", "gather", "dropout"} (csrc/<name>.cu; the shared TN
-    kernels of csrc/*.cuh are not counted)."""
+    "attention", "gather", "dropout", "coot_norm"} (csrc/<name>.cu; the
+    shared TN kernels of csrc/*.cuh are not counted)."""
     owner = {}
     for src in sorted((PACKAGE / "csrc").glob("*.cu")):
         for name in re.findall(
@@ -2801,7 +2802,7 @@ def _port_kernel_counts(events) -> dict:
     return counts
 
 
-EVAL_KERNELS = ("input_fc", "genpool", "attention", "gather")
+EVAL_KERNELS = ("input_fc", "genpool", "attention", "gather", "coot_norm")
 
 
 # kernel families of a train step by name, first match wins
@@ -3212,6 +3213,122 @@ def _bwd_ms(out, inputs, g) -> float:
                                                retain_graph=True))
 
 
+def norm_timing(shapes, gen, max_errors) -> list:
+    """B6 (the residual add and CootLayerNorm) in bf16 at the four post-LN
+    norm calls of a train step's local nets (width 384) and the global
+    nets' input norm (768, no residual): checked against the plain version
+    forward and backward, the backward repeated bit for bit, then timed
+    with the plain path (the unfused composition through autograd, as the
+    port ran it before B6) and the profiler's device time by kernel.
+    Returns the kernels-line entries of the clips call."""
+    import torch
+    from coot_videotext_tpu_torch.ops.coot_norm import (
+        coot_norm, coot_norm_backward_plain, coot_norm_plain)
+    bf = torch.bfloat16
+    calls = (("clips", shapes.get("pack_clips", shapes["b"]
+                                  * shapes["n_parts"]) * shapes["lc"], 384),
+             ("video ctx", shapes["b"] * shapes["lv"], 384),
+             ("paragraph", shapes["b"] * shapes["lp"], 384),
+             ("sentences", shapes.get("pack_sents", shapes["b"]
+                                      * shapes["n_parts"]) * shapes["ls"],
+              384),
+             ("global input", shapes["b"] * shapes["n_parts"], 768))
+    out = []
+    for what, rows, width in calls:
+        residual = what != "global input"
+        y = (2 * torch.randn(rows, width, generator=gen, device="cuda")
+             + 0.5).to(bf)
+        r = (torch.randn(rows, width, generator=gen, device="cuda").to(bf)
+             if residual else None)
+        y[:3] = 3.0  # constant rows, as zeroed padded slots
+        if residual:
+            r[:3] = -1.0
+        gain = 1 + 0.1 * torch.randn(width, generator=gen, device="cuda")
+        bias = 0.1 * torch.randn(width, generator=gen, device="cuda")
+        dout = torch.randn(rows, width, generator=gen, device="cuda").to(bf)
+        shape = f"{rows}x{width} bf16" + (" + residual" if residual else "")
+        leaves = [t.clone().requires_grad_() for t in (y, r, gain, bias)
+                  if t is not None]
+
+        def fused(*a, res=residual):
+            return coot_norm(a[0], a[1] if res else None, *a[-2:], 1e-6)
+
+        def plain(*a, res=residual):
+            return coot_norm_plain(a[0], a[1] if res else None, *a[-2:],
+                                   1e-6)
+
+        with torch.inference_mode():
+            args = [t for t in (y, r, gain, bias) if t is not None]
+            err = errors(fused(*args), plain(*args))
+            check_tol("coot_norm", "bfloat16", f"{what} {shape}", *err)
+            eval_ms = time_ms(lambda: fused(*args), 20)
+            eval_split = kernel_ms(lambda: fused(*args))
+            plain_eval = time_ms(lambda: plain(*args), 5)
+        o = fused(*leaves)
+
+        def backward():
+            return torch.autograd.grad(o, leaves, dout, retain_graph=True)
+
+        grads = backward()
+        dx, dgain, dbias = coot_norm_backward_plain(
+            y if r is None else y + r, gain, 1e-6, dout)
+        ref = [dx, dx, dgain, dbias] if residual else [dx, dgain, dbias]
+        # dx of the constant rows (1 / eps times the rest) apart
+        errs = [errors(grads[0][:3], dx[:3]), errors(grads[0][3:], dx[3:])]
+        errs += [errors(a, b) for a, b in zip(grads[1:], ref[1:])]
+        err_b = (max(e[0] for e in errs), max(e[1] for e in errs))
+        check_tol("coot_norm_bwd", "bfloat16", f"{what} {shape}", *err_b)
+        if not all(torch.equal(a, b) for a, b in zip(grads, backward())):
+            fail(f"coot_norm_bwd {what} {shape}: two backward calls on the "
+                 "same inputs differ")
+        del grads, ref, dx
+        train_ms = time_ms(lambda: fused(*leaves), 20)
+        bwd_ms = _bwd_ms(o, leaves, dout)
+        bwd_split = kernel_ms(backward)
+        o_plain = plain(*leaves)
+        plain_train = time_ms(lambda: plain(*leaves), 5)
+        plain_bwd = _bwd_ms(o_plain, leaves, dout)
+        plain_bwd_split = kernel_ms(lambda: torch.autograd.grad(
+            o_plain, leaves, dout, retain_graph=True), 5)
+        n = rows * width
+        # each element read once and written once, the row stats, gain
+        # and bias; the backward's partial column sums left out (small)
+        fwd_bytes = (2 * (2 if residual else 1) * n + 2 * n
+                     + (2 * n if residual else 0) + 8 * rows + 8 * width)
+        eval_bytes = 2 * (2 if residual else 1) * n + 2 * n + 8 * width
+        bwd_bytes = 3 * 2 * n + 8 * rows + 4 * width + 8 * width
+        bf_ms, by = bound_ms(fwd_bytes, 10.0 * n, "bfloat16")
+        be_ms, _ = bound_ms(eval_bytes, 10.0 * n, "bfloat16")
+        bb_ms, _ = bound_ms(bwd_bytes, 12.0 * n, "bfloat16")
+        log(f"  coot_norm     {what:12s} {shape:30s} train {train_ms:.4f} ms"
+            f" (bound {bf_ms:.4f}), eval {eval_ms:.4f} ms (bound "
+            f"{be_ms:.4f}; device by kernel: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in eval_split.items())
+            + f"), {by}-bound; plain {plain_train:.3f} ms train, "
+            f"{plain_eval:.3f} ms eval")
+        log(f"  coot_norm_bwd {what:12s} {shape:30s} autograd.grad "
+            f"{bwd_ms:.4f} ms (bound {bb_ms:.4f}; device by kernel: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in bwd_split.items())
+            + f"); plain (autograd of the unfused norm) {plain_bwd:.3f} ms, "
+            f"device {sum(plain_bwd_split.values()):.3f} ms over "
+            f"{len(plain_bwd_split)} kernel names")
+        for name, e in (("coot_norm", err), ("coot_norm_bwd", err_b)):
+            max_errors[name] = max(max_errors.get(name, 0.0), e[0])
+        if what == "clips":
+            for name, ms, plain_ms, nbytes, bms in (
+                    ("coot_norm", train_ms, plain_train, fwd_bytes, bf_ms),
+                    ("coot_norm_bwd", bwd_ms, plain_bwd, bwd_bytes, bb_ms)):
+                out.append(dict(
+                    name=name, shape=shape,
+                    source="coot_videotext_tpu_torch/csrc/coot_norm.cu",
+                    replaces="none: XLA fused CootLayerNorm on the TPU",
+                    ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                    bound_by="bytes", product_ms=None))
+        del y, r, gain, bias, dout, leaves, o, o_plain
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_timing(launches, shapes, max_errors):
     """Kernel, plain version and library yardstick at the main path's
     largest call of each kernel (the video clips through the local net),
@@ -3584,6 +3701,7 @@ def phase_timing(launches, shapes, max_errors):
                           ms, plain, lib, nbytes, 0.0)
         del table, idx
         torch.cuda.empty_cache()
+    entries += norm_timing(shapes, gen, max_errors)
     for e in entries:
         e["route"] = "cuda"
         e["launches"] = int(launches.get(e["name"], 0))

@@ -10,7 +10,8 @@ transformer_legacy.py:347-605):
       always goes through kernel B3 (ops/attention.py), which takes the
       (B, Lk) key mask the COOT stacks use
     - post-LN residual sublayers: LN(residual + sublayer(x)) with the COOT
-      layer-norm variant, an extra dropout between the attention and the
+      layer-norm variant, the add and the norm one kernel on the card (B6,
+      ops/coot_norm.py), an extra dropout between the attention and the
       FFN sublayer (JAX :253-254), dropout inside the FFN (:218, :224)
     - in training mode B3 also drops the attention probabilities (JAX
       :187-192), with its own seed per call
@@ -31,7 +32,7 @@ from torch import nn
 
 from coot_videotext_tpu_torch.models.configs import TransformerEncoderConfig
 from coot_videotext_tpu_torch.models.layers import (
-    Dropout, Linear, make_activation, make_normalization)
+    CootLayerNorm, Dropout, Linear, make_activation, make_normalization)
 from coot_videotext_tpu_torch.ops.attention import masked_attention
 from coot_videotext_tpu_torch.ops.philox import next_seed
 from coot_videotext_tpu_torch.parallel.mesh import Mesh
@@ -150,10 +151,13 @@ class _Sublayer(nn.Module):
         self.sublayer = sublayer
         self.layer_normalization = norm
 
-    def norm(self, x: torch.Tensor) -> torch.Tensor:
-        if self.layer_normalization is None:
-            return x
-        return self.layer_normalization(x)
+    def norm(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        """LN(x + residual); a COOT norm takes the add into its kernel."""
+        norm = self.layer_normalization
+        if isinstance(norm, CootLayerNorm):
+            return norm(x, residual)
+        x = x + residual
+        return x if norm is None else norm(x)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -177,10 +181,10 @@ class TransformerEncoderLayer(nn.Module):
                 value: torch.Tensor,
                 key_valid: Optional[torch.Tensor]) -> torch.Tensor:
         attn = self.self_attention_layer
-        x = attn.norm(attn.sublayer(query, key, value, key_valid) + query)
+        x = attn.norm(attn.sublayer(query, key, value, key_valid), query)
         x = self.dropout(x)
         ffn = self.pointwise_feedforward_layer
-        return ffn.norm(ffn.sublayer(x) + x)
+        return ffn.norm(ffn.sublayer(x), x)
 
 
 class TransformerEncoder(nn.Module):

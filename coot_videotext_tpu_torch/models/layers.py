@@ -12,7 +12,8 @@ with `param_dtype=float32, dtype=<compute>`.
 Numerical-parity notes (as in the JAX package):
     - `layernorm_coot` normalizes by the Bessel-corrected std (ddof=1) and
       adds eps to the *std*, not the variance; computed in float32 with
-      shifted single-pass sums and a zero-variance guard.
+      shifted sums and a zero-variance guard (ops/coot_norm.py, with its
+      kernel B6).
     - gelu is the exact erf form, not the tanh approximation.
     - sincos positional encoding uses the reference's divisor variant
       `10000 ** (2 * dim_idx / dim)`, not the textbook table.
@@ -36,6 +37,7 @@ from torch import nn
 from coot_videotext_tpu_torch.models.configs import (
     ActivationConfig, ActivationConst, InitTypesConst, MLPConfig,
     NormalizationConfig, NormalizationConst, ResidualsEnum)
+from coot_videotext_tpu_torch.ops.coot_norm import coot_norm
 from coot_videotext_tpu_torch.ops.dropout import dropout
 from coot_videotext_tpu_torch.ops.philox import next_seed
 
@@ -143,39 +145,12 @@ def make_activation(cfg: ActivationConfig) -> nn.Module:
 
 # ---------- Normalizations ----------
 
-def coot_norm_stats(x32: torch.Tensor, eps: float
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean, std_bessel + eps) over the last axis, in float32 (JAX
-    CootLayerNorm :133-176). The sums are taken on x shifted by each row's
-    first element, which removes the s2 - mean*s1 cancellation for rows
-    whose mean^2 >> var at no extra pass; std is 0 (not NaN, and with a
-    zero gradient) for constant rows, which do occur (zeroed padded
-    slots)."""
-    dim = x32.shape[-1]
-    # the shift cancels in mean and variance: no gradient through it
-    c = x32[..., :1].detach()
-    xc = x32 - c
-    s1 = xc.sum(dim=-1, keepdim=True)
-    s2 = (xc * xc).sum(dim=-1, keepdim=True)
-    mean_c = s1 / dim
-    var = torch.clamp(s2 - mean_c * s1, min=0.0) / max(dim - 1, 1)
-    var_pos = var > 0.0
-    std = torch.where(var_pos, torch.sqrt(torch.where(var_pos, var, 1.0)),
-                      0.0)
-    return c + mean_c, std + eps
-
-
-def coot_layer_norm(x32: torch.Tensor, gain: torch.Tensor,
-                    bias: torch.Tensor, eps: float) -> torch.Tensor:
-    """gain * (x - mean) / (std_bessel + eps) + bias over the last axis, in
-    float32."""
-    mean, denom = coot_norm_stats(x32, eps)
-    return gain * (x32 - mean) / denom + bias
-
-
 class CootLayerNorm(nn.Module):
     """COOT layer normalization (reference normalizations.py:84-101);
-    float32 internals, output in the input's dtype."""
+    float32 internals, output in the input's dtype. A post-LN sublayer
+    passes its residual, which is added to x first (rounded to x's dtype):
+    on the card the add and the norm are one kernel, B6
+    (ops/coot_norm.py)."""
 
     def __init__(self, dim: int, eps: float = 1e-6) -> None:
         super().__init__()
@@ -183,9 +158,12 @@ class CootLayerNorm(nn.Module):
         self.gain = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return coot_layer_norm(x.float(), self.gain, self.bias,
-                               self.eps).to(x.dtype)
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if residual is not None:
+            residual = residual.contiguous()
+        return coot_norm(x.contiguous(), residual, self.gain, self.bias,
+                         self.eps)
 
 
 class TorchLayerNorm(nn.Module):

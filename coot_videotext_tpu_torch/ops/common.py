@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 ACT_CODES = {"none": 0, "gelu": 1, "relu": 2}
@@ -15,6 +17,12 @@ def is_bf16(name: str, x: torch.Tensor) -> bool:
         return False
     raise TypeError(f"{name}: compute dtype must be float32 or bfloat16, "
                     f"got {x.dtype}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_tensor(name: str, what: str, t: torch.Tensor,

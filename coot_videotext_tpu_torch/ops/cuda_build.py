@@ -10,7 +10,7 @@ nothing here includes PyTorch's headers, which keeps the build to seconds.
 
 Every C entry launches on the stream it is given and returns
 `cudaGetLastError()`; `check()` raises when that is not 0. `launch_counts`
-counts wrapper calls that launched a kernel of B1-B5, by kernel name; a
+counts wrapper calls that launched a kernel of B1-B6, by kernel name; a
 backward counts under `<name>_bwd` (the train steps' phase marks,
 ops/phase.py, are not counted).
 """
@@ -29,7 +29,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("input_fc.cu", "genpool.cu", "attention.cu", "dropout.cu",
-           "gather.cu", "phase.cu")
+           "gather.cu", "coot_norm.cu", "phase.cu")
 HEADERS = ("common.cuh", "mma.cuh", "philox.cuh", "tn_mma.cuh",
            "tn_reduce.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -142,6 +142,11 @@ _SIGNATURES = {
     # span, bf16, stream
     "coot_gather_rows": [_P, _P, _P, _LL, _LL, _LL, _P, _U, _U, _F, _F, _F,
                          _I, _P],
+    # y, residual, gain, bias, out, sum, mean, inv, N, D, eps, bf16, stream
+    "coot_norm_fwd": [_P] * 8 + [_I, _I, _F, _I, _P],
+    # dout, s, mean, inv, gain, dx, scratch, dgain and dbias, N, D, blocks,
+    # bf16, stream
+    "coot_norm_bwd": [_P] * 8 + [_I] * 4 + [_P],
     # phase, stream
     "coot_phase_mark": [_I, _P],
 }

@@ -22,16 +22,15 @@ between the two against jax.grad.
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-from coot_videotext_tpu_torch.models.layers import coot_norm_stats
 from coot_videotext_tpu_torch.ops import cuda_build
 from coot_videotext_tpu_torch.ops.common import (
-    ACT_CODES, check_tensor, gelu_grad, is_bf16, kernel_operand)
+    ACT_CODES, check_tensor, gelu_grad, is_bf16, kernel_operand, sm_count)
+from coot_videotext_tpu_torch.ops.coot_norm import coot_norm_stats
 
 KERNEL = "input_fc"
 
@@ -95,11 +94,6 @@ def pad_backward_operands(x, gain, bias, w, pre, dy):
     return (F.pad(x, (0, pin)), F.pad(gain, (0, pin)), F.pad(bias, (0, pin)),
             F.pad(w, (0, pin, 0, pout)), F.pad(pre, (0, pout)),
             F.pad(dy, (0, pout)))
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _norm_rows(x32: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,

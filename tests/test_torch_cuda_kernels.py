@@ -21,6 +21,7 @@ run eagerly.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +33,8 @@ from coot_videotext_tpu_torch.ops.attention import (
     masked_attention, masked_attention_backward_plain,
     masked_attention_plain)
 from coot_videotext_tpu_torch.ops import philox
+from coot_videotext_tpu_torch.ops.coot_norm import (
+    coot_norm, coot_norm_backward_plain, coot_norm_plain)
 from coot_videotext_tpu_torch.ops.dropout import dropout, dropout_plain
 from coot_videotext_tpu_torch.ops.gather import (
     GatherNoise, gather_rows, gather_rows_plain)
@@ -240,6 +243,22 @@ def test_kernel_wrappers_reject_unsupported_inputs(cuda):
     half = torch.zeros(4, 8, 48, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         masked_attention(half, half, half, valid, 4, 1.0)
+    # B6: widths that are no multiple of 8 or above 1024, float16, a
+    # strided input, a residual that does not match
+    for width in (12, 1032):
+        g = torch.ones(width, device=cuda)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            coot_norm(torch.zeros(4, width, device=cuda), None, g, g, 1e-6)
+    g = torch.ones(16, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        coot_norm(torch.zeros(4, 16, device=cuda, dtype=torch.float16),
+                  None, g, g, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        coot_norm(torch.zeros(16, 4, device=cuda).t(), None, g, g, 1e-6)
+    with pytest.raises(ValueError, match="residual"):
+        coot_norm(torch.zeros(4, 16, device=cuda),
+                  torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16), g,
+                  g, 1e-6)
 
 
 def _grads(fn, inputs, g, name):
@@ -322,6 +341,101 @@ def test_input_fc_backward_kernel_ragged_widths(cuda, dtype):
     for a, r in zip(ours, ref):
         assert a.shape == r.shape
         assert _rel(a, r) <= TOL[dtype]
+
+
+def _norm_args(cuda, dtype, rows, width, residual, constant_rows=3,
+               offset=False):
+    """y ~ 2 N + 0.5 (100 + 0.5 N with `offset`: mean^2 >> var), its first
+    rows constant (y + residual = 2), residual ~ N or None, gain, bias and
+    dout."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    y = torch.randn(rows, width, generator=g, device=cuda)
+    y = y * 0.5 + 100 if offset else y * 2 + 0.5
+    r = torch.randn(rows, width, generator=g, device=cuda)
+    y[:constant_rows] = 3.0
+    r[:constant_rows] = -1.0
+    gain = 1 + 0.1 * torch.randn(width, generator=g, device=cuda)
+    bias = 0.1 * torch.randn(width, generator=g, device=cuda)
+    dout = torch.randn(rows, width, generator=g, device=cuda)
+    return (y.to(dtype), r.to(dtype) if residual else None, gain, bias,
+            dout.to(dtype))
+
+
+def _norm_grads(y, r, gain, bias, dout):
+    """(dy, dresidual or None, dgain, dbias) through B6's backward, which
+    must launch once."""
+    if r is None:
+        dy, dgain, dbias = _grads(
+            lambda a, g, b: coot_norm(a, None, g, b, 1e-6), [y, gain, bias],
+            dout, "coot_norm")
+        return dy, None, dgain, dbias
+    return tuple(_grads(lambda a, c, g, b: coot_norm(a, c, g, b, 1e-6),
+                        [y, r, gain, bias], dout, "coot_norm"))
+
+
+# (rows, width): one row; 17 and a ragged 1,001; the four local-net calls
+# of a yc2_2d3d_coot train step at 384 (video context 5,120, paragraph
+# 20,480, sentences 19,968, clips 66,560); the global nets' input norm at
+# 768 (1,024 rows) and a ragged 4,099
+NORM_SHAPES = [(1, 384), (17, 768), (1001, 384), (5120, 384),
+               (20480, 384), (19968, 384), (66560, 384), (1024, 768),
+               (4099, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,width", NORM_SHAPES)
+@pytest.mark.parametrize("residual", [True, False])
+def test_coot_norm_kernel(cuda, dtype, rows, width, residual):
+    """B6 against the plain version: the forward, then dx (the same tensor
+    for y and the residual), dgain and dbias against the backward formula
+    at the kernel's rounded sum; dx of the constant rows (1 / eps = 1e6
+    times larger) and of the others compared apart."""
+    const = min(rows - 1, 3)
+    y, r, gain, bias, dout = _norm_args(cuda, dtype, rows, width, residual,
+                                        const)
+    assert _run(coot_norm, coot_norm_plain, (y, r, gain, bias, 1e-6),
+                "coot_norm") <= TOL[dtype]
+    dy, dr, dgain, dbias = _norm_grads(y, r, gain, bias, dout)
+    s = y if r is None else y + r
+    dx, ref_dgain, ref_dbias = coot_norm_backward_plain(s, gain, 1e-6, dout)
+    assert dy.dtype == dtype and dgain.dtype == torch.float32
+    if residual:
+        assert torch.equal(dy, dr)
+    for part in (slice(0, const), slice(const, None)):
+        if dx[part].numel():
+            assert _rel(dy[part], dx[part]) <= TOL[dtype]
+    assert _rel(dgain, ref_dgain) <= TOL[dtype]
+    assert _rel(dbias, ref_dbias) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coot_norm_kernel_offset_rows(cuda, dtype):
+    """Rows of 100 + 0.5 N (mean^2 >> var): the shifted moments keep the
+    forward and the gradients within the tolerance."""
+    y, r, gain, bias, dout = _norm_args(cuda, dtype, 4099, 384, True,
+                                        offset=True)
+    assert _run(coot_norm, coot_norm_plain, (y, r, gain, bias, 1e-6),
+                "coot_norm") <= TOL[dtype]
+    dy, _, dgain, dbias = _norm_grads(y, r, gain, bias, dout)
+    dx, ref_dgain, ref_dbias = coot_norm_backward_plain(y + r, gain, 1e-6,
+                                                        dout)
+    assert _rel(dy[3:], dx[3:]) <= TOL[dtype]
+    assert _rel(dgain, ref_dgain) <= TOL[dtype]
+    assert _rel(dbias, ref_dbias) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coot_norm_backward_repeats_bit_for_bit(cuda, dtype):
+    """No float atomics: two backward calls at the clips call's shape give
+    bit-equal dx, dgain and dbias."""
+    args = _norm_args(cuda, dtype, 66560, 384, True)
+    first = _norm_grads(*args)
+    second = _norm_grads(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _genpool_case(cuda, dtype, s, length, d=384, h=768, heads=2):
@@ -790,3 +904,85 @@ def test_captured_step_replays_like_eager_steps(cuda, tmp_path):
             ref = getattr(states[0].optimizer, moments)[name]
             assert _rel(getattr(states[1].optimizer, moments)[name],
                         ref) <= 1e-4, (moments, name)
+
+
+def _norm_calls(model, run) -> int:
+    """How many times `run()` calls a CootLayerNorm module of `model`."""
+    from coot_videotext_tpu_torch.models.layers import CootLayerNorm
+    calls = []
+    hooks = [m.register_forward_hook(lambda *_: calls.append(1))
+             for m in model.modules() if isinstance(m, CootLayerNorm)]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return len(calls)
+
+
+def _port_kernels(run) -> dict:
+    """The device kernels of namespace coot:: that a profiled `run()` ran,
+    counted by name (template arguments dropped)."""
+    from torch.profiler import ProfilerActivity, profile
+    from coot_videotext_tpu_torch.utils.profiling import warm_trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        warm_trace()
+        run()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        m = re.search(r"coot::(?:\(anonymous namespace\)::)?(\w+)", e.name)
+        if str(e.device_type).endswith("CUDA") and m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+@pytest.mark.cuda
+def test_captured_eval_step_runs_b6_at_every_norm(cuda, tmp_path,
+                                                  monkeypatch):
+    """A warm replay of the captured retrieval eval step launches B6's
+    forward once per CootLayerNorm call of the eager step (the encoder
+    layers' two post-LN norms and the global nets' input norms) and no
+    backward; the plain norm runs nowhere on the card: its moments raise
+    if called, in the eager step, the capture and the replay. An eager
+    train step launches B6's forward and backward once per call through
+    the wrappers."""
+    from coot_videotext_tpu_torch.data.device_store import FeatureSource
+    from coot_videotext_tpu_torch.ops import coot_norm as cn_mod
+    from coot_videotext_tpu_torch.tasks.retrieval.steps import (
+        TrainState, retrieval_eval_step, retrieval_train_step)
+    from coot_videotext_tpu_torch.train.optim import make_optimizer
+
+    def plain_norm(*_):
+        raise AssertionError("the plain CootLayerNorm ran on the card")
+
+    monkeypatch.setattr(cn_mod, "coot_norm_moments", plain_norm)
+    cfg, loader, (mgr, _) = _id_train_setup(cuda, tmp_path)
+    b = next(iter(loader))
+    batch = {"layout": "ids",
+             "dp_idx": torch.from_numpy(b["dp_idx"]).to(cuda),
+             "batch_valid": torch.from_numpy(b["batch_valid"]).to(cuda)}
+    kw = dict(loss_weights=cfg.train.contrastive_loss_config.as_dict(),
+              margin=0.2, loss_cycle_cons=0.001,
+              compute_dtype=torch.float32, source=FeatureSource.of(loader))
+    model = mgr.model
+    cuda_build.reset_launch_counts()
+    calls = _norm_calls(model, lambda: retrieval_eval_step(
+        model, batch, eager=True, **kw))
+    assert calls > 0 and cuda_build.launch_counts["coot_norm"] == calls
+    retrieval_eval_step(model, batch, **kw)  # the capture
+    replayed = _port_kernels(lambda: retrieval_eval_step(model, batch, **kw))
+    assert replayed.get("residual_norm_fwd") == calls, replayed
+    assert "residual_norm_bwd" not in replayed, replayed
+
+    state = TrainState(model, make_optimizer(
+        cfg.optimizer, dict(model.named_parameters())),
+        philox.seed_state(0, cuda))
+    cuda_build.reset_launch_counts()
+    train_calls = _norm_calls(model, lambda: retrieval_train_step(
+        state, batch, lr=1e-3, **kw))
+    assert train_calls == calls
+    assert cuda_build.launch_counts["coot_norm"] == calls
+    assert cuda_build.launch_counts["coot_norm_bwd"] == calls

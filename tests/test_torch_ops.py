@@ -27,6 +27,7 @@ from jax.experimental.pallas import tpu as pltpu
 from coot_videotext_tpu.ops import pallas_attention as jattn
 from coot_videotext_tpu.ops import pallas_genpool as jgen
 from coot_videotext_tpu.ops import pallas_input_fc as jfc
+from coot_videotext_tpu_torch.ops import coot_norm as cn_mod
 from coot_videotext_tpu_torch.ops import cuda_build
 from coot_videotext_tpu_torch.ops import dropout as dropout_mod
 from coot_videotext_tpu_torch.ops import philox
@@ -944,3 +945,183 @@ def test_kernel_launch_arguments():
                      ("coot_dropout", 3), ("coot_gather_rows", 6)):
         sig = cuda_build._SIGNATURES[name]
         assert sig[at:at + 2] == [c.c_void_p, c.c_uint], name
+
+
+# ---------------- B6: the residual add and CootLayerNorm ----------------
+
+def _norm_case(rows, width, kind, seed=0):
+    """(y, residual, gain, bias, dout) in float64: y ~ 2 N + 0.5, rows 0
+    and 1 constant for "constant", every row 100 + 0.5 N (mean^2 >> var)
+    for "offset"; residual ~ N."""
+    rng = np.random.RandomState(seed)
+    y = rng.randn(rows, width) * 2 + 0.5
+    if kind == "offset":
+        y = rng.randn(rows, width) * 0.5 + 100.0
+    r = rng.randn(rows, width)
+    if kind == "constant":
+        y[:2] = 3.0
+        r[:2] = -1.0
+    gain = 1 + 0.1 * rng.randn(width)
+    bias = 0.1 * rng.randn(width)
+    dout = rng.randn(rows, width)
+    return [torch.from_numpy(a) for a in (y, r, gain, bias, dout)]
+
+
+NORM_CASES = [(rows, width, kind, residual)
+              for rows, width, kind in ((64, 384, "random"),
+                                        (37, 768, "random"),
+                                        (33, 384, "constant"),
+                                        (29, 768, "offset"),
+                                        (1, 384, "random"))
+              for residual in (True, False)]
+
+
+@pytest.mark.parametrize("rows,width,kind,residual", NORM_CASES)
+def test_coot_norm_backward_formula_matches_autograd(rows, width, kind,
+                                                     residual):
+    """The kernel's backward formula (coot_norm_backward_plain) against
+    autograd of coot_layer_norm in float64: dx (the same for y and the
+    residual), dgain and dbias; a constant row's dx is finite, with no
+    gradient through its std of 0."""
+    y, r, gain, bias, dout = _norm_case(rows, width, kind)
+    leaves = [a.clone().requires_grad_() for a in (y, r, gain, bias)]
+    s = leaves[0] + leaves[1] if residual else leaves[0]
+    cn_mod.coot_layer_norm(s, leaves[2], leaves[3], 1e-6).backward(dout)
+    s = y + r if residual else y
+    dx, dgain, dbias = cn_mod.coot_norm_backward_plain(s, gain, 1e-6, dout)
+    assert dx.dtype == torch.float64 and torch.isfinite(dx).all()
+    for ours, ref in ((dx, leaves[0].grad), (dgain, leaves[2].grad),
+                      (dbias, leaves[3].grad)):
+        err = float((ours - ref).abs().max())
+        assert err <= 1e-9 * max(1.0, float(ref.abs().max()))
+    if residual:
+        assert torch.equal(leaves[0].grad, leaves[1].grad)
+    if kind == "constant":
+        # std 0: dx = (g - mean(g)) / eps, nothing through the std
+        g = dout[:2] * gain
+        ref = (g - g.mean(-1, keepdim=True)) / 1e-6
+        assert torch.allclose(dx[:2], ref, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [True, False])
+def test_coot_norm_op_matches_unfused_norm_on_cpu(dtype, residual):
+    """coot_norm on CPU tensors equals CootLayerNorm(y + x) as the modules
+    composed it before B6: the forward bit for bit, the gradients of y, the
+    residual, gain and bias (the formula against autograd) within 1e-4 x
+    max(1, max |reference|) in float32 and one bf16 step (1e-2) in
+    bfloat16."""
+    y, r, gain, bias, dout = _norm_case(67, 384, "constant", seed=1)
+    y, r, dout = y.to(dtype), r.to(dtype), dout.to(dtype)
+    gain, bias = gain.float(), bias.float()
+
+    def unfused(y, r, gain, bias):
+        x = y + r if residual else y
+        return cn_mod.coot_layer_norm(x.float(), gain, bias,
+                                      1e-6).to(x.dtype)
+
+    def fused(y, r, gain, bias):
+        return cn_mod.coot_norm(y, r if residual else None, gain, bias, 1e-6)
+
+    grads, outs = [], []
+    for fn in (fused, unfused):
+        leaves = [a.clone().requires_grad_() for a in (y, r, gain, bias)]
+        out = fn(*leaves)
+        out.backward(dout)
+        outs.append(out.detach())
+        grads.append([a.grad for a in leaves])
+    assert torch.equal(outs[0], outs[1])
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for i, (ours, ref) in enumerate(zip(*grads)):
+        if i == 1 and not residual:
+            assert ours is None and ref is None
+            continue
+        assert ours.dtype == ref.dtype
+        err = float((ours.float() - ref.float()).abs().max())
+        assert err <= tol * max(1.0, float(ref.float().abs().max())), i
+
+
+def _encoder_layer(width=32, seed=0):
+    from coot_videotext_tpu_torch.models.attention import (
+        TransformerEncoderLayer)
+    from coot_videotext_tpu_torch.models.configs import (
+        TransformerEncoderConfig)
+    cfg = TransformerEncoderConfig(dict(
+        hidden_dim=width, num_layers=1, dropout=0.0, num_heads=4,
+        pointwise_ff_dim=48, activation="gelu", norm="layernorm_coot"))
+    layer = TransformerEncoderLayer(cfg)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.2
+                    + (1.0 if name.endswith("gain") else 0.0))
+    return layer
+
+
+def _unfused_layer_forward(layer, query, key, value, key_valid):
+    """TransformerEncoderLayer.forward as written before B6: the sublayer
+    output plus the residual in the compute dtype, then CootLayerNorm."""
+    def norm(sub, x):
+        n = sub.layer_normalization
+        return cn_mod.coot_layer_norm(x.float(), n.gain, n.bias,
+                                      n.eps).to(x.dtype)
+    attn = layer.self_attention_layer
+    x = norm(attn, attn.sublayer(query, key, value, key_valid) + query)
+    x = layer.dropout(x)
+    ffn = layer.pointwise_feedforward_layer
+    return norm(ffn, ffn.sublayer(x) + x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cross", [False, True])
+def test_encoder_layer_with_fused_norm_matches_unfused(dtype, cross):
+    """The post-LN encoder layer passing the residual into the norm gives
+    the unfused composition's output bit for bit and its gradients (input,
+    key / value and every parameter) within 1e-4 x max(1, max |reference|)
+    in float32 and 2e-2 in bfloat16, on the CPU; self-attention and
+    cross-attention (a one-row query, as the context decoder runs)."""
+    layer = _encoder_layer()
+    g = torch.Generator().manual_seed(5)
+    lq = 1 if cross else 9
+    q = torch.randn(3, lq, 32, generator=g).to(dtype)
+    kv = torch.randn(3, 9, 32, generator=g).to(dtype) if cross else q
+    valid = torch.arange(9)[None] < torch.tensor([[9], [4], [1]])
+    dout = torch.randn(3, lq, 32, generator=g).to(dtype)
+    results = []
+    for fn in (lambda *a: layer(*a), lambda *a: _unfused_layer_forward(
+            layer, *a)):
+        layer.zero_grad()
+        qq = q.clone().requires_grad_()
+        kk = kv.clone().requires_grad_() if cross else qq
+        out = fn(qq, kk, kk, valid)
+        out.backward(dout)
+        results.append((out.detach(), [qq.grad, kk.grad] + [
+            p.grad.clone() for p in layer.parameters()]))
+    (out, grads), (ref_out, ref_grads) = results
+    assert torch.equal(out, ref_out)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for ours, ref in zip(grads, ref_grads):
+        err = float((ours.float() - ref.float()).abs().max())
+        assert err <= tol * max(1.0, float(ref.float().abs().max()))
+
+
+def test_coot_norm_cpu_path_and_launch_plan():
+    """A CPU call launches no kernel and saves nothing without a gradient;
+    the backward's blocks take at least 32 rows each and at most four a
+    SM; the C entries' signatures."""
+    cuda_build.reset_launch_counts()
+    y, r, gain, bias, _ = [a.float() for a in _norm_case(40, 64, "random")]
+    with torch.no_grad():
+        cn_mod.coot_norm(y, r, gain, bias, 1e-6)
+    cn_mod.coot_norm(y, None, gain.requires_grad_(), bias, 1e-6).sum(
+    ).backward()
+    assert sum(cuda_build.launch_counts.values()) == 0
+    assert cn_mod.backward_blocks(1, 132) == 1
+    assert cn_mod.backward_blocks(5120, 132) == 160
+    assert cn_mod.backward_blocks(66560, 132) == 528
+    c = ctypes
+    assert cuda_build._SIGNATURES["coot_norm_fwd"] == (
+        [c.c_void_p] * 8 + [c.c_int, c.c_int, c.c_float, c.c_int,
+                            c.c_void_p])
+    assert cuda_build._SIGNATURES["coot_norm_bwd"] == (
+        [c.c_void_p] * 8 + [c.c_int] * 4 + [c.c_void_p])
