@@ -1,30 +1,27 @@
-#!/usr/bin/env python3
 """
-Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
+Smoke test of the PyTorch/CUDA port on one NVIDIA H100: every kernel and
+program of the port run on the card and held against its plain version,
+the CPU or its eager path, then the kernels timed:
 
     python3 chip_smoke.py
+
+Each kind of evidence has one home: the kernels against their plain
+versions in tests/test_torch_cuda_kernels.py (phase 2 runs it), the
+kernels' times here (phase 5, on portbench/work.py's and
+portbench/trace.py's arithmetic), and the programs' speed in portbench/
+(BENCHMARK.json), which no phase here times.
 
 1. Environment: the card's name and power limit, torch/CUDA versions,
    compute capability (sm_90 required); TF32 is switched off so every
    float32 reference is full float32.
 2. Kernels: builds the CUDA sources of coot_videotext_tpu_torch/csrc with
-   nvcc (sm_90a) and holds each kernel (B1 input FC, B2 GenPool, B3 masked
-   attention, forward and backward, B4 dropout and B5 row gather) against
-   its plain PyTorch version on the card, in bfloat16 and float32, at the
-   slices' shapes and edge cases (ragged S, constant rows, all-masked rows,
-   Lq = 1, B1 at the video global net's 5,120 x 4096, a ragged 4,099 x
-   4096, rows of 100 + 0.5 N, S = 17 and 1, din 48 -> dout 32, B2 at the
-   four calls of a train step (and D 32 / H 64, one head at D 32 and
-   128 / H 64, D 512), B3 at the video context's N = 512, L = 24, 320, a
-   ragged 37 x 130 (also at d_head 16 and 64) and Lq = 1 over 130 keys,
-   dropout on with one seed (a seed state on the card, from which each
-   kernel derives its seed, as philox.derive_seed does on the host): the
-   masks must agree exactly; B2's and B3's
-   forwards and B1's, B2's and B3's backwards repeat bit for bit, B2's
-   errors printed by gradient, its db2 at
-   dropout 0.1 also held relative to its own largest value;
-   B4 bit-equal, also on a misaligned view and a transposed cotangent; B5
-   bit-equal, its noise's bounds and std, a 4.4 GB table).
+   nvcc (sm_90a), logs each kernel's registers, shared memory and spills,
+   then runs `python -m pytest --noconftest -p no:cacheprovider -q
+   tests/test_torch_cuda_kernels.py` in a process of its own beside the
+   phases below (B1-B6 forward and backward against their plain versions
+   at the calls of `kernel_call_work` that phase 5 times and at edge
+   cases, bit-for-bit repeats, masks and seeds); the run fails unless
+   pytest's summary counts passes only (a failure or a skip fails it).
 3. Validation at full width: generates a synthetic YouCook2-like val set
    (4096-d video / 1536-d text features, 128 val videos) in a temporary
    directory and runs `python -m coot_videotext_tpu_torch.train_retrieval
@@ -36,18 +33,16 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    every mode's rows against mode 1's (cosine), device ranks against host
    ranks, and one batch against the port on the CPU in float32; the
    captured eval step on an id batch of mode 4 is traced in a warm
-   replay, where B1, B2, B3 and B5 must each appear by kernel name.
+   replay, where B1, B2, B3, B5 and B6 must each appear by kernel name.
 4. Training at full width (bf16 compute, f32 master weights, dropout 0.01
    at every site, frame noise 0.01): on a generated 256-video train split
    the CLI trains one epoch from the device store with on-device sampling
    and packing, validates and checkpoints, with every launch count set to
    0 just before and read just after; `--validate --load_epoch 0` reads
-   the checkpoint back; the run resumes for 4 more epochs (16 steps),
-   which time training end to end; the store with host-sampled index
-   batches (the config's default, no --fixed_shapes) trains one epoch (the
-   host dense path trains in phase 10a); one fixed id batch
-   trained 16 steps must lower its loss; the warm train step is timed,
-   profiled and its peak memory read.
+   the checkpoint back; the run resumes for 4 more epochs (16 steps); the
+   store with host-sampled index batches (the config's default, no
+   --fixed_shapes) trains one epoch (the host dense path trains in phase
+   10a); one fixed id batch trained 16 steps must lower its loss.
 4b. synthetic_smoke.yaml trains one epoch through the CLI from the device
    store, in float32 as shipped and in bfloat16: its text input FC (48 ->
    32) runs B1's backward on padded widths, its GenPool (D 32, H 64) B2's.
@@ -57,32 +52,22 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    after the first a replay of the captured train step, with every launch
    count set to 0 just before and read just after (the wrappers count at
    the eager first step and at the capture); the run resumed to 3 epochs
-   and the per-step CLI on the same split time epochs 1-2 end to end; one
+   (6 groups) and the per-step CLI on the same split (30 steps); one
    fixed id batch trains 16 steps per step and as 2 groups of 8 replays
    from the same state (no wrapper runs during them): seed states equal,
-   losses and parameters within the bf16 tolerance, the loss falling; for
-   K = 1, 4 and 8, the warm wall ms per step, the profiler's device-busy ms
-   per step (max(K, 2) steps traced), train videos/s and peak device
-   memory, and for K = 4 the device time per step by kernel family.
-5. Times each kernel, forward and backward, at the main path's shapes (CUDA
-   events) beside its plain version, its library yardstick where one
-   exists, and its bound; B1 at all four calls of a step (clips, video
-   global, paragraph, sentences), each first held against its plain
-   version (forward and backward, at that call's row splits) and its
-   backward repeated bit for bit, with the profiler's device time by
-   kernel (row_stats alone among them), the host time per backward call
-   and torch.matmul of its product alone as `product_ms`; B2's forward
-   (with and without the stats: train and eval; the tile pass and the
-   pooling pass apart) and backward at the same four calls, each held
-   against its plain version and repeated bit for bit, the backward
-   through autograd with the profiler's device time of the tile pass and
-   the weight-gradient products apart; B3's forward at the step's six
-   shapes (clips, video context, paragraph, sentences, global, cross),
-   train and eval, in turns with SDPA; B3's backward at the clips, the
-   video context, the paragraph's L = 320 (its D pass) and the sentences;
-   B4 and F.dropout's backward as bare launches, profiler device time,
-   host time per call and through autograd; B5 at each store gather of a
-   step, with and without noise.
+   losses and parameters within the bf16 tolerance, the loss falling.
+5. Times every call of `kernel_call_work` (B1-B6 at the four to six calls
+   of a train step at phase 4's shapes, forward and backward; B4 also in
+   float32 at the caption steps' shapes): the kernel through its wrapper
+   (CUDA events; backwards through autograd), its device-busy ms and
+   device ms by kernel (portbench/trace.py `traced`: the union of the
+   kernels' intervals), its plain version, the library's call where one
+   computes the same (SDPA in turns, F.dropout, index_select; B1's product
+   alone as `product_ms`), and its least time (portbench/work.py
+   `bound_s`). B2's and B3's forwards train and eval, B6's eval and train,
+   B1's backward's host us a call, B5 with and without noise. Alone on the
+   card, after every other phase. `python -c "import chip_smoke;
+   chip_smoke.time_kernels()"` runs it alone.
 6. Caption serving at the full width of yc2_2d3d_coot_vidclip_mart.yaml
    (hidden 768, 2 memory layers, 12 heads, vocabulary 992, f32): COOT
    embeddings from a seed for every video and clip of the real YouCook2
@@ -93,15 +78,11 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    split (batches of 50, greedy), with every kernel's launch count set to
    0 just before and read just after (the caption path launches none):
    model and batches on the card, one translated sentence per sentence of
-   the split, finite BLEU-4 / METEOR / ROUGE-L / CIDEr; val videos/s, the
-   median eval-step and decode ms per batch, forwards per batch and peak
-   memory printed. One batch of 8 videos on the card against the port on
-   the CPU (loss within 1e-4 relative, n_correct within 0.5% of n_word, at
-   least 98% of the greedy sentences token-identical); the first 2
-   sentence steps of a greedy batch of 50 traced (wall and device-busy
-   ms, launches per decoded token, device time by kernel family). The
-   decodes and eval steps run as CUDA graphs (phase 13 holds them against
-   the eager path).
+   the split, finite BLEU-4 / METEOR / ROUGE-L / CIDEr. One batch of 8
+   videos on the card against the port on the CPU (loss within 1e-4
+   relative, n_correct within 0.5% of n_word, at least 98% of the greedy
+   sentences token-identical). The decodes and eval steps run as CUDA
+   graphs (phase 13 holds them against the eager path).
 
 7. Caption training at the full width of yc2_2d3d_coot_vidclip_mart.yaml
    (batch 16, S up to 12 sentence steps, dropout 0.1 at every site, the
@@ -118,11 +99,8 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    on the card against the port on the CPU, same weights and seed state,
    3 steps (loss, grad_norm, n_correct, every gradient, the parameters and
    the EMA after 1 and 3 steps, tolerances at CAPTION_TRAIN_*); one batch
-   of 16 trained 16 steps at a fixed lr (the loss falls; the warm step's
-   median wall ms, one traced step's device-busy ms and launches by
-   family, B4 apart; peak memory); B4 in float32 at the caption shapes
-   (16, 25, 768) and (16, 12, 25, 25), bit-equal to its plain version,
-   timed bare and through autograd beside F.dropout and its bound.
+   of 16 trained 16 eager steps at a fixed lr (the loss falls; a step
+   launches B4 and no other kernel of the port).
 
 8. The caption variants of the shipped configs, at full width, inputs
    from seed 0, each with the launch counts set to 0 just before its CLI
@@ -139,15 +117,11 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    against CPU over 3 steps (phase 7's tolerances); one val batch of 2
    videos: eval step within phase 6's tolerances and greedy tokens
    identical card against CPU; one batch of 16 trained 16 steps: the loss
-   falls, the warm step's wall and device-busy ms, B4 the only port kernel
-   of a traced step, peak memory. (b) The MTransformer at
+   falls, B4 the only port kernel of a step. (b) The MTransformer at
    yc2_100m_coot_vidclip_mtrans.yaml (COOT vid+clip embeddings from seed
    0, 1152-d, single sentences, batches of 16 and 50): the same checks,
    the CLI over the sentences of the first 320 train and 50 val videos,
    a train batch of 16 and a val batch of 50 sentences card against CPU.
-   (c) B4 in float32 bit-equal to its plain version at the new shapes
-   (two of them with element counts that are no multiple of 4), timed
-   bare and through autograd beside F.dropout, and its bound.
 
 9. The rest of the caption family at the full width of
    yc2_2d3d_coot_vidclip_mart.yaml (COOT vid+clip embeddings from seed 0),
@@ -157,11 +131,8 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    the yaml) on MART trained one epoch by the CLI on the first 160 train
    videos: one val batch of 50 videos beam-decoded on the card, its first
    4 on the CPU too, in the fixed and the reference_compat mode (at
-   least 98% of those sentences token-identical), beam against greedy on
-   the card (ms,
-   forwards, host reads), one traced beam decode of its first
-   TRACE_STEPS sentence steps (no port kernel),
-   `--validate --load_epoch 0 -o use_beam=true` over 50 val videos.
+   least 98% of those sentences token-identical), `--validate
+   --load_epoch 0 -o use_beam=true` over 50 val videos (no port kernel).
    (b-e) The TransformerXL (xl=true), the untied model
    (recurrent=false,untied=true), the joint single-sentence model
    (recurrent=false) and the decoder tied to the word embeddings
@@ -171,39 +142,29 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    gives its val loss; from its weights a train batch card against CPU
    over 3 steps (phase 7's tolerances; XL's with xl_grad=true), a val
    batch's eval step and greedy tokens card against CPU (identical), a
-   train batch of 16 trained 16 steps, timed and traced (B4 the only
-   port kernel). (f) B4 bit-equal to its plain version at the new shapes,
-   timed beside F.dropout, and its bound.
+   train batch of 16 trained 16 steps (the loss falls, B4 the only port
+   kernel).
 
 10. The prefetch pipeline and the tail. (a) On a generated 64 + 64-video
    split at yc2_2d3d_coot width with `preload_device: false`: a train and
    a val batch of 16 of the dense and the slab layout through
    data/pipeline.py `prefetch` equal to `to_device`'s on the card
    (torch.equal, host frame noise on); the dense CLI trains 1 step of 64
-   and validates (train and val videos/s, the step meter's "other"
-   share), then 1 step and a val batch under torch.profiler (the pinned
-   copies must run on streams of their own; their time under a kernel is
-   printed; tools/host_path.py); B1-B4 must run, B5 not; the slab CLI
-   trains 1 step and validates (B5 runs). (b) S3D at full width, 2
-   generated videos of 256 frames of 256 x 256 (16 windows of 32 each,
-   one batch of 16) through the extractor's CLI where PIL is installed
-   (else its
-   `extract_video` on the arrays, and it says so), float32 and bfloat16,
-   no port kernel launched; bf16 against f32 features (cosine >= 0.99);
-   one window card against CPU (f32 within 1e-4 of max |CPU|, bf16
-   cosine >= 0.99); a batch timed (windows/s), traced (device-busy share,
-   device time by family; the trace must hold a device record for every
-   kernel launched, traced again up to 3 times), its GFLOP a window from
-   the conv shapes and the share of the dense peak, peak memory; bf16
-   NCDHW against channels-last-3d weights. (c) The MLP example trained 2 epochs,
-   resumed to 3 and epoch 2 reloaded on the card (the reloaded val loss
-   equals training's). (d) profile_device_and_ram (a 2 GiB block shows)
-   and a trace() file holding each of its 61 launches as a kernel on the
-   card (traced again, up to 3 times, where it lost some; the first
-   kernel's start after its launch is logged). Every trace first launches
-   and waits for empty kernels (utils/profiling.py `warm_trace`), which
-   are left out of its counts and times; a trace with fewer device
-   records than kernel launches says so.
+   and validates, then 1 step and a val batch under torch.profiler (the
+   pinned copies must run on streams of their own; tools/host_path.py);
+   B1-B4 must run, B5 not; the slab CLI trains 1 step and validates (B5
+   runs). (b) S3D at full width, 2 generated videos of 256 frames of 256
+   x 256 (16 windows of 32 each, one batch of 16) through the extractor's
+   CLI where PIL is installed (else its `extract_video` on the arrays,
+   and it says so), float32 and bfloat16, no port kernel launched; bf16
+   against f32 features (cosine >= 0.99); one window card against CPU
+   (f32 within 1e-4 of max |CPU|, bf16 cosine >= 0.99). (c) The MLP
+   example trained 2 epochs, resumed to 3 and epoch 2 reloaded on the
+   card (the reloaded val loss equals training's). (d)
+   profile_device_and_ram (a 2 GiB block shows) and a trace() file
+   holding each of its 61 launches as a kernel on the card (traced again,
+   up to 3 times, where it lost some; the first kernel's start after its
+   launch is logged).
 
 11. Data parallelism (parallel/mesh.py) at yc2_2d3d_coot width, global
    batch 64, on a generated 128 + 64-video split, the store with device
@@ -244,26 +205,20 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    (phase 6's inputs): the eval step (equal to eager within 1e-5), then
    greedy and beam (fixed) decoded eagerly and through the graphs, every
    sentence token-identical, beam reference_compat on the first batch;
-   ms, forwards, host reads and program runs a batch, the graphs' extra
-   peak memory, the first 2 sentence steps of batch 0 traced each way
-   (device busy, the host's kernel launches a forward); (b) the
-   TransformerXL, the untied and joint models (phase 9's widths) and the
-   MTransformer (yc2_100m_coot_vidclip_mtrans) from seed 0: the eval step
-   and the greedy decode of one val batch, identical; (c) retrieval on
-   yc2_2d3d_coot.yaml id batches (128 generated val videos): validation
-   through the graph (capturing, then warm) and eagerly, embeddings,
-   losses and metrics equal (bf16 within 1e-2 allowed; bit for bit
-   expected), device ranks equal host ranks, the warm eval step timed and
-   traced each way: the wrappers' launches (a replay runs none) and the
-   port's kernels on the device by name, B1, B2, B3 and B5 each present
-   in the traced replay and as many as in the eager step; (d, e)
-   anet_coot.yaml (2048-d video) and yc2_100m_coot.yaml (512-d video),
-   one batch of 64 generated val videos each: the same,
-   the card in f32 against the CPU (1e-4), and B1-B3 against their plain
-   versions at the batch's shapes. The phase logs its time against
-   SERVING_LIMIT_S. Phase 2b runs B3's bf16 backward against its plain
-   version over B3_SEEDS draws at each of phase 2's shapes, each held to
-   phase 2's gate.
+   (b) the TransformerXL, the untied and joint models (phase 9's widths)
+   and the MTransformer (yc2_100m_coot_vidclip_mtrans) from seed 0: the
+   eval step and the greedy decode of one val batch, identical; (c)
+   retrieval on yc2_2d3d_coot.yaml id batches (128 generated val videos):
+   validation through the graph (capturing, then warm) and eagerly,
+   embeddings, losses and metrics equal (bf16 within 1e-2 allowed; bit
+   for bit expected), device ranks equal host ranks, the wrappers'
+   launches in a warm step each way (a replay runs none) and the port's
+   kernels on the device by name in a traced warm step, B1, B2, B3, B5
+   and B6 each present in the traced replay and as many as in the eager
+   step; (d, e) anet_coot.yaml (2048-d video) and yc2_100m_coot.yaml
+   (512-d video), one batch of 64 generated val videos each: the same, and
+   the card in f32 against the CPU (1e-4). The phase logs its time
+   against SERVING_LIMIT_S.
 
 14. The caption train step as a captured program (tasks/caption/steps.py
    `train_programs`) for every caption model the CLI trains, from seed 0
@@ -275,30 +230,28 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA H100:
    steps through the programs and 8 eager steps from an equal state on the
    same batches at changing lrs, every step's metrics and the whole state
    after them bit for bit equal, each key's first call exactly one step;
-   each path's warm step (wall ms, the trainer's one read included), one
-   traced warm step each way (device busy, the host's kernel and graph
-   launches, the port's kernels by name: B4 alone, as many in the replay
-   as eagerly) and each path's peak memory (the programs' extra). The
-   phase logs its time against TRAIN_PROGRAMS_LIMIT_S. Phases 7-9 time
-   the eager step (`eager=True`); their CLI runs train through the
-   programs.
+   one traced warm step each way: the port's kernels by name, B4 alone,
+   as many in the replay as eagerly. The phase logs its time against
+   TRAIN_PROGRAMS_LIMIT_S. Phases 7-9 train the eager step
+   (`eager=True`); their CLI runs train through the programs.
 
-The order of a run: phase 1 and the build of phase 2; then phases 6-8
-and phase 9 (the caption family, which shares nothing with the rest) in
-two processes of their own (`--side-phases`, each with SIDE_THREADS
-intra-op threads on the host), beside the rest of phase 2, 2b, 3, 4, 4b
-and 10-12 in the main one, whose host and device times they share; their
-logs are printed after phase 12; then, with the card the main process's
-alone, 4c, 5, 13 and 14, which time it. Phase 4c also logs what the
-in-process CLI runs left allocated on the card (as left, after a garbage
-collection, after utils/graphs.py `release_all`). The synthetic retrieval splits
-(DATA_SPLITS) are written by DATA_WORKERS worker processes from the
-start, each moved into its phase's directory when the phase needs it.
-Every worker and side process is stopped at exit.
+The order of a run: phase 1 and the build of phase 2; then phase 2's
+tests, phases 6-8 and phase 9 (the caption family, which shares nothing
+with the rest) in three processes of their own (the caption phases
+`--side-phases`, each with SIDE_THREADS intra-op threads on the host),
+beside phases 3-4c and 10-14 in the main one, whose host and device times
+they share; their logs are printed after phase 14; then, with the card
+the main process's alone, phase 5, which times it. Phase 4c also logs
+what the in-process CLI runs left allocated on the card (as left, after a
+garbage collection, after utils/graphs.py `release_all`). The synthetic
+retrieval splits (DATA_SPLITS) are written by DATA_WORKERS worker
+processes from the start, each moved into its phase's directory when the
+phase needs it. Every worker and side process is stopped at exit.
 
-Prints `{"kernels": [...]}` on the line before the last (each entry's
+Prints `{"kernels": [...]}` on the line before the last (phase 5's clips
+call of each kernel: its times, bound and launches per train step, and
 `eval_graph_launches`: the port's kernels of its source on the device in
-the traced replay of (c)'s captured eval step, by name;
+the traced replay of 13 (c)'s captured eval step, by name;
 `caption_train_graph_launches`: B4's kernel in a traced warm replay of
 MART's captured train step in phase 14, by name: B4's forward and
 backward are one kernel function, so the count holds both directions and
@@ -334,11 +287,8 @@ PACKAGE = ROOT / "coot_videotext_tpu_torch"
 CONFIG = ROOT / "config" / "retrieval" / "paper2020" / "yc2_2d3d_coot.yaml"
 SMOKE = ROOT / "config" / "retrieval" / "default" / "synthetic_smoke.yaml"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-
-# Tolerances, max |kernel - plain| / max(1, max |plain|):
+# Tolerances, max |card - reference| / max(1, max |reference|) (phase 4c's
+# replays against per-step calls, 10b's S3D and 13's card against the CPU):
 # float32: the two sum in different orders (1e-4 covers K = 4096 sums);
 # bfloat16: the outputs are rounded to 8 significant bits, so two float32
 # results that differ in the last digits can land one bf16 step apart
@@ -358,28 +308,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound_ms(nbytes: float, flops: float, dtype_name: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
 def errors(out, ref):
     """(max abs error, the same relative to max(1, max |ref|))."""
     out, ref = out.detach().float(), ref.detach().float()
@@ -394,82 +322,6 @@ def device_seed(value: int = 20261016, call: int = 0):
     call's position (ops/philox.py); the kernels derive the seed there."""
     from coot_videotext_tpu_torch.ops import philox
     return philox.Seed(philox.seed_state(value, "cuda"), call)
-
-
-def check_tol(name, dn, desc, err, rel) -> None:
-    """Logs one check's error and fails when it is above TOL."""
-    tol = TOL[dn]
-    log(f"  {name:13s} {dn:8s} {desc:34s} max abs err {err:.3e}, "
-        f"relative {rel:.3e} (tol {tol:.0e})")
-    if not rel <= tol:
-        fail(f"{name} {dn} {desc}: error {rel} > {tol}")
-
-
-# ---------------- kernel inputs ----------------
-
-def input_fc_inputs(s, din, dout, dtype, gen, constant_rows=0,
-                    offset=False):
-    """x ~ 2 N + 0.5, or with `offset` 100 + 0.5 N (mean^2 >> var: the
-    norm's shifted sums); its first `constant_rows` rows constant."""
-    import torch
-    dev = "cuda"
-    x = torch.randn(s, din, generator=gen, device=dev)
-    x = x * 0.5 + 100.0 if offset else x * 2.0 + 0.5
-    x[:constant_rows] = 3.0  # zero-variance rows
-    gain = 1.0 + 0.1 * torch.randn(din, generator=gen, device=dev)
-    bias = 0.1 * torch.randn(din, generator=gen, device=dev)
-    w = torch.randn(dout, din, generator=gen, device=dev) / math.sqrt(din)
-    b = 0.1 * torch.randn(dout, generator=gen, device=dev)
-    return x.to(dtype), gain, bias, w.to(dtype), b
-
-
-def genpool_inputs(s, length, d, h, heads, dtype, gen, masked_rows=0):
-    import torch
-    dev = "cuda"
-    dh, dho = h // heads, d // heads
-    f = torch.randn(s, length, d, generator=gen, device=dev)
-    lens = torch.randint(1, length + 1, (s,), generator=gen, device=dev)
-    mask = torch.arange(length, device=dev)[None] < lens[:, None]
-    mask[:masked_rows] = False  # fully padded slots
-    w1 = torch.randn(heads, d, dh, generator=gen, device=dev) / math.sqrt(d)
-    b1 = 0.1 * torch.randn(heads, dh, generator=gen, device=dev)
-    w2 = torch.randn(heads, dh, dho, generator=gen, device=dev) / math.sqrt(dh)
-    b2 = 0.1 * torch.randn(heads, dho, generator=gen, device=dev)
-    return f.to(dtype), mask, w1.to(dtype), b1, w2.to(dtype), b2
-
-
-def attention_inputs(b, heads, lq, lk, dh, dtype, gen, masked_rows=0):
-    import torch
-    dev = "cuda"
-    n = b * heads
-    q = torch.randn(n, lq, dh, generator=gen, device=dev)
-    k = torch.randn(n, lk, dh, generator=gen, device=dev)
-    v = torch.randn(n, lk, dh, generator=gen, device=dev)
-    lens = torch.randint(1, lk + 1, (b,), generator=gen, device=dev)
-    key_valid = torch.arange(lk, device=dev)[None] < lens[:, None]
-    key_valid[:masked_rows] = False  # every key masked
-    return q.to(dtype), k.to(dtype), v.to(dtype), key_valid
-
-
-# B3 at phase 2's shapes: (description, dropout rate, attention_inputs'
-# (b, heads, lq, lk, dh[, masked rows]))
-B3_SHAPES = (
-    ("local N=8192 L=80", 0.0, (1024, 8, 80, 80, 48, 16)),
-    ("local N=8192 L=80 dropout 0.1", 0.1, (1024, 8, 80, 80, 48, 16)),
-    ("global Lq=Lk=16", 0.0, (64, 8, 16, 16, 48, 4)),
-    ("cross Lq=1 Lk=16", 0.0, (64, 8, 1, 16, 48, 4)),
-    ("paragraph Lq=Lk=300", 0.0, (64, 8, 300, 300, 48, 2)),
-    ("sentences N=8192 L=24 dropout 0.1", 0.1, (1024, 8, 24, 24, 48, 16)),
-    ("paragraph N=512 L=320 dropout 0.01", 0.01, (64, 8, 320, 320, 48, 2)),
-    ("ragged Lq=37 Lk=130 dropout 0.1", 0.1, (64, 8, 37, 130, 48, 2)),
-    ("video ctx N=512 L=80 dropout 0.01", 0.01, (64, 8, 80, 80, 48, 2)),
-    ("Dh=16 Lq=37 Lk=130 dropout 0.1", 0.1, (64, 8, 37, 130, 16, 2)),
-    ("Dh=64 Lq=37 Lk=130 dropout 0.1", 0.1, (64, 8, 37, 130, 64, 2)),
-    ("cross Lq=1 Lk=130 dropout 0.1", 0.1, (64, 8, 1, 130, 48, 2)),
-)
-# B3's bf16 backward over many draws (phase_b3_seeds): draws per shape,
-# each held to phase 2's gate
-B3_SEEDS = 32
 
 
 # ---------------- phases ----------------
@@ -543,427 +395,6 @@ def phase_build():
                 f"{smem[1] if smem else 0} bytes static smem; {spill}")
 
 
-def _grads(fn, inputs, dout):
-    """Gradients of fn's output against dout through the autograd
-    Function (the backward kernel on CUDA tensors)."""
-    import torch
-    inputs = [a.detach().clone().requires_grad_() for a in inputs]
-    out = fn(*inputs)
-    torch.autograd.backward(out, dout.to(out.dtype))
-    return [a.grad for a in inputs]
-
-
-def backward_case(name, args, rate, gen, g=None):
-    """(kernel gradients, plain gradients) of one backward case; the
-    differentiable inputs are f32 parameters (and f / q, k, v in the
-    compute dtype), as on the main path. For input_fc and attention the
-    kernel's list ends with the cotangent, which `g` passes in again."""
-    import torch
-    from coot_videotext_tpu_torch.ops.attention import (
-        masked_attention, masked_attention_backward_plain)
-    from coot_videotext_tpu_torch.ops.genpool import (
-        genpool, genpool_backward_plain)
-    from coot_videotext_tpu_torch.ops.input_fc import (
-        fused_input_fc, fused_input_fc_backward_plain)
-    seed = device_seed()
-    if name == "input_fc":
-        x, *params = args
-        params = [p.float() for p in params]
-        dy = g if g is not None else torch.randn(
-            x.shape[0], params[2].shape[0], generator=gen, device="cuda")
-        ours = _grads(lambda *p: fused_input_fc(x, *p, 1e-6, "gelu"),
-                      params, dy)
-        ours.append(dy)
-        ref = fused_input_fc_backward_plain(x, *params, 1e-6, "gelu",
-                                            dy.to(x.dtype))
-    elif name == "genpool":
-        f, mask, *params = args
-        params = [p.float() for p in params]
-        dout = g if g is not None else torch.randn(
-            f.shape[0], f.shape[2], generator=gen, device="cuda")
-        ours = _grads(lambda f_, *p: genpool(f_, mask, *p, "gelu", rate,
-                                             seed), [f] + params, dout)
-        ours.append(dout)
-        ref = genpool_backward_plain(f, mask, *params, "gelu",
-                                     dout.to(f.dtype), rate, seed)
-    else:
-        q, k, v, kv = args
-        if g is None:
-            g = torch.randn(q.shape, generator=gen, device="cuda")
-        ours = _grads(lambda *a: masked_attention(*a, kv, 8, 48 ** -0.5,
-                                                  rate, seed), [q, k, v], g)
-        ours.append(g)
-        ref = masked_attention_backward_plain(q, k, v, kv, g.to(q.dtype), 8,
-                                              48 ** -0.5, rate, seed)
-    return ours, list(ref)
-
-
-def phase_kernel_checks():
-    """Each kernel, forward and backward, against its plain version on the
-    card; B4 and the dropout of B2/B3 with one seed, where the masks must
-    agree exactly."""
-    import torch
-    from coot_videotext_tpu_torch.ops import philox
-    from coot_videotext_tpu_torch.ops.attention import (
-        masked_attention, masked_attention_plain)
-    from coot_videotext_tpu_torch.ops.dropout import dropout, dropout_plain
-    from coot_videotext_tpu_torch.ops.genpool import genpool, genpool_plain
-    from coot_videotext_tpu_torch.ops.input_fc import (
-        fused_input_fc, fused_input_fc_plain)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = {}
-    cases = []
-    for dtype in (torch.bfloat16, torch.float32):
-        dn = str(dtype).split(".")[-1]
-        cases += [
-            ("input_fc", dn, "video clips S=81920 4096->384", 0.0,
-             lambda dt=dtype: input_fc_inputs(81920, 4096, 384, dt, gen, 5)),
-            ("input_fc", dn, "text, ragged S=1001 1536->384", 0.0,
-             lambda dt=dtype: input_fc_inputs(1001, 1536, 384, dt, gen, 3)),
-            ("input_fc", dn, "video global S=5120 4096->384", 0.0,
-             lambda dt=dtype: input_fc_inputs(5120, 4096, 384, dt, gen, 5)),
-            ("input_fc", dn, "ragged S=4099 4096->384", 0.0,
-             lambda dt=dtype: input_fc_inputs(4099, 4096, 384, dt, gen, 7)),
-            ("input_fc", dn, "offset 100 S=4099 4096->384", 0.0,
-             lambda dt=dtype: input_fc_inputs(4099, 4096, 384, dt, gen, 7,
-                                              offset=True)),
-            ("input_fc", dn, "S=17 1536->384", 0.0,
-             lambda dt=dtype: input_fc_inputs(17, 1536, 384, dt, gen, 2)),
-            ("input_fc", dn, "S=1 4096->384", 0.0,
-             lambda dt=dtype: input_fc_inputs(1, 4096, 384, dt, gen)),
-            # synthetic_smoke's text input FC: the backward pads 48 -> 64
-            ("input_fc", dn, "ragged widths S=1001 48->32", 0.0,
-             lambda dt=dtype: input_fc_inputs(1001, 48, 32, dt, gen, 3)),
-            ("genpool", dn, "clips S=1024 L=80", 0.0,
-             lambda dt=dtype: genpool_inputs(1024, 80, 384, 768, 2, dt, gen,
-                                             16)),
-            ("genpool", dn, "clips S=1024 L=80 dropout 0.1", 0.1,
-             lambda dt=dtype: genpool_inputs(1024, 80, 384, 768, 2, dt, gen,
-                                             16)),
-            ("genpool", dn, "paragraph S=37 L=300", 0.0,
-             lambda dt=dtype: genpool_inputs(37, 300, 384, 768, 2, dt, gen,
-                                             2)),
-            ("genpool", dn, "L=1", 0.0,
-             lambda dt=dtype: genpool_inputs(64, 1, 384, 768, 2, dt, gen)),
-            # the four calls of a train step, dropout 0.01 as trained
-            ("genpool", dn, "clips S=832 L=80 dropout 0.01", 0.01,
-             lambda dt=dtype: genpool_inputs(832, 80, 384, 768, 2, dt, gen,
-                                             16)),
-            ("genpool", dn, "video ctx S=64 L=80 dropout 0.01", 0.01,
-             lambda dt=dtype: genpool_inputs(64, 80, 384, 768, 2, dt, gen,
-                                             2)),
-            ("genpool", dn, "paragraph S=64 L=320 dropout 0.01", 0.01,
-             lambda dt=dtype: genpool_inputs(64, 320, 384, 768, 2, dt, gen,
-                                             2)),
-            ("genpool", dn, "sentences S=832 L=24 dropout 0.01", 0.01,
-             lambda dt=dtype: genpool_inputs(832, 24, 384, 768, 2, dt, gen,
-                                             16)),
-            ("genpool", dn, "D=32 H=64 S=64 L=20 dropout 0.1", 0.1,
-             lambda dt=dtype: genpool_inputs(64, 20, 32, 64, 2, dt, gen, 2)),
-            # one head of one 64-unit block (the pooler's default head
-            # count): pass B's first step follows pass A's last closely
-            ("genpool", dn, "1 head D=32 H=64 S=64 L=20 dropout 0.1", 0.1,
-             lambda dt=dtype: genpool_inputs(64, 20, 32, 64, 1, dt, gen, 2)),
-            ("genpool", dn, "1 head D=128 H=64 S=64 L=20 dropout 0.1", 0.1,
-             lambda dt=dtype: genpool_inputs(64, 20, 128, 64, 1, dt, gen,
-                                             2)),
-            # two column groups
-            ("genpool", dn, "D=512 H=512 S=64 L=37 dropout 0.1", 0.1,
-             lambda dt=dtype: genpool_inputs(64, 37, 512, 512, 2, dt, gen,
-                                             2)),
-        ] + [("attention", dn, desc, rate,
-               lambda dt=dtype, a=args: attention_inputs(*a[:5], dt, gen,
-                                                         *a[5:]))
-              for desc, rate, args in B3_SHAPES]
-    for dtype in (torch.bfloat16, torch.float32):
-        # B1 column-parallel under a model axis (parallel/tp.py): dout
-        # 384 / M, a data rank's 33,280 clip frames at {data: 2}; drawn
-        # after the cases above, which keep their inputs
-        dn = str(dtype).split(".")[-1]
-        cases += [
-            ("input_fc", dn, "TP M=2 clips S=33280 4096->192", 0.0,
-             lambda dt=dtype: input_fc_inputs(33280, 4096, 192, dt, gen, 5)),
-            ("input_fc", dn, "TP M=4 clips S=33280 4096->96", 0.0,
-             lambda dt=dtype: input_fc_inputs(33280, 4096, 96, dt, gen, 5)),
-            ("input_fc", dn, "TP M=2 text, ragged S=1001 1536->192", 0.0,
-             lambda dt=dtype: input_fc_inputs(1001, 1536, 192, dt, gen, 3)),
-            ("input_fc", dn, "TP M=4 text, ragged S=1001 1536->96", 0.0,
-             lambda dt=dtype: input_fc_inputs(1001, 1536, 96, dt, gen, 3)),
-        ]
-    seed = device_seed()
-    funcs = {
-        "input_fc": (lambda a, r: fused_input_fc(*a, 1e-6, "gelu"),
-                     lambda a, r: fused_input_fc_plain(*a, 1e-6, "gelu")),
-        "genpool": (lambda a, r: genpool(*a, "gelu", r, seed),
-                    lambda a, r: genpool_plain(*a, "gelu", r, seed)),
-        "attention": (lambda a, r: masked_attention(*a, 8, 48 ** -0.5, r,
-                                                    seed),
-                      lambda a, r: masked_attention_plain(
-                          *a, 8, 48 ** -0.5, r, seed)),
-    }
-
-    def record(name, dn, desc, err, rel):
-        check_tol(name, dn, desc, err, rel)
-        if dn == "bfloat16":
-            worst[name] = max(worst.get(name, 0.0), err)
-
-    for name, dn, desc, rate, make in cases:
-        args = make()
-        kern, plain = funcs[name]
-        with torch.inference_mode():
-            out = kern(args, rate)
-            torch.cuda.synchronize()
-            record(name, dn, desc, *errors(out, plain(args, rate)))
-            if name != "input_fc" and not torch.equal(out, kern(args, rate)):
-                fail(f"{name} {dn} {desc}: two forward calls on the same "
-                     "inputs differ")
-        ours, ref = backward_case(name, args, rate, gen)
-        torch.cuda.synchronize()
-        errs = [errors(a, r) for a, r in zip(ours, ref)]
-        record(name + "_bwd", dn, desc, max(e[0] for e in errs),
-               max(e[1] for e in errs))
-        if name == "genpool":
-            log("    relative error by gradient: " + ", ".join(
-                f"{g_} {e[1]:.2e}" for g_, e in zip(
-                    ("df", "dw1", "db1", "dw2", "db2"), errs)))
-            # db2 is ~0 at small rates (and at L = 1), so the check above
-            # holds it absolutely; at 0.1 the keep2 mask makes it clearly
-            # nonzero, and it is also held relative to its own largest value
-            db2_rel = errs[4][0] / max(float(ref[4].float().abs().max()),
-                                       1e-30)
-            log(f"    db2 relative to max |db2| {db2_rel:.2e}")
-            if rate >= 0.1 and args[0].shape[1] > 1:
-                check_tol("genpool_db2", dn, desc, errs[4][0], db2_rel)
-        if name == "attention" and desc.startswith("local"):
-            # all-masked batch rows: no score gradient, so dq = dk = 0
-            if float(ours[0][:16 * 8].abs().max()) != 0.0:
-                fail("attention_bwd: dq is not 0 on all-masked rows")
-        if name in ("attention", "input_fc", "genpool"):
-            # no float atomics: a second backward repeats bit for bit
-            n_out = len(ref)
-            again, _ = backward_case(name, args, rate, gen, ours[n_out])
-            if not all(torch.equal(a, b) for a, b in zip(ours[:n_out],
-                                                         again)):
-                fail(f"{name}_bwd {dn} {desc}: two backward calls on the "
-                     "same inputs differ")
-        del args, out, ours, ref
-    for dtype in (torch.bfloat16, torch.float32):
-        dn = str(dtype).split(".")[-1]
-        for shape in ((81920, 384), (1001, 383)):
-            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            with torch.inference_mode():
-                y = dropout(x, seed, 0.01)
-            gx, = _grads(lambda a: dropout(a, seed, 0.01), [x], g)
-            torch.cuda.synchronize()
-            y_ref, g_ref = dropout_plain(x, seed, 0.01), \
-                dropout_plain(g, seed, 0.01)
-            kept = float((y_ref != 0).float().mean())
-            desc = f"{shape[0]}x{shape[1]} rate 0.01 (kept {kept:.4f})"
-            if not (torch.equal(y, y_ref) and torch.equal(gx, g_ref)):
-                fail(f"dropout {dn} {desc}: kernel and plain differ")
-            # the seed the kernel derived on the card is the host's
-            by_value = philox.derive_seed(20261016, seed.call)
-            if not torch.equal(y, dropout_plain(x, by_value, 0.01)):
-                fail(f"dropout {dn} {desc}: the kernel's seed is not "
-                     "philox.derive_seed's")
-            record("dropout", dn, desc, *errors(y, y_ref))
-            record("dropout_bwd", dn, desc, *errors(gx, g_ref))
-        # 2 bytes off 16-byte alignment (a scalar head and tail around the
-        # vectors), and a transposed (non-contiguous) cotangent
-        flat = torch.randn(1001 * 383 + 1, generator=gen,
-                           device="cuda").to(dtype)
-        x = flat[1:].view(1001, 383)
-        g_t = torch.randn(383, 1001, generator=gen, device="cuda").to(
-            dtype).t()
-        for what, g in (("misaligned", x), ("transposed", g_t)):
-            with torch.inference_mode():
-                y = dropout(x, seed, 0.01)
-            gx, = _grads(lambda a: dropout(a, seed, 0.01), [x], g)
-            torch.cuda.synchronize()
-            if not (torch.equal(y, dropout_plain(x, seed, 0.01)) and
-                    torch.equal(gx, dropout_plain(g, seed, 0.01))):
-                fail(f"dropout {dn} misaligned x, {what} cotangent: kernel "
-                     "and plain differ")
-            log(f"  dropout       {dn:8s} {'x misaligned, g ' + what:34s} "
-                "bit-equal")
-    torch.cuda.empty_cache()
-    return worst
-
-
-def _bf16_ulp(x):
-    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
-    import torch
-    x = torch.as_tensor(x, dtype=torch.float32).abs().clamp_min(2.0 ** -126)
-    return torch.exp2(torch.floor(torch.log2(x)) - 7)
-
-
-def phase_b3_seeds() -> dict:
-    """B3's bf16 backward against its plain version over B3_SEEDS draws at
-    each of phase 2's shapes (B3_SHAPES): each draw its own inputs,
-    cotangent and dropout seed. Per shape: the gate's relative error (max
-    abs error over max(1, max |plain|)) of the worst gradient, its
-    quantiles over the draws; for the worst draw the gradient, the
-    element, |plain| there, and the error in bf16 ulps of |plain| at that
-    element and of the gradient's largest |plain|. Both versions round
-    their f32 sums to bf16, so rounding shows as one or two ulps. Every
-    draw is held to phase 2's gate (TOL): a draw over it, or a non-finite
-    gradient, fails the run. Returns the summary by shape."""
-    import torch
-    from coot_videotext_tpu_torch.ops import philox
-    from coot_videotext_tpu_torch.ops.attention import (
-        masked_attention, masked_attention_backward_plain)
-    t0 = time.time()
-    bf = torch.bfloat16
-    tol = TOL["bfloat16"]
-    summary = {}
-    ulp_hist = {}
-    for desc, rate, shape in B3_SHAPES:
-        rels, worst = [], None
-        for draw in range(B3_SEEDS):
-            gen = torch.Generator(device="cuda").manual_seed(7919 + draw)
-            q, k, v, kv = attention_inputs(*shape[:5], bf, gen, *shape[5:])
-            g = torch.randn(q.shape, generator=gen, device="cuda")
-            seed = philox.Seed(philox.seed_state(20261016 + draw, "cuda"),
-                               0)
-            ours = _grads(lambda *a: masked_attention(
-                *a, kv, 8, 48 ** -0.5, rate, seed), [q, k, v], g)
-            ref = masked_attention_backward_plain(
-                q, k, v, kv, g.to(bf), 8, 48 ** -0.5, rate, seed)
-            draw_worst = None
-            for name, a, r in zip(("dq", "dk", "dv"), ours, ref):
-                a, r = a.float(), r.float()
-                if not bool(a.isfinite().all()):
-                    fail(f"B3 bf16 backward {desc} draw {draw}: {name} is "
-                         "not finite")
-                diff = (a - r).abs()
-                top = float(r.abs().max())
-                idx = int(diff.argmax())
-                err = float(diff.view(-1)[idx])
-                at = float(r.view(-1)[idx])
-                rec = dict(draw=draw, grad=name, rel=err / max(1.0, top),
-                           abs=err, plain_at=at, max_plain=top,
-                           ulps_at=err / float(_bf16_ulp(at)),
-                           ulps_max=err / float(_bf16_ulp(top)),
-                           index=tuple(int(i) for i in torch.unravel_index(
-                               torch.tensor(idx), r.shape)))
-                if draw_worst is None or rec["rel"] > draw_worst["rel"]:
-                    draw_worst = rec
-            rels.append(draw_worst["rel"])
-            # whole ulps, 17 for more than 16 (an element near 0)
-            key = min(math.ceil(draw_worst["ulps_at"] - 1e-6), 17)
-            ulp_hist[key] = ulp_hist.get(key, 0) + 1
-            if worst is None or draw_worst["rel"] > worst["rel"]:
-                worst = draw_worst
-        rels.sort()
-        over = sum(r > tol for r in rels)
-        summary[desc] = dict(worst, median=rels[len(rels) // 2],
-                             p90=rels[int(0.9 * (len(rels) - 1))],
-                             over_tol=over)
-        log(f"  B3 bf16 bwd {desc:36s} rel max {rels[-1]:.3e} p90 "
-            f"{summary[desc]['p90']:.3e} median {summary[desc]['median']:.3e}"
-            f"; {over} of {B3_SEEDS} draws over {tol:.0e}; worst: draw "
-            f"{worst['draw']} {worst['grad']}{list(worst['index'])} abs "
-            f"{worst['abs']:.4g} at |plain| {abs(worst['plain_at']):.4g} "
-            f"(max {worst['max_plain']:.4g}): {worst['ulps_at']:.2f} ulps "
-            f"there, {worst['ulps_max']:.2f} of the max")
-    log(f"  each draw's worst error in bf16 ulps at its element, rounded "
-        f"up, 17 for more than 16 (count of draws): "
-        f"{dict(sorted(ulp_hist.items()))}; "
-        f"{len(B3_SHAPES) * B3_SEEDS} draws in {time.time() - t0:.1f} s")
-    torch.cuda.empty_cache()
-    failed = {d: v for d, v in summary.items() if v["over_tol"]}
-    if failed:
-        fail(f"B3 bf16 backward: draws over the gate {tol}: {failed}")
-    return summary
-
-
-# standard normal truncated at +-2: the std of B5's noise draws
-TRUNCNORM_STD = math.sqrt(
-    1.0 - 4.0 * math.exp(-2.0) / math.sqrt(2.0 * math.pi)
-    / math.erf(math.sqrt(2.0)))
-
-
-def phase_gather_checks():
-    """B5 against its plain version: bit-equal with and without the fused
-    noise (both take the same Philox bits, CUDA's erfinvf and one rounding
-    to the table's dtype; a tolerance would let a kernel that drops or
-    mis-keys noise of std 0.01 pass); the noise's bounds and std over 1e6
-    draws; a 4.4 GB table (540,000 x 4096 bf16, a real YouCook2 video
-    store) gathered near its end, past 2^31 elements."""
-    import torch
-    from coot_videotext_tpu_torch.ops import cuda_build, philox
-    from coot_videotext_tpu_torch.ops.gather import (
-        GatherNoise, gather_rows, gather_rows_plain)
-    gen = torch.Generator(device="cuda").manual_seed(3)
-
-    def launch(table, idx, noise=None):
-        before = cuda_build.launch_counts["gather"]
-        out = gather_rows(table, idx, noise)
-        torch.cuda.synchronize()
-        if cuda_build.launch_counts["gather"] != before + 1:
-            fail("gather: the wrapper did not count its launch")
-        return out
-
-    for dtype in (torch.bfloat16, torch.float32):
-        dn = str(dtype).split(".")[-1]
-        for d in (4096, 1536):
-            table = torch.randn(20000, d, generator=gen,
-                                device="cuda").to(dtype)
-            for n in (81920, 1001):
-                idx = torch.randint(0, 20000, (n,), generator=gen,
-                                    device="cuda", dtype=torch.int32)
-                idx[:7] = 19999  # the last row, repeated
-                idx[7:11] = idx[11]
-                desc = f"T=20000 D={d} N={n}"
-                out = launch(table, idx)
-                if not torch.equal(out, gather_rows_plain(table, idx)):
-                    fail(f"gather {dn} {desc}: kernel and plain differ")
-                log(f"  gather        {dn:8s} {desc:34s} bit-equal")
-                noise = GatherNoise(0.01, device_seed(call=3),
-                                    philox.SITE_NOISE_CLIP)
-                out = launch(table, idx, noise)
-                ref = gather_rows_plain(table, idx, noise)
-                if not torch.equal(out, ref):
-                    fail(f"gather {dn} {desc} noise: kernel and plain "
-                         f"differ by up to {errors(out, ref)[0]}")
-                if torch.equal(out, gather_rows_plain(table, idx)):
-                    fail(f"gather {dn} {desc} noise: no noise was added")
-                log(f"  gather        {dn:8s} {desc + ' noise 0.01':34s} "
-                    "bit-equal")
-            del table
-    # the noise alone: 1e6 draws of std 1 on a zero table
-    zeros = torch.zeros(1, 1000, device="cuda")
-    rows = torch.zeros(1000, dtype=torch.int32, device="cuda")
-    noise = GatherNoise(1.0, device_seed(7), philox.SITE_NOISE_VIDEO)
-    draws = launch(zeros, rows, noise)
-    if not torch.equal(draws, gather_rows_plain(zeros, rows, noise)):
-        fail("gather noise: the draws differ from the plain version's")
-    top, std = float(draws.abs().max()), float(draws.std())
-    log(f"  gather noise: 1e6 draws, max |tn| {top:.6f}, std {std:.5f} "
-        f"(truncated normal {TRUNCNORM_STD:.5f}), mean "
-        f"{float(draws.mean()):+.5f}")
-    if top > 2.0 or abs(std / TRUNCNORM_STD - 1.0) > 0.02:
-        fail(f"gather noise: max {top}, std {std}")
-    # 64-bit offsets: the last rows of a 4.4 GB store
-    rows = 540000
-    big = torch.empty(rows, 4096, dtype=torch.bfloat16, device="cuda")
-    for r0 in range(0, rows, 60000):
-        big[r0:r0 + 60000] = torch.randn(min(60000, rows - r0), 4096,
-                                         generator=gen, device="cuda")
-    idx = (rows - 1 - torch.arange(1001, device="cuda") * 37).to(
-        torch.int32)
-    idx[:3] = rows - 1
-    if not torch.equal(launch(big, idx), gather_rows_plain(big, idx)):
-        fail("gather: the 4.4 GB table's last rows differ")
-    gb = big.numel() * 2 / 1e9
-    log(f"  gather        bfloat16 540000x4096 table ({gb:.2f} GB), 1001 "
-        "rows near its end: bit-equal")
-    del big
-    torch.cuda.empty_cache()
-    return 0.0  # the largest error: every comparison above is bit-equal
-
-
 def _config(tmp: Path, **dataset) -> Path:
     """yc2_2d3d_coot.yaml with npy feature files (the card's machine has
     no h5py) and `dataset` set on dataset_train, which dataset_val
@@ -1013,6 +444,7 @@ def phase_slice(tmp: Path):
     on-device sampling and packing), all without frame noise."""
     import numpy as np
     import torch
+    from portbench.trace import traced
     from coot_videotext_tpu_torch import train_retrieval
     from coot_videotext_tpu_torch.ops import cuda_build
     from coot_videotext_tpu_torch.tasks.retrieval.steps import EMB_KEYS
@@ -1027,23 +459,13 @@ def phase_slice(tmp: Path):
                 "--data_path", str(tmp / "data"), "--log_dir",
                 str(mode_dir / "experiments"), "--embeddings_format",
                 "npz"] + flags
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
         cuda_build.reset_launch_counts()
-        t0 = time.time()
         results = train_retrieval.main(argv)[0]
-        torch.cuda.synchronize()
-        wall = time.time() - t0
         launches = dict(cuda_build.launch_counts)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         n_vid, batches = results["num_videos"], results["num_batches"]
         log(f"validation mode {i + 1} ({name}): launches {launches}; "
-            f"{n_vid} videos in {batches} batches, "
-            f"{n_vid / results['total_s']:.2f} videos/s end to end (pass "
-            f"{results['total_s']:.2f} s, main() {wall:.2f} s), "
-            f"{results['forward_s'] / batches * 1e3:.2f} ms per batch in "
-            f"the eval step ({results['eval_step']}), peak device memory "
-            f"{peak_gb:.2f} GB")
+            f"{n_vid} videos in {batches} batches, the eval step "
+            f"{results['eval_step']}")
         # id batches (fixed shapes) run the captured step, the rest eagerly
         expect = "CUDA graph" if "--fixed_shapes" in flags else "eager"
         if results["eval_step"] != expect:
@@ -1134,7 +556,6 @@ def phase_slice(tmp: Path):
         f"{worst_cos:.5f} (need >= {MIN_COSINE})")
     if not worst_cos >= MIN_COSINE:
         fail(f"card vs CPU cosine {worst_cos} < {MIN_COSINE}")
-    dev_batch = to_device(host_batch, torch.device("cuda"))
     # the same videos as an id batch: sampled, packed and gathered on the
     # device
     _, _, _, id_loader = create_retrieval_datasets_and_loaders(
@@ -1143,43 +564,49 @@ def phase_slice(tmp: Path):
     id_batch = to_device(next(iter(id_loader)), torch.device("cuda"))
     source = FeatureSource.of(id_loader)
 
-    # as validation runs them: host dense batches eagerly, id batches
-    # through the captured step (phase 13 times both ways); the traced
-    # replay of the captured step holds B1, B2, B3 and B5 by name
-    for what, batch, src in (("host dense", dev_batch, None),
-                             ("id batch, store", id_batch, source)):
-        def eval_step():
-            retrieval_eval_step(gpu.model, batch, source=src,
-                                compute_dtype=gpu.val_dtype,
-                                eager=src is None, **kw)
-            torch.cuda.synchronize()
+    # as validation runs them: an id batch through the captured step, whose
+    # traced warm replay holds B1, B2, B3, B5 and B6 by name
+    def eval_step():
+        retrieval_eval_step(gpu.model, id_batch, source=source,
+                            compute_dtype=gpu.val_dtype, **kw)
 
-        eval_step()
-        walls = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            eval_step()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        walls.sort()
-        log(f"eval step on a warm card ({what}, batch 0, 5 runs): median "
-            f"{walls[2]:.2f} ms, min {walls[0]:.2f}, max {walls[-1]:.2f}")
-        events = profile_step(eval_step, f"eval ({what})")
-        if src is not None:
-            counts = _port_kernel_counts(events)
-            log(f"  the port's kernels on the device in the traced replay: "
-                f"{counts}")
-            missing = [k for k in EVAL_KERNELS if counts.get(k, 0) <= 0]
-            if missing:
-                fail(f"the traced replay of the captured eval step on an id "
-                     f"batch holds no {missing} kernels: {counts}")
-    del gpu, e_gpu, dev_batch, id_batch, source, id_loader
+    eval_step()
+    counts = _port_kernel_counts(traced(eval_step))
+    log(f"the port's kernels on the device in a traced replay of the "
+        f"captured eval step (id batch, store): {counts}")
+    missing = [k for k in EVAL_KERNELS if counts.get(k, 0) <= 0]
+    if missing:
+        fail(f"the traced replay of the captured eval step on an id batch "
+             f"holds no {missing} kernels: {counts}")
+    del gpu, e_gpu, id_batch, source, id_loader
     torch.cuda.empty_cache()
     return [launches for launches, _ in runs]
 
 
-KERNELS = ("input_fc", "input_fc_bwd", "genpool", "genpool_bwd",
-           "attention", "attention_bwd", "dropout", "dropout_bwd", "gather",
-           "coot_norm", "coot_norm_bwd")
+# the kernel wrappers' launch counts, the kernels line's rows: (the CUDA
+# source, the TPU kernel it replaces)
+KERNEL_SOURCES = {
+    "input_fc": ("input_fc.cu",
+                 "coot_videotext_tpu/ops/pallas_input_fc.py:207"),
+    "input_fc_bwd": ("input_fc.cu",
+                     "coot_videotext_tpu/ops/pallas_input_fc.py:284"),
+    "genpool": ("genpool.cu", "coot_videotext_tpu/ops/pallas_genpool.py:284"),
+    "genpool_bwd": ("genpool.cu",
+                    "coot_videotext_tpu/ops/pallas_genpool.py:358"),
+    "attention": ("attention.cu",
+                  "coot_videotext_tpu/ops/pallas_attention.py:114"),
+    "attention_bwd": ("attention.cu",
+                      "coot_videotext_tpu/ops/pallas_attention.py:158"),
+    "dropout": ("dropout.cu", "coot_videotext_tpu/ops/pallas_dropout.py:98"),
+    "dropout_bwd": ("dropout.cu",
+                    "coot_videotext_tpu/ops/pallas_dropout.py:121"),
+    "gather": ("gather.cu", "coot_videotext_tpu/ops/pallas_gather.py:64"),
+    "coot_norm": ("coot_norm.cu",
+                  "none: XLA fused CootLayerNorm on the TPU"),
+    "coot_norm_bwd": ("coot_norm.cu",
+                      "none: XLA fused CootLayerNorm on the TPU"),
+}
+KERNELS = tuple(KERNEL_SOURCES)
 
 
 def _yc2_dataset(root: Path, num_videos: int, num_val_videos: int,
@@ -1259,8 +686,8 @@ def _stop_children() -> None:
                 child.wait()
             lines = child.log_path.read_text(
                 encoding="utf8", errors="replace").splitlines()
-            log(f"== stopped the side process {child.args[2:4]}; the end "
-                "of its log:\n" + "\n".join(lines[-40:]))
+            log(f"== stopped the process of {child.log_path.name}; the "
+                "end of its log:\n" + "\n".join(lines[-40:]))
     for root in _DATA_ROOT:
         shutil.rmtree(root, ignore_errors=True)
     _CHILDREN.clear()
@@ -1273,43 +700,28 @@ def _train_cli(config: Path, tmp: Path, extra, epochs: int = 1,
     checkpoints; a run with checkpoints resumes from the newest) with the
     launch counts set to 0 just before and read just after."""
     import numpy as np
-    import torch
     from coot_videotext_tpu_torch import train_retrieval
     from coot_videotext_tpu_torch.ops import cuda_build
-    torch.cuda.synchronize()
     cuda_build.reset_launch_counts()
-    t0 = time.time()
     result = train_retrieval.main(
         ["-c", str(config), "--data_path", str(tmp / "data"), "--log_dir",
          str(config.parent / "experiments"), "-o",
          f"train.num_epochs={epochs},val.val_start=0{overrides}"] + extra)[0]
-    torch.cuda.synchronize()
-    wall = time.time() - t0
     launches = dict(cuda_build.launch_counts)
     if not np.isfinite(result["step_losses"]).all():
         fail(f"training losses {result['step_losses']}")
-    return result, launches, wall
-
-
-def _epoch_train_s(models: Path, epochs) -> list:
-    """Each epoch's training seconds (its time without its validation),
-    from the cumulative times of the trainerstate files."""
-    def train_s(ep):
-        state = json.loads((models / f"trainerstate_{ep}.json").read_text(
-            encoding="utf8"))
-        return state["time_total"] - state["time_val"]
-    return [train_s(ep) - train_s(ep - 1) for ep in epochs]
+    return result, launches
 
 
 def phase_train(tmp: Path):
     """The training path at full width: the CLI trains one epoch from the
     device store with on-device sampling and packing (256 train videos, 4
     steps), validates and checkpoints; the checkpoint is validated back;
-    the run resumes for 4 more epochs (16 steps) to time training end to
-    end past the first epoch; the store with host-sampled index batches
-    (the config's default, without --fixed_shapes) trains one epoch (the
-    host dense path trains in phase 10a); one fixed id batch trains 16
-    steps through B5."""
+    the run resumes for 4 more epochs (16 steps); the store with
+    host-sampled index batches (the config's default, without
+    --fixed_shapes) trains one epoch (the host dense path trains in phase
+    10a); one fixed id batch trains 16 steps through B5. Returns the first
+    run's launch counts and the step's shapes."""
     import numpy as np
     import torch
     from coot_videotext_tpu_torch import train_retrieval
@@ -1330,22 +742,18 @@ def phase_train(tmp: Path):
     made = _take_data("train", tmp / "data")
     log(f"a yc2-like train split (256 videos, 64 val): {made}")
     config = _config(tmp / "store")
-    result, launches, wall = _train_cli(config, tmp, ["--fixed_shapes"])
+    result, launches = _train_cli(config, tmp, ["--fixed_shapes"])
     log(f"training path launches (store, device sampling + packing): "
         f"{launches}")
     for name in KERNELS:
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the training path")
-    losses, state = result["step_losses"], result["state"]
+    losses = result["step_losses"]
     if len(losses) != 4 or result["layout"] != "ids":
         fail(f"expected 4 training steps on id batches, got {losses} on "
              f"{result['layout']} batches")
-    train_s = state["time_total"] - state["time_val"]
     log(f"CLI (store): 1 epoch of {len(losses)} steps (losses "
-        f"{', '.join(f'{v:.5f}' for v in losses)}) and its validation in "
-        f"{wall:.1f} s; epoch time {state['time_total']:.2f} s of which "
-        f"validation {state['time_val']:.2f} s; {256 / train_s:.2f} train "
-        f"videos/s end to end")
+        f"{', '.join(f'{v:.5f}' for v in losses)}) and its validation")
     models = result["path_base"] / "models"
     for name in ("model_0.pth", "optimizer_0.pth", "trainerstate_0.json",
                  "scheduler_0.json"):
@@ -1359,27 +767,20 @@ def phase_train(tmp: Path):
             val["embeddings"]["vid_emb"].shape != (64, 768):
         fail("the trained checkpoint does not validate")
     log(f"--validate --load_epoch 0: val loss {val['loss_total']:.5f}, "
-        f"v2p r1 {val['v2p']['r1']:.4f}, c2s r1 {val['c2s']['r1']:.4f}; "
-        f"{64 / val['total_s']:.2f} val videos/s end to end")
+        f"v2p r1 {val['v2p']['r1']:.4f}, c2s r1 {val['c2s']['r1']:.4f}")
 
     # the same run resumed to 5 epochs: 16 steps past the first epoch
-    result, _, wall = _train_cli(config, tmp, ["--fixed_shapes"], epochs=5,
-                                 overrides=",saving.keep_freq=1")
+    result, _ = _train_cli(config, tmp, ["--fixed_shapes"], epochs=5,
+                           overrides=",saving.keep_freq=1")
     if len(result["step_losses"]) != 20:
         fail(f"the resumed run has {len(result['step_losses'])} steps")
-    per_epoch = _epoch_train_s(result["path_base"] / "models", range(1, 5))
-    log(f"CLI (store, device sampling + packing) resumed for epochs 1-4 "
-        f"(16 steps) in {wall:.1f} s: train seconds per epoch "
-        f"{', '.join(f'{t:.3f}' for t in per_epoch)}; "
-        f"{4 * 256 / sum(per_epoch):.2f} train videos/s end to end over the "
-        f"16 steps (per epoch {min(256 / t for t in per_epoch):.2f} to "
-        f"{max(256 / t for t in per_epoch):.2f})")
+    log("CLI (store, device sampling + packing) resumed for epochs 1-4 "
+        "(16 steps)")
 
     # the config's default on the card: the store with host-sampled index
     # batches and the frame noise fused into the gathers
-    result, idx_launches, wall = _train_cli(_config(tmp / "store_idx"), tmp,
-                                            [])
-    losses, state = result["step_losses"], result["state"]
+    result, idx_launches = _train_cli(_config(tmp / "store_idx"), tmp, [])
+    losses = result["step_losses"]
     if len(losses) != 4 or result["layout"] != "indices":
         fail(f"store, host indices: losses {losses} on {result['layout']} "
              "batches")
@@ -1388,9 +789,7 @@ def phase_train(tmp: Path):
             fail(f"kernel {name} was not launched on the store path with "
                  "host indices")
     log(f"CLI (store, host indices): 1 epoch of {len(losses)} steps (losses "
-        f"{', '.join(f'{v:.5f}' for v in losses)}) in {wall:.1f} s; epoch "
-        f"time {state['time_total']:.2f} s of which validation "
-        f"{state['time_val']:.2f} s; launches {idx_launches}")
+        f"{', '.join(f'{v:.5f}' for v in losses)}); launches {idx_launches}")
 
     # one fixed id batch, 16 steps: frames resampled and noised on the
     # device at every step; RAdam's rectified updates start at step 6
@@ -1410,31 +809,16 @@ def phase_train(tmp: Path):
               loss_weights=cfg.train.contrastive_loss_config.as_dict(),
               margin=cfg.train.contrastive_loss_config.margin,
               loss_cycle_cons=cfg.train.loss_cycle_cons)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fixed, walls = [], []
-    for _ in range(16):
-        t0 = time.perf_counter()
-        fixed.append(float(retrieval_train_step(ts, batch, **kw)
-                           ["loss_total"]))
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fixed = [float(retrieval_train_step(ts, batch, **kw)["loss_total"])
+             for _ in range(16)]
     log("fixed id batch, 16 steps: loss " +
         " ".join(f"{v:.4f}" for v in fixed))
     if not (np.isfinite(fixed).all()
             and np.mean(fixed[-3:]) < np.mean(fixed[:3])):
         fail("the loss of the fixed batch did not fall")
-    warm = sorted(walls[4:])
-    med = warm[len(warm) // 2]
-    b = batch["dp_idx"].shape[0]
-    log(f"warm train step (store, device sampling + packing, bf16, batch "
-        f"{b}, steps 5-16): median {med:.2f} ms, min {warm[0]:.2f}, max "
-        f"{warm[-1]:.2f}; {b / med * 1e3:.1f} videos/s on the device; peak "
-        f"device memory {peak_gb:.2f} GB")
-    profile_step(lambda: retrieval_train_step(ts, batch, **kw), "train")
-    shapes = dict(loader.device_meta.shapes, b=b, din=cfg.dataset_train
-                  .vid_feat_dim, dtext=cfg.dataset_train.text_feat_dim)
+    shapes = dict(loader.device_meta.shapes, b=batch["dp_idx"].shape[0],
+                  din=cfg.dataset_train.vid_feat_dim,
+                  dtext=cfg.dataset_train.text_feat_dim)
     del mgr, ts, batch, source, loader
     torch.cuda.empty_cache()
     return launches, shapes
@@ -1460,7 +844,7 @@ def phase_synthetic_smoke(tmp: Path) -> None:
         config = tmp / dtype / SMOKE.name
         config.write_text(yaml.safe_dump(cfg, sort_keys=False),
                           encoding="utf8")
-        result, launches, wall = _train_cli(
+        result, launches = _train_cli(
             config, tmp, ["--preload_device", "--fixed_shapes"],
             overrides=flags)
         for name in ("input_fc_bwd", "genpool_bwd"):
@@ -1469,7 +853,7 @@ def phase_synthetic_smoke(tmp: Path) -> None:
         log(f"CLI synthetic_smoke ({dtype}, store): 1 epoch of "
             f"{len(result['step_losses'])} steps (losses "
             f"{', '.join(f'{v:.5f}' for v in result['step_losses'])}) and "
-            f"its validation in {wall:.1f} s; launches {launches}")
+            f"its validation; launches {launches}")
 
 
 CAPTION_CONFIG = (ROOT / "config" / "caption" / "paper2020" /
@@ -1549,9 +933,7 @@ def phase_caption(tmp: Path) -> None:
     (b) `train_caption --validate --load_model` on the card over the whole
     val split, with the launch counts of B1-B5 set to 0 just before and
     read just after (the caption path runs none); (c) one val batch of 8
-    videos on the card against the port on the CPU; (d) the first
-    TRACE_STEPS sentence steps of a greedy batch of 50 videos traced with
-    torch.profiler."""
+    videos on the card against the port on the CPU."""
     import numpy as np
     import torch
     from coot_videotext_tpu_torch import train_caption
@@ -1580,18 +962,12 @@ def phase_caption(tmp: Path) -> None:
 
     log("(b) the CLI on the card over the val split")
     cuda_build.reset_launch_counts()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()  # by the earlier phases
-    t0 = time.perf_counter()
     result = train_caption.main([
         "-c", str(CAPTION_CONFIG), "--validate", "--load_model", str(pth),
         "--annotations_dir", str(ROOT / "annotations"),
         "--coot_feat_dir", str(emb_dir),
         "--cache_dir", str(ROOT / "cache_caption"),
         "--log_dir", str(tmp / "experiments")])[0]
-    wall = time.perf_counter() - t0
-    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
     launches = dict(cuda_build.launch_counts)
     if any(launches.values()):
         fail(f"caption serving launched the port's kernels: {launches}")
@@ -1617,20 +993,9 @@ def phase_caption(tmp: Path) -> None:
     log(f"  on {result['model_device']} (batches on "
         f"{result['batch_device']}); launches of B1-B5 {launches}")
     log(f"  {len(val)} val videos, {n_out} sentences, "
-        f"{result['num_batches']} batches of {cfg.val.batch_size}: "
-        f"{len(val) / wall:.2f} val videos/s end to end ({wall:.2f} s, the "
-        f"CLI's main()), {len(val) / result['val_seconds']:.2f} over the "
-        f"validation pass ({result['val_seconds']:.2f} s: eval step, decode "
-        f"and metrics)")
-    log(f"  median per batch: eval step "
-        f"{statistics.median(result['eval_ms']):.2f} ms, greedy decode "
-        f"{statistics.median(result['decode_ms']):.2f} ms; forwards "
-        f"per batch {result['forwards']}; peak device memory "
-        f"{peak:.3f} GB above the {held / 1e9:.3f} GB the earlier phases "
-        "hold")
-    log(f"  eval ms by batch {[round(v, 2) for v in result['eval_ms']]}; "
-        f"decode ms {[round(v, 1) for v in result['decode_ms']]}")
-    log(f"  metrics (random weights): {json.dumps(scores)}")
+        f"{result['num_batches']} batches of {cfg.val.batch_size}; forwards "
+        f"per batch {result['forwards']}; metrics (random weights): "
+        f"{json.dumps(scores)}")
 
     log("(c) one val batch of 8 videos: the card against the CPU, float32")
     dataset = RecursiveCaptionDataset(
@@ -1655,8 +1020,6 @@ def phase_caption(tmp: Path) -> None:
         decs[name] = Translator(mgr.model, mgr.cfg).translate_batch_greedy(
             batch["input_ids"], batch["video_feature"], batch["input_mask"],
             batch["token_type_ids"])
-        if name == "cuda":
-            profile_model, profile_cfg = mgr.model, mgr.cfg
     gpu, cpu = outs["cuda"], outs["cpu"]
     loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
     correct_diff = abs(gpu["n_correct"] - cpu["n_correct"]) / cpu["n_word"]
@@ -1673,27 +1036,6 @@ def phase_caption(tmp: Path) -> None:
             or correct_diff > CAPTION_CORRECT_TOL \
             or same < CAPTION_MIN_SAME * len(pairs):
         fail("caption serving: the card disagrees with the CPU")
-
-    log(f"(d) the first {TRACE_STEPS} sentence steps of a greedy batch of "
-        "50 val videos under torch.profiler (through the graphs)")
-    stacked, sizes, _ = dataset.collate_fn(
-        [dataset[i] for i in range(cfg.val.batch_size)])
-    batch = [torch.from_numpy(stacked[k][:TRACE_STEPS]).cuda() for k in
-             ("input_ids", "video_feature", "input_mask", "token_type_ids")]
-    translator = Translator(profile_model, profile_cfg)
-    translator.translate_batch_greedy(*batch)  # warm
-    wall_ms, busy_ms, kernels, events = _busy_ms(
-        lambda: translator.translate_batch_greedy(*batch))
-    steps = TRACE_STEPS
-    positions = steps * cfg.max_t_len
-    log(f"  S {steps} sentence steps x {cfg.max_t_len} token positions, "
-        f"{translator.forwards} forwards of N {cfg.val.batch_size} x "
-        f"L {cfg.max_v_len + cfg.max_t_len} ({translator.cached_tokens} of "
-        f"them token steps on the caches): wall {wall_ms:.1f} ms, device "
-        f"busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}); {kernels} kernel "
-        f"launches, {kernels / positions:.1f} per decoded token position, "
-        f"{kernels / translator.forwards:.1f} per forward")
-    log_families(events, translator.forwards)
 
 
 # Caption training, one train batch of 8 videos on the card against the
@@ -1713,7 +1055,6 @@ CAPTION_TRAIN_UPDATE_TOL = 0.05
 # 16, 1 val batch of 50 (cut from 100 for the time limit, PERF.md §6)
 CAPTION_TRAIN_CUTS = {"dataset_train.max_datapoints": 320,
                       "dataset_val.max_datapoints": 50}
-CAPTION_DROPOUT_SHAPES = ((16, 25, 768), (16, 12, 25, 25))
 
 
 def _state_copy(state) -> dict:
@@ -1739,9 +1080,8 @@ def phase_caption_train(tmp: Path) -> None:
     `--load_epoch`, then `--validate --load_epoch 2` (the EMA weights: the
     val loss of the training run's epoch 2); (c) one train batch of 8
     videos on the card against the CPU, 3 steps; (d) one batch of 16 trained
-    16 steps at a fixed lr: the loss falls, the warm step's wall and
-    device-busy ms, launches per step by family, peak memory; (e) B4 at
-    the caption shapes, f32, against its plain version and F.dropout."""
+    16 steps at a fixed lr: the loss falls, B4 the only kernel of the port
+    a step launches."""
     import torch
     from coot_videotext_tpu_torch import train_caption
     from coot_videotext_tpu_torch.data.caption_dataset import (
@@ -1771,10 +1111,8 @@ def phase_caption_train(tmp: Path) -> None:
     log(f"(b) the CLI trains on the card: cuts {CAPTION_TRAIN_CUTS}, "
         "2 epochs")
     cuda_build.reset_launch_counts()
-    t0 = time.perf_counter()
     result = train_caption.main(
         common + ["-o", cut + ",train.num_epochs=2"])[0]
-    wall = time.perf_counter() - t0
     launches = dict(cuda_build.launch_counts)
     log(f"  launches during the run {launches}")
     if launches.get("dropout", 0) <= 0 or launches.get("dropout_bwd", 0) <= 0:
@@ -1800,13 +1138,8 @@ def phase_caption_train(tmp: Path) -> None:
             fail(f"caption training wrote no {name}")
     if not (run / "caption" / "translations_1_val.json").is_file():
         fail("caption training wrote no translations of epoch 1")
-    vps = result["train_videos_per_s"]
     log(f"  {len(result['epochs'])} epochs of {result['steps_per_epoch']} "
-        f"steps (batch {cfg.train.batch_size}) in {wall:.2f} s (the CLI's "
-        f"main(), validations included); train videos/s by epoch "
-        f"{[round(v, 2) for v in vps]}; step wall ms median "
-        f"{statistics.median(result['step_ms']):.2f} (first "
-        f"{result['step_ms'][0]:.1f}); step losses first / last "
+        f"steps (batch {cfg.train.batch_size}); step losses first / last "
         f"{losses[0]:.3f} / {losses[-1]:.3f}, grad norms first / last "
         f"{norms[0]:.3f} / {norms[-1]:.3f}")
     resumed = train_caption.main(common + [
@@ -1822,8 +1155,7 @@ def phase_caption_train(tmp: Path) -> None:
                                          "--load_epoch", "2"])[0]
     val_again = json.loads(check["metrics_file"].read_text(
         encoding="utf8"))["val/loss_word"][-1]
-    log(f"  resumed to epoch 3 with --load_epoch 1 (epoch 2's videos/s "
-        f"{resumed['train_videos_per_s'][0]:.2f}); val loss per word "
+    log(f"  resumed to epoch 3 with --load_epoch 1; val loss per word "
         f"by epoch {trained['val/loss_word']}; --validate --load_epoch 2 "
         f"(EMA weights): {val_again}")
     if val_again[0] != 2 or abs(val_again[1] - val_trained) > \
@@ -1854,18 +1186,13 @@ def phase_caption_train(tmp: Path) -> None:
                      {k: stacked[k] for k in STACKED_KEYS}, single=False)
 
     log("(d) one train batch of 16 videos trained 16 steps at lr "
-        f"{CAPTION_TRAIN_LR} on the card, timed and traced")
+        f"{CAPTION_TRAIN_LR} on the card")
     stacked, _, _ = dataset.collate_fn(
         [dataset[i] for i in range(cfg.train.batch_size)])
     log(f"  S {len(stacked['input_ids'])} sentence steps x N "
         f"{cfg.train.batch_size} x L {cfg.max_v_len + cfg.max_t_len}")
-    time_train_step("caption training", build,
-                    {k: stacked[k] for k in STACKED_KEYS}, single=False,
-                    examples=cfg.train.batch_size, unit="videos")
-
-    log("(e) B4 at the caption shapes, float32, rate "
-        f"{cfg.hidden_dropout_prob}")
-    caption_dropout_timing(cfg.hidden_dropout_prob, CAPTION_DROPOUT_SHAPES)
+    fixed_batch_falls("caption training", build,
+                      {k: stacked[k] for k in STACKED_KEYS}, single=False)
 
 
 RAW_CONFIG = (ROOT / "config" / "caption" / "paper2020" / "yc2_mart.yaml")
@@ -1886,14 +1213,6 @@ MTRANS_CUTS = {"dataset_train.max_datapoints": 320,
 # the other phases)
 RAW_DECODE_VIDEOS = 2
 RAW_TRAIN_VIDEOS = 4
-# B4 in float32 at the new paths' dropout shapes: raw-feature MART's hidden
-# rows and attention probabilities (L = 122), the MTransformer's video rows
-# (1152 in, 768 out), text rows and self-, cross- and video-attention
-# probabilities; and two element counts that are no multiple of 4
-VARIANT_DROPOUT_SHAPES = ((16, 122, 768), (16, 12, 122, 122),
-                          (16, 3, 1152), (16, 3, 768), (16, 12, 3, 3),
-                          (16, 22, 768), (16, 12, 22, 22), (16, 12, 22, 3),
-                          (15, 1, 3, 3), (15, 22, 767))
 
 
 def _raw_inputs(tmp: Path) -> tuple:
@@ -1935,21 +1254,13 @@ def _variant_cli(tag: str, common: list, cuts: str, n_val: int,
     none): one epoch of training with validation,
     the launch counts of B1-B5 set to 0 just before and read just after
     (B4 forward and backward must run, nothing else), then `--validate
-    --load_epoch 0` (the EMA weights: the training run's val loss);
-    timings and peak memory logged. Returns the trained weights' file,
-    model_0.pth."""
-    import torch
+    --load_epoch 0` (the EMA weights: the training run's val loss). Returns
+    the trained weights' file, model_0.pth."""
     from coot_videotext_tpu_torch import train_caption
     from coot_videotext_tpu_torch.ops import cuda_build
     cuda_build.reset_launch_counts()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
     result = train_caption.main(common + [
         "-o", ",".join(filter(None, (cuts, "train.num_epochs=1")))])[0]
-    wall = time.perf_counter() - t0
-    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
     launches = dict(cuda_build.launch_counts)
     log(f"  launches during the run {launches}")
     if launches.get("dropout", 0) <= 0 or launches.get("dropout_bwd", 0) <= 0:
@@ -1977,13 +1288,8 @@ def _variant_cli(tag: str, common: list, cuts: str, n_val: int,
         fail(f"{tag} wrote no translations of epoch 0")
     trained = dict(json.loads(result["metrics_file"].read_text(
         encoding="utf8"))["val/loss_word"])[0]
-    log(f"  1 epoch of {result['steps_per_epoch']} steps in {wall:.2f} s "
-        f"(the CLI's main(), validation included): "
-        f"{result['train_videos_per_s'][0]:.2f} train {unit}/s; step wall "
-        f"ms median {statistics.median(result['step_ms']):.2f} (first "
-        f"{result['step_ms'][0]:.1f}); step losses first / last "
-        f"{losses[0]:.3f} / {losses[-1]:.3f}; peak device memory "
-        f"{peak:.3f} GB above the {held / 1e9:.3f} GB held before")
+    log(f"  1 epoch of {result['steps_per_epoch']} steps of {unit}; step "
+        f"losses first / last {losses[0]:.3f} / {losses[-1]:.3f}")
     val = train_caption.main(common + (["-o", cuts] if cuts else []) + [
         "--validate", "--load_epoch", "0"])[0]
     metrics = json.loads(val["metrics_file"].read_text(encoding="utf8"))
@@ -1997,15 +1303,9 @@ def _variant_cli(tag: str, common: list, cuts: str, n_val: int,
             fail(f"{tag}: {key} = {value}")
     log(f"  --validate --load_epoch 0 (EMA weights): val loss per word "
         f"{again:.5f} (the training run's {trained:.5f}); "
-        f"{val['num_batches']} val batches: {n_val / val['val_seconds']:.2f} "
-        f"val videos/s over the validation pass ({val['val_seconds']:.2f} "
-        f"s: eval step, decode and metrics); median per batch: eval step "
-        f"{statistics.median(val['eval_ms']):.2f} ms, greedy decode "
-        f"{statistics.median(val['decode_ms']):.2f} ms; forwards per "
-        f"decode {val['forwards']}")
-    log(f"  eval ms by batch {[round(v, 2) for v in val['eval_ms']]}; "
-        f"decode ms {[round(v, 1) for v in val['decode_ms']]}; metrics "
-        f"(1 epoch from random weights): " + json.dumps(
+        f"{val['num_batches']} val batches of {n_val} videos; forwards per "
+        f"decode {val['forwards']}; metrics (1 epoch from random "
+        f"weights): " + json.dumps(
             {k: metrics[k][-1][1] for k in ("cap/b4", "cap/met", "cap/rol",
                                              "cap/cid", "val/acc")}))
     return result["models_dir"] / "model_0.pth"
@@ -2026,14 +1326,10 @@ def hold_decode(tag: str, build, arrays: dict, single: bool) -> None:
         device = torch.device(name)
         mgr = build(device)
         batch = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
-        t0 = time.perf_counter()
         outs[name] = {k: float(v) for k, v in
                       eval_step(mgr.model, batch).items()}
-        translator = Translator(mgr.model, mgr.cfg)
-        decs[name] = np.asarray(translator.translate_batch(batch))
-        log(f"  {name}: eval step and greedy decode "
-            f"({translator.forwards} forwards) {time.perf_counter() - t0:.2f}"
-            " s")
+        decs[name] = np.asarray(Translator(mgr.model, mgr.cfg)
+                                .translate_batch(batch))
         del mgr, batch
     gpu, cpu = outs["cuda"], outs["cpu"]
     loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
@@ -2058,8 +1354,8 @@ def phase_caption_variants(tmp: Path) -> None:
     + 22): the inputs (_raw_inputs), the CLI trains one epoch and validates
     (_variant_cli), one train batch of RAW_TRAIN_VIDEOS videos card against
     CPU over 3 steps (hold_train_steps), one val batch of RAW_DECODE_VIDEOS videos
-    card against CPU (hold_decode), one batch of 16 trained 16 steps, timed
-    and traced (time_train_step), each from the weights the CLI trained
+    card against CPU (hold_decode), one batch of 16 trained 16 steps
+    (fixed_batch_falls), each from the weights the CLI trained
     (model_0.pth: from random weights the second step's gradient norm
     jumps twentyfold, 2.8e3 to 5.6e4, and the third step's grad_norm
     carries the two devices' rounding past the 1e-4 gate: 1.5e-4 on an
@@ -2067,8 +1363,7 @@ def phase_caption_variants(tmp: Path) -> None:
     (b) The MTransformer,
     yc2_100m_coot_vidclip_mtrans.yaml (COOT vid+clip 1152-d, single
     sentences): embeddings from seed 0 (_coot_embeddings), the same checks
-    on batches of 16 train and 50 val sentences. (c) B4 at the new shapes
-    (caption_dropout_timing)."""
+    on batches of 16 train and 50 val sentences."""
     import torch
     from coot_videotext_tpu_torch.data.caption_dataset import (
         STACKED_KEYS, UNTIED_KEYS, RecursiveCaptionDataset)
@@ -2129,10 +1424,9 @@ def phase_caption_variants(tmp: Path) -> None:
     log(f"  one train batch of {cfg.train.batch_size} videos (S "
         f"{len(stacked['input_ids'])} x N {cfg.train.batch_size} x L "
         f"{cfg.max_v_len + cfg.max_t_len}) trained 16 steps at lr "
-        f"{CAPTION_TRAIN_LR}, timed and traced")
-    time_train_step("raw-feature MART", build,
-                    {k: stacked[k] for k in STACKED_KEYS}, single=False,
-                    examples=cfg.train.batch_size, unit="videos")
+        f"{CAPTION_TRAIN_LR}")
+    fixed_batch_falls("raw-feature MART", build,
+                      {k: stacked[k] for k in STACKED_KEYS}, single=False)
     del train, val, stacked
     shutil.rmtree(tmp / "raw")  # ~2 GB of features
 
@@ -2177,13 +1471,9 @@ def phase_caption_variants(tmp: Path) -> None:
                 single=True)
     log(f"  one train batch of {n} sentences (video {cfg.max_v_len} x "
         f"{cfg.video_feature_size}, text {cfg.max_t_len}) trained 16 steps "
-        f"at lr {CAPTION_TRAIN_LR}, timed and traced")
-    time_train_step("MTransformer", build, arrays, single=True,
-                    examples=n, unit="sentences")
+        f"at lr {CAPTION_TRAIN_LR}")
+    fixed_batch_falls("MTransformer", build, arrays, single=True)
     torch.cuda.empty_cache()
-
-    log(f"(c) B4 at the new shapes, float32, rate {cfg.hidden_dropout_prob}")
-    caption_dropout_timing(cfg.hidden_dropout_prob, VARIANT_DROPOUT_SHAPES)
 
 
 def hold_train_steps(tag: str, build, arrays: dict, single: bool) -> None:
@@ -2196,9 +1486,8 @@ def hold_train_steps(tag: str, build, arrays: dict, single: bool) -> None:
     import torch
     from coot_videotext_tpu_torch.tasks.caption.steps import (
         caption_loss_and_grads, caption_update, init_caption_train_state)
-    seen, took = {}, {}
+    seen = {}
     for name in ("cuda", "cpu"):
-        t0 = time.perf_counter()
         device = torch.device(name)
         mgr = build(device)
         state = init_caption_train_state(mgr.model, mgr.cfg, seed=0)
@@ -2217,9 +1506,6 @@ def hold_train_steps(tag: str, build, arrays: dict, single: bool) -> None:
                 rec["states"].append(_state_copy(state))
         seen[name] = rec
         del mgr, state, batch, grads
-        took[name] = time.perf_counter() - t0
-    log(f"  3 steps on the card in {took['cuda']:.1f} s, on the CPU in "
-        f"{took['cpu']:.1f} s")
     gpu, cpu = seen["cuda"], seen["cpu"]
     for step, (g, c) in enumerate(zip(gpu["metrics"], cpu["metrics"])):
         loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
@@ -2346,113 +1632,37 @@ def hold_train_steps_synced(tag: str, build, arrays: dict,
     torch.cuda.empty_cache()
 
 
-def time_train_step(tag: str, build, arrays: dict, single: bool,
-                    examples: int, unit: str) -> dict:
-    """One train batch (numpy `arrays` of `examples` videos or sentences)
-    trained 16 eager steps (`eager=True`; phase 14 holds the captured
-    programs against them) at CAPTION_TRAIN_LR on the card: the loss must
-    fall; the warm step's median wall ms, one traced step's device-busy ms
-    and launches by family, B4's launches and device time, peak memory.
-    Returns those numbers."""
+def fixed_batch_falls(tag: str, build, arrays: dict, single: bool) -> None:
+    """One train batch (numpy `arrays`) trained 16 eager steps
+    (`eager=True`; phase 14 holds the captured programs against them) at
+    CAPTION_TRAIN_LR on the card: the loss must fall, and a step launches
+    B4's forward and backward and no other kernel of the port."""
     import torch
     from coot_videotext_tpu_torch.ops import cuda_build
     from coot_videotext_tpu_torch.tasks.caption.steps import (
         caption_train_step, caption_train_step_single,
         init_caption_train_state)
     step_fn = caption_train_step_single if single else caption_train_step
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
     mgr = build(torch.device("cuda"))
     state = init_caption_train_state(mgr.model, mgr.cfg, seed=0)
     batch = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
-    step_losses, step_ms = [], []
+    losses = []
     for _ in range(16):
-        t0 = time.perf_counter()
-        metrics = step_fn(state, batch, CAPTION_TRAIN_LR, eager=True)
-        step_losses.append(float(metrics["loss"]))
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    if not all(math.isfinite(v) for v in step_losses) \
-            or step_losses[-1] >= step_losses[0]:
-        fail(f"{tag}: a fixed batch's loss did not fall: {step_losses}")
-    warm = statistics.median(step_ms[4:])
-    log(f"  losses {', '.join(f'{v:.2f}' for v in step_losses)}")
-    log(f"  warm train step: median wall {warm:.2f} ms over steps 5-16 "
-        f"({', '.join(f'{v:.1f}' for v in step_ms)}); "
-        f"{examples / warm * 1e3:.1f} train {unit}/s")
-    cuda_build.reset_launch_counts()
-    wall_ms, busy_ms, kernels, events = _busy_ms(
-        lambda: step_fn(state, batch, CAPTION_TRAIN_LR, eager=True))
-    traced = dict(cuda_build.launch_counts)
-    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
-    b4 = [e for e in events if "dropout" in e.key]
-    b4_ms = sum(_dev_us(e) for e in b4) / 1e3
-    log(f"  one traced step: wall {wall_ms:.2f} ms, device busy "
-        f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}); {kernels} kernel "
-        f"launches; B4 {traced.get('dropout', 0)} forward + "
-        f"{traced.get('dropout_bwd', 0)} backward launches, "
-        f"{b4_ms:.3f} ms of device time over "
-        f"{sum(e.count for e in b4)} launches; peak device memory "
-        f"{peak:.3f} GB above the {held / 1e9:.3f} GB held before")
-    others = {k: v for k, v in traced.items()
+        cuda_build.reset_launch_counts()
+        losses.append(float(step_fn(state, batch, CAPTION_TRAIN_LR,
+                                    eager=True)["loss"]))
+    launches = dict(cuda_build.launch_counts)
+    log(f"  losses {', '.join(f'{v:.2f}' for v in losses)}; a step's "
+        f"launches {launches}")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"{tag}: a fixed batch's loss did not fall: {losses}")
+    others = {k: v for k, v in launches.items()
               if v and k not in ("dropout", "dropout_bwd")}
-    if others or not traced.get("dropout") or not traced.get("dropout_bwd"):
-        fail(f"{tag}: a train step launched {traced}, not B4 alone")
-    log_families(events, 1)
+    if others or not launches.get("dropout") \
+            or not launches.get("dropout_bwd"):
+        fail(f"{tag}: a train step launched {launches}, not B4 alone")
     del mgr, state, batch
     torch.cuda.empty_cache()
-    return {"warm_ms": warm, "wall_ms": wall_ms, "busy_ms": busy_ms,
-            "b4_launches": traced.get("dropout", 0)
-            + traced.get("dropout_bwd", 0), "b4_ms": b4_ms,
-            "peak_gb": peak}
-
-
-def caption_dropout_timing(rate: float, shapes) -> None:
-    """B4 in float32 at `shapes` (the hidden rows and the attention
-    probabilities of a caption train step): held bit-equal to dropout_plain
-    forward and backward, then timed forward and backward (CUDA events),
-    bare and through the wrapper / autograd, beside F.dropout, and its
-    bound."""
-    import torch
-    import torch.nn.functional as F
-    from coot_videotext_tpu_torch.ops import cuda_build, philox
-    from coot_videotext_tpu_torch.ops import dropout as b4
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    seed = device_seed()
-    for shape in shapes:
-        x = torch.randn(shape, generator=gen, device="cuda")
-        g = torch.randn(shape, generator=gen, device="cuda")
-        xl = x.clone().requires_grad_()
-        y = b4.dropout(xl, seed, rate)
-        dx, = torch.autograd.grad(y, xl, g, retain_graph=True)
-        if not torch.equal(y, b4.dropout_plain(x, seed, rate)) \
-                or not torch.equal(dx, b4.dropout_plain(g, seed, rate)):
-            fail(f"dropout {shape} f32: kernel and plain differ")
-        numel = x.numel()
-        args = b4.launch_args(x, seed, rate, philox.SITE_DROPOUT,
-                              cuda_build.stream(x))
-        kernel = cuda_build.load_library().coot_dropout
-        out = torch.empty_like(x)
-        xp, yp = x.data_ptr(), out.data_ptr()
-        xl_lib = x.clone().requires_grad_()
-        y_lib = F.dropout(xl_lib, rate, training=True)
-        with torch.inference_mode():
-            bare = time_ms(lambda: kernel(xp, yp, numel, *args), 100)
-            bare_dev = device_ms_per_call(
-                lambda: kernel(xp, yp, numel, *args))
-            fwd = time_ms(lambda: b4.dropout(x, seed, rate), 100)
-            lib = time_ms(lambda: F.dropout(x, rate, training=True), 100)
-            plain = time_ms(lambda: b4.dropout_plain(x, seed, rate))
-        bwd, lib_bwd, _, _ = paired_bwd_ms((y, [xl], g),
-                                           (y_lib, [xl_lib], g), 9)
-        bms, by = bound_ms(8.0 * numel, 1.0 * numel, "float32")
-        log(f"  dropout {str(shape):16s} f32 ({numel} elements): bit-equal "
-            f"to plain forward and backward; bare launch {bare:.4f} ms "
-            f"(CUDA events, 100 back to back), device {bare_dev:.4f} ms "
-            f"(profiler); forward through the wrapper {fwd:.4f} ms, "
-            f"F.dropout {lib:.4f} ms; backward through autograd.grad "
-            f"{bwd:.4f} ms, F.dropout's {lib_bwd:.4f} ms (medians of 9 "
-            f"rounds in turns); plain {plain:.3f} ms; bound {bms:.5f} ms "
-            f"({by})")
 
 
 # Phase 9, the rest of the caption family at the full width of
@@ -2485,12 +1695,6 @@ FAMILY_DECODE_VIDEOS = 2
 # rows of them are compared, and a row's decode does not depend on the
 # others)
 BEAM_CPU_VIDEOS = 4
-# B4 in float32 at the shapes these paths add: XL's (klen, 768) position
-# table at klen 25 and 50 and a (16, 50, 768) block, the untied text
-# embedding at word_vec_size 300, and a short batch whose element count is
-# no multiple of 4
-FAMILY_DROPOUT_SHAPES = ((25, 768), (50, 768), (16, 50, 768), (16, 22, 300),
-                         (13, 22, 301))
 
 
 def _overrides(over: dict) -> str:
@@ -2542,18 +1746,15 @@ def phase_caption_family(tmp: Path) -> None:
     one epoch by the CLI (_variant_cli): one val batch of 50 videos
     decoded by beam search on the card, its first BEAM_CPU_VIDEOS on the
     CPU too, in the fixed and the reference_compat mode (at least
-    CAPTION_MIN_SAME of those sentences token-identical), beam against
-    greedy on the card on the batch of 50 (ms, forwards, host reads), one
-    traced beam decode of the batch's first TRACE_STEPS sentence steps (no
-    port kernel may launch), the CLI's `--validate --load_epoch 0 -o
-    use_beam=true` over the 50 val videos. (b-e) The TransformerXL, the
+    CAPTION_MIN_SAME of those sentences token-identical), the CLI's
+    `--validate --load_epoch 0 -o use_beam=true` over the 50 val videos (no
+    port kernel may launch). (b-e) The TransformerXL, the
     untied model, the joint single-sentence model and the decoder tied to
     the word embeddings: the CLI trains one epoch and validates (_variant_cli),
     then from its weights one train batch card against CPU over 3 steps
     (hold_train_steps; XL's with xl_grad), one val batch's eval step and
     greedy tokens card against CPU (hold_decode), one train batch trained
-    16 steps, timed and traced (time_train_step). (f) B4 at the new shapes
-    (caption_dropout_timing)."""
+    16 steps (fixed_batch_falls)."""
     import numpy as np
     import torch
     from coot_videotext_tpu_torch import train_caption
@@ -2606,17 +1807,12 @@ def phase_caption_family(tmp: Path) -> None:
         translator = Translator(mgr.model, mgr.cfg)
         batch = [torch.from_numpy(a).to(name) for a in inputs[name]]
         for compat in (False, True):
-            t0 = time.perf_counter()
             decs[name, compat] = translator.translate_batch_beam(
                 *batch, reference_compat=compat)
             log(f"  {name} {'reference_compat' if compat else 'fixed'}: "
-                f"{(time.perf_counter() - t0) * 1e3:.1f} ms, "
                 f"{translator.forwards} forwards, {translator.host_reads} "
                 "host reads")
-        if name == "cuda":
-            card = mgr, translator, batch
-        else:
-            del mgr, translator, batch
+        del mgr, translator, batch
     for compat in (False, True):
         pairs = [(decs["cuda", compat][s][i], decs["cpu", compat][s][i])
                  for i, size in enumerate(sizes) for s in range(size)]
@@ -2630,38 +1826,7 @@ def phase_caption_family(tmp: Path) -> None:
         if same < CAPTION_MIN_SAME * len(pairs):
             fail(f"beam search ({'compat' if compat else 'fixed'}): the card "
                  "disagrees with the CPU")
-    mgr, translator, batch = card
-    times = {}
-    for what, fn in (("greedy", translator.translate_batch_greedy),
-                     ("beam", translator.translate_batch_beam)):
-        fn(*batch)  # warm
-        ms = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            fn(*batch)
-            ms.append((time.perf_counter() - t0) * 1e3)
-        times[what] = (statistics.median(ms), translator.forwards,
-                       translator.host_reads)
-    log(f"  on the card, the same batch (median of 3): greedy "
-        f"{times['greedy'][0]:.1f} ms ({times['greedy'][1]} forwards, "
-        f"{times['greedy'][2]} host reads), beam {times['beam'][0]:.1f} ms "
-        f"({times['beam'][1]} forwards of {cfg.beam_size}x the rows, "
-        f"{times['beam'][2]} host reads): beam / greedy "
-        f"{times['beam'][0] / times['greedy'][0]:.2f}")
-    cuda_build.reset_launch_counts()
-    wall_ms, busy_ms, kernels, events = _busy_ms(
-        lambda: translator.translate_batch_beam(
-            *(b[:TRACE_STEPS] for b in batch)))
-    launches = dict(cuda_build.launch_counts)
-    log(f"  one traced beam decode of {TRACE_STEPS} sentence steps: wall "
-        f"{wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}); {kernels} kernel "
-        f"launches, {kernels / translator.forwards:.1f} per forward; port "
-        f"kernel launches {launches}")
-    if any(launches.values()):
-        fail(f"beam search launched the port's kernels: {launches}")
-    log_families(events, translator.forwards)
-    del mgr, translator, batch, card, decs
+    del decs
     torch.cuda.empty_cache()
     cuda_build.reset_launch_counts()
     result = train_caption.main(common("beam") + [
@@ -2676,12 +1841,9 @@ def phase_caption_family(tmp: Path) -> None:
         fail(f"beam search CLI: on {result['model_device']}, launches "
              f"{launches}")
     log(f"  the CLI, --validate --load_epoch 0 -o use_beam=true (EMA "
-        f"weights): {n_val / result['val_seconds']:.2f} val videos/s over "
-        f"the validation pass ({result['val_seconds']:.2f} s); per batch "
-        f"decode ms {[round(v, 1) for v in result['decode_ms']]}, eval ms "
-        f"{[round(v, 2) for v in result['eval_ms']]}, forwards "
-        f"{result['forwards']}, host reads {result['host_reads']}; "
-        f"launches {launches}; metrics " + json.dumps(
+        f"weights) over {n_val} val videos: forwards {result['forwards']}, "
+        f"host reads {result['host_reads']}; launches {launches}; "
+        "metrics " + json.dumps(
             {k: metrics[k][-1][1] for k in ("cap/b4", "cap/met", "cap/rol",
                                              "cap/cid", "val/acc")}))
 
@@ -2714,79 +1876,20 @@ def phase_caption_family(tmp: Path) -> None:
         n = cfg.train.batch_size
         batch, _, _ = train.collate_fn([train[j] for j in range(n)])
         log(f"  one train batch of {n} {unit} trained 16 steps at lr "
-            f"{CAPTION_TRAIN_LR}, timed and traced")
-        time_train_step(tag, build, {k: batch[k] for k in keys},
-                        single=single, examples=n, unit=unit)
+            f"{CAPTION_TRAIN_LR}")
+        fixed_batch_falls(tag, build, {k: batch[k] for k in keys},
+                          single=single)
         del train, val, batch, vbatch
         torch.cuda.empty_cache()
 
-    log(f"(f) B4 at the new shapes, float32, rate {cfg.hidden_dropout_prob}")
-    caption_dropout_timing(cfg.hidden_dropout_prob, FAMILY_DROPOUT_SHAPES)
 
-
-def _busy_ms(fn, require_complete: bool = False,
-             host: bool = False) -> tuple:
-    """(traced wall ms, device-busy ms, kernels seen, the kernels' profiler
-    events) of fn() under torch.profiler, synchronised: the busy time sums
-    the kernels' device time, graph replays' kernels included. The trace
-    opens with `warm_trace` (utils/profiling.py), left out of the counts;
-    fewer device records than the host's kernel launches are logged, and
-    where `require_complete` fn() is traced again, up to 3 times in all,
-    before the run fails. With `host`, a fifth entry counts the host's
-    calls: {"kernel_launches": cudaLaunchKernel and the like, outside the
-    warm-up, "graph_launches": cudaGraphLaunch}."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from coot_videotext_tpu_torch.utils.profiling import (
-        TRACE_WARMUP_LAUNCHES, warm_trace)
-    for attempt in range(3 if require_complete else 1):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            warm_trace()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        averages = prof.key_averages()
-        events = _device_events(averages)
-        kernels = sum(e.count for e in events)
-        launches = sum(e.count for e in averages if "LaunchKernel" in e.key
-                       ) - TRACE_WARMUP_LAUNCHES
-        if kernels >= launches:
-            break
-        lost = (f"the trace holds {kernels} device records for {launches} "
-                "kernel launches on the host")
-        log(f"  ({lost}: its busy time is short"
-            f"{'; traced again' if attempt < 2 and require_complete else ''}"
-            ")")
-    else:
-        if require_complete:
-            fail(lost)
-    out = (wall, sum(_dev_us(e) for e in events) / 1e3, kernels, events)
-    if host:
-        graphs = sum(e.count for e in averages if "GraphLaunch" in e.key)
-        out += ({"kernel_launches": launches, "graph_launches": graphs},)
-    return out
-
-
-def _device_events(averages) -> list:
-    """The profiler's device entries with device time, without the trace's
-    warm-up (utils/profiling.py `warm_trace`: its kernels and the device
-    span of its range)."""
-    from coot_videotext_tpu_torch.utils.profiling import (
-        WARMUP_KERNEL, WARMUP_RANGE)
-    return [e for e in averages if str(e.device_type).endswith("CUDA")
-            and _dev_us(e) > 0 and WARMUP_KERNEL not in e.key
-            and e.key != WARMUP_RANGE]
-
-
-def _port_kernel_counts(events) -> dict:
-    """The port's kernels among a trace's device events (graph replays'
-    nodes included), counted by the name of each `__global__` function
-    and summed by the source that defines it: {"input_fc", "genpool",
-    "attention", "gather", "dropout", "coot_norm"} (csrc/<name>.cu; the
-    shared TN kernels of csrc/*.cuh are not counted)."""
+def _port_kernel_counts(trace) -> dict:
+    """The port's kernels in a trace (portbench/trace.py `traced`; graph
+    replays' nodes included), counted by the name of each `__global__`
+    function and summed by the source that defines it: {"input_fc",
+    "genpool", "attention", "gather", "dropout", "coot_norm"}
+    (csrc/<name>.cu; the shared TN kernels of csrc/*.cuh are not
+    counted)."""
     owner = {}
     for src in sorted((PACKAGE / "csrc").glob("*.cu")):
         for name in re.findall(
@@ -2794,66 +1897,33 @@ def _port_kernel_counts(events) -> dict:
                 r"(\w+)\s*\(", src.read_text(encoding="utf8")):
             owner[name] = src.stem
     counts = {}
-    for e in events:
-        m = re.search(r"coot::(?:\(anonymous namespace\)::)?(\w+)", e.key)
+    for name, _, _ in trace.kernels:
+        m = re.search(r"coot::(?:\(anonymous namespace\)::)?(\w+)", name)
         if m and m.group(1) in owner:
             stem = owner[m.group(1)]
-            counts[stem] = counts.get(stem, 0) + e.count
+            counts[stem] = counts.get(stem, 0) + 1
     return counts
 
 
 EVAL_KERNELS = ("input_fc", "genpool", "attention", "gather", "coot_norm")
 
 
-# kernel families of a train step by name, first match wins
-KERNEL_FAMILIES = (
-    ("the port's kernels B1-B5", ("coot::",)),
-    ("matrix products (cuBLAS, CUTLASS)",
-     ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
-    ("multi-tensor (_foreach: optimizer, clipping)",
-     ("multi_tensor", "foreach")),
-    ("reductions", ("reduce_kernel",)),
-    ("copies and casts", ("copy",)),
-    ("elementwise on int64 by name (Philox draws, index math)",
-     ("<long>", "<long,", "long, long", "<int>", "<int,")),
-    ("other elementwise (float; shifts and lambdas unnamed)",
-     ("elementwise",)),
-)
-
-
-def log_families(events, steps: int) -> None:
-    """Device ms and launches per step of each kernel family, then the
-    heaviest kernels."""
-    per = {}
-    for e in events:
-        fam = next((f for f, keys in KERNEL_FAMILIES
-                    if any(k in e.key for k in keys)), "other")
-        ms, n = per.get(fam, (0.0, 0))
-        per[fam] = (ms + _dev_us(e) / 1e3, n + e.count)
-    for fam, (ms, n) in sorted(per.items(), key=lambda x: -x[1][0]):
-        log(f"    {ms / steps:7.3f} ms  {n / steps:7.1f} launches per step  "
-            f"{fam}")
-    for e in sorted(events, key=_dev_us, reverse=True)[:12]:
-        log(f"      {_dev_us(e) / 1e3 / steps:7.3f} ms  "
-            f"x{e.count / steps:<6.1f} {e.key[:110]}")
-
-
-def phase_group(tmp: Path) -> dict:
+def phase_group(tmp: Path) -> None:
     """Phase 4c, the group step (train.steps_per_dispatch = K): the CLI
     trains one epoch of a 640-video split (10 steps: groups of 4, 4 and
     a tail of 2) on the device-resident path, each group a replay of the
     captured train step, with the launch counts set to 0 just before and
-    read just after; one fixed id batch trains 16 steps per step and as 2
-    groups of 8 replays from the same state (the graph captured first, the
-    state then restored in place): losses, parameters and seed states
-    held against each other after 8 steps and after 16, the loss falling;
-    then, per K in (1, 4, 8), the warm wall ms per step, the device-busy
-    ms per step, train videos/s and peak device memory."""
+    read just after; the run resumed to 3 epochs in groups and the
+    per-step CLI on the same split (their dispatches); one fixed id batch
+    trains 16 steps per step and as 2 groups of 8 replays from the same
+    state (the graph captured first, the state then restored in place):
+    losses, parameters and seed states held against each other after 8
+    steps and after 16, the loss falling."""
     import numpy as np
     import torch
-    from coot_videotext_tpu_torch.data.device_store import FeatureSource
     from coot_videotext_tpu_torch.data.retrieval_dataset import (
         create_retrieval_datasets_and_loaders, to_device)
+    from coot_videotext_tpu_torch.data.device_store import FeatureSource
     from coot_videotext_tpu_torch.ops import cuda_build, philox
     from coot_videotext_tpu_torch.tasks.retrieval.config import (
         RetrievalConfig)
@@ -2869,18 +1939,14 @@ def phase_group(tmp: Path) -> dict:
     made = _take_data("group", tmp / "data")
     log(f"a yc2-like train split (640 videos, 64 val): {made}")
     config = _config(tmp / "group")
-    result, launches, wall = _train_cli(
+    result, launches = _train_cli(
         config, tmp, ["--preload_device", "--fixed_shapes"],
         overrides=",train.steps_per_dispatch=4")
-    losses, state = result["step_losses"], result["state"]
+    losses = result["step_losses"]
     log(f"CLI (store, device sampling + packing, steps_per_dispatch=4): 1 "
         f"epoch of {len(losses)} steps in dispatches "
         f"{result['dispatches']} (losses "
-        f"{', '.join(f'{v:.5f}' for v in losses)}) and its validation in "
-        f"{wall:.1f} s; epoch time {state['time_total']:.2f} s of which "
-        f"validation {state['time_val']:.2f} s; "
-        f"{640 / (state['time_total'] - state['time_val']):.2f} train "
-        f"videos/s end to end (the capture included); launches (the eager "
+        f"{', '.join(f'{v:.5f}' for v in losses)}); launches (the eager "
         f"first step and the capture; replays run no Python) {launches}")
     if (len(losses) != 10 or result["layout"] != "ids"
             or result["dispatches"] != {"group": 3}):
@@ -2890,24 +1956,19 @@ def phase_group(tmp: Path) -> dict:
     for name in KERNELS:
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the group path")
-    # end to end past the capture: the same run resumed to 3 epochs, and
-    # the per-step CLI on the same split, epochs 1-2 of each
+    # the same run resumed to 3 epochs, and the per-step CLI on the split
     for k, cfg_path, extra in (
             (4, config, ",train.steps_per_dispatch=4"),
             (1, _config(tmp / "per_step"), "")):
-        result, _, wall = _train_cli(
+        result, _ = _train_cli(
             cfg_path, tmp, ["--preload_device", "--fixed_shapes"],
             epochs=3, overrides=extra + ",saving.keep_freq=1")
-        per_epoch = _epoch_train_s(result["path_base"] / "models", (1, 2))
         expect = {"group": 6} if k == 4 else {"step": 30}
         if result["dispatches"] != expect or len(result["step_losses"]) \
                 != 30 or not np.isfinite(result["step_losses"]).all():
             fail(f"CLI K={k}, 3 epochs: dispatches {result['dispatches']}, "
                  f"{len(result['step_losses'])} steps")
-        log(f"CLI K={k}: epochs 1-2 (20 steps) train seconds per epoch "
-            f"{', '.join(f'{t:.3f}' for t in per_epoch)}; "
-            f"{2 * 640 / sum(per_epoch):.2f} train videos/s end to end "
-            f"(run of {wall:.1f} s, dispatches {result['dispatches']})")
+        log(f"CLI K={k}: 3 epochs, dispatches {result['dispatches']}")
     held_after_cli(cuda)
 
     cfg = RetrievalConfig(load_yaml_config_file(config))
@@ -2916,8 +1977,7 @@ def phase_group(tmp: Path) -> dict:
         device_preload=True)
     source = FeatureSource.of(loader, cfg.dataset_train.frames_noise,
                               cfg.dataset_train.words_noise)
-    batches = list(loader)
-    b = len(batches[0]["dp_idx"])
+    fixed = next(iter(loader))
     kw = dict(lr=cfg.optimizer.lr, clip_gradient=cfg.train.clip_gradient,
               source=source, loss_cycle_cons=cfg.train.loss_cycle_cons,
               loss_weights=cfg.train.contrastive_loss_config.as_dict(),
@@ -2930,16 +1990,12 @@ def phase_group(tmp: Path) -> dict:
             cfg.optimizer, dict(mgr.model.named_parameters())),
             philox.seed_state(0, cuda))
 
-    def group_arrays(group):
-        return (np.stack([g["dp_idx"] for g in group]),
-                np.stack([g["batch_valid"] for g in group]))
-
     # one fixed id batch, 16 steps: per step, and as 2 groups of 8 replays
-    fixed = batches[0]
     eager, graph = new_state(), new_state()
     snapshot = {n: p.detach().clone()
                 for n, p in graph.optimizer.params.items()}
-    ids, valid = group_arrays([fixed] * 8)
+    ids = np.stack([fixed["dp_idx"]] * 8)
+    valid = np.stack([fixed["batch_valid"]] * 8)
     retrieval_train_group(graph, ids, valid, 1, **kw)  # step 1, capture
     opt = graph.optimizer
     with torch.no_grad():  # back to the start, in place
@@ -2984,60 +2040,8 @@ def phase_group(tmp: Path) -> dict:
         if not (np.isfinite(ls).all()
                 and np.mean(ls[-3:]) < np.mean(ls[:3])):
             fail(f"the fixed batch's loss did not fall ({name})")
-    del eager, graph, snapshot, dev_batch
+    del eager, graph, snapshot, dev_batch, source, loader
     torch.cuda.empty_cache()
-
-    # warm steps per K: 16 steps over the epoch's batches, 3 rounds after
-    # one round of warm-up (the capture included), then max(K, 2) steps
-    # traced (the profiler's processing of an eager step takes seconds)
-    timing = {}
-    for k in (1, 4, 8):
-        n_traced = max(k, 2)
-        ts = new_state()
-        order = [batches[i % len(batches)] for i in range(16)]
-        dev = [to_device(x, cuda) for x in order] if k == 1 else None
-
-        def steps(n, ts=ts, k=k, order=order, dev=dev):
-            if k == 1:
-                for i in range(n):
-                    float(retrieval_train_step(ts, dev[i], **kw)
-                          ["loss_total"])  # the trainer's sync per step
-                return
-            for g0 in range(0, n, k):
-                ids, valid = group_arrays(order[g0:g0 + k])
-                out = retrieval_train_group(ts, ids, valid, len(ids), **kw)
-                torch.stack(list(out.values())).cpu()  # one sync a group
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        steps(16)
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            steps(16)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3 / 16)
-        traced, busy, kernels, events = _busy_ms(lambda: steps(n_traced))
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        med = statistics.median(walls)
-        traced, busy = traced / n_traced, busy / n_traced
-        timing[k] = dict(wall_ms=med, busy_ms=busy, traced_ms=traced,
-                         videos_s=b / med * 1e3, peak_gb=peak)
-        log(f"K={k}: warm wall per step {med:.2f} ms (rounds of 16: "
-            f"{', '.join(f'{w:.2f}' for w in walls)}), {b / med * 1e3:.1f} "
-            f"train videos/s; traced {n_traced} steps: {traced:.2f} ms per "
-            f"step wall, device busy {busy:.2f} ms per step "
-            f"({kernels} kernels, {100 * busy / traced:.1f}% busy); peak "
-            f"device memory {peak:.2f} GB")
-        if busy <= 0:
-            fail(f"K={k}: the profiler saw no device time")
-        if k == 4:
-            log("  K=4, device time per step by kernel family:")
-            log_families(events, n_traced)
-        del ts, dev, events
-        torch.cuda.empty_cache()
-    return timing
 
 
 def held_after_cli(device) -> dict:
@@ -3062,80 +2066,187 @@ def held_after_cli(device) -> dict:
     return held
 
 
-def profile_step(step_fn, what: str) -> list:
-    """One warm step under torch.profiler: the device's busy share of the
-    step and the device time by kernel. Returns the trace's device
-    events."""
+# ---------------- phase 5: kernel timing ----------------
+
+# the step shapes of phase 4's id batches at yc2_2d3d_coot width (batch 64
+# of the 256-video train split, clips and sentences packed): the calls of
+# PERF.md's kernel table; time_kernels runs at them
+STEP_SHAPES = {"b": 64, "n_parts": 16, "lv": 80, "lc": 80, "lp": 320,
+               "ls": 24, "pack_clips": 832, "pack_sents": 832, "din": 4096,
+               "dtext": 1536}
+# the rows of B5's table in phase 5: a store of the 256-video train
+# split's size
+STORE_ROWS = 82000
+# B4 in float32 at the caption train steps' dropout shapes, rate 0.1:
+# MART at yc2_2d3d_coot_vidclip_mart (L = 25: hidden rows, attention
+# probabilities), raw-feature MART (L = 122), the MTransformer (video rows
+# 1152 / 768, text rows, self-, cross- and video-attention
+# probabilities), the TransformerXL's position tables at klen 25 and 50
+# and a (16, 50, 768) block, the untied text embedding (300)
+CAPTION_DROPOUT_SHAPES = ((16, 25, 768), (16, 12, 25, 25), (16, 122, 768),
+                          (16, 12, 122, 122), (16, 3, 1152), (16, 3, 768),
+                          (16, 12, 3, 3), (16, 22, 768), (16, 12, 22, 22),
+                          (16, 12, 22, 3), (25, 768), (50, 768),
+                          (16, 50, 768), (16, 22, 300))
+
+
+def kernel_call_work(shapes: dict) -> dict:
+    """Every call phase 5 times, by the name of its row in the kernels
+    line (B6's eval forward apart, as `coot_norm_eval`), the clips call
+    first: {"call": its place in a step, "dims": its inputs' sizes,
+    "bytes", "flops", "dtype"}. `bytes` reads each input once and writes
+    each output once; `flops` counts the products (a backward's the
+    gradients', B1's only G = xhat^T dpre, as its input gets none); their
+    least time is portbench/work.py `bound_s`. A pure function of a step's
+    `shapes` (STEP_SHAPES' keys; phase 4 reads them from its batch)."""
+    b, parts = shapes["b"], shapes["n_parts"]
+    clips = shapes.get("pack_clips", b * parts)
+    sents = shapes.get("pack_sents", b * parts)
+    lc, lv, lp, ls = (shapes[k] for k in ("lc", "lv", "lp", "ls"))
+    din, dtext = shapes["din"], shapes["dtext"]
+    # the local nets' width, GenPool's hidden width and heads, B3's heads
+    # and head width
+    d, h, pool_heads, heads, dh = 384, 768, 2, 8, 48
+
+    def call(what, nbytes, flops, dtype="bfloat16", **dims):
+        return {"call": what, "dims": dims, "bytes": nbytes,
+                "flops": float(flops), "dtype": dtype}
+
+    fc = (("clips", clips * lc, din), ("video global", b * lv, din),
+          ("paragraph", b * lp, dtext), ("sentences", sents * ls, dtext))
+    pool = (("clips", clips, lc), ("video ctx", b, lv),
+            ("paragraph", b, lp), ("sentences", sents, ls))
+    dho = d // pool_heads
+    weights = 2 * d * h + 2 * h * dho + 4 * (h + d)
+    attention = [(what, s, n, n) for what, s, n in pool] + [
+        ("global", b, parts, parts), ("cross", b, 1, parts)]
+    norms = (("clips", clips * lc, d, True), ("video ctx", b * lv, d, True),
+             ("paragraph", b * lp, d, True),
+             ("sentences", sents * ls, d, True),
+             ("global input", b * parts, 2 * d, False))
+    dropouts = [call("clips", 4 * clips * lc * d, clips * lc * d,
+                     shape=(clips * lc, d), rate=0.01)] + [
+        call("caption", 8 * math.prod(shape), math.prod(shape), "float32",
+             shape=shape, rate=0.1) for shape in CAPTION_DROPOUT_SHAPES]
+    gathers = (("clips", clips * lc, din), ("video", b * lv, din),
+               ("paragraphs", b * lp, dtext))
+    return {
+        "input_fc": [call(
+            what, 2 * s * w + 8 * w + 2 * d * w + 4 * d + 2 * s * d,
+            2 * s * w * d, s=s, width=w) for what, s, w in fc],
+        "input_fc_bwd": [call(
+            what, 2 * s * w + 2 * s * d + 4 * s * d + 2 * w * d + 8 * s
+            + 4 * (w * d + d + 2 * w), 2 * s * w * d, s=s, width=w)
+            for what, s, w in fc],
+        "genpool": [call(
+            what, 2 * s * n * d + s * n + weights + 2 * s * d,
+            2 * s * n * (d * h + h * dho), s=s, length=n)
+            for what, s, n in pool],
+        "genpool_bwd": [call(
+            what, 4 * s * n * d + s * n + 3 * weights + 14 * s * d,
+            2 * s * n * (3 * d * h + 3 * h * dho), s=s, length=n)
+            for what, s, n in pool],
+        "attention": [call(
+            what, 2 * s * heads * (2 * lq + 2 * lk) * dh + s * lk,
+            4 * s * heads * lq * lk * dh, b=s, lq=lq, lk=lk)
+            for what, s, lq, lk in attention],
+        "attention_bwd": [call(
+            what, 16 * s * heads * n * dh + s * n + 8 * s * heads * n,
+            10 * s * heads * n * n * dh, b=s, length=n)
+            for what, s, n in pool],
+        "dropout": dropouts,
+        "dropout_bwd": dropouts,
+        "gather": [call(what, 4 * n * w + 4 * n, 0, n=n, width=w)
+                   for what, n, w in gathers],
+        "coot_norm": [call(
+            what, (8 if res else 4) * rows * w + 8 * rows + 8 * w,
+            10 * rows * w, rows=rows, width=w, residual=res)
+            for what, rows, w, res in norms],
+        "coot_norm_eval": [call(
+            what, (6 if res else 4) * rows * w + 8 * w, 10 * rows * w,
+            rows=rows, width=w, residual=res)
+            for what, rows, w, res in norms],
+        "coot_norm_bwd": [call(
+            what, 6 * rows * w + 8 * rows + 12 * w, 12 * rows * w,
+            rows=rows, width=w, residual=res)
+            for what, rows, w, res in norms],
+    }
+
+
+def input_fc_inputs(s, din, dout, dtype, gen):
+    """x ~ 2 N + 0.5, the norm's gain and bias, W and b."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from coot_videotext_tpu_torch.utils.profiling import warm_trace
-
-    def step():
-        step_fn()
-        torch.cuda.synchronize()
-
-    step()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        warm_trace()
-        t0 = time.perf_counter()
-        step()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-
-    # kernel entries only: CPU ops also carry their kernels' device time
-    events = _device_events(prof.key_averages())
-    busy_ms = sum(_dev_us(e) for e in events) / 1e3
-    log(f"traced {what} step: {traced_ms:.2f} ms wall, device busy "
-        f"{busy_ms:.2f} ms ({100 * busy_ms / traced_ms:.1f}%); top device "
-        "time:")
-    for e in sorted(events, key=_dev_us, reverse=True)[:16]:
-        log(f"    {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    for family, pattern in (
-            ("B1 forward", ("row_stats", "input_fc_fwd_mma")),
-            ("B1 backward (without its sum_splits)",
-             ("dpre_colsum", "tn_mma<true>", "param_grads")),
-            ("B2 forward", ("genpool_fwd", "genpool_pool")),
-            ("B2 backward (without its sum_splits)",
-             ("genpool_bwd_tiles", "tn_mma<false>")),
-            ("B3 forward", ("masked_attention_fwd",)),
-            ("B3 backward", ("masked_attention_bwd",)),
-            ("B4", ("dropout_kernel",))):
-        mine = [e for e in events if any(p in e.key for p in pattern)]
-        log(f"  {family} ({'*, '.join(pattern)}*): "
-            f"{sum(_dev_us(e) for e in mine) / 1e3:.3f} ms device time over "
-            f"{sum(e.count for e in mine)} launches in the step")
-    return events
+    dev = "cuda"
+    x = torch.randn(s, din, generator=gen, device=dev) * 2.0 + 0.5
+    gain = 1.0 + 0.1 * torch.randn(din, generator=gen, device=dev)
+    bias = 0.1 * torch.randn(din, generator=gen, device=dev)
+    w = torch.randn(dout, din, generator=gen, device=dev) / math.sqrt(din)
+    b = 0.1 * torch.randn(dout, generator=gen, device=dev)
+    return x.to(dtype), gain, bias, w.to(dtype), b
 
 
-def device_ms_per_call(fn, calls: int = 100) -> float:
-    """The profiler's device ms per call of fn, over all its kernels."""
-    return sum(kernel_ms(fn, calls).values())
-
-
-def kernel_ms(fn, calls: int = 20) -> dict:
-    """The profiler's device ms per call of fn, by kernel (the name up to
-    its argument list, without the namespace): for each kernel its mean
-    time per launch, times its launches per call (at least 1). Means per
-    launch hold when the trace misses some of a thread's launches (seen for
-    backwards run by autograd's device thread)."""
+def genpool_inputs(s, length, d, h, heads, dtype, gen):
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from coot_videotext_tpu_torch.utils.profiling import warm_trace
-    fn()
+    dev = "cuda"
+    dh, dho = h // heads, d // heads
+    f = torch.randn(s, length, d, generator=gen, device=dev)
+    lens = torch.randint(1, length + 1, (s,), generator=gen, device=dev)
+    mask = torch.arange(length, device=dev)[None] < lens[:, None]
+    w1 = torch.randn(heads, d, dh, generator=gen, device=dev) / math.sqrt(d)
+    b1 = 0.1 * torch.randn(heads, dh, generator=gen, device=dev)
+    w2 = torch.randn(heads, dh, dho, generator=gen, device=dev) / math.sqrt(dh)
+    b2 = 0.1 * torch.randn(heads, dho, generator=gen, device=dev)
+    return f.to(dtype), mask, w1.to(dtype), b1, w2.to(dtype), b2
+
+
+def attention_inputs(b, heads, lq, lk, dh, dtype, gen):
+    import torch
+    dev = "cuda"
+    n = b * heads
+    q = torch.randn(n, lq, dh, generator=gen, device=dev)
+    k = torch.randn(n, lk, dh, generator=gen, device=dev)
+    v = torch.randn(n, lk, dh, generator=gen, device=dev)
+    lens = torch.randint(1, lk + 1, (b,), generator=gen, device=dev)
+    key_valid = torch.arange(lk, device=dev)[None] < lens[:, None]
+    return q.to(dtype), k.to(dtype), v.to(dtype), key_valid
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """CUDA events over `iters` back-to-back calls of fn, ms per call."""
+    import torch
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        warm_trace()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls: int = 20) -> tuple:
+    """(device-busy ms per call of fn, {kernel: ms per call}): `calls`
+    warm calls in one traced window (portbench/trace.py: busy is the union
+    of the kernels' intervals); kernels by name without namespace and
+    arguments."""
+    import torch
+    from portbench.trace import traced
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in _device_events(prof.key_averages()):
-        name = e.key.replace("(anonymous namespace)::", "").split(
-            "(")[0].split("::")[-1]
-        per_call = _dev_us(e) / e.count * max(1, round(e.count / calls))
-        out[name] = out.get(name, 0.0) + per_call / 1e3
-    return out
+
+    fn()
+    torch.cuda.synchronize()
+    trace = traced(run)
+    split = {}
+    for name, start, end in trace.kernels:
+        key = name.replace("(anonymous namespace)::", "").split("(")[0]
+        key = key.split("::")[-1]
+        split[key] = split.get(key, 0.0) + (end - start) * 1e3 / calls
+    return trace.busy_s * 1e3 / calls, split
 
 
 def host_us_per_call(fn, calls: int = 100) -> float:
@@ -3152,60 +2263,6 @@ def host_us_per_call(fn, calls: int = 100) -> float:
     return host
 
 
-def paired_bwd_ms(ours, lib, rounds: int = 5):
-    """Medians of two backwards through autograd.grad (`_bwd_ms` on
-    (out, inputs, g)), timed in turns so that the host's load falls on both
-    alike, and each round's times."""
-    a, b = [], []
-    for _ in range(rounds):
-        a.append(_bwd_ms(*ours))
-        b.append(_bwd_ms(*lib))
-    return statistics.median(a), statistics.median(b), a, b
-
-
-def dropout_host_device(x, seed, fwd_ms, bwd_ms, lib_bwd_ms):
-    """B4 forward, B4 backward and F.dropout's backward on x, four ways:
-    (i) CUDA events over 100 back-to-back bare launches, (ii) the
-    profiler's device time per launch, (iii) host microseconds per wrapper
-    call, (iv) the wrapper as phase 5 times it (forward in inference mode,
-    backwards through torch.autograd.grad, median of rounds in turns)."""
-    import torch
-    from coot_videotext_tpu_torch.ops import cuda_build, philox
-    from coot_videotext_tpu_torch.ops import dropout as b4
-    rate, numel = 0.01, x.numel()
-    args = b4.launch_args(x, seed, rate, philox.SITE_DROPOUT,
-                          cuda_build.stream(x))
-    kernel = cuda_build.load_library().coot_dropout
-    y = torch.empty_like(x)
-    xp, yp = x.data_ptr(), y.data_ptr()
-    _, mask = torch.ops.aten.native_dropout(x, rate, True)
-    calls = {
-        "B4 forward": (lambda: kernel(xp, yp, numel, *args),
-                       lambda: b4.dropout(x, seed, rate), fwd_ms),
-        "B4 backward": (lambda: kernel(xp, yp, numel, *args),
-                        lambda: b4.launch(x, args, "dropout_bwd"), bwd_ms),
-        "F.dropout backward": (
-            lambda: torch.ops.aten.native_dropout_backward(
-                x, mask, 1.0 / (1.0 - rate)),
-            lambda: torch.ops.aten.native_dropout_backward(
-                x, mask, 1.0 / (1.0 - rate)), lib_bwd_ms),
-    }
-    with torch.inference_mode():
-        for name, (bare, wrapper, through) in calls.items():
-            log(f"  {name:18s} {numel} bf16: (i) {time_ms(bare, 100):.4f} ms "
-                f"per bare launch (CUDA events, 100 back to back), (ii) "
-                f"{device_ms_per_call(bare):.4f} ms device time per launch "
-                f"(profiler), (iii) {host_us_per_call(wrapper):.1f} us host "
-                f"per wrapper call, (iv) {through:.4f} ms through the "
-                "wrapper" + (" (forward)" if name == "B4 forward" else
-                             " (torch.autograd.grad)"))
-
-
-def _dev_us(e):
-    return getattr(e, "self_device_time_total",
-                   getattr(e, "self_cuda_time_total", 0.0))
-
-
 def _bwd_ms(out, inputs, g) -> float:
     """The backward alone: autograd.grad over a kept graph."""
     import torch
@@ -3213,510 +2270,268 @@ def _bwd_ms(out, inputs, g) -> float:
                                                retain_graph=True))
 
 
-def norm_timing(shapes, gen, max_errors) -> list:
-    """B6 (the residual add and CootLayerNorm) in bf16 at the four post-LN
-    norm calls of a train step's local nets (width 384) and the global
-    nets' input norm (768, no residual): checked against the plain version
-    forward and backward, the backward repeated bit for bit, then timed
-    with the plain path (the unfused composition through autograd, as the
-    port ran it before B6) and the profiler's device time by kernel.
-    Returns the kernels-line entries of the clips call."""
-    import torch
-    from coot_videotext_tpu_torch.ops.coot_norm import (
-        coot_norm, coot_norm_backward_plain, coot_norm_plain)
-    bf = torch.bfloat16
-    calls = (("clips", shapes.get("pack_clips", shapes["b"]
-                                  * shapes["n_parts"]) * shapes["lc"], 384),
-             ("video ctx", shapes["b"] * shapes["lv"], 384),
-             ("paragraph", shapes["b"] * shapes["lp"], 384),
-             ("sentences", shapes.get("pack_sents", shapes["b"]
-                                      * shapes["n_parts"]) * shapes["ls"],
-              384),
-             ("global input", shapes["b"] * shapes["n_parts"], 768))
-    out = []
-    for what, rows, width in calls:
-        residual = what != "global input"
-        y = (2 * torch.randn(rows, width, generator=gen, device="cuda")
-             + 0.5).to(bf)
-        r = (torch.randn(rows, width, generator=gen, device="cuda").to(bf)
-             if residual else None)
-        y[:3] = 3.0  # constant rows, as zeroed padded slots
-        if residual:
-            r[:3] = -1.0
-        gain = 1 + 0.1 * torch.randn(width, generator=gen, device="cuda")
-        bias = 0.1 * torch.randn(width, generator=gen, device="cuda")
-        dout = torch.randn(rows, width, generator=gen, device="cuda").to(bf)
-        shape = f"{rows}x{width} bf16" + (" + residual" if residual else "")
-        leaves = [t.clone().requires_grad_() for t in (y, r, gain, bias)
-                  if t is not None]
-
-        def fused(*a, res=residual):
-            return coot_norm(a[0], a[1] if res else None, *a[-2:], 1e-6)
-
-        def plain(*a, res=residual):
-            return coot_norm_plain(a[0], a[1] if res else None, *a[-2:],
-                                   1e-6)
-
-        with torch.inference_mode():
-            args = [t for t in (y, r, gain, bias) if t is not None]
-            err = errors(fused(*args), plain(*args))
-            check_tol("coot_norm", "bfloat16", f"{what} {shape}", *err)
-            eval_ms = time_ms(lambda: fused(*args), 20)
-            eval_split = kernel_ms(lambda: fused(*args))
-            plain_eval = time_ms(lambda: plain(*args), 5)
-        o = fused(*leaves)
-
-        def backward():
-            return torch.autograd.grad(o, leaves, dout, retain_graph=True)
-
-        grads = backward()
-        dx, dgain, dbias = coot_norm_backward_plain(
-            y if r is None else y + r, gain, 1e-6, dout)
-        ref = [dx, dx, dgain, dbias] if residual else [dx, dgain, dbias]
-        # dx of the constant rows (1 / eps times the rest) apart
-        errs = [errors(grads[0][:3], dx[:3]), errors(grads[0][3:], dx[3:])]
-        errs += [errors(a, b) for a, b in zip(grads[1:], ref[1:])]
-        err_b = (max(e[0] for e in errs), max(e[1] for e in errs))
-        check_tol("coot_norm_bwd", "bfloat16", f"{what} {shape}", *err_b)
-        if not all(torch.equal(a, b) for a, b in zip(grads, backward())):
-            fail(f"coot_norm_bwd {what} {shape}: two backward calls on the "
-                 "same inputs differ")
-        del grads, ref, dx
-        train_ms = time_ms(lambda: fused(*leaves), 20)
-        bwd_ms = _bwd_ms(o, leaves, dout)
-        bwd_split = kernel_ms(backward)
-        o_plain = plain(*leaves)
-        plain_train = time_ms(lambda: plain(*leaves), 5)
-        plain_bwd = _bwd_ms(o_plain, leaves, dout)
-        plain_bwd_split = kernel_ms(lambda: torch.autograd.grad(
-            o_plain, leaves, dout, retain_graph=True), 5)
-        n = rows * width
-        # each element read once and written once, the row stats, gain
-        # and bias; the backward's partial column sums left out (small)
-        fwd_bytes = (2 * (2 if residual else 1) * n + 2 * n
-                     + (2 * n if residual else 0) + 8 * rows + 8 * width)
-        eval_bytes = 2 * (2 if residual else 1) * n + 2 * n + 8 * width
-        bwd_bytes = 3 * 2 * n + 8 * rows + 4 * width + 8 * width
-        bf_ms, by = bound_ms(fwd_bytes, 10.0 * n, "bfloat16")
-        be_ms, _ = bound_ms(eval_bytes, 10.0 * n, "bfloat16")
-        bb_ms, _ = bound_ms(bwd_bytes, 12.0 * n, "bfloat16")
-        log(f"  coot_norm     {what:12s} {shape:30s} train {train_ms:.4f} ms"
-            f" (bound {bf_ms:.4f}), eval {eval_ms:.4f} ms (bound "
-            f"{be_ms:.4f}; device by kernel: " + ", ".join(
-                f"{k} {v:.4f}" for k, v in eval_split.items())
-            + f"), {by}-bound; plain {plain_train:.3f} ms train, "
-            f"{plain_eval:.3f} ms eval")
-        log(f"  coot_norm_bwd {what:12s} {shape:30s} autograd.grad "
-            f"{bwd_ms:.4f} ms (bound {bb_ms:.4f}; device by kernel: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in bwd_split.items())
-            + f"); plain (autograd of the unfused norm) {plain_bwd:.3f} ms, "
-            f"device {sum(plain_bwd_split.values()):.3f} ms over "
-            f"{len(plain_bwd_split)} kernel names")
-        for name, e in (("coot_norm", err), ("coot_norm_bwd", err_b)):
-            max_errors[name] = max(max_errors.get(name, 0.0), e[0])
-        if what == "clips":
-            for name, ms, plain_ms, nbytes, bms in (
-                    ("coot_norm", train_ms, plain_train, fwd_bytes, bf_ms),
-                    ("coot_norm_bwd", bwd_ms, plain_bwd, bwd_bytes, bb_ms)):
-                out.append(dict(
-                    name=name, shape=shape,
-                    source="coot_videotext_tpu_torch/csrc/coot_norm.cu",
-                    replaces="none: XLA fused CootLayerNorm on the TPU",
-                    ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
-                    bound_by="bytes", product_ms=None))
-        del y, r, gain, bias, dout, leaves, o, o_plain
-        torch.cuda.empty_cache()
-    return out
+def paired_bwd_ms(ours, lib, rounds: int = 5) -> tuple:
+    """Medians of two backwards (`_bwd_ms` on (out, inputs, g)), timed in
+    turns so that the host's load falls on both alike."""
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(_bwd_ms(*ours))
+        b.append(_bwd_ms(*lib))
+    return statistics.median(a), statistics.median(b)
 
 
-def phase_timing(launches, shapes, max_errors):
-    """Kernel, plain version and library yardstick at the main path's
-    largest call of each kernel (the video clips through the local net),
-    forward and backward."""
+def phase_timing(launches: dict, shapes: dict) -> list:
+    """Phase 5: every call of kernel_call_work(shapes), forward and
+    backward, in bf16 (B4 also in f32 at the caption shapes): the kernel
+    through its wrapper (CUDA events; backwards through autograd.grad),
+    its device-busy ms and device ms by kernel (portbench/trace.py), its
+    plain version, the library's call where one computes the same (SDPA,
+    F.dropout, index_select) or B1's product alone, and its least time
+    (portbench/work.py `bound_s`). B2's and B3's forwards train (with the
+    stats) and eval; B3 in turns with SDPA; B1's backward's host us per
+    call; B5 with and without noise; B6 train and eval. Returns the kernels
+    line: each kernel's clips call, `launches` (phase 4's counts) beside
+    it."""
     import torch
     import torch.nn.functional as F
+    from portbench.work import bound_s
+    from coot_videotext_tpu_torch.ops import philox
     from coot_videotext_tpu_torch.ops.attention import (
         masked_attention, masked_attention_backward_plain,
         masked_attention_plain)
+    from coot_videotext_tpu_torch.ops.coot_norm import (
+        coot_norm, coot_norm_plain)
     from coot_videotext_tpu_torch.ops.dropout import dropout, dropout_plain
+    from coot_videotext_tpu_torch.ops.gather import (
+        GatherNoise, gather_rows, gather_rows_plain)
     from coot_videotext_tpu_torch.ops.genpool import (
         genpool, genpool_backward_plain, genpool_plain)
     from coot_videotext_tpu_torch.ops.input_fc import (
         fused_input_fc, fused_input_fc_backward_plain, fused_input_fc_plain)
     from coot_videotext_tpu_torch.typext import INF
+    work = kernel_call_work(shapes)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    bf = torch.bfloat16
-    # the largest local-net call: the packed clips (P of them)
-    rows = shapes.get("pack_clips", shapes["b"] * shapes["n_parts"])
-    lc, din, d, h, heads, dh = shapes["lc"], shapes["din"], 384, 768, 2, 48
-    dho = d // heads
-    entries = []
+    bf, rate, seed = torch.bfloat16, 0.01, device_seed()
+    rows = []
 
-    def entry(name, shape, src, replaces, ms, plain_ms, library_ms,
-              nbytes, flops):
-        bms, by = bound_ms(nbytes, flops, "bfloat16")
-        entries.append(dict(
-            name=name, shape=shape,
-            source=f"coot_videotext_tpu_torch/csrc/{src}",
-            replaces=f"coot_videotext_tpu/ops/{replaces}", ms=ms,
-            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
-            bound_by=by, product_ms=None))
+    def record(name, i, ms, device, plain_ms, library_ms=None, **extra):
+        w = work[name][i]
+        bound = bound_s(w["bytes"], w["flops"], w["dtype"]) * 1e3
+        by = ("bytes" if bound_s(w["bytes"], 0.0, w["dtype"])
+              >= bound_s(0.0, w["flops"], w["dtype"]) else "operations")
+        dev, split = device
+        rows.append(dict(name=name, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                         library_ms=library_ms, roofline_ms=bound, bound_by=by,
+                         **extra))
+        dims = " ".join(f"{k}={v}" for k, v in w["dims"].items())
+        log(f"  {name:14s} {w['call']:12s} {dims} {w['dtype']}: kernel "
+            f"{ms:.4f} ms, device {dev:.4f} (" + ", ".join(
+                f"{k} {v:.4f}" for k, v in split.items())
+            + f"), bound {bound:.4f} ({by}), plain {plain_ms:.3f}"
+            + ("" if library_ms is None else f", library {library_ms:.4f}")
+            + "".join(f", {k} {v:.4f}" for k, v in extra.items()))
 
-    # B1 at the four calls of a train step: the packed clips (the kernels
-    # line), the video global net, the paragraph and the packed sentences
-    b1_calls = (
-        ("clips", rows * lc, din),
-        ("video global", shapes["b"] * shapes["lv"], din),
-        ("paragraph", shapes["b"] * shapes["lp"], shapes["dtext"]),
-        ("sentences", shapes.get("pack_sents", shapes["b"]
-                                 * shapes["n_parts"]) * shapes["ls"],
-         shapes["dtext"]))
-    for what, s, width in b1_calls:
-        x, *params = input_fc_inputs(s, width, d, bf, gen)
+    # B1: the forward, and its product alone (a yardstick: no PyTorch call
+    # computes B1, and the port never calls the product); the backward's
+    # one product G = xhat^T dpre alone
+    for i, c in enumerate(work["input_fc"]):
+        s, width = c["dims"]["s"], c["dims"]["width"]
+        x, *params = input_fc_inputs(s, width, 384, bf, gen)
         params = [p.float() for p in params]
         w_t = params[2].to(bf).t()
-        shape = f"S={s} {width}->{d} bf16"
+
+        def fc():
+            return fused_input_fc(x, *params, 1e-6, "gelu")
+
         with torch.inference_mode():
-            check_tol("input_fc", "bfloat16", f"{what} {shape}", *errors(
-                fused_input_fc(x, *params, 1e-6, "gelu"),
-                fused_input_fc_plain(x, *params, 1e-6, "gelu")))
-            fwd = time_ms(lambda: fused_input_fc(x, *params, 1e-6, "gelu"))
-            plain = time_ms(lambda: fused_input_fc_plain(x, *params, 1e-6,
-                                                         "gelu"))
-            # yardstick, not a port of B1: the product alone
-            product = time_ms(lambda: torch.matmul(x, w_t))
-            fwd_split = kernel_ms(lambda: fused_input_fc(x, *params, 1e-6,
-                                                         "gelu"))
+            record("input_fc", i, time_ms(fc), device_ms(fc), time_ms(
+                lambda: fused_input_fc_plain(x, *params, 1e-6, "gelu")),
+                product_ms=time_ms(lambda: torch.matmul(x, w_t)))
         leaves = [p.clone().requires_grad_() for p in params]
         y = fused_input_fc(x, *leaves, 1e-6, "gelu")
-        dy = torch.randn(s, d, generator=gen, device="cuda").to(bf)
+        dy = torch.randn(s, 384, generator=gen, device="cuda").to(bf)
 
-        def backward():
+        def fc_bwd():
             return torch.autograd.grad(y, leaves, dy, retain_graph=True)
 
-        # at this call's row splits: each gradient against the plain one,
-        # and a second call bit for bit
-        grads = backward()
-        ref = fused_input_fc_backward_plain(x, *params, 1e-6, "gelu", dy)
-        errs = [errors(a, r) for a, r in zip(grads, ref)]
-        check_tol("input_fc_bwd", "bfloat16", f"{what} {shape}",
-                  max(e[0] for e in errs), max(e[1] for e in errs))
-        if not all(torch.equal(a, b) for a, b in zip(grads, backward())):
-            fail(f"input_fc_bwd {what} {shape}: two backward calls on the "
-                 "same inputs differ")
-        del grads, ref
-        bwd = _bwd_ms(y, leaves, dy)
-        bwd_host = host_us_per_call(backward, 50)
-        bwd_plain = time_ms(lambda: fused_input_fc_backward_plain(
-            x, *params, 1e-6, "gelu", dy))
-        bwd_split = kernel_ms(backward)
-        # the backward's one product G = xhat^T dpre: (din x S)(S x dout)
-        bwd_product = time_ms(lambda: torch.matmul(x.t(), dy))
-        fwd_bytes = (2 * s * width + 8 * width + 2 * d * width + 4 * d
-                     + 2 * s * d)
-        bwd_bytes = (2 * s * width + 2 * s * d + 4 * s * d + 2 * width * d
-                     + 8 * s + 4 * (width * d + d + 2 * width))
-        flops = 2.0 * s * width * d
-        for name, ms, plain_ms, prod, split, nbytes in (
-                ("input_fc", fwd, plain, product, fwd_split, fwd_bytes),
-                ("input_fc_bwd", bwd, bwd_plain, bwd_product, bwd_split,
-                 bwd_bytes)):
-            bms, by = bound_ms(nbytes, flops, "bfloat16")
-            log(f"  {name:13s} {what:12s} {shape:26s} kernel {ms:.4f} ms, "
-                f"bound {bms:.4f} ({by}), plain {plain_ms:.3f}, product "
-                f"alone (torch.matmul) {prod:.4f}; device by kernel: "
-                + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-                + (f"; host {bwd_host:.1f} us per autograd.grad call"
-                   if name == "input_fc_bwd" else ""))
-            if what == "clips":
-                entry(name, shape, "input_fc.cu", "pallas_input_fc.py:"
-                      + ("207" if name == "input_fc" else "284"), ms,
-                      plain_ms, None, nbytes, flops)
-                entries[-1]["product_ms"] = prod
-        del x, params, leaves, y, dy, w_t
+        record("input_fc_bwd", i, _bwd_ms(y, leaves, dy), device_ms(fc_bwd),
+               time_ms(lambda: fused_input_fc_backward_plain(
+                   x, *params, 1e-6, "gelu", dy)),
+               product_ms=time_ms(lambda: torch.matmul(x.t(), dy)),
+               host_us=host_us_per_call(fc_bwd, 50))
+        del x, params, w_t, leaves, y, dy
         torch.cuda.empty_cache()
-    # B2 at the four calls of a train step (the clips in the kernels line)
-    b2_calls = (("clips", rows, lc),
-                ("video ctx", shapes["b"], shapes["lv"]),
-                ("paragraph", shapes["b"], shapes["lp"]),
-                ("sentences", shapes.get("pack_sents", shapes["b"]
-                                         * shapes["n_parts"]), shapes["ls"]))
-    rate, seed = 0.01, device_seed()
-    weights = 2 * d * h + 2 * h * dho + 4 * (h + d)
-    # B2 forward: held against its plain version and repeated bit for bit,
-    # then timed with the stats (train) and without (eval), with the
-    # profiler's device time of the tile pass and the pooling pass apart
-    for what, s_, length in b2_calls:
-        f, mask, *params = genpool_inputs(s_, length, d, h, heads, bf, gen)
+    # B2: the forward with the stats (train) and without (eval)
+    for i, c in enumerate(work["genpool"]):
+        s, length = c["dims"]["s"], c["dims"]["length"]
+        f, mask, *params = genpool_inputs(s, length, 384, 768, 2, bf, gen)
         params = [p.float() for p in params]
         leaves = [p.clone().requires_grad_() for p in params]
-        r = s_ * length
-        shape = f"S={s_} L={length} D={d} H={h} bf16 drop {rate}"
-        nbytes = 2 * r * d + r + weights + 2 * s_ * d
-        flops = 2.0 * r * (d * h + h * dho)
-        bms, by = bound_ms(nbytes, flops, "bfloat16")
-        with torch.inference_mode():
-            plain_out = genpool_plain(f, mask, *params, "gelu", rate, seed)
-        times = {}
-        for mode, ps in (("train", leaves), ("eval", params)):
-            def fwd():
-                return genpool(f, mask, *ps, "gelu", rate, seed)
 
-            with torch.inference_mode(mode == "eval"):
-                out = fwd()
-                check_tol("genpool", "bfloat16", f"{what} {mode} {shape}",
-                          *errors(out, plain_out))
-                if not torch.equal(out, fwd()):
-                    fail(f"genpool {what} {mode} {shape}: two forward calls "
-                         "on the same inputs differ")
-                times[mode] = (time_ms(fwd), kernel_ms(fwd))
-            del out
+        def pool(ps):
+            return lambda: genpool(f, mask, *ps, "gelu", rate, seed)
+
         with torch.inference_mode():
+            eval_ms = time_ms(pool(params))
+            eval_dev = device_ms(pool(params))[0]
             plain = time_ms(lambda: genpool_plain(f, mask, *params, "gelu",
                                                   rate, seed), 3, 1)
-        log(f"  genpool       {what:10s} {shape:36s} " + "; ".join(
-            f"{mode} {ms:.4f} ms (device by kernel: " + ", ".join(
-                f"{k} {v:.4f}" for k, v in split.items()) + ")"
-            for mode, (ms, split) in times.items())
-            + f"; bound {bms:.4f} ({by}), plain {plain:.3f} ms")
-        if what == "clips":
-            entry("genpool", shape, "genpool.cu", "pallas_genpool.py:284",
-                  times["train"][0], plain, None, nbytes, flops)
-        del f, mask, params, leaves, plain_out
-        torch.cuda.empty_cache()
-    # B2 backward at the same calls: held against its plain version and
-    # repeated bit for bit, then through autograd, with the profiler's
-    # device time of the tile pass (genpool_bwd_tiles), the weight-gradient
-    # products (tn_mma<false>) and the split sums apart
-    for what, s_, length in b2_calls:
-        f, mask, *params = genpool_inputs(s_, length, d, h, heads, bf, gen)
-        params = [p.float() for p in params]
+        record("genpool", i, time_ms(pool(leaves)), device_ms(pool(leaves)),
+               plain, eval_ms=eval_ms, eval_device_ms=eval_dev)
         fl = f.clone().requires_grad_()
-        leaves = [p.clone().requires_grad_() for p in params]
         y = genpool(fl, mask, *leaves, "gelu", rate, seed)
-        dout = torch.randn(s_, d, generator=gen, device="cuda").to(bf)
+        dout = torch.randn(s, 384, generator=gen, device="cuda").to(bf)
 
-        def backward():
+        def pool_bwd():
             return torch.autograd.grad(y, [fl] + leaves, dout,
                                        retain_graph=True)
 
-        shape = f"S={s_} L={length} D={d} H={h} bf16 drop {rate}"
-        grads = backward()
-        ref = genpool_backward_plain(f, mask, *params, "gelu", dout, rate,
-                                     seed)
-        errs = [errors(a, r_) for a, r_ in zip(grads, ref)]
-        check_tol("genpool_bwd", "bfloat16", f"{what} {shape}",
-                  max(e[0] for e in errs), max(e[1] for e in errs))
-        if not all(torch.equal(a, b) for a, b in zip(grads, backward())):
-            fail(f"genpool_bwd {what} {shape}: two backward calls on the "
-                 "same inputs differ")
-        del grads, ref
-        bwd = _bwd_ms(y, [fl] + leaves, dout)
-        bwd_plain = time_ms(lambda: genpool_backward_plain(
-            f, mask, *params, "gelu", dout, rate, seed))
-        split = kernel_ms(backward)
-        r = s_ * length
-        nbytes = (2 * r * d + r + weights + 2 * s_ * d + 12 * s_ * d
-                  + 2 * r * d + 2 * weights)
-        flops = 2.0 * r * (3 * d * h + 3 * h * dho)
-        bms, by = bound_ms(nbytes, flops, "bfloat16")
-        log(f"  genpool_bwd   {what:10s} {shape:36s} autograd {bwd:.4f} ms, "
-            f"bound {bms:.4f} ({by}), plain {bwd_plain:.3f} ms; "
-            "device by kernel: " + ", ".join(
-                f"{k} {v:.4f}" for k, v in split.items()))
-        if what == "clips":
-            entry("genpool_bwd", shape, "genpool.cu",
-                  "pallas_genpool.py:358", bwd, bwd_plain, None, nbytes,
-                  flops)
-        del f, mask, params, fl, leaves, y, dout
+        record("genpool_bwd", i, _bwd_ms(y, [fl] + leaves, dout),
+               device_ms(pool_bwd), time_ms(lambda: genpool_backward_plain(
+                   f, mask, *params, "gelu", dout, rate, seed)))
+        del f, mask, params, leaves, fl, y, dout
         torch.cuda.empty_cache()
-    # B3 forward at the six shapes of a train step (the clips in the
-    # kernels line): held against its plain version and repeated bit for
-    # bit, then timed with the stats (train) and without (eval) in turns
-    # with SDPA (additive mask, the same dropout), with the profiler's
-    # device time
-    b3_calls = (("clips", rows, lc, lc),
-                ("video ctx", shapes["b"], shapes["lv"], shapes["lv"]),
-                ("paragraph", shapes["b"], shapes["lp"], shapes["lp"]),
-                ("sentences", shapes.get("pack_sents", shapes["b"]
-                                         * shapes["n_parts"]), shapes["ls"],
-                 shapes["ls"]),
-                ("global", shapes["b"], shapes["n_parts"],
-                 shapes["n_parts"]),
-                ("cross", shapes["b"], 1, shapes["n_parts"]))
-    for what, b_, lq, lk in b3_calls:
-        q, k, v, kv = attention_inputs(b_, 8, lq, lk, dh, bf, gen)
-        n = b_ * 8
+    # B3: train and eval forwards in turns with SDPA (additive mask, the
+    # same dropout); the backward in turns with SDPA's
+    for i, c in enumerate(work["attention"]):
+        b_, lq, lk = c["dims"]["b"], c["dims"]["lq"], c["dims"]["lk"]
+        q, k, v, kv = attention_inputs(b_, 8, lq, lk, 48, bf, gen)
         add_mask = torch.where(kv, 0.0, -INF).to(bf).repeat_interleave(
             8, dim=0)[:, None, :]
-        qkv = [q, k, v]
-        leaves = [a.clone().requires_grad_() for a in qkv]
-        shape = f"N={n} Lq={lq} Lk={lk} Dh={dh} bf16 drop {rate}"
-        nbytes = 2 * n * (2 * lq + 2 * lk) * dh + b_ * lk
-        flops = 4.0 * n * lq * lk * dh
-        bms, by = bound_ms(nbytes, flops, "bfloat16")
-        with torch.inference_mode():
-            plain_out = masked_attention_plain(q, k, v, kv, 8, dh ** -0.5,
-                                               rate, seed)
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
         times = {}
-        for mode, ts in (("train", leaves), ("eval", qkv)):
-            def fwd():
-                return masked_attention(*ts, kv, 8, dh ** -0.5, rate, seed)
+        for mode, ts in (("train", leaves), ("eval", [q, k, v])):
+            def ours(ts=ts):
+                return masked_attention(*ts, kv, 8, 48 ** -0.5, rate, seed)
 
-            def sdpa():
+            def sdpa(ts=ts):
                 return F.scaled_dot_product_attention(
                     *ts, attn_mask=add_mask, dropout_p=rate,
-                    scale=dh ** -0.5)
+                    scale=48 ** -0.5)
 
             with torch.inference_mode(mode == "eval"):
-                out = fwd()
-                check_tol("attention", "bfloat16", f"{what} {mode} {shape}",
-                          *errors(out, plain_out))
-                if not torch.equal(out, fwd()):
-                    fail(f"attention {what} {mode} {shape}: two forward "
-                         "calls on the same inputs differ")
                 ms, lib = [], []
                 for _ in range(2):  # kernel, SDPA, kernel, SDPA
-                    ms.append(time_ms(fwd))
+                    ms.append(time_ms(ours))
                     lib.append(time_ms(sdpa))
-                times[mode] = (statistics.mean(ms), statistics.mean(lib),
-                               device_ms_per_call(fwd, 20),
-                               device_ms_per_call(sdpa, 20))
-            del out
+                times[mode] = (statistics.mean(ms), device_ms(ours),
+                               statistics.mean(lib))
         with torch.inference_mode():
             plain = time_ms(lambda: masked_attention_plain(
-                q, k, v, kv, 8, dh ** -0.5, rate, seed), 3, 1)
-        log(f"  attention     {what:10s} {shape:36s} " + "; ".join(
-            f"{mode} {t[0]:.4f} ms (device {t[2]:.4f}), SDPA {t[1]:.4f} "
-            f"(device {t[3]:.4f})" for mode, t in times.items())
-            + f"; bound {bms:.4f} ({by}), plain {plain:.3f} ms")
-        if what == "clips":
-            entry("attention", shape, "attention.cu",
-                  "pallas_attention.py:114", times["train"][0], plain,
-                  times["train"][1], nbytes, flops)
-        del q, k, v, kv, add_mask, qkv, leaves, plain_out
-        torch.cuda.empty_cache()
-    # B3 backward at the clips (the kernels line), the video context, the
-    # paragraph local net's call (L = lp, 320: more than one key block,
-    # so the D pass runs) and the sentences: through autograd in turns with
-    # SDPA's backward, and the profiler's device time per backward call
-    for what, b_, length in (
-            ("clips", rows, lc),
-            ("video ctx", shapes["b"], shapes["lv"]),
-            ("paragraph", shapes["b"], shapes["lp"]),
-            ("sentences", shapes.get("pack_sents", shapes["b"]
-                                     * shapes["n_parts"]), shapes["ls"])):
-        q, k, v, kv = attention_inputs(b_, 8, length, length, dh, bf, gen)
-        n_ = b_ * 8
+                q, k, v, kv, 8, 48 ** -0.5, rate, seed), 3, 1)
+        record("attention", i, *times["train"][:2], plain, times["train"][2],
+               eval_ms=times["eval"][0], eval_device_ms=times["eval"][1][0],
+               eval_library_ms=times["eval"][2])
+        del q, k, v, kv, add_mask, leaves
+    for i, c in enumerate(work["attention_bwd"]):
+        b_, length = c["dims"]["b"], c["dims"]["length"]
+        q, k, v, kv = attention_inputs(b_, 8, length, length, 48, bf, gen)
         add_mask = torch.where(kv, 0.0, -INF).to(bf).repeat_interleave(
             8, dim=0)[:, None, :]
         qkv = [a.clone().requires_grad_() for a in (q, k, v)]
-        y = masked_attention(*qkv, kv, 8, dh ** -0.5, rate, seed)
-        g = torch.randn(n_, length, dh, generator=gen, device="cuda").to(bf)
+        y = masked_attention(*qkv, kv, 8, 48 ** -0.5, rate, seed)
+        g = torch.randn(b_ * 8, length, 48, generator=gen,
+                        device="cuda").to(bf)
         qkv_lib = [a.clone().requires_grad_() for a in (q, k, v)]
         y_lib = F.scaled_dot_product_attention(
-            *qkv_lib, attn_mask=add_mask, dropout_p=rate, scale=dh ** -0.5)
-        ms, lib, rounds, lib_rounds = paired_bwd_ms((y, qkv, g),
-                                                    (y_lib, qkv_lib, g))
-        dev = device_ms_per_call(lambda: torch.autograd.grad(
-            y, qkv, g, retain_graph=True), 10)
-        dev_lib = device_ms_per_call(lambda: torch.autograd.grad(
-            y_lib, qkv_lib, g, retain_graph=True), 10)
-        plain = time_ms(lambda: masked_attention_backward_plain(
-            q, k, v, kv, g, 8, dh ** -0.5, rate, seed))
-        nbytes = 2 * 8 * n_ * length * dh + b_ * length + 8 * n_ * length
-        flops = 10.0 * n_ * length * length * dh
-        bms, by = bound_ms(nbytes, flops, "bfloat16")
-        log(f"  attention_bwd {what} N={n_} L={length} Dh={dh} bf16 drop "
-            f"{rate}: autograd.grad {ms:.4f} ms (rounds "
-            f"{', '.join(f'{t:.4f}' for t in rounds)}), device "
-            f"{dev:.4f} ms per call; SDPA backward {lib:.4f} ms (rounds "
-            f"{', '.join(f'{t:.4f}' for t in lib_rounds)}), device "
-            f"{dev_lib:.4f} ms per call; plain {plain:.3f} ms; bound "
-            f"{bms:.4f} ms ({by})")
-        if what == "clips":
-            entry("attention_bwd", f"N={n_} L={length} Dh={dh} bf16 drop "
-                  f"{rate}", "attention.cu", "pallas_attention.py:158", ms,
-                  plain, lib, nbytes, flops)
-        del q, k, v, qkv, qkv_lib, y, y_lib, g, add_mask
-    # B4: the FFN / sublayer activations of the video clips
-    x = torch.randn(rows * lc, d, generator=gen, device="cuda").to(bf)
-    numel = x.numel()
-    with torch.inference_mode():
-        fwd = time_ms(lambda: dropout(x, seed, 0.01))
-        plain = time_ms(lambda: dropout_plain(x, seed, 0.01))
-        lib = time_ms(lambda: F.dropout(x, 0.01, training=True))
-    entry("dropout", f"{rows * lc}x{d} bf16 rate 0.01", "dropout.cu",
-          "pallas_dropout.py:98", fwd, plain, lib, 4 * numel, 1.0 * numel)
-    xl = x.clone().requires_grad_()
-    y = dropout(xl, seed, 0.01)
-    xl_lib = x.clone().requires_grad_()
-    y_lib = F.dropout(xl_lib, 0.01, training=True)
-    ms, lib, rounds, lib_rounds = paired_bwd_ms((y, [xl], x),
-                                                (y_lib, [xl_lib], x), 9)
-    log(f"  dropout_bwd through autograd.grad, 9 rounds in turns: ours "
-        f"median {ms:.4f} min {min(rounds):.4f} ms ("
-        f"{', '.join(f'{t:.4f}' for t in rounds)}), F.dropout median "
-        f"{lib:.4f} min {min(lib_rounds):.4f} ms ("
-        f"{', '.join(f'{t:.4f}' for t in lib_rounds)})")
-    entry("dropout_bwd", f"{rows * lc}x{d} bf16 rate 0.01", "dropout.cu",
-          "pallas_dropout.py:121", ms,
-          time_ms(lambda: dropout_plain(x, seed, 0.01)), lib, 4 * numel,
-          1.0 * numel)
-    dropout_host_device(x, seed, fwd, entries[-1]["ms"],
-                        entries[-1]["library_ms"])
-    del x, xl, xl_lib, y, y_lib
-    torch.cuda.empty_cache()
-    # B5: the store gathers of one step (a store of the 256-video train
-    # split's size), without and with the fused noise
-    from coot_videotext_tpu_torch.ops import philox
-    from coot_videotext_tpu_torch.ops.gather import (
-        GatherNoise, gather_rows, gather_rows_plain)
-    calls = (("video", shapes["b"] * shapes["lv"], din),
-             ("clips", rows * lc, din),
-             ("paragraphs", shapes["b"] * shapes["lp"], shapes["dtext"]))
-    for what, n, width in calls:
-        table = torch.randn(82000, width, generator=gen,
-                            device="cuda").to(bf)
-        idx = torch.randint(0, 82000, (n,), generator=gen, device="cuda",
-                            dtype=torch.int32)
-        nbytes = 2 * 2 * n * width + 4 * n
+            *qkv_lib, attn_mask=add_mask, dropout_p=rate, scale=48 ** -0.5)
+        ms, lib = paired_bwd_ms((y, qkv, g), (y_lib, qkv_lib, g))
+        record("attention_bwd", i, ms, device_ms(
+            lambda: torch.autograd.grad(y, qkv, g, retain_graph=True), 10),
+            time_ms(lambda: masked_attention_backward_plain(
+                q, k, v, kv, g, 8, 48 ** -0.5, rate, seed)), lib,
+            library_device_ms=device_ms(lambda: torch.autograd.grad(
+                y_lib, qkv_lib, g, retain_graph=True), 10)[0])
+        del q, k, v, kv, add_mask, qkv, y, g, qkv_lib, y_lib
+        torch.cuda.empty_cache()
+    # B4 beside F.dropout: the clips' sublayer rows, then the caption
+    # shapes; the backwards in turns
+    for i, c in enumerate(work["dropout"]):
+        p = c["dims"]["rate"]
+        x = torch.randn(c["dims"]["shape"], generator=gen, device="cuda").to(
+            getattr(torch, c["dtype"]))
+
+        def drop():
+            return dropout(x, seed, p)
+
         with torch.inference_mode():
-            lib = time_ms(lambda: torch.index_select(table, 0, idx))
-            for noise in (None, GatherNoise(0.01, seed,
-                                            philox.SITE_NOISE_CLIP)):
-                tag = f"{what} {n}x{width} bf16" + (
-                    " noise 0.01" if noise else "")
-                if not torch.equal(gather_rows(table, idx, noise),
-                                   gather_rows_plain(table, idx, noise)):
-                    fail(f"gather {tag}: kernel and plain differ")
-                ms = time_ms(lambda: gather_rows(table, idx, noise))
-                plain = time_ms(lambda: gather_rows_plain(table, idx, noise))
-                bms, by = bound_ms(nbytes, 0.0, "bfloat16")
-                log(f"  gather        {tag:38s} kernel {ms:.4f} ms, plain "
-                    f"{plain:.3f} ms, library {lib:.4f} ms (index_select), "
-                    f"bound {bms:.4f} ms ({by})")
-                if what == "clips" and noise is None:
-                    entry("gather", tag, "gather.cu", "pallas_gather.py:64",
-                          ms, plain, lib, nbytes, 0.0)
+            plain = time_ms(lambda: dropout_plain(x, seed, p))
+            record("dropout", i, time_ms(drop), device_ms(drop), plain,
+                   time_ms(lambda: F.dropout(x, p, training=True)))
+        xl, xl_lib = x.clone().requires_grad_(), x.clone().requires_grad_()
+        y, y_lib = dropout(xl, seed, p), F.dropout(xl_lib, p, training=True)
+        ms, lib = paired_bwd_ms((y, [xl], x), (y_lib, [xl_lib], x), 9)
+        record("dropout_bwd", i, ms, device_ms(lambda: torch.autograd.grad(
+            y, [xl], x, retain_graph=True)), plain, lib)
+        del x, xl, xl_lib, y, y_lib
+    torch.cuda.empty_cache()
+    # B5: a store of the 256-video train split's size, with and without
+    # the fused noise
+    for i, c in enumerate(work["gather"]):
+        n, width = c["dims"]["n"], c["dims"]["width"]
+        table = torch.randn(STORE_ROWS, width, generator=gen,
+                            device="cuda").to(bf)
+        idx = torch.randint(0, STORE_ROWS, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        noise = GatherNoise(0.01, seed, philox.SITE_NOISE_CLIP)
+        with torch.inference_mode():
+            record("gather", i, time_ms(lambda: gather_rows(table, idx)),
+                   device_ms(lambda: gather_rows(table, idx)),
+                   time_ms(lambda: gather_rows_plain(table, idx)),
+                   time_ms(lambda: torch.index_select(table, 0, idx)),
+                   noise_ms=time_ms(lambda: gather_rows(table, idx, noise)),
+                   plain_noise_ms=time_ms(
+                       lambda: gather_rows_plain(table, idx, noise)))
         del table, idx
         torch.cuda.empty_cache()
-    entries += norm_timing(shapes, gen, max_errors)
-    for e in entries:
-        e["route"] = "cuda"
-        e["launches"] = int(launches.get(e["name"], 0))
-        e["max_abs_err"] = max_errors[e["name"]]
-        lib = ("-" if e["library_ms"] is None
-               else f"{e['library_ms']:.3f} ms")
-        log(f"  {e['name']:13s} {e['shape']:38s} kernel {e['ms']:.3f} ms, "
-            f"plain {e['plain_ms']:.3f} ms, library {lib}, bound "
-            f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
-    # product_ms (B1 only): torch.matmul of B1's product alone, a yardstick
-    # (no single PyTorch call computes B1, and the port never calls it)
-    keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "product_ms")
-    return [{k: e[k] for k in keys} for e in entries]
+    # B6 beside the plain path (the unfused composition through autograd):
+    # eval, train (the sum stored for the backward) and the backward
+    for i, c in enumerate(work["coot_norm"]):
+        n, width = c["dims"]["rows"], c["dims"]["width"]
+        res = c["dims"]["residual"]
+        args = [(2 * torch.randn(n, width, generator=gen, device="cuda")
+                 + 0.5).to(bf)]
+        if res:
+            args.append(torch.randn(n, width, generator=gen,
+                                    device="cuda").to(bf))
+        args += [1 + 0.1 * torch.randn(width, generator=gen, device="cuda"),
+                 0.1 * torch.randn(width, generator=gen, device="cuda")]
+        dout = torch.randn(n, width, generator=gen, device="cuda").to(bf)
+        leaves = [t.clone().requires_grad_() for t in args]
+
+        def norm(a, fn=coot_norm):
+            return lambda: fn(a[0], a[1] if res else None, *a[-2:], 1e-6)
+
+        with torch.inference_mode():
+            record("coot_norm_eval", i, time_ms(norm(args), 20),
+                   device_ms(norm(args)),
+                   time_ms(norm(args, coot_norm_plain), 5))
+        record("coot_norm", i, time_ms(norm(leaves), 20),
+               device_ms(norm(leaves)),
+               time_ms(norm(leaves, coot_norm_plain), 5))
+        o, o_plain = norm(leaves)(), norm(leaves, coot_norm_plain)()
+        record("coot_norm_bwd", i, _bwd_ms(o, leaves, dout),
+               device_ms(lambda: torch.autograd.grad(
+                   o, leaves, dout, retain_graph=True)),
+               _bwd_ms(o_plain, leaves, dout))
+        del args, dout, leaves, o, o_plain
+        torch.cuda.empty_cache()
+    entries = []
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        row = next(r for r in rows if r["name"] == name)
+        evaluated = next((r for r in rows if r["name"] == name + "_eval"),
+                         dict(row, ms=row.get("eval_ms")))
+        entries.append(dict(
+            name=name, route="cuda",
+            source=f"coot_videotext_tpu_torch/csrc/{source}",
+            replaces=replaces, launches=int(launches.get(name, 0)),
+            **{k: row.get(k) for k in (
+                "ms", "device_ms", "plain_ms", "library_ms", "roofline_ms",
+                "bound_by", "product_ms")},
+            eval_ms=evaluated["ms"],
+            eval_roofline_ms=(None if evaluated["ms"] is None
+                              else evaluated["roofline_ms"])))
+    return entries
 
 
 # ---------- phase 10: the prefetch pipeline and the tail ----------
@@ -3805,14 +2620,12 @@ def phase_host_prefetch(tmp: Path) -> None:
             f"on the card ({n} fields, torch.equal)")
     torch.cuda.synchronize()
     cuda_build.reset_launch_counts()
-    t0 = time.time()
     record = host_path.measure(ROOT, data, "dense", HOST_VIDEOS,
                                host_path.VAL_VIDEOS, SHORT_VIDEOS,
                                tmp / "dense")
     launches = dict(cuda_build.launch_counts)
-    log(f"  host dense CLI ({time.time() - t0:.1f} s, timed and traced "
-        f"runs): {json.dumps(record)}")
-    log(f"  launches {launches}")
+    log(f"  host dense CLI: {record['steps']} step(s) on {record['layout']} "
+        f"batches; launches {launches}")
     if record["layout"] != "dense" or record["steps"] != \
             HOST_VIDEOS // 64 or not np.isfinite(record["step_ms"]):
         fail(f"host dense CLI: {record}")
@@ -3826,12 +2639,8 @@ def phase_host_prefetch(tmp: Path) -> None:
             record["kernel_streams"]):
         fail("the host-to-device copies are not on a stream of their own: "
              f"{record}")
-    log(f"  host dense: {record['train_videos_per_s']:.2f} train videos/s, "
-        f"{record['val_videos_per_s']:.2f} val videos/s; step "
-        f"{record['step_ms']:.1f} ms, {record['step_other_share']:.1%} of it "
-        f"outside the step; traced copies {record['copy_ms']:.2f} ms on "
-        f"streams {record['copy_streams']}, "
-        f"{record['copy_overlapped_ms']:.2f} ms of them under a kernel")
+    log(f"  traced: the pinned copies on streams {record['copy_streams']}, "
+        f"the kernels on {record['kernel_streams']}")
     cuda_build.reset_launch_counts()
     slab = host_path.train_once(
         host_path.host_config(ROOT, tmp / "slab", "slab", SHORT_VIDEOS),
@@ -3840,33 +2649,8 @@ def phase_host_prefetch(tmp: Path) -> None:
     if slab["layout"] != "slab" or slab["steps"] != 1 or \
             launches.get("gather", 0) <= 0:
         fail(f"host slab CLI: {slab}, launches {launches}")
-    log(f"  host slab CLI: {SHORT_VIDEOS / slab['train_s']:.2f} train "
-        "videos/s, "
-        f"{host_path.VAL_VIDEOS / slab['val_s']:.2f} val videos/s; step "
-        f"{slab['step_ms']:.1f} ms, {slab['step_other_share']:.1%} outside "
-        f"the step; launches {launches}")
+    log(f"  host slab CLI: {slab['steps']} step; launches {launches}")
     torch.cuda.empty_cache()
-
-
-def _s3d_flops(model, batch) -> float:
-    """Operations of one forward (2 per multiply-add of every convolution
-    and linear), counted from the shapes by forward hooks."""
-    import torch
-    from coot_videotext_tpu_torch.models import s3d
-    total = [0]
-
-    def hook(mod, _inp, out):
-        w = mod.weight
-        total[0] += 2 * out.numel() * (w[0].numel() if w.dim() == 5
-                                       else w.shape[1])
-
-    handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, (s3d.Conv3d, s3d.Linear))]
-    with torch.no_grad():
-        model(batch)
-    for h in handles:
-        h.remove()
-    return float(total[0])
 
 
 def _s3d_frames(seed: int):
@@ -3916,7 +2700,6 @@ def phase_s3d(tmp: Path) -> None:
     for bf16 in (False, True):
         dn = "bfloat16" if bf16 else "float32"
         cuda_build.reset_launch_counts()
-        t0 = time.time()
         if Image is not None:
             out = tmp / f"features_{dn}"
             flags = [str(frames_dir), str(out), "--kernel", str(S3D_KERNEL),
@@ -3937,7 +2720,6 @@ def phase_s3d(tmp: Path) -> None:
                 stride=S3D_STRIDE, batch_size=S3D_BATCH,
                 layers=("video_embedding", "mixed_5c"),
                 device=torch.device("cuda")) for k, v in videos.items()}
-        wall = time.time() - t0
         launches = dict(cuda_build.launch_counts)
         if any(launches.values()):
             fail(f"S3D launched the port's kernels: {launches}")
@@ -3947,8 +2729,8 @@ def phase_s3d(tmp: Path) -> None:
                 fail(f"S3D features of {k} ({dn}): {f.shape}")
         loaders[dn] = feats
         log(f"  {dn}: {S3D_VIDEOS} videos -> {S3D_VIDEOS} x "
-            f"{S3D_BATCH} windows of (512 + 1024) features in {wall:.1f} s "
-            "(jpg reads included); no port kernel launched")
+            f"{S3D_BATCH} windows of (512 + 1024) features; no port kernel "
+            "launched")
     cos = min(float((a * b).sum() / np.linalg.norm(a) / np.linalg.norm(b))
               for k in videos
               for a, b in [(loaders["float32"][k], loaders["bfloat16"][k])])
@@ -3958,9 +2740,9 @@ def phase_s3d(tmp: Path) -> None:
 
     cuda = torch.device("cuda")
     frames = videos["video0"].astype(np.float32) / 255.0
-    wins = tool.video_windows(frames, S3D_KERNEL, S3D_STRIDE)
-    batch = torch.from_numpy(np.stack(wins)).to(cuda).permute(0, 4, 1, 2, 3)
-    one = batch[:1].contiguous()
+    one = torch.from_numpy(np.stack(tool.video_windows(
+        frames, S3D_KERNEL, S3D_STRIDE)[:1])).to(cuda).permute(
+            0, 4, 1, 2, 3).contiguous()
     for bf16 in (False, True):
         dn = "bfloat16" if bf16 else "float32"
         model = tool.build_model(None, bf16=bf16, device=cuda)
@@ -3982,39 +2764,6 @@ def phase_s3d(tmp: Path) -> None:
                     (bf16 and not cosine >= MIN_COSINE):
                 fail(f"S3D {dn} card against CPU ({name}): relative "
                      f"{rel}, cosine {cosine}")
-        flops = _s3d_flops(model, one)
-
-        def forward():
-            with torch.no_grad():
-                model(batch)
-
-        forward()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        ms = time_ms(forward, iters=5, warmup=1)
-        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
-        wall_ms, busy_ms, kernels, events = _busy_ms(
-            forward, require_complete=True)
-        ours = [e.key for e in events if "coot::" in e.key]
-        if ours:
-            fail(f"S3D ran the port's kernels: {ours}")
-        rate = flops * S3D_BATCH / (ms / 1e3)
-        log(f"  {dn} S3D, batch {S3D_BATCH} x {S3D_KERNEL} x {S3D_SIZE} x "
-            f"{S3D_SIZE}: {ms:.2f} ms a batch (CUDA events, 5 batches), "
-            f"{S3D_BATCH / ms * 1e3:.1f} windows/s; {flops / 1e9:.2f} GFLOP "
-            f"a window (from the conv and linear shapes), "
-            f"{rate / 1e12:.2f} TFLOP/s, {rate / PEAK_FLOPS[dn]:.1%} of the "
-            f"card's {PEAK_FLOPS[dn] / 1e12:.0f} TFLOP/s {dn} peak; traced "
-            f"batch {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
-            f"({busy_ms / wall_ms:.1%}), {kernels} kernels; peak "
-            f"{peak:.2f} GB above the {held / 1e9:.2f} GB held")
-        log_families(events, 1)
-        if bf16:  # the layout build_model chose against NCDHW weights
-            model = model.to(memory_format=torch.contiguous_format)
-            ncdhw = time_ms(forward, iters=5, warmup=1)
-            log(f"  bfloat16 with NCDHW weights: {ncdhw:.2f} ms a batch "
-                f"against {ms:.2f} with channels-last-3d weights")
         del model, cpu
         torch.cuda.empty_cache()
 
@@ -4029,11 +2778,9 @@ def phase_mlp(tmp: Path) -> None:
     cuda_build.reset_launch_counts()
     argv = ["-g", "default", "-e", "mnist", "--log_dir",
             str(tmp / "experiments"), "--config_dir", str(ROOT / "config")]
-    t0 = time.time()
     first = run_mlp_mnist.main(argv + ["-o", "train.num_epochs=2"])[0]
     resumed = run_mlp_mnist.main(argv + ["-o", "train.num_epochs=3"])[0]
     val = run_mlp_mnist.main(argv + ["--validate", "--load_epoch", "2"])[0]
-    wall = time.time() - t0
     if any(r["device"].type != "cuda" for r in (first, resumed, val)):
         fail("the MLP example did not run on the card")
     if resumed["state"]["current_epoch"] != 3 or \
@@ -4046,8 +2793,8 @@ def phase_mlp(tmp: Path) -> None:
              f"gave {resumed['val_loss'][2]}")
     if any(cuda_build.launch_counts.values()):
         fail(f"the MLP example launched {dict(cuda_build.launch_counts)}")
-    log(f"  trained 2 epochs, resumed to 3, reloaded epoch 2 on the card in "
-        f"{wall:.1f} s: val accuracy {resumed['val_accuracy']}, val loss "
+    log(f"  trained 2 epochs, resumed to 3, reloaded epoch 2 on the card: "
+        f"val accuracy {resumed['val_accuracy']}, val loss "
         f"{resumed['val_loss'][2]:.6f} (reloaded {val['val_loss']:.6f})")
     torch.cuda.empty_cache()
 
@@ -5053,9 +3800,6 @@ SERVING_EVAL_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 SERVING_RETRIEVAL_CONFIGS = ("anet_coot.yaml", "yc2_100m_coot.yaml")
 SERVING_VAL_VIDEOS = 64
 DECODE_KEYS = ("input_ids", "video_feature", "input_mask", "token_type_ids")
-# the traced decodes (phases 6d, 9a, 13a) take this many sentence steps of
-# a batch of 50 videos (a whole batch is ~80,000 kernels to process)
-TRACE_STEPS = 2
 
 
 def _outputs_apart(graph: dict, eager: dict) -> float:
@@ -5098,126 +3842,65 @@ def _hold_ranks(embs: dict) -> None:
             fail(f"device similarities differ from host for {k1}/{k2}")
 
 
-def _decode_pass(translator, batches, beam: bool, compat: bool = False):
-    """Every batch decoded: (tokens per batch, wall ms per batch, forwards,
-    host reads and program runs per batch)."""
+def _decode_pass(translator, batches, beam: bool) -> list:
+    """Every batch decoded: the tokens of each."""
     import numpy as np
-    import torch
-    tokens, ms, counts = [], [], []
+    tokens = []
     for batch in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         if beam:
-            out = translator.translate_batch_beam(*batch,
-                                                  reference_compat=compat)
+            out = translator.translate_batch_beam(*batch)
         else:
             out = translator.translate_batch_greedy(*batch)
-        ms.append((time.perf_counter() - t0) * 1e3)
         tokens.append(np.stack(out))
-        counts.append((translator.forwards, translator.host_reads,
-                       translator.replays))
-    return tokens, ms, counts
+    return tokens
 
 
 def _serving_eval(tag: str, step, model, batch: dict) -> None:
     """A caption eval step (`step`) on `batch` through its graph against
-    eagerly: the capture, then warm replays, equal to the eager step
-    (SERVING_EVAL_RTOL in f32); warm ms each way."""
-    import torch
-    out, ms = {}, {}
+    eagerly: the capture, then a warm replay, equal to the eager step
+    (SERVING_EVAL_RTOL in f32); a second call of each way equal to its
+    first."""
+    out = {}
     for name, eager in (("eager", True), ("graph", False)):
         out[name] = {k: float(v) for k, v in
                      step(model, batch, eager=eager).items()}
-        walls = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = {k: float(v) for k, v in
-                   step(model, batch, eager=eager).items()}
-            walls.append((time.perf_counter() - t0) * 1e3)
-            if got != out[name]:
-                fail(f"{tag} eval step ({name}): two calls differ")
-        ms[name] = statistics.median(walls)
+        again = {k: float(v) for k, v in
+                 step(model, batch, eager=eager).items()}
+        if again != out[name]:
+            fail(f"{tag} eval step ({name}): two calls differ")
     apart = max(abs(out["graph"][k] - v) / max(1.0, abs(v))
                 for k, v in out["eager"].items())
     log(f"  {tag} eval step: {out['graph']} through its graph, "
         f"{apart:.3e} apart from eager (limit "
-        f"{SERVING_EVAL_RTOL['float32']:.0e}); warm {ms['graph']:.2f} ms "
-        f"against {ms['eager']:.2f} ms eagerly")
+        f"{SERVING_EVAL_RTOL['float32']:.0e})")
     if not apart <= SERVING_EVAL_RTOL["float32"]:
         fail(f"{tag}: the captured eval step disagrees with the eager one")
 
 
 def _serving_decode(tag: str, mgr, batches, beam: bool) -> None:
     """One decode mode over `batches` eagerly, then through the programs
-    (CUDA graphs): the tokens of every batch identical; median ms per
-    batch, forwards, host reads and replays per batch, the graphs' extra
-    peak memory, and one warm batch traced each way (wall, device busy,
-    the host's kernel launches per forward)."""
+    (CUDA graphs): the tokens of every batch identical."""
     import numpy as np
-    import torch
     from coot_videotext_tpu_torch.tasks.caption.translator import Translator
     from coot_videotext_tpu_torch.utils.graphs import cache_of
     runs = {}
     for name, eager in (("eager", True), ("graph", False)):
         translator = Translator(mgr.model, mgr.cfg, eager=eager)
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
         built = cache_of(mgr.model).captures
-        tokens, ms, counts = _decode_pass(translator, batches, beam)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - held
-        kept = torch.cuda.memory_allocated() - held
-        runs[name] = dict(tokens=tokens, ms=ms, counts=counts, peak=peak,
-                          kept=kept, translator=translator,
-                          captures=cache_of(mgr.model).captures - built)
-    for i, (a, b) in enumerate(zip(runs["graph"]["tokens"],
-                                   runs["eager"]["tokens"])):
+        runs[name] = _decode_pass(translator, batches, beam)
+        log(f"  {tag} {name:5s}: {translator.forwards} forwards, "
+            f"{translator.host_reads} host reads, {translator.replays} "
+            f"program runs in the last batch; "
+            f"{cache_of(mgr.model).captures - built} programs built")
+    for i, (a, b) in enumerate(zip(runs["graph"], runs["eager"])):
         if not np.array_equal(a, b):
             rows = (a == b).reshape(-1, a.shape[-1]).all(axis=1)
             fail(f"{tag}: batch {i} decoded through the graphs differs "
                  f"from the eager decode ({int(rows.sum())} of {rows.size} "
                  "sentences identical)")
-    sentences = sum(int(t.shape[0] * t.shape[1]) for t in
-                    runs["eager"]["tokens"])
-    for name, run in runs.items():
-        f, h, r = (statistics.median(c[j] for c in run["counts"])
-                   for j in range(3))
-        # the graph pass's first batches of each shape include captures
-        ms = run["ms"][1:] if name == "graph" else run["ms"]
-        log(f"  {tag} {name:5s}: median {statistics.median(ms):.2f} ms a "
-            f"batch (all {[round(v, 1) for v in run['ms']]}), {f:.0f} "
-            f"forwards, {h:.0f} host reads, {r:.0f} program runs a batch; "
-            f"{run['captures']} programs built; peak device memory "
-            f"{run['peak'] / 1e9:.3f} GB above the model and batches, "
-            f"{run['kept'] / 1e9:.3f} GB kept after the pass")
+    sentences = sum(int(t.shape[0] * t.shape[1]) for t in runs["eager"])
     log(f"  {tag}: {len(batches)} batches, {sentences} sentences, every one "
-        f"token-identical through the graphs; the graphs' extra peak "
-        f"memory {(runs['graph']['peak'] - runs['eager']['peak']) / 1e9:.3f}"
-        " GB")
-    # the trace takes the first TRACE_STEPS sentence steps of batch 0: the
-    # profiler's processing of a whole eager batch (~80,000 kernels and
-    # launches) takes a minute
-    batch = [x[:TRACE_STEPS] for x in batches[0]]
-    t0 = time.time()
-    for name, run in runs.items():
-        translator = run["translator"]
-
-        def decode():
-            if beam:
-                translator.translate_batch_beam(*batch)
-            else:
-                translator.translate_batch_greedy(*batch)
-        wall, busy, kernels, _, host = _busy_ms(decode, host=True)
-        log(f"  {tag} {name:5s} traced (batch 0, {TRACE_STEPS} sentence "
-            f"steps): wall {wall:.1f} ms, device "
-            f"busy {busy:.1f} ms ({busy / wall:.1%}); {kernels} kernels on "
-            f"the device; the host launched {host['kernel_launches']} "
-            f"kernels ({host['kernel_launches'] / translator.forwards:.2f} "
-            f"a forward) and {host['graph_launches']} graphs for "
-            f"{translator.forwards} forwards ({time.time() - t0:.1f} s of "
-            "tracing so far)")
+        "token-identical through the graphs")
 
 
 def _retrieval_serving(tmp: Path, source_yaml: Path,
@@ -5226,24 +3909,19 @@ def _retrieval_serving(tmp: Path, source_yaml: Path,
     features, DATA_SPLITS' `serving_<stem>`) on the device store with device sampling
     (id batches, fixed shapes). validate_retrieval through the captured
     eval step against the eager one (embeddings, losses, metrics), device
-    ranks against host ranks; the warm eval step's ms and device-busy ms
-    each way and the port's kernel launches in a step (a replay launches
-    none); with `cpu_check` one batch on the card in f32 against the CPU
-    (the kernels' plain versions) and B1-B3 against their plain versions
-    at the batch's shapes. Returns the launches of one eager step."""
-    import numpy as np
+    ranks against host ranks; the port's kernel launches in a warm step
+    each way (a replay launches none) and its kernels by name in a traced
+    warm step (as many in a replay as eagerly); with `cpu_check` one batch
+    on the card in f32 against the CPU (the kernels' plain versions).
+    Returns the port's kernels by name in the traced replay."""
     import torch
     import yaml
+    from portbench.trace import traced
     from coot_videotext_tpu_torch.data.device_store import (
         FeatureSource, assemble_batch)
     from coot_videotext_tpu_torch.data.retrieval_dataset import (
         create_retrieval_datasets_and_loaders, to_device)
     from coot_videotext_tpu_torch.ops import cuda_build
-    from coot_videotext_tpu_torch.ops.attention import (
-        masked_attention, masked_attention_plain)
-    from coot_videotext_tpu_torch.ops.genpool import genpool, genpool_plain
-    from coot_videotext_tpu_torch.ops.input_fc import (
-        fused_input_fc, fused_input_fc_plain)
     from coot_videotext_tpu_torch.tasks.retrieval import validate
     from coot_videotext_tpu_torch.tasks.retrieval.config import (
         RetrievalConfig)
@@ -5280,17 +3958,10 @@ def _retrieval_serving(tmp: Path, source_yaml: Path,
     # the first graph pass captures the step (a program per batch shape),
     # the second replays only
     for name in ("graph, capturing", "eager", "graph"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        results[name] = validate.validate_retrieval(
+        results[name] = res = validate.validate_retrieval(
             mgr.model, cfg, loader, cuda, eager=name == "eager", **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        res = results[name]
         log(f"  validation, eval step {res['eval_step']}: "
-            f"{res['num_videos']} videos in {res['num_batches']} batches, "
-            f"{res['num_videos'] / wall:.2f} val videos/s ({wall:.3f} s, "
-            f"forward {res['forward_s']:.3f} s)")
+            f"{res['num_videos']} videos in {res['num_batches']} batches")
     if results["graph"]["eval_step"] != "CUDA graph" \
             or results["eager"]["eval_step"] != "eager":
         fail(f"{source_yaml.name}: the eval steps ran as "
@@ -5323,7 +3994,7 @@ def _retrieval_serving(tmp: Path, source_yaml: Path,
                    margin=cfg.train.contrastive_loss_config.margin,
                    loss_cycle_cons=cfg.train.loss_cycle_cons,
                    compute_dtype=mgr.val_dtype, source=source)
-    launches, traced = {}, {}
+    launches, ports = {}, {}
     for name, eager in (("eager", True), ("graph", False)):
         def step():
             retrieval_eval_step(mgr.model, batch, eager=eager, **step_kw)
@@ -5332,21 +4003,10 @@ def _retrieval_serving(tmp: Path, source_yaml: Path,
         cuda_build.reset_launch_counts()
         step()
         launches[name] = dict(cuda_build.launch_counts)
-        walls = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            step()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        wall, busy, kernels, events, host = _busy_ms(step, host=True)
-        traced[name] = _port_kernel_counts(events)
-        log(f"  eval step {name:5s} (batch 0, warm, median of 5): "
-            f"{statistics.median(walls):.2f} ms (min {min(walls):.2f}); "
-            f"traced {wall:.2f} ms, device busy {busy:.2f} ms "
-            f"({busy / wall:.1%}), {kernels} kernels, the host launched "
-            f"{host['kernel_launches']} kernels and {host['graph_launches']}"
-            f" graphs; wrapper launches in one step {launches[name]}; the "
-            f"port's kernels on the device in the traced step "
-            f"{traced[name]}")
+        ports[name] = _port_kernel_counts(traced(step))
+        log(f"  eval step {name:5s} (batch 0, warm): wrapper launches in "
+            f"one step {launches[name]}; the port's kernels on the device "
+            f"in a traced step {ports[name]}")
     if any(launches["graph"].values()):
         fail(f"{source_yaml.name}: a replay of the eval step ran the "
              f"wrappers: {launches['graph']}")
@@ -5354,14 +4014,14 @@ def _retrieval_serving(tmp: Path, source_yaml: Path,
         if launches["eager"].get(kernel, 0) <= 0:
             fail(f"{source_yaml.name}: {kernel} did not run in the eval "
                  "step")
-        if traced["graph"].get(kernel, 0) <= 0:
+        if ports["graph"].get(kernel, 0) <= 0:
             fail(f"{source_yaml.name}: the trace of a graph replay holds "
-                 f"no {kernel} kernel: {traced['graph']}")
-    if traced["graph"] != traced["eager"]:
+                 f"no {kernel} kernel: {ports['graph']}")
+    if ports["graph"] != ports["eager"]:
         fail(f"{source_yaml.name}: the replay ran other kernels of the port "
-             f"({traced['graph']}) than the eager step ({traced['eager']})")
+             f"({ports['graph']}) than the eager step ({ports['eager']})")
     if not cpu_check:
-        return traced["graph"]
+        return ports["graph"]
 
     log("  one batch on the card in f32 (the kernels) against the CPU "
         "(their plain versions)")
@@ -5381,29 +4041,9 @@ def _retrieval_serving(tmp: Path, source_yaml: Path,
         f" embeddings {apart:.3e} apart (limit {TOL['float32']:.0e})")
     if not apart <= TOL["float32"]:
         fail(f"{source_yaml.name}: the card disagrees with the CPU")
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    clips = dense["clip_feat"]
-    rows, length = clips.shape[0], clips.shape[1]
-    din = clips.shape[2]
-    for dt in (torch.bfloat16, torch.float32):
-        name = str(dt).split(".")[-1]
-        args = input_fc_inputs(rows * length, din, 384, dt, gen, 5)
-        with torch.inference_mode():
-            check_tol("input_fc", name, f"clips S={rows * length} "
-                      f"{din}->384", *errors(
-                          fused_input_fc(*args, 1e-6, "gelu"),
-                          fused_input_fc_plain(*args, 1e-6, "gelu")))
-            args = genpool_inputs(rows, length, 384, 768, 2, dt, gen)
-            check_tol("genpool", name, f"clips S={rows} L={length}", *errors(
-                genpool(*args, "gelu", 0.0, None),
-                genpool_plain(*args, "gelu", 0.0, None)))
-            args = attention_inputs(rows, 8, length, length, 48, dt, gen)
-            check_tol("attention", name, f"clips N={rows * 8} L={length}",
-                      *errors(masked_attention(*args, 8, 48 ** -0.5),
-                              masked_attention_plain(*args, 8, 48 ** -0.5)))
     del mgr, cpu, loader, batch, dense
     torch.cuda.empty_cache()
-    return traced["graph"]
+    return ports["graph"]
 
 
 def phase_serving_graphs(tmp: Path) -> dict:
@@ -5412,20 +4052,18 @@ def phase_serving_graphs(tmp: Path) -> dict:
     at yc2_2d3d_coot_vidclip_mart width over the 457-video YouCook2 val
     split (phase 6's inputs, seed 0): greedy and beam (fixed) decoded
     eagerly and through the graphs, every sentence token-identical, beam
-    reference_compat on the first batch; ms, forwards, host reads and
-    program runs a batch, the graphs' extra peak memory, one traced batch
-    each way. (b) The TransformerXL, the untied and joint models (phase
-    9's widths) and the MTransformer (yc2_100m_coot_vidclip_mtrans) from
-    seed 0: one val batch each, token-identical. (c) Retrieval on
-    yc2_2d3d_coot.yaml id batches (128 val videos): validation through the
-    graph against the eager step, ranks against host ranks, the warm eval
-    step each way, the port's launches in a step. (d) anet_coot.yaml and
-    yc2_100m_coot.yaml, which no earlier phase runs: one val batch each at
-    their widths through the graph against eager, the card against the
-    CPU in f32, B1-B3 against their plain versions at the batch's shapes.
-    Returns the port's kernels on the device in one traced replay of the
-    captured yc2_2d3d_coot eval step, counted by name
-    (`_port_kernel_counts`), each of B1, B2, B3 and B5 required there."""
+    reference_compat on the first batch. (b) The TransformerXL, the untied
+    and joint models (phase 9's widths) and the MTransformer
+    (yc2_100m_coot_vidclip_mtrans) from seed 0: one val batch each,
+    token-identical. (c) Retrieval on yc2_2d3d_coot.yaml id batches (128
+    val videos): validation through the graph against the eager step,
+    ranks against host ranks, the port's launches and kernels in a warm
+    step each way. (d) anet_coot.yaml and yc2_100m_coot.yaml, which no
+    earlier phase runs: one val batch each at their widths through the
+    graph against eager, the card against the CPU in f32. Returns the
+    port's kernels on the device in one traced replay of the captured
+    yc2_2d3d_coot eval step, counted by name (`_port_kernel_counts`), each
+    of B1, B2, B3, B5 and B6 required there."""
     import numpy as np
     import torch
     from coot_videotext_tpu_torch.tasks.caption.config import MartConfig
@@ -5499,22 +4137,18 @@ def phase_serving_graphs(tmp: Path) -> dict:
                  if isinstance(v, np.ndarray)}
         _serving_eval(tag, caption_eval_step if cfg.recurrent
                       else caption_eval_step_single, mgr.model, batch)
-        out, ms = {}, {}
+        out = {}
         for name, eager in (("eager", True), ("graph", False), ("replay",
                                                                 False)):
             translator = Translator(mgr.model, mgr.cfg, eager=eager)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             out[name] = np.asarray(translator.translate_batch(batch))
-            ms[name] = (time.perf_counter() - t0) * 1e3
         if not (np.array_equal(out["graph"], out["eager"])
                 and np.array_equal(out["replay"], out["eager"])):
             fail(f"{tag}: the graphs' tokens differ from the eager decode")
         mark(f"{tag} done")
         log(f"  {tag}: {out['eager'].size // out['eager'].shape[-1]} "
-            f"sentences token-identical; eager {ms['eager']:.1f} ms, first "
-            f"graph call (captures) {ms['graph']:.1f} ms, replays "
-            f"{ms['replay']:.1f} ms; {translator.forwards} forwards, "
+            f"sentences token-identical (eager, the graphs' first call and "
+            f"their replays); {translator.forwards} forwards, "
             f"{translator.replays} program runs, "
             f"{len(np.unique(out['eager']))} distinct tokens")
         del mgr, batch, translator
@@ -5605,14 +4239,13 @@ def train_program_check(tag: str, cfg, vocab: int, sizes) -> dict:
     TRAIN_PROGRAM_STEPS steps through the captured programs and as many
     eager steps from an equal state, on the same batches (S cycling over
     `sizes`; None: a sentence batch) at lrs cycling over
-    TRAIN_PROGRAM_LRS, each path alone (its wall ms a step, the trainer's
-    one read included, and its peak memory). Every step's metrics and the
-    whole state after them must be equal bit for bit, and each key's first
-    call one step; the warm wall ms of each key apart. Then one warm step
-    of each path on the last key traced: wall and device-busy ms, the
-    host's kernel launches and graph launches, the port's kernels by name
-    (B4 alone in both). Returns the record."""
+    TRAIN_PROGRAM_LRS. Every step's metrics and the whole state after them
+    must be equal bit for bit, and each key's first call one step. Then one
+    warm step of each path on the last key traced: the port's kernels by
+    name (B4 alone in both, as many in the replay as eagerly, and the
+    eager step's wrappers' counts adding up to them). Returns the record."""
     import torch
+    from portbench.trace import traced
     from coot_videotext_tpu_torch.ops import cuda_build
     from coot_videotext_tpu_torch.tasks.caption.model_manager import (
         build_mart_model_manager)
@@ -5620,8 +4253,6 @@ def train_program_check(tag: str, cfg, vocab: int, sizes) -> dict:
         caption_train_step, caption_train_step_single,
         init_caption_train_state, train_programs)
     cuda = torch.device("cuda")
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
     states = {}
     for eager in (True, False):
         mgr = build_mart_model_manager(cfg, vocab, cuda, seed=0,
@@ -5634,51 +4265,31 @@ def train_program_check(tag: str, cfg, vocab: int, sizes) -> dict:
         for i, s in enumerate(keys)]
     order = [(batches[i % len(batches)], TRAIN_PROGRAM_LRS[
         i % len(TRAIN_PROGRAM_LRS)]) for i in range(TRAIN_PROGRAM_STEPS)]
-    run = {}
+    rows = {}
     for eager, state in states.items():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        rows, ms = [], []
+        rows[eager] = []
         for i, (batch, lr) in enumerate(order):
-            t0 = time.perf_counter()
             out = step(state, batch, lr, eager=eager)
-            rows.append(torch.stack([out["loss"], out["n_word"],
-                                     out["n_correct"],
-                                     out["grad_norm"]]).tolist())
-            ms.append((time.perf_counter() - t0) * 1e3)
+            rows[eager].append(torch.stack([out["loss"], out["n_word"],
+                                            out["n_correct"],
+                                            out["grad_norm"]]).tolist())
             if not eager and i < len(batches) and int(state.step) != i + 1:
                 fail(f"{tag}: the first call of key {i} took "
                      f"{int(state.step) - i} steps")
-        run[eager] = {"rows": rows, "ms": ms,
-                      "peak_gb": (torch.cuda.max_memory_allocated() - held)
-                      / 1e9}
-    same = run[True]["rows"] == run[False]["rows"] and all(
+    same = rows[True] == rows[False] and all(
         torch.equal(a, b) for a, b in zip(
             _caption_state_tensors(states[True]),
             _caption_state_tensors(states[False])))
     cache = train_programs(states[False])
-    warm = len(batches)  # steps past each key's first call
     rec = {"tag": tag, "keys": len(cache.programs),
            "captures": cache.captures, "equal": same, "sizes": keys}
+    batch, lr = order[len(batches) - 1]  # the last (largest) key, warm
     for eager, name in ((True, "eager"), (False, "program")):
-        # the warm steps of each key (every len(batches)-th, past its first)
-        rec[f"{name}_wall_ms"] = [statistics.median(
-            run[eager]["ms"][warm + i::warm]) for i in range(warm)]
-        rec[f"{name}_first_ms"] = run[eager]["ms"][:warm]
-        rec[f"{name}_peak_gb"] = run[eager]["peak_gb"]
-    for eager, name in ((True, "eager"), (False, "program")):
-        batch, lr = order[warm - 1]  # the last (largest) key
         cuda_build.reset_launch_counts()
-        wall, busy, kernels, events, host = _busy_ms(
+        ports = _port_kernel_counts(traced(
             lambda: step(states[eager], batch, lr, eager=eager)[
-                "loss"].item(), host=True)
-        ports = _port_kernel_counts(events)
-        rec.update({f"{name}_traced_ms": wall, f"{name}_busy_ms": busy,
-                    f"{name}_kernels": kernels,
-                    f"{name}_host_launches": host["kernel_launches"],
-                    f"{name}_graph_launches": host["graph_launches"],
-                    f"{name}_b4": ports.get("dropout", 0)})
+                "loss"].item()))
+        rec[f"{name}_b4"] = ports.get("dropout", 0)
         if set(ports) != {"dropout"}:
             fail(f"{tag}: a traced {name} step ran the port's kernels "
                  f"{ports}, not B4 alone")
@@ -5687,30 +4298,11 @@ def train_program_check(tag: str, cfg, vocab: int, sizes) -> dict:
             # replay runs no wrapper; by name the two are one kernel)
             rec["eager_b4_fwd"] = cuda_build.launch_counts["dropout"]
             rec["eager_b4_bwd"] = cuda_build.launch_counts["dropout_bwd"]
-    rec["extra_peak_gb"] = rec["program_peak_gb"] - rec["eager_peak_gb"]
-    def by_key(values):
-        return ", ".join(f"{v:.2f}" for v in values)
     log(f"  {tag}: {len(order)} steps a path, {rec['keys']} program(s) "
-        f"(S {list(keys)}), bit for bit equal to eager: {same}; warm step "
-        f"wall by key {by_key(rec['program_wall_ms'])} ms through the "
-        f"program / {by_key(rec['eager_wall_ms'])} eager (first calls "
-        f"{', '.join(f'{v:.1f}' for v in rec['program_first_ms'])} / "
-        f"{', '.join(f'{v:.1f}' for v in rec['eager_first_ms'])}); traced "
-        f"step (S {keys[-1]}): wall {rec['program_traced_ms']:.2f} / "
-        f"{rec['eager_traced_ms']:.2f} ms, device busy "
-        f"{rec['program_busy_ms']:.2f} / {rec['eager_busy_ms']:.2f} ms "
-        f"({rec['program_busy_ms'] / rec['program_traced_ms']:.1%} / "
-        f"{rec['eager_busy_ms'] / rec['eager_traced_ms']:.1%} busy), "
-        f"{rec['program_kernels']} / {rec['eager_kernels']} kernels on the "
-        f"device, host kernel launches {rec['program_host_launches']} / "
-        f"{rec['eager_host_launches']}, graph launches "
-        f"{rec['program_graph_launches']} / {rec['eager_graph_launches']}, "
-        f"B4 by name {rec['program_b4']} / {rec['eager_b4']} (the eager "
-        f"step's wrappers: {rec['eager_b4_fwd']} forward + "
-        f"{rec['eager_b4_bwd']} backward); peak memory "
-        f"above the two states' {(torch.cuda.memory_allocated() - base) / 1e9:.3f} "
-        f"GB: {rec['program_peak_gb']:.3f} / {rec['eager_peak_gb']:.3f} GB "
-        f"(the programs' extra {rec['extra_peak_gb']:+.3f} GB)")
+        f"(S {list(keys)}), bit for bit equal to eager: {same}; traced "
+        f"step (S {keys[-1]}): B4 by name {rec['program_b4']} / "
+        f"{rec['eager_b4']} (the eager step's wrappers: "
+        f"{rec['eager_b4_fwd']} forward + {rec['eager_b4_bwd']} backward)")
     if not same:
         fail(f"{tag}: the captured train steps differ from the eager ones")
     if rec["keys"] != len(batches) or rec["captures"] != len(batches):
@@ -5762,10 +4354,10 @@ def phase_train_programs() -> dict:
 DATA_SPLITS = {
     "val": (4, 128, 0),                                     # phase 3
     "train": (256, 64, 1),                                  # phase 4
+    "group": (640, 64, 2),                                  # phase 4c
     # tools/host_path.py's `generate`: VAL_VIDEOS 64, seed 2
     "host": (HOST_VIDEOS, 64, 2),                           # phase 10a
     "dp": (DP_TRAIN_VIDEOS, DP_VAL_VIDEOS, 5),              # phase 11
-    "group": (640, 64, 2),                                  # phase 4c
     "serving_yc2_2d3d_coot": (4, 128, 0),                   # phase 13c
     **{f"serving_{name.split('.')[0]}": (                   # 13d, 13e
         4, SERVING_VAL_VIDEOS, i + 1, CONFIG.parent / name)
@@ -5773,9 +4365,9 @@ DATA_SPLITS = {
 }
 
 # The caption family shares nothing with the other phases: phases 6-8 and
-# phase 9 run in two processes of their own (`--side-phases`), beside
-# phases 2-4b and 10-12 of the main one. Phases 4c, 5 and 13, which time
-# the card, run after them, alone on it.
+# phase 9 run in two processes of their own (`--side-phases`), beside the
+# kernel tests (phase 2) and phases 3-4c and 10-14 of the main one. Phase
+# 5, which times the card, runs after them, alone on it.
 SIDE_PHASES = (("6", "7", "8"), ("9",))
 SIDE_THREADS = 4  # each side process's intra-op threads on the host
 SIDE_PHASE = {
@@ -5793,6 +4385,26 @@ SIDE_PHASE = {
           "TransformerXL, the untied and joint single-sentence models and "
           "the tied decoder, trained and served"),
 }
+# phase 2's tests of every kernel against its plain version on the card
+CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-p",
+              "no:cacheprovider", "-q", "tests/test_torch_cuda_kernels.py"]
+
+
+def kernel_tests_summary(output: str) -> str:
+    """The summary line of phase 2's pytest `output`, which must count
+    passes and nothing else but warnings: a case that skips (as every case
+    does where the process sees no CUDA device) fails the run, as a case
+    that fails does."""
+    lines = [line.strip("= ") for line in output.splitlines()
+             if re.search(r" in [\d.]+s\b", line)]
+    summary = lines[-1] if lines else ""
+    counts = {word: int(n) for n, word in re.findall(
+        r"(\d+) ([a-z]+)", summary.split(" in ")[0])}
+    if not counts.get("passed") or set(counts) - {"passed", "warning",
+                                                  "warnings"}:
+        fail(f"phase 2, the kernel tests: every case must pass, got "
+             f"{summary or 'no summary line'!r}")
+    return summary
 
 
 def side_main(numbers: str, start: float) -> None:
@@ -5816,35 +4428,51 @@ def side_main(numbers: str, start: float) -> None:
             run(Path(tmp))
 
 
-def _spawn_side(numbers, start: float, logs: Path) -> tuple:
-    """Starts the side phases `numbers` in a process of their own, its
-    output to a file under `logs`."""
-    out = logs / f"phases_{'_'.join(numbers)}.log"
+def _spawn(what: str, argv: list, logs: Path) -> tuple:
+    """Starts `argv` in a process of its own (`what` names it), its output
+    to a file under `logs`."""
+    name = re.sub(r"\W+", "_", what)
+    out = logs / f"{name}.log"
     with open(out, "w", encoding="utf8") as fh:
-        proc = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--side-phases",
-             ",".join(numbers), repr(start)], cwd=ROOT, stdout=fh,
-            stderr=subprocess.STDOUT)
+        proc = subprocess.Popen(argv, cwd=ROOT, stdout=fh,
+                                stderr=subprocess.STDOUT)
     proc.log_path = out
     _CHILDREN.append(proc)
-    return numbers, proc, out
+    return what, proc, out
 
 
-def _join_side(side) -> None:
-    """Waits for a side process, prints its log and fails with it."""
-    numbers, proc, out = side
+def _join(child) -> str:
+    """Waits for a process of _spawn, prints its log and fails with it;
+    returns the log."""
+    what, proc, out = child
     t0 = time.time()
     rc = proc.wait()
-    log(f"== phases {', '.join(numbers)}, which ran in a process of their "
-        f"own beside phases 2-4b and 10-12 (waited {time.time() - t0:.1f} s "
-        "more for them), logged:")
+    log(f"== {what}, which ran in a process of its own beside the main "
+        f"one (waited {time.time() - t0:.1f} s more for it), logged:")
     text = out.read_text(encoding="utf8", errors="replace")
     sys.stdout.write(text if text.endswith("\n") else text + "\n")
     sys.stdout.flush()
     if rc != 0:
         failed = [line for line in text.splitlines() if "FAILED" in line]
-        fail(f"phases {', '.join(numbers)} exited with {rc}: "
-             f"{failed[-1] if failed else 'see their log above'}")
+        fail(f"{what} exited with {rc}: "
+             f"{failed[-1] if failed else 'see its log above'}")
+    return text
+
+
+def time_kernels() -> None:
+    """Phase 5 alone at STEP_SHAPES: builds this checkout's kernels, times
+    them and prints the kernels line (without launch counts). Run in each
+    of two checkouts in one call, `python -c "import chip_smoke;
+    chip_smoke.time_kernels()"` compares them kernel by kernel on one
+    card."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this needs an NVIDIA GPU")
+    sys.path.insert(0, str(ROOT))
+    phase_environment()
+    phase_build()
+    print(json.dumps({"kernels": phase_timing({}, STEP_SHAPES)}),
+          flush=True)
 
 
 def main() -> None:
@@ -5871,18 +4499,16 @@ def main() -> None:
     _start_data(work)
     phase("1. environment")
     phase_environment()
-    phase("2. kernels against their plain versions, forward and backward "
-          f"(tolerance f32 {TOL['float32']}, bf16 {TOL['bfloat16']}, "
-          "relative to max(1, max|plain|))")
+    phase("2. the kernels: built, then held against their plain versions "
+          f"by {CUDA_TESTS[-1]} in a process of its own")
     phase_build()
+    children = [_spawn("phase 2, the kernel tests", CUDA_TESTS, work)]
+    children += [_spawn(
+        f"phases {', '.join(numbers)}",
+        [sys.executable, str(Path(__file__).resolve()), "--side-phases",
+         ",".join(numbers), repr(start)], work) for numbers in SIDE_PHASES]
     log(f"phases {' and '.join(', '.join(n) for n in SIDE_PHASES)} start "
-        "in processes of their own (their logs follow phase 12)")
-    sides = [_spawn_side(numbers, start, work) for numbers in SIDE_PHASES]
-    max_errors = phase_kernel_checks()
-    max_errors["gather"] = phase_gather_checks()
-    phase(f"2b. B3's bf16 backward over {B3_SEEDS} draws at each of its "
-          "phase-2 shapes: rounding or a fault")
-    phase_b3_seeds()
+        "in processes of their own (their logs follow phase 14)")
     with tempfile.TemporaryDirectory(prefix="coot_chip_smoke_") as tmp:
         phase("3. validation + embedding export at yc2_2d3d_coot width, "
               "four ways")
@@ -5892,6 +4518,9 @@ def main() -> None:
         phase("4b. synthetic_smoke.yaml trained on the card (ragged input "
               "FC widths, small GenPool)")
         phase_synthetic_smoke(Path(tmp) / "smoke")
+        phase("4c. the group step: K train steps a dispatch, each a replay "
+              "of the captured train step")
+        phase_group(Path(tmp) / "group")
     with tempfile.TemporaryDirectory(prefix="coot_chip_tail_") as tmp:
         phase("10. the prefetch pipeline and the tail: (a) the retrieval "
               "host path with prefetch at yc2_2d3d_coot width")
@@ -5912,15 +4541,6 @@ def main() -> None:
               "yc2_2d3d_coot_vidclip_mart width: {data: 1, model: 2} over "
               "gloo on the card (retrieval, eval, checkpoint, MART, greedy)")
         phase_tp(Path(tmp), shared)
-    for side in sides:
-        _join_side(side)
-    phase("the card is the main process's alone from here on")
-    with tempfile.TemporaryDirectory(prefix="coot_chip_group_") as tmp:
-        phase("4c. the group step: K train steps a dispatch, each a replay "
-              "of the captured train step")
-        phase_group(Path(tmp) / "group")
-    phase(f"5. kernel timing at the training path's shapes {shapes}")
-    kernels = phase_timing(launches, shapes, max_errors)
     with tempfile.TemporaryDirectory(prefix="coot_chip_serving_") as tmp:
         phase("13. serving graphs: the caption decodes and the retrieval "
               "and caption eval steps as CUDA graphs against eager, at full "
@@ -5929,6 +4549,13 @@ def main() -> None:
     phase("14. the caption train programs: every caption model's train "
           "step captured, against the eager step, at full width")
     programs = phase_train_programs()
+    log("phase 2, the kernel tests: "
+        + kernel_tests_summary(_join(children[0])))
+    for child in children[1:]:
+        _join(child)
+    phase("the card is the main process's alone from here on")
+    phase(f"5. kernel timing at the training path's shapes {shapes}")
+    kernels = phase_timing(launches, shapes)
     mart = programs["MART"]
     for entry in kernels:
         # the port's kernels on the device in a traced replay of the

@@ -17,7 +17,9 @@ the tolerance above: the two erfinv may differ in the last bits). Every
 seed is a `philox.Seed`: a seed state on the card and the call's
 position, which the kernels and the plain versions derive the same way.
 A step captured as a CUDA graph and replayed agrees with the same steps
-run eagerly.
+run eagerly. The calls of a yc2_2d3d_coot train step come from
+chip_smoke.py's `kernel_call_work(STEP_SHAPES)`, the calls its phase 5
+times, so that the calls timed and the calls checked are the same.
 """
 
 import importlib.util
@@ -44,6 +46,26 @@ from coot_videotext_tpu_torch.ops.input_fc import (
     fused_input_fc, fused_input_fc_backward_plain, fused_input_fc_plain)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _chip_smoke():
+    """chip_smoke.py, loaded by its path (it sits at the root of the
+    checkout)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+_SMOKE = _chip_smoke()
+# every call of a yc2_2d3d_coot train step, by kernel and direction, each
+# {"call", "dims", ...}
+STEP = _SMOKE.kernel_call_work(_SMOKE.STEP_SHAPES)
+# the rows of the feature store that a train step's gathers read
+STORE_ROWS = _SMOKE.STORE_ROWS
+# the dropout rate of every site as yc2_2d3d_coot trains (phase 5's too)
+STEP_RATE = 0.01
 
 
 @pytest.fixture
@@ -78,10 +100,17 @@ def _run(kernel, plain, args, name):
 
 # (S, din, constant rows, x = 100 + 0.5 N): the text width with ragged S;
 # 4,099 rows (ragged in every tile size) at the video width; S = 1 and 17;
-# rows with mean^2 >> var
+# rows with mean^2 >> var; a batch of 64's clips unpacked (81,920 rows);
+# the clips of a val batch of 64 at anet_coot's 2048-d and yc2_100m_coot's
+# 512-d video; the four calls of a train step (the packed clips, the video
+# global net, the paragraph and the packed sentences)
 FC_SHAPES = [(1001, 1536, 3, False), (4099, 4096, 7, False),
              (1, 1536, 0, False), (17, 1536, 2, False),
-             (4099, 4096, 7, True)]
+             (4099, 4096, 7, True), (1, 4096, 0, False),
+             (81920, 4096, 5, False),
+             (46080, 2048, 5, False), (46080, 512, 5, False)] + [
+    (c["dims"]["s"], c["dims"]["width"], 5, False)
+    for c in STEP["input_fc"]]
 
 
 def _fc_args(cuda, dtype, s, din, dout, constant_rows=3, offset=False):
@@ -120,17 +149,29 @@ def test_input_fc_kernel_empty(cuda, dtype):
     assert y.shape == (0, 384) and y.dtype == dtype
 
 
-# (pooled rows, L, D, H, heads, rate): the paragraph length L = 300, the
-# four calls of a train step at reduced S (the clips and the video context
-# at L 80, the paragraph at 320, the sentences at 24), L = 1, and other
-# widths: synthetic_smoke's D 32 / H 64, one head (D 32 and 128 / H 64),
-# D 512 (two column groups) and 1024 (heads split over groups)
+# (pooled rows, L, D, H, heads, rate) at full width: the clips at 1,024
+# rows, the paragraph at L 300, L = 1; the clips of a val batch of 64 (576
+# rows); at other widths: synthetic_smoke's D 32 / H 64, one head of one
+# 64-unit block (PoolerConfig's default head count; pass B's first step
+# follows pass A's last closely) at D 32 and 128, D 512 (two column
+# groups); the four calls of a train step at its dropout (the packed clips
+# and sentences, the video context and the paragraph)
+GENPOOL_STEP = [(1024, 80, 384, 768, 2, 0.0), (1024, 80, 384, 768, 2, 0.1),
+                (576, 80, 384, 768, 2, 0.0),
+                (37, 300, 384, 768, 2, 0.0), (64, 1, 384, 768, 2, 0.0),
+                (64, 20, 32, 64, 2, 0.1), (64, 20, 32, 64, 1, 0.1),
+                (64, 20, 128, 64, 1, 0.1), (64, 37, 512, 512, 2, 0.1)] + [
+    (c["dims"]["s"], c["dims"]["length"], 384, 768, 2, STEP_RATE)
+    for c in STEP["genpool"]]
+# the same calls at reduced S (the clips and the video context at L 80,
+# the paragraph at 300 and 320, the sentences at 24), L = 1, and D 1024
+# (heads split over groups)
 GENPOOL_FWD = [(40, 300, 384, 768, 2, 0.0), (48, 80, 384, 768, 2, 0.1),
                (64, 80, 384, 768, 2, 0.0), (12, 320, 384, 768, 2, 0.1),
                (64, 24, 384, 768, 2, 0.1), (200, 1, 384, 768, 2, 0.1),
                (20, 37, 32, 64, 2, 0.1), (20, 37, 32, 64, 1, 0.1),
                (20, 37, 128, 64, 1, 0.0), (20, 37, 512, 512, 2, 0.1),
-               (20, 37, 1024, 1024, 2, 0.0)]
+               (20, 37, 1024, 1024, 2, 0.0)] + GENPOOL_STEP
 
 
 def _genpool_fwd_args(cuda, dtype, s, length, d, h, heads):
@@ -153,16 +194,25 @@ def _genpool_fwd_args(cuda, dtype, s, length, d, h, heads):
 @pytest.mark.parametrize("s,length,d,h,heads,rate", GENPOOL_FWD)
 def test_genpool_kernel(cuda, dtype, s, length, d, h, heads, rate):
     """Fully masked rows (they pool to the plain average without dropout);
-    dropout at the three sites with the plain version's masks. In bf16
-    the tile pass and the pooling pass; the backward tests drive the
-    unchanged backward from this forward's stats."""
+    dropout at the three sites with the plain version's masks; a second
+    call repeats the first bit for bit. In bf16 the tile pass and the
+    pooling pass; the backward tests drive the unchanged backward from
+    this forward's stats."""
     args = (*_genpool_fwd_args(cuda, dtype, s, length, d, h, heads),
             "gelu", rate, _seed(cuda, 77, 2))
     assert _run(genpool, genpool_plain, args, "genpool") <= TOL[dtype]
+    with torch.inference_mode():
+        out = genpool(*args)
+        assert torch.equal(out, genpool(*args))
+        ref = genpool_plain(*args)
     if rate == 0.0:
-        with torch.inference_mode():
-            out = genpool(*args)
         assert _rel(out[:4], args[0][:4].float().mean(dim=1)) <= TOL[dtype]
+    # with the stats for the backward (train), as a train step calls it
+    train = (*args[:2], *[a.clone().requires_grad_() for a in args[2:6]],
+             *args[6:])
+    trained = genpool(*train).detach()
+    assert _rel(trained, ref) <= TOL[dtype]
+    assert torch.equal(trained, genpool(*train).detach())
 
 
 @pytest.mark.cuda
@@ -183,39 +233,71 @@ def test_genpool_forward_repeats_bit_for_bit(cuda, d, h, heads):
                                    seed).detach(), first)
 
 
-# (Lq, Lk, d_head, rate): self (L 80), cross (Lq = 1), the paragraph's 300
-# and 320 (three key blocks), the sentences' 24 and the global nets' 16
-# (several cells a block), a ragged 37 x 130 (two key blocks) at d_head 16,
-# 48, 64 and an odd 21, and Lq = 1 over 130 keys
-ATTENTION_FWD = [(80, 80, 48, 0.0), (80, 80, 48, 0.1), (1, 16, 48, 0.0),
-                 (300, 300, 48, 0.0), (320, 320, 48, 0.1), (24, 24, 48, 0.1),
-                 (16, 16, 48, 0.0), (37, 130, 16, 0.1), (37, 130, 48, 0.0),
-                 (37, 130, 64, 0.1), (37, 130, 21, 0.1), (1, 130, 48, 0.1)]
+# rows of a train step's calls in which every key is masked: 16 of the
+# packed calls', 4 of the global nets', 2 of the others
+STEP_MASKED = {"clips": 16, "sentences": 16, "global": 4, "cross": 4,
+               "video ctx": 2, "paragraph": 2}
+# (Lq, Lk, d_head, rate, batch rows, rows with every key masked; 8 heads
+# each) at full width: the clips at 1,024 batch rows (N = 8192, L 80), the
+# global nets (L 16) and their cross-attention (Lq = 1), the paragraph at
+# 300 and at 320, the sentences at 1,024 (L 24), the video context (L 80),
+# a ragged 37 x 130 at d_head 16, 48 and 64, and Lq = 1 over 130 keys; the
+# clips of a val batch of 64 (N = 4608); the six calls of a train step at
+# its dropout (two of them are cases above too, and run once)
+ATTENTION_STEP = list(dict.fromkeys([
+    (80, 80, 48, 0.0, 1024, 16), (80, 80, 48, 0.1, 1024, 16),
+    (16, 16, 48, 0.0, 64, 4), (1, 16, 48, 0.0, 64, 4),
+    (300, 300, 48, 0.0, 64, 2), (24, 24, 48, 0.1, 1024, 16),
+    (320, 320, 48, 0.01, 64, 2), (37, 130, 48, 0.1, 64, 2),
+    (80, 80, 48, 0.01, 64, 2), (37, 130, 16, 0.1, 64, 2),
+    (37, 130, 64, 0.1, 64, 2), (1, 130, 48, 0.1, 64, 2),
+    (80, 80, 48, 0.0, 576, 2)] + [
+    (c["dims"]["lq"], c["dims"]["lk"], 48, STEP_RATE, c["dims"]["b"],
+     STEP_MASKED[c["call"]]) for c in STEP["attention"]]))
+# the same kinds of call at 16 batch rows: self (L 80), cross (Lq = 1), the
+# paragraph's 300 and 320 (three key blocks), the sentences' 24 and the
+# global nets' 16 (several cells a block), a ragged 37 x 130 (two key
+# blocks) at d_head 16, 48, 64 and an odd 21, and Lq = 1 over 130 keys
+ATTENTION_FWD = [(lq, lk, dh, rate, 16, 2) for lq, lk, dh, rate in (
+    (80, 80, 48, 0.0), (80, 80, 48, 0.1), (1, 16, 48, 0.0),
+    (300, 300, 48, 0.0), (320, 320, 48, 0.1), (24, 24, 48, 0.1),
+    (16, 16, 48, 0.0), (37, 130, 16, 0.1), (37, 130, 48, 0.0),
+    (37, 130, 64, 0.1), (37, 130, 21, 0.1), (1, 130, 48, 0.1))
+] + ATTENTION_STEP
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("lq,lk,dh,rate", ATTENTION_FWD)
-def test_attention_kernel(cuda, dtype, lq, lk, dh, rate):
+@pytest.mark.parametrize("lq,lk,dh,rate,b,masked", ATTENTION_FWD)
+def test_attention_kernel(cuda, dtype, lq, lk, dh, rate, b, masked):
     """All-masked rows (without dropout the plain average of v), dropout
-    on P with the plain version's masks."""
+    on P with the plain version's masks; a second call repeats the first
+    bit for bit; the same with the stats for the backward (train)."""
     g = torch.Generator(device=cuda).manual_seed(2)
-    b, heads = 16, 8
+    heads = 8
     q = torch.randn(b * heads, lq, dh, generator=g, device=cuda)
     k = torch.randn(b * heads, lk, dh, generator=g, device=cuda)
     v = torch.randn(b * heads, lk, dh, generator=g, device=cuda)
     lens = torch.randint(1, lk + 1, (b,), generator=g, device=cuda)
     key_valid = torch.arange(lk, device=cuda)[None] < lens[:, None]
-    key_valid[:2] = False
+    key_valid[:masked] = False
     args = (q.to(dtype), k.to(dtype), v.to(dtype), key_valid, heads,
             dh ** -0.5, rate, _seed(cuda, 9, 5))
     assert _run(masked_attention, masked_attention_plain, args,
                 "attention") <= TOL[dtype]
+    with torch.inference_mode():
+        out = masked_attention(*args)
+        assert torch.equal(out, masked_attention(*args))
+        ref = masked_attention_plain(*args)
+    train = (*[a.clone().requires_grad_() for a in args[:3]], *args[3:])
+    trained = masked_attention(*train).detach()
+    assert _rel(trained, ref) <= TOL[dtype]
+    assert torch.equal(trained, masked_attention(*train).detach())
     if rate == 0.0:
-        with torch.inference_mode():
-            out = masked_attention(*args).float()
-        expect = v[:2 * heads].mean(dim=1, keepdim=True).expand(-1, lq, -1)
-        assert _rel(out[:2 * heads], expect) <= TOL[dtype]
+        out = out.float()
+        expect = v[:masked * heads].mean(dim=1, keepdim=True).expand(
+            -1, lq, -1)
+        assert _rel(out[:masked * heads], expect) <= TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -278,14 +360,19 @@ def _grads(fn, inputs, g, name):
 @pytest.mark.parametrize("s,din,const,offset", FC_SHAPES)
 def test_input_fc_backward_kernel(cuda, dtype, s, din, const, offset):
     """The one-product backward against the plain two-product one, at the
-    forward's shapes."""
+    forward's shapes; a second call repeats it bit for bit."""
     x, params, dy = _fc_args(cuda, dtype, s, din, 384, const, offset)
-    ours = _grads(lambda *p: fused_input_fc(x, *p, 1e-6, "gelu"), params,
-                  dy, "input_fc")
+
+    def fn(*p):
+        return fused_input_fc(x, *p, 1e-6, "gelu")
+
+    ours = _grads(fn, params, dy, "input_fc")
     ref = fused_input_fc_backward_plain(x, *params, 1e-6, "gelu",
                                         dy.to(dtype))
     for a, r in zip(ours, ref):
         assert _rel(a, r) <= TOL[dtype]
+    for a, b in zip(ours, _grads(fn, params, dy, "input_fc")):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -294,8 +381,9 @@ def test_input_fc_backward_kernel(cuda, dtype, s, din, const, offset):
 def test_input_fc_kernel_at_tensor_parallel_widths(cuda, dtype, dout):
     """B1 column-parallel over a `model` axis of 2 and 4 (parallel/tp.py):
     dout 384 / M at both input widths, forward and backward, against the
-    plain versions."""
-    for s, din in ((4099, 4096), (1001, 1536)):
+    plain versions; also at a data rank's 33,280 clip frames at {data:
+    2}."""
+    for s, din in ((4099, 4096), (1001, 1536), (33280, 4096)):
         x, params, dy = _fc_args(cuda, dtype, s, din, dout)
         args = (x, *params, 1e-6, "gelu")
         assert _run(fused_input_fc, fused_input_fc_plain, args,
@@ -373,13 +461,11 @@ def _norm_grads(y, r, gain, bias, dout):
                         [y, r, gain, bias], dout, "coot_norm"))
 
 
-# (rows, width): one row; 17 and a ragged 1,001; the four local-net calls
-# of a yc2_2d3d_coot train step at 384 (video context 5,120, paragraph
-# 20,480, sentences 19,968, clips 66,560); the global nets' input norm at
-# 768 (1,024 rows) and a ragged 4,099
-NORM_SHAPES = [(1, 384), (17, 768), (1001, 384), (5120, 384),
-               (20480, 384), (19968, 384), (66560, 384), (1024, 768),
-               (4099, 768)]
+# (rows, width): one row; 17 and a ragged 1,001; a ragged 4,099 at 768;
+# the five calls of a train step (the four local nets' post-LN norms at
+# 384, the global nets' input norm at 768)
+NORM_SHAPES = [(1, 384), (17, 768), (1001, 384), (4099, 768)] + [
+    (c["dims"]["rows"], c["dims"]["width"]) for c in STEP["coot_norm"]]
 
 
 @pytest.mark.cuda
@@ -390,7 +476,8 @@ def test_coot_norm_kernel(cuda, dtype, rows, width, residual):
     """B6 against the plain version: the forward, then dx (the same tensor
     for y and the residual), dgain and dbias against the backward formula
     at the kernel's rounded sum; dx of the constant rows (1 / eps = 1e6
-    times larger) and of the others compared apart."""
+    times larger) and of the others compared apart; the backward repeated
+    bit for bit."""
     const = min(rows - 1, 3)
     y, r, gain, bias, dout = _norm_args(cuda, dtype, rows, width, residual,
                                         const)
@@ -407,6 +494,10 @@ def test_coot_norm_kernel(cuda, dtype, rows, width, residual):
             assert _rel(dy[part], dx[part]) <= TOL[dtype]
     assert _rel(dgain, ref_dgain) <= TOL[dtype]
     assert _rel(dbias, ref_dbias) <= TOL[dtype]
+    # no float atomics: a second backward repeats the first bit for bit
+    for a, b in zip((dy, dr, dgain, dbias),
+                    _norm_grads(y, r, gain, bias, dout)):
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -473,25 +564,31 @@ def _check_genpool_backward(f, mask, params, dout, rate, dtype):
         db2, ref_db2 = ours[4].float(), ref[4].float()
         assert float((db2 - ref_db2).abs().max()) <= \
             TOL[dtype] * float(ref_db2.abs().max())
+    # no float atomics: a second call repeats the first bit for bit
+    again = _grads(lambda f_, *p: genpool(f_, mask, *p, "gelu", rate, seed),
+                   [f] + params, dout, "genpool")
+    for a, b in zip(ours, again):
+        assert torch.equal(a, b)
     return ours
 
 
-# (pooled rows, L): the four calls of a train step at reduced S (the clips
-# and the video context at L 80, the sentences at 24, the paragraph at
-# 320, with tiles that cross pooled rows), and L = 1 (a tile of 64 pooled
-# rows, past the staged stats)
-GENPOOL_ROWS = [(48, 80), (64, 24), (12, 320), (200, 1)]
+# (pooled rows, L, D, H, heads, rate): the four calls of a train step at
+# reduced S (the clips and the video context at L 80, the sentences at 24,
+# the paragraph at 320, with tiles that cross pooled rows), and L = 1 (a
+# tile of 64 pooled rows, past the staged stats), without and with
+# dropout; the forward's calls at full width (GENPOOL_STEP)
+GENPOOL_BWD = [(s, length, 384, 768, 2, rate)
+               for s, length in ((48, 80), (64, 24), (12, 320), (200, 1))
+               for rate in (0.0, 0.1)] + GENPOOL_STEP
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("s,length", GENPOOL_ROWS)
-def test_genpool_backward_kernel(cuda, dtype, rate, s, length):
-    """D 384, H 768, 2 heads, fully masked rows; dropout at the three
-    sites."""
-    _check_genpool_backward(*_genpool_case(cuda, dtype, s, length), rate,
-                            dtype)
+@pytest.mark.parametrize("s,length,d,h,heads,rate", GENPOOL_BWD)
+def test_genpool_backward_kernel(cuda, dtype, s, length, d, h, heads, rate):
+    """Fully masked rows; dropout at the three sites."""
+    _check_genpool_backward(*_genpool_case(cuda, dtype, s, length, d, h,
+                                           heads), rate, dtype)
 
 
 @pytest.mark.cuda
@@ -524,31 +621,64 @@ def test_genpool_backward_repeats_bit_for_bit(cuda):
         assert torch.equal(a, b)
 
 
-def _attention_case(cuda, dtype, lq, lk, dh=48):
-    g = torch.Generator(device=cuda).manual_seed(5)
-    b, heads = 16, 8
+def _attention_case(cuda, dtype, lq, lk, dh=48, b=16, seed=5, masked=2):
+    """q, k, v, the key mask (every key masked in the first `masked` batch
+    rows) and the cotangent, in that order from one generator."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    heads = 8
     qkv = [torch.randn(b * heads, n, dh, generator=g, device=cuda).to(dtype)
            for n in (lq, lk, lk)]
     lens = torch.randint(1, lk + 1, (b,), generator=g, device=cuda)
     key_valid = torch.arange(lk, device=cuda)[None] < lens[:, None]
-    key_valid[:2] = False
+    key_valid[:masked] = False
     go = torch.randn(b * heads, lq, dh, generator=g, device=cuda)
     return qkv, key_valid, go, heads, dh
 
 
+# B3's bf16 backward over this many more draws at each call of
+# ATTENTION_STEP: draw d from generator seed 7919 + d under seed state
+# 20261016 + d, scores scaled by 48 ** -0.5 (the model's head width) at
+# every d_head; so that a rounding of one or two bf16 ulps shows apart
+# from a fault
+B3_DRAWS = 32
+
+
+def _check_attention_backward(qkv, key_valid, go, heads, scale, rate, seed,
+                              masked, dtype, draw=None):
+    """The kernel's dq, dk, dv against the plain backward's, dq = 0 on the
+    all-masked rows; returns them and the backward to repeat."""
+
+    def fn(*a):
+        return masked_attention(*a, key_valid, heads, scale, rate, seed)
+
+    ours = _grads(fn, qkv, go, "attention")
+    ref = masked_attention_backward_plain(*qkv, key_valid, go.to(dtype),
+                                          heads, scale, rate, seed)
+    for a, r in zip(ours, ref):
+        assert _rel(a, r) <= TOL[dtype], draw
+    assert float(ours[0][:masked * heads].abs().max()) == 0.0, draw
+    return ours, lambda: _grads(fn, qkv, go, "attention")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("lq,lk,rate,dh", [
-    (80, 80, 0.0, 48), (80, 80, 0.1, 48), (1, 16, 0.0, 48),
-    (300, 300, 0.1, 48), (24, 24, 0.1, 48), (320, 320, 0.01, 48),
-    (37, 130, 0.1, 48), (37, 130, 0.1, 21)])
-def test_attention_backward_kernel(cuda, dtype, lq, lk, rate, dh):
+@pytest.mark.parametrize("lq,lk,rate,dh,b,masked,draws", [
+    (80, 80, 0.0, 48, 16, 2, 0), (80, 80, 0.1, 48, 16, 2, 0),
+    (1, 16, 0.0, 48, 16, 2, 0), (300, 300, 0.1, 48, 16, 2, 0),
+    (24, 24, 0.1, 48, 16, 2, 0), (320, 320, 0.01, 48, 16, 2, 0),
+    (37, 130, 0.1, 48, 16, 2, 0), (37, 130, 0.1, 21, 16, 2, 0)] + [
+    (lq, lk, rate, dh, b, masked, B3_DRAWS)
+    for lq, lk, dh, rate, b, masked in ATTENTION_STEP])
+def test_attention_backward_kernel(cuda, dtype, lq, lk, rate, dh, b, masked,
+                                   draws):
     """Self, cross (Lq = 1), sentence (L = 24) and paragraph lengths (300;
     320 as the train step runs it, three key blocks), a ragged 37 x 130
     (no multiple of 16, two key blocks; also with an odd d_head, staged
     and stored element by element), all-masked rows (zero score gradient
-    there), dropout on P."""
-    qkv, key_valid, go, heads, dh = _attention_case(cuda, dtype, lq, lk, dh)
+    there), dropout on P; the backward repeated bit for bit. In bf16
+    `draws` more draws, each held to the gate."""
+    qkv, key_valid, go, heads, dh = _attention_case(cuda, dtype, lq, lk, dh,
+                                                    b, 5, masked)
     seed = _seed(cuda, 9, 4)
     with torch.inference_mode():
         assert _rel(masked_attention(*qkv, key_valid, heads, dh ** -0.5,
@@ -556,14 +686,16 @@ def test_attention_backward_kernel(cuda, dtype, lq, lk, rate, dh):
                     masked_attention_plain(*qkv, key_valid, heads,
                                            dh ** -0.5, rate, seed)) \
             <= TOL[dtype]
-    ours = _grads(lambda *a: masked_attention(*a, key_valid, heads,
-                                              dh ** -0.5, rate, seed),
-                  qkv, go, "attention")
-    ref = masked_attention_backward_plain(*qkv, key_valid, go.to(dtype),
-                                          heads, dh ** -0.5, rate, seed)
-    for a, r in zip(ours, ref):
-        assert _rel(a, r) <= TOL[dtype]
-    assert float(ours[0][:2 * heads].abs().max()) == 0.0
+    ours, again = _check_attention_backward(
+        qkv, key_valid, go, heads, dh ** -0.5, rate, seed, masked, dtype)
+    for a, b_ in zip(ours, again()):
+        assert torch.equal(a, b_)
+    for draw in range(draws if dtype == torch.bfloat16 else 0):
+        qkv, key_valid, go, heads, dh = _attention_case(
+            cuda, dtype, lq, lk, dh, b, 7919 + draw, masked)
+        _check_attention_backward(
+            qkv, key_valid, go, heads, 48 ** -0.5, rate,
+            _seed(cuda, 20261016 + draw), masked, dtype, draw)
 
 
 @pytest.mark.cuda
@@ -620,25 +752,36 @@ def test_attention_backward_repeats_bit_for_bit(cuda, lq, lk):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dropout_kernel(cuda, dtype):
-    """A ragged element count; forward and backward equal the plain
-    version exactly (same bits, one rounding)."""
+@pytest.mark.parametrize("shape,rate", [((1001, 383), 0.1),
+                                        ((1001, 383), 0.01),
+                                        ((81920, 384), 0.01)] + [
+    (c["dims"]["shape"], c["dims"]["rate"]) for c in STEP["dropout"]
+    if c["dtype"] == "bfloat16"])
+def test_dropout_kernel(cuda, dtype, shape, rate):
+    """A ragged element count, the clips' FFN rows of a batch of 64
+    unpacked, and a train step's bf16 call at the rate trained;
+    forward and backward equal the plain version exactly (same bits, one
+    rounding), and the plain version given the seed that philox.derive_seed
+    derives on the host."""
     g = torch.Generator(device=cuda).manual_seed(6)
-    x = torch.randn(1001, 383, generator=g, device=cuda).to(dtype)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
     before = cuda_build.launch_counts["dropout"]
     seed = _seed(cuda, 2 ** 50 + 3, 7)
     with torch.inference_mode():
-        y = dropout(x, seed, 0.1)
+        y = dropout(x, seed, rate)
     assert cuda_build.launch_counts["dropout"] == before + 1
-    assert torch.equal(y, dropout_plain(x, seed, 0.1))
-    gy = torch.randn(1001, 383, generator=g, device=cuda)
-    gx, = _grads(lambda a: dropout(a, seed, 0.1), [x], gy, "dropout")
-    assert torch.equal(gx, dropout_plain(gy.to(dtype), seed, 0.1))
+    assert torch.equal(y, dropout_plain(x, seed, rate))
+    assert torch.equal(y, dropout_plain(x, philox.derive_seed(2 ** 50 + 3, 7),
+                                        rate))
+    gy = torch.randn(shape, generator=g, device=cuda)
+    gx, = _grads(lambda a: dropout(a, seed, rate), [x], gy, "dropout")
+    assert torch.equal(gx, dropout_plain(gy.to(dtype), seed, rate))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dropout_kernel_misaligned_and_strided(cuda, dtype):
+@pytest.mark.parametrize("rate", [0.1, 0.01])
+def test_dropout_kernel_misaligned_and_strided(cuda, dtype, rate):
     """A view one element off 16-byte alignment (scalar head and tail
     around the 16-byte vectors) and a transposed cotangent: forward and
     backward equal the plain version bit for bit."""
@@ -648,22 +791,22 @@ def test_dropout_kernel_misaligned_and_strided(cuda, dtype):
     assert x.data_ptr() % 16
     seed = _seed(cuda, 2 ** 33 + 5, 11)
     with torch.inference_mode():
-        assert torch.equal(dropout(x, seed, 0.1), dropout_plain(x, seed, 0.1))
+        assert torch.equal(dropout(x, seed, rate),
+                           dropout_plain(x, seed, rate))
     strided = torch.randn(383, 1001, generator=g, device=cuda).to(dtype).t()
     for gy in (x, strided):
-        gx, = _grads(lambda a: dropout(a, seed, 0.1), [x], gy, "dropout")
-        assert torch.equal(gx, dropout_plain(gy, seed, 0.1))
+        gx, = _grads(lambda a: dropout(a, seed, rate), [x], gy, "dropout")
+        assert torch.equal(gx, dropout_plain(gy, seed, rate))
 
 
-# B4's float32 calls in the caption train steps of yc2_mart.yaml (raw
-# features, L = 122: hidden rows and attention probabilities) and of
-# yc2_100m_coot_vidclip_mtrans.yaml (video rows 1152 / 768, text rows,
-# self-, cross- and video-attention probabilities), and two element counts
-# that are not multiples of 4 (the scalar tail after the 16-byte vectors)
-CAPTION_DROPOUT_SHAPES = [
-    (16, 122, 768), (16, 12, 122, 122), (16, 3, 1152), (16, 3, 768),
-    (16, 12, 3, 3), (16, 22, 768), (16, 12, 22, 22), (16, 12, 22, 3),
-    (15, 1, 3, 3), (15, 22, 767)]
+# B4's float32 calls in the caption train steps (the `caption` calls of
+# STEP["dropout"]: MART, raw-feature MART, the MTransformer, the
+# TransformerXL's position tables, the untied text embedding), and element
+# counts that are not multiples of 4 (the scalar tail after the 16-byte
+# vectors)
+CAPTION_DROPOUT_SHAPES = [c["dims"]["shape"] for c in STEP["dropout"]
+                          if c["call"] == "caption"] + [
+    (15, 1, 3, 3), (15, 22, 767), (13, 22, 301)]
 
 
 @pytest.mark.cuda
@@ -687,16 +830,29 @@ def test_dropout_kernel_caption_shapes(cuda, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [4096, 1536])
-def test_gather_kernel(cuda, dtype, d):
+@pytest.mark.parametrize("rows,n,d", [
+    (rows, n, d) for rows, n in ((3000, 1001), (20000, 81920), (20000, 1001),
+                                 (540000, 1001))
+    for d in (4096, 1536)] + [
+    (STORE_ROWS, c["dims"]["n"], c["dims"]["width"])
+    for c in STEP["gather"]])
+def test_gather_kernel(cuda, dtype, rows, n, d):
     """Ragged N with repeated indices and the table's last row: a bit-equal
     copy, and with noise bit-equal to the plain version (same Philox bits,
-    erfinvf and rounding), which differs from the copy."""
+    erfinvf and rounding), which differs from the copy. A batch of 64's
+    clip frames unpacked (81,920 rows), a table of 540,000 rows (a real
+    YouCook2 video store, 4.4 GB in bf16 at 4096: offsets past 2^31
+    elements), and a train step's three gathers from a store of the
+    256-video train split's size."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    table = torch.randn(3000, d, generator=g, device=cuda).to(dtype)
-    idx = torch.randint(0, 3000, (1001,), generator=g, device=cuda,
+    table = torch.empty(rows, d, dtype=dtype, device=cuda)
+    for r0 in range(0, rows, 60000):
+        table[r0:r0 + 60000] = torch.randn(min(60000, rows - r0), d,
+                                           generator=g, device=cuda)
+    idx = torch.randint(0, rows, (n,), generator=g, device=cuda,
                         dtype=torch.int32)
-    idx[:5] = 2999
+    idx[:5] = rows - 1
+    idx[5:9] = idx[9]
     before = cuda_build.launch_counts["gather"]
     out = gather_rows(table, idx)
     torch.cuda.synchronize()
@@ -711,13 +867,14 @@ def test_gather_kernel(cuda, dtype, d):
 
 @pytest.mark.cuda
 def test_gather_noise_is_a_truncated_normal(cuda):
-    """1e6 draws of std 1 on a zero table: |tn| <= 2 and the std of a
-    normal truncated at +-2 (0.8796) within 2%."""
+    """1e6 draws of std 1 on a zero table, bit-equal to the plain
+    version's: |tn| <= 2 and the std of a normal truncated at +-2 (0.8796)
+    within 2%."""
     zeros = torch.zeros(1, 1000, device=cuda)
-    draws = gather_rows(zeros, torch.zeros(1000, dtype=torch.int32,
-                                           device=cuda),
-                        GatherNoise(1.0, _seed(cuda, 5),
-                                    philox.SITE_NOISE_VIDEO))
+    rows = torch.zeros(1000, dtype=torch.int32, device=cuda)
+    noise = GatherNoise(1.0, _seed(cuda, 5), philox.SITE_NOISE_VIDEO)
+    draws = gather_rows(zeros, rows, noise)
+    assert torch.equal(draws, gather_rows_plain(zeros, rows, noise))
     assert float(draws.abs().max()) <= 2.0
     assert abs(float(draws.std()) / 0.8796 - 1.0) < 0.02
 
